@@ -1,33 +1,46 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py              # the check: build, compare, train, report
+    python3 chip_smoke.py              # the check: build, compare, train, play, report
     python3 chip_smoke.py --profile    # the same, plus a torch.profiler epoch
 
 Phases, each of which raises on failure (nothing falls back to the CPU or
 to a plain version):
 
 1. device    — a CUDA card must be present; prints its name and power limit.
-2. build     — compiles every CUDA source of the path with nvcc.
+2. build     — compiles every CUDA source with nvcc, all at once.
 3. kernels   — each kernel against its plain PyTorch version on the card, at
-               the main path's shape and ragged ones; device time per call
-               (torch.profiler) and time per call between CUDA events.
+               the main paths' shapes and ragged ones (the fused MLP over all
+               nine activations, and its gradients); device time per call
+               (torch.profiler) and time per call between CUDA events, with
+               the least time the card could take beside them.
 4. reference — the CUDA path of the port against its CPU path on a small
-               input (one Ant2D step, one PPO update from one trajectory).
+               input (one Ant2D step, one PPO update from one trajectory,
+               the fused model's forward).
 5. trainer   — the flagship workload at full width: continuous PPO on 8192
                Ant2D envs, MLP [256, 128, 64], horizon 16, 4 mini-epochs of
-               4 minibatches of 32768; launch counts are zeroed just before
-               and read just after, and every kernel of the path must have
-               launched.
+               4 minibatches of 32768, through PPOAgent.train_epoch.
+6. runner    — the same workload with network.mlp.fused: true through the
+               normal entry points: Runner.run({"train": True}) writes
+               checkpoints, Runner.run({"play": True, "checkpoint": ...})
+               plays the last one back on 8192 envs.
+
+Launch counts are zeroed just before each of phases 5 and 6's runs and read
+just after, and are held to the counts the code implies.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,15 +132,17 @@ def phase_device():
 def phase_build():
     from rl_games_tpu_torch.utils import cuda_build
 
-    sources = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
-    for name in sources:
-        t0 = time.perf_counter()
-        log = cuda_build.build(name)
-        print(f"[build] {name} in {time.perf_counter() - t0:.2f} s "
-              f"({'compiled now' if log is not None else 'library was current'})")
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all()  # one nvcc per source, started together
+    print(f"[build] {len(logs)} sources ({', '.join(logs)}) in {time.perf_counter() - t0:.2f} s, built at once")
+    for name, log in logs.items():
+        print(f"[build] {name}: {'compiled now' if log is not None else 'library was current'}, "
+              f"flags {' '.join(cuda_build.nvcc_flags(name))}")
         for line in (log or "").splitlines():
-            if "ptxas info" in line and ("registers" in line or "Compiling" in line):
+            if "ptxas info" in line and ("registers" in line or "smem" in line or "Compiling" in line):
                 print(f"[build] {name}: {line.strip()}")
+    if sorted(logs) != ["fused_mlp", "gae"]:
+        raise AssertionError(f"expected the sources fused_mlp and gae, built {sorted(logs)}")
 
 
 def gae_inputs(T, N, V, gen, device):
@@ -141,7 +156,14 @@ def gae_inputs(T, N, V, gen, device):
     return r, v, d, lv, ld
 
 
-def phase_kernels():
+def bound_ms(nbytes: int, flops: int):
+    """(least time the card could take in ms, what bounds it)."""
+    bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "operations": flops / PEAK_F32_FLOPS * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by
+
+
+def phase_kernel_gae():
     from rl_games_tpu_torch.ops import gae
 
     dev = torch.device("cuda")
@@ -166,11 +188,10 @@ def phase_kernels():
     kernel_call_ms, plain_call_ms = cuda_time_ms(kernel, 200), cuda_time_ms(plain, 20)
     nbytes = 4 * (3 * T * N * V + T * N + N * V + N)
     flops = 8 * T * N * V
-    bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "operations": flops / PEAK_F32_FLOPS * 1e3}
-    bound_by = max(bound, key=bound.get)
+    bound, bound_by = bound_ms(nbytes, flops)
     print(f"[kernels] gae [16,8192,1] device time: kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), "
           f"plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); "
-          f"bound {bound[bound_by] * 1e3:.3f} us ({nbytes} B, by {bound_by})")
+          f"bound {bound * 1e3:.3f} us ({nbytes} B, by {bound_by})")
     print(f"[kernels] gae [16,8192,1] per call between CUDA events, host included: "
           f"kernel {kernel_call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us")
     return {
@@ -185,11 +206,113 @@ def phase_kernels():
         "plain_ms": plain_ms,
         "call_ms": kernel_call_ms,
         "plain_call_ms": plain_call_ms,
-        "bound_ms": bound[bound_by],
+        "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,
         "library_note": "no single PyTorch call computes GAE",
     }
+
+
+ACTIVATIONS = ("relu", "elu", "selu", "softplus", "gelu", "sigmoid", "swish", "tanh", "None")
+FLAGSHIP_DIMS = (26, 256, 128, 64)
+
+
+def mlp_inputs(dims, batch, gen, device):
+    """x ~ N(0, 1); weights [out, in] ~ U(+-1/sqrt(in)), as the model's
+    default init draws them, so activations stay of order 1 and an absolute
+    tolerance of 2e-5 is a float32 statement; biases ~ 0.1 N(0, 1)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    ws = [(torch.rand((dims[i + 1], dims[i]), generator=gen, **f32) * 2 - 1) / math.sqrt(dims[i])
+          for i in range(len(dims) - 1)]
+    bs = [torch.randn((dims[i + 1],), generator=gen, **f32) * 0.1 for i in range(len(dims) - 1)]
+    return torch.randn((batch, dims[0]), generator=gen, **f32), ws, bs
+
+
+def phase_kernel_fused_mlp():
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # the shape sets of the JAX package's kernel test, then the flagship
+    # torso at the rollout's and the minibatch's batch size
+    shapes = [((37, 50, 33, 7), 19), (FLAGSHIP_DIMS, 512), ((4, 8), 1), ((130, 257), 1030),
+              (FLAGSHIP_DIMS, 8192), (FLAGSHIP_DIMS, 32768)]
+    worst, worst_ratio = 0.0, 0.0
+    for i, (dims, batch) in enumerate(shapes):
+        x, ws, bs = mlp_inputs(dims, batch, gen, dev)
+        for activation in (ACTIVATIONS if i == 0 else ("elu",)):
+            got = fm.fused_mlp_cuda(x, ws, bs, activation)
+            want = fm.plain_mlp(x, ws, bs, activation)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = float(diff.max())
+            ratio = float((diff / (2e-5 + 2e-5 * want.abs())).max())  # <= 1: rtol = atol = 2e-5
+            print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation}: "
+                  f"max |kernel - plain| = {err:.3e} ({ratio:.3f} of the tolerance)")
+            if not (math.isfinite(ratio) and ratio <= 1.0):
+                raise AssertionError(f"fused_mlp kernel disagrees with plain_mlp at {dims}, B={batch}, "
+                                     f"{activation}: max abs {err}, {ratio} of rtol = atol = 2e-5")
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+
+    # gradients: fused_mlp (kernel forward, plain-chain backward) against
+    # autograd through plain_mlp, rtol 1e-5 / atol 1e-6
+    x, ws, bs = mlp_inputs((9, 24, 5), 17, gen, dev)
+    leaves = [t.requires_grad_(True) for t in (x, *ws, *bs)]
+    g_fused = torch.autograd.grad((fm.fused_mlp(leaves[0], leaves[1:3], leaves[3:], "elu") ** 2).sum(), leaves)
+    g_plain = torch.autograd.grad((fm.plain_mlp(leaves[0], leaves[1:3], leaves[3:], "elu") ** 2).sum(), leaves)
+    for a, b in zip(g_fused, g_plain):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    print(f"[kernels] fused_mlp gradients agree with autograd through plain_mlp (rtol 1e-5, atol 1e-6), "
+          f"max abs diff {max(float((a - b).abs().max()) for a, b in zip(g_fused, g_plain)):.3e}")
+
+    # refusals: a CUDA tensor the kernel does not take raises, nothing falls back
+    x, ws, bs = mlp_inputs((8, 8), 4, gen, dev)
+    wide = torch.cat([x, x], dim=1)
+    for bad, exc in ((wide[:, ::2], ValueError), (x.double(), TypeError)):
+        try:
+            fm.fused_mlp_cuda(bad, ws, bs, "elu")
+        except exc:
+            continue
+        raise AssertionError("fused_mlp_cuda took an input it must refuse")
+
+    entry = {
+        "name": "fused_mlp",
+        "route": "cuda",
+        "source": "rl_games_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "rl_games_tpu/ops/fused_mlp.py:112 (_fused_kernel, pallas_call at :170)",
+        "max_abs_err": worst,
+        "max_err_over_tolerance": worst_ratio,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the chain; plain_ms is addmm + activation per layer",
+    }
+    n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
+    for batch, suffix in ((8192, ""), (32768, "_minibatch")):
+        x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
+        kernel, plain = (lambda: fm.fused_mlp_cuda(x, ws, bs, "elu")), (lambda: fm.plain_mlp(x, ws, bs, "elu"))
+        # in turns: plain, kernel, kernel, plain
+        plain_a, plain_n = device_time_ms(plain, 50)
+        kernel_a, kernel_n = device_time_ms(kernel, 50)
+        kernel_b, _ = device_time_ms(kernel, 50)
+        plain_b, _ = device_time_ms(plain, 50)
+        kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+        kernel_call_ms, plain_call_ms = cuda_time_ms(kernel, 200), cuda_time_ms(plain, 200)
+        flops = 2 * batch * n_weights
+        nbytes = 4 * (x.numel() + batch * FLAGSHIP_DIMS[-1] + n_weights + sum(FLAGSHIP_DIMS[1:]))
+        bound, bound_by = bound_ms(nbytes, flops)
+        rows = fm.kernel_plan(FLAGSHIP_DIMS, batch)
+        print(f"[kernels] fused_mlp 26x256x128x64 B={batch} ({rows[0]} rows/block, {rows[3]} B shared) device time: "
+              f"kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), plain {plain_ms * 1e3:.2f} us "
+              f"({plain_n:.0f} kernels/call); bound {bound * 1e3:.2f} us ({flops} flop, {nbytes} B, by {bound_by}); "
+              f"kernel at {bound / kernel_ms:.3f} of the bound's rate")
+        print(f"[kernels] fused_mlp B={batch} per call between CUDA events, host included: "
+              f"kernel {kernel_call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us")
+        entry.update({
+            f"shape{suffix}": [batch, *FLAGSHIP_DIMS],
+            f"ms{suffix}": kernel_ms, f"kernel_ms{suffix}": kernel_ms, f"plain_ms{suffix}": plain_ms,
+            f"call_ms{suffix}": kernel_call_ms, f"plain_call_ms{suffix}": plain_call_ms,
+            f"bound_ms{suffix}": bound, f"bound_by{suffix}": bound_by,
+        })
+    return entry
 
 
 def phase_reference():
@@ -230,10 +353,26 @@ def phase_reference():
     if not (dp < 1e-5 and dl < 1e-4):
         raise AssertionError("PPO update on the card disagrees with the CPU update")
 
+    # the fused model's forward (the kernel) against the same weights on the
+    # CPU (the plain chain), at the flagship widths
+    params = flagship_params(16)
+    params["network"]["mlp"]["fused"] = True
+    gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+    gpu.init_state()
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    obs = torch.randn((300, 26), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        got = gpu.model.forward_play(obs.cuda(), deterministic=True)
+        want = cpu.model.forward_play(obs, deterministic=True)
+    diffs = {k: float((got[k].cpu() - want[k]).abs().max()) for k in ("actions", "values", "neglogpacs")}
+    print(f"[reference] fused model forward cuda vs cpu: " + ", ".join(f"max |d{k}| {v:.2e}" for k, v in diffs.items()))
+    if not all(v < 2e-5 for v in diffs.values()):
+        raise AssertionError("the fused model's forward on the card disagrees with the CPU forward")
+
 
 def phase_trainer(epochs: int):
     from rl_games_tpu_torch.algos.ppo import PPOAgent
-    from rl_games_tpu_torch.ops import gae
+    from rl_games_tpu_torch.ops import fused_mlp, gae
 
     num_actors = 8192
     t0 = time.perf_counter()
@@ -243,7 +382,7 @@ def phase_trainer(epochs: int):
     print(f"[trainer] built agent + init_state in {time.perf_counter() - t0:.2f} s; "
           f"batch {agent.batch_size}, {agent.num_minibatches} minibatches x {agent.mini_epochs_num} mini-epochs")
 
-    gae.gae_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the main path's run starts here
     times = []
     for epoch in range(epochs):
         t0 = time.perf_counter()
@@ -258,16 +397,93 @@ def phase_trainer(epochs: int):
               f"games {int(m['games_played'])}")
         if not (math.isfinite(a_loss) and math.isfinite(c_loss)):
             raise AssertionError(f"non-finite losses in epoch {epoch + 1}")
-    launches = {"gae": gae.gae_launches}  # read right after the main path
-    if launches["gae"] != epochs:
-        raise AssertionError(f"gae launched {launches['gae']} times in {epochs} epochs")
+    # read right after the main path
+    launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}
+    if launches != {"gae": epochs, "fused_mlp": 0}:
+        raise AssertionError(f"plain trainer: launches {launches} in {epochs} epochs, expected gae {epochs}, fused_mlp 0")
     if int(state.epoch) != epochs or int(state.frame) != epochs * agent.batch_size:
         raise AssertionError("epoch/frame counters are off")
     steady = times[1:] or times
     print(f"[trainer] steady epoch {np.median(steady) * 1e3:.1f} ms (median of {len(steady)}), "
           f"{agent.batch_size / np.median(steady):,.0f} env-steps/s; first epoch {times[0] * 1e3:.1f} ms")
     print(f"[trainer] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return agent, state, launches
+    return agent, state, launches, float(np.median(steady))
+
+
+def phase_runner(epochs: int, plain_epoch_s: float):
+    """The fused flagship config through Runner.run: train, then play the
+    last checkpoint back. Returns the launch counts of the two runs and the
+    player's step count."""
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+    from rl_games_tpu_torch.runner import Runner
+
+    num_actors, play_steps = 8192, 200
+    params = flagship_params(num_actors)
+    params["seed"] = 7
+    params["network"]["mlp"]["fused"] = True
+    epoch_ends = []
+
+    def mark_epoch(agent):  # stop_fn: consulted after every epoch, never stops
+        torch.cuda.synchronize()
+        epoch_ends.append(time.perf_counter())
+        return False
+
+    with tempfile.TemporaryDirectory() as train_dir:
+        params["config"].update({
+            "name": "chip_smoke_fused", "train_dir": train_dir, "max_epochs": epochs,
+            "save_frequency": max(1, epochs - 1), "save_best_after": 1,
+            "player": {"num_actors": num_actors, "games_num": num_actors, "max_steps": play_steps,
+                       "deterministic": True},
+        })
+        runner = Runner()  # the default device: the card
+        runner.load({"params": params})
+
+        gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+        t0 = time.perf_counter()
+        last_mean, epoch_num = runner.run({"train": True, "stop_fn": mark_epoch})
+        torch.cuda.synchronize()
+        train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        # per epoch: 16 rollout forwards + 1 bootstrap forward at B = 8192 and
+        # 4 mini-epochs x 4 minibatch forwards at B = 32768; GAE once
+        expected = {"gae": epochs, "fused_mlp": (16 + 1 + 4 * 4) * epochs}
+        if train_launches != expected or epoch_num != epochs:
+            raise AssertionError(f"fused trainer: launches {train_launches} in {epoch_num} epochs, expected {expected}")
+        times = np.diff([t0, *epoch_ends])
+        steady = times[1:] if len(times) > 1 else times
+        fused_epoch_s = float(np.median(steady))
+        batch = num_actors * 16
+        print(f"[runner] trained {epoch_num} epochs through Runner.run: launches {train_launches}; "
+              f"steady epoch {fused_epoch_s * 1e3:.1f} ms (median of {len(steady)}), {batch / fused_epoch_s:,.0f} env-steps/s, "
+              f"first epoch {times[0] * 1e3:.1f} ms; plain trainer in this call {plain_epoch_s * 1e3:.1f} ms, "
+              f"{batch / plain_epoch_s:,.0f} env-steps/s")
+        nn_dir = os.path.join(train_dir, "chip_smoke_fused", "nn")
+        names = sorted(os.listdir(nn_dir))
+        final = [n for n in names if f"_ep_{epochs}_rew_" in n]
+        print(f"[runner] checkpoints: {names}")
+        if len(final) != 1:
+            raise AssertionError(f"no final checkpoint among {names}")
+        checkpoint = os.path.join(nn_dir, final[0])
+
+        steps = runner.create_player().steps_needed(num_actors)
+        gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mean_reward = runner.run({"play": True, "checkpoint": checkpoint})
+        torch.cuda.synchronize()
+        play_s = time.perf_counter() - t0
+        play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        sys.stdout.write(out.getvalue())
+    games = re.search(r"games played: (\d+)", out.getvalue())
+    # one policy forward per env step, nothing else
+    if play_launches != {"gae": 0, "fused_mlp": steps} or steps != play_steps:
+        raise AssertionError(f"player: launches {play_launches} in {steps} steps")
+    if games is None or int(games.group(1)) <= 0 or not math.isfinite(mean_reward):
+        raise AssertionError(f"player: mean reward {mean_reward}, output {out.getvalue()!r}")
+    print(f"[runner] played {steps} steps x {num_actors} envs through Runner.run: launches {play_launches}, "
+          f"{int(games.group(1))} games in the meter, mean reward {mean_reward:.3f}; {play_s:.2f} s with set-up, "
+          f"{steps / play_s:.1f} steps/s, {steps * num_actors / play_s:,.0f} env-steps/s")
+    return train_launches, play_launches, steps
 
 
 def phase_profile(agent, state):
@@ -304,15 +520,22 @@ def main():
 
     phase_device()
     phase_build()
-    gae_entry = phase_kernels()
+    gae_entry, fused_entry = phase_kernel_gae(), phase_kernel_fused_mlp()
     phase_reference()
-    agent, state, launches = phase_trainer(args.epochs)
+    agent, state, plain_launches, plain_epoch_s = phase_trainer(args.epochs)
     if args.profile:
         phase_profile(agent, state)
+    del agent, state
+    train_launches, play_launches, play_steps = phase_runner(args.epochs, plain_epoch_s)
 
-    gae_entry["launches"] = launches["gae"]
-    gae_entry["launches_per_epoch"] = launches["gae"] / args.epochs
-    print(json.dumps({"kernels": [gae_entry]}))
+    # launches of the main paths' runs: the plain trainer, the fused trainer
+    # and the player, each counted from 0
+    gae_entry["launches"] = plain_launches["gae"] + train_launches["gae"]
+    gae_entry["launches_per_epoch"] = gae_entry["launches"] / (2 * args.epochs)
+    fused_entry["launches"] = train_launches["fused_mlp"] + play_launches["fused_mlp"]
+    fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
+    fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
+    print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -18,14 +18,22 @@ program over an immutable state; here it runs eagerly, the weights and
 normalizer stats live in ``agent.model`` (an ``nn.Module``) and the rest of
 the train state in a ``PPOTrainState`` that ``train_epoch`` updates in
 place. Nothing in an epoch reads a device value on the host.
+
+``train`` is the host loop around it (ContinuousA2CBase.train,
+a2c_common.py:1372-1492): run directories, resume from a checkpoint,
+logging, the three kinds of checkpoint and the stop conditions. Metrics
+cross to the host only on log epochs.
 """
 
 import dataclasses
+import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from rl_games_tpu_torch.common.obs_utils import fill_sigma, sigma_override_blocked
 from rl_games_tpu_torch.common.tr_helpers import (
     build_reward_shaper,
     rescale_actions,
@@ -39,9 +47,14 @@ from rl_games_tpu_torch.ops import losses as L
 from rl_games_tpu_torch.ops import masked as MK
 from rl_games_tpu_torch.ops.gae import compute_gae
 from rl_games_tpu_torch.ops.schedulers import build_scheduler
+from rl_games_tpu_torch.utils import checkpoint as ckpt
 from rl_games_tpu_torch.utils.device import resolve_device
+from rl_games_tpu_torch.utils.writer import create_writer, write_ppo_stats
 
 _METRIC_KEYS = ("a_loss", "c_loss", "entropy", "b_loss", "kl", "clip_frac")
+# Checkpoints carry the reference's extension: their 'model' section has the
+# reference's .pth layout, so the JAX package's importer reads them.
+CHECKPOINT_EXT = ".pth"
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +262,9 @@ class PPOAgent:
         self.games_to_track = config.get("games_to_track", 100)
         self.clip_actions = config.get("clip_actions", True)
         self.seed = config.get("seed", 7)
+        self.save_freq = config.get("save_frequency", 0)
+        self.save_best_after = config.get("save_best_after", 100)
+        self.score_to_win = config.get("score_to_win", None)
         self.scheduler = build_scheduler(
             {**config, "max_epochs": self.max_epochs, "max_frames": self.max_frames},
             self.learning_rate,
@@ -293,6 +309,11 @@ class PPOAgent:
             "mixed precision (mixed_precision)": config.get("mixed_precision", False),
             "minibatch permutation (permute_batches)": config.get("permute_batches", False),
             "RMS advantage normalization (normalize_rms_advantage)": config.get("normalize_rms_advantage", False),
+            "population based training (pbt; ROADMAP.md, item A12)": bool((config.get("pbt") or {}).get("enabled")),
+            "self-play (self_play_config; ROADMAP.md, item A12)": bool(config.get("self_play_config")),
+            "algo observers (features.observer, algo_observer; ROADMAP.md, item A6)":
+                features.get("observer") is not None or bool(config.get("algo_observer")),
+            "per-mini-epoch diagnostics (use_diagnostics; ROADMAP.md, item A6)": config.get("use_diagnostics", False),
         }
         for what, asked in unported.items():
             if asked:
@@ -531,3 +552,182 @@ class PPOAgent:
         """One full PPO epoch: rollout → GAE → minibatch updates."""
         traj, last_values = self._rollout(state)
         return self._finish_epoch(state, traj, last_values)
+
+    # ------------------------------------------------------------------
+    # weights and checkpoints (a2c_common.py:645-710). The JAX package keeps
+    # params and normalizer stats in the train state; here they live in
+    # ``self.model``, so the weights calls take no state.
+    # ------------------------------------------------------------------
+    def clear_stats(self, state: PPOTrainState) -> PPOTrainState:
+        """Reset episode meters + accumulators (algo.clear_stats,
+        a2c_common.py:645-648)."""
+        n, v = self.num_actors, self.value_size
+        f32 = dict(dtype=torch.float32, device=self.device)
+        state.current_rewards = torch.zeros((n, v), **f32)
+        state.current_shaped_rewards = torch.zeros((n, v), **f32)
+        state.current_lengths = torch.zeros(n, **f32)
+        state.game_rewards = meters_init(self.games_to_track, v, self.device)
+        state.game_shaped_rewards = meters_init(self.games_to_track, v, self.device)
+        state.game_lengths = meters_init(self.games_to_track, 1, self.device)
+        return state
+
+    def get_weights(self) -> Dict[str, torch.Tensor]:
+        """Model weights + normalizer stats (a2c_common.py:690-710): a copy
+        of ``model.state_dict()``, the reference checkpoint's 'model'."""
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    def set_weights(self, weights):
+        self.model.load_state_dict(weights)
+
+    def get_full_state_weights(self, state: PPOTrainState,
+                               last_mean_rewards: float = -100500.0) -> dict:
+        """The full resumable training state (a2c_common.py:650-668) as
+        plain containers of CPU tensors: weights, optimizer moments,
+        counters, generators, env state and meters."""
+        return {
+            "state": ckpt.tree_to_plain(state),
+            "weights": ckpt.tree_to_plain(self.get_weights()),
+            "epoch": int(state.epoch),
+            "frame": int(state.frame),
+            "last_mean_rewards": last_mean_rewards,
+        }
+
+    def set_full_state_weights(self, state: PPOTrainState, full: dict,
+                               set_epoch: bool = True) -> PPOTrainState:
+        """a2c_common.py:670-688: restore everything into ``state``'s
+        structure; ``set_epoch=False`` keeps the current counters."""
+        epoch, frame = state.epoch, state.frame
+        new = ckpt.tree_from_plain(state, full["state"])
+        if not set_epoch:
+            new.epoch, new.frame = epoch, frame
+        self.set_weights(full["weights"])
+        return new
+
+    def override_sigma(self, sigma: float):
+        """--sigma CLI override (_override_sigma, torch_runner.py:52-60)."""
+        blocked = sigma_override_blocked(self.is_continuous, self.full_params.get("network", {}))
+        if blocked:
+            print(blocked)
+            return
+        fill_sigma(self.model, sigma)
+
+    def _save(self, path: str, state: PPOTrainState, meta: dict):
+        ckpt.save_checkpoint(path, state, meta, weights=self.model.state_dict())
+
+    # ------------------------------------------------------------------
+    # host train loop (ContinuousA2CBase.train, a2c_common.py:1372-1492)
+    # ------------------------------------------------------------------
+    def train(self, checkpoint: Optional[str] = None, stop_fn=None, writer=None,
+              max_epochs: Optional[int] = None, sigma: Optional[float] = None):
+        """Train until max_epochs / max_frames / score_to_win / stop_fn.
+        Returns (last_mean_rewards, epoch_num); the final state stays in
+        ``self.last_state``."""
+        config = self.config
+        experiment_name = config.get("name", config.get("full_experiment_name", self.base_name))
+        experiment_dir = os.path.join(config.get("train_dir", "runs"), experiment_name)
+        nn_dir = os.path.join(experiment_dir, "nn")
+        os.makedirs(nn_dir, exist_ok=True)
+
+        state = self.init_state()
+        last_mean_rewards = -100500.0  # reference sentinel
+        if checkpoint:
+            payload = ckpt.read_payload(checkpoint)
+            weights, meta = ckpt.load_checkpoint_weights(checkpoint, payload=payload)
+            self.set_weights(weights)
+            if "state" in payload:
+                state, meta = ckpt.load_checkpoint(checkpoint, state, payload=payload)
+                last_mean_rewards = meta.get("last_mean_rewards", last_mean_rewards)
+            # else: a weights-only file (a reference .pth) is a warm start
+        if sigma is not None:
+            self.override_sigma(sigma)
+
+        if writer is None:
+            writer = create_writer(os.path.join(experiment_dir, "summaries"))
+        self.writer = writer
+        max_epochs = self.max_epochs if max_epochs is None else max_epochs
+
+        # metrics reach the host only every ``log_interval`` epochs; loop
+        # control stays host-side (epoch and frame advance deterministically)
+        log_interval = max(1, int(config.get("log_interval", 1)))
+        epoch_num = int(state.epoch)
+        frame = epoch_num * self.batch_size
+
+        start_time = time.perf_counter()
+        t_last_log, ep_last_log = start_time, epoch_num
+        best_path = os.path.join(nn_dir, experiment_name + CHECKPOINT_EXT)
+        while True:
+            state, metrics_dev = self.train_epoch(state)
+            epoch_num += 1
+            frame += self.batch_size
+            will_exit = (
+                (max_epochs > 0 and epoch_num >= max_epochs)
+                or (self.max_frames > 0 and frame >= self.max_frames)
+            )
+            # stop_fn is consulted every epoch regardless of log cadence
+            self.last_state = state
+            stop_requested = stop_fn is not None and stop_fn(self)
+            do_log = (epoch_num % log_interval == 0) or will_exit or stop_requested
+            save_due = self.save_freq > 0 and epoch_num % self.save_freq == 0
+            if not (do_log or save_due):
+                continue
+            meta = {"last_mean_rewards": last_mean_rewards, "epoch": epoch_num, "frame": frame}
+            last_path = os.path.join(nn_dir, f"last_{experiment_name}_ep_{epoch_num}{CHECKPOINT_EXT}")
+            if not do_log:
+                self._save(last_path, state, meta)
+                continue
+            metrics = {k: v.detach().cpu().numpy() for k, v in metrics_dev.items()}
+            now = time.perf_counter()
+            total_time = now - start_time
+            # divide by the ACTUAL epochs since the last log: an early log
+            # (will_exit / stop_fn) covers fewer than log_interval
+            epoch_time = (now - t_last_log) / max(epoch_num - ep_last_log, 1)
+            t_last_log, ep_last_log = now, epoch_num
+            fps_total = self.batch_size / max(epoch_time, 1e-9)
+            write_ppo_stats(writer, metrics, frame, epoch_num, total_time, fps_total,
+                            fps_total, self.value_size)
+            writer.add_scalar("info/explained_variance", float(metrics["explained_variance"]), frame)
+            games_played = int(metrics["games_played"])
+            mean_rewards = float(metrics["mean_rewards"][0]) if games_played else None
+            if config.get("print_stats", True):
+                print(
+                    f"fps total: {fps_total:.0f} epoch: {epoch_num}"
+                    + (f"/{max_epochs}" if max_epochs > 0 else "")
+                    + f" frames: {frame}"
+                    + (f" rew: {mean_rewards:.2f}" if mean_rewards is not None else "")
+                )
+
+            if save_due:
+                self._save(last_path, state, meta)
+            if (
+                mean_rewards is not None
+                and epoch_num >= self.save_best_after
+                and mean_rewards > last_mean_rewards
+            ):
+                last_mean_rewards = mean_rewards
+                meta["last_mean_rewards"] = last_mean_rewards
+                self._save(best_path, state, meta)
+                if self.score_to_win is not None and mean_rewards > self.score_to_win:
+                    print("Maximum reward achieved. Network won!")
+                    break
+            should_exit = will_exit
+            if max_epochs > 0 and epoch_num >= max_epochs:
+                print("MAX EPOCHS NUM!")
+            if self.max_frames > 0 and frame >= self.max_frames:
+                print("MAX FRAMES NUM!")
+            if stop_requested:
+                print("Custom stop condition met!")
+                should_exit = True
+            if should_exit:
+                self._save(
+                    os.path.join(
+                        nn_dir,
+                        f"last_{experiment_name}_ep_{epoch_num}_rew_"
+                        f"{mean_rewards if mean_rewards is not None else 0:.2f}{CHECKPOINT_EXT}",
+                    ),
+                    state, meta,
+                )
+                break
+
+        writer.flush()
+        self.last_state = state
+        return last_mean_rewards, epoch_num

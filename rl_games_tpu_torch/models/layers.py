@@ -1,9 +1,9 @@
 """Building-block layers for the config-driven network builder.
 
-Port of rl_games_tpu/models/layers.py :22-160 and the plain branch of
-``build_mlp`` (the reference's network_builder.py:50-73,110-135):
-activation and initializer factories, the Linear init convention, and the
-sequential MLP. Modules are named as the reference's ``nn.Sequential``
+Port of rl_games_tpu/models/layers.py :22-160, ``FusedMLP`` and
+``build_mlp`` (:223-270; the reference's network_builder.py:50-73,110-135):
+activation and initializer factories, the Linear init convention, the
+sequential MLP and its fused form. Modules are named as the reference's ``nn.Sequential``
 names them (Linear at 0, activation at 1, [LayerNorm at 2], ...), so a
 port ``state_dict()`` has the reference checkpoint layout.
 """
@@ -110,28 +110,70 @@ def reset_parameters(module: nn.Module, generator=None):
             m.reset_parameters()
 
 
+def _dense_stack(in_features, units, activation, initializer, device, norm_for=None):
+    """[Linear, activation[, norm]] per unit; ``norm_for(i, unit)`` gives the
+    i-th unit's normalization module or None."""
+    mods = []
+    d = in_features
+    for i, unit in enumerate(units):
+        mods.append(make_dense(d, unit, initializer, device=device))
+        mods.append(get_activation(activation))
+        norm = norm_for(i, unit) if norm_for is not None else None
+        if norm is not None:
+            mods.append(norm)
+        d = unit
+    return mods
+
+
+class FusedMLP(nn.Sequential):
+    """Fully-fused sequential MLP, selected with ``network.mlp.fused: true``
+    (rl_games_tpu/models/layers.py ``FusedMLP``). It holds the same modules
+    as the plain MLP, so names, ``state_dict`` keys, init and
+    ``reset_parameters`` order are the plain MLP's and fused and plain
+    checkpoints interchange; the forward hands all weights to
+    ``ops.fused_mlp`` (one CUDA kernel launch on the card, exact gradients
+    through the plain chain)."""
+
+    def __init__(self, in_features: int, units: Sequence[int], activation,
+                 initializer=None, device=None):
+        super().__init__(*_dense_stack(in_features, units, activation, initializer, device))
+        self.activation = activation
+
+    def forward(self, x):
+        from rl_games_tpu_torch.ops.fused_mlp import fused_mlp
+
+        linears = [m for m in self if isinstance(m, nn.Linear)]
+        if not linears:
+            return x
+        # the kernel takes contiguous [B, D] rows; trajectory and minibatch
+        # slices may be neither
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        out = fused_mlp(flat, [m.weight for m in linears], [m.bias for m in linears],
+                        self.activation)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
 def build_mlp(in_features: int, units: Sequence[int], activation,
               initializer=None, norm_func_name=None, d2rl=False,
               norm_only_first_layer=False, fused=False, device=None) -> nn.Sequential:
     """Sequential MLP (network_builder.py:110-135): Linear→act→[norm] per
     unit. ``batch_norm`` is a LayerNorm stand-in, as in the JAX package."""
     if fused:
-        raise NotImplementedError(
-            "network.mlp.fused: true needs the fused-MLP CUDA kernel, which "
-            "is not ported yet (ROADMAP.md, item B2)"
-        )
+        if d2rl or norm_func_name:
+            raise ValueError(
+                "mlp.fused: true supports the plain sequential MLP only "
+                "(no d2rl, no normalization) — same restriction as the "
+                "reference's tcnn net (networks/tcnn_mlp.py)."
+            )
+        return FusedMLP(in_features, units, activation, initializer, device=device)
     if d2rl:
         raise NotImplementedError("d2rl MLP torsos are not ported yet (ROADMAP.md, item A8)")
-    mods = []
-    need_norm = True
-    d = in_features
-    for unit in units:
-        mods.append(make_dense(d, unit, initializer, device=device))
-        mods.append(get_activation(activation))
-        if need_norm:
-            if norm_only_first_layer and norm_func_name is not None:
-                need_norm = False
-            if norm_func_name in ("layer_norm", "batch_norm"):
-                mods.append(nn.LayerNorm(unit, eps=1e-5, device=device))
-        d = unit
-    return nn.Sequential(*mods)
+
+    def norm_for(i, unit):
+        if norm_func_name not in ("layer_norm", "batch_norm"):
+            return None
+        if norm_only_first_layer and i > 0:
+            return None
+        return nn.LayerNorm(unit, eps=1e-5, device=device)
+
+    return nn.Sequential(*_dense_stack(in_features, units, activation, initializer, device, norm_for))

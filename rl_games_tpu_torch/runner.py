@@ -1,0 +1,165 @@
+"""Runner: config loading, algo/player factories, seeding, orchestration.
+
+Port of rl_games_tpu/runner.py (the reference's torch_runner.py Runner,
+:98-354). Same public API: ``Runner().load(yaml_dict)``,
+``.run({'train': True, ...})``, ``.create_player()``; same YAML schema
+(params.algo.name / model / network / config). ``Runner(device=None)``
+hands its device to the agent and the player: CUDA by default, which
+raises without a card; the CPU only when asked for.
+"""
+
+import copy
+import importlib
+import random
+from typing import Any, Dict
+
+import numpy as np
+
+from rl_games_tpu_torch.common.object_factory import ObjectFactory
+from rl_games_tpu_torch.utils.unported import unported
+
+
+def _build_ppo(**kwargs):
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
+    return PPOAgent(**kwargs)
+
+
+def _build_sac(**kwargs):
+    unported("the SAC agent (algo.name: sac)", "A10")
+
+
+def _build_ppo_player(**kwargs):
+    from rl_games_tpu_torch.common.player import PpoPlayer
+
+    return PpoPlayer(**kwargs)
+
+
+def _build_sac_player(**kwargs):
+    from rl_games_tpu_torch.common.player import SACPlayer
+
+    return SACPlayer(**kwargs)
+
+
+def _resolve_stop_fn(stop_fn):
+    """Accept a callable or a 'pkg.mod:fn' / 'pkg.mod.fn' import path
+    (torch_runner.py:63-80)."""
+    if stop_fn is None or callable(stop_fn):
+        return stop_fn
+    if not isinstance(stop_fn, str):
+        raise ValueError(
+            "'stop_fn' must be callable or 'module:function' string, got "
+            f"{type(stop_fn).__name__}"
+        )
+    if ":" in stop_fn:
+        module_path, attr = stop_fn.split(":", 1)
+    else:
+        module_path, _, attr = stop_fn.rpartition(".")
+        if not module_path:
+            raise ValueError(
+                f"'stop_fn' string must reference a module attribute: {stop_fn!r}"
+            )
+    fn = getattr(importlib.import_module(module_path), attr)
+    if not callable(fn):
+        raise ValueError(f"'stop_fn' resolved {stop_fn!r} is not callable")
+    return fn
+
+
+class Runner:
+    def __init__(self, algo_observer=None, device=None):
+        if algo_observer is not None:
+            unported("algo observers", "A6")
+        self.algo_factory = ObjectFactory()
+        # torch_runner.py:117-127
+        self.algo_factory.register_builder("a2c_continuous", _build_ppo)
+        self.algo_factory.register_builder("a2c_discrete", _build_ppo)
+        self.algo_factory.register_builder("sac", _build_sac)
+
+        self.player_factory = ObjectFactory()
+        self.player_factory.register_builder("a2c_continuous", _build_ppo_player)
+        self.player_factory.register_builder("a2c_discrete", _build_ppo_player)
+        self.player_factory.register_builder("sac", _build_sac_player)
+
+        self.device = device
+        self.params = None
+
+    # -- config ------------------------------------------------------------
+    def load(self, yaml_config: Dict[str, Any]):
+        config = copy.deepcopy(yaml_config)
+        self.default_config = config["params"]
+        self.load_config(copy.deepcopy(self.default_config))
+
+    def load_config(self, params: Dict[str, Any]):
+        """torch_runner.py:143-226 (seed fan-out, user modules)."""
+        self.seed = params.get("seed", None)
+        if self.seed is None:
+            self.seed = int(np.random.randint(0, 2**16))
+        if self.seed == -1:
+            self.seed = int(np.random.randint(0, 1000000))
+        random.seed(self.seed)
+        np.random.seed(self.seed)
+        params["config"]["seed"] = self.seed
+
+        self.algo_name = params["algo"]["name"]
+        config = params["config"]
+        if config.get("algo_observer"):
+            unported("algo observers (config.algo_observer)", "A6")
+        # user modules imported for their registration side effects —
+        # custom networks / env plugins (torch_runner.py:152-155)
+        for module in config.get("import_modules", []) or []:
+            importlib.import_module(module)
+        config["reward_shaper"] = config.get("reward_shaper", {})
+        self.params = params
+
+    # -- runs ----------------------------------------------------------------
+    def create_agent(self):
+        return self.algo_factory.create(
+            self.algo_name, base_name="run", params=self.params, device=self.device,
+        )
+
+    def run_train(self, args: Dict[str, Any]):
+        """torch_runner.py:233-321."""
+        if args.get("seeds"):
+            unported("multi-seed training (--seeds)", "A12")
+        if args.get("load_critic_only"):
+            unported("load_critic_only (central value nets)", "A9")
+        print("Started to train")
+        agent = self.create_agent()
+        # stop_fn: programmatic args win over YAML config (torch_runner.py
+        # _apply_stop_fn :83-95); strings resolve to import paths
+        stop_fn = _resolve_stop_fn(
+            args.get("stop_fn") or self.params["config"].get("stop_fn")
+        )
+        kwargs = {}
+        if args.get("sigma") is not None:
+            kwargs["sigma"] = args["sigma"]
+        return agent.train(checkpoint=args.get("checkpoint"), stop_fn=stop_fn, **kwargs)
+
+    def create_player(self):
+        return self.player_factory.create(
+            self.algo_name, params=self.params, device=self.device,
+        )
+
+    def run_play(self, args: Dict[str, Any]):
+        """torch_runner.py:323-334."""
+        print("Started to play")
+        player = self.create_player()
+        checkpoint = args.get("checkpoint")
+        if checkpoint:
+            player.restore(checkpoint)
+        if args.get("sigma") is not None:
+            player.override_sigma(args["sigma"])
+        return player.run(**args.get("player", {}))
+
+    def run(self, args: Dict[str, Any]):
+        if args.get("train"):
+            return self.run_train(args)
+        elif args.get("play"):
+            return self.run_play(args)
+        elif args.get("export"):
+            unported("policy export (--export)", "A12")
+        else:
+            return self.run_train(args)
+
+    def reset(self):
+        pass

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of rl_games_tpu_torch and not
 chip_smoke.py imports jax, flax, optax or the JAX package, and the port
-builds a CPU PPOAgent in a process where importing jax fails."""
+trains, checkpoints and plays a fused-MLP policy through its Runner on the
+CPU in a process where importing jax fails."""
 
 import ast
 import os
@@ -32,29 +33,33 @@ def test_no_jax_in_sources(path):
     assert not imported_roots(path) & FORBIDDEN
 
 
-def test_port_runs_with_jax_blocked():
+def test_port_runs_with_jax_blocked(tmp_path):
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'rl_games_tpu'):\n"
         "    sys.modules[name] = None  # any import of these now raises\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
-        "from rl_games_tpu_torch.algos.ppo import PPOAgent\n"
-        "params = {'model': {'name': 'continuous_a2c_logstd'},\n"
-        "  'network': {'name': 'actor_critic', 'mlp': {'units': [8], 'activation': 'elu'},\n"
+        "import rl_games_tpu_torch.__main__\n"
+        "from rl_games_tpu_torch.runner import Runner\n"
+        "params = {'algo': {'name': 'a2c_continuous'}, 'model': {'name': 'continuous_a2c_logstd'},\n"
+        "  'network': {'name': 'actor_critic', 'mlp': {'units': [8], 'activation': 'elu', 'fused': True},\n"
         "              'space': {'continuous': {'fixed_sigma': True}}},\n"
         "  'config': {'env_name': 'Ant2D', 'num_actors': 2, 'horizon_length': 2,\n"
         "             'minibatch_size': 4, 'mini_epochs': 1, 'learning_rate': 3e-4,\n"
         "             'e_clip': 0.2, 'clip_value': True, 'gamma': 0.99, 'tau': 0.95,\n"
         "             'critic_coef': 2.0, 'entropy_coef': 0.0, 'grad_norm': 1.0,\n"
-        "             'normalize_advantage': True, 'normalize_input': True}}\n"
-        "agent = PPOAgent('iso', params, device='cpu')\n"
-        "state, metrics = agent.train_epoch(agent.init_state())\n"
-        "assert int(metrics['epoch']) == 1\n"
+        "             'normalize_advantage': True, 'normalize_input': True,\n"
+        "             'name': 'iso', 'train_dir': sys.argv[1], 'max_epochs': 1,\n"
+        "             'player': {'games_num': 2, 'max_steps': 3}}}\n"
+        "runner = Runner(device='cpu')\n"
+        "runner.load({'params': params})\n"
+        "assert runner.run({'train': True})[1] == 1\n"
+        "runner.run({'play': True, 'checkpoint': sys.argv[1] + '/iso/nn/last_iso_ep_1_rew_0.00.pth'})\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'rl_games_tpu')\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -132,7 +132,12 @@ def test_state_dict_round_trips_through_jax_converter():
 
 
 def test_fused_mlp_refused():
+    """mlp.fused: true builds the fused torso; with a normalization it is
+    refused, as in the JAX package (the fused kernel has no norm layer)."""
     params = {"model": {"name": "continuous_a2c_logstd"}, "network": network_cfg()}
     params["network"]["mlp"]["fused"] = True
-    with pytest.raises(NotImplementedError, match="B2"):
+    model = ModelBuilder().load(params, actions_num=ACT, input_shape=(OBS,), device="cpu")
+    assert type(model.a2c_network.actor_mlp).__name__ == "FusedMLP"
+    params["network"]["normalization"] = "layer_norm"
+    with pytest.raises(ValueError, match="plain sequential MLP only"):
         ModelBuilder().load(params, actions_num=ACT, input_shape=(OBS,), device="cpu")

@@ -1,0 +1,130 @@
+"""The port's player (common/player.py) against the JAX PpoPlayer on a tiny
+fused Ant2D config: deterministic actions and three env steps from a
+carried-over state, the eval loop's step arithmetic, and the meter
+accounting on synthetic dones."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from rl_games_tpu.common.player import PpoPlayer as JPpoPlayer
+from rl_games_tpu_torch.common.player import PpoPlayer, SACPlayer
+from rl_games_tpu_torch.envs.device.ant2d import Ant2DState
+from rl_games_tpu_torch.envs.device.base import VecEnvState
+from rl_games_tpu_torch.utils.jax_params import jax_to_state_dict
+
+from test_torch_port_ppo import flagship_params, t, to_np
+
+torch.set_num_threads(1)
+
+
+def player_params(**player_cfg):
+    params = flagship_params(8)
+    params["network"]["mlp"]["fused"] = True
+    params["config"]["player"] = player_cfg
+    return params
+
+
+def test_play_actions_and_steps_match_jax():
+    """Same weights, same env state: the deterministic env-space actions and
+    the observations and rewards of three steps agree at rtol = atol = 2e-4
+    (the rollout test's tolerance for what is computed from observations
+    over a few steps of contact dynamics)."""
+    params = player_params(num_actors=8, games_num=8, deterministic=True)
+    jplayer = JPpoPlayer(params)
+    player = PpoPlayer(params, device="cpu")
+    player.model.load_state_dict(jax_to_state_dict(to_np(jplayer.net_params), to_np(jplayer.norm)))
+
+    key = jax.random.PRNGKey(3)
+    jstate, jobs = jplayer.vec_env.reset(key)
+    est = jstate.estate
+    state = VecEnvState(
+        estate=Ant2DState(q=t(est.q), qd=t(est.qd), last_x=t(est.last_x)),
+        generator=torch.Generator().manual_seed(0), steps=t(jstate.steps),
+    )
+    obs = t(jobs)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    with torch.no_grad():
+        for step in range(3):
+            jact = jplayer._play_actions(key, jobs, jstate)
+            act = player._play_actions(None, obs, state)
+            np.testing.assert_allclose(act.numpy(), np.asarray(jact), err_msg=f"actions {step}", **tol)
+            jstate, jobs, jrew, jdones, _ = jplayer.vec_env.step(jstate, jact)
+            state, obs, rew, dones, _ = player.vec_env.step(state, act)
+            assert not np.asarray(jdones).any()  # resets would draw different noise
+            np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), err_msg=f"obs {step}", **tol)
+            np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), err_msg=f"rewards {step}", **tol)
+            np.testing.assert_array_equal(dones.numpy(), np.asarray(jdones))
+
+
+@pytest.mark.parametrize("num_actors, games_num, max_steps", [
+    (8, 8, 27000), (8, 50, 27000), (4, 3, 27000), (8, 8, 200),
+])
+def test_steps_needed(num_actors, games_num, max_steps):
+    """min(max_steps, max_episode_steps * (games_num // n + 2)), as the JAX
+    player computes it (player.py:294-298)."""
+    params = player_params(num_actors=num_actors, games_num=games_num, max_steps=max_steps)
+    player = PpoPlayer(params, device="cpu")
+    limit = player.vec_env.max_episode_steps
+    assert limit == JPpoPlayer(params).vec_env.max_episode_steps
+    assert player.steps_needed(games_num) == min(max_steps, limit * (games_num // num_actors + 2))
+
+
+def test_player_config_keys():
+    player = PpoPlayer(player_params(num_actors=4, determenistic=False), device="cpu")
+    assert player.num_actors == 4 and player.deterministic is False
+    assert player.games_num == 200 and player.max_steps == 27000
+    assert PpoPlayer(player_params(), device="cpu").num_actors == 8  # config.num_actors
+
+
+class ScriptedEnv:
+    """Every env finishes an episode each third step; env i earns i + 1 per
+    step, so its episodes return 3 * (i + 1)."""
+
+    max_episode_steps = 3
+
+    def __init__(self, n, obs_dim):
+        self.n, self.obs_dim, self.t = n, obs_dim, 0
+
+    def reset(self, generator):
+        return None, torch.zeros((self.n, self.obs_dim))
+
+    def step(self, state, actions):
+        self.t += 1
+        rewards = torch.arange(1, self.n + 1, dtype=torch.float32)
+        dones = torch.full((self.n,), self.t % 3 == 0)
+        return state, torch.zeros((self.n, self.obs_dim)), rewards, dones, {}
+
+
+def test_meter_accounting_on_synthetic_dones(capsys):
+    """12 steps of 4 envs finish 16 games; the ring of games_num = 8 keeps
+    the last 8, two full rounds of returns 3, 6, 9, 12: mean 7.5."""
+    player = PpoPlayer(player_params(num_actors=4, games_num=8, max_steps=12), device="cpu")
+    player.vec_env = ScriptedEnv(4, 26)
+    assert player.steps_needed(8) == 12
+    assert player.run() == pytest.approx(7.5)
+    assert "av reward: 7.50 games played: 8" in capsys.readouterr().out
+    # no episode finishes in 2 steps: zero games, mean 0
+    player.vec_env = ScriptedEnv(4, 26)
+    player.max_steps = 2
+    assert player.run() == 0.0
+    assert "games played: 0" in capsys.readouterr().out
+
+
+def test_sigma_override():
+    player = PpoPlayer(player_params(), device="cpu")
+    player.override_sigma(-1.5)
+    assert torch.all(player.model.a2c_network.sigma == -1.5)
+
+
+@pytest.mark.parametrize("make, item", [
+    (lambda: SACPlayer(player_params(), device="cpu"), "A10"),
+    (lambda: PpoPlayer(player_params(), device="cpu")._host_run(1), "A11"),
+    (lambda: PpoPlayer(player_params(), device="cpu").make_export_policy(), "A12"),
+    (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "use_action_masks": True}},
+                       device="cpu"), "A8"),
+])
+def test_unported_player_paths_raise(make, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        make()
