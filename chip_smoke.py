@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py              # the check: build, compare, train, play, report
-    python3 chip_smoke.py --profile    # the same, plus a torch.profiler epoch
+    python3 chip_smoke.py --profile    # the same, plus a torch.profiler epoch and a
+                                       # count of the profiler sessions that lose events
 
 Phases, each of which raises on failure (nothing falls back to the CPU or
 to a plain version):
@@ -10,9 +11,12 @@ to a plain version):
 2. build     — compiles every CUDA source with nvcc, all at once.
 3. kernels   — each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and ragged ones (the fused MLP over all
-               nine activations, and its gradients); device time per call
+               nine activations, with inputs and weights beyond the init
+               scale, and its gradients); device time per call
                (torch.profiler) and time per call between CUDA events, with
-               the least time the card could take beside them.
+               the least time the card could take on the unit the kernel uses
+               beside them, and for GAE the time of an empty kernel over the
+               same grid (what a launch alone costs).
 4. reference — the CUDA path of the port against its CPU path on a small
                input (one Ant2D step, one PPO update from one trajectory,
                the fused model's forward).
@@ -48,6 +52,7 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM tensor cores, TF32 operands, dense
 
 
 def flagship_params(num_actors: int) -> dict:
@@ -97,23 +102,36 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_time_ms(fn, reps: int):
-    """(mean device time of the kernels fn() launches, kernels per call),
-    from torch.profiler's CUDA activity: the card's own time, without the
-    host's gaps between launches."""
+def device_events(fn, reps: int):
+    """The device events of one torch.profiler session over reps calls of fn()."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device activity")
-    total_us = sum(e.time_range.elapsed_us() for e in kernels)
-    return total_us / reps / 1e3, len(kernels) / reps
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_time_ms(fn, reps: int):
+    """(mean device time of the kernels fn() launches, kernels per call),
+    from torch.profiler's CUDA activity: the card's own time, without the
+    host's gaps between launches. About one session in a hundred comes back
+    with some or all of its device events missing, two or three sessions in
+    a row (phase_profiler_sessions counts them), and would read too low. So
+    a session counts only if it holds the same number of events for every
+    call; any other is announced and taken again, five times at most. (Not
+    for use after phase_profile: see phase_profiler_sessions.)"""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        kernels = device_events(fn, reps)
+        if kernels and len(kernels) % reps == 0:
+            total_us = sum(e.time_range.elapsed_us() for e in kernels)
+            return total_us / reps / 1e3, len(kernels) // reps
+        print(f"[kernels] torch.profiler kept {len(kernels)} device events of {reps} calls "
+              f"(attempt {attempt + 1}), profiling again")
+    raise AssertionError("torch.profiler lost device events in five sessions in a row")
 
 
 def phase_device():
@@ -139,7 +157,8 @@ def phase_build():
         print(f"[build] {name}: {'compiled now' if log is not None else 'library was current'}, "
               f"flags {' '.join(cuda_build.nvcc_flags(name))}")
         for line in (log or "").splitlines():
-            if "ptxas info" in line and ("registers" in line or "smem" in line or "Compiling" in line):
+            # "N bytes stack frame, N bytes spill stores, N bytes spill loads" has no prefix
+            if "spill" in line or ("ptxas info" in line and any(w in line for w in ("registers", "smem", "Compiling"))):
                 print(f"[build] {name}: {line.strip()}")
     if sorted(logs) != ["fused_mlp", "gae"]:
         raise AssertionError(f"expected the sources fused_mlp and gae, built {sorted(logs)}")
@@ -156,9 +175,11 @@ def gae_inputs(T, N, V, gen, device):
     return r, v, d, lv, ld
 
 
-def bound_ms(nbytes: int, flops: int):
-    """(least time the card could take in ms, what bounds it)."""
-    bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "operations": flops / PEAK_F32_FLOPS * 1e3}
+def bound_ms(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS):
+    """(least time the card could take in ms, what bounds it): ``nbytes``
+    over the memory rate against ``flops`` over the peak of the unit that
+    does them."""
+    bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "operations": flops / peak_flops * 1e3}
     by = max(bound, key=bound.get)
     return bound[by], by
 
@@ -169,14 +190,16 @@ def phase_kernel_gae():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
-    for T, N, V in ((16, 8192, 1), (16, 1000, 2), (7, 33, 3)):
+    # the main path's shape, then horizons that take every branch of the
+    # kernel's sweep: one chunk of 16; the row-by-row tail alone; 16 + 8 + 5
+    for T, N, V in ((16, 8192, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
         args = gae_inputs(T, N, V, gen, dev)
         got = gae.gae_cuda(*args, 0.99, 0.95)
         want = gae.gae_plain(*args, 0.99, 0.95)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         print(f"[kernels] gae [{T},{N},{V}] max |kernel - plain| = {err:.3e}")
-        if not math.isfinite(err) or err > 1e-5:
+        if err != 0.0:  # same products and sums in the same order: bit for bit
             raise AssertionError(f"gae kernel disagrees with gae_plain at [{T},{N},{V}]: {err}")
         worst = max(worst, err)
 
@@ -186,12 +209,15 @@ def phase_kernel_gae():
     kernel_ms, kernel_n = device_time_ms(kernel, 100)
     plain_ms, plain_n = device_time_ms(plain, 20)
     kernel_call_ms, plain_call_ms = cuda_time_ms(kernel, 200), cuda_time_ms(plain, 20)
+    # what a launch alone costs: the source's empty kernel over the same grid
+    floor_ms, _ = device_time_ms(lambda: gae.launch_floor_cuda(N, V), 100)
     nbytes = 4 * (3 * T * N * V + T * N + N * V + N)
     flops = 8 * T * N * V
     bound, bound_by = bound_ms(nbytes, flops)
     print(f"[kernels] gae [16,8192,1] device time: kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), "
+          f"empty kernel of the same grid {floor_ms * 1e3:.2f} us, "
           f"plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); "
-          f"bound {bound * 1e3:.3f} us ({nbytes} B, by {bound_by})")
+          f"bound {bound * 1e3:.3f} us ({nbytes} B, by {bound_by}); kernel at {bound / kernel_ms:.3f} of the bound's rate")
     print(f"[kernels] gae [16,8192,1] per call between CUDA events, host included: "
           f"kernel {kernel_call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us")
     return {
@@ -208,6 +234,9 @@ def phase_kernel_gae():
         "plain_call_ms": plain_call_ms,
         "bound_ms": bound,
         "bound_by": bound_by,
+        "unit": f"device memory at {PEAK_BYTES_PER_S:.3g} B/s",
+        "share_of_bound": bound / kernel_ms,
+        "launch_floor_ms": floor_ms,
         "library_ms": None,
         "library_note": "no single PyTorch call computes GAE",
     }
@@ -235,11 +264,17 @@ def phase_kernel_fused_mlp():
     gen = torch.Generator(device=dev).manual_seed(1)
     # the shape sets of the JAX package's kernel test, then the flagship
     # torso at the rollout's and the minibatch's batch size
-    shapes = [((37, 50, 33, 7), 19), (FLAGSHIP_DIMS, 512), ((4, 8), 1), ((130, 257), 1030),
-              (FLAGSHIP_DIMS, 8192), (FLAGSHIP_DIMS, 32768)]
+    # (the next two beyond the init scale: inputs 30 times, weights 8 times
+    # as large), then a batch that takes the 32-row blocks and ends inside one
+    shapes = [((37, 50, 33, 7), 19, 1.0, 1.0), (FLAGSHIP_DIMS, 512, 1.0, 1.0), ((4, 8), 1, 1.0, 1.0),
+              ((130, 257), 1030, 1.0, 1.0), (FLAGSHIP_DIMS, 8192, 1.0, 1.0), (FLAGSHIP_DIMS, 32768, 1.0, 1.0),
+              (FLAGSHIP_DIMS, 512, 30.0, 1.0), ((130, 257), 1030, 1.0, 8.0), (FLAGSHIP_DIMS, 5001, 1.0, 1.0)]
+    if fm.kernel_plan(FLAGSHIP_DIMS, 5001)[0] != 32:
+        raise AssertionError("B = 5001 was chosen to take the 32-row blocks with a ragged last block")
     worst, worst_ratio = 0.0, 0.0
-    for i, (dims, batch) in enumerate(shapes):
+    for i, (dims, batch, x_scale, w_scale) in enumerate(shapes):
         x, ws, bs = mlp_inputs(dims, batch, gen, dev)
+        x, ws = x * x_scale, [w * w_scale for w in ws]
         for activation in (ACTIVATIONS if i == 0 else ("elu",)):
             got = fm.fused_mlp_cuda(x, ws, bs, activation)
             want = fm.plain_mlp(x, ws, bs, activation)
@@ -247,7 +282,8 @@ def phase_kernel_fused_mlp():
             diff = (got - want).abs()
             err = float(diff.max())
             ratio = float((diff / (2e-5 + 2e-5 * want.abs())).max())  # <= 1: rtol = atol = 2e-5
-            print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation}: "
+            scale = "" if x_scale == w_scale == 1.0 else f" (x * {x_scale:g}, weights * {w_scale:g})"
+            print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation}{scale}: "
                   f"max |kernel - plain| = {err:.3e} ({ratio:.3f} of the tolerance)")
             if not (math.isfinite(ratio) and ratio <= 1.0):
                 raise AssertionError(f"fused_mlp kernel disagrees with plain_mlp at {dims}, B={batch}, "
@@ -282,6 +318,8 @@ def phase_kernel_fused_mlp():
         "replaces": "rl_games_tpu/ops/fused_mlp.py:112 (_fused_kernel, pallas_call at :170)",
         "max_abs_err": worst,
         "max_err_over_tolerance": worst_ratio,
+        "unit": f"tensor cores at {PEAK_TF32_FLOPS:.3g} flop/s with TF32 operands, "
+                "three products per multiply-add (3xTF32)",
         "library_ms": None,
         "library_note": "no single PyTorch call computes the chain; plain_ms is addmm + activation per layer",
     }
@@ -296,14 +334,23 @@ def phase_kernel_fused_mlp():
         plain_b, _ = device_time_ms(plain, 50)
         kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
         kernel_call_ms, plain_call_ms = cuda_time_ms(kernel, 200), cuda_time_ms(plain, 200)
-        flops = 2 * batch * n_weights
+        # the same launch without an activation: what the products, copies and
+        # stores take, and so what elu (expm1f) costs on top
+        linear_ms, _ = device_time_ms(lambda: fm.fused_mlp_cuda(x, ws, bs, "None"), 50)
+        # the kernel makes every product three times on the tensor cores
+        # (3xTF32), so its bound is three times the chain's operations over
+        # the TF32 rate
+        flops = 3 * 2 * batch * n_weights
         nbytes = 4 * (x.numel() + batch * FLAGSHIP_DIMS[-1] + n_weights + sum(FLAGSHIP_DIMS[1:]))
-        bound, bound_by = bound_ms(nbytes, flops)
+        bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
         rows = fm.kernel_plan(FLAGSHIP_DIMS, batch)
         print(f"[kernels] fused_mlp 26x256x128x64 B={batch} ({rows[0]} rows/block, {rows[3]} B shared) device time: "
-              f"kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), plain {plain_ms * 1e3:.2f} us "
-              f"({plain_n:.0f} kernels/call); bound {bound * 1e3:.2f} us ({flops} flop, {nbytes} B, by {bound_by}); "
+              f"kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), "
+              f"plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); bound {bound * 1e3:.2f} us "
+              f"({flops} TF32 flop = 3 x the chain's, {nbytes} B, by {bound_by}); "
               f"kernel at {bound / kernel_ms:.3f} of the bound's rate")
+        print(f"[kernels] fused_mlp B={batch} device time with activation None: {linear_ms * 1e3:.2f} us "
+              f"(elu adds {(kernel_ms - linear_ms) * 1e3:.2f} us)")
         print(f"[kernels] fused_mlp B={batch} per call between CUDA events, host included: "
               f"kernel {kernel_call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us")
         entry.update({
@@ -311,6 +358,8 @@ def phase_kernel_fused_mlp():
             f"ms{suffix}": kernel_ms, f"kernel_ms{suffix}": kernel_ms, f"plain_ms{suffix}": plain_ms,
             f"call_ms{suffix}": kernel_call_ms, f"plain_call_ms{suffix}": plain_call_ms,
             f"bound_ms{suffix}": bound, f"bound_by{suffix}": bound_by,
+            f"share_of_bound{suffix}": bound / kernel_ms,
+            f"no_activation_ms{suffix}": linear_ms,
         })
     return entry
 
@@ -474,6 +523,23 @@ def phase_runner(epochs: int, plain_epoch_s: float):
         play_s = time.perf_counter() - t0
         play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
         sys.stdout.write(out.getvalue())
+
+        # the steady step without set-up: a second player on the same
+        # checkpoint, the start of each env step stamped on the host's clock
+        player = runner.create_player()
+        player.restore(checkpoint)
+        env_step, stamps = player.vec_env.step, []
+
+        def stamped_step(*args, **kwargs):
+            stamps.append(time.perf_counter())
+            return env_step(*args, **kwargs)
+
+        player.vec_env.step = stamped_step
+        with contextlib.redirect_stdout(io.StringIO()):
+            player.run()
+        torch.cuda.synchronize()
+        warm = min(20, len(stamps) - 1)
+        steady_step_s = (time.perf_counter() - stamps[warm]) / (len(stamps) - warm)
     games = re.search(r"games played: (\d+)", out.getvalue())
     # one policy forward per env step, nothing else
     if play_launches != {"gae": 0, "fused_mlp": steps} or steps != play_steps:
@@ -482,7 +548,9 @@ def phase_runner(epochs: int, plain_epoch_s: float):
         raise AssertionError(f"player: mean reward {mean_reward}, output {out.getvalue()!r}")
     print(f"[runner] played {steps} steps x {num_actors} envs through Runner.run: launches {play_launches}, "
           f"{int(games.group(1))} games in the meter, mean reward {mean_reward:.3f}; {play_s:.2f} s with set-up, "
-          f"{steps / play_s:.1f} steps/s, {steps * num_actors / play_s:,.0f} env-steps/s")
+          f"{steps / play_s:.1f} steps/s, {steps * num_actors / play_s:,.0f} env-steps/s; steady step without set-up "
+          f"{steady_step_s * 1e3:.2f} ms (mean of steps {warm + 1}-{len(stamps)} of a second run), "
+          f"{num_actors / steady_step_s:,.0f} env-steps/s")
     return train_launches, play_launches, steps
 
 
@@ -512,6 +580,28 @@ def phase_profile(agent, state):
         print(f"[profile] {line}")
 
 
+def phase_profiler_sessions(sessions: int = 300, reps: int = 50):
+    """How often torch.profiler loses device events: sessions of reps plain
+    six-kernel chains each, counted as whole, partial or empty, with the
+    host time of the sessions that lost events beside the median. It runs
+    before phase_profile: once a session has also recorded CPU activity,
+    every later CUDA-only session of the process lacks one event."""
+    dev = torch.device("cuda")
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, 8192, torch.Generator(device=dev).manual_seed(2), dev)
+    counts, seconds = [], []
+    for _ in range(sessions):
+        t0 = time.perf_counter()
+        counts.append(len(device_events(lambda: fm.plain_mlp(x, ws, bs, "elu"), reps)))
+        seconds.append(time.perf_counter() - t0)
+    lost = [i for i, n in enumerate(counts) if n != 6 * reps]
+    print(f"[kernels] {sessions} profiler sessions of {reps} plain chains: {sum(n == 0 for n in counts)} empty, "
+          f"{sum(0 < n < 6 * reps for n in counts)} partial, at sessions {lost} "
+          f"with {[counts[i] for i in lost]} of {6 * reps} events in {[round(seconds[i] * 1e3) for i in lost]} ms "
+          f"(median session {np.median(seconds) * 1e3:.1f} ms)")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--epochs", type=int, default=5)
@@ -521,6 +611,8 @@ def main():
     phase_device()
     phase_build()
     gae_entry, fused_entry = phase_kernel_gae(), phase_kernel_fused_mlp()
+    if args.profile:
+        phase_profiler_sessions()  # before phase_profile: see its docstring
     phase_reference()
     agent, state, plain_launches, plain_epoch_s = phase_trainer(args.epochs)
     if args.profile:

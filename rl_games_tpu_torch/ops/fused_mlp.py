@@ -5,6 +5,9 @@ Port of rl_games_tpu/ops/fused_mlp.py: the whole chain
     h <- act(h @ W_i.T + b_i)    for every layer, the last one too
 
 in one kernel launch, with the intermediate activations kept on chip.
+The kernel makes its products on the tensor cores as 3xTF32 (each operand
+split into two TF32 halves, three products, float32 accumulate), which keeps
+float32-grade results: it is held to ``plain_mlp`` at rtol = atol = 2e-5.
 Shapes: x [B, D_0]; ws[i] [D_{i+1}, D_i] (``torch.nn.Linear``'s layout, the
 transpose of the JAX package's kernels); bs[i] [D_{i+1}]; returns [B, D_L].
 
@@ -33,11 +36,13 @@ fused_mlp_launches = 0
 MAX_LAYERS = 8  # layer pointers travel in the kernel's argument block
 MAX_SHARED_BYTES = 232_448  # shared memory one block may use on sm_90
 # Rows of x per block that the kernel is built for, with the smallest batch
-# at which each is taken: 64 rows once such tiles fill the card's 132 SMs;
-# 32 rows once 16-row tiles would (a 16-row block computes one row per
-# thread and is the slowest per row, so it serves small batches only).
-TILE_ROWS = {64: 132 * 64, 32: 132 * 16, 16: 0}
-_WEIGHT_TILE_FLOATS = 64 * 36  # one staged weight tile (csrc/fused_mlp.cu: TN * WS)
+# at which each is taken: 32 rows once 16-row tiles would no longer all be
+# resident at once (two blocks on each of the card's 132 SMs). The smaller
+# tile halves each warp's register tile, so it pays more shared-memory loads
+# and operand splits per tensor-core product and serves small batches only.
+TILE_ROWS = {32: 132 * 2 * 16, 16: 0}
+# the ring of staged weight tiles (csrc/fused_mlp.cu: kStages * TN * WS)
+_WEIGHT_RING_FLOATS = 3 * 128 * 40
 
 # activation name -> the kernel's integer code (csrc/fused_mlp.cu ``Act``)
 ACTIVATION_CODES = {
@@ -78,12 +83,14 @@ def plain_mlp(x, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], activat
 
 def _buffer_stride(widths: Sequence[int]) -> int:
     """Row stride, in floats, of a shared-memory buffer that holds rows of
-    the given widths: the widest rounded up to 4 (rows are read 16 bytes at
-    a time) and then to 4 * odd (rows 4 apart fall on different banks)."""
+    the given widths: the widest rounded up to 8 (the depth of a tensor-core
+    product; the kernel zero-fills up to there) and then to 8 * odd: the
+    4 rows x 4 pairs of inputs that half a warp loads for a fragment then
+    fall on 32 different banks."""
     if not widths:
         return 0
-    stride = (max(widths) + 3) // 4 * 4
-    return stride if (stride // 4) % 2 else stride + 4
+    eights = (max(widths) + 7) // 8
+    return 8 * (eights if eights % 2 else eights + 1)
 
 
 def kernel_plan(dims: Sequence[int], batch: int) -> Tuple[int, int, int, int]:
@@ -102,7 +109,7 @@ def kernel_plan(dims: Sequence[int], batch: int) -> Tuple[int, int, int, int]:
     stride0, stride1 = _buffer_stride(inner[0::2]), _buffer_stride(inner[1::2])
 
     def shared_bytes(rows):
-        return 4 * (rows * (stride0 + stride1) + _WEIGHT_TILE_FLOATS)
+        return 4 * (rows * (stride0 + stride1) + _WEIGHT_RING_FLOATS)
 
     fitting = [rows for rows in TILE_ROWS if shared_bytes(rows) <= MAX_SHARED_BYTES]
     if not fitting:

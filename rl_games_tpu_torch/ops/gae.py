@@ -29,6 +29,7 @@ from rl_games_tpu_torch.utils import cuda_build
 gae_launches = 0
 
 _gae_forward = None
+_gae_empty_launch = None
 
 
 def _shifted_next(values, dones, last_values, last_dones):
@@ -93,6 +94,24 @@ def gae_cuda(rewards, values, dones, last_values, last_dones, gamma, lam):
         raise RuntimeError(f"gae_forward launch failed with CUDA error {err}")
     gae_launches += 1
     return adv
+
+
+def launch_floor_cuda(num_envs: int, value_size: int, device="cuda"):
+    """Launches ``csrc/gae.cu``'s empty kernel over the grid that ``gae_cuda``
+    takes for ``num_envs * value_size`` columns. Timing it gives the floor
+    that launch latency sets under the GAE kernel's own time; nothing is
+    computed and ``gae_launches`` does not move."""
+    global _gae_empty_launch
+    if _gae_empty_launch is None:
+        fn = cuda_build.load("gae").gae_empty_launch
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _gae_empty_launch = fn
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        err = _gae_empty_launch(num_envs, value_size, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gae_empty_launch failed with CUDA error {err}")
 
 
 def compute_gae(rewards, values, dones, last_values, last_dones, gamma, lam):

@@ -2,8 +2,10 @@
 the JAX package's, on the CPU: the plain chain and the CPU route of
 ``fused_mlp`` against the JAX ``plain_mlp`` and against the Pallas kernel
 in interpret mode; gradients; parameter-layout interchange; the kernel's
-launch plan and the wrapper's refusals. The CUDA kernel itself runs only on
-a card: ``chip_smoke.py`` holds it against ``plain_mlp`` there.
+launch plan and the wrapper's refusals; and a plain PyTorch rehearsal of the
+kernel's numeric scheme (3xTF32) against ``plain_mlp``. The CUDA kernel
+itself runs only on a card: ``chip_smoke.py`` holds it against ``plain_mlp``
+there.
 
 Weights are carried across transposed: the JAX package keeps [in, out]
 kernels, ``torch.nn.Linear`` [out, in].
@@ -66,6 +68,85 @@ def test_matches_jax_plain_and_pallas(activation, dims, batch):
         activation, interpret=True, block_b=256))
     np.testing.assert_allclose(plain, jplain, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(plain, jpallas, rtol=2e-5, atol=2e-5)
+
+
+def init_scale_net(seed, dims, batch, x_scale=1.0, w_scale=1.0):
+    """x ~ x_scale N(0, 1) and [out, in] weights ~ w_scale U(+-1/sqrt(in)),
+    the model's default init (chip_smoke.py's ``mlp_inputs``), as tensors:
+    activations stay of order 1, so atol = 2e-5 is a float32 statement."""
+    rng = np.random.default_rng(seed)
+    ws = [((rng.random((dims[i + 1], dims[i])) * 2 - 1) * (w_scale / np.sqrt(dims[i]))).astype(np.float32)
+          for i in range(len(dims) - 1)]
+    bs = [(rng.normal(size=(dims[i + 1],)) * 0.1).astype(np.float32) for i in range(len(dims) - 1)]
+    x = (rng.normal(size=(batch, dims[0])) * x_scale).astype(np.float32)
+    return torch.from_numpy(x), [torch.from_numpy(w) for w in ws], [torch.from_numpy(b) for b in bs]
+
+
+def tf32_round(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero, as ``cvt.rna.tf32.f32``), by bit operations on the int32 view."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_leading_bits(x):
+    """float32 cut to its leading 10 mantissa bits, as the tensor core reads
+    an operand that was not rounded first."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def emulated_kernel_mlp(x, ws, bs, activation, products: int = 3):
+    """The arithmetic of ``csrc/fused_mlp.cu`` in plain PyTorch:
+    each operand split as hi = tf32(v) and lo = the leading bits of v - hi;
+    per layer the two small products a_lo.w_hi + a_hi.w_lo summed apart
+    from a_hi.w_hi, all in float32. ``products=1`` keeps a_hi.w_hi alone
+    (plain TF32), which does not hold the kernel's tolerance."""
+    f = fm._PLAIN_ACTS[fm._activation_code(activation)]
+    for w, b in zip(ws, bs):
+        a_hi, w_hi = tf32_round(x), tf32_round(w)
+        y = a_hi @ w_hi.T
+        if products == 3:
+            a_lo, w_lo = tf32_leading_bits(x - a_hi), tf32_leading_bits(w - w_hi)
+            y = y + (a_lo @ w_hi.T + a_hi @ w_lo.T)
+        x = f(y + b)
+    return x
+
+
+def test_tf32_round_is_round_to_nearest():
+    """10 mantissa bits kept, the nearest such value, ties away from zero."""
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 - 2.0 ** -23, -1.0 - 2.0 ** -11,
+                      1.0 + 3 * 2.0 ** -11, 3.14159274, -0.0, 1e-30], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0, -1.0 - 2.0 ** -10,
+                         1.0 + 2.0 ** -9, 3.140625, -0.0, 1e-30], dtype=torch.float32)
+    got = tf32_round(x)
+    assert torch.equal(got[:-1], want[:-1])
+    assert torch.all(got.view(torch.int32) & 0x1FFF == 0)
+    assert abs(float(got[-1]) - 1e-30) <= 1e-30 * 2.0 ** -11
+
+
+# the kernel's accuracy cases: the shape sets at the init scale, then inputs
+# 30 times and weights 8 times as large (chip_smoke.py runs the same on the card)
+SCHEME_CASES = [(dims, batch, 1.0, 1.0) for dims, batch in SHAPES] + [
+    ((26, 256, 128, 64), 512, 30.0, 1.0),
+    ((130, 257), 1030, 1.0, 8.0),
+]
+
+
+@pytest.mark.parametrize("activation", ["elu", "tanh"])
+@pytest.mark.parametrize("dims,batch,x_scale,w_scale", SCHEME_CASES)
+def test_3xtf32_scheme_holds_the_tolerance(activation, dims, batch, x_scale, w_scale):
+    """The kernel's arithmetic rehearsed in plain PyTorch: TF32 halves by bit
+    operations (hi rounded to nearest, lo cut to its leading bits), three
+    products per layer, float32 sums. It agrees with
+    ``plain_mlp`` within the kernel's rtol = atol = 2e-5; one TF32 product
+    per layer does not, so the comparison can fail."""
+    x, ws, bs = init_scale_net(3, dims, batch, x_scale, w_scale)
+    with torch.no_grad():
+        want = fm.plain_mlp(x, ws, bs, activation).numpy()
+        three = emulated_kernel_mlp(x, ws, bs, activation).numpy()
+        one = emulated_kernel_mlp(x, ws, bs, activation, products=1).numpy()
+    np.testing.assert_allclose(three, want, rtol=2e-5, atol=2e-5)
+    assert not np.allclose(one, want, rtol=2e-5, atol=2e-5)
 
 
 def test_grads_match_jax():
@@ -166,21 +247,25 @@ def test_unknown_activation_raises():
 
 
 @pytest.mark.parametrize("dims, batch, expected", [
-    # flagship torso: buffers hold widths {26, 128} and {256}; 132 = 128 + 4
-    # and 260 = 256 + 4 are 4 * odd
-    ((26, 256, 128, 64), 32768, (64, 132, 260)),
-    ((26, 256, 128, 64), 8192, (32, 132, 260)),  # 8192 rows < 132 SMs * 64
-    ((26, 256, 128, 64), 4096, (32, 132, 260)),
-    ((26, 256, 128, 64), 2048, (16, 132, 260)),  # 2048 rows < 132 SMs * 16
-    ((4, 8), 1, (16, 4, 0)),  # one layer: nothing in the odd buffer
-    ((37, 50, 33, 7), 19, (16, 44, 52)),
+    # flagship torso: the buffers hold widths {26, 128} and {256};
+    # 136 = 8 * 17 and 264 = 8 * 33 are 8 * odd
+    ((26, 256, 128, 64), 32768, (32, 136, 264)),
+    ((26, 256, 128, 64), 8192, (32, 136, 264)),
+    ((26, 256, 128, 64), 4224, (32, 136, 264)),  # 132 SMs * 2 blocks * 16 rows
+    ((26, 256, 128, 64), 4096, (16, 136, 264)),  # 16-row tiles are all resident at once
+    ((26, 256, 128, 64), 2048, (16, 136, 264)),
+    ((4, 8), 1, (16, 8, 0)),  # one layer: nothing in the odd buffer
+    ((37, 50, 33, 7), 19, (16, 40, 56)),  # 37 -> 40 = 8 * 5; 50 -> 56 = 8 * 7
+    ((130, 257), 1030, (16, 136, 0)),  # 130 -> 136
 ])
 def test_kernel_plan(dims, batch, expected):
     rows, s0, s1, shared = fm.kernel_plan(dims, batch)
     assert (rows, s0, s1) == expected
-    assert shared == 4 * (rows * (s0 + s1) + 64 * 36) <= fm.MAX_SHARED_BYTES
+    # both activation buffers and the ring of three 128 x 32 weight tiles
+    # (row stride 40)
+    assert shared == 4 * (rows * (s0 + s1) + 3 * 128 * 40) <= fm.MAX_SHARED_BYTES
     for stride, widths in ((s0, dims[:-1][0::2]), (s1, dims[:-1][1::2])):
-        assert stride % 4 == 0 and (stride == 0 or stride >= max(widths))
+        assert stride == 0 if not widths else stride % 16 == 8 and stride >= (max(widths) + 7) // 8 * 8
 
 
 def test_kernel_plan_limits():
@@ -190,3 +275,6 @@ def test_kernel_plan_limits():
         fm.kernel_plan((4,) * 10, 100)
     # a wide net takes a smaller tile rather than fail
     assert fm.kernel_plan((64, 1024, 1024, 8), 100000)[0] == 16
+    # two 32-row blocks of the flagship torso fit one SM's 228 KB together
+    # (1 KB of each block is the system's)
+    assert 2 * (fm.kernel_plan((26, 256, 128, 64), 8192)[3] + 1024) <= 228 * 1024
