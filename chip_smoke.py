@@ -20,15 +20,28 @@ to a plain version):
 4. reference — the CUDA path of the port against its CPU path on a small
                input (one Ant2D step, one PPO update from one trajectory,
                the fused model's forward).
-5. trainer   — the flagship workload at full width: continuous PPO on 8192
+5. envs      — every other physics env (Ant3D, Humanoid3D, Walker2D,
+               Cheetah2D, Arm2D, Grasp2D): one control step on the card
+               against the same step on the CPU; then, with Ant2D beside
+               them, the wall time of one vec-env step at 4096 envs and of
+               the kinematics with J and J̇q̇ alone, with the device kernels
+               each launches.
+6. trainer   — the flagship workload at full width: continuous PPO on 8192
                Ant2D envs, MLP [256, 128, 64], horizon 16, 4 mini-epochs of
                4 minibatches of 32768, through PPOAgent.train_epoch.
-6. runner    — the same workload with network.mlp.fused: true through the
+7. runner    — the same workload with network.mlp.fused: true through the
                normal entry points: Runner.run({"train": True}) writes
                checkpoints, Runner.run({"play": True, "checkpoint": ...})
                plays the last one back on 8192 envs.
+8. humanoid3d — rl_games_tpu/configs/ppo_humanoid3d.yaml at full width
+               (4096 envs, horizon 16, minibatch 32768, 4 mini-epochs, MLP
+               [256, 128, 64]) with network.mlp.fused: true,
+               use_diagnostics: true and a DefaultAlgoObserver, trained
+               through Runner.run and its last checkpoint played back.
+9. ant3d     — rl_games_tpu/configs/ppo_ant3d.yaml at full width, plain MLP,
+               through PPOAgent.train_epoch.
 
-Launch counts are zeroed just before each of phases 5 and 6's runs and read
+Launch counts are zeroed just before each of phases 6-9's runs and read
 just after, and are held to the counts the code implies.
 
 Prints a {"kernels": [...]} line, then as its last line
@@ -36,7 +49,9 @@ Prints a {"kernels": [...]} line, then as its last line
 """
 
 import argparse
+import collections
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -184,26 +199,11 @@ def bound_ms(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS):
     return bound[by], by
 
 
-def phase_kernel_gae():
+def time_gae(T, N, V, gen, dev):
+    """Device time of the GAE kernel, of the plain chain and of an empty
+    kernel over the kernel's grid at one shape, beside the bound."""
     from rl_games_tpu_torch.ops import gae
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    worst = 0.0
-    # the main path's shape, then horizons that take every branch of the
-    # kernel's sweep: one chunk of 16; the row-by-row tail alone; 16 + 8 + 5
-    for T, N, V in ((16, 8192, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
-        args = gae_inputs(T, N, V, gen, dev)
-        got = gae.gae_cuda(*args, 0.99, 0.95)
-        want = gae.gae_plain(*args, 0.99, 0.95)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        print(f"[kernels] gae [{T},{N},{V}] max |kernel - plain| = {err:.3e}")
-        if err != 0.0:  # same products and sums in the same order: bit for bit
-            raise AssertionError(f"gae kernel disagrees with gae_plain at [{T},{N},{V}]: {err}")
-        worst = max(worst, err)
-
-    T, N, V = 16, 8192, 1
     args = gae_inputs(T, N, V, gen, dev)
     kernel, plain = (lambda: gae.gae_cuda(*args, 0.99, 0.95)), (lambda: gae.gae_plain(*args, 0.99, 0.95))
     kernel_ms, kernel_n = device_time_ms(kernel, 100)
@@ -214,36 +214,58 @@ def phase_kernel_gae():
     nbytes = 4 * (3 * T * N * V + T * N + N * V + N)
     flops = 8 * T * N * V
     bound, bound_by = bound_ms(nbytes, flops)
-    print(f"[kernels] gae [16,8192,1] device time: kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), "
+    print(f"[kernels] gae [{T},{N},{V}] device time: kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), "
           f"empty kernel of the same grid {floor_ms * 1e3:.2f} us, "
           f"plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); "
           f"bound {bound * 1e3:.3f} us ({nbytes} B, by {bound_by}); kernel at {bound / kernel_ms:.3f} of the bound's rate")
-    print(f"[kernels] gae [16,8192,1] per call between CUDA events, host included: "
+    print(f"[kernels] gae [{T},{N},{V}] per call between CUDA events, host included: "
           f"kernel {kernel_call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us")
+    return {"shape": [T, N, V], "ms": kernel_ms, "plain_ms": plain_ms, "call_ms": kernel_call_ms,
+            "plain_call_ms": plain_call_ms, "bound_ms": bound, "bound_by": bound_by,
+            "share_of_bound": bound / kernel_ms, "launch_floor_ms": floor_ms}
+
+
+def phase_kernel_gae():
+    from rl_games_tpu_torch.ops import gae
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = 0.0
+    # the main paths' shapes (the flagship's, the 3D configs'), then horizons
+    # that take every branch of the kernel's sweep: one chunk of 16; the
+    # row-by-row tail alone; 16 + 8 + 5
+    for T, N, V in ((16, 8192, 1), (16, 4096, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
+        args = gae_inputs(T, N, V, gen, dev)
+        got = gae.gae_cuda(*args, 0.99, 0.95)
+        want = gae.gae_plain(*args, 0.99, 0.95)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(f"[kernels] gae [{T},{N},{V}] max |kernel - plain| = {err:.3e}")
+        if err != 0.0:  # same products and sums in the same order: bit for bit
+            raise AssertionError(f"gae kernel disagrees with gae_plain at [{T},{N},{V}]: {err}")
+        worst = max(worst, err)
+
+    flagship = time_gae(16, 8192, 1, gen, dev)
     return {
         "name": "gae",
         "route": "cuda",
         "source": "rl_games_tpu_torch/csrc/gae.cu",
         "replaces": "rl_games_tpu/ops/gae.py:97 (_gae_pallas_kernel, pallas_call at :159)",
-        "shape": [T, N, V],
+        **flagship,
         "max_abs_err": worst,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "call_ms": kernel_call_ms,
-        "plain_call_ms": plain_call_ms,
-        "bound_ms": bound,
-        "bound_by": bound_by,
+        "kernel_ms": flagship["ms"],
         "unit": f"device memory at {PEAK_BYTES_PER_S:.3g} B/s",
-        "share_of_bound": bound / kernel_ms,
-        "launch_floor_ms": floor_ms,
         "library_ms": None,
         "library_note": "no single PyTorch call computes GAE",
+        # the 3D configs' shape (4096 envs)
+        "other_shapes": [time_gae(16, 4096, 1, gen, dev)],
     }
 
 
 ACTIVATIONS = ("relu", "elu", "selu", "softplus", "gelu", "sigmoid", "swish", "tanh", "None")
 FLAGSHIP_DIMS = (26, 256, 128, 64)
+ANT3D_DIMS = (33, 256, 128, 64)  # ppo_ant3d.yaml: obs 33
+HUMANOID3D_DIMS = (41, 256, 128, 64)  # ppo_humanoid3d.yaml: obs 41
 
 
 def mlp_inputs(dims, batch, gen, device):
@@ -255,6 +277,31 @@ def mlp_inputs(dims, batch, gen, device):
           for i in range(len(dims) - 1)]
     bs = [torch.randn((dims[i + 1],), generator=gen, **f32) * 0.1 for i in range(len(dims) - 1)]
     return torch.randn((batch, dims[0]), generator=gen, **f32), ws, bs
+
+
+def time_fused(dims, batch, gen, dev):
+    """Device time of the fused kernel and of the plain chain at one shape,
+    in turns (plain, kernel, kernel, plain), beside the 3xTF32 bound."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    x, ws, bs = mlp_inputs(dims, batch, gen, dev)
+    kernel, plain = (lambda: fm.fused_mlp_cuda(x, ws, bs, "elu")), (lambda: fm.plain_mlp(x, ws, bs, "elu"))
+    plain_a, plain_n = device_time_ms(plain, 50)
+    kernel_a, _ = device_time_ms(kernel, 50)
+    kernel_b, _ = device_time_ms(kernel, 50)
+    plain_b, _ = device_time_ms(plain, 50)
+    kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+    n_weights = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    flops = 3 * 2 * batch * n_weights
+    nbytes = 4 * (x.numel() + batch * dims[-1] + n_weights + sum(dims[1:]))
+    bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
+    rows = fm.kernel_plan(dims, batch)
+    print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} ({rows[0]} rows/block) device time: "
+          f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); "
+          f"bound {bound * 1e3:.2f} us ({flops} TF32 flop, {nbytes} B, by {bound_by}); "
+          f"kernel at {bound / kernel_ms:.3f} of the bound's rate")
+    return {"shape": [batch, *dims], "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "share_of_bound": bound / kernel_ms}
 
 
 def phase_kernel_fused_mlp():
@@ -269,6 +316,8 @@ def phase_kernel_fused_mlp():
     shapes = [((37, 50, 33, 7), 19, 1.0, 1.0), (FLAGSHIP_DIMS, 512, 1.0, 1.0), ((4, 8), 1, 1.0, 1.0),
               ((130, 257), 1030, 1.0, 1.0), (FLAGSHIP_DIMS, 8192, 1.0, 1.0), (FLAGSHIP_DIMS, 32768, 1.0, 1.0),
               (FLAGSHIP_DIMS, 512, 30.0, 1.0), ((130, 257), 1030, 1.0, 8.0), (FLAGSHIP_DIMS, 5001, 1.0, 1.0)]
+    # the 3D configs' torsos at the rollout's and the minibatch's batch size
+    shapes += [(dims, batch, 1.0, 1.0) for dims in (ANT3D_DIMS, HUMANOID3D_DIMS) for batch in (4096, 32768)]
     if fm.kernel_plan(FLAGSHIP_DIMS, 5001)[0] != 32:
         raise AssertionError("B = 5001 was chosen to take the 32-row blocks with a ragged last block")
     worst, worst_ratio = 0.0, 0.0
@@ -323,6 +372,8 @@ def phase_kernel_fused_mlp():
         "library_ms": None,
         "library_note": "no single PyTorch call computes the chain; plain_ms is addmm + activation per layer",
     }
+    entry["other_shapes"] = [time_fused(dims, batch, gen, dev)
+                             for dims in (ANT3D_DIMS, HUMANOID3D_DIMS) for batch in (4096, 32768)]
     n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
     for batch, suffix in ((8192, ""), (32768, "_minibatch")):
         x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
@@ -417,6 +468,96 @@ def phase_reference():
     print(f"[reference] fused model forward cuda vs cpu: " + ", ".join(f"max |d{k}| {v:.2e}" for k, v in diffs.items()))
     if not all(v < 2e-5 for v in diffs.values()):
         raise AssertionError("the fused model's forward on the card disagrees with the CPU forward")
+
+
+ENV_NAMES = ("Ant3D", "Humanoid3D", "Walker2D", "Cheetah2D", "Arm2D", "Grasp2D")
+
+
+def state_to(state, device):
+    """An env state dataclass with every tensor moved to ``device``."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(device) for f in dataclasses.fields(state)
+    })
+
+
+def phase_envs():
+    """Each env's step on the card against its step on the CPU (itself held
+    against the JAX package by tests/test_torch_port_envs{2d,3d}.py); then
+    the wall time and device kernels of a step at 4096 envs."""
+    from rl_games_tpu_torch.envs import registry
+
+    for name in ENV_NAMES:
+        create = registry.ENV_CONFIGURATIONS[name]["env_creator"]
+        cpu_env, gpu_env = create(device="cpu"), create(device="cuda")
+        n = 64
+        state, _ = cpu_env.reset(n, torch.Generator().manual_seed(1))
+        state.qd += 0.5 * torch.randn(state.qd.shape, generator=torch.Generator().manual_seed(2))
+        width = cpu_env.env_info().action_space.shape[0]
+        actions = torch.rand((n, width), generator=torch.Generator().manual_seed(3)) * 2.6 - 1.3
+        want = cpu_env.step(state, actions)
+        got = gpu_env.step(state_to(state, "cuda"), actions.cuda())
+        dq = float((got[0].q.cpu() - want[0].q).abs().max())
+        dobs = float((got[1].cpu() - want[1]).abs().max())
+        drew = float((got[2].cpu() - want[2]).abs().max())
+        same_done = bool(torch.equal(got[3].cpu(), want[3]))
+        print(f"[envs] {name} step cuda vs cpu ({n} envs): max |dq| {dq:.2e}, max |dobs| {dobs:.2e}, "
+              f"max |dreward| {drew:.2e}, terminations equal: {same_done}")
+        if not (dq < 1e-4 and dobs < 1e-3 and drew < 1e-3 and same_done):
+            raise AssertionError(f"{name} step on the card disagrees with the CPU step")
+
+    rows = {}
+    for name in ("Ant2D",) + ENV_NAMES:
+        n = 4096
+        vec = registry.create_vec_env(name, n)  # the default device: the card
+        state, _ = vec.reset(torch.Generator(device="cuda").manual_seed(0))
+        width = vec.get_env_info().action_space.shape[0]
+        actions = torch.rand((n, width), generator=torch.Generator(device="cuda").manual_seed(1),
+                             device="cuda") * 2 - 1
+        q, qd = state.estate.q, state.estate.qd
+        step = lambda: vec.step(state, actions)  # noqa: E731
+        kinematics = lambda: vec.env.kinematics(q, qd)  # noqa: E731
+        row = {}
+        for what, fn in (("step", step), ("kinematics", kinematics)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+            device_ms, kernels = device_time_ms(fn, 5)
+            row[what] = {"wall_ms": wall_ms, "device_ms": device_ms, "kernels": kernels}
+        rows[name] = row
+        print(f"[envs] {name} at {n} envs: vec-env step {row['step']['wall_ms']:.2f} ms wall, "
+              f"{row['step']['device_ms']:.3f} ms device, {row['step']['kernels']} device kernels; "
+              f"kinematics with J and J̇q̇ {row['kinematics']['wall_ms']:.2f} ms wall, "
+              f"{row['kinematics']['device_ms']:.3f} ms device, {row['kinematics']['kernels']} device kernels")
+    return rows
+
+
+def load_config(name: str) -> dict:
+    """A YAML config of the repo, read in place."""
+    import yaml
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rl_games_tpu", "configs", name)
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+class ScalarLog:
+    """A writer that keeps every scalar, by tag."""
+
+    def __init__(self):
+        self.tags = {}
+
+    def add_scalar(self, tag, value, step):
+        self.tags.setdefault(tag, []).append(float(value))
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
 
 
 def phase_trainer(epochs: int):
@@ -554,6 +695,157 @@ def phase_runner(epochs: int, plain_epoch_s: float):
     return train_launches, play_launches, steps
 
 
+def phase_humanoid3d(epochs: int, play_steps: int = 100):
+    """ppo_humanoid3d.yaml at full width with the fused MLP, diagnostics and
+    an observer, through Runner.run: train, then play the last checkpoint."""
+    from rl_games_tpu_torch.algos import ppo as ppo_module
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+    from rl_games_tpu_torch.runner import Runner
+    from rl_games_tpu_torch.utils.observers import DefaultAlgoObserver
+
+    class CountingObserver(DefaultAlgoObserver):
+        """The default observer, counting the hooks the trainer calls."""
+
+        def __init__(self):
+            super().__init__()
+            self.calls = collections.Counter()
+
+        def before_init(self, *args):
+            self.calls["before_init"] += 1
+            super().before_init(*args)
+
+        def after_init(self, algo):
+            self.calls["after_init"] += 1
+            super().after_init(algo)
+
+        def after_epoch(self, metrics):
+            self.calls["after_epoch"] += 1
+            super().after_epoch(metrics)
+
+        def after_print_stats(self, *args):
+            self.calls["after_print_stats"] += 1
+            super().after_print_stats(*args)
+
+    params = load_config("ppo_humanoid3d.yaml")["params"]
+    params["network"]["mlp"]["fused"] = True
+    num_actors, horizon = params["config"]["num_actors"], params["config"]["horizon_length"]
+    minibatch, mini_epochs = params["config"]["minibatch_size"], params["config"]["mini_epochs"]
+    observer, log, epoch_ends, batches = CountingObserver(), ScalarLog(), [], []
+
+    def mark_epoch(agent):  # stop_fn: consulted after every epoch, never stops
+        torch.cuda.synchronize()
+        epoch_ends.append(time.perf_counter())
+        return False
+
+    def counted(x, *args):  # the batch of every kernel launch
+        batches.append(x.shape[0])
+        return launch(x, *args)
+
+    launch, create_writer = fused_mlp.fused_mlp_cuda, ppo_module.create_writer
+    fused_mlp.fused_mlp_cuda, ppo_module.create_writer = counted, (lambda _dir: log)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with tempfile.TemporaryDirectory() as train_dir:
+            params["config"].update({
+                "name": "chip_smoke_humanoid3d", "train_dir": train_dir, "max_epochs": epochs,
+                "use_diagnostics": True, "save_best_after": 1,
+                "player": {**params["config"]["player"], "max_steps": play_steps},
+            })
+            runner = Runner(algo_observer=observer)  # the default device: the card
+            runner.load({"params": params})
+            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+            t0 = time.perf_counter()
+            _, epoch_num = runner.run({"train": True, "stop_fn": mark_epoch})
+            torch.cuda.synchronize()
+            train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            train_batches = {b: batches.count(b) for b in sorted(set(batches))}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            nn_dir = os.path.join(train_dir, "chip_smoke_humanoid3d", "nn")
+            final = [n for n in sorted(os.listdir(nn_dir)) if f"_ep_{epochs}_rew_" in n]
+            if len(final) != 1:
+                raise AssertionError(f"no final checkpoint among {os.listdir(nn_dir)}")
+
+            batches.clear()
+            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+            out = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mean_reward = runner.run({"play": True, "checkpoint": os.path.join(nn_dir, final[0])})
+            torch.cuda.synchronize()
+            play_s = time.perf_counter() - t1
+            play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+    finally:
+        fused_mlp.fused_mlp_cuda, ppo_module.create_writer = launch, create_writer
+
+    # per epoch: horizon rollout forwards + 1 bootstrap forward at B =
+    # num_actors, and mini_epochs x (batch / minibatch) minibatch forwards;
+    # use_diagnostics times 4 rollouts once before the first epoch
+    per_rollout = horizon + 1
+    minibatches = mini_epochs * num_actors * horizon // minibatch
+    expected = {"gae": epochs, "fused_mlp": 4 * per_rollout + (per_rollout + minibatches) * epochs}
+    expected_batches = {num_actors: per_rollout * (epochs + 4), minibatch: minibatches * epochs}
+    if train_launches != expected or train_batches != expected_batches or epoch_num != epochs:
+        raise AssertionError(f"humanoid3d trainer: launches {train_launches} at batches {train_batches} in "
+                             f"{epoch_num} epochs, expected {expected} at {expected_batches}")
+    if play_launches != {"gae": 0, "fused_mlp": play_steps} or set(batches) != {num_actors}:
+        raise AssertionError(f"humanoid3d player: launches {play_launches} in {play_steps} steps")
+    wanted_tags = ([f"diagnostics/kl/{i}" for i in range(mini_epochs)]
+                   + [f"diagnostics/clip_frac/{i}" for i in range(mini_epochs)]
+                   + [f"diagnostics/{k}" for k in ("obs_rms_mean", "obs_rms_var", "value_rms_mean", "value_rms_var")])
+    for tag in wanted_tags:
+        values = log.tags.get(tag, [])
+        if len(values) != epochs or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"scalar {tag}: {values}, expected {epochs} finite values")
+    hooks = {k: observer.calls.get(k, 0) for k in ("before_init", "after_init", "after_epoch", "after_print_stats")}
+    if hooks != {"before_init": 1, "after_init": 1, "after_epoch": epochs, "after_print_stats": epochs}:
+        raise AssertionError(f"observer hooks fired {hooks}")
+    times = np.diff([t0, *epoch_ends])
+    steady = times[1:] if len(times) > 1 else times
+    epoch_s, batch = float(np.median(steady)), num_actors * horizon
+    kl = log.tags["diagnostics/kl/0"]
+    print(f"[humanoid3d] trained {epoch_num} epochs of ppo_humanoid3d.yaml (fused) through Runner.run: launches "
+          f"{train_launches} at batches {train_batches}; steady epoch {epoch_s * 1e3:.1f} ms (median of "
+          f"{len(steady)}), {batch / epoch_s:,.0f} env-steps/s; first epoch (with the rollout timing of "
+          f"use_diagnostics) {times[0] * 1e3:.1f} ms; step rate of the timed rollout "
+          f"{log.tags['performance/step_fps'][-1]:,.0f} env-steps/s; peak device memory {peak_gib:.2f} GiB")
+    print(f"[humanoid3d] diagnostics/kl/0..{mini_epochs - 1} of the last epoch "
+          f"{[round(log.tags[f'diagnostics/kl/{i}'][-1], 6) for i in range(mini_epochs)]}, kl/0 per epoch "
+          f"{[round(v, 6) for v in kl]}; observer hooks {hooks}; rewards/iter {log.tags.get('rewards/iter')}")
+    print(f"[humanoid3d] played {play_steps} steps x {num_actors} envs: launches {play_launches}, "
+          f"mean reward {mean_reward:.3f}, {play_s:.2f} s with set-up")
+    if not math.isfinite(mean_reward):
+        raise AssertionError(f"humanoid3d player: mean reward {mean_reward}")
+    return train_launches, play_launches, epoch_s
+
+
+def phase_ant3d(epochs: int):
+    """ppo_ant3d.yaml at full width, plain MLP, through PPOAgent.train_epoch."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+
+    agent = PPOAgent("chip_smoke_ant3d", load_config("ppo_ant3d.yaml")["params"])
+    state = agent.init_state()
+    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the main path's run starts here
+    times = []
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        state, m = agent.train_epoch(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not (math.isfinite(float(m["a_loss"])) and math.isfinite(float(m["c_loss"]))):
+            raise AssertionError(f"ant3d: non-finite losses in epoch {epoch + 1}")
+    launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+    if launches != {"gae": epochs, "fused_mlp": 0}:
+        raise AssertionError(f"ant3d trainer: launches {launches} in {epochs} epochs")
+    steady = times[1:] or times
+    epoch_s = float(np.median(steady))
+    print(f"[ant3d] {epochs} epochs of ppo_ant3d.yaml (plain MLP) through train_epoch: launches {launches}; "
+          f"steady epoch {epoch_s * 1e3:.1f} ms (median of {len(steady)}), "
+          f"{agent.batch_size / epoch_s:,.0f} env-steps/s; first epoch {times[0] * 1e3:.1f} ms; "
+          f"mean_rewards {float(m['mean_rewards'][0]):.3f}, games {int(m['games_played'])}")
+    return launches, epoch_s
+
+
 def phase_profile(agent, state):
     """One epoch under torch.profiler: device time by kernel and the
     device's idle share of the epoch's wall time."""
@@ -614,19 +906,26 @@ def main():
     if args.profile:
         phase_profiler_sessions()  # before phase_profile: see its docstring
     phase_reference()
+    phase_envs()
     agent, state, plain_launches, plain_epoch_s = phase_trainer(args.epochs)
     if args.profile:
         phase_profile(agent, state)
     del agent, state
     train_launches, play_launches, play_steps = phase_runner(args.epochs, plain_epoch_s)
+    h_train, h_play, _ = phase_humanoid3d(args.epochs)
+    a3_launches, _ = phase_ant3d(args.epochs)
 
-    # launches of the main paths' runs: the plain trainer, the fused trainer
-    # and the player, each counted from 0
-    gae_entry["launches"] = plain_launches["gae"] + train_launches["gae"]
-    gae_entry["launches_per_epoch"] = gae_entry["launches"] / (2 * args.epochs)
-    fused_entry["launches"] = train_launches["fused_mlp"] + play_launches["fused_mlp"]
+    # launches of the main paths' runs, each counted from 0: the plain
+    # trainer, the fused trainer and its player, the Humanoid3D trainer and
+    # its player, the Ant3D trainer
+    gae_entry["launches"] = (plain_launches["gae"] + train_launches["gae"] + h_train["gae"]
+                             + a3_launches["gae"])
+    gae_entry["launches_per_epoch"] = gae_entry["launches"] / (4 * args.epochs)
+    fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
+                               + h_train["fused_mlp"] + h_play["fused_mlp"])
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
+    fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,12 @@ place. Nothing in an epoch reads a device value on the host.
 
 ``train`` is the host loop around it (ContinuousA2CBase.train,
 a2c_common.py:1372-1492): run directories, resume from a checkpoint,
-logging, the three kinds of checkpoint and the stop conditions. Metrics
-cross to the host only on log epochs.
+logging, the algo observer's hooks (``features.observer``), the three
+kinds of checkpoint and the stop conditions. Metrics cross to the host only
+on log epochs. With ``use_diagnostics`` an epoch also reports kl and the
+clip fraction per mini-epoch and the normalizers' state (PpoDiagnostics,
+diagnostics.py:18-60), and the rollout is timed once so that the step rate
+is reported apart from the update.
 """
 
 import dataclasses
@@ -106,6 +110,13 @@ def meters_mean(m: Meters):
     valid = (idx < m.count).to(torch.float32)
     total = torch.clamp(m.count.to(torch.float32), min=1.0)
     return (m.buf[:cap] * valid).sum(0) / total
+
+
+def _to_host(tree):
+    """A metrics dict (nested dicts of tensors) as numpy values."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +285,9 @@ class PPOAgent:
                 f"max_frames {self.max_frames} exceeds the int32 frame counter"
             )
         self.rewards_shaper = build_reward_shaper(config)
+        self.use_diagnostics = config.get("use_diagnostics", False)
+        self.observer = (config.get("features") or {}).get("observer")
+        self._rollout_time = None  # measured under use_diagnostics
 
         # --- model ----------------------------------------------------------
         self.model = model_builder.ModelBuilder().load(
@@ -303,17 +317,15 @@ class PPOAgent:
             "an RNN torso (network.rnn)": "rnn" in network,
             "a central value net (central_value_config)": config.get("central_value_config") is not None,
             "RND curiosity (rnd_config)": bool(config.get("rnd_config")),
-            "soft augmentation (features.soft_augmentation)": bool(features.get("soft_augmentation")),
+            "soft augmentation (features.soft_augmentation; ROADMAP.md, item A9)": bool(features.get("soft_augmentation")),
             "host envs (vecenv_type)": config.get("vecenv_type") not in (None, "JAX", "DEVICE"),
             "action masks (use_action_masks)": config.get("use_action_masks", False),
             "mixed precision (mixed_precision)": config.get("mixed_precision", False),
             "minibatch permutation (permute_batches)": config.get("permute_batches", False),
-            "RMS advantage normalization (normalize_rms_advantage)": config.get("normalize_rms_advantage", False),
+            "RMS advantage normalization (normalize_rms_advantage; ROADMAP.md, item A2)":
+                config.get("normalize_rms_advantage", False),
             "population based training (pbt; ROADMAP.md, item A12)": bool((config.get("pbt") or {}).get("enabled")),
             "self-play (self_play_config; ROADMAP.md, item A12)": bool(config.get("self_play_config")),
-            "algo observers (features.observer, algo_observer; ROADMAP.md, item A6)":
-                features.get("observer") is not None or bool(config.get("algo_observer")),
-            "per-mini-epoch diagnostics (use_diagnostics; ROADMAP.md, item A6)": config.get("use_diagnostics", False),
         }
         for what, asked in unported.items():
             if asked:
@@ -504,6 +516,7 @@ class PPOAgent:
         lr, ec = state.lr, state.entropy_coef
         max_norm = self.grad_norm if self.truncate_grads else None
         metrics = {k: torch.zeros((), dtype=torch.float32, device=self.device) for k in _METRIC_KEYS}
+        diag = {"kl": [], "clip_frac": []}
         for _ in range(self.mini_epochs_num):
             ms = {k: [] for k in _METRIC_KEYS}
             for i in range(self.num_minibatches):
@@ -524,7 +537,13 @@ class PPOAgent:
             if not legacy:
                 lr, ec = self.scheduler.update(lr, ec, state.epoch, state.frame, ms["kl"].mean())
             metrics = {k: metrics[k] + ms[k].mean() / self.mini_epochs_num for k in _METRIC_KEYS}
+            if self.use_diagnostics:
+                for k in diag:
+                    diag[k].append(ms[k].mean())
         state.lr, state.entropy_coef = lr, ec
+        if self.use_diagnostics:
+            # per-mini-epoch kl and clip fraction (ppo.py:1060-1090)
+            metrics["_diag"] = {k: torch.stack(v) for k, v in diag.items()}
         return metrics
 
     def _finish_epoch(self, state: PPOTrainState, traj, last_values):
@@ -535,6 +554,15 @@ class PPOAgent:
         metrics["explained_variance"] = MK.explained_variance(
             dataset["old_values"].reshape(-1), dataset["returns"].reshape(-1)
         )
+        if self.use_diagnostics:
+            # the normalizers' state (ppo.py:1274-1282)
+            model = self.model
+            if self.normalize_input:
+                metrics["_diag"]["obs_rms_mean"] = model.running_mean_std.running_mean.mean()
+                metrics["_diag"]["obs_rms_var"] = model.running_mean_std.running_var.mean()
+            if self.normalize_value:
+                metrics["_diag"]["value_rms_mean"] = model.value_mean_std.running_mean.mean()
+                metrics["_diag"]["value_rms_var"] = model.value_mean_std.running_var.mean()
         state.epoch = state.epoch + 1
         state.frame = state.frame + self.batch_size
         metrics["lr"] = state.lr
@@ -559,8 +587,8 @@ class PPOAgent:
     # ``self.model``, so the weights calls take no state.
     # ------------------------------------------------------------------
     def clear_stats(self, state: PPOTrainState) -> PPOTrainState:
-        """Reset episode meters + accumulators (algo.clear_stats,
-        a2c_common.py:645-648)."""
+        """Reset episode meters + accumulators, then tell the observer
+        (algo.clear_stats, a2c_common.py:645-648)."""
         n, v = self.num_actors, self.value_size
         f32 = dict(dtype=torch.float32, device=self.device)
         state.current_rewards = torch.zeros((n, v), **f32)
@@ -569,7 +597,24 @@ class PPOAgent:
         state.game_rewards = meters_init(self.games_to_track, v, self.device)
         state.game_shaped_rewards = meters_init(self.games_to_track, v, self.device)
         state.game_lengths = meters_init(self.games_to_track, 1, self.device)
+        if self.observer is not None:
+            self.observer.after_clear_stats()
         return state
+
+    def _calibrate_rollout_time(self, state: PPOTrainState):
+        """The rollout's time alone, best of three after a warm-up, so that
+        the step rate can be reported apart from the update
+        (a2c_common.py:399-404; ppo.py:1543-1557). The state is put back as
+        it was. Returns (seconds, state)."""
+        saved = ckpt.tree_to_plain(state)
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            self._rollout(state)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            times.append(time.perf_counter() - t0)
+        return min(times[1:]), ckpt.tree_from_plain(state, saved)
 
     def get_weights(self) -> Dict[str, torch.Tensor]:
         """Model weights + normalizer stats (a2c_common.py:690-710): a copy
@@ -644,7 +689,13 @@ class PPOAgent:
         if writer is None:
             writer = create_writer(os.path.join(experiment_dir, "summaries"))
         self.writer = writer
+        observer = self.observer
+        if observer is not None:
+            observer.before_init(self.base_name, config, experiment_name)
+            observer.after_init(self)
         max_epochs = self.max_epochs if max_epochs is None else max_epochs
+        if self.use_diagnostics and self._rollout_time is None:
+            self._rollout_time, state = self._calibrate_rollout_time(state)
 
         # metrics reach the host only every ``log_interval`` epochs; loop
         # control stays host-side (epoch and frame advance deterministically)
@@ -675,7 +726,7 @@ class PPOAgent:
             if not do_log:
                 self._save(last_path, state, meta)
                 continue
-            metrics = {k: v.detach().cpu().numpy() for k, v in metrics_dev.items()}
+            metrics = _to_host(metrics_dev)
             now = time.perf_counter()
             total_time = now - start_time
             # divide by the ACTUAL epochs since the last log: an early log
@@ -683,9 +734,23 @@ class PPOAgent:
             epoch_time = (now - t_last_log) / max(epoch_num - ep_last_log, 1)
             t_last_log, ep_last_log = now, epoch_num
             fps_total = self.batch_size / max(epoch_time, 1e-9)
+            # with the rollout timed on its own (use_diagnostics) the step
+            # rate leaves out the update; env and inference stay together
+            fps_step = fps_total if self._rollout_time is None else self.batch_size / max(self._rollout_time, 1e-9)
             write_ppo_stats(writer, metrics, frame, epoch_num, total_time, fps_total,
-                            fps_total, self.value_size)
+                            fps_step, self.value_size)
             writer.add_scalar("info/explained_variance", float(metrics["explained_variance"]), frame)
+            diag = metrics.get("_diag")
+            if diag is not None:  # ppo.py:1933-1948
+                for i in range(self.mini_epochs_num):
+                    writer.add_scalar(f"diagnostics/kl/{i}", float(diag["kl"][i]), frame)
+                    writer.add_scalar(f"diagnostics/clip_frac/{i}", float(diag["clip_frac"][i]), frame)
+                for k in ("obs_rms_mean", "obs_rms_var", "value_rms_mean", "value_rms_var"):
+                    if k in diag:
+                        writer.add_scalar(f"diagnostics/{k}", float(diag[k]), frame)
+            if observer is not None:
+                observer.after_epoch(metrics)
+                observer.after_print_stats(frame, epoch_num, total_time)
             games_played = int(metrics["games_played"])
             mean_rewards = float(metrics["mean_rewards"][0]) if games_played else None
             if config.get("print_stats", True):

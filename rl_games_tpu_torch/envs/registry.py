@@ -1,12 +1,13 @@
 """Environment registry.
 
 Port of the device-env part of rl_games_tpu/envs/registry.py
-(``create_vec_env`` :28-44 and the Ant2D entry :106-112; the reference's
+(``create_vec_env`` :28-44 and the physics entries :106-168; the reference's
 env_configurations.py:363-371 + vecenv.py:368-391): env name → a creator of
 a batched device env, wrapped in a ``DeviceVecEnv``. Only device envs are
 ported; host (gymnasium / cpuenv) vec env types are not.
 """
 
+import importlib
 from typing import Dict
 
 from rl_games_tpu_torch.envs.device.base import DeviceVecEnv
@@ -35,10 +36,25 @@ def create_vec_env(env_name: str, num_actors: int, vecenv_type: str = None,
     return DeviceVecEnv(env, num_actors, max_episode_steps=cfg.get("max_episode_steps"))
 
 
-def _create_ant2d(device=None):
-    from rl_games_tpu_torch.envs.device.ant2d import Ant2D
+def _creator(module: str, name: str):
+    """A creator that imports its env class at first use; ``env_config``
+    entries become its constructor's keyword arguments."""
 
-    return Ant2D(device=device)
+    def create(device=None, **kwargs):
+        return getattr(importlib.import_module(f"rl_games_tpu_torch.envs.device.{module}"), name)(
+            device=device, **kwargs
+        )
+
+    return create
 
 
-register("Ant2D", {"vecenv_type": "DEVICE", "env_creator": _create_ant2d})
+for _name, _module in (
+    ("Ant2D", "ant2d"),
+    ("Ant3D", "ant3d"),
+    ("Humanoid3D", "humanoid3d"),
+    ("Cheetah2D", "locomotion2d"),
+    ("Walker2D", "locomotion2d"),
+    ("Arm2D", "arm2d"),
+    ("Grasp2D", "arm2d"),
+):
+    register(_name, {"vecenv_type": "DEVICE", "env_creator": _creator(_module, _name)})

@@ -3,9 +3,11 @@
 Port of rl_games_tpu/runner.py (the reference's torch_runner.py Runner,
 :98-354). Same public API: ``Runner().load(yaml_dict)``,
 ``.run({'train': True, ...})``, ``.create_player()``; same YAML schema
-(params.algo.name / model / network / config). ``Runner(device=None)``
-hands its device to the agent and the player: CUDA by default, which
-raises without a card; the CPU only when asked for.
+(params.algo.name / model / network / config). ``Runner(algo_observer,
+device=None)`` hands the observer to the agent (``config.features.observer``;
+``config.algo_observer: isaac`` or any other true value picks one when none
+is given) and its device to the agent and the player: CUDA by default,
+which raises without a card; the CPU only when asked for.
 """
 
 import copy
@@ -67,8 +69,6 @@ def _resolve_stop_fn(stop_fn):
 
 class Runner:
     def __init__(self, algo_observer=None, device=None):
-        if algo_observer is not None:
-            unported("algo observers", "A6")
         self.algo_factory = ObjectFactory()
         # torch_runner.py:117-127
         self.algo_factory.register_builder("a2c_continuous", _build_ppo)
@@ -80,6 +80,7 @@ class Runner:
         self.player_factory.register_builder("a2c_discrete", _build_ppo_player)
         self.player_factory.register_builder("sac", _build_sac_player)
 
+        self.algo_observer = algo_observer
         self.device = device
         self.params = None
 
@@ -102,13 +103,19 @@ class Runner:
 
         self.algo_name = params["algo"]["name"]
         config = params["config"]
-        if config.get("algo_observer"):
-            unported("algo observers (config.algo_observer)", "A6")
+        # config-selectable observer (torch_runner.py:163-167)
+        if self.algo_observer is None and config.get("algo_observer"):
+            from rl_games_tpu_torch.utils.observers import DefaultAlgoObserver, IsaacAlgoObserver
+
+            self.algo_observer = (
+                IsaacAlgoObserver() if config["algo_observer"] == "isaac" else DefaultAlgoObserver()
+            )
         # user modules imported for their registration side effects —
         # custom networks / env plugins (torch_runner.py:152-155)
         for module in config.get("import_modules", []) or []:
             importlib.import_module(module)
         config["reward_shaper"] = config.get("reward_shaper", {})
+        config.setdefault("features", {})["observer"] = self.algo_observer
         self.params = params
 
     # -- runs ----------------------------------------------------------------

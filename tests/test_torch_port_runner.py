@@ -19,6 +19,7 @@ from rl_games_tpu_torch.algos.ppo import PPOAgent
 from rl_games_tpu_torch.runner import Runner, _resolve_stop_fn
 from rl_games_tpu_torch.utils import checkpoint as ckpt
 from rl_games_tpu_torch.utils import writer as port_writer
+from rl_games_tpu_torch.utils.observers import AlgoObserver
 
 from test_torch_port_ppo import flagship_params
 
@@ -301,8 +302,8 @@ def test_unported_verbs_raise(tmp_path, args, params_patch, item):
 @pytest.mark.parametrize("key, value, item", [
     ("pbt", {"enabled": True}, "A12"),
     ("self_play_config", {"update_score": 1}, "A12"),
-    ("algo_observer", "isaac", "A6"),
-    ("use_diagnostics", True, "A6"),
+    ("normalize_rms_advantage", True, "A2"),
+    ("features", {"soft_augmentation": {"name": "flip"}}, "A9"),
 ])
 def test_unported_train_options_raise(tmp_path, key, value, item):
     params = tiny_params(tmp_path, **{key: value})
@@ -310,5 +311,53 @@ def test_unported_train_options_raise(tmp_path, key, value, item):
         runner = Runner(device="cpu")
         runner.load({"params": params})
         runner.run({"train": True})
-    with pytest.raises(NotImplementedError, match="item A6"):
-        Runner(algo_observer=object())
+
+
+class HookLog(AlgoObserver):
+    """An observer that records the hooks the trainer calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def before_init(self, *args):
+        self.calls.append("before_init")
+
+    def after_init(self, algo):
+        self.calls.append("after_init")
+
+    def after_epoch(self, metrics):
+        self.calls.append("after_epoch")
+
+    def after_print_stats(self, *args):
+        self.calls.append("after_print_stats")
+
+
+@pytest.mark.parametrize("option", ["algo_observer_isaac", "use_diagnostics", "runner_observer"])
+def test_observer_options_reach_the_trainer(tmp_path, monkeypatch, option):
+    """The options that A6 ported, through Runner.run: a config-selected
+    observer, the diagnostics scalars, an observer handed to Runner."""
+    from rl_games_tpu_torch.algos import ppo as ppo_module
+    from rl_games_tpu_torch.utils.observers import IsaacAlgoObserver
+
+    scalars = []
+
+    class Log(port_writer.NoopWriter):
+        def add_scalar(self, tag, value, step):
+            scalars.append(tag)
+
+    monkeypatch.setattr(ppo_module, "create_writer", lambda _dir: Log())
+    config = {"algo_observer_isaac": {"algo_observer": "isaac"},
+              "use_diagnostics": {"use_diagnostics": True}, "runner_observer": {}}[option]
+    observer = HookLog() if option == "runner_observer" else None
+    runner = Runner(algo_observer=observer, device="cpu")
+    runner.load({"params": tiny_params(tmp_path, **config)})
+    runner.run({"train": True})
+    if option == "algo_observer_isaac":
+        assert isinstance(runner.algo_observer, IsaacAlgoObserver)
+        assert runner.algo_observer.writer is not None  # after_init ran
+    elif option == "use_diagnostics":
+        assert {"diagnostics/kl/0", "diagnostics/kl/1", "diagnostics/clip_frac/1",
+                "diagnostics/value_rms_var"} <= set(scalars)
+    else:
+        assert runner.params["config"]["features"]["observer"] is observer
+        assert observer.calls == ["before_init", "after_init"] + ["after_epoch", "after_print_stats"] * 2
