@@ -40,8 +40,24 @@ to a plain version):
                through Runner.run and its last checkpoint played back.
 9. ant3d     — rl_games_tpu/configs/ppo_ant3d.yaml at full width, plain MLP,
                through PPOAgent.train_epoch.
+10. pong     — rl_games_tpu/configs/ppo_pong_device.yaml as shipped (512
+               DevicePong envs, 84x84x2 frames, horizon 64, nature-CNN,
+               4 x 8 minibatches of 4096) through Runner.run: trained, then
+               its last checkpoint played back on 512 envs.
+11. breakout — ppo_breakout_device.yaml as shipped through
+               PPOAgent.train_epoch.
+12. cartpole — ppo_cartpole.yaml with network.mlp.fused: true through
+               Runner.run: trained, then played back.
 
-Launch counts are zeroed just before each of phases 6-9's runs and read
+Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
+1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
+give it, the Pong model's forward and one minibatch update on the card
+against the CPU (where a TF32 convolution would show), and DevicePong,
+DeviceBreakout, PixelCatcher and the classic envs on the card against the
+CPU from the same state and draws, with a vec-env step at 512 and 4096
+envs.
+
+Launch counts are zeroed just before each of phases 6-12's runs and read
 just after, and are held to the counts the code implies.
 
 Prints a {"kernels": [...]} line, then as its last line
@@ -231,10 +247,11 @@ def phase_kernel_gae():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
-    # the main paths' shapes (the flagship's, the 3D configs'), then horizons
-    # that take every branch of the kernel's sweep: one chunk of 16; the
-    # row-by-row tail alone; 16 + 8 + 5
-    for T, N, V in ((16, 8192, 1), (16, 4096, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
+    # the main paths' shapes (the flagship's, the 3D configs', Pong's and
+    # Breakout's, CartPole's), then horizons that take every branch of the
+    # kernel's sweep: one chunk of 16; the row-by-row tail alone; 16 + 8 + 5
+    for T, N, V in ((16, 8192, 1), (16, 4096, 1), (64, 512, 1), (32, 16, 1), (16, 1000, 2), (7, 33, 3),
+                    (29, 777, 2)):
         args = gae_inputs(T, N, V, gen, dev)
         got = gae.gae_cuda(*args, 0.99, 0.95)
         want = gae.gae_plain(*args, 0.99, 0.95)
@@ -257,8 +274,10 @@ def phase_kernel_gae():
         "unit": f"device memory at {PEAK_BYTES_PER_S:.3g} B/s",
         "library_ms": None,
         "library_note": "no single PyTorch call computes GAE",
-        # the 3D configs' shape (4096 envs)
-        "other_shapes": [time_gae(16, 4096, 1, gen, dev)],
+        # the 3D configs' shape (4096 envs), the pixel configs' (512 envs,
+        # horizon 64), CartPole's
+        "other_shapes": [time_gae(16, 4096, 1, gen, dev), time_gae(64, 512, 1, gen, dev),
+                         time_gae(32, 16, 1, gen, dev)],
     }
 
 
@@ -266,6 +285,7 @@ ACTIVATIONS = ("relu", "elu", "selu", "softplus", "gelu", "sigmoid", "swish", "t
 FLAGSHIP_DIMS = (26, 256, 128, 64)
 ANT3D_DIMS = (33, 256, 128, 64)  # ppo_ant3d.yaml: obs 33
 HUMANOID3D_DIMS = (41, 256, 128, 64)  # ppo_humanoid3d.yaml: obs 41
+CARTPOLE_DIMS = (4, 32, 32)  # ppo_cartpole.yaml: obs 4, mlp [32, 32] relu
 
 
 def mlp_inputs(dims, batch, gen, device):
@@ -279,13 +299,14 @@ def mlp_inputs(dims, batch, gen, device):
     return torch.randn((batch, dims[0]), generator=gen, **f32), ws, bs
 
 
-def time_fused(dims, batch, gen, dev):
+def time_fused(dims, batch, gen, dev, activation="elu"):
     """Device time of the fused kernel and of the plain chain at one shape,
     in turns (plain, kernel, kernel, plain), beside the 3xTF32 bound."""
     from rl_games_tpu_torch.ops import fused_mlp as fm
 
     x, ws, bs = mlp_inputs(dims, batch, gen, dev)
-    kernel, plain = (lambda: fm.fused_mlp_cuda(x, ws, bs, "elu")), (lambda: fm.plain_mlp(x, ws, bs, "elu"))
+    kernel = lambda: fm.fused_mlp_cuda(x, ws, bs, activation)  # noqa: E731
+    plain = lambda: fm.plain_mlp(x, ws, bs, activation)  # noqa: E731
     plain_a, plain_n = device_time_ms(plain, 50)
     kernel_a, _ = device_time_ms(kernel, 50)
     kernel_b, _ = device_time_ms(kernel, 50)
@@ -296,12 +317,12 @@ def time_fused(dims, batch, gen, dev):
     nbytes = 4 * (x.numel() + batch * dims[-1] + n_weights + sum(dims[1:]))
     bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
     rows = fm.kernel_plan(dims, batch)
-    print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} ({rows[0]} rows/block) device time: "
+    print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation} ({rows[0]} rows/block) device time: "
           f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); "
           f"bound {bound * 1e3:.2f} us ({flops} TF32 flop, {nbytes} B, by {bound_by}); "
           f"kernel at {bound / kernel_ms:.3f} of the bound's rate")
-    return {"shape": [batch, *dims], "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "share_of_bound": bound / kernel_ms}
+    return {"shape": [batch, *dims], "activation": activation, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms}
 
 
 def phase_kernel_fused_mlp():
@@ -318,13 +339,15 @@ def phase_kernel_fused_mlp():
               (FLAGSHIP_DIMS, 512, 30.0, 1.0), ((130, 257), 1030, 1.0, 8.0), (FLAGSHIP_DIMS, 5001, 1.0, 1.0)]
     # the 3D configs' torsos at the rollout's and the minibatch's batch size
     shapes += [(dims, batch, 1.0, 1.0) for dims in (ANT3D_DIMS, HUMANOID3D_DIMS) for batch in (4096, 32768)]
+    # CartPole's relu torso at the player's, the rollout's and the minibatch's batch size
+    shapes += [(CARTPOLE_DIMS, batch, 1.0, 1.0) for batch in (1, 16, 64)]
     if fm.kernel_plan(FLAGSHIP_DIMS, 5001)[0] != 32:
         raise AssertionError("B = 5001 was chosen to take the 32-row blocks with a ragged last block")
     worst, worst_ratio = 0.0, 0.0
     for i, (dims, batch, x_scale, w_scale) in enumerate(shapes):
         x, ws, bs = mlp_inputs(dims, batch, gen, dev)
         x, ws = x * x_scale, [w * w_scale for w in ws]
-        for activation in (ACTIVATIONS if i == 0 else ("elu",)):
+        for activation in (ACTIVATIONS if i == 0 else ("relu",) if dims == CARTPOLE_DIMS else ("elu",)):
             got = fm.fused_mlp_cuda(x, ws, bs, activation)
             want = fm.plain_mlp(x, ws, bs, activation)
             torch.cuda.synchronize()
@@ -374,6 +397,7 @@ def phase_kernel_fused_mlp():
     }
     entry["other_shapes"] = [time_fused(dims, batch, gen, dev)
                              for dims in (ANT3D_DIMS, HUMANOID3D_DIMS) for batch in (4096, 32768)]
+    entry["other_shapes"] += [time_fused(CARTPOLE_DIMS, batch, gen, dev, "relu") for batch in (16, 64)]
     n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
     for batch, suffix in ((8192, ""), (32768, "_minibatch")):
         x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
@@ -418,7 +442,7 @@ def phase_kernel_fused_mlp():
 def phase_reference():
     """The CUDA path against the port's CPU path (itself held against the
     JAX package by tests/test_torch_*.py) on a small input."""
-    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.algos.ppo import _ADAM_EPS, PPOAgent
     from rl_games_tpu_torch.envs.device.ant2d import Ant2D, Ant2DState
 
     # one Ant2D control step from the same states
@@ -468,6 +492,71 @@ def phase_reference():
     print(f"[reference] fused model forward cuda vs cpu: " + ", ".join(f"max |d{k}| {v:.2e}" for k, v in diffs.items()))
     if not all(v < 2e-5 for v in diffs.values()):
         raise AssertionError("the fused model's forward on the card disagrees with the CPU forward")
+
+    # the Pong model (nature-CNN, 84x84x2 frames): its forward on 128 of its
+    # own rollout's frames, then one minibatch update of 128, card against
+    # CPU from the same weights. The convolutions run in float32 on both
+    # (a TF32 convolution keeps about three digits and would show here)
+    params = load_config("ppo_pong_device.yaml")["params"]
+    params["config"].update(num_actors=16, horizon_length=8, minibatch_size=128, mini_epochs=1)
+    gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+    gstate, cstate = gpu.init_state(), cpu.init_state()
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    traj, last_values = gpu._rollout(gstate)
+    ctraj = {k: v.cpu() for k, v in traj.items()}
+    obs, actions = traj["obses"].reshape(-1, 84, 84, 2), traj["actions"].reshape(-1)
+    with torch.no_grad():
+        got = gpu.model.forward_train(obs, actions)
+        want = cpu.model.forward_train(obs.cpu(), actions.cpu())
+    dlogits = float((got["logits"].cpu() - want["logits"]).abs().max())
+    dvalue = float((got["values"].cpu() - want["values"]).abs().max())
+    cstate.dones = gstate.dones.cpu()
+    gds = gpu._prepare_dataset(gstate, traj, last_values)
+    cds = cpu._prepare_dataset(cstate, ctraj, last_values.cpu())
+    # the minibatch's gradients, then the update (one Adam step)
+    grads = [torch.autograd.grad(agent._loss_and_kl(ds, state.entropy_coef)[0], agent.params)
+             for agent, ds, state in ((gpu, gds, gstate), (cpu, cds, cstate))]
+    dgrad = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30)) for g, c in zip(*grads))
+    lr = float(gstate.lr)
+    before = [p.detach().cpu().double() for p in gpu.params]
+    gm, cm = gpu._update(gstate, gds), cpu._update(cstate, cds)
+    # Adam's first step from the card's own gradients, in float64: clipped
+    # to the global norm, weight decay, then lr * g / (|g| + eps) (the
+    # moments' bias corrections cancel at step 1)
+    g64 = [g.cpu().double() for g in grads[0]]
+    norm = math.sqrt(sum(float((g * g).sum()) for g in g64))
+    clip = gpu.grad_norm / norm if gpu.truncate_grads and norm >= gpu.grad_norm else 1.0
+    g64 = [g * clip + gpu.weight_decay * p for g, p in zip(g64, before)]
+    # where |g| is far above eps the step is lr * sign(g) to within 1e-3 of
+    # lr, whatever rounding the card's gradient carries: the card's step is
+    # held to it there, to 1e-3 of lr. Its gradient is held to the CPU's
+    # above, so the two together hold the update
+    far = [g.abs() > 1e-5 for g in g64]
+    dstep = max(float(torch.where(f, (p.detach().cpu().double() - b) - (-lr * g / (g.abs() + _ADAM_EPS)), 0.0)
+                      .abs().max()) for p, b, g, f in zip(gpu.params, before, g64, far))
+    n_far, n_all = sum(int(f.sum()) for f in far), sum(f.numel() for f in far)
+    csd = cpu.model.state_dict()
+    dp = max(float((v.cpu().double() - csd[k].double()).abs().max()) for k, v in gpu.model.state_dict().items())
+    dloss = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("a_loss", "c_loss")}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print(f"[reference] Pong model cuda vs cpu: forward on 128 frames max |dlogits| {dlogits:.2e}, "
+          f"max |dvalue| {dvalue:.2e} (|logits| up to {float(want['logits'].abs().max()):.1f}); one minibatch of "
+          f"128: gradients within {dgrad:.2e} of each tensor's largest entry (global norm {norm:.4e}, "
+          f"clipped by {clip:.4e}); the card's Adam step against its own gradients' step where |g| > 1e-5 "
+          f"({n_far} of {n_all} entries): max |d| {dstep:.2e} = {dstep / lr:.2e} lr (lr {lr:.1e}); "
+          f"max |dparam| against the CPU's update {dp:.2e}; a_loss {float(gm['a_loss']):.7f} / "
+          f"{float(cm['a_loss']):.7f}, c_loss {float(gm['c_loss']):.7f} / {float(cm['c_loss']):.7f} "
+          f"(relative {dloss['a_loss']:.2e}, {dloss['c_loss']:.2e}); Adam steps {int(gstate.opt_state.count)}; "
+          f"TF32 (matmul, cudnn) {tf32}")
+    # forward: float32 sums of up to 3136 products, 1e-4 (a TF32 convolution
+    # keeps about three digits: 1e-3 of the logits); gradients: 1e-5 of each
+    # tensor's largest entry, as the CPU tests hold them to the JAX package;
+    # the losses, means of 128 terms that carry the forward's 1e-5: 2e-5
+    # relative. Most entries must take the checked step
+    if tf32 != (False, False) or not (dlogits < 1e-4 and dvalue < 1e-4 and dgrad < 1e-5
+                                      and int(gstate.opt_state.count) == 1 and n_far > n_all // 2
+                                      and dstep < 1e-3 * lr and max(dloss.values()) < 2e-5):
+        raise AssertionError("the Pong model on the card disagrees with the CPU")
 
 
 ENV_NAMES = ("Ant3D", "Humanoid3D", "Walker2D", "Cheetah2D", "Arm2D", "Grasp2D")
@@ -535,6 +624,86 @@ def phase_envs():
     return rows
 
 
+DISCRETE_ENV_NAMES = ("CartPole-v1", "Pendulum-v1", "MountainCarContinuous-v0", "PixelCatcher-v0",
+                      "DevicePong-v0", "DeviceBreakout-v0")
+
+
+def random_actions(space, n, gen, device):
+    """Actions of the env's space drawn from ``gen``: indices, or uniform
+    within the Box's bounds."""
+    from rl_games_tpu_torch.envs.spaces import Discrete
+
+    if isinstance(space, Discrete):
+        return torch.randint(0, space.n, (n,), generator=gen, device=device)
+    return torch.rand((n, *space.shape), generator=gen, device=device) * (space.high - space.low) + space.low
+
+
+def phase_envs_discrete():
+    """The discrete slice's envs and the classic ones: one step on the card
+    against the same step on the CPU, from a state 20 random steps into its
+    episode and with the same draws; then the wall time, device time and
+    device kernels of a vec-env step at 512 and 4096 envs."""
+    from rl_games_tpu_torch.envs import registry
+    from rl_games_tpu_torch.envs.device.base import uniform
+
+    for name in DISCRETE_ENV_NAMES:
+        create = registry.ENV_CONFIGURATIONS[name]["env_creator"]
+        cpu_env, gpu_env = create(device="cpu"), create(device="cuda")
+        n, gen = 512, torch.Generator().manual_seed(1)
+        space, shape = cpu_env.env_info().action_space, cpu_env.step_noise_shape
+        state, _ = cpu_env.reset(n, gen)
+        for _ in range(21):
+            actions = random_actions(space, n, gen, "cpu")
+            noise = None if shape is None else uniform(n, shape, gen, "cpu")
+            prev, (state, obs, reward, terminated, _) = state, cpu_env.step(state, actions, noise)
+        got = gpu_env.step(state_to(prev, "cuda"), actions.cuda(), None if noise is None else noise.cuda())
+        exact = torch.ones(n, dtype=torch.bool)
+        dpos = 0.0
+        for f in dataclasses.fields(state):
+            a, b = getattr(got[0], f.name).cpu(), getattr(state, f.name)
+            same = (a == b).reshape(n, -1).all(dim=1)
+            exact &= same
+            if b.is_floating_point():
+                dpos = max(dpos, float((a - b).abs().max()))
+        frames_equal = bool(torch.equal(got[1].cpu()[exact], obs[exact]))
+        dobs = float((got[1].cpu() - obs).abs().max())
+        drew = float((got[2].cpu() - reward).abs().max())
+        same_done = bool(torch.equal(got[3].cpu(), terminated))
+        print(f"[envs] {name} step cuda vs cpu ({n} envs): max |dstate| {dpos:.2e}, {int(exact.sum())} of {n} "
+              f"envs bit-equal in every field, their observations equal: {frames_equal}; max |dobs| {dobs:.2e}, "
+              f"max |dreward| {drew:.2e}, terminations equal: {same_done}")
+        # a pixel game's step is additions and comparisons on float32
+        # positions, which the card and the CPU round alike: every env is
+        # bit-equal, and its frame (comparisons of those positions) equal. A
+        # classic env's observation takes cos and sin, whose implementations
+        # differ between card and CPU
+        pixel = name in ("PixelCatcher-v0", "DevicePong-v0", "DeviceBreakout-v0")
+        if not (dpos < 1e-5 and (bool(exact.all()) and frames_equal if pixel else dobs < 1e-5)
+                and drew < 1e-4 and same_done):
+            raise AssertionError(f"{name} step on the card disagrees with the CPU step")
+
+    rows = {}
+    for name in DISCRETE_ENV_NAMES:
+        for n in (512, 4096):
+            vec = registry.create_vec_env(name, n)  # the default device: the card
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            state, _ = vec.reset(gen)
+            actions = random_actions(vec.get_env_info().action_space, n, gen, "cuda")
+            step = lambda: vec.step(state, actions)  # noqa: E731
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+            device_ms, kernels = device_time_ms(step, 5)
+            rows[(name, n)] = {"wall_ms": wall_ms, "device_ms": device_ms, "kernels": kernels}
+            print(f"[envs] {name} at {n} envs: vec-env step {wall_ms:.2f} ms wall, {device_ms:.3f} ms device, "
+                  f"{kernels} device kernels")
+    return rows
+
+
 def load_config(name: str) -> dict:
     """A YAML config of the repo, read in place."""
     import yaml
@@ -565,6 +734,7 @@ def phase_trainer(epochs: int):
     from rl_games_tpu_torch.ops import fused_mlp, gae
 
     num_actors = 8192
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     agent = PPOAgent("chip_smoke", flagship_params(num_actors))
     state = agent.init_state()
@@ -600,6 +770,34 @@ def phase_trainer(epochs: int):
     return agent, state, launches, float(np.median(steady))
 
 
+def epoch_marker(ends):
+    """A stop_fn that stamps the end of every epoch and never stops."""
+    def mark(agent):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return False
+    return mark
+
+
+def steady_player_step(runner, checkpoint):
+    """The player's mean step time without set-up: a second player on the
+    checkpoint, the start of each env step stamped on the host's clock."""
+    player = runner.create_player()
+    player.restore(checkpoint)
+    env_step, stamps = player.vec_env.step, []
+
+    def stamped_step(*args, **kwargs):
+        stamps.append(time.perf_counter())
+        return env_step(*args, **kwargs)
+
+    player.vec_env.step = stamped_step
+    with contextlib.redirect_stdout(io.StringIO()):
+        player.run()
+    torch.cuda.synchronize()
+    warm = min(20, len(stamps) - 1)
+    return (time.perf_counter() - stamps[warm]) / (len(stamps) - warm), warm + 1, len(stamps)
+
+
 def phase_runner(epochs: int, plain_epoch_s: float):
     """The fused flagship config through Runner.run: train, then play the
     last checkpoint back. Returns the launch counts of the two runs and the
@@ -612,12 +810,6 @@ def phase_runner(epochs: int, plain_epoch_s: float):
     params["seed"] = 7
     params["network"]["mlp"]["fused"] = True
     epoch_ends = []
-
-    def mark_epoch(agent):  # stop_fn: consulted after every epoch, never stops
-        torch.cuda.synchronize()
-        epoch_ends.append(time.perf_counter())
-        return False
-
     with tempfile.TemporaryDirectory() as train_dir:
         params["config"].update({
             "name": "chip_smoke_fused", "train_dir": train_dir, "max_epochs": epochs,
@@ -630,7 +822,7 @@ def phase_runner(epochs: int, plain_epoch_s: float):
 
         gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
         t0 = time.perf_counter()
-        last_mean, epoch_num = runner.run({"train": True, "stop_fn": mark_epoch})
+        last_mean, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(epoch_ends)})
         torch.cuda.synchronize()
         train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
         # per epoch: 16 rollout forwards + 1 bootstrap forward at B = 8192 and
@@ -665,22 +857,7 @@ def phase_runner(epochs: int, plain_epoch_s: float):
         play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
         sys.stdout.write(out.getvalue())
 
-        # the steady step without set-up: a second player on the same
-        # checkpoint, the start of each env step stamped on the host's clock
-        player = runner.create_player()
-        player.restore(checkpoint)
-        env_step, stamps = player.vec_env.step, []
-
-        def stamped_step(*args, **kwargs):
-            stamps.append(time.perf_counter())
-            return env_step(*args, **kwargs)
-
-        player.vec_env.step = stamped_step
-        with contextlib.redirect_stdout(io.StringIO()):
-            player.run()
-        torch.cuda.synchronize()
-        warm = min(20, len(stamps) - 1)
-        steady_step_s = (time.perf_counter() - stamps[warm]) / (len(stamps) - warm)
+        steady_step_s, first, last = steady_player_step(runner, checkpoint)
     games = re.search(r"games played: (\d+)", out.getvalue())
     # one policy forward per env step, nothing else
     if play_launches != {"gae": 0, "fused_mlp": steps} or steps != play_steps:
@@ -690,7 +867,7 @@ def phase_runner(epochs: int, plain_epoch_s: float):
     print(f"[runner] played {steps} steps x {num_actors} envs through Runner.run: launches {play_launches}, "
           f"{int(games.group(1))} games in the meter, mean reward {mean_reward:.3f}; {play_s:.2f} s with set-up, "
           f"{steps / play_s:.1f} steps/s, {steps * num_actors / play_s:,.0f} env-steps/s; steady step without set-up "
-          f"{steady_step_s * 1e3:.2f} ms (mean of steps {warm + 1}-{len(stamps)} of a second run), "
+          f"{steady_step_s * 1e3:.2f} ms (mean of steps {first}-{last} of a second run), "
           f"{num_actors / steady_step_s:,.0f} env-steps/s")
     return train_launches, play_launches, steps
 
@@ -732,11 +909,6 @@ def phase_humanoid3d(epochs: int, play_steps: int = 100):
     minibatch, mini_epochs = params["config"]["minibatch_size"], params["config"]["mini_epochs"]
     observer, log, epoch_ends, batches = CountingObserver(), ScalarLog(), [], []
 
-    def mark_epoch(agent):  # stop_fn: consulted after every epoch, never stops
-        torch.cuda.synchronize()
-        epoch_ends.append(time.perf_counter())
-        return False
-
     def counted(x, *args):  # the batch of every kernel launch
         batches.append(x.shape[0])
         return launch(x, *args)
@@ -755,7 +927,7 @@ def phase_humanoid3d(epochs: int, play_steps: int = 100):
             runner.load({"params": params})
             gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
             t0 = time.perf_counter()
-            _, epoch_num = runner.run({"train": True, "stop_fn": mark_epoch})
+            _, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(epoch_ends)})
             torch.cuda.synchronize()
             train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
             train_batches = {b: batches.count(b) for b in sorted(set(batches))}
@@ -846,6 +1018,151 @@ def phase_ant3d(epochs: int):
     return launches, epoch_s
 
 
+def train_and_play(name: str, params: dict, epochs: int):
+    """``params`` through Runner.run: train ``epochs`` epochs, then play the
+    last checkpoint. Returns the launch counts of both runs (each counted
+    from 0 just before it), the epoch times, the peak device memory of the
+    training, the player's output and mean reward, and the steady step."""
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+    from rl_games_tpu_torch.runner import Runner
+
+    ends = []
+    with tempfile.TemporaryDirectory() as train_dir:
+        params["config"].update(train_dir=train_dir, max_epochs=epochs)
+        runner = Runner()  # the default device: the card
+        runner.load({"params": params})
+        torch.cuda.reset_peak_memory_stats()
+        gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+        t0 = time.perf_counter()
+        _, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(ends)})
+        torch.cuda.synchronize()
+        train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        nn_dir = os.path.join(train_dir, params["config"]["name"], "nn")
+        final = [n for n in sorted(os.listdir(nn_dir)) if f"_ep_{epochs}_rew_" in n]
+        if epoch_num != epochs or len(final) != 1:
+            raise AssertionError(f"{name}: {epoch_num} epochs, checkpoints {os.listdir(nn_dir)}")
+        checkpoint = os.path.join(nn_dir, final[0])
+        player = runner.create_player()
+        steps = player.steps_needed(player.games_num)
+        del player
+        gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mean_reward = runner.run({"play": True, "checkpoint": checkpoint})
+        torch.cuda.synchronize()
+        play_s = time.perf_counter() - t1
+        play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        steady_s, first, last = steady_player_step(runner, checkpoint)
+    if not math.isfinite(mean_reward):
+        raise AssertionError(f"{name} player: mean reward {mean_reward}")
+    return {"train": train_launches, "play": play_launches, "times": np.diff([t0, *ends]), "peak_gib": peak_gib,
+            "play_out": out.getvalue().strip(), "play_s": play_s, "play_steps": steps, "mean_reward": mean_reward,
+            "steady_step_s": steady_s, "steady_of": (first, last)}
+
+
+def report_epochs(tag, times, batch, peak_gib):
+    steady = times[1:] if len(times) > 1 else times
+    epoch_s = float(np.median(steady))
+    print(f"[{tag}] first epoch {times[0] * 1e3:.1f} ms; steady epoch {epoch_s * 1e3:.1f} ms (median of "
+          f"{len(steady)}), {batch / epoch_s:,.0f} env-steps/s; peak device memory {peak_gib:.2f} GiB")
+    return epoch_s
+
+
+def phase_pong(epochs: int, play_steps: int = 200):
+    """ppo_pong_device.yaml as shipped (only max_epochs, train_dir and the
+    player's steps changed) through Runner.run: train, then play."""
+    params = load_config("ppo_pong_device.yaml")["params"]
+    params["config"]["player"] = {**params["config"]["player"], "max_steps": play_steps}
+    run = train_and_play("pong", params, epochs)
+    cfg = params["config"]
+    batch, n = cfg["num_actors"] * cfg["horizon_length"], cfg["num_actors"]
+    if run["train"] != {"gae": epochs, "fused_mlp": 0} or run["play"] != {"gae": 0, "fused_mlp": 0}:
+        raise AssertionError(f"pong: launches {run['train']} in {epochs} epochs, player {run['play']}")
+    print(f"[pong] trained {epochs} epochs of ppo_pong_device.yaml through Runner.run ({n} envs x "
+          f"{cfg['horizon_length']} steps, {cfg['mini_epochs']} x {batch // cfg['minibatch_size']} minibatches of "
+          f"{cfg['minibatch_size']}): launches {run['train']} (GAE at [{cfg['horizon_length']}, {n}, 1])")
+    epoch_s = report_epochs("pong", run["times"], batch, run["peak_gib"])
+    s = run["steady_step_s"]
+    print(f"[pong] played {run['play_steps']} steps x {n} envs: {run['play_out']!r}, {run['play_s']:.2f} s with "
+          f"set-up; steady step without set-up {s * 1e3:.2f} ms (mean of steps {run['steady_of'][0]}-"
+          f"{run['steady_of'][1]} of a second run), {n / s:,.0f} env-steps/s")
+    return run["train"], epoch_s
+
+
+def phase_breakout(epochs: int):
+    """ppo_breakout_device.yaml as shipped through PPOAgent.train_epoch."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+
+    agent = PPOAgent("chip_smoke_breakout", load_config("ppo_breakout_device.yaml")["params"])
+    state = agent.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the main path's run starts here
+    times = []
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        state, m = agent.train_epoch(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not (math.isfinite(float(m["a_loss"])) and math.isfinite(float(m["c_loss"]))):
+            raise AssertionError(f"breakout: non-finite losses in epoch {epoch + 1}")
+    launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+    if launches != {"gae": epochs, "fused_mlp": 0}:
+        raise AssertionError(f"breakout trainer: launches {launches} in {epochs} epochs")
+    print(f"[breakout] {epochs} epochs of ppo_breakout_device.yaml through train_epoch: launches {launches}; "
+          f"kl {float(m['kl']):.5f}, entropy {float(m['entropy']):.4f}, lr {float(m['lr']):.2e}, "
+          f"mean_rewards {float(m['mean_rewards'][0]):.3f}, games {int(m['games_played'])}")
+    epoch_s = report_epochs("breakout", np.array(times), agent.batch_size, torch.cuda.max_memory_allocated() / 2**30)
+    return agent, state, launches, epoch_s
+
+
+def phase_cartpole(epochs: int, play_steps: int = 200):
+    """ppo_cartpole.yaml with network.mlp.fused: true through Runner.run:
+    train, then play; the fused launches held to the count the code implies."""
+    from rl_games_tpu_torch.ops import fused_mlp
+
+    params = load_config("ppo_cartpole.yaml")["params"]
+    params["network"]["mlp"]["fused"] = True
+    params["config"]["player"] = {**params["config"]["player"], "max_steps": play_steps}
+    cfg = params["config"]
+    horizon, mini_epochs = cfg["horizon_length"], cfg["mini_epochs"]
+    minibatches = cfg["num_actors"] * horizon // cfg["minibatch_size"]
+    batches = []
+
+    def counted(x, *args):  # the batch of every kernel launch
+        batches.append(x.shape[0])
+        return launch(x, *args)
+
+    launch = fused_mlp.fused_mlp_cuda
+    fused_mlp.fused_mlp_cuda = counted
+    try:
+        run = train_and_play("cartpole", params, epochs)
+    finally:
+        fused_mlp.fused_mlp_cuda = launch
+    # per epoch: horizon rollout forwards and 1 bootstrap forward at B =
+    # num_actors, mini_epochs x minibatches forwards at B = minibatch_size;
+    # the player: one forward per step at B = num_actors. The steady-step
+    # run of the player adds play_steps more at B = num_actors
+    per_epoch = horizon + 1 + mini_epochs * minibatches
+    expected_batches = {cfg["num_actors"]: (horizon + 1) * epochs + 2 * play_steps,
+                        cfg["minibatch_size"]: mini_epochs * minibatches * epochs}
+    got_batches = {b: batches.count(b) for b in sorted(set(batches))}
+    if (run["train"] != {"gae": epochs, "fused_mlp": per_epoch * epochs}
+            or run["play"] != {"gae": 0, "fused_mlp": play_steps} or run["play_steps"] != play_steps
+            or got_batches != expected_batches):
+        raise AssertionError(f"cartpole: launches {run['train']} in {epochs} epochs, player {run['play']} in "
+                             f"{run['play_steps']} steps, batches {got_batches}; expected {per_epoch} fused per "
+                             f"epoch, 1 per player step, batches {expected_batches}")
+    print(f"[cartpole] trained {epochs} epochs of ppo_cartpole.yaml (fused) through Runner.run: launches "
+          f"{run['train']} ({per_epoch} fused per epoch) at batches {got_batches} with the player's; "
+          f"played {play_steps} steps: launches {run['play']}, {run['play_out']!r}")
+    epoch_s = report_epochs("cartpole", run["times"], cfg["num_actors"] * horizon, run["peak_gib"])
+    print(f"[cartpole] steady player step {run['steady_step_s'] * 1e3:.2f} ms at {cfg['num_actors']} envs")
+    return run["train"], run["play"], play_steps, epoch_s
+
+
 def phase_profile(agent, state):
     """One epoch under torch.profiler: device time by kernel and the
     device's idle share of the epoch's wall time."""
@@ -907,6 +1224,7 @@ def main():
         phase_profiler_sessions()  # before phase_profile: see its docstring
     phase_reference()
     phase_envs()
+    phase_envs_discrete()
     agent, state, plain_launches, plain_epoch_s = phase_trainer(args.epochs)
     if args.profile:
         phase_profile(agent, state)
@@ -914,18 +1232,34 @@ def main():
     train_launches, play_launches, play_steps = phase_runner(args.epochs, plain_epoch_s)
     h_train, h_play, _ = phase_humanoid3d(args.epochs)
     a3_launches, _ = phase_ant3d(args.epochs)
+    pong_launches, _ = phase_pong(args.epochs)
+    agent, state, breakout_launches, _ = phase_breakout(3)
+    if args.profile:
+        phase_profile(agent, state)
+    del agent, state
+    cp_train, cp_play, cp_steps, _ = phase_cartpole(args.epochs)
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
-    # its player, the Ant3D trainer
-    gae_entry["launches"] = (plain_launches["gae"] + train_launches["gae"] + h_train["gae"]
-                             + a3_launches["gae"])
-    gae_entry["launches_per_epoch"] = gae_entry["launches"] / (4 * args.epochs)
+    # its player, the Ant3D, Pong, Breakout and CartPole trainers and the
+    # CartPole player
+    runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train)
+    epochs_trained = (args.epochs,) * 5 + (3, args.epochs)  # Breakout trains 3
+    gae_entry["launches"] = sum(r["gae"] for r in runs)
+    gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
+    gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
+                                     "humanoid3d": h_train["gae"], "ant3d": a3_launches["gae"],
+                                     "pong": pong_launches["gae"], "breakout": breakout_launches["gae"],
+                                     "cartpole": cp_train["gae"]}
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
-                               + h_train["fused_mlp"] + h_play["fused_mlp"])
+                               + h_train["fused_mlp"] + h_play["fused_mlp"]
+                               + cp_train["fused_mlp"] + cp_play["fused_mlp"])
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
+    fused_entry["launches_cartpole"] = {"train": cp_train["fused_mlp"], "play": cp_play["fused_mlp"],
+                                        "per_epoch": cp_train["fused_mlp"] / args.epochs,
+                                        "per_player_step": cp_play["fused_mlp"] / cp_steps}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """PPO over device-resident envs, in PyTorch.
 
-Port of the continuous, flat-observation subset of rl_games_tpu/algos/ppo.py
-(the reference's a2c_common.py play_steps :787-850 and train_epoch
-:1241-1307). One epoch (``train_epoch``) is
+Port of the non-recurrent, single-agent subset of rl_games_tpu/algos/ppo.py,
+continuous and discrete (the reference's a2c_common.py play_steps
+:787-850 and train_epoch :1241-1307, a2c_continuous.py, a2c_discrete.py).
+One epoch (``train_epoch``) is
 
     rollout  = horizon × (policy forward + sample + env step + autoreset)
     gae      = ops.gae.compute_gae (the CUDA kernel on the card)
@@ -12,12 +13,18 @@ Port of the continuous, flat-observation subset of rl_games_tpu/algos/ppo.py
 with the JAX package's semantics: the value bootstrap at time-outs
 (a2c_common.py:813-814), the two-step value-normalizer update
 (:1325-1332), advantage normalization, the 'legacy' per-minibatch
-adaptive LR with mu/sigma writeback (datasets.py:33-43), episode meters
-and the epoch/frame counters. The JAX package compiles the epoch into one
+adaptive LR with mu/sigma writeback for continuous actions
+(datasets.py:33-43), episode meters and the epoch/frame counters. Discrete
+actions are stored as integers and passed to the env as they are; their
+adaptive-LR KL is 0.5 · mean((old neglogp − neglogp)²) (ppo.py:959-962).
+The JAX package compiles the epoch into one
 program over an immutable state; here it runs eagerly, the weights and
 normalizer stats live in ``agent.model`` (an ``nn.Module``) and the rest of
 the train state in a ``PPOTrainState`` that ``train_epoch`` updates in
-place. Nothing in an epoch reads a device value on the host.
+place. Nothing in an epoch reads a device value on the host. The
+trajectory is written into tensors allocated once per rollout (the
+observations env-major, so that flattening them into the dataset is a
+view, not a second copy of the largest tensor of the epoch).
 
 ``train`` is the host loop around it (ContinuousA2CBase.train,
 a2c_common.py:1372-1492): run directories, resume from a checkpoint,
@@ -45,14 +52,15 @@ from rl_games_tpu_torch.common.tr_helpers import (
 )
 from rl_games_tpu_torch.envs import registry as env_registry
 from rl_games_tpu_torch.envs.device.base import VecEnvState
-from rl_games_tpu_torch.envs.spaces import Box, actions_num_of, obs_shape_of
+from rl_games_tpu_torch.envs.spaces import Box, Discrete, actions_num_of, obs_shape_of
 from rl_games_tpu_torch.models import model_builder
 from rl_games_tpu_torch.ops import losses as L
 from rl_games_tpu_torch.ops import masked as MK
 from rl_games_tpu_torch.ops.gae import compute_gae
 from rl_games_tpu_torch.ops.schedulers import build_scheduler
 from rl_games_tpu_torch.utils import checkpoint as ckpt
-from rl_games_tpu_torch.utils.device import resolve_device
+from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
+from rl_games_tpu_torch.utils.unported import unported
 from rl_games_tpu_torch.utils.writer import create_writer, write_ppo_stats
 
 _METRIC_KEYS = ("a_loss", "c_loss", "entropy", "b_loss", "kl", "clip_frac")
@@ -191,7 +199,7 @@ class PPOTrainState:
 
 
 class PPOAgent:
-    """PPO trainer for continuous actions over device envs.
+    """PPO trainer for continuous or discrete actions over device envs.
 
     ``params`` is the reference YAML ``params:`` dict (algo / model /
     network / config). ``device`` defaults to CUDA; without CUDA that
@@ -204,10 +212,7 @@ class PPOAgent:
         config = params["config"]
         self.config = config
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # full-f32 products, as in the reference
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        use_full_float32(self.device)
         self._refuse_unported(params)
 
         # --- env ------------------------------------------------------------
@@ -228,8 +233,8 @@ class PPOAgent:
         self.obs_shape = obs_shape_of(info.observation_space)
         self.actions_num = actions_num_of(info.action_space)
         self.is_continuous = isinstance(info.action_space, Box)
-        if not self.is_continuous:
-            raise NotImplementedError("discrete action spaces are not ported yet (see ROADMAP.md)")
+        if not self.is_continuous and not isinstance(info.action_space, Discrete):
+            unported(f"the action space {info.action_space}", "A8")
 
         # --- config (a2c_common.py:137-330) ---------------------------------
         self.horizon_length = config["horizon_length"]
@@ -302,10 +307,11 @@ class PPOAgent:
         )
         self.params = list(self.model.parameters())
 
-        space = self.action_space
-        self._rescale = bool(np.isfinite(space.low).all() and np.isfinite(space.high).all())
-        self._action_low = torch.as_tensor(space.low, dtype=torch.float32, device=self.device)
-        self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.device)
+        if self.is_continuous:
+            space = self.action_space
+            self._rescale = bool(np.isfinite(space.low).all() and np.isfinite(space.high).all())
+            self._action_low = torch.as_tensor(space.low, dtype=torch.float32, device=self.device)
+            self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.device)
 
     @staticmethod
     def _refuse_unported(params: dict):
@@ -313,13 +319,13 @@ class PPOAgent:
         config = params["config"]
         network = params.get("network", {})
         features = config.get("features") or {}
-        unported = {
-            "an RNN torso (network.rnn)": "rnn" in network,
-            "a central value net (central_value_config)": config.get("central_value_config") is not None,
-            "RND curiosity (rnd_config)": bool(config.get("rnd_config")),
+        options = {
+            "an RNN torso (network.rnn; ROADMAP.md, item A9)": "rnn" in network,
+            "a central value net (central_value_config; ROADMAP.md, item A9)": config.get("central_value_config") is not None,
+            "RND curiosity (rnd_config; ROADMAP.md, item A9)": bool(config.get("rnd_config")),
             "soft augmentation (features.soft_augmentation; ROADMAP.md, item A9)": bool(features.get("soft_augmentation")),
-            "host envs (vecenv_type)": config.get("vecenv_type") not in (None, "JAX", "DEVICE"),
-            "action masks (use_action_masks)": config.get("use_action_masks", False),
+            "host envs (vecenv_type; ROADMAP.md, item A11)": config.get("vecenv_type") not in (None, "JAX", "DEVICE"),
+            "action masks (use_action_masks; ROADMAP.md, item A8)": config.get("use_action_masks", False),
             "mixed precision (mixed_precision)": config.get("mixed_precision", False),
             "minibatch permutation (permute_batches)": config.get("permute_batches", False),
             "RMS advantage normalization (normalize_rms_advantage; ROADMAP.md, item A2)":
@@ -327,7 +333,7 @@ class PPOAgent:
             "population based training (pbt; ROADMAP.md, item A12)": bool((config.get("pbt") or {}).get("enabled")),
             "self-play (self_play_config; ROADMAP.md, item A12)": bool(config.get("self_play_config")),
         }
-        for what, asked in unported.items():
+        for what, asked in options.items():
             if asked:
                 raise NotImplementedError(
                     f"{what} is not ported to rl_games_tpu_torch yet (see ROADMAP.md)"
@@ -373,24 +379,47 @@ class PPOAgent:
     # pieces of the epoch
     # ------------------------------------------------------------------
     def _env_actions(self, actions):
-        """Clip/rescale continuous actions for the env (a2c_common:1224-1234)."""
+        """Clip/rescale continuous actions for the env (a2c_common:1224-1234);
+        discrete ones go as they are."""
+        if not self.is_continuous:
+            return actions
         a = torch.clamp(actions, -1.0, 1.0) if self.clip_actions else actions
         if self._rescale:
             return rescale_actions(self._action_low, self._action_high, a)
         return a
 
+    def _trajectory_buffers(self):
+        """Uninitialized [T, N, ...] trajectory tensors that the rollout fills
+        step by step. The observations lie env-major ([N, T, ...] in memory,
+        a transposed view here), so that swap_and_flatten01 of them is a
+        view: at 512 envs × 64 steps of 84×84×2 frames they are 1.85 GB."""
+        T, N, V = self.horizon_length, self.num_actors, self.value_size
+        f32 = dict(dtype=torch.float32, device=self.device)
+        traj = {
+            "obses": torch.empty((N, T, *self.obs_shape), **f32).transpose(0, 1),
+            "dones": torch.empty((T, N), **f32),
+            "values": torch.empty((T, N, V), **f32),
+            "neglogpacs": torch.empty((T, N), **f32),
+            "rewards": torch.empty((T, N, V), **f32),
+        }
+        if self.is_continuous:
+            for k in ("actions", "mus", "sigmas"):
+                traj[k] = torch.empty((T, N, self.actions_num), **f32)
+        else:
+            traj["actions"] = torch.empty((T, N), dtype=torch.int64, device=self.device)
+        return traj
+
     @torch.no_grad()
     def _rollout(self, state: PPOTrainState):
         """horizon_length policy + env steps (play_steps, a2c_common.py:787-850).
-        Returns the trajectory (each entry stacked to [T, N, ...]) and the
-        bootstrap values of the final observations; updates ``state``."""
+        Returns the trajectory (each entry [T, N, ...]) and the bootstrap
+        values of the final observations; updates ``state``."""
         model = self.model
         env_state, obs, dones = state.env_state, state.obs, state.dones
         cur_r, cur_sr = state.current_rewards, state.current_shaped_rewards
         cur_len = state.current_lengths
-        traj = {k: [] for k in ("obses", "dones", "actions", "values", "neglogpacs",
-                                "rewards", "mus", "sigmas")}
-        for _ in range(self.horizon_length):
+        traj = self._trajectory_buffers()
+        for t in range(self.horizon_length):
             res = model.forward_play(obs, generator=state.generator)
             env_state, next_obs, rewards, new_dones, infos = self.vec_env.step(
                 env_state, self._env_actions(res["actions"])
@@ -416,10 +445,9 @@ class PPOAgent:
             cur_sr = cur_sr * not_done[:, None]
             cur_len = cur_len * not_done
 
-            for k, x in (("obses", obs), ("dones", dones), ("actions", res["actions"]),
-                         ("values", values), ("neglogpacs", res["neglogpacs"]),
-                         ("rewards", shaped), ("mus", res["mus"]), ("sigmas", res["sigmas"])):
-                traj[k].append(x)
+            step = {**res, "obses": obs, "dones": dones, "values": values, "rewards": shaped}
+            for k, buf in traj.items():
+                buf[t] = step[k]
             obs, dones = next_obs, new_dones.to(torch.float32)
 
         # bootstrap values for the final obs (get_values, a2c_common:474-483);
@@ -428,7 +456,7 @@ class PPOAgent:
         state.env_state, state.obs, state.dones = env_state, obs, dones
         state.current_rewards, state.current_shaped_rewards = cur_r, cur_sr
         state.current_lengths = cur_len
-        return {k: torch.stack(v) for k, v in traj.items()}, last_values
+        return traj, last_values
 
     @torch.no_grad()
     def _prepare_dataset(self, state: PPOTrainState, traj, last_values):
@@ -469,8 +497,8 @@ class PPOAgent:
         return dataset
 
     def _loss_and_kl(self, mb, entropy_coef):
-        """Loss assembly (a2c_continuous.py:97-133). Returns the scalar loss
-        and detached diagnostics."""
+        """Loss assembly (a2c_continuous.py:97-133, a2c_discrete.py:116-190).
+        Returns the scalar loss and detached diagnostics."""
         res = self.model.forward_train(mb["obses"], mb["actions"])
         actor_loss_fn = L.smoothed_actor_loss if self.use_smooth_clamp else L.actor_loss
         a_loss = actor_loss_fn(
@@ -479,7 +507,7 @@ class PPOAgent:
         c_loss = L.critic_loss(
             mb["old_values"], res["values"], self.e_clip, mb["returns"], self.clip_value
         )
-        if self.bounds_loss_coef is not None:
+        if self.is_continuous and self.bounds_loss_coef is not None:
             if self.bound_loss_type == "regularisation":
                 b_loss = L.reg_loss(res["mus"])
             else:
@@ -497,7 +525,10 @@ class PPOAgent:
             + (self.bounds_loss_coef or 0.0) * b_loss_m
         )
         with torch.no_grad():
-            kl = self.model.kl(res["mus"], res["sigmas"], mb["mus"], mb["sigmas"]).mean()
+            if self.is_continuous:
+                kl = self.model.kl(res["mus"], res["sigmas"], mb["mus"], mb["sigmas"]).mean()
+            else:
+                kl = 0.5 * torch.square(mb["old_logp_actions"] - res["prev_neglogp"]).mean()
             clip_frac = MK.policy_clip_fraction(
                 res["prev_neglogp"], mb["old_logp_actions"], self.e_clip
             )
@@ -505,8 +536,9 @@ class PPOAgent:
             "a_loss": a_loss_m.detach(), "c_loss": c_loss_m.detach(),
             "entropy": entropy_m.detach(), "b_loss": b_loss_m.detach(),
             "kl": kl, "clip_frac": clip_frac,
-            "mus": res["mus"].detach(), "sigmas": res["sigmas"].detach(),
         }
+        if self.is_continuous:
+            aux["mus"], aux["sigmas"] = res["mus"].detach(), res["sigmas"].detach()
         return total, aux
 
     def _update(self, state: PPOTrainState, dataset) -> Dict[str, torch.Tensor]:
@@ -526,10 +558,11 @@ class PPOAgent:
                 grads = torch.autograd.grad(total, self.params)
                 adam_step(self.params, grads, state.opt_state, lr, max_norm, self.weight_decay)
                 if legacy:
-                    # mu/sigma writeback (datasets.py:33-43), in place in
-                    # the dataset rather than into a copy of it
-                    dataset["mus"][sl] = aux["mus"]
-                    dataset["sigmas"][sl] = aux["sigmas"]
+                    if self.is_continuous:
+                        # mu/sigma writeback (datasets.py:33-43), in place
+                        # in the dataset rather than into a copy of it
+                        dataset["mus"][sl] = aux["mus"]
+                        dataset["sigmas"][sl] = aux["sigmas"]
                     lr, ec = self.scheduler.update(lr, ec, state.epoch, state.frame, aux["kl"])
                 for k in _METRIC_KEYS:
                     ms[k].append(aux[k])

@@ -6,9 +6,11 @@ algos_torch/players.py) for device-resident envs: the evaluation loop steps
 the vectorized env a fixed number of times with deterministic (or sampled)
 actions and collects completed-episode returns in a ring meter of
 ``games_num`` entries. Nothing inside the loop reads a device value on the
-host; the whole run is under ``torch.no_grad()``. With
-``network.mlp.fused: true`` every step's policy forward is one launch of
-the fused-MLP kernel.
+host; the whole run is under ``torch.no_grad()``. Continuous actions are
+the mean (deterministic) or a sample, clipped and rescaled to the env's
+bounds; discrete ones the argmax of the logits (deterministic) or a sample,
+passed as they are. With ``network.mlp.fused: true`` every step's policy
+forward is one launch of the fused-MLP kernel.
 """
 
 import glob
@@ -22,10 +24,10 @@ from rl_games_tpu_torch.algos.ppo import CHECKPOINT_EXT, meters_init, meters_mea
 from rl_games_tpu_torch.common import obs_utils
 from rl_games_tpu_torch.common.tr_helpers import rescale_actions
 from rl_games_tpu_torch.envs import registry as env_registry
-from rl_games_tpu_torch.envs.spaces import Box, actions_num_of, obs_shape_of
+from rl_games_tpu_torch.envs.spaces import Box, Discrete, actions_num_of, obs_shape_of
 from rl_games_tpu_torch.models import model_builder
 from rl_games_tpu_torch.utils import checkpoint as ckpt
-from rl_games_tpu_torch.utils.device import resolve_device
+from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
 from rl_games_tpu_torch.utils.unported import unported
 
 
@@ -35,6 +37,7 @@ class BasePlayer:
         config = params["config"]
         self.config = config
         self.device = resolve_device(device)
+        use_full_float32(self.device)
         player_cfg = config.get("player", {}) or {}
         self.player_cfg = player_cfg
         self.num_actors = player_cfg.get("num_actors", config.get("num_actors", 16))
@@ -62,8 +65,8 @@ class BasePlayer:
         self.obs_shape = obs_shape_of(info.observation_space)
         self.actions_num = actions_num_of(info.action_space)
         self.is_continuous = isinstance(info.action_space, Box)
-        if not self.is_continuous:
-            unported("discrete action spaces", "A8")
+        if not self.is_continuous and not isinstance(info.action_space, Discrete):
+            unported(f"the action space {info.action_space}", "A8")
 
         self.model = model_builder.ModelBuilder().load(
             params,
@@ -76,10 +79,11 @@ class BasePlayer:
             device=self.device,
         )
         self.model.reset_parameters(self._generator(self.seed))
-        space = info.action_space
-        self._rescale = bool(np.isfinite(space.low).all() and np.isfinite(space.high).all())
-        self._action_low = torch.as_tensor(space.low, dtype=torch.float32, device=self.device)
-        self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.device)
+        if self.is_continuous:
+            space = info.action_space
+            self._rescale = bool(np.isfinite(space.low).all() and np.isfinite(space.high).all())
+            self._action_low = torch.as_tensor(space.low, dtype=torch.float32, device=self.device)
+            self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.device)
         self._last_ckpt = None
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -105,6 +109,8 @@ class BasePlayer:
         obs_utils.fill_sigma(self.model, sigma)
 
     def _env_actions(self, actions):
+        if not self.is_continuous:
+            return actions
         a = torch.clamp(actions, -1.0, 1.0)
         if self._rescale:
             return rescale_actions(self._action_low, self._action_high, a)

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from rl_games_tpu_torch.envs.device.base import standard_normal
 from rl_games_tpu_torch.envs.device.lagrangian import (
     LagrangianEnv,
     LocomotionState,
@@ -85,6 +86,7 @@ class Ant3D(LagrangianEnv):
     # z, orientation 6D (first two R columns), 8 joints, 14 velocities,
     # 4 contacts
     OBS_DIM = 33
+    reset_noise_shape = (2 * N_LEGS + NQ + 3,)  # joint angles, velocities, tilt
     alive_bonus = 1.0
     ctrl_cost = 0.25
 
@@ -131,12 +133,11 @@ class Ant3D(LagrangianEnv):
             dim=-1,
         )
 
-    def reset(self, num_envs, generator):
-        f32 = dict(dtype=torch.float32, device=self.device)
-        joint_noise = torch.randn((num_envs, 2 * N_LEGS), generator=generator, **f32)
-        qd = 0.02 * torch.randn((num_envs, NQ), generator=generator, **f32)
-        tilt = torch.randn((num_envs, 3), generator=generator, **f32)
-        q = torch.zeros((num_envs, NQ), **f32)
+    def reset_from(self, noise):
+        num_envs = noise.shape[0]
+        joint_noise, qd, tilt = standard_normal(noise).split([2 * N_LEGS, NQ, 3], dim=1)
+        qd = 0.02 * qd
+        q = torch.zeros((num_envs, NQ), dtype=torch.float32, device=self.device)
         # feet at z = base_z - L sin(knee): start just touching the ground
         q[:, 2] = LINK_L * math.sin(KNEE_INIT) + 0.01
         q[:, 3:6] = 0.02 * tilt

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from rl_games_tpu_torch.envs.device.base import DeviceEnv
+from rl_games_tpu_torch.envs.device.base import DeviceEnv, standard_normal
 from rl_games_tpu_torch.envs.device.lagrangian import (
     Jet,
     cat,
@@ -74,6 +74,7 @@ class Arm2D(DeviceEnv):
         self.inertias = torch.full((self.n,), link_i, **f32)
         self.reg = 1e-6 * torch.eye(self.n, **f32)
         self.reach = self.n * self.link_l
+        self.reset_noise_shape = (self.n + 2,)  # joint angles, the target's radius and angle
         # obs: [sin q, cos q, qd, target, ee, target - ee]
         self.obs_dim = 3 * self.n + 6
 
@@ -132,26 +133,23 @@ class Arm2D(DeviceEnv):
             dim=-1,
         )
 
-    def _uniform(self, num_envs, lo, hi, generator):
-        u = torch.rand((num_envs,), generator=generator, dtype=torch.float32, device=self.device)
-        return lo + (hi - lo) * u
-
-    def _sample_target(self, num_envs, generator):
-        r = self._uniform(num_envs, 0.3 * self.reach, 0.95 * self.reach, generator)
-        a = self._uniform(num_envs, 0.0, 2.0 * math.pi, generator)
+    def _target(self, u):
+        """A target at a random radius and angle from two uniforms [N, 2]."""
+        r = 0.3 * self.reach + (0.95 * self.reach - 0.3 * self.reach) * u[:, 0]
+        a = 2.0 * math.pi * u[:, 1]
         return r[:, None] * torch.stack([torch.cos(a), torch.sin(a)], dim=-1)
 
-    def _reset_q(self, num_envs, generator):
-        f32 = dict(dtype=torch.float32, device=self.device)
-        q = 0.1 * torch.randn((num_envs, self.n), generator=generator, **f32)
-        return q, torch.zeros((num_envs, self.n), **f32)
+    def _reset_q(self, u):
+        """Joint angles 0.1 N(0, 1) from n uniforms [N, n], at rest."""
+        q = 0.1 * standard_normal(u)
+        return q, torch.zeros_like(q)
 
-    def reset(self, num_envs, generator):
-        q, qd = self._reset_q(num_envs, generator)
-        state = ArmState(q=q, qd=qd, target=self._sample_target(num_envs, generator))
+    def reset_from(self, noise):
+        q, qd = self._reset_q(noise[:, :self.n])
+        state = ArmState(q=q, qd=qd, target=self._target(noise[:, self.n:]))
         return state, self._obs(state)
 
-    def step(self, estate: ArmState, actions):
+    def step(self, estate: ArmState, actions, noise=None):
         action = torch.clamp(actions, -1.0, 1.0)
         q, qd = self.integrate(estate.q, estate.qd, action)
         state = ArmState(q=q, qd=qd, target=estate.target)
@@ -185,6 +183,7 @@ class Grasp2D(Arm2D):
         # obs: arm (sin q, cos q, qd) + ee + obj + objd + target + held
         self.obs_dim = 3 * self.n + 9
         self.floor = -0.5 * self.reach  # a virtual table inside the workspace
+        self.reset_noise_shape = (self.n + 3,)  # joint angles, the object's x, the target
         f32 = dict(dtype=torch.float32, device=self.device)
         self.fall = torch.tensor([0.0, -self.dt * self.g], **f32)
         self.bounce = torch.tensor([0.8, 0.0], **f32)
@@ -212,13 +211,14 @@ class Grasp2D(Arm2D):
             dim=-1,
         )
 
-    def reset(self, num_envs, generator):
-        q, qd = self._reset_q(num_envs, generator)
+    def reset_from(self, noise):
+        num_envs = noise.shape[0]
+        q, qd = self._reset_q(noise[:, :self.n])
         # the object rests on the table at a random reachable x
-        ox = self._uniform(num_envs, -0.7 * self.reach, 0.7 * self.reach, generator)
+        ox = -0.7 * self.reach + 1.4 * self.reach * noise[:, self.n]
         obj = torch.stack([ox, torch.full_like(ox, self.floor)], dim=-1)
         # the place target lies in the reachable upper half-plane
-        target = self._sample_target(num_envs, generator)
+        target = self._target(noise[:, self.n + 1:])
         target = torch.stack([target[:, 0], torch.abs(target[:, 1])], dim=-1)
         state = GraspState(
             q=q, qd=qd, obj=obj, objd=torch.zeros_like(obj), target=target,
@@ -226,7 +226,7 @@ class Grasp2D(Arm2D):
         )
         return state, self._obs(state)
 
-    def step(self, estate: GraspState, actions):
+    def step(self, estate: GraspState, actions, noise=None):
         action = torch.clamp(actions, -1.0, 1.0)
         tau_a, grip = action[:, :self.n], action[:, self.n]
         q, qd = self.integrate(estate.q, estate.qd, tau_a)

@@ -13,6 +13,7 @@ drops below 0.42 or |roll| or |pitch| exceeds 0.8.
 
 import torch
 
+from rl_games_tpu_torch.envs.device.base import standard_normal
 from rl_games_tpu_torch.envs.device.lagrangian import (
     LagrangianEnv,
     LocomotionState,
@@ -129,6 +130,7 @@ class Humanoid3D(LagrangianEnv):
     # z, pelvis orientation 6D (first two R columns), 12 joints,
     # 18 velocities, 4 contacts
     OBS_DIM = 41
+    reset_noise_shape = (NU + NQ + 3,)  # joint angles, velocities, tilt
     k_ground = K_GROUND
     d_ground = D_GROUND
     mu_friction = MU_FRICTION
@@ -193,11 +195,10 @@ class Humanoid3D(LagrangianEnv):
             dim=-1,
         )
 
-    def reset(self, num_envs, generator):
-        f32 = dict(dtype=torch.float32, device=self.device)
-        joint_noise = torch.randn((num_envs, NU), generator=generator, **f32)
-        qd = 0.01 * torch.randn((num_envs, NQ), generator=generator, **f32)
-        tilt = torch.randn((num_envs, 3), generator=generator, **f32)
+    def reset_from(self, noise):
+        num_envs = noise.shape[0]
+        joint_noise, qd, tilt = standard_normal(noise).split([NU, NQ, 3], dim=1)
+        qd = 0.01 * qd
         q = self.init_q.expand(num_envs, NQ).clone()
         q[:, 6:] += 0.03 * joint_noise
         q[:, 3:6] += 0.01 * tilt

@@ -333,7 +333,7 @@ class LagrangianEnv(DeviceEnv):
             q = q + h * qd
         return q, qd
 
-    def step(self, estate: LocomotionState, actions):
+    def step(self, estate: LocomotionState, actions, noise=None):
         action = torch.clamp(actions, -1.0, 1.0)
         q, qd = self.integrate(estate.q, estate.qd, action)
         fwd_vel = (q[:, 0] - estate.last_x) / self.dt

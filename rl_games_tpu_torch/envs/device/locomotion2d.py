@@ -13,6 +13,7 @@ terminates when the torso falls or pitches past its limit.
 
 import torch
 
+from rl_games_tpu_torch.envs.device.base import standard_normal
 from rl_games_tpu_torch.envs.device.lagrangian import (
     LagrangianEnv,
     LocomotionState,
@@ -160,6 +161,7 @@ class PlanarWalker(LagrangianEnv):
         self.reg = 1e-6 * torch.eye(self.nq, **f32)
         self.init_joints = torch.tensor((0.25, -0.5) * self.n_legs, **f32)
         self.angle_jac = angle_jacobian(self.n_legs, **f32)
+        self.reset_noise_shape = (2 * self.n_legs + self.nq,)  # joint angles, velocities
 
     def env_info(self):
         return EnvInfo(
@@ -193,11 +195,11 @@ class PlanarWalker(LagrangianEnv):
             dim=-1,
         )
 
-    def reset(self, num_envs, generator):
-        f32 = dict(dtype=torch.float32, device=self.device)
-        joint_noise = torch.randn((num_envs, 2 * self.n_legs), generator=generator, **f32)
-        qd = 0.02 * torch.randn((num_envs, self.nq), generator=generator, **f32)
-        q = torch.zeros((num_envs, self.nq), **f32)
+    def reset_from(self, noise):
+        num_envs = noise.shape[0]
+        joint_noise, qd = standard_normal(noise).split([2 * self.n_legs, self.nq], dim=1)
+        qd = 0.02 * qd
+        q = torch.zeros((num_envs, self.nq), dtype=torch.float32, device=self.device)
         q[:, 1] = self.init_height
         q[:, 3:] = self.init_joints + 0.08 * joint_noise
         state = LocomotionState(q=q, qd=qd, last_x=q[:, 0].clone())

@@ -1,10 +1,11 @@
 """Environment registry.
 
 Port of the device-env part of rl_games_tpu/envs/registry.py
-(``create_vec_env`` :28-44 and the physics entries :106-168; the reference's
-env_configurations.py:363-371 + vecenv.py:368-391): env name → a creator of
-a batched device env, wrapped in a ``DeviceVecEnv``. Only device envs are
-ported; host (gymnasium / cpuenv) vec env types are not.
+(``create_vec_env`` :28-44, the classic, pixel and physics entries
+:95-168; the reference's env_configurations.py:363-371 + vecenv.py:368-391):
+env name → a creator of a batched device env, wrapped in a
+``DeviceVecEnv``. Only device envs are ported; host (gymnasium / cpuenv)
+vec env types are not.
 """
 
 import importlib
@@ -48,13 +49,19 @@ def _creator(module: str, name: str):
     return create
 
 
-for _name, _module in (
-    ("Ant2D", "ant2d"),
-    ("Ant3D", "ant3d"),
-    ("Humanoid3D", "humanoid3d"),
-    ("Cheetah2D", "locomotion2d"),
-    ("Walker2D", "locomotion2d"),
-    ("Arm2D", "arm2d"),
-    ("Grasp2D", "arm2d"),
+for _name, _module, _cls in (
+    ("CartPole-v1", "classic", "CartPole"),
+    ("Pendulum-v1", "classic", "Pendulum"),
+    ("MountainCarContinuous-v0", "classic", "MountainCarContinuous"),
+    ("PixelCatcher-v0", "pixel", "PixelCatcher"),
+    ("DevicePong-v0", "pong", "DevicePong"),
+    ("DeviceBreakout-v0", "breakout", "DeviceBreakout"),
+    ("Ant2D", "ant2d", "Ant2D"),
+    ("Ant3D", "ant3d", "Ant3D"),
+    ("Humanoid3D", "humanoid3d", "Humanoid3D"),
+    ("Cheetah2D", "locomotion2d", "Cheetah2D"),
+    ("Walker2D", "locomotion2d", "Walker2D"),
+    ("Arm2D", "arm2d", "Arm2D"),
+    ("Grasp2D", "arm2d", "Grasp2D"),
 ):
-    register(_name, {"vecenv_type": "DEVICE", "env_creator": _creator(_module, _name)})
+    register(_name, {"vecenv_type": "DEVICE", "env_creator": _creator(_module, _cls)})

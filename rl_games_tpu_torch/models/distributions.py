@@ -1,7 +1,9 @@
-"""Diagonal-Gaussian policy distribution.
+"""Policy distributions: the diagonal Gaussian and the categorical.
 
-Port of the normal part of rl_games_tpu/models/distributions.py (the
-reference's models.py:227-230,345-348).
+Port of the normal and categorical parts of
+rl_games_tpu/models/distributions.py (the reference's
+models.py:227-230,345-348 and distributions.py:27-44). The categorical
+functions take an optional action mask, as the JAX ones do.
 """
 
 import math
@@ -49,3 +51,50 @@ def apply_sigma_parametrization(raw, *, parametrization: str = "exp",
         sigma = sigma + min_sigma
         return sigma, torch.log(sigma)
     return sigma, raw
+
+
+# ---------------------------------------------------------------------------
+# Categorical (distributions.py:77-110), with an optional action mask
+# ---------------------------------------------------------------------------
+
+_MASK_FILL = -1e8  # the reference's fill for masked-out logits
+
+
+def masked_logits(logits, mask=None):
+    """Masked-out actions get a large negative logit (distributions.py:27-31)."""
+    if mask is None:
+        return logits
+    return torch.where(mask.to(torch.bool), logits, torch.full_like(logits, _MASK_FILL))
+
+
+def categorical_log_probs(logits, mask=None):
+    return torch.log_softmax(masked_logits(logits, mask), dim=-1)
+
+
+def categorical_neglogp(logits, actions, mask=None):
+    logp = categorical_log_probs(logits, mask)
+    return -torch.gather(logp, -1, actions.long()[..., None]).squeeze(-1)
+
+
+def categorical_entropy(logits, mask=None):
+    """Entropy; masked actions contribute zero (distributions.py:33-44)."""
+    logp = categorical_log_probs(logits, mask)
+    p_logp = torch.exp(logp) * logp
+    if mask is not None:
+        p_logp = torch.where(mask.to(torch.bool), p_logp, torch.zeros_like(p_logp))
+    return -p_logp.sum(dim=-1)
+
+
+def gumbel_max(logits, uniform, mask=None):
+    """argmax(logits + Gumbel noise) with the noise -log(-log(u)) made from
+    uniforms in (0, 1): the sampler of ``jax.random.categorical``, so a
+    test can hand both the same draws."""
+    tiny = torch.finfo(uniform.dtype).tiny
+    gumbel = -torch.log(-torch.log(torch.clamp(uniform, min=tiny)))
+    return torch.argmax(masked_logits(logits, mask) + gumbel, dim=-1)
+
+
+def categorical_sample(logits, generator=None, mask=None):
+    """One action per row, drawn by Gumbel-max from ``generator``."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
+    return gumbel_max(logits, u, mask)

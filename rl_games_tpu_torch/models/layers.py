@@ -1,11 +1,15 @@
 """Building-block layers for the config-driven network builder.
 
 Port of rl_games_tpu/models/layers.py :22-160, ``FusedMLP`` and
-``build_mlp`` (:223-270; the reference's network_builder.py:50-73,110-135):
-activation and initializer factories, the Linear init convention, the
-sequential MLP and its fused form. Modules are named as the reference's ``nn.Sequential``
-names them (Linear at 0, activation at 1, [LayerNorm at 2], ...), so a
-port ``state_dict()`` has the reference checkpoint layout.
+``build_mlp`` (:223-270), ``SpatialSoftArgmax`` and ``CNN`` (:279-363; the
+reference's network_builder.py:50-73,110-209, spatial_softmax.py):
+activation and initializer factories, the Linear/Conv init convention, the
+sequential MLP and its fused form, and the conv stacks. Modules are named
+as the reference's ``nn.Sequential`` names them (Linear or Conv at 0,
+activation at 1, [LayerNorm at 2], ...), so a port ``state_dict()`` has the
+reference checkpoint layout. The conv stacks run over NCHW (NCL for
+conv1d), the layout of the reference's torch builder; the JAX package runs
+them over NHWC.
 """
 
 import math
@@ -42,15 +46,26 @@ def get_activation(name) -> nn.Module:
 # ---------------------------------------------------------------------------
 
 
+def _flax_leading_dim(weight) -> int:
+    """The first dim of the flax kernel that ``weight`` corresponds to:
+    ``in`` for a Linear ([out, in] here, [in, out] in flax), the kernel
+    height for a conv ([O, I, kH, kW] here, [kH, kW, I, O] in flax)."""
+    return weight.shape[1] if weight.dim() == 2 else weight.shape[2]
+
+
 def torch_default_kernel_init(weight, generator=None):
-    """torch.nn.Linear default: kaiming_uniform(a=sqrt(5)) == U(±1/sqrt(fan_in))."""
-    bound = 1.0 / math.sqrt(weight.shape[1])
+    """The JAX package's torch_default_kernel_init: U(±1/sqrt(shape[0])) of
+    the flax kernel. For a Linear that is torch's kaiming_uniform(a=sqrt(5))
+    = U(±1/sqrt(fan_in)); for a conv the JAX package reads the kernel
+    height as the fan-in, and the port draws the same."""
+    bound = 1.0 / math.sqrt(_flax_leading_dim(weight))
     nn.init.uniform_(weight, -bound, bound, generator=generator)
 
 
 def _variance_scaling_truncated(weight, scale, generator):
-    """flax variance_scaling(scale, 'fan_in', 'truncated_normal')."""
-    stddev = math.sqrt(scale / weight.shape[1]) / 0.87962566103423978
+    """flax variance_scaling(scale, 'fan_in', 'truncated_normal'); a conv's
+    fan-in counts its receptive field, as flax's does."""
+    stddev = math.sqrt(scale / weight[0].numel()) / 0.87962566103423978
     nn.init.trunc_normal_(weight, 0.0, stddev, -2.0 * stddev, 2.0 * stddev,
                           generator=generator)
 
@@ -88,24 +103,25 @@ def make_dense(in_features: int, out_features: int, init_cfg: Optional[dict],
                device=None) -> nn.Linear:
     """nn.Linear with the reference builders' init: the configured weight
     init ('default' = torch's kaiming-uniform) and an unconditional zero
-    bias (network_builder.py:330-338). ``reset_dense`` draws the weights."""
+    bias (network_builder.py:330-338). ``reset_layer`` draws the weights."""
     layer = nn.Linear(in_features, out_features, device=device)
     layer.weight_init = get_initializer(init_cfg)
     return layer
 
 
-def reset_dense(layer: nn.Linear, generator=None):
+def reset_layer(layer: nn.Module, generator=None):
+    """Draw a Linear's or conv's weight with its ``weight_init``; zero its bias."""
     with torch.no_grad():
         layer.weight_init(layer.weight, generator=generator)
         layer.bias.zero_()
 
 
 def reset_parameters(module: nn.Module, generator=None):
-    """Redraw every Linear made by ``make_dense`` and reset LayerNorms, in
-    module order, from one generator."""
+    """Redraw every Linear and conv made by ``make_dense`` / ``CNN`` and
+    reset LayerNorms, in module order, from one generator."""
     for m in module.modules():
-        if isinstance(m, nn.Linear) and hasattr(m, "weight_init"):
-            reset_dense(m, generator)
+        if hasattr(m, "weight_init"):
+            reset_layer(m, generator)
         elif isinstance(m, nn.LayerNorm):
             m.reset_parameters()
 
@@ -177,3 +193,95 @@ def build_mlp(in_features: int, units: Sequence[int], activation,
         return nn.LayerNorm(unit, eps=1e-5, device=device)
 
     return nn.Sequential(*_dense_stack(in_features, units, activation, initializer, device, norm_for))
+
+
+# ---------------------------------------------------------------------------
+# Conv stacks (layers.py:279-363; network_builder.py:160-209)
+# ---------------------------------------------------------------------------
+
+
+def _linspace(n: int, device) -> torch.Tensor:
+    return torch.linspace(-1.0, 1.0, n, dtype=torch.float32, device=device)
+
+
+class SpatialSoftArgmax(nn.Module):
+    """Soft arg-max over each feature map (spatial_softmax.py:7-72): NCHW in,
+    [B, C*2] out of (x, y) expected coordinates in [-1, 1]. The coordinate
+    grids pair with the flattened map in the reference's (w, h) order, as
+    the JAX package's do."""
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        softmax = torch.softmax(x.reshape(b * c, h * w), dim=-1)
+        xc = _linspace(w, x.device).repeat_interleave(h)
+        yc = _linspace(h, x.device).repeat(w)
+        x_mean = (softmax * xc).sum(-1)
+        y_mean = (softmax * yc).sum(-1)
+        return torch.stack([x_mean, y_mean], dim=-1).reshape(b, c * 2)
+
+
+class ChannelLayerNorm(nn.LayerNorm):
+    """LayerNorm over the channel dim of an NCHW (or NCL) map: what flax's
+    LayerNorm over NHWC's last axis computes."""
+
+    def forward(self, x):
+        return super().forward(x.movedim(1, -1)).movedim(-1, 1)
+
+
+def _pair(v, n: int):
+    return (v,) * n if isinstance(v, int) else tuple(v)
+
+
+class CNN(nn.Sequential):
+    """Conv stack from a ``convs`` config list (layers.py:307-363): per conv
+    [Conv, activation, [ChannelLayerNorm]]; ``ctype`` is ``conv2d``,
+    ``conv1d``, ``coord_conv2d`` (normalized x and y channels appended
+    before each conv, torch_ext.py:223-240) or ``conv2d_spatial_softargmax``
+    (a SpatialSoftArgmax after the stack). Input NCHW (NCL for conv1d)."""
+
+    def __init__(self, in_channels: int, convs: Sequence[dict], activation,
+                 initializer=None, norm_func_name=None, ctype: str = "conv2d", device=None):
+        if ctype not in ("conv2d", "conv1d", "coord_conv2d", "conv2d_spatial_softargmax"):
+            raise NotImplementedError(f"cnn.type {ctype!r} is not ported to rl_games_tpu_torch yet "
+                                      "(ROADMAP.md, item A8)")
+        self.ctype = ctype
+        self.convs = [dict(c) for c in convs]
+        n = 1 if ctype == "conv1d" else 2
+        conv_cls = nn.Conv1d if n == 1 else nn.Conv2d
+        extra = 2 if ctype == "coord_conv2d" else 0
+        mods, c_in = [], in_channels
+        for conv in self.convs:
+            layer = conv_cls(c_in + extra, conv["filters"], _pair(conv["kernel_size"], n),
+                             stride=_pair(conv["strides"], n), padding=_pair(conv["padding"], n),
+                             device=device)
+            layer.weight_init = get_initializer(initializer)
+            mods.append(layer)
+            mods.append(get_activation(activation))
+            if norm_func_name in ("layer_norm", "batch_norm"):
+                mods.append(ChannelLayerNorm(conv["filters"], eps=1e-5, device=device))
+            c_in = conv["filters"]
+        if ctype == "conv2d_spatial_softargmax":
+            mods.append(SpatialSoftArgmax())
+        super().__init__(*mods)
+
+    def output_size(self, spatial: Sequence[int]) -> int:
+        """Features per sample after the stack and its flatten, for an input
+        of spatial extent ``spatial`` (H, W; or L)."""
+        dims = list(spatial)
+        for conv in self.convs:
+            k, s, p = (_pair(conv[key], len(dims)) for key in ("kernel_size", "strides", "padding"))
+            dims = [(d + 2 * p[i] - k[i]) // s[i] + 1 for i, d in enumerate(dims)]
+        channels = self.convs[-1]["filters"]
+        if self.ctype == "conv2d_spatial_softargmax":
+            return 2 * channels
+        return channels * math.prod(dims)
+
+    def forward(self, x):
+        for m in self:
+            if self.ctype == "coord_conv2d" and isinstance(m, nn.Conv2d):
+                b, _, h, w = x.shape
+                xx = _linspace(w, x.device).view(1, 1, 1, w).expand(b, 1, h, w)
+                yy = _linspace(h, x.device).view(1, 1, h, 1).expand(b, 1, h, w)
+                x = torch.cat([x, xx, yy], dim=1)
+            x = m(x)
+        return x

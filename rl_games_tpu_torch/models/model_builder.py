@@ -1,8 +1,9 @@
 """Model/network registries and builder.
 
 Port of rl_games_tpu/models/model_builder.py (the reference's
-model_builder.py:9-60) for the one model this slice ports,
-``continuous_a2c_logstd`` over the ``actor_critic`` torso.
+model_builder.py:9-60) for the two models ported so far,
+``continuous_a2c_logstd`` and ``discrete_a2c``, over the ``actor_critic``
+torso.
 ``ModelBuilder.load(params)`` builds the torso from ``params['network']``
 and wraps it with the model named by ``params['model']['name']``.
 """
@@ -27,27 +28,36 @@ def register_model(name: str, builder: Callable):
 register_network("actor_critic", A2CNetwork)
 
 
-def _build_continuous_logstd(network_params, *, actions_num, input_shape, value_size=1,
-                             normalize_input=False, normalize_value=False,
-                             obs_shape=None, device=None):
-    name = network_params["name"]
-    if name not in NETWORK_REGISTRY:
-        raise NotImplementedError(f"network '{name}' is not ported yet (see ROADMAP.md)")
-    network = NETWORK_REGISTRY[name](
-        network_params, actions_num, input_shape, value_size, device=device
-    )
-    return models.ModelA2CContinuousLogStd(
-        network,
-        obs_shape=obs_shape if obs_shape is not None else tuple(input_shape),
-        normalize_input=normalize_input,
-        normalize_value=normalize_value,
-        value_size=value_size,
-        space_cfg=network_params.get("space", {}).get("continuous", {}),
-        device=device,
-    )
+def _model_factory(model_cls):
+    """A builder of ``model_cls`` over the registered torso that
+    ``network_params['name']`` names (model_builder.py ``_model_factory``)."""
+
+    def build(network_params, *, actions_num, input_shape, value_size=1,
+              normalize_input=False, normalize_value=False, obs_shape=None, device=None):
+        name = network_params["name"]
+        if name not in NETWORK_REGISTRY:
+            raise NotImplementedError(f"network '{name}' is not ported yet (see ROADMAP.md)")
+        network = NETWORK_REGISTRY[name](
+            network_params, actions_num, input_shape, value_size, device=device
+        )
+        kwargs = {}
+        if model_cls.is_continuous:
+            kwargs["space_cfg"] = network_params.get("space", {}).get("continuous", {})
+        return model_cls(
+            network,
+            obs_shape=obs_shape if obs_shape is not None else tuple(input_shape),
+            normalize_input=normalize_input,
+            normalize_value=normalize_value,
+            value_size=value_size,
+            device=device,
+            **kwargs,
+        )
+
+    return build
 
 
-register_model("continuous_a2c_logstd", _build_continuous_logstd)
+register_model("continuous_a2c_logstd", _model_factory(models.ModelA2CContinuousLogStd))
+register_model("discrete_a2c", _model_factory(models.ModelA2C))
 
 
 class ModelBuilder:

@@ -1,16 +1,18 @@
-"""Model wrapper: distribution head and normalizers over the network torso.
+"""Model wrappers: distribution head and normalizers over the network torso.
 
-Port of rl_games_tpu/models/models.py ``NormState`` .. ``ModelA2CContinuousLogStd``
-(:36-205; the reference's models.py:16-63,289-348). The JAX package passes
-``(params, norm)`` through pure functions; here the model is an
-``nn.Module`` that owns both: the torso as ``a2c_network`` and the
-normalizer states (the JAX ``NormState``) as ``running_mean_std`` and
-``value_mean_std``, the reference checkpoint names. Normalizer updates stay
-explicit calls, as in the JAX package, not a side effect of a forward.
+Port of rl_games_tpu/models/models.py ``NormState`` .. ``ModelA2C`` and
+``ModelA2CContinuousLogStd`` (:36-333; the reference's
+models.py:16-125,289-348). The JAX package passes ``(params, norm)``
+through pure functions; here the model is an ``nn.Module`` that owns both:
+the torso as ``a2c_network`` and the normalizer states (the JAX
+``NormState``) as ``running_mean_std`` and ``value_mean_std``, the
+reference checkpoint names. Normalizer updates stay explicit calls, as in
+the JAX package, not a side effect of a forward.
 """
 
 from typing import Optional
 
+import torch
 from torch import nn
 
 from rl_games_tpu_torch.models import distributions as D
@@ -19,15 +21,14 @@ from rl_games_tpu_torch.ops import divergence
 from rl_games_tpu_torch.ops.running_stats import RunningMeanStd
 
 
-class ModelA2CContinuousLogStd(nn.Module):
-    """'continuous_a2c_logstd' (models.py:289-348): the raw sigma head is the
-    log-std; apply_sigma_parametrization maps it to (sigma, logstd)."""
+class BaseModel(nn.Module):
+    """The torso and the two normalizers (BaseModelNetwork, models.py:16-63);
+    subclasses add the distribution head's forwards."""
 
-    is_continuous = True
+    is_continuous = False
 
     def __init__(self, a2c_network: A2CNetwork, *, obs_shape, normalize_input: bool = False,
-                 normalize_value: bool = False, value_size: int = 1,
-                 space_cfg: Optional[dict] = None, device=None):
+                 normalize_value: bool = False, value_size: int = 1, device=None):
         super().__init__()
         if isinstance(obs_shape, dict):
             raise NotImplementedError("dict observations are not ported yet (see ROADMAP.md)")
@@ -39,10 +40,6 @@ class ModelA2CContinuousLogStd(nn.Module):
             self.running_mean_std = RunningMeanStd(obs_shape, device=device)
         if normalize_value:
             self.value_mean_std = RunningMeanStd((value_size,), device=device)
-        sc = space_cfg or {}
-        self.min_sigma = float(sc.get("min_sigma", 0.0))
-        self.logstd_bounds = sc.get("logstd_bounds", None)
-        self.sigma_parametrization = sc.get("sigma_parametrization", "exp")
 
     # -- normalizer state (models.py:44-90) ----------------------------------
     def reset_parameters(self, generator=None):
@@ -70,7 +67,58 @@ class ModelA2CContinuousLogStd(nn.Module):
         if self.normalize_value:
             self.value_mean_std.update_from_batch(returns, mask)
 
-    # -- forwards -------------------------------------------------------------
+
+class ModelA2C(BaseModel):
+    """'discrete_a2c' (models.py:291-333): a categorical head over the
+    torso's logits."""
+
+    def forward_train(self, obs, prev_actions):
+        """The reference's train dict (models.py:95-125); ``logits`` are the
+        log-probabilities, values stay normalized."""
+        out = self.a2c_network(self.norm_obs(obs))
+        logits = out["logits"]
+        return {
+            "prev_neglogp": D.categorical_neglogp(logits, prev_actions),
+            "values": out["value"],
+            "entropy": D.categorical_entropy(logits),
+            "logits": D.categorical_log_probs(logits),
+        }
+
+    def forward_play(self, obs, generator=None, deterministic: bool = False):
+        """Sampled (or, deterministic, argmax) actions with their neglogp and
+        denormalized values."""
+        out = self.a2c_network(self.norm_obs(obs))
+        logits = out["logits"]
+        if deterministic:
+            actions = torch.argmax(logits, dim=-1)
+        else:
+            actions = D.categorical_sample(logits, generator)
+        return {
+            "neglogpacs": D.categorical_neglogp(logits, actions),
+            "values": self.denorm_value(out["value"]),
+            "actions": actions,
+            "logits": D.categorical_log_probs(logits),
+        }
+
+    @staticmethod
+    def kl(old_logp, new_logp):
+        """Categorical KL from log-probs (models.py:90-93)."""
+        return divergence.d_kl_discrete(old_logp, new_logp)
+
+
+class ModelA2CContinuousLogStd(BaseModel):
+    """'continuous_a2c_logstd' (models.py:289-348): the raw sigma head is the
+    log-std; apply_sigma_parametrization maps it to (sigma, logstd)."""
+
+    is_continuous = True
+
+    def __init__(self, a2c_network: A2CNetwork, *, space_cfg: Optional[dict] = None, **kwargs):
+        super().__init__(a2c_network, **kwargs)
+        sc = space_cfg or {}
+        self.min_sigma = float(sc.get("min_sigma", 0.0))
+        self.logstd_bounds = sc.get("logstd_bounds", None)
+        self.sigma_parametrization = sc.get("sigma_parametrization", "exp")
+
     def _dist_params(self, obs):
         out = self.a2c_network(self.norm_obs(obs))
         sigma, logstd = D.apply_sigma_parametrization(

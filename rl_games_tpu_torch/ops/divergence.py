@@ -6,6 +6,11 @@ Port of rl_games_tpu/ops/divergence.py (the reference's divergence.py).
 import torch
 
 
+def d_kl_discrete(p_logits, q_logits):
+    """Categorical KL(p||q) from log-probabilities (divergence.py:6-13)."""
+    return (torch.exp(p_logits) * (p_logits - q_logits)).sum(-1)
+
+
 def d_kl_normal(p, q):
     """Diagonal-Gaussian KL(p||q); p/q = (mean, sigma) (divergence.py:22-29)."""
     p_mean, p_sigma = p
