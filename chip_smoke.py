@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py              # the check: build, compare, train, play, report
-    python3 chip_smoke.py --profile    # the same, plus a torch.profiler epoch and a
-                                       # count of the profiler sessions that lose events
+    python3 chip_smoke.py --profile    # the same, plus torch.profiler epochs (flagship,
+                                       # Breakout, SAC) and a count of the profiler
+                                       # sessions that lose events
 
 Phases, each of which raises on failure (nothing falls back to the CPU or
 to a plain version):
@@ -48,6 +49,13 @@ to a plain version):
                PPOAgent.train_epoch.
 12. cartpole — ppo_cartpole.yaml with network.mlp.fused: true through
                Runner.run: trained, then played back.
+13. sac      — rl_games_tpu/configs/sac_ant2d.yaml as shipped (1024 Ant2D
+               envs, replay ring of 1e6 rows, batch 2048, 8 env steps and 64
+               updates an epoch) through Runner.run: its 50 warmup epochs
+               and --epochs epochs of updates, then its last checkpoint played
+               back; the device kernels and time of an env step and of an
+               update. It launches neither kernel (plain MLPs, no GAE). It
+               runs right after phase 5, before any profiled phase.
 
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
@@ -55,9 +63,10 @@ give it, the Pong model's forward and one minibatch update on the card
 against the CPU (where a TF32 convolution would show), and DevicePong,
 DeviceBreakout, PixelCatcher and the classic envs on the card against the
 CPU from the same state and draws, with a vec-env step at 512 and 4096
-envs.
+envs. Phase 4 also holds one SAC update of sac_ant2d.yaml's networks (a
+batch of 2048) on the card against the CPU.
 
-Launch counts are zeroed just before each of phases 6-12's runs and read
+Launch counts are zeroed just before each of phases 6-13's runs and read
 just after, and are held to the counts the code implies.
 
 Prints a {"kernels": [...]} line, then as its last line
@@ -557,6 +566,99 @@ def phase_reference():
                                       and int(gstate.opt_state.count) == 1 and n_far > n_all // 2
                                       and dstep < 1e-3 * lr and max(dloss.values()) < 2e-5):
         raise AssertionError("the Pong model on the card disagrees with the CPU")
+    reference_sac()
+
+
+def reference_sac():
+    """One SAC update (the critic, actor and α steps and the Polyak update)
+    of sac_ant2d.yaml's networks on the card against the same update on the
+    CPU: the same weights from a seed, a ring of 8192 rows and the
+    normalizer fed with them, one batch of 2048 at the same indices, the
+    same normals. Each Adam step's parameters and gradients are recorded as
+    the update takes them."""
+    from rl_games_tpu_torch.algos import sac as sac_module
+    from rl_games_tpu_torch.algos.ppo import _ADAM_EPS
+
+    params = load_config("sac_ant2d.yaml")["params"]
+    params["config"].update(num_actors=64, replay_buffer_size=8192)
+    gpu, cpu = sac_module.SACAgent("ref", params, device="cuda"), sac_module.SACAgent("ref", params, device="cpu")
+    gstate, cstate = gpu.init_state(), cpu.init_state()
+    for name in ("actor", "critic", "critic_target", "running_mean_std"):
+        getattr(cpu, name).load_state_dict({k: v.cpu() for k, v in getattr(gpu, name).state_dict().items()})
+    gen = torch.Generator().manual_seed(6)
+    n, batch = 8192, gpu.batch_size
+    shift, scale = torch.randn(26, generator=gen), torch.rand(26, generator=gen) * 3 + 0.1
+    obs = torch.randn((n, 26), generator=gen) * scale + shift
+    rows = (obs, torch.rand((n, 8), generator=gen) * 2 - 1, torch.randn(n, generator=gen),
+            obs + 0.1 * torch.randn((n, 26), generator=gen), torch.rand(n, generator=gen) < 0.05,
+            torch.zeros(n, dtype=torch.bool))
+    for agent, state in ((gpu, gstate), (cpu, cstate)):
+        sac_module.replay_add(state.replay, *(x.to(agent.device) for x in rows))
+        agent.running_mean_std.update_from_batch(obs.to(agent.device))
+        state.update_counter = 1  # policy_frequency 2: this update runs the actor
+    idx = torch.randint(0, n, (batch,), generator=gen)
+    noise = [torch.randn((batch, 8), generator=gen) for _ in range(2)]
+
+    # per update, per Adam step: (params before, gradients), in float64
+    steps = {"cuda": [], "cpu": []}
+    adam = sac_module.adam_step
+
+    def recorded(params, grads, opt, lr, max_norm=None, weight_decay=0.0):
+        recording.append(([p.detach().cpu().double() for p in params], [g.detach().cpu().double() for g in grads]))
+        adam(params, grads, opt, lr, max_norm, weight_decay)
+
+    sac_module.adam_step = recorded
+    try:
+        target_before = [p.detach().cpu().double() for p in gpu.critic_target.parameters()]
+        recording = steps["cuda"]
+        gm = gpu._update(gstate, idx.cuda(), *(x.cuda() for x in noise))
+        recording = steps["cpu"]
+        cm = cpu._update(cstate, idx, *noise)
+    finally:
+        sac_module.adam_step = adam
+    keys = ("critic_loss", "critic1_loss", "critic2_loss", "actor_loss", "entropy", "alpha_loss")
+    dloss = {k: abs(float(gm[k]) - float(cm[k])) / max(abs(float(cm[k])), 1e-6) for k in keys}
+    # gradients of the critic, the actor and log α: card against CPU, each
+    # tensor to 1e-5 of its largest entry
+    dgrad = [max(float((g - c).abs().max() / c.abs().max().clamp(min=1e-30)) for g, c in zip(gs[1], cs[1]))
+             for gs, cs in zip(steps["cuda"], steps["cpu"])]
+    # Adam's first step from the card's own gradients, in float64: the
+    # critic's clipped to the global norm first; where |g| > 1e-5 the step
+    # is lr * sign(g) to within 1e-3 of lr whatever rounding g carries
+    worst, n_far, n_all = [], 0, 0
+    for (before, grads), module_params, lr, max_norm in zip(
+            steps["cuda"], (list(gpu.critic.parameters()), list(gpu.actor.parameters()), [gstate.log_alpha]),
+            (gpu.critic_lr, gpu.actor_lr, gpu.alpha_lr), (gpu.critic_grad_clip, None, None)):
+        norm = math.sqrt(sum(float((g * g).sum()) for g in grads))
+        clip = max_norm / norm if max_norm is not None and norm >= max_norm else 1.0
+        far_d = 0.0
+        for p, b, g in zip(module_params, before, grads):
+            g = g * clip
+            far = g.abs() > 1e-5
+            d = (p.detach().cpu().double() - b) - (-lr * g / (g.abs() + _ADAM_EPS))
+            far_d = max(far_d, float(torch.where(far, d, 0.0).abs().max()) / lr)
+            n_far, n_all = n_far + int(far.sum()), n_all + far.numel()
+        worst.append(far_d)
+    # the Polyak update against the card's own critic and target, to two
+    # ulps of each tensor's largest entry; and against the CPU's target
+    dtarget = max(float(((t.detach().cpu().double() - (b + gpu.critic_tau * (c.detach().cpu().double() - b))).abs()
+                         / (t.detach().abs().max().cpu().double() * 2 ** -22).clamp(min=1e-30)).max())
+                  for t, b, c in zip(gpu.critic_target.parameters(), target_before, gpu.critic.parameters()))
+    dtarget_cpu = max(float((t.detach().cpu() - c).abs().max())
+                      for t, c in zip(gpu.critic_target.parameters(), cpu.critic_target.parameters()))
+    dalpha = abs(float(gstate.log_alpha) - float(cstate.log_alpha))
+    print(f"[reference] SAC update of sac_ant2d.yaml's networks, batch {batch}, cuda vs cpu: losses "
+          + ", ".join(f"{k} {float(gm[k]):.7f} / {float(cm[k]):.7f}" for k in keys)
+          + f" (relative at most {max(dloss.values()):.2e}); gradients within {dgrad[0]:.2e} (critic), "
+          f"{dgrad[1]:.2e} (actor), {dgrad[2]:.2e} (log alpha) of each tensor's largest entry; the card's "
+          f"Adam steps against its own gradients' where |g| > 1e-5 ({n_far} of {n_all} entries): "
+          f"max |d| {worst[0]:.2e} (critic), {worst[1]:.2e} (actor), {worst[2]:.2e} (log alpha) of lr; "
+          f"target against the card's own Polyak {dtarget:.3f} of two ulps, max |dtarget| against the CPU "
+          f"{dtarget_cpu:.2e}; log alpha {float(gstate.log_alpha):.9f} / {float(cstate.log_alpha):.9f}")
+    if not (gm["actor_updated"] and cm["actor_updated"] and len(steps["cuda"]) == len(steps["cpu"]) == 3
+            and max(dloss.values()) < 2e-5 and max(dgrad) < 1e-5 and max(worst) < 1e-3
+            and n_far > n_all // 2 and dtarget <= 1.0 and dalpha < 1e-3 * gpu.alpha_lr):
+        raise AssertionError("the SAC update on the card disagrees with the CPU")
 
 
 ENV_NAMES = ("Ant3D", "Humanoid3D", "Walker2D", "Cheetah2D", "Arm2D", "Grasp2D")
@@ -1163,6 +1265,161 @@ def phase_cartpole(epochs: int, play_steps: int = 200):
     return run["train"], run["play"], play_steps, epoch_s
 
 
+def phase_sac(update_epochs: int, profile: bool, play_steps: int = 200):
+    """sac_ant2d.yaml as shipped (only max_epochs, train_dir and the
+    player's steps changed) through Runner.run: its warmup epochs, then
+    ``update_epochs`` epochs of updates, then the last checkpoint played.
+    The path launches neither kernel: SAC's MLPs are the plain chain and it
+    has no GAE."""
+    from rl_games_tpu_torch.algos import sac as sac_module
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+    from rl_games_tpu_torch.runner import Runner
+    from rl_games_tpu_torch.utils import checkpoint as ckpt
+
+    params = load_config("sac_ant2d.yaml")["params"]
+    cfg = params["config"]
+    warmup, steps, n = cfg["num_warmup_steps"], cfg["num_steps_per_episode"], cfg["num_actors"]
+    epochs = warmup + update_epochs
+    cfg["player"] = {**cfg["player"], "max_steps": play_steps}
+    log, ends, agents = ScalarLog(), [], []
+
+    def mark(agent):  # stamps the end of every epoch, never stops
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        agents[:] = [agent]
+        return False
+
+    create_writer = sac_module.create_writer
+    sac_module.create_writer = lambda _dir: log
+    try:
+        with tempfile.TemporaryDirectory() as train_dir:
+            cfg.update(name="chip_smoke_sac", train_dir=train_dir, max_epochs=epochs)
+            runner = Runner()  # the default device: the card
+            runner.load({"params": params})
+            torch.cuda.reset_peak_memory_stats()
+            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+            t0 = time.perf_counter()
+            _, epoch_num = runner.run({"train": True, "stop_fn": mark})
+            torch.cuda.synchronize()
+            train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            agent = agents[0]
+            state = agent.last_state
+            checkpoint = os.path.join(train_dir, "chip_smoke_sac", "nn", f"last_chip_smoke_sac_ep_{epochs}.pth")
+            payload, ckpt_bytes = ckpt.read_payload(checkpoint), os.path.getsize(checkpoint)
+
+            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+            out = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mean_reward = runner.run({"play": True, "checkpoint": checkpoint})
+            torch.cuda.synchronize()
+            play_s = time.perf_counter() - t1
+            play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            steady_step_s, first, last = steady_player_step(runner, checkpoint)
+    finally:
+        sac_module.create_writer = create_writer
+
+    updates = update_epochs * steps * agent.num_updates_per_step
+    losses = {k: log.tags.get(f"losses/{k}", []) for k in ("critic_loss", "actor_loss", "entropy", "alpha_loss",
+                                                             "alpha")}
+    if epoch_num != epochs or state.update_counter != updates or agent.num_updates_per_step != 8:
+        raise AssertionError(f"sac: {epoch_num} epochs, {state.update_counter} updates; expected {epochs} "
+                             f"epochs and {updates} updates (8 per env step after {warmup} warmup epochs)")
+    if not all(len(v) == epochs and all(math.isfinite(x) for x in v[warmup:]) for v in losses.values()):
+        raise AssertionError(f"sac: losses not finite, or not logged every epoch: {losses}")
+    if losses["alpha"][-1] == 1.0 or losses["alpha"][warmup - 1] != 1.0:
+        raise AssertionError(f"sac: alpha {losses['alpha'][warmup - 1]} after warmup, {losses['alpha'][-1]} at the end")
+    if (payload["meta"].get("has_replay") is not False or payload["state"]["replay"]["obses"].shape[0] != 1
+            or payload["state"]["update_counter"] != updates):
+        raise AssertionError(f"sac: the last checkpoint's meta {payload['meta']} and its replay of "
+                             f"{payload['state']['replay']['obses'].shape[0]} rows; expected a stripped ring")
+    no_kernel = {"gae": 0, "fused_mlp": 0}
+    if train_launches != no_kernel or play_launches != no_kernel:
+        raise AssertionError(f"sac: the kernels were launched, train {train_launches}, play {play_launches}")
+    if not math.isfinite(mean_reward):
+        raise AssertionError(f"sac player: mean reward {mean_reward}")
+
+    times = np.diff([t0, *ends])
+    warm, upd = times[:warmup], times[warmup:]
+    warm_s, upd_s = float(np.median(warm[1:])), float(np.median(upd[1:] if len(upd) > 1 else upd))
+    frames = n * steps
+    replay = state.replay
+    replay_bytes = sum(t.numel() * t.element_size() for t in (replay.obses, replay.next_obses, replay.actions,
+                                                              replay.rewards, replay.dones, replay.truncated))
+    print(f"[sac] trained {epoch_num} epochs of sac_ant2d.yaml through Runner.run ({n} envs x {steps} steps, "
+          f"{warmup} warmup epochs, then {agent.num_updates_per_step} updates of batch {agent.batch_size} per env "
+          f"step): launches {train_launches}; {state.update_counter} updates; warmup epoch: first (with set-up) "
+          f"{warm[0] * 1e3:.1f} ms, steady {warm_s * 1e3:.1f} ms (median of {len(warm) - 1}), "
+          f"{frames / warm_s:,.0f} env-steps/s; update epoch: first {upd[0] * 1e3:.1f} ms, steady "
+          f"{upd_s * 1e3:.1f} ms (median of {max(len(upd) - 1, 1)}), {frames / upd_s:,.0f} env-steps/s, "
+          f"{steps * agent.num_updates_per_step / upd_s:,.1f} updates/s; peak device memory {peak_gib:.2f} GiB")
+    print(f"[sac] last epoch: critic_loss {losses['critic_loss'][-1]:.4f}, actor_loss "
+          f"{losses['actor_loss'][-1]:.4f}, entropy {losses['entropy'][-1]:.4f}, alpha_loss "
+          f"{losses['alpha_loss'][-1]:.4f}, alpha {losses['alpha'][-1]:.5f}; replay {sac_module.replay_size(replay)} "
+          f"of {replay.capacity} rows, {replay_bytes / 2**20:.1f} MiB; the last checkpoint {payload['meta']}, "
+          f"{ckpt_bytes / 2**20:.2f} MiB, with a {payload['state']['replay']['obses'].shape[0]}-row ring")
+
+    # device kernels and device time of the pieces of an epoch
+    def update(with_actor):
+        state.update_counter = 1 if with_actor else 0  # policy_frequency 2: the actor runs at 2
+        agent._update(state)
+
+    pieces = {"env step (warmup)": lambda: agent._env_step(state, True),
+              "env step": lambda: agent._env_step(state, False),
+              "update with the actor step": lambda: update(True),
+              "update without it": lambda: update(False)}
+    counts, reps = {}, 8
+    for what, fn in pieces.items():
+        # the fullest of three CUDA-only sessions: a session that loses one
+        # event (as device_time_ms finds them to) reads 1/reps kernel low
+        fn()
+        torch.cuda.synchronize()
+        events = max((device_events(fn, reps) for _ in range(3)), key=len)
+        counts[what] = len(events) / reps
+        print(f"[sac] {what}: {counts[what]:.2f} device kernels, "
+              f"{sum(e.time_range.elapsed_us() for e in events) / reps / 1e3:.3f} ms device time per call "
+              f"(the fullest of three sessions of {reps} calls)")
+    per_update = (counts["update with the actor step"] + counts["update without it"]) / 2
+    print(f"[sac] device kernels per warmup epoch {steps * counts['env step (warmup)']:.0f}, per update epoch "
+          f"{steps * counts['env step'] + steps * agent.num_updates_per_step * per_update:.0f} "
+          f"({per_update:.1f} per update, policy_frequency 2)")
+    if profile:
+        phase_profile_sac(agent, state)
+    print(f"[sac] played {play_steps} steps x {n} envs through Runner.run: launches {play_launches}, "
+          f"{out.getvalue().strip()!r}, {play_s:.2f} s with set-up; steady step without set-up "
+          f"{steady_step_s * 1e3:.2f} ms (mean of steps {first}-{last} of a second run), "
+          f"{n / steady_step_s:,.0f} env-steps/s")
+    return train_launches, play_launches, upd_s
+
+
+def profile_report(tag: str, prof, wall_us: float, detail: str):
+    """The device's busy time and idle share over ``wall_us`` of host time,
+    and the device time by kernel, of one torch.profiler session."""
+    # device activity only: key_averages() also credits each kernel's time
+    # to the CPU op that launched it, so summing its rows counts it twice
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)  # one stream: no overlap
+    print(f"[{tag}] epoch wall {wall_us / 1e3:.1f} ms ({detail}, profiler on); device busy {device_us / 1e3:.1f} ms, "
+          f"idle share {max(0.0, 1 - device_us / wall_us):.3f}; {len(kernels)} device kernels")
+    for line in prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30).splitlines():
+        print(f"[{tag}] {line}")
+
+
+def phase_profile_sac(agent, state):
+    """One SAC update epoch under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.train_epoch(state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    profile_report("sac profile", prof, wall_us, f"{agent.num_steps_per_episode} env steps and "
+                   f"{agent.num_steps_per_episode * agent.num_updates_per_step} updates")
+
+
 def phase_profile(agent, state):
     """One epoch under torch.profiler: device time by kernel and the
     device's idle share of the epoch's wall time."""
@@ -1177,16 +1434,8 @@ def phase_profile(agent, state):
         agent._finish_epoch(state, traj, last_values)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    # device activity only: key_averages() also credits each kernel's time
-    # to the CPU op that launched it, so summing its rows counts it twice
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.time_range.elapsed_us() for e in kernels)  # one stream: no overlap
-    wall_us = (t2 - t0) * 1e6
-    print(f"[profile] epoch wall {wall_us / 1e3:.1f} ms (rollout {(t1 - t0) * 1e3:.1f} ms, "
-          f"gae+update {(t2 - t1) * 1e3:.1f} ms, profiler on); device busy {device_us / 1e3:.1f} ms, "
-          f"idle share {max(0.0, 1 - device_us / wall_us):.3f}; {len(kernels)} device kernels")
-    for line in prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30).splitlines():
-        print(f"[profile] {line}")
+    profile_report("profile", prof, (t2 - t0) * 1e6,
+                   f"rollout {(t1 - t0) * 1e3:.1f} ms, gae+update {(t2 - t1) * 1e3:.1f} ms")
 
 
 def phase_profiler_sessions(sessions: int = 300, reps: int = 50):
@@ -1225,6 +1474,9 @@ def main():
     phase_reference()
     phase_envs()
     phase_envs_discrete()
+    # before phase_profile: phase_sac's device_time_ms needs CUDA-only
+    # sessions that keep every event (see phase_profiler_sessions)
+    sac_train, sac_play, _ = phase_sac(args.epochs, args.profile)
     agent, state, plain_launches, plain_epoch_s = phase_trainer(args.epochs)
     if args.profile:
         phase_profile(agent, state)
@@ -1250,7 +1502,7 @@ def main():
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
                                      "humanoid3d": h_train["gae"], "ant3d": a3_launches["gae"],
                                      "pong": pong_launches["gae"], "breakout": breakout_launches["gae"],
-                                     "cartpole": cp_train["gae"]}
+                                     "cartpole": cp_train["gae"], "sac_ant2d": sac_train["gae"]}
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
                                + cp_train["fused_mlp"] + cp_play["fused_mlp"])
@@ -1260,6 +1512,8 @@ def main():
     fused_entry["launches_cartpole"] = {"train": cp_train["fused_mlp"], "play": cp_play["fused_mlp"],
                                         "per_epoch": cp_train["fused_mlp"] / args.epochs,
                                         "per_player_step": cp_play["fused_mlp"] / cp_steps}
+    # the SAC path's networks are the plain chain (as the JAX package's): 0
+    fused_entry["launches_sac_ant2d"] = {"train": sac_train["fused_mlp"], "play": sac_play["fused_mlp"]}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

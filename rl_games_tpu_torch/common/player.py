@@ -10,7 +10,8 @@ host; the whole run is under ``torch.no_grad()``. Continuous actions are
 the mean (deterministic) or a sample, clipped and rescaled to the env's
 bounds; discrete ones the argmax of the logits (deterministic) or a sample,
 passed as they are. With ``network.mlp.fused: true`` every step's policy
-forward is one launch of the fused-MLP kernel.
+forward is one launch of the fused-MLP kernel. ``SACPlayer`` plays a SAC
+actor through the same loop.
 """
 
 import glob
@@ -25,7 +26,9 @@ from rl_games_tpu_torch.common import obs_utils
 from rl_games_tpu_torch.common.tr_helpers import rescale_actions
 from rl_games_tpu_torch.envs import registry as env_registry
 from rl_games_tpu_torch.envs.spaces import Box, Discrete, actions_num_of, obs_shape_of
-from rl_games_tpu_torch.models import model_builder
+from rl_games_tpu_torch.models import layers, model_builder
+from rl_games_tpu_torch.models.sac import ActionRescale, SACActor, build_sac_networks, load_normalizer
+from rl_games_tpu_torch.ops.running_stats import RunningMeanStd
 from rl_games_tpu_torch.utils import checkpoint as ckpt
 from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
 from rl_games_tpu_torch.utils.unported import unported
@@ -67,7 +70,12 @@ class BasePlayer:
         self.is_continuous = isinstance(info.action_space, Box)
         if not self.is_continuous and not isinstance(info.action_space, Discrete):
             unported(f"the action space {info.action_space}", "A8")
+        self._build_policy(params)
+        self._last_ckpt = None
 
+    def _build_policy(self, params):
+        """The A2C model, its weights drawn from the seed."""
+        config = params["config"]
         self.model = model_builder.ModelBuilder().load(
             params,
             actions_num=self.actions_num,
@@ -80,11 +88,10 @@ class BasePlayer:
         )
         self.model.reset_parameters(self._generator(self.seed))
         if self.is_continuous:
-            space = info.action_space
+            space = self.env_info.action_space
             self._rescale = bool(np.isfinite(space.low).all() and np.isfinite(space.high).all())
             self._action_low = torch.as_tensor(space.low, dtype=torch.float32, device=self.device)
             self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.device)
-        self._last_ckpt = None
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
@@ -199,5 +206,45 @@ class PpoPlayer(BasePlayer):
 
 
 class SACPlayer(BasePlayer):
-    def __init__(self, params, device=None):
-        unported("the SAC player", "A10")
+    """SAC evaluation (player.py:319-448; players.py SACPlayer): the
+    deterministic action is tanh(mu), the stochastic one a squashed-normal
+    sample, each rescaled and clipped to the env's bounds. It restores the
+    actor and the input normalizer from a SAC checkpoint's sections."""
+
+    def _build_policy(self, params):
+        if not self.is_continuous:
+            raise ValueError(f"SAC requires a continuous action space, the env has {self.env_info.action_space}")
+        if isinstance(self.obs_shape, dict) or len(self.obs_shape) != 1:
+            unported(f"SAC over observations of shape {self.obs_shape}", "A8")
+        self.actor, _ = build_sac_networks(params["network"], self.obs_shape[0], self.actions_num,
+                                           device=self.device)
+        layers.reset_parameters(self.actor, self._generator(self.seed))
+        self.running_mean_std = (RunningMeanStd(self.obs_shape, device=self.device)
+                                 if params["config"].get("normalize_input", False) else None)
+        self._rescale_actions = ActionRescale(self.env_info.action_space, self.actions_num, self.device)
+
+    def restore(self, checkpoint_path: str):
+        """The actor and the normalizer from a SAC checkpoint (the port's,
+        or a reference SAC .pth, its sections at the top or under 'model')."""
+        payload = ckpt.read_payload(checkpoint_path)
+        if "model" in payload and "actor" not in payload:
+            payload = payload["model"]
+        self.actor.load_state_dict(payload["actor"])
+        if payload.get("running_mean_std") is not None:
+            load_normalizer(self.running_mean_std, payload["running_mean_std"])
+
+    def override_sigma(self, sigma: float):
+        """The SAC actor has no sigma parameter to overwrite; the reference
+        no-ops with a message (torch_runner.py:52-60)."""
+        print("Cannot set new sigma: SAC policy has no fixed sigma parameter")
+
+    def _play_actions(self, generator, obs, env_state=None):
+        if self.running_mean_std is not None:
+            obs = self.running_mean_std.normalize(obs)
+        mu, std = self.actor(obs)
+        if self.deterministic:
+            actions = torch.tanh(mu)
+        else:
+            noise = torch.randn(mu.shape, generator=generator, device=self.device)
+            actions, _ = SACActor.sample(mu, std, noise)
+        return self._rescale_actions(actions)

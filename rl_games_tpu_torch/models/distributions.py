@@ -1,9 +1,13 @@
-"""Policy distributions: the diagonal Gaussian and the categorical.
+"""Policy distributions: the diagonal Gaussian, the categorical and SAC's
+tanh-squashed normal.
 
-Port of the normal and categorical parts of
+Port of the normal, categorical and squashed-normal parts of
 rl_games_tpu/models/distributions.py (the reference's
-models.py:227-230,345-348 and distributions.py:27-44). The categorical
-functions take an optional action mask, as the JAX ones do.
+models.py:227-230,345-348, distributions.py:27-44 and sac_helper.py). The
+categorical functions take an optional action mask, as the JAX ones do.
+The samplers take their random numbers as tensors (``gumbel_max`` its
+uniforms, ``squashed_normal_sample`` its standard normals), so that a test
+can hand them the JAX package's draws.
 """
 
 import math
@@ -98,3 +102,31 @@ def categorical_sample(logits, generator=None, mask=None):
     """One action per row, drawn by Gumbel-max from ``generator``."""
     u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
     return gumbel_max(logits, u, mask)
+
+
+# ---------------------------------------------------------------------------
+# Tanh-squashed Gaussian, SAC's policy (distributions.py:113-139; the
+# reference's sac_helper.py TanhTransform)
+# ---------------------------------------------------------------------------
+
+
+def _atanh(x):
+    return 0.5 * (torch.log1p(x) - torch.log1p(-x))
+
+
+def squashed_normal_sample(mu, std, noise):
+    """rsample + tanh from standard normals ``noise``; returns (action,
+    pre_tanh)."""
+    pre = mu + std * noise
+    return torch.tanh(pre), pre
+
+
+def squashed_normal_logp(action, mu, std, pre_tanh=None, eps: float = 1e-6):
+    """log pi(a) with the tanh change of variables, summed over the action
+    dim. log|det J| = sum log(1 - tanh(u)^2), in the stable softplus form
+    2 (log 2 - u - softplus(-2u)) that torch's TanhTransform uses."""
+    if pre_tanh is None:
+        pre_tanh = _atanh(torch.clamp(action, -1.0 + eps, 1.0 - eps))
+    base = -(0.5 * torch.square((pre_tanh - mu) / std) + 0.5 * _LOG_2PI + torch.log(std))
+    log_det = 2.0 * (math.log(2.0) - pre_tanh - F.softplus(-2.0 * pre_tanh))
+    return (base - log_det).sum(dim=-1)

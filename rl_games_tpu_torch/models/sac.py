@@ -1,0 +1,124 @@
+"""SAC networks: the tanh-squashed diagonal-Gaussian actor and the twin Q critic.
+
+Port of rl_games_tpu/models/sac.py (the reference's SACBuilder,
+network_builder.py:919-1081):
+
+* ``SACActor`` (DiagGaussianActor, :919-944): an MLP trunk whose last
+  Linear is the head of 2A outputs, split into (mu, log_std); log_std is
+  squashed by tanh into ``log_std_bounds`` and exponentiated.
+* ``SACDoubleCritic`` (DoubleQCritic, :947-969): two independent MLPs on
+  [obs, action].
+
+The submodules carry the reference SAC checkpoint's names: ``trunk.{k}``
+(the head is the trunk's last Linear) and ``Q1.{k}`` / ``Q2.{k}``, so an
+actor's or critic's ``state_dict`` is the reference's section and the JAX
+package's ``convert_sac_weights`` reads it unchanged. The MLPs are the
+plain sequential ones, as in the JAX package, whose SAC never takes the
+fused kernel. ``ActionRescale`` maps the actor's [-1, 1] actions to the
+env's bounds, for the trainer and the player alike.
+"""
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from rl_games_tpu_torch.models import distributions as D
+from rl_games_tpu_torch.models import layers as L
+from rl_games_tpu_torch.utils.unported import unported
+
+
+def _mlp_with_head(in_features: int, units: Sequence[int], activation, initializer,
+                   out_features: int, device) -> nn.Sequential:
+    """Linear→activation per unit, then a Linear head, in one Sequential."""
+    mlp = L.build_mlp(in_features, units, activation, initializer, device=device)
+    head = L.make_dense(units[-1] if units else in_features, out_features, initializer, device=device)
+    return nn.Sequential(*mlp, head)
+
+
+class SACActor(nn.Module):
+    """forward(obs) -> (mu, std)."""
+
+    def __init__(self, obs_dim: int, actions_num: int, units: Sequence[int], activation,
+                 log_std_bounds: Tuple[float, float] = (-5.0, 2.0), initializer: Optional[dict] = None,
+                 device=None):
+        super().__init__()
+        self.actions_num = actions_num
+        self.log_std_bounds = tuple(float(b) for b in log_std_bounds)
+        self.trunk = _mlp_with_head(obs_dim, units, activation, initializer, 2 * actions_num, device)
+
+    def forward(self, obs):
+        mu, log_std = torch.chunk(self.trunk(obs), 2, dim=-1)
+        lo, hi = self.log_std_bounds
+        log_std = lo + 0.5 * (hi - lo) * (torch.tanh(log_std) + 1.0)
+        return mu, torch.exp(log_std)
+
+    @staticmethod
+    def sample(mu, std, noise):
+        """rsample + tanh squash from standard normals; returns (action in
+        [-1, 1], pre_tanh)."""
+        return D.squashed_normal_sample(mu, std, noise)
+
+    @staticmethod
+    def log_prob(action, mu, std, pre_tanh=None):
+        return D.squashed_normal_logp(action, mu, std, pre_tanh)
+
+
+class SACDoubleCritic(nn.Module):
+    """forward(obs, action) -> (q1, q2), each [B, 1]."""
+
+    def __init__(self, obs_dim: int, actions_num: int, units: Sequence[int], activation,
+                 initializer: Optional[dict] = None, device=None):
+        super().__init__()
+        d = obs_dim + actions_num
+        self.Q1 = _mlp_with_head(d, units, activation, initializer, 1, device)
+        self.Q2 = _mlp_with_head(d, units, activation, initializer, 1, device)
+
+    def forward(self, obs, action):
+        x = torch.cat([obs, action], dim=-1)
+        return self.Q1(x), self.Q2(x)
+
+
+def build_sac_networks(net_params: dict, obs_dim: int, actions_num: int, device=None):
+    """Map the reference SAC YAML network schema to (actor, critic) modules
+    (sac.py:84-102). Their weights are drawn by ``layers.reset_parameters``."""
+    mlp = net_params["mlp"]
+    if mlp.get("d2rl", False):
+        unported("d2rl SAC torsos (network.mlp.d2rl)", "A8")
+    if net_params.get("normalization"):
+        unported("normalization layers in SAC torsos (network.normalization)", "A8")
+    common = dict(units=tuple(mlp["units"]), activation=mlp["activation"],
+                  initializer=mlp.get("initializer"), device=device)
+    actor = SACActor(obs_dim, actions_num,
+                     log_std_bounds=tuple(net_params.get("log_std_bounds", (-5.0, 2.0))), **common)
+    return actor, SACDoubleCritic(obs_dim, actions_num, **common)
+
+
+class ActionRescale:
+    """[-1, 1] → the env's action bounds, clamped to them (sac_agent.py:85-98,
+    375-379). The bounds are taken one per action dim, also where the env
+    gives them as scalars, so ``log_scale_sum`` (the env-space log-prob's
+    Σ log action_scale, :381-389) counts every dim."""
+
+    def __init__(self, space, actions_num: int, device=None):
+        low = np.broadcast_to(np.asarray(space.low, np.float32), (actions_num,))
+        high = np.broadcast_to(np.asarray(space.high, np.float32), (actions_num,))
+        scale, bias = (high - low) / 2.0, (high + low) / 2.0
+        self.log_scale_sum = float(np.log(np.maximum(scale, 1e-8)).sum())
+        self.low, self.high, self.scale, self.bias = (
+            torch.as_tensor(np.array(a), dtype=torch.float32, device=device) for a in (low, high, scale, bias)
+        )
+
+    def __call__(self, actions):
+        return torch.clamp(actions * self.scale + self.bias, self.low, self.high)
+
+
+def load_normalizer(running_mean_std, state_dict):
+    """A SAC checkpoint's ``running_mean_std`` section into the input
+    normalizer; a checkpoint with stats for a config without a normalizer
+    raises (the JAX importer's check, torch_import.py:683-688)."""
+    if running_mean_std is None:
+        raise ValueError("the SAC checkpoint carries running_mean_std stats but this config has "
+                         "normalize_input: False; the policy would see raw observations")
+    running_mean_std.load_state_dict(state_dict)

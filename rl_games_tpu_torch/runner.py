@@ -28,7 +28,9 @@ def _build_ppo(**kwargs):
 
 
 def _build_sac(**kwargs):
-    unported("the SAC agent (algo.name: sac)", "A10")
+    from rl_games_tpu_torch.algos.sac import SACAgent
+
+    return SACAgent(**kwargs)
 
 
 def _build_ppo_player(**kwargs):
@@ -138,7 +140,7 @@ class Runner:
             args.get("stop_fn") or self.params["config"].get("stop_fn")
         )
         kwargs = {}
-        if args.get("sigma") is not None:
+        if args.get("sigma") is not None and self.algo_name != "sac":
             kwargs["sigma"] = args["sigma"]
         return agent.train(checkpoint=args.get("checkpoint"), stop_fn=stop_fn, **kwargs)
 

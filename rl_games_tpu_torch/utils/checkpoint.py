@@ -12,7 +12,10 @@ A checkpoint is ``torch.save`` of plain containers of tensors:
      "meta":  {"epoch", "frame", "last_mean_rewards", ...}}
 
 so a player (and the reference's own loader) reads the weights from
-``"model"`` without knowing the trainer's state. ``tree_to_plain`` turns a
+``"model"`` without knowing the trainer's state. A SAC checkpoint holds
+the reference SAC layout's sections instead of ``"model"``: top-level
+``"actor"``, ``"critic"``, ``"critic_target"``, ``"log_alpha"`` and, with
+an input normalizer, ``"running_mean_std"``. ``tree_to_plain`` turns a
 train state (dataclasses of tensors, lists and ``torch.Generator``s) into
 such containers, and ``tree_from_plain`` restores them into the structure
 of an example state (``agent.init_state()``), on the example's device.
@@ -79,17 +82,21 @@ def tree_from_plain(example: Any, plain: Any):
     return plain
 
 
-def save_checkpoint(path: str, state: Any, meta: Optional[dict] = None, weights: Any = None):
+def save_checkpoint(path: str, state: Any, meta: Optional[dict] = None, weights: Any = None,
+                    sections: Optional[dict] = None):
     """Write a train state (+ metadata) to ``path``, atomically.
 
     ``weights`` is the model's ``state_dict()``, stored under ``"model"``
     beside the full state so players restore the weights without the
     trainer's state (the reference's get_weights vs get_full_state_weights
-    split, a2c_common.py:650-710).
+    split, a2c_common.py:650-710). ``sections`` are further top-level
+    entries (SAC's ``"actor"``, ``"critic"``, ...).
     """
     payload = {"state": tree_to_plain(state), "meta": dict(meta or {})}
     if weights is not None:
         payload["model"] = tree_to_plain(weights)
+    for name, section in (sections or {}).items():
+        payload[name] = tree_to_plain(section)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
 

@@ -20,6 +20,15 @@ checkpoint layout:
     norm.obs / norm.value {mean, var, count}     -> running_mean_std.* /
         value_mean_std.{running_mean, running_var, count}
 
+``sac_jax_to_state_dict`` converts the JAX package's SAC trees into the
+sections of the reference SAC checkpoint, which the port's SAC networks use:
+
+    actor  params/trunk/Dense_{i}/Dense_0/{kernel, bias} -> trunk.{2i}.*
+           params/head/Dense_0/{kernel, bias}            -> trunk.{2n}.*
+    critic params/Q{1,2}_trunk/Dense_{i}/Dense_0/*       -> Q{1,2}.{2i}.*
+           params/Q{1,2}_head/Dense_0/*                  -> Q{1,2}.{2n}.*
+    obs_rms {mean, var, count} -> running_mean_std.{running_mean, running_var, count}
+
 It reads only numpy arrays and plain attributes, so it needs neither JAX nor
 the JAX package.
 """
@@ -38,11 +47,11 @@ def _tensor(a, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
 
 
-def _rms(prefix: str, stats) -> Dict[str, torch.Tensor]:
+def _rms(stats, prefix: str = "") -> Dict[str, torch.Tensor]:
     return {
-        f"{prefix}.running_mean": _tensor(_get(stats, "mean"), np.float32),
-        f"{prefix}.running_var": _tensor(_get(stats, "var"), np.float32),
-        f"{prefix}.count": _tensor(_get(stats, "count"), np.int32),
+        f"{prefix}running_mean": _tensor(_get(stats, "mean"), np.float32),
+        f"{prefix}running_var": _tensor(_get(stats, "var"), np.float32),
+        f"{prefix}count": _tensor(_get(stats, "count"), np.int32),
     }
 
 
@@ -104,7 +113,44 @@ def jax_to_state_dict(params: Any, norm: Optional[Any] = None,
         sd["a2c_network.sigma"] = _tensor(body["sigma"], np.float32)
     if norm is not None:
         if _get(norm, "obs") is not None:
-            sd.update(_rms("running_mean_std", _get(norm, "obs")))
+            sd.update(_rms(_get(norm, "obs"), "running_mean_std."))
         if _get(norm, "value") is not None:
-            sd.update(_rms("value_mean_std", _get(norm, "value")))
+            sd.update(_rms(_get(norm, "value"), "value_mean_std."))
     return sd
+
+
+def _sac_sequential(body, trunk: str, head: str, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax trunk (``Dense_{i}/Dense_0``) and head (``Dense_0``) as one
+    Sequential of [Linear, activation] per unit, then the head's Linear."""
+    sd: Dict[str, torch.Tensor] = {}
+    layers = [body[trunk][name]["Dense_0"] for name in _numbered(body[trunk], "Dense_")]
+    layers.append(body[head]["Dense_0"])
+    for i, layer in enumerate(layers):
+        sd[f"{prefix}{2 * i}.weight"] = _tensor(np.asarray(layer["kernel"]).T, np.float32)
+        sd[f"{prefix}{2 * i}.bias"] = _tensor(layer["bias"], np.float32)
+    return sd
+
+
+def sac_jax_to_state_dict(actor_params: Any, critic_params: Any = None,
+                          critic_target_params: Any = None,
+                          obs_rms: Optional[Any] = None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The reference SAC checkpoint's sections ({'actor', 'critic',
+    'critic_target', 'running_mean_std'}, each a state_dict) from the JAX
+    package's SAC trees; a section whose tree is None is left out. Any tree
+    of the params' structure converts alike (e.g. Adam's moments)."""
+    def body(tree):
+        return tree["params"] if "params" in tree else tree
+
+    def critic(tree):
+        b = body(tree)
+        return {**_sac_sequential(b, "Q1_trunk", "Q1_head", "Q1."),
+                **_sac_sequential(b, "Q2_trunk", "Q2_head", "Q2.")}
+
+    out = {"actor": _sac_sequential(body(actor_params), "trunk", "head", "trunk.")}
+    if critic_params is not None:
+        out["critic"] = critic(critic_params)
+    if critic_target_params is not None:
+        out["critic_target"] = critic(critic_target_params)
+    if obs_rms is not None:
+        out["running_mean_std"] = _rms(obs_rms)
+    return out

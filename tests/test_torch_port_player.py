@@ -119,7 +119,8 @@ def test_sigma_override():
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda: SACPlayer(player_params(), device="cpu"), "A10"),
+    (lambda: SACPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "GYMNASIUM"}},
+                       device="cpu"), "A11"),
     (lambda: PpoPlayer(player_params(), device="cpu")._host_run(1), "A11"),
     (lambda: PpoPlayer(player_params(), device="cpu").make_export_policy(), "A12"),
     (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "use_action_masks": True}},

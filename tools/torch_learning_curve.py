@@ -3,6 +3,7 @@
     python3 tools/torch_learning_curve.py rl_games_tpu/configs/ppo_ant3d.yaml
     python3 tools/torch_learning_curve.py rl_games_tpu/configs/ppo_humanoid3d.yaml --max-epochs 400
     python3 tools/torch_learning_curve.py rl_games_tpu/configs/ppo_ant3d.yaml --seed 11
+    python3 tools/torch_learning_curve.py rl_games_tpu/configs/sac_ant2d.yaml --max-epochs 2000
 
 Runs ``python3 -m rl_games_tpu_torch --train --file <config>`` (on the CUDA
 card: the CLI's default device), then ``--play -c <best checkpoint>``. The
@@ -10,8 +11,8 @@ config is read in place; with --max-epochs or --seed a copy with those
 fields changed is written to --out first (with --seed, also its own
 train_dir, runs/seed<N>, so that runs of two seeds keep their own best
 checkpoint). Prints the card's name and power limit,
-the mean reward at epochs 100, 300, 500 and 1000 (those reached) and at the
-last epoch, the training's wall time, and the play score; the CLI's whole
+the mean reward at epochs 100, 300, 500, 1000, 2000 and 5000 (those
+reached) and at the last epoch, the training's wall time, and the play score; the CLI's whole
 output goes to <out>/<name>.train.log and <name>.play.log.
 """
 
@@ -24,7 +25,9 @@ import time
 
 import yaml
 
-EPOCH_LINE = re.compile(r"epoch: (\d+)/\d+ frames: (\d+)(?: rew: (-?[\d.]+))?")
+# PPO prints "epoch: N/M frames: F rew: R", SAC "epoch: N frames: F rew: R"
+EPOCH_LINE = re.compile(r"epoch: (\d+)(?:/\d+)? frames: (\d+)(?: rew: (-?[\d.]+))?")
+MARKS = (100, 300, 500, 1000, 2000, 5000)
 
 
 def main():
@@ -66,7 +69,7 @@ def main():
             if m and m.group(3) is not None:
                 curve[int(m.group(1))] = float(m.group(3))
     last = max(curve)
-    marks = [e for e in (100, 300, 500, 1000) if e in curve] + ([last] if last not in (100, 300, 500, 1000) else [])
+    marks = [e for e in MARKS if e in curve] + ([last] if last not in MARKS else [])
     print(f"[train] {stem}: {last} epochs in {train_s:.1f} s; mean reward "
           + ", ".join(f"{curve[e]:.2f} at epoch {e}" for e in marks)
           + f"; best {max(curve.values()):.2f} at epoch {max(curve, key=curve.get)}")

@@ -1,4 +1,4 @@
-"""Count the top-level torch ops of the discrete slice's hot loops on the CPU.
+"""Count the top-level torch ops of the port's hot loops on the CPU.
 
     python3 tools/torch_op_count.py
 
@@ -6,7 +6,9 @@ For DevicePong, DeviceBreakout, PixelCatcher and CartPole: one vec-env
 step at 64 envs; for ppo_pong_device.yaml, ppo_breakout_device.yaml (cut to
 16 envs, horizon 8, minibatch 32) and ppo_cartpole.yaml: the policy
 forward, one rollout (and its mean per step) and one minibatch step (loss,
-backward, clip, Adam, scheduler). Each op on the host is a kernel launch
+backward, clip, Adam, scheduler); for sac_ant2d.yaml (cut to 16 envs,
+batch 64, ring 4096): one env step during warmup and after it, one update
+with the actor step and one without. Each op on the host is a kernel launch
 on a card, so the counts predict the host's share of a step; they are
 counts, not times, and need no card.
 """
@@ -21,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rl_games_tpu_torch.algos.ppo import PPOAgent, adam_step  # noqa: E402
+from rl_games_tpu_torch.algos.sac import SACAgent  # noqa: E402
 from rl_games_tpu_torch.envs import registry  # noqa: E402
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "rl_games_tpu", "configs")
@@ -63,6 +66,23 @@ def main():
 
         print(f"{config}: policy forward {forward} ops, rollout {rollout} ops "
               f"({rollout / agent.horizon_length:.1f} per step), minibatch step {top_level_ops(minibatch_step)} ops")
+
+    with open(os.path.join(CONFIGS, "sac_ant2d.yaml")) as f:
+        params = yaml.safe_load(f)["params"]
+    params["config"].update(num_actors=16, batch_size=64, replay_buffer_size=4096)
+    agent = SACAgent("count", params, device="cpu")
+    state = agent.init_state()
+    for _ in range(8):  # rows for the updates to sample
+        agent._env_step(state, True)
+    steps = {warmup: top_level_ops(lambda: agent._env_step(state, warmup)) for warmup in (True, False)}
+
+    def update(with_actor):
+        state.update_counter = 1 if with_actor else 0  # policy_frequency 2: the actor runs at 2
+        agent._update(state)
+
+    updates = {with_actor: top_level_ops(lambda: update(with_actor)) for with_actor in (True, False)}
+    print(f"sac_ant2d.yaml: env step {steps[True]} ops during warmup, {steps[False]} after it; "
+          f"update {updates[True]} ops with the actor step, {updates[False]} without")
 
 
 if __name__ == "__main__":
