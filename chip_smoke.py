@@ -9,7 +9,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU or
 to a plain version):
 
 1. device    — a CUDA card must be present; prints its name and power limit.
-2. build     — compiles every CUDA source with nvcc, all at once.
+2. build     — compiles every CUDA source with nvcc and the native env
+               stepper (native/cpuenv/cpuenv.cc) with g++, all at once.
 3. kernels   — each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and ragged ones (the fused MLP over all
                nine activations, with inputs and weights beyond the init
@@ -56,6 +57,33 @@ to a plain version):
                back; the device kernels and time of an env step and of an
                update. It launches neither kernel (plain MLPs, no GAE). It
                runs right after phase 5, before any profiled phase.
+14. host_ppo — rl_games_tpu/configs/ref/mujoco/halfcheetah.yaml at full
+               width (64 envs x horizon 256, MLP [128, 64, 32] elu,
+               5 x 8 minibatches of 2048) with its env swapped for the native
+               stepper's Hopper2D-v0 (vecenv_type CPUENV: the card's machine
+               has no MuJoCo), through Runner.run, trained and played three
+               times: host_inference_device default, cpu, and default with
+               network.mlp.fused: true. Per run: epoch times, the env step /
+               rollout / update split, launches (GAE once per epoch at
+               [256, 64, 1]; fused: 256 rollout + 1 bootstrap forwards at
+               B = 64 and 40 minibatch forwards at B = 2048 per epoch, one per
+               player step), the player's step; under --profile the device's
+               idle share of one epoch. Fails when the faster placement is not
+               the one host_inference_device auto takes. Then the plain and
+               the fused policy side by side, interleaved: the host time of a
+               forward, of the MLP torso and of the chain alone, a rollout's
+               step and the device events per step.
+15. host_pixel — the other side of auto's choice: ref/atari/ppo_breakout.yaml
+               as shipped (nature-CNN, 64 envs x horizon 128 of 84x84x4
+               frames) over a host env without an emulator, through
+               PPOAgent.host_train_epoch with the policy on the card and on
+               its CPU copy; fails when the faster is not auto's.
+16. host_sac — rl_games_tpu/configs/sac_ant.yaml at full width (32 envs,
+               MLPs [256, 256], batch 256, 32 updates per env step, a ring of
+               1e6 rows, 5000 warmup frames) on Hopper2D-v0 the same way,
+               through Runner.run: its warmup and 8 update epochs (256
+               updates), the replay rows against the env steps less the one
+               pending transition, then played. No kernel.
 
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
@@ -66,8 +94,15 @@ CPU from the same state and draws, with a vec-env step at 512 and 4096
 envs. Phase 4 also holds one SAC update of sac_ant2d.yaml's networks (a
 batch of 2048) on the card against the CPU.
 
-Launch counts are zeroed just before each of phases 6-13's runs and read
-just after, and are held to the counts the code implies.
+Phases 3 and 4 also hold the host path: GAE at [256, 64, 1] and the fused
+MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
+phase 14's config on the card against the CPU (same weights, CPUENV seed
+and action noise), then one Adam step of its first minibatch.
+
+Launch counts are zeroed just before each of phases 6-16's runs and read
+just after, and are held to the counts the code implies. The script imports
+neither gymnasium nor dm_control: on the card the host path runs through
+the native stepper.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -188,11 +223,21 @@ def phase_device():
 
 
 def phase_build():
-    from rl_games_tpu_torch.utils import cuda_build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rl_games_tpu_torch.utils import cuda_build, native_build
 
     t0 = time.perf_counter()
-    logs = cuda_build.build_all()  # one nvcc per source, started together
-    print(f"[build] {len(logs)} sources ({', '.join(logs)}) in {time.perf_counter() - t0:.2f} s, built at once")
+    # the native env stepper (g++) beside the CUDA sources (one nvcc each),
+    # all started together
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(native_build.build, "cpuenv")
+        logs = cuda_build.build_all()
+        native_log = native.result()
+    print(f"[build] {len(logs)} sources ({', '.join(logs)}) and native/cpuenv/cpuenv.cc in "
+          f"{time.perf_counter() - t0:.2f} s, built at once; cpuenv "
+          f"{'compiled now' if native_log is not None else 'library was current'} with g++ "
+          f"{' '.join(native_build.CXX_FLAGS)} into {native_build.library_path('cpuenv')}")
     for name, log in logs.items():
         print(f"[build] {name}: {'compiled now' if log is not None else 'library was current'}, "
               f"flags {' '.join(cuda_build.nvcc_flags(name))}")
@@ -257,10 +302,11 @@ def phase_kernel_gae():
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
     # the main paths' shapes (the flagship's, the 3D configs', Pong's and
-    # Breakout's, CartPole's), then horizons that take every branch of the
+    # Breakout's, CartPole's, the host path's halfcheetah.yaml and
+    # ppo_breakout.yaml), then horizons that take every branch of the
     # kernel's sweep: one chunk of 16; the row-by-row tail alone; 16 + 8 + 5
-    for T, N, V in ((16, 8192, 1), (16, 4096, 1), (64, 512, 1), (32, 16, 1), (16, 1000, 2), (7, 33, 3),
-                    (29, 777, 2)):
+    for T, N, V in ((16, 8192, 1), (16, 4096, 1), (64, 512, 1), (32, 16, 1), (256, 64, 1), (128, 64, 1),
+                    (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
         args = gae_inputs(T, N, V, gen, dev)
         got = gae.gae_cuda(*args, 0.99, 0.95)
         want = gae.gae_plain(*args, 0.99, 0.95)
@@ -284,9 +330,11 @@ def phase_kernel_gae():
         "library_ms": None,
         "library_note": "no single PyTorch call computes GAE",
         # the 3D configs' shape (4096 envs), the pixel configs' (512 envs,
-        # horizon 64), CartPole's
+        # horizon 64), CartPole's, the host path's (64 envs, horizon 256:
+        # 256 dependent steps over one block of 64 threads; [host_pixel]'s 128)
         "other_shapes": [time_gae(16, 4096, 1, gen, dev), time_gae(64, 512, 1, gen, dev),
-                         time_gae(32, 16, 1, gen, dev)],
+                         time_gae(32, 16, 1, gen, dev), time_gae(256, 64, 1, gen, dev),
+                         time_gae(128, 64, 1, gen, dev)],
     }
 
 
@@ -295,6 +343,7 @@ FLAGSHIP_DIMS = (26, 256, 128, 64)
 ANT3D_DIMS = (33, 256, 128, 64)  # ppo_ant3d.yaml: obs 33
 HUMANOID3D_DIMS = (41, 256, 128, 64)  # ppo_humanoid3d.yaml: obs 41
 CARTPOLE_DIMS = (4, 32, 32)  # ppo_cartpole.yaml: obs 4, mlp [32, 32] relu
+HOPPER_DIMS = (5, 128, 64, 32)  # ref/mujoco/halfcheetah.yaml's mlp [128, 64, 32] elu on Hopper2D's 5 obs
 
 
 def mlp_inputs(dims, batch, gen, device):
@@ -350,6 +399,8 @@ def phase_kernel_fused_mlp():
     shapes += [(dims, batch, 1.0, 1.0) for dims in (ANT3D_DIMS, HUMANOID3D_DIMS) for batch in (4096, 32768)]
     # CartPole's relu torso at the player's, the rollout's and the minibatch's batch size
     shapes += [(CARTPOLE_DIMS, batch, 1.0, 1.0) for batch in (1, 16, 64)]
+    # the host path's torso at the rollout's (and player's) and the minibatch's batch size
+    shapes += [(HOPPER_DIMS, batch, 1.0, 1.0) for batch in (64, 2048)]
     if fm.kernel_plan(FLAGSHIP_DIMS, 5001)[0] != 32:
         raise AssertionError("B = 5001 was chosen to take the 32-row blocks with a ragged last block")
     worst, worst_ratio = 0.0, 0.0
@@ -407,6 +458,7 @@ def phase_kernel_fused_mlp():
     entry["other_shapes"] = [time_fused(dims, batch, gen, dev)
                              for dims in (ANT3D_DIMS, HUMANOID3D_DIMS) for batch in (4096, 32768)]
     entry["other_shapes"] += [time_fused(CARTPOLE_DIMS, batch, gen, dev, "relu") for batch in (16, 64)]
+    entry["other_shapes"] += [time_fused(HOPPER_DIMS, batch, gen, dev) for batch in (64, 2048)]
     n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
     for batch, suffix in ((8192, ""), (32768, "_minibatch")):
         x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
@@ -451,7 +503,7 @@ def phase_kernel_fused_mlp():
 def phase_reference():
     """The CUDA path against the port's CPU path (itself held against the
     JAX package by tests/test_torch_*.py) on a small input."""
-    from rl_games_tpu_torch.algos.ppo import _ADAM_EPS, PPOAgent
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
     from rl_games_tpu_torch.envs.device.ant2d import Ant2D, Ant2DState
 
     # one Ant2D control step from the same states
@@ -522,24 +574,45 @@ def phase_reference():
     cstate.dones = gstate.dones.cpu()
     gds = gpu._prepare_dataset(gstate, traj, last_values)
     cds = cpu._prepare_dataset(cstate, ctraj, last_values.cpu())
-    # the minibatch's gradients, then the update (one Adam step)
-    grads = [torch.autograd.grad(agent._loss_and_kl(ds, state.entropy_coef)[0], agent.params)
+    update = check_first_update(gpu, cpu, gstate, cstate, gds, cds)
+    print(f"[reference] Pong model cuda vs cpu: forward on 128 frames max |dlogits| {dlogits:.2e}, "
+          f"max |dvalue| {dvalue:.2e} (|logits| up to {float(want['logits'].abs().max()):.1f}); one minibatch of "
+          f"128: {update}")
+    # forward: float32 sums of up to 3136 products, 1e-4 (a TF32 convolution
+    # keeps about three digits: 1e-3 of the logits)
+    if not (dlogits < 1e-4 and dvalue < 1e-4):
+        raise AssertionError("the Pong model's forward on the card disagrees with the CPU")
+    reference_sac()
+    reference_host_ppo()
+
+
+def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
+    """One Adam step of the first minibatch of the same dataset, card
+    against CPU: the minibatch's gradients within 1e-5 of each tensor's
+    largest entry (as the CPU tests hold them to the JAX package); the
+    card's step, where |g| > 1e-5, within 1e-3 · lr of the step the card's
+    own gradients call for (clipped to the global norm, weight decay, then
+    lr · g / (|g| + eps) in float64: the moments' bias corrections cancel
+    at step 1, and where |g| is far above eps the step is lr · sign(g) to
+    within 1e-3 of lr whatever rounding g carries), on most entries; the
+    losses, means over the minibatch, within 2e-5 relative; float32 without
+    TF32 on the card. Returns a summary; raises on a disagreement."""
+    from rl_games_tpu_torch.algos.ppo import _ADAM_EPS
+
+    for agent in (gpu, cpu):
+        agent.mini_epochs_num = agent.num_minibatches = 1
+    first = slice(0, gpu.minibatch_size)
+    grads = [torch.autograd.grad(agent._loss_and_kl({k: v[first] for k, v in ds.items()}, state.entropy_coef)[0],
+                                 agent.params)
              for agent, ds, state in ((gpu, gds, gstate), (cpu, cds, cstate))]
     dgrad = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30)) for g, c in zip(*grads))
     lr = float(gstate.lr)
     before = [p.detach().cpu().double() for p in gpu.params]
     gm, cm = gpu._update(gstate, gds), cpu._update(cstate, cds)
-    # Adam's first step from the card's own gradients, in float64: clipped
-    # to the global norm, weight decay, then lr * g / (|g| + eps) (the
-    # moments' bias corrections cancel at step 1)
     g64 = [g.cpu().double() for g in grads[0]]
     norm = math.sqrt(sum(float((g * g).sum()) for g in g64))
     clip = gpu.grad_norm / norm if gpu.truncate_grads and norm >= gpu.grad_norm else 1.0
     g64 = [g * clip + gpu.weight_decay * p for g, p in zip(g64, before)]
-    # where |g| is far above eps the step is lr * sign(g) to within 1e-3 of
-    # lr, whatever rounding the card's gradient carries: the card's step is
-    # held to it there, to 1e-3 of lr. Its gradient is held to the CPU's
-    # above, so the two together hold the update
     far = [g.abs() > 1e-5 for g in g64]
     dstep = max(float(torch.where(f, (p.detach().cpu().double() - b) - (-lr * g / (g.abs() + _ADAM_EPS)), 0.0)
                       .abs().max()) for p, b, g, f in zip(gpu.params, before, g64, far))
@@ -548,25 +621,72 @@ def phase_reference():
     dp = max(float((v.cpu().double() - csd[k].double()).abs().max()) for k, v in gpu.model.state_dict().items())
     dloss = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("a_loss", "c_loss")}
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    print(f"[reference] Pong model cuda vs cpu: forward on 128 frames max |dlogits| {dlogits:.2e}, "
-          f"max |dvalue| {dvalue:.2e} (|logits| up to {float(want['logits'].abs().max()):.1f}); one minibatch of "
-          f"128: gradients within {dgrad:.2e} of each tensor's largest entry (global norm {norm:.4e}, "
-          f"clipped by {clip:.4e}); the card's Adam step against its own gradients' step where |g| > 1e-5 "
-          f"({n_far} of {n_all} entries): max |d| {dstep:.2e} = {dstep / lr:.2e} lr (lr {lr:.1e}); "
-          f"max |dparam| against the CPU's update {dp:.2e}; a_loss {float(gm['a_loss']):.7f} / "
-          f"{float(cm['a_loss']):.7f}, c_loss {float(gm['c_loss']):.7f} / {float(cm['c_loss']):.7f} "
-          f"(relative {dloss['a_loss']:.2e}, {dloss['c_loss']:.2e}); Adam steps {int(gstate.opt_state.count)}; "
-          f"TF32 (matmul, cudnn) {tf32}")
-    # forward: float32 sums of up to 3136 products, 1e-4 (a TF32 convolution
-    # keeps about three digits: 1e-3 of the logits); gradients: 1e-5 of each
-    # tensor's largest entry, as the CPU tests hold them to the JAX package;
-    # the losses, means of 128 terms that carry the forward's 1e-5: 2e-5
-    # relative. Most entries must take the checked step
-    if tf32 != (False, False) or not (dlogits < 1e-4 and dvalue < 1e-4 and dgrad < 1e-5
-                                      and int(gstate.opt_state.count) == 1 and n_far > n_all // 2
+    summary = (f"gradients within {dgrad:.2e} of each tensor's largest entry (global norm {norm:.4e}, clipped by "
+               f"{clip:.4e}); the card's Adam step against its own gradients' step where |g| > 1e-5 ({n_far} of "
+               f"{n_all} entries): max |d| {dstep:.2e} = {dstep / lr:.2e} lr (lr {lr:.1e}); max |dparam| against "
+               f"the CPU's update {dp:.2e}; a_loss {float(gm['a_loss']):.7f} / {float(cm['a_loss']):.7f}, c_loss "
+               f"{float(gm['c_loss']):.7f} / {float(cm['c_loss']):.7f} (relative {dloss['a_loss']:.2e}, "
+               f"{dloss['c_loss']:.2e}); Adam steps {int(gstate.opt_state.count)}; TF32 (matmul, cudnn) {tf32}")
+    if tf32 != (False, False) or not (dgrad < 1e-5 and int(gstate.opt_state.count) == 1 and n_far > n_all // 2
                                       and dstep < 1e-3 * lr and max(dloss.values()) < 2e-5):
-        raise AssertionError("the Pong model on the card disagrees with the CPU")
-    reference_sac()
+        raise AssertionError(f"the update on the card disagrees with the CPU: {summary}")
+    return summary
+
+
+def host_ppo_params() -> dict:
+    """rl_games_tpu/configs/ref/mujoco/halfcheetah.yaml as shipped (64 envs
+    x horizon 256, MLP [128, 64, 32] elu, minibatch 2048, 5 mini-epochs,
+    use_smooth_clamp, adaptive LR) with the env swapped: the card's machine
+    has no MuJoCo, so HalfCheetah-v5 becomes the native stepper's
+    Hopper2D-v0 (vecenv_type CPUENV), a planar hopper of 5 observations and
+    2 actions with bounds [-1, 1]."""
+    params = load_config("ref/mujoco/halfcheetah.yaml")["params"]
+    params["config"].update(env_name="Hopper2D-v0", vecenv_type="CPUENV")
+    return params
+
+
+def reference_host_ppo():
+    """One host PPO epoch at halfcheetah.yaml's geometry on Hopper2D, card
+    against CPU: the same weights, the same CPUENV seed and the same action
+    noise; the trajectories held to each other, then one Adam step of the
+    first minibatch of the card's trajectory (``check_first_update``)."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.models import distributions as D
+
+    params = host_ppo_params()
+    params["config"]["host_inference_device"] = "default"
+    gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+    gstate, cstate = gpu.init_state(), cpu.init_state()
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    noise = torch.randn((gpu.horizon_length, gpu.num_actors, gpu.actions_num),
+                        generator=torch.Generator().manual_seed(8))
+    sample = D.normal_sample
+    trajs = []
+    try:
+        for agent, state in ((gpu, gstate), (cpu, cstate)):
+            draws = iter(noise)
+            D.normal_sample = lambda mean, std, generator=None: mean + std * next(draws).to(mean.device)
+            trajs.append(agent._host_rollout(state))
+    finally:
+        D.normal_sample = sample
+    (gtraj, glast), (ctraj, clast) = trajs
+    diffs = {k: float((gtraj[k].cpu() - ctraj[k]).abs().max()) for k in gtraj if k != "dones"}
+    diffs["last_values"] = float((glast.cpu() - clast).abs().max())
+    same_dones = torch.equal(gtraj["dones"].cpu(), ctraj["dones"])
+    games = (int(gstate.game_rewards.count), int(cstate.game_rewards.count))
+    print(f"[reference] host PPO rollout (halfcheetah.yaml's geometry on Hopper2D-v0, {gpu.num_actors} envs x "
+          f"{gpu.horizon_length} steps) cuda vs cpu, same weights, CPUENV seed and action noise: "
+          + ", ".join(f"max |d{k}| {v:.2e}" for k, v in diffs.items())
+          + f"; dones equal {same_dones}; games {games}")
+    # the policy's float32 outputs in two summation orders, fed back through
+    # 256 steps of the hopper's smooth flight and stance phases: 1e-4
+    if not (same_dones and games[0] == games[1] and max(diffs.values()) < 1e-4):
+        raise AssertionError("the host PPO rollout on the card disagrees with the CPU")
+    cstate.dones = gstate.dones.cpu()
+    gds = gpu._prepare_dataset(gstate, gtraj, glast)
+    cds = cpu._prepare_dataset(cstate, {k: v.cpu() for k, v in gtraj.items()}, glast.cpu())
+    print(f"[reference] host PPO update, the first minibatch of {gpu.minibatch_size} of the card's trajectory: "
+          + check_first_update(gpu, cpu, gstate, cstate, gds, cds))
 
 
 def reference_sac():
@@ -1393,6 +1513,425 @@ def phase_sac(update_epochs: int, profile: bool, play_steps: int = 200):
     return train_launches, play_launches, upd_s
 
 
+def host_ppo_run(epochs: int, placement: str, fused: bool, profile: bool):
+    """host_ppo_params() through Runner.run with host_inference_device
+    ``placement``: train ``epochs`` epochs, then play the last checkpoint.
+    Returns the launch counts, the batch of every fused launch, per-epoch
+    times and ``_last_timing``, the player's output and steps."""
+    from rl_games_tpu_torch.envs.host.cpuenv import CpuVecEnv
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+    from rl_games_tpu_torch.runner import Runner
+
+    params = host_ppo_params()
+    params["network"]["mlp"]["fused"] = fused
+    cfg = params["config"]
+    cfg["host_inference_device"] = placement
+    cfg["player"] = {**cfg["player"], "max_steps": 1000}
+    batches, ends, timings, agents, env_steps = [], [], [], [], [0]
+
+    def counted(x, *args):  # the batch of every kernel launch
+        batches.append(x.shape[0])
+        return launch(x, *args)
+
+    def mark(agent):  # stamps each epoch's end and keeps its host timing; never stops
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        timings.append(dict(agent._last_timing))
+        agents[:] = [agent]
+        return False
+
+    def counted_step(self, actions):  # the player's env steps
+        env_steps[0] += 1
+        return step(self, actions)
+
+    launch, step = fused_mlp.fused_mlp_cuda, CpuVecEnv.step
+    fused_mlp.fused_mlp_cuda = counted
+    try:
+        with tempfile.TemporaryDirectory() as train_dir:
+            cfg.update(name="chip_smoke_host_ppo", train_dir=train_dir, max_epochs=epochs, save_best_after=1)
+            runner = Runner()  # the default device: the card
+            runner.load({"params": params})
+            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, epoch_num = runner.run({"train": True, "stop_fn": mark})
+            torch.cuda.synchronize()
+            train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            train_batches = {b: batches.count(b) for b in sorted(set(batches))}
+            agent = agents[0]
+            idle = host_ppo_profile(agent) if profile else None
+            nn_dir = os.path.join(train_dir, "chip_smoke_host_ppo", "nn")
+            final = [n for n in sorted(os.listdir(nn_dir)) if f"_ep_{epochs}_rew_" in n]
+            if epoch_num != epochs or len(final) != 1:
+                raise AssertionError(f"host_ppo: {epoch_num} epochs, checkpoints {os.listdir(nn_dir)}")
+            checkpoint = os.path.join(nn_dir, final[0])
+
+            CpuVecEnv.step = counted_step
+            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+            out = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mean_reward = runner.run({"play": True, "checkpoint": checkpoint})
+            torch.cuda.synchronize()
+            play_s = time.perf_counter() - t1
+            play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            CpuVecEnv.step = step
+            steady_s, first, last = steady_player_step(runner, checkpoint)
+    finally:
+        fused_mlp.fused_mlp_cuda, CpuVecEnv.step = launch, step
+    if not math.isfinite(mean_reward):
+        raise AssertionError(f"host_ppo player: mean reward {mean_reward}")
+    return {"train": train_launches, "batches": train_batches, "play": play_launches, "play_steps": env_steps[0],
+            "times": np.diff([t0, *ends]), "timings": timings, "agent": agent, "idle": idle,
+            "play_out": out.getvalue().strip(), "play_s": play_s, "steady_step_s": steady_s,
+            "steady_of": (first, last)}
+
+
+def host_ppo_profile(agent):
+    """One host epoch of ``agent`` under torch.profiler: the device's idle
+    share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.host_train_epoch(agent.last_state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    timing = agent._last_timing
+    return profile_report("host_ppo profile", prof, wall_us, f"env steps {timing['step_time'] * 1e3:.1f} ms, "
+                          f"rollout {timing['play_time'] * 1e3:.1f} ms, placement {agent.rollout_device.type}")
+
+
+def phase_host_ppo(epochs: int, profile: bool):
+    """ref/mujoco/halfcheetah.yaml at full width on the native Hopper2D-v0
+    (host_ppo_params) through Runner.run, trained and played three times:
+    host_inference_device default, cpu, and default with the fused MLP.
+    GAE runs once per epoch at [256, 64, 1]; with the fused MLP on the
+    card, every rollout step's forward at B = 64, the bootstrap forward,
+    each minibatch's at B = 2048 and each player step's are one launch."""
+    from rl_games_tpu_torch.common.host_inference import auto_placement
+
+    print(f"[host_ppo] host: {os.cpu_count()} cores online (std::thread::hardware_concurrency reads the same "
+          f"count, the native stepper's thread pool), {len(os.sched_getaffinity(0))} in this process's affinity, "
+          f"torch CPU threads {torch.get_num_threads()}")
+    cfg = host_ppo_params()["config"]
+    n, horizon, minibatch = cfg["num_actors"], cfg["horizon_length"], cfg["minibatch_size"]
+    minibatches = cfg["mini_epochs"] * n * horizon // minibatch
+    results = {}
+    for placement, fused in (("default", False), ("cpu", False), ("default", True)):
+        tag = f"{placement}{' fused' if fused else ''}"
+        run = host_ppo_run(epochs, placement, fused, profile)
+        results[tag] = run
+        per_epoch = horizon + 1 + minibatches if fused else 0
+        expected = {"gae": epochs, "fused_mlp": per_epoch * epochs}
+        expected_batches = {n: (horizon + 1) * epochs, minibatch: minibatches * epochs} if fused else {}
+        expected_play = run["play_steps"] if fused else 0
+        if (run["train"] != expected or run["batches"] != expected_batches
+                or run["play"] != {"gae": 0, "fused_mlp": expected_play}):
+            raise AssertionError(f"host_ppo {tag}: launches {run['train']} at batches {run['batches']}, player "
+                                 f"{run['play']} in {run['play_steps']} steps; expected {expected} at "
+                                 f"{expected_batches}, player {expected_play} fused")
+        times, timings = run["times"], run["timings"]
+        steady = slice(1, None) if len(times) > 1 else slice(None)
+        epoch_s = float(np.median(times[steady]))
+        play = np.array([t["play_time"] for t in timings])
+        env = np.array([t["step_time"] for t in timings])
+        update = times - play
+        s = run["steady_step_s"]
+        print(f"[host_ppo] {tag}: {epochs} epochs of halfcheetah.yaml on Hopper2D-v0 (CPUENV, {n} envs x {horizon} "
+              f"steps, {minibatches} minibatches of {minibatch}) through Runner.run: launches {run['train']}"
+              + (f" at batches {run['batches']} ({per_epoch} fused per epoch = {horizon} rollout + 1 bootstrap + "
+                 f"{minibatches} minibatch forwards)" if fused else "")
+              + f"; first epoch {times[0] * 1e3:.1f} ms, steady epoch {epoch_s * 1e3:.1f} ms (median of "
+              f"{len(times[steady])}), {n * horizon / epoch_s:,.0f} env-steps/s; steady medians: env steps "
+              f"(step_time) {np.median(env[steady]) * 1e3:.1f} ms, rollout (play_time) "
+              f"{np.median(play[steady]) * 1e3:.1f} ms ({np.median(play[steady]) / horizon * 1e3:.3f} ms a step, "
+              f"{np.median((play - env)[steady]) / horizon * 1e3:.3f} ms of it beside the env), GAE + update "
+              f"{np.median(update[steady]) * 1e3:.1f} ms")
+        print(f"[host_ppo] {tag}: played {run['play_steps']} steps x {n} envs: launches {run['play']}, "
+              f"{run['play_out']!r}, {run['play_s']:.2f} s with set-up; steady step without set-up {s * 1e3:.3f} ms "
+              f"(mean of steps {run['steady_of'][0]}-{run['steady_of'][1]} of a second run)")
+        if run["idle"] is not None:
+            print(f"[host_ppo] {tag}: device idle share of one profiled epoch {run['idle']:.3f}")
+    faster = min(("default", "cpu"), key=lambda p: np.median(results[p]["times"][1:]))
+    auto = auto_placement(host_ppo_params()["network"])
+    print(f"[host_ppo] placement: steady epoch default {np.median(results['default']['times'][1:]) * 1e3:.1f} ms, "
+          f"cpu {np.median(results['cpu']['times'][1:]) * 1e3:.1f} ms: {faster} is faster at this geometry; "
+          f"auto takes {auto} for this policy (an MLP)")
+    if faster != auto:
+        raise AssertionError(f"host_ppo: {faster} is the faster placement, but auto takes {auto} "
+                             "(common/host_inference.auto_placement)")
+    host_ppo_forward_ab({tag: results[tag]["agent"] for tag in ("default", "default fused")})
+    for run in results.values():
+        del run["agent"]
+    return results
+
+
+def host_ppo_forward_ab(agents: dict, rounds: int = 6, calls: int = 200):
+    """The plain and the fused policy on the card side by side, each in its
+    trained agent, interleaved call by call (and rollout by rollout, the
+    order swapped every round) so that both see the same host: the host
+    time of one forward_play at the rollout's B = 64 (until the call
+    returns, and until the card has run it), of the MLP torso alone and of
+    the chain alone (the kernel's wrapper, or plain_mlp), a rollout's step,
+    the host time and CUDA launches of a forward under torch.profiler, and
+    the device events (kernels and copies) per step of one profiled
+    rollout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rl_games_tpu_torch.models.layers import FusedMLP
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    tags = list(agents)
+    fns = {}
+    for tag, agent in agents.items():
+        model, state = agent.model, agent.last_state
+        torso = model.a2c_network.actor_mlp
+        x = model.norm_obs(state.obs)
+        ws = [m.weight for m in torso if isinstance(m, torch.nn.Linear)]
+        bs = [m.bias for m in torso if isinstance(m, torch.nn.Linear)]
+        chain = fm.fused_mlp_cuda if isinstance(torso, FusedMLP) else fm.plain_mlp
+        activation = agent.full_params["network"]["mlp"]["activation"]
+        fns[tag] = {"forward": lambda m=model, s=state: m.forward_play(s.obs, generator=s.generator),
+                    "network": lambda m=model, x=x: m.a2c_network(x),
+                    "torso": lambda t=torso, x=x: t(x),
+                    "chain": lambda c=chain, x=x, ws=ws, bs=bs, a=activation: c(x, ws, bs, a),
+                    # an untimed torso, then the timed op: the next launch's cost
+                    "after": (lambda t=torso, x=x: t(x), lambda x=x: x.add(1.0))}
+    out = {tag: collections.defaultdict(list) for tag in tags}
+    with torch.no_grad():
+        for what in ("forward", "network", "torso", "chain", "after"):
+            for i in range(calls):  # A B, then B A: each pair from an idle card
+                for tag in (tags if i % 2 == 0 else tags[::-1]):
+                    before, fn = fns[tag][what] if what == "after" else (None, fns[tag][what])
+                    torch.cuda.synchronize()
+                    if before is not None:
+                        before()
+                    t0 = time.perf_counter()
+                    fn()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    out[tag][what].append((t1 - t0, time.perf_counter() - t0))
+        for i in range(rounds):
+            for tag in (tags if i % 2 == 0 else tags[::-1]):
+                agent = agents[tag]
+                agent._host_rollout(agent.last_state)
+                t = agent._last_timing
+                out[tag]["step"].append(t["play_time"] / agent.horizon_length)
+                out[tag]["beside_env"].append((t["play_time"] - t["step_time"]) / agent.horizon_length)
+    for tag, agent in agents.items():
+        state, T, r = agent.last_state, agent.horizon_length, out[tag]
+        torch.cuda.synchronize()
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                agent.model.forward_play(state.obs, generator=state.generator)
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        launches = sum(e.count for e in rows if e.key == "cudaLaunchKernel")
+        host = sum(e.self_cpu_time_total for e in rows if e.key != "Activity Buffer Request")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            agent._host_rollout(state)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = {k: np.median(np.array(r[k]), axis=0) * 1e6 for k in ("forward", "network", "torso", "chain", "after")}
+        fused = isinstance(agent.model.a2c_network.actor_mlp, FusedMLP)
+        print(f"[host_ppo] {tag} on the card, interleaved with the other (medians of {calls} calls each): "
+              f"forward_play at B = {agent.num_actors} {us['forward'][0]:.1f} us to return, {us['forward'][1]:.1f} us "
+              f"to finish; a2c_network {us['network'][0]:.1f} / {us['network'][1]:.1f} us; MLP torso "
+              f"{us['torso'][0]:.1f} / {us['torso'][1]:.1f} us; the next op's launch after the torso "
+              f"{us['after'][0]:.1f} us; "
+              f"{'the kernel wrapper (fused_mlp_cuda)' if fused else 'the plain chain (plain_mlp)'} "
+              f"{us['chain'][0]:.1f} / {us['chain'][1]:.1f} us; under the profiler a forward_play makes "
+              f"{launches / 20:.1f} cudaLaunchKernel calls in {host / 20:.1f} us of host time; rollout step "
+              f"{np.median(r['step']) * 1e3:.3f} ms ({np.median(r['beside_env']) * 1e3:.3f} ms beside the env; "
+              f"rounds {[round(v * 1e3, 3) for v in r['step']]} ms); one profiled rollout: {len(events) / T:.1f} "
+              f"device events a step ({len(events)} in {T} steps and the bootstrap), device busy "
+              f"{sum(e.time_range.elapsed_us() for e in events) / T:.1f} us a step")
+
+
+class PixelHostEnv:
+    """A host env of ref/atari's shapes with no emulator behind it (the
+    card's machine has no ale_py): 84x84x4 uint8 frames from a pool drawn
+    once from ``seed``, 4 actions, episodes of staggered lengths with
+    same-step autoreset and their final frames. Its step costs the host
+    little beside handing back a frame batch, so a rollout over it times
+    the policy's placement and the copies of its frames."""
+
+    is_host_env = True
+    autoreset_mode = "same_step"
+
+    def __init__(self, num_envs: int, seed: int = 0, pool: int = 8):
+        rng = np.random.default_rng(seed)
+        self.frames = rng.integers(0, 256, (pool, num_envs, 84, 84, 4), dtype=np.uint8)
+        self.lengths = 60 + 7 * np.arange(num_envs)
+        self.steps = np.zeros(num_envs, np.int64)
+        self.t = 0
+
+    def get_env_info(self):
+        from rl_games_tpu_torch.envs.spaces import Box, Discrete, EnvInfo
+
+        return EnvInfo(observation_space=Box(shape=(84, 84, 4), low=0, high=255, dtype=np.uint8),
+                       action_space=Discrete(4))
+
+    def reset(self):
+        return self.frames[0]
+
+    def step(self, actions):
+        self.t += 1
+        self.steps += 1
+        dones = self.steps >= self.lengths
+        self.steps[dones] = 0
+        obs = self.frames[self.t % len(self.frames)]
+        rewards = (np.asarray(actions) == self.t % 4).astype(np.float32)
+        return obs, rewards, dones, {"time_outs": np.zeros_like(dones), "final_observation": obs}
+
+
+def phase_host_pixel(epochs: int = 3):
+    """A pixel-shaped host rollout, the other side of auto's choice:
+    rl_games_tpu/configs/ref/atari/ppo_breakout.yaml as shipped (nature-CNN
+    and [512] relu, 64 envs x horizon 128, 2 x 8 minibatches of 1024) over
+    PixelHostEnv, through PPOAgent.host_train_epoch with the policy on the
+    card and on its CPU copy, their epochs interleaved. GAE runs once an
+    epoch at [128, 64, 1]; the fused MLP not at all (a conv torso). Fails
+    when the faster placement is not the one auto takes for this policy."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.common.host_inference import auto_placement
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+
+    agents, states = {}, {}
+    epoch_s, play_s, env_s = (collections.defaultdict(list) for _ in range(3))
+    for placement in ("default", "cpu"):
+        params = load_config("ref/atari/ppo_breakout.yaml")["params"]
+        params["config"]["host_inference_device"] = placement
+        n, horizon = params["config"]["num_actors"], params["config"]["horizon_length"]
+        agents[placement] = PPOAgent("chip_smoke_host_pixel", params, vec_env=PixelHostEnv(n, seed=3))
+        states[placement] = agents[placement].init_state()
+    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training runs start here
+    for _ in range(epochs):
+        for placement, agent in agents.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[placement], metrics = agent.host_train_epoch(states[placement])
+            torch.cuda.synchronize()
+            epoch_s[placement].append(time.perf_counter() - t0)
+            play_s[placement].append(agent._last_timing["play_time"])
+            env_s[placement].append(agent._last_timing["step_time"])
+            if not all(math.isfinite(float(metrics[k])) for k in ("a_loss", "c_loss", "entropy")):
+                raise AssertionError(f"host_pixel {placement}: losses {metrics}")
+    launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+    if launches != {"gae": 2 * epochs, "fused_mlp": 0}:
+        raise AssertionError(f"host_pixel: launches {launches}; expected {2 * epochs} GAE and no fused")
+    steady = {p: float(np.median(v[1:])) for p, v in epoch_s.items()}
+    for p in agents:
+        play = float(np.median(play_s[p][1:]))
+        print(f"[host_pixel] {p}: ppo_breakout.yaml (nature-CNN, {n} envs x {horizon} steps of 84x84x4 uint8 "
+              f"frames from PixelHostEnv) through host_train_epoch: first epoch {epoch_s[p][0] * 1e3:.1f} ms, "
+              f"steady epoch {steady[p] * 1e3:.1f} ms (median of {epochs - 1}), {n * horizon / steady[p]:,.0f} "
+              f"env-steps/s; rollout {play * 1e3:.1f} ms ({play / horizon * 1e3:.3f} ms a step, env "
+              f"{float(np.median(env_s[p][1:])) / horizon * 1e3:.3f} ms of it)")
+    faster = min(steady, key=steady.get)
+    auto = auto_placement(agents["default"].full_params["network"])
+    print(f"[host_pixel] placement: steady epoch default {steady['default'] * 1e3:.1f} ms, cpu "
+          f"{steady['cpu'] * 1e3:.1f} ms: {faster} is faster at this geometry; auto takes {auto} for this policy "
+          f"(a conv torso); launches {launches}")
+    if faster != auto:
+        raise AssertionError(f"host_pixel: {faster} is the faster placement, but auto takes {auto} "
+                             "(common/host_inference.auto_placement)")
+    return launches
+
+
+def phase_host_sac(update_epochs: int, play_steps: int = 300):
+    """rl_games_tpu/configs/sac_ant.yaml at full width (32 envs, MLPs
+    [256, 256] relu, batch 256, utd_ratio 1: 32 updates per env step,
+    policy_frequency 2, a ring of 1e6 rows, 5000 warmup frames) with the env
+    swapped as in host_ppo_params (Hopper2D-v0 on CPUENV: no MuJoCo on the
+    card's machine) through Runner.run: its warmup epochs and
+    ``update_epochs`` epochs of updates, then its last checkpoint played. It
+    launches neither kernel."""
+    from rl_games_tpu_torch.algos import sac as sac_module
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+    from rl_games_tpu_torch.runner import Runner
+
+    params = load_config("sac_ant.yaml")["params"]
+    cfg = params["config"]
+    cfg.update(env_name="Hopper2D-v0", vecenv_type="CPUENV")
+    n = cfg["num_actors"]
+    warmup = math.ceil(cfg["num_warmup_frames"] / n)
+    epochs = warmup + update_epochs
+    cfg["player"] = {**cfg["player"], "max_steps": play_steps}
+    log, ends, agents = ScalarLog(), [], []
+
+    def mark(agent):  # stamps the end of every epoch, never stops
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        agents[:] = [agent]
+        return False
+
+    create_writer = sac_module.create_writer
+    sac_module.create_writer = lambda _dir: log
+    try:
+        with tempfile.TemporaryDirectory() as train_dir:
+            cfg.update(name="chip_smoke_host_sac", train_dir=train_dir, max_epochs=epochs, max_frames=-1)
+            runner = Runner()  # the default device: the card
+            runner.load({"params": params})
+            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, epoch_num = runner.run({"train": True, "stop_fn": mark})
+            torch.cuda.synchronize()
+            train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            agent = agents[0]
+            state = agent.last_state
+            checkpoint = os.path.join(train_dir, "chip_smoke_host_sac", "nn", f"last_chip_smoke_host_sac_ep_{epochs}.pth")
+
+            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+            out = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mean_reward = runner.run({"play": True, "checkpoint": checkpoint})
+            torch.cuda.synchronize()
+            play_s = time.perf_counter() - t1
+            play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            steady_step_s, first, last = steady_player_step(runner, checkpoint)
+    finally:
+        sac_module.create_writer = create_writer
+
+    per_step = agent.num_updates_per_step
+    updates = update_epochs * per_step
+    rows = sac_module.replay_size(state.replay)
+    # every env step's transition is in the ring but the last one, still pending
+    expected_rows = (epochs - 1) * n
+    losses = {k: log.tags.get(f"losses/{k}", []) for k in ("critic_loss", "actor_loss", "alpha")}
+    if epoch_num != epochs or state.update_counter != updates or updates < 200 or per_step != n:
+        raise AssertionError(f"host_sac: {epoch_num} epochs, {state.update_counter} updates; expected {epochs} "
+                             f"epochs and {updates} updates ({n} per env step after {warmup} warmup epochs)")
+    if rows != expected_rows or state.frame != expected_rows:
+        raise AssertionError(f"host_sac: {rows} replay rows, frame {state.frame}; expected {expected_rows}")
+    if not all(v and all(math.isfinite(x) for x in v) for v in losses.values()) or losses["alpha"][-1] == 1.0:
+        raise AssertionError(f"host_sac: losses {losses}")
+    no_kernel = {"gae": 0, "fused_mlp": 0}
+    if train_launches != no_kernel or play_launches != no_kernel or not math.isfinite(mean_reward):
+        raise AssertionError(f"host_sac: launches train {train_launches}, play {play_launches}, reward {mean_reward}")
+    times = np.diff([t0, *ends])
+    warm, upd = times[:warmup], times[warmup:]
+    warm_s, upd_s = float(np.median(warm[1:])), float(np.median(upd[1:]))
+    print(f"[host_sac] trained {epoch_num} epochs of sac_ant.yaml on Hopper2D-v0 (CPUENV, {n} envs x 1 step an "
+          f"epoch, {warmup} warmup epochs, then {per_step} updates of batch {agent.batch_size} per env step) through "
+          f"Runner.run: launches {train_launches}; {state.update_counter} updates; warmup step: first (with set-up) "
+          f"{warm[0] * 1e3:.2f} ms, steady {warm_s * 1e3:.2f} ms (median of {len(warm) - 1}), "
+          f"{n / warm_s:,.0f} env-steps/s; update step: first {upd[0] * 1e3:.1f} ms, steady {upd_s * 1e3:.1f} ms "
+          f"(median of {len(upd) - 1}), {per_step / upd_s:,.1f} updates/s, {n / upd_s:,.0f} env-steps/s")
+    print(f"[host_sac] replay rows written {rows} = ({epochs} env steps - 1 pending) x {n} envs, frame "
+          f"{state.frame}; last logged critic_loss {losses['critic_loss'][-1]:.4f}, actor_loss "
+          f"{losses['actor_loss'][-1]:.4f}, alpha {losses['alpha'][-1]:.5f}")
+    print(f"[host_sac] played through Runner.run: launches {play_launches}, {out.getvalue().strip()!r}, "
+          f"{play_s:.2f} s with set-up; steady step without set-up {steady_step_s * 1e3:.3f} ms (mean of steps "
+          f"{first}-{last} of a second run)")
+    return train_launches, play_launches, upd_s
+
+
 def profile_report(tag: str, prof, wall_us: float, detail: str):
     """The device's busy time and idle share over ``wall_us`` of host time,
     and the device time by kernel, of one torch.profiler session."""
@@ -1401,9 +1940,12 @@ def profile_report(tag: str, prof, wall_us: float, detail: str):
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.time_range.elapsed_us() for e in kernels)  # one stream: no overlap
     print(f"[{tag}] epoch wall {wall_us / 1e3:.1f} ms ({detail}, profiler on); device busy {device_us / 1e3:.1f} ms, "
-          f"idle share {max(0.0, 1 - device_us / wall_us):.3f}; {len(kernels)} device kernels")
+          f"idle share {1 - device_us / wall_us:.3f}; {len(kernels)} device kernels")
     for line in prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30).splitlines():
         print(f"[{tag}] {line}")
+    if device_us > wall_us:  # events counted twice or overlapping: the share would be wrong
+        raise AssertionError(f"[{tag}] device busy {device_us:.0f} us exceeds the wall time {wall_us:.0f} us")
+    return 1 - device_us / wall_us
 
 
 def phase_profile_sac(agent, state):
@@ -1490,22 +2032,34 @@ def main():
         phase_profile(agent, state)
     del agent, state
     cp_train, cp_play, cp_steps, _ = phase_cartpole(args.epochs)
+    # the host-env paths (PR 7): PPO over the native stepper in both
+    # placements and with the fused MLP, then SAC
+    host = phase_host_ppo(args.epochs, args.profile)
+    pixel_launches = phase_host_pixel()
+    host_sac_train, host_sac_play, _ = phase_host_sac(8)
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
     # its player, the Ant3D, Pong, Breakout and CartPole trainers and the
     # CartPole player
-    runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train)
-    epochs_trained = (args.epochs,) * 5 + (3, args.epochs)  # Breakout trains 3
+    host_runs = tuple(host[tag]["train"] for tag in ("default", "cpu", "default fused"))
+    runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train,
+            *host_runs, pixel_launches)
+    # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements
+    epochs_trained = (args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,)
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
                                      "humanoid3d": h_train["gae"], "ant3d": a3_launches["gae"],
                                      "pong": pong_launches["gae"], "breakout": breakout_launches["gae"],
-                                     "cartpole": cp_train["gae"], "sac_ant2d": sac_train["gae"]}
+                                     "cartpole": cp_train["gae"], "sac_ant2d": sac_train["gae"],
+                                     "host_ppo": {tag: host[tag]["train"]["gae"] for tag in host},
+                                     "host_pixel": pixel_launches["gae"], "host_sac": host_sac_train["gae"]}
+    host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
-                               + cp_train["fused_mlp"] + cp_play["fused_mlp"])
+                               + cp_train["fused_mlp"] + cp_play["fused_mlp"]
+                               + host_fused["train"]["fused_mlp"] + host_fused["play"]["fused_mlp"])
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -1514,6 +2068,15 @@ def main():
                                         "per_player_step": cp_play["fused_mlp"] / cp_steps}
     # the SAC path's networks are the plain chain (as the JAX package's): 0
     fused_entry["launches_sac_ant2d"] = {"train": sac_train["fused_mlp"], "play": sac_play["fused_mlp"]}
+    # the host path: 256 rollout + 1 bootstrap forwards at B = 64 and 40
+    # minibatch forwards at B = 2048 per epoch, 1 per player step; none in
+    # the cpu placement's runs (the CPU copy takes the plain chain) or SAC's
+    fused_entry["launches_host_ppo"] = {
+        "train": host_fused["train"]["fused_mlp"], "train_batches": host_fused["batches"],
+        "per_epoch": host_fused["train"]["fused_mlp"] / args.epochs, "play": host_fused["play"]["fused_mlp"],
+        "per_player_step": host_fused["play"]["fused_mlp"] / host_fused["play_steps"],
+        "plain_runs": {tag: host[tag]["train"]["fused_mlp"] for tag in ("default", "cpu")},
+        "host_sac": {"train": host_sac_train["fused_mlp"], "play": host_sac_play["fused_mlp"]}}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,16 @@ trajectory is written into tensors allocated once per rollout (the
 observations env-major, so that flattening them into the dataset is a
 view, not a second copy of the largest tensor of the epoch).
 
+Over a host env (GYMNASIUM, CPUENV, DMCONTROL: numpy vec envs stepped on
+the host, the reference's Ray/envpool path) the rollout is
+``host_train_epoch`` (ppo.py:1311-1490): each step runs the policy where
+``host_inference_device`` puts it (common/host_inference.py), reads the
+env's actions and the values back in one copy (the step's one
+synchronisation), steps the env, keeps the episode accounting on the host
+and sends the next observations, shaped rewards and dones up in one copy;
+GAE and the updates are the device path's. The env must reset on done
+(same-step autoreset).
+
 ``train`` is the host loop around it (ContinuousA2CBase.train,
 a2c_common.py:1372-1492): run directories, resume from a checkpoint,
 logging, the algo observer's hooks (``features.observer``), the three
@@ -36,6 +46,7 @@ diagnostics.py:18-60), and the rollout is timed once so that the step rate
 is reported apart from the update.
 """
 
+import copy
 import dataclasses
 import os
 import time
@@ -44,7 +55,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from rl_games_tpu_torch.common.obs_utils import fill_sigma, sigma_override_blocked
+from rl_games_tpu_torch.common.host_inference import rollout_device
+from rl_games_tpu_torch.common.obs_utils import HostUpload, fill_sigma, sigma_override_blocked, to_device_obs
 from rl_games_tpu_torch.common.tr_helpers import (
     build_reward_shaper,
     rescale_actions,
@@ -110,6 +122,18 @@ def meters_update(m: Meters, values, mask):
     n = mask_i.sum(dtype=torch.int32)
     m.ptr.copy_(torch.remainder(m.ptr + n, cap))
     m.count.copy_(torch.clamp(m.count + n, max=cap))
+
+
+def meters_append(m: Meters, values):
+    """Write the rows of ``values`` [K, width] into the ring in order, in
+    place, as K one-row ``meters_update`` calls would: when K exceeds the
+    ring, only its last ``capacity`` rows stay."""
+    cap, k = m.capacity, values.shape[0]
+    kept = values[max(k - cap, 0):]
+    pos = torch.remainder(m.ptr + (k - kept.shape[0]) + torch.arange(kept.shape[0], device=m.buf.device), cap)
+    m.buf[pos.to(torch.int64)] = kept.to(torch.float32)
+    m.ptr.copy_(torch.remainder(m.ptr + k, cap))
+    m.count.copy_(torch.clamp(m.count + k, max=cap))
 
 
 def meters_mean(m: Meters):
@@ -186,8 +210,8 @@ class PPOTrainState:
     entropy_coef: torch.Tensor  # () f32
     epoch: torch.Tensor  # () int32
     frame: torch.Tensor  # () int32
-    generator: torch.Generator  # action noise
-    env_state: VecEnvState
+    generator: torch.Generator  # action noise, on the rollout's device
+    env_state: Optional[VecEnvState]  # None for a host env
     obs: torch.Tensor
     dones: torch.Tensor  # [N] f32 — dones entering the next step
     current_rewards: torch.Tensor  # [N, value_size]
@@ -203,10 +227,11 @@ class PPOAgent:
 
     ``params`` is the reference YAML ``params:`` dict (algo / model /
     network / config). ``device`` defaults to CUDA; without CUDA that
-    raises, and the CPU is taken only when asked for.
+    raises, and the CPU is taken only when asked for. ``vec_env`` replaces
+    the env the config names (a test's fake host env).
     """
 
-    def __init__(self, base_name: str, params: dict, device=None):
+    def __init__(self, base_name: str, params: dict, device=None, vec_env=None):
         self.base_name = base_name
         self.full_params = params
         config = params["config"]
@@ -217,11 +242,15 @@ class PPOAgent:
 
         # --- env ------------------------------------------------------------
         self.num_actors = config["num_actors"]
-        self.vec_env = env_registry.create_vec_env(
-            config["env_name"], self.num_actors,
-            vecenv_type=config.get("vecenv_type"), device=self.device,
-            **config.get("env_config", {}),
-        )
+        if vec_env is None:
+            vec_env = env_registry.create_vec_env(
+                config["env_name"], self.num_actors,
+                vecenv_type=config.get("vecenv_type"), device=self.device,
+                **config.get("env_config", {}),
+            )
+        self.vec_env = vec_env
+        self.is_host_env = bool(getattr(vec_env, "is_host_env", False))
+        self._check_env(config)
         info = self.vec_env.get_env_info()
         self.env_info = info
         self.value_size = info.value_size
@@ -269,6 +298,12 @@ class PPOAgent:
         self.normalize_value = config.get("normalize_value", False)
         self.freeze_critic = config.get("freeze_critic", False)
         self.value_bootstrap = config.get("value_bootstrap", True)
+        self.host_inference = config.get("host_inference_device", "auto")
+        # where a host env's rollout runs its policy; a device env's is the device
+        self.rollout_device = (rollout_device(self.host_inference, self.device, params.get("network", {}))
+                               if self.is_host_env else self.device)
+        self._last_timing = None  # the host path's step / play split
+        self._upload = HostUpload(self.rollout_device)  # the host path's per-step upload
         self.use_smooth_clamp = config.get("use_smooth_clamp", False)
         self.weight_decay = config.get("weight_decay", 0.0)
         self.learning_rate = float(config["learning_rate"])
@@ -306,12 +341,36 @@ class PPOAgent:
             device=self.device,
         )
         self.params = list(self.model.parameters())
+        # a host rollout on another device than the model's runs a copy of
+        # it there, given the model's weights once per epoch
+        self._rollout_model = (self.model if self.rollout_device == self.device
+                               else copy.deepcopy(self.model).to(self.rollout_device))
 
         if self.is_continuous:
             space = self.action_space
             self._rescale = bool(np.isfinite(space.low).all() and np.isfinite(space.high).all())
-            self._action_low = torch.as_tensor(space.low, dtype=torch.float32, device=self.device)
-            self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.device)
+            self._action_low = torch.as_tensor(space.low, dtype=torch.float32, device=self.rollout_device)
+            self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.rollout_device)
+
+    def _check_env(self, config: dict):
+        """What a vec env must offer (ppo.py:371-400): masks from a host env
+        that can serve them (masked PPO itself is A8), and a host env that
+        resets on done: next-step autoreset would put a row from after each
+        episode's end into the dataset (the reference resets inside the
+        worker, common/vecenv.py:70-178)."""
+        if config.get("use_action_masks", False):
+            if self.is_host_env:
+                if not hasattr(self.vec_env, "get_action_masks"):
+                    raise ValueError("use_action_masks requires the host vec env to expose get_action_masks() "
+                                     "(IVecEnv surface, common/ivecenv.py:24-26)")
+                probe = getattr(self.vec_env, "supports_action_masks", None)
+                if probe is not None and not probe():
+                    raise ValueError("use_action_masks: this vec env cannot serve masks (async vectorization, "
+                                     "or sub-envs without get_action_mask); see GymnasiumVecEnv.supports_action_masks")
+            unported("action masks (use_action_masks)", "A8")
+        if self.is_host_env and getattr(self.vec_env, "autoreset_mode", "same_step") == "next_step":
+            raise ValueError("PPO host rollout requires same_step autoreset (reset-on-done); construct the "
+                             "vec env with autoreset_mode='same_step'")
 
     @staticmethod
     def _refuse_unported(params: dict):
@@ -324,8 +383,6 @@ class PPOAgent:
             "a central value net (central_value_config; ROADMAP.md, item A9)": config.get("central_value_config") is not None,
             "RND curiosity (rnd_config; ROADMAP.md, item A9)": bool(config.get("rnd_config")),
             "soft augmentation (features.soft_augmentation; ROADMAP.md, item A9)": bool(features.get("soft_augmentation")),
-            "host envs (vecenv_type; ROADMAP.md, item A11)": config.get("vecenv_type") not in (None, "JAX", "DEVICE"),
-            "action masks (use_action_masks; ROADMAP.md, item A8)": config.get("use_action_masks", False),
             "mixed precision (mixed_precision)": config.get("mixed_precision", False),
             "minibatch permutation (permute_batches)": config.get("permute_batches", False),
             "RMS advantage normalization (normalize_rms_advantage; ROADMAP.md, item A2)":
@@ -354,7 +411,10 @@ class PPOAgent:
             return torch.Generator(device=self.device).manual_seed(s)
 
         self.model.reset_parameters(generator(model_seed))
-        env_state, obs = self.vec_env.reset(generator(env_seed))
+        if self.is_host_env:
+            env_state, obs = None, to_device_obs(self.vec_env.reset(), self.device)
+        else:
+            env_state, obs = self.vec_env.reset(generator(env_seed))
         n, v = self.num_actors, self.value_size
         f32 = dict(dtype=torch.float32, device=self.device)
         return PPOTrainState(
@@ -363,7 +423,7 @@ class PPOAgent:
             entropy_coef=torch.tensor(self.entropy_coef_init, **f32),
             epoch=torch.zeros((), dtype=torch.int32, device=self.device),
             frame=torch.zeros((), dtype=torch.int32, device=self.device),
-            generator=generator(act_seed),
+            generator=torch.Generator(device=self.rollout_device).manual_seed(act_seed),
             env_state=env_state,
             obs=obs,
             dones=torch.ones(n, **f32),  # a2c_common: initial dones = ones
@@ -388,13 +448,14 @@ class PPOAgent:
             return rescale_actions(self._action_low, self._action_high, a)
         return a
 
-    def _trajectory_buffers(self):
-        """Uninitialized [T, N, ...] trajectory tensors that the rollout fills
-        step by step. The observations lie env-major ([N, T, ...] in memory,
-        a transposed view here), so that swap_and_flatten01 of them is a
-        view: at 512 envs × 64 steps of 84×84×2 frames they are 1.85 GB."""
+    def _trajectory_buffers(self, device):
+        """Uninitialized [T, N, ...] trajectory tensors on ``device`` that the
+        rollout fills step by step. The observations lie env-major ([N, T,
+        ...] in memory, a transposed view here), so that swap_and_flatten01
+        of them is a view: at 512 envs × 64 steps of 84×84×2 frames they are
+        1.85 GB."""
         T, N, V = self.horizon_length, self.num_actors, self.value_size
-        f32 = dict(dtype=torch.float32, device=self.device)
+        f32 = dict(dtype=torch.float32, device=device)
         traj = {
             "obses": torch.empty((N, T, *self.obs_shape), **f32).transpose(0, 1),
             "dones": torch.empty((T, N), **f32),
@@ -406,7 +467,7 @@ class PPOAgent:
             for k in ("actions", "mus", "sigmas"):
                 traj[k] = torch.empty((T, N, self.actions_num), **f32)
         else:
-            traj["actions"] = torch.empty((T, N), dtype=torch.int64, device=self.device)
+            traj["actions"] = torch.empty((T, N), dtype=torch.int64, device=device)
         return traj
 
     @torch.no_grad()
@@ -418,7 +479,7 @@ class PPOAgent:
         env_state, obs, dones = state.env_state, state.obs, state.dones
         cur_r, cur_sr = state.current_rewards, state.current_shaped_rewards
         cur_len = state.current_lengths
-        traj = self._trajectory_buffers()
+        traj = self._trajectory_buffers(self.device)
         for t in range(self.horizon_length):
             res = model.forward_play(obs, generator=state.generator)
             env_state, next_obs, rewards, new_dones, infos = self.vec_env.step(
@@ -615,6 +676,80 @@ class PPOAgent:
         return self._finish_epoch(state, traj, last_values)
 
     # ------------------------------------------------------------------
+    # the host-env rollout (ppo.py:1311-1490; the reference's Ray/envpool
+    # path): the env on the host, GAE and the updates on the device
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _host_rollout(self, state: PPOTrainState):
+        """horizon_length policy + host env steps. The policy runs on
+        ``rollout_device``; per step one copy brings the env's actions and
+        the values to the host and one takes the next observations, shaped
+        rewards and dones up. The episode accounting runs on the host, as
+        the JAX package's update_meters pass does it (ppo.py:1208-1248),
+        and its finished episodes reach the meters at the end. Returns the
+        trajectory and the bootstrap values on the agent's device; updates
+        ``state`` and ``_last_timing``."""
+        dev, model, observer = self.rollout_device, self._rollout_model, self.observer
+        if model is not self.model:
+            model.load_state_dict(self.model.state_dict())  # this epoch's weights and stats
+        T, N, V = self.horizon_length, self.num_actors, self.value_size
+        obs, dones = state.obs.to(dev), state.dones.to(dev)
+        traj = self._trajectory_buffers(dev)
+        cur_r, cur_sr, cur_len = (x.cpu().numpy() for x in (
+            state.current_rewards, state.current_shaped_rewards, state.current_lengths))
+        finished = []  # (reward, shaped reward, length) of each episode that ended, in order
+        step_time = 0.0  # the env's step alone (a2c_common.py:806-810)
+        t_play0 = time.perf_counter()
+        for t in range(T):
+            res = model.forward_play(obs, generator=state.generator)
+            env_actions = self._env_actions(res["actions"])
+            host = torch.cat([env_actions.reshape(N, -1).to(torch.float32), res["values"]], dim=1).cpu().numpy()
+            actions = host[:, :-V] if self.is_continuous else host[:, 0].astype(np.int64)
+            t0 = time.perf_counter()
+            next_obs, rewards, new_dones, infos = self.vec_env.step(actions)
+            step_time += time.perf_counter() - t0
+            new_dones = np.asarray(new_dones, bool)
+            if observer is not None:  # where the infos are on the host (algo_observer.py:6-26)
+                observer.process_infos(infos, np.flatnonzero(new_dones))
+                observer.after_steps()
+            rewards = np.asarray(rewards, np.float32).reshape(N, V)
+            shaped = self.rewards_shaper(torch.from_numpy(rewards)).numpy()
+            if self.value_bootstrap and "time_outs" in infos:
+                shaped = shaped + self.gamma * host[:, -V:] * np.asarray(infos["time_outs"], np.float32)[:, None]
+            cur_r, cur_sr, cur_len = cur_r + rewards, cur_sr + shaped, cur_len + 1.0
+            finished += [(cur_r[i], cur_sr[i], cur_len[i]) for i in np.flatnonzero(new_dones)]
+            not_done = 1.0 - new_dones.astype(np.float32)
+            cur_r, cur_sr, cur_len = cur_r * not_done[:, None], cur_sr * not_done[:, None], cur_len * not_done
+            next_obs, shaped, new_dones = self._upload(next_obs, shaped, new_dones)
+            step = {**res, "obses": obs, "dones": dones, "rewards": shaped}
+            for k, buf in traj.items():
+                buf[t] = step[k]
+            obs, dones = next_obs, new_dones
+        last_values = model.forward_play(obs, deterministic=True)["values"]
+        self._last_timing = {"step_time": step_time, "play_time": time.perf_counter() - t_play0}
+
+        to_dev = dict(device=self.device, dtype=torch.float32)
+        state.obs, state.dones = obs.to(self.device), dones.to(self.device)
+        state.current_rewards, state.current_shaped_rewards, state.current_lengths = (
+            torch.as_tensor(x, **to_dev) for x in (cur_r, cur_sr, cur_len))
+        if finished:
+            r, sr, length = (np.stack(x) for x in zip(*finished))
+            meters_append(state.game_rewards, torch.as_tensor(r, **to_dev))
+            meters_append(state.game_shaped_rewards, torch.as_tensor(sr, **to_dev))
+            meters_append(state.game_lengths, torch.as_tensor(length[:, None], **to_dev))
+        return {k: v.to(self.device) for k, v in traj.items()}, last_values.to(self.device)
+
+    def host_train_epoch(self, state: PPOTrainState):
+        """One PPO epoch over a host env: the host rollout, then GAE and the
+        minibatch updates on the device."""
+        traj, last_values = self._host_rollout(state)
+        return self._finish_epoch(state, traj, last_values)
+
+    def make_train_fn(self):
+        """The epoch function for this agent's env (ppo.py:1492-1510)."""
+        return self.host_train_epoch if self.is_host_env else self.train_epoch
+
+    # ------------------------------------------------------------------
     # weights and checkpoints (a2c_common.py:645-710). The JAX package keeps
     # params and normalizer stats in the train state; here they live in
     # ``self.model``, so the weights calls take no state.
@@ -662,13 +797,16 @@ class PPOAgent:
         """The full resumable training state (a2c_common.py:650-668) as
         plain containers of CPU tensors: weights, optimizer moments,
         counters, generators, env state and meters."""
-        return {
+        out = {
             "state": ckpt.tree_to_plain(state),
             "weights": ckpt.tree_to_plain(self.get_weights()),
             "epoch": int(state.epoch),
             "frame": int(state.frame),
             "last_mean_rewards": last_mean_rewards,
         }
+        if self.is_host_env and hasattr(self.vec_env, "get_env_state"):  # ppo.py:1594
+            out["env_state"] = self.vec_env.get_env_state()
+        return out
 
     def set_full_state_weights(self, state: PPOTrainState, full: dict,
                                set_epoch: bool = True) -> PPOTrainState:
@@ -678,6 +816,8 @@ class PPOAgent:
         new = ckpt.tree_from_plain(state, full["state"])
         if not set_epoch:
             new.epoch, new.frame = epoch, frame
+        if self.is_host_env and full.get("env_state") is not None and hasattr(self.vec_env, "set_env_state"):
+            self.vec_env.set_env_state(full["env_state"])
         self.set_weights(full["weights"])
         return new
 
@@ -727,8 +867,11 @@ class PPOAgent:
             observer.before_init(self.base_name, config, experiment_name)
             observer.after_init(self)
         max_epochs = self.max_epochs if max_epochs is None else max_epochs
-        if self.use_diagnostics and self._rollout_time is None:
+        # a host rollout times itself (_last_timing); a device rollout is
+        # timed once, under use_diagnostics
+        if self.use_diagnostics and self._rollout_time is None and not self.is_host_env:
             self._rollout_time, state = self._calibrate_rollout_time(state)
+        train_fn = self.make_train_fn()
 
         # metrics reach the host only every ``log_interval`` epochs; loop
         # control stays host-side (epoch and frame advance deterministically)
@@ -740,7 +883,10 @@ class PPOAgent:
         t_last_log, ep_last_log = start_time, epoch_num
         best_path = os.path.join(nn_dir, experiment_name + CHECKPOINT_EXT)
         while True:
-            state, metrics_dev = self.train_epoch(state)
+            # the curriculum hook of a host env, once per epoch (ppo.py:1846-1848)
+            if self.is_host_env and hasattr(self.vec_env, "set_train_info"):
+                self.vec_env.set_train_info(frame, self)
+            state, metrics_dev = train_fn(state)
             epoch_num += 1
             frame += self.batch_size
             will_exit = (
@@ -767,11 +913,20 @@ class PPOAgent:
             epoch_time = (now - t_last_log) / max(epoch_num - ep_last_log, 1)
             t_last_log, ep_last_log = now, epoch_num
             fps_total = self.batch_size / max(epoch_time, 1e-9)
-            # with the rollout timed on its own (use_diagnostics) the step
-            # rate leaves out the update; env and inference stay together
-            fps_step = fps_total if self._rollout_time is None else self.batch_size / max(self._rollout_time, 1e-9)
+            fps_inference = None
+            if self._last_timing is not None:
+                # a host rollout's own split (a2c_common.py:399-404): the env
+                # alone, then env + inference
+                fps_step = self.batch_size / max(self._last_timing["step_time"], 1e-9)
+                fps_inference = self.batch_size / max(self._last_timing["play_time"], 1e-9)
+            elif self._rollout_time is not None:
+                # the device rollout timed on its own (use_diagnostics): the
+                # step rate leaves out the update; env and inference together
+                fps_step = self.batch_size / max(self._rollout_time, 1e-9)
+            else:
+                fps_step = fps_total
             write_ppo_stats(writer, metrics, frame, epoch_num, total_time, fps_total,
-                            fps_step, self.value_size)
+                            fps_step, self.value_size, fps_inference=fps_inference)
             writer.add_scalar("info/explained_variance", float(metrics["explained_variance"]), frame)
             diag = metrics.get("_diag")
             if diag is not None:  # ppo.py:1933-1948

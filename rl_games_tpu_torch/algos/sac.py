@@ -26,6 +26,17 @@ every row) and the update counter, so an epoch reads no device value. The
 weights and the normalizer live in ``agent.actor``, ``agent.critic``,
 ``agent.critic_target`` and ``agent.running_mean_std``; the rest of the
 train state in a ``SACTrainState`` that ``train_epoch`` updates in place.
+Over a host env (GYMNASIUM, CPUENV, DMCONTROL) the epoch is
+``host_train_epoch`` (sac.py:660-843), pipelined as the JAX package's: an
+env step's transition waits until the next step, which first writes it
+into the replay and runs the updates, then acts on the new observations
+with the updated actor, so exactly one transition is pending between
+steps and across epochs. The rows keep the true final observation, a
+truncation stores done = False, and under next-step autoreset the reset
+row after each done is not written. Everything stays on the agent's
+device, as in the JAX package: each step reads the actions back once and
+sends the step's results up in one copy.
+
 Every random number comes from the state's generator through ``_normal``,
 ``_uniform_actions`` and ``replay_sample``; ``_update`` also takes its
 sample indices and normals as tensors, so a test can hand it the JAX
@@ -52,6 +63,7 @@ from rl_games_tpu_torch.algos.ppo import (
     meters_mean,
     meters_update,
 )
+from rl_games_tpu_torch.common.obs_utils import HostUpload, to_device_obs
 from rl_games_tpu_torch.common.tr_helpers import build_reward_shaper
 from rl_games_tpu_torch.envs import registry as env_registry
 from rl_games_tpu_torch.envs.device.base import VecEnvState
@@ -107,21 +119,19 @@ def replay_add(buf: ReplayBuffer, obs, action, reward, next_obs, done, truncated
     """Write a batch of rows at the cursor with wraparound, in place
     (experience.py:237-262). Rows where ``valid`` is False neither take a
     slot nor advance the cursor (the next_step autoreset's garbage rows,
-    sac_agent.py:601-662); counting them reads the mask on the host, which
-    is where a host env's mask comes from."""
+    sac_agent.py:601-662); the mask is read on the host, which is where a
+    host env's mask comes from (numpy or a tensor)."""
     n, cap = obs.shape[0], buf.capacity
     if valid is None:
-        pos = torch.remainder(torch.arange(buf.idx, buf.idx + n, device=obs.device), cap)
-        n_written = n
+        n_written, keep = n, None
     else:
-        keep = valid.to(torch.bool)
-        slot = torch.cumsum(keep.to(torch.int64), dim=0) - 1
-        pos = torch.remainder(buf.idx + slot, cap)[keep]
-        n_written = int(keep.sum())
+        keep = torch.nonzero(torch.as_tensor(valid, dtype=torch.bool).cpu()).squeeze(1).to(obs.device)
+        n_written = keep.numel()
+    pos = torch.remainder(torch.arange(buf.idx, buf.idx + n_written, device=obs.device), cap)
     for field, rows in (("obses", obs), ("next_obses", next_obs), ("actions", action),
                         ("rewards", reward.reshape(n, 1)), ("dones", done.reshape(n, 1)),
                         ("truncated", truncated.reshape(n, 1))):
-        getattr(buf, field)[pos] = rows if valid is None else rows[keep]
+        getattr(buf, field)[pos] = rows if keep is None else rows[keep]
     buf.full = buf.full or buf.idx + n_written >= cap
     buf.idx = (buf.idx + n_written) % cap
 
@@ -157,7 +167,7 @@ class SACTrainState:
     critic_opt: AdamState
     alpha_opt: AdamState
     replay: ReplayBuffer
-    env_state: VecEnvState
+    env_state: Optional[VecEnvState]  # None for a host env
     obs: torch.Tensor
     generator: torch.Generator  # actions, warmup actions, replay indices, update noise
     epoch: int
@@ -174,25 +184,34 @@ class SACAgent:
 
     ``params`` is the reference YAML ``params:`` dict. ``device`` defaults
     to CUDA; without CUDA that raises, and the CPU is taken only when asked
-    for.
+    for. ``vec_env`` replaces the env the config names (a test's fake host
+    env).
     """
 
-    def __init__(self, base_name: str, params: dict, device=None):
+    def __init__(self, base_name: str, params: dict, device=None, vec_env=None):
         self.base_name = base_name
         self.full_params = params
         config = params["config"]
         self.config = config
         self.device = resolve_device(device)
         use_full_float32(self.device)
-        if config.get("vecenv_type") not in (None, "JAX", "DEVICE"):
-            unported("SAC over host envs (vecenv_type)", "A11")
 
         self.num_actors = config["num_actors"]
-        self.vec_env = env_registry.create_vec_env(
-            config["env_name"], self.num_actors,
-            vecenv_type=config.get("vecenv_type"), device=self.device,
-            **config.get("env_config", {}),
-        )
+        if vec_env is None:
+            vec_env = env_registry.create_vec_env(
+                config["env_name"], self.num_actors,
+                vecenv_type=config.get("vecenv_type"), device=self.device,
+                **config.get("env_config", {}),
+            )
+        self.vec_env = vec_env
+        self.is_host_env = bool(getattr(vec_env, "is_host_env", False))
+        # the host path's pipeline: the transition waiting for the next
+        # step (never part of a checkpoint), the last step's dones (for
+        # next-step autoreset), the last epoch's losses, the per-step upload
+        self._pending = None
+        self._host_prev_dones = np.zeros(self.num_actors, bool)
+        self._last_host_metrics = None
+        self._upload = HostUpload(self.device)
         info = self.vec_env.get_env_info()
         self.env_info = info
         space = info.action_space
@@ -286,7 +305,10 @@ class SACAgent:
         self.critic_target.load_state_dict(self.critic.state_dict())
         if self.running_mean_std is not None:
             self.running_mean_std.reset()
-        env_state, obs = self.vec_env.reset(generator(env_seed))
+        if self.is_host_env:
+            env_state, obs = None, to_device_obs(self.vec_env.reset(), self.device)
+        else:
+            env_state, obs = self.vec_env.reset(generator(env_seed))
         f32 = dict(dtype=torch.float32, device=self.device)
         log_alpha = torch.tensor(math.log(self.init_alpha), **f32)
         return SACTrainState(
@@ -398,36 +420,50 @@ class SACAgent:
 
     # -- epoch (sac.py:486-609) ---------------------------------------------
     @torch.no_grad()
-    def _env_step(self, state: SACTrainState, warmup: bool):
-        """One env step: act, step, write the replay row, feed the
-        normalizer, keep the episode meters."""
+    def _act(self, state: SACTrainState, warmup: bool):
+        """The env's actions for ``state.obs``: U(-1, 1) during warmup, else
+        an actor sample; rescaled to the env's bounds."""
         if warmup:
-            norm_actions = self._uniform_actions(state)
-        else:
-            mu, std = self.actor(self._preproc_obs(state.obs))
-            norm_actions, _ = SACActor.sample(mu, std, self._normal(state, mu.shape))
-        env_actions = self._rescale(norm_actions)
-        env_state, next_obs, rewards, dones, infos = self.vec_env.step(state.env_state, env_actions)
-        rewards = rewards.reshape(self.num_actors).to(torch.float32)
-        dones = dones.to(torch.bool)
-        time_outs = infos["time_outs"]
-        # the replay row's next obs is the TRUE final obs; a truncation
-        # stores done = False so that the TD target bootstraps
+            return self._rescale(self._uniform_actions(state))
+        mu, std = self.actor(self._preproc_obs(state.obs))
+        return self._rescale(SACActor.sample(mu, std, self._normal(state, mu.shape))[0])
+
+    @torch.no_grad()
+    def _record(self, state: SACTrainState, obs, env_actions, rewards, dones, time_outs, final_obs, next_obs,
+                valid=None):
+        """One env step's transition: the replay rows, the normalizer, the
+        episode meters and the frame counter. The replay row's next obs is
+        the TRUE final obs, and a truncation stores done = False so that the
+        TD target bootstraps."""
         hard_done = dones & ~time_outs if self.value_bootstrap else dones
-        replay_add(state.replay, state.obs, env_actions, self.rewards_shaper(rewards),
-                   infos["final_observation"], hard_done, time_outs)
+        replay_add(state.replay, obs, env_actions, self.rewards_shaper(rewards), final_obs, hard_done,
+                   time_outs, valid=valid)
         if self.running_mean_std is not None:  # each fresh frame once (:714-716)
             self.running_mean_std.update_from_batch(next_obs)
-
         cur_r = state.current_rewards + rewards[:, None]
         cur_len = state.current_lengths + 1.0
         meters_update(state.game_rewards, cur_r, dones)
         meters_update(state.game_lengths, cur_len[:, None], dones)
         not_done = 1.0 - dones.to(torch.float32)
-        state.env_state, state.obs = env_state, next_obs
         state.frame += self.num_actors
         state.current_rewards = cur_r * not_done[:, None]
         state.current_lengths = cur_len * not_done
+
+    @torch.no_grad()
+    def _env_step(self, state: SACTrainState, warmup: bool):
+        """One device env step: act, step, record the transition."""
+        env_actions = self._act(state, warmup)
+        env_state, next_obs, rewards, dones, infos = self.vec_env.step(state.env_state, env_actions)
+        self._record(state, state.obs, env_actions, rewards.reshape(self.num_actors).to(torch.float32),
+                     dones.to(torch.bool), infos["time_outs"], infos["final_observation"], next_obs)
+        state.env_state, state.obs = env_state, next_obs
+
+    def _updates_due(self, state: SACTrainState, warmup: bool) -> list:
+        """The UTD updates of one env step, once warmup is over and the ring
+        holds ``_update_min_fill`` rows."""
+        if warmup or replay_size(state.replay) < self._update_min_fill:
+            return []
+        return [self._update(state) for _ in range(self.num_updates_per_step)]
 
     def train_epoch(self, state: SACTrainState):
         """play_steps (sac_agent.py:664-745): env steps with the UTD updates
@@ -438,11 +474,51 @@ class SACAgent:
         per_update = []
         for _ in range(self.num_steps_per_episode):
             self._env_step(state, warmup)
-            if not warmup and replay_size(state.replay) >= self._update_min_fill:
-                for _ in range(self.num_updates_per_step):
-                    per_update.append(self._update(state))
+            per_update += self._updates_due(state, warmup)
         state.epoch += 1
+        return state, self._epoch_metrics(state, self._loss_means(per_update))
 
+    def host_train_epoch(self, state: SACTrainState):
+        """The host-env epoch (sac.py:761-843): per env step, write the
+        pending transition and run the updates, act on the current
+        observations (the one read of the step), step the env and keep its
+        transition pending. Returns (state, metrics) as ``train_epoch``;
+        an epoch without updates repeats the last epoch's losses."""
+        warmup = state.epoch < self.num_warmup_steps
+        next_step = getattr(self.vec_env, "autoreset_mode", "same_step") == "next_step"
+        per_update = []
+        for _ in range(self.num_steps_per_episode):
+            if self._pending is not None:
+                self._record(state, *self._pending)
+                per_update += self._updates_due(state, warmup)
+            env_actions = self._act(state, warmup)
+            next_obs, rewards, dones, infos = self.vec_env.step(env_actions.cpu().numpy())
+            dones = np.asarray(dones, bool)
+            time_outs = np.asarray(infos.get("time_outs", np.zeros_like(dones)), bool)
+            final_obs = infos.get("final_observation", next_obs)
+            # next-step autoreset: the row after a done is the reset row,
+            # which the replay skips (sac_agent.py:601-662)
+            valid = None
+            if next_step:
+                valid, self._host_prev_dones = ~self._host_prev_dones, dones
+            next_obs, final_obs, flags = self._upload(
+                next_obs, final_obs, np.stack([np.asarray(rewards, np.float32).reshape(-1), dones, time_outs]))
+            self._pending = (state.obs, env_actions, flags[0], flags[1] > 0.5, flags[2] > 0.5, final_obs, next_obs,
+                             valid)
+            state.obs = next_obs
+        state.epoch += 1
+        if per_update or self._last_host_metrics is None:
+            self._last_host_metrics = self._loss_means(per_update)
+        return state, self._epoch_metrics(state, self._last_host_metrics)
+
+    def make_train_fn(self):
+        """The epoch function for this agent's env (sac.py:611-624)."""
+        return self.host_train_epoch if self.is_host_env else self.train_epoch
+
+    def _loss_means(self, per_update: list) -> Dict[str, object]:
+        """The critic's losses averaged over ``per_update``, the actor's,
+        the entropy and α's over the updates where the actor ran (zeros
+        where none did)."""
         actor_runs = [m for m in per_update if m["actor_updated"]]
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         out: Dict[str, object] = {}
@@ -450,6 +526,10 @@ class SACAgent:
             for k in keys:
                 out[k] = torch.stack([m[k] for m in runs]).mean() if runs else zero
         out["actor_updated"] = len(actor_runs)
+        return out
+
+    def _epoch_metrics(self, state: SACTrainState, losses: Dict[str, object]) -> Dict[str, object]:
+        out = dict(losses)
         out["alpha"] = torch.exp(state.log_alpha)
         out["mean_rewards"] = meters_mean(state.game_rewards)
         out["mean_lengths"] = meters_mean(state.game_lengths)[0]
@@ -457,7 +537,7 @@ class SACAgent:
         out["frame"] = state.frame
         out["epoch"] = state.epoch
         out["replay_size"] = replay_size(state.replay)
-        return state, out
+        return out
 
     # ------------------------------------------------------------------
     # weights, state I/O and parameters (sac.py:845-941)
@@ -527,6 +607,8 @@ class SACAgent:
         raise NotImplementedError(f"Can't get param {param_name}")
 
     def set_param(self, param_name: str, value, state=None):
+        if self.is_host_env:
+            unported("set_param over a host env's pending transition", "A12")
         if param_name == "tau":
             param_name = "critic_tau"
         if param_name in ("gamma", "critic_tau"):
@@ -591,14 +673,18 @@ class SACAgent:
         max_epochs = self.max_epochs if max_epochs is None else max_epochs
 
         # metrics reach the host only every log_interval epochs; the loop
-        # runs on the host's counters
+        # runs on the host's counters. The frame count is the epochs' frames
+        # (sac.py:1003), which a host epoch's state.frame trails by the
+        # transition still pending
         log_interval = max(1, int(config.get("log_interval", 1)))
-        epoch_num, frame = state.epoch, state.frame
+        epoch_num = state.epoch
         t_last_log, ep_last_log = time.perf_counter(), epoch_num
         best_path = os.path.join(nn_dir, experiment_name + CHECKPOINT_EXT)
+        train_fn = self.make_train_fn()
         while True:
-            state, metrics_dev = self.train_epoch(state)
-            epoch_num, frame = state.epoch, state.frame
+            state, metrics_dev = train_fn(state)
+            epoch_num = state.epoch
+            frame = epoch_num * self.num_frames_per_epoch
             self.last_state = state
             will_exit = ((max_epochs > 0 and epoch_num >= max_epochs)
                          or (self.max_frames > 0 and frame >= self.max_frames))

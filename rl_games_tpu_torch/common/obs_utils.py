@@ -1,10 +1,64 @@
-"""The ``--sigma`` override helpers of rl_games_tpu/common/obs_utils.py
-(:26-55); the observation helpers there belong to host envs and dict
-observations, which are not ported yet."""
+"""Small helpers shared by the trainers and the players.
 
-from typing import Optional
+Port of rl_games_tpu/common/obs_utils.py: ``to_device_obs`` (:13-24),
+through ``HostUpload``, takes a host env's numpy observations to the
+device; ``sigma_override_blocked`` and ``fill_sigma`` (:26-55) serve the
+``--sigma`` override.
+"""
 
+from typing import List, Optional
+
+import numpy as np
 import torch
+
+from rl_games_tpu_torch.utils.unported import unported
+
+
+class HostUpload:
+    """numpy arrays to float32 tensors on ``device``, several in one copy.
+
+    On a CUDA device the arrays are packed into one pinned staging buffer
+    and go up in one ``non_blocking`` copy (the buffer is written again only
+    after that copy has read it); on the CPU each becomes a float32 copy.
+    Booleans become 0/1 and uint8 frames float32, as the JAX package casts
+    them (a2c_common.py:540-575)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._staging: Optional[torch.Tensor] = None
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def __call__(self, *arrays) -> List[torch.Tensor]:
+        arrays = [np.asarray(a) for a in arrays]
+        if self.device.type != "cuda":
+            return [torch.tensor(a, dtype=torch.float32, device=self.device) for a in arrays]
+        sizes = [a.size for a in arrays]
+        total = sum(sizes)
+        if self._staging is None or self._staging.numel() < total:
+            self._staging = torch.empty(total, dtype=torch.float32, pin_memory=True)
+            self._copied = torch.cuda.Event()
+        else:
+            self._copied.synchronize()  # the last copy has read the buffer
+        host = self._staging.numpy()
+        offset = 0
+        for a, n in zip(arrays, sizes):
+            host[offset:offset + n] = a.reshape(-1)
+            offset += n
+        flat = self._staging[:total].to(self.device, non_blocking=True)
+        self._copied.record()
+        out, offset = [], 0
+        for a, n in zip(arrays, sizes):
+            out.append(flat[offset:offset + n].view(a.shape))
+            offset += n
+        return out
+
+
+def to_device_obs(obs, device, upload: Optional[HostUpload] = None) -> torch.Tensor:
+    """A host env's observations as a float32 tensor on ``device``, through
+    ``upload`` (a new ``HostUpload`` when None)."""
+    if isinstance(obs, dict):
+        unported("dict observations from a host env", "A8")
+    return (upload or HostUpload(device))(obs)[0]
 
 
 def sigma_override_blocked(is_continuous: bool,

@@ -11,7 +11,11 @@ the mean (deterministic) or a sample, clipped and rescaled to the env's
 bounds; discrete ones the argmax of the logits (deterministic) or a sample,
 passed as they are. With ``network.mlp.fused: true`` every step's policy
 forward is one launch of the fused-MLP kernel. ``SACPlayer`` plays a SAC
-actor through the same loop.
+actor through the same loop. Over a host env (GYMNASIUM, CPUENV,
+DMCONTROL) the loop is ``_host_run`` (player.py:183-228): the env steps on
+the host until ``games_num`` episodes have ended, and the policy runs where
+``host_inference_device`` puts it (common/host_inference.py), the player's
+whole policy on that device.
 """
 
 import glob
@@ -23,6 +27,7 @@ import torch
 
 from rl_games_tpu_torch.algos.ppo import CHECKPOINT_EXT, meters_init, meters_mean, meters_update
 from rl_games_tpu_torch.common import obs_utils
+from rl_games_tpu_torch.common.host_inference import rollout_device
 from rl_games_tpu_torch.common.tr_helpers import rescale_actions
 from rl_games_tpu_torch.envs import registry as env_registry
 from rl_games_tpu_torch.envs.spaces import Box, Discrete, actions_num_of, obs_shape_of
@@ -52,14 +57,16 @@ class BasePlayer:
         self.seed = config.get("seed", 7)
         if config.get("use_action_masks", False):
             unported("masked-action inference (use_action_masks)", "A8")
-        if config.get("vecenv_type") not in (None, "JAX", "DEVICE"):
-            unported("the host-env evaluation loop (vecenv_type)", "A11")
 
         self.vec_env = env_registry.create_vec_env(
             config["env_name"], self.num_actors,
             vecenv_type=config.get("vecenv_type"), device=self.device,
             **config.get("env_config", {}),
         )
+        self.is_host_env = bool(getattr(self.vec_env, "is_host_env", False))
+        if self.is_host_env:  # the policy goes where host_inference_device puts it
+            self.device = rollout_device(config.get("host_inference_device", "auto"), self.device,
+                                         params.get("network", {}))
         if hasattr(self.vec_env, "bind_policy"):
             unported("self-play envs (bind_policy)", "A12")
         info = self.vec_env.get_env_info()
@@ -150,8 +157,30 @@ class BasePlayer:
             print(f"evaluation: failed to load {latest}: {e}")
             return False
 
+    @torch.no_grad()
     def _host_run(self, games_num: int):
-        unported("the host-env evaluation loop (_host_run)", "A11")
+        """Host-env eval (player.py:183-228): step until ``games_num``
+        episodes have ended or ``max_steps`` steps, the returns kept on the
+        host; one read of the actions per step."""
+        act_seed = int(np.random.SeedSequence(self.seed + 1).generate_state(2)[1])
+        act_generator = self._generator(act_seed)
+        upload = obs_utils.HostUpload(self.device)
+        obs = obs_utils.to_device_obs(self.vec_env.reset(), self.device, upload)
+        n = self.num_actors
+        cur = np.zeros((n, self.value_size), np.float32)
+        returns, steps = [], 0
+        while len(returns) < games_num and steps < self.max_steps:
+            actions = self._play_actions(act_generator, obs).cpu().numpy()
+            next_obs, rewards, dones, _ = self.vec_env.step(actions)
+            cur += np.asarray(rewards, np.float32).reshape(n, -1)
+            for i in np.flatnonzero(dones):
+                returns.append(cur[i].copy())
+                cur[i] = 0.0
+            obs = obs_utils.to_device_obs(next_obs, self.device, upload)
+            steps += 1
+        mean_reward = float(np.mean([r[0] for r in returns])) if returns else 0.0
+        print(f"av reward: {mean_reward:.2f} games played: {len(returns)}")
+        return mean_reward
 
     def _play_actions(self, generator, obs, env_state=None):
         """env-space actions for the device eval loop; ``generator`` draws
@@ -165,6 +194,8 @@ class BasePlayer:
         games_num = games_num or self.games_num
         if self.player_cfg.get("evaluation"):
             self.maybe_load_new_checkpoint()
+        if self.is_host_env:
+            return self._host_run(games_num)
         return self._device_run(games_num)
 
     def steps_needed(self, games_num: int) -> int:

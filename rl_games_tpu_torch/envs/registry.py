@@ -1,19 +1,26 @@
-"""Environment registry.
+"""Environment registries.
 
-Port of the device-env part of rl_games_tpu/envs/registry.py
-(``create_vec_env`` :28-44, the classic, pixel and physics entries
-:95-168; the reference's env_configurations.py:363-371 + vecenv.py:368-391):
-env name → a creator of a batched device env, wrapped in a
-``DeviceVecEnv``. Only device envs are ported; host (gymnasium / cpuenv)
-vec env types are not.
+Port of rl_games_tpu/envs/registry.py (the reference's
+env_configurations.py:363-371 + vecenv.py:368-391): two levels, env name →
+its configuration (``vecenv_type`` and, for device envs, ``env_creator``)
+and vecenv type → the constructor of a vec env. ``DEVICE`` (also spelled
+``JAX``, as the JAX package's configs name it) wraps a batched device env
+in a ``DeviceVecEnv`` on the agent's device; the host types build numpy vec
+envs that the trainers step on the host: ``GYMNASIUM`` (gymnasium's
+vector envs or a thread pool), ``CPUENV`` (the native C++ stepper),
+``DMCONTROL`` (dm_control suite tasks), ``MASKED_VELOCITY_CARTPOLE`` and
+``ATARI`` (the deepmind wrapper stack). Each host type imports its module,
+and with it gymnasium or dm_control, only when it is used. An unknown name
+with no ``vecenv_type`` goes to GYMNASIUM, as in the JAX package (:28-44).
 """
 
 import importlib
-from typing import Dict
+from typing import Callable, Dict
 
-from rl_games_tpu_torch.envs.device.base import DeviceVecEnv
+from rl_games_tpu_torch.utils.unported import unported
 
 ENV_CONFIGURATIONS: Dict[str, dict] = {}
+VECENV_TYPES: Dict[str, Callable] = {}
 
 
 def register(name: str, config: dict):
@@ -21,20 +28,153 @@ def register(name: str, config: dict):
     ENV_CONFIGURATIONS[name] = config
 
 
-def create_vec_env(env_name: str, num_actors: int, vecenv_type: str = None,
-                   device=None, **kwargs):
-    """A DeviceVecEnv of ``num_actors`` envs on ``device`` (CUDA when None)."""
-    if env_name not in ENV_CONFIGURATIONS:
-        raise NotImplementedError(
-            f"env '{env_name}' is not ported to rl_games_tpu_torch yet (see ROADMAP.md)"
-        )
-    cfg = ENV_CONFIGURATIONS[env_name]
-    vtype = vecenv_type or cfg.get("vecenv_type", "DEVICE")
-    if vtype not in ("DEVICE", "JAX"):
-        raise NotImplementedError(f"vecenv_type '{vtype}' is not ported yet (see ROADMAP.md)")
+def register_vecenv_type(name: str, func: Callable):
+    """vecenv.register (:368-374): ``func(cfg, num_actors, device=..., **kwargs)``."""
+    VECENV_TYPES[name] = func
+
+
+def create_vec_env(env_name: str, num_actors: int, vecenv_type: str = None, device=None, **kwargs):
+    """vecenv.create_vec_env (:379-391): a vec env of ``num_actors`` envs.
+    A device env lies on ``device`` (CUDA when None); a host env lies on
+    the host whatever ``device`` is."""
+    if env_name in ENV_CONFIGURATIONS:
+        cfg = dict(ENV_CONFIGURATIONS[env_name])
+        vtype = vecenv_type or cfg.get("vecenv_type", "DEVICE")
+    else:
+        cfg = {}
+        vtype = vecenv_type or "GYMNASIUM"
+    cfg.setdefault("env_id", env_name)
+    if vtype not in VECENV_TYPES:
+        raise ValueError(f"unknown vecenv_type '{vtype}' (registered: {sorted(VECENV_TYPES)})")
+    return VECENV_TYPES[vtype](cfg, num_actors, device=device, **kwargs)
+
+
+def _create_device_vecenv(cfg, num_actors, device=None, **kwargs):
+    from rl_games_tpu_torch.envs.device.base import DeviceVecEnv
+
     kwargs.pop("seed", None)  # device envs draw from the agent's generator
+    if "env_creator" not in cfg:
+        raise ValueError(
+            f"env '{cfg['env_id']}' is not a registered device env: the DEVICE vecenv type needs "
+            "an 'env_creator' (envs.registry.register(name, {'vecenv_type': 'DEVICE', "
+            "'env_creator': ...})); name a host vecenv_type to reach a gymnasium env"
+        )
     env = cfg["env_creator"](device=device, **{**cfg.get("env_config", {}), **kwargs})
     return DeviceVecEnv(env, num_actors, max_episode_steps=cfg.get("max_episode_steps"))
+
+
+def _create_gymnasium_vecenv(cfg, num_actors, device=None, **kwargs):
+    from rl_games_tpu_torch.envs.host.gymnasium_env import GymnasiumVecEnv
+
+    return GymnasiumVecEnv(cfg["env_id"], num_actors, **{**cfg.get("env_config", {}), **kwargs})
+
+
+def _create_cpu_vecenv(cfg, num_actors, device=None, **kwargs):
+    from rl_games_tpu_torch.envs.host.cpuenv import CpuVecEnv
+
+    return CpuVecEnv(cfg["env_id"], num_actors, **{**cfg.get("env_config", {}), **kwargs})
+
+
+def _create_dmcontrol_vecenv(cfg, num_actors, device=None, **kwargs):
+    from rl_games_tpu_torch.envs.host.dm_control_env import create_dmcontrol_vecenv
+
+    return create_dmcontrol_vecenv(cfg, num_actors, **kwargs)
+
+
+def _create_masked_velocity_vecenv(cfg, num_actors, device=None, **kwargs):
+    """CartPoleMaskedVelocity-v1: CartPole with its velocities zeroed
+    (:345-366; env_configurations.py + wrappers.MaskVelocityWrapper
+    :581-601)."""
+    from functools import partial
+
+    from rl_games_tpu_torch.envs.host.gymnasium_env import GymnasiumVecEnv
+    from rl_games_tpu_torch.envs.host.wrappers import MaskVelocityWrapper
+
+    wrapper = partial(MaskVelocityWrapper, name="CartPole-v1")
+    return GymnasiumVecEnv("CartPole-v1", num_actors, wrappers=[wrapper],
+                           **{**cfg.get("env_config", {}), **kwargs})
+
+
+def _atari_ale_id(name: str) -> str:
+    """Reference-era Atari ids ('BreakoutNoFrameskip-v4' (gym), 'Breakout-v5'
+    (envpool)) as the ale_py registrations ('ALE/Breakout-v5')."""
+    if name.startswith("ALE/"):
+        return name
+    base = name
+    for suffix in ("NoFrameskip-v4", "Deterministic-v4", "-v4", "-v5", "-v0"):
+        if base.endswith(suffix):
+            base = base[: -len(suffix)]
+            break
+    return f"ALE/{base}-v5"
+
+
+def _create_atari_vecenv(cfg, num_actors, device=None, **kwargs):
+    """Deepmind-wrapped Atari over the gymnasium bridge (:369-424; the
+    reference's atari factories, common/wrappers.py:663-721). It needs
+    ale_py. The reference's atari configs put the gym id in
+    ``env_config['name']`` and the wrapper options (skip, episode_life, ...)
+    beside it (configs/atari/ppo_breakout.yaml)."""
+    import functools
+
+    from rl_games_tpu_torch.envs.host.gymnasium_env import GymnasiumVecEnv
+    from rl_games_tpu_torch.envs.host.wrappers import wrap_deepmind
+
+    try:
+        import ale_py
+        import gymnasium as gym
+
+        gym.register_envs(ale_py)
+    except ImportError as e:
+        raise ImportError(
+            "Atari envs need the ale_py package (not present in this image); the config and "
+            "wrapper stack are ready for it"
+        ) from e
+
+    kwargs = {**cfg.get("env_config", {}), **kwargs}
+    name = kwargs.pop("name", None) or cfg["env_id"]
+    wrap_kwargs = {k: kwargs.pop(k) for k in ("skip", "episode_life", "clip_rewards", "frame_stack",
+                                              "scale", "warp") if k in kwargs}
+    kwargs.setdefault("wrappers", [functools.partial(wrap_deepmind, **wrap_kwargs)])
+    # ALE v5 ids skip frames themselves and default to sticky actions; the
+    # reference's NoFrameskip-v4 semantics are frameskip=1 (MaxAndSkipEnv
+    # skips) with sticky actions off
+    kwargs.setdefault("frameskip", 1)
+    kwargs.setdefault("repeat_action_probability", 0.0)
+    return GymnasiumVecEnv(_atari_ale_id(name), num_actors, **kwargs)
+
+
+def _missing_sim(name: str, package: str, hint: str = ""):
+    """A vecenv type that raises, naming the simulator a config needs (the
+    JAX package's stubs, :266-302; the reference fails the same way at its
+    lazy imports, vecenv.py:196-219)."""
+    def create(cfg, num_actors, device=None, **kwargs):
+        raise ImportError(
+            f"env '{name}' needs the external '{package}' simulator, which is not in this image.{hint}"
+        )
+
+    return create
+
+
+def _unported_type(what: str, item: str):
+    def create(cfg, num_actors, device=None, **kwargs):
+        unported(what, item)
+
+    return create
+
+
+register_vecenv_type("DEVICE", _create_device_vecenv)
+register_vecenv_type("JAX", _create_device_vecenv)
+register_vecenv_type("GYMNASIUM", _create_gymnasium_vecenv)
+register_vecenv_type("CPUENV", _create_cpu_vecenv)
+register_vecenv_type("DMCONTROL", _create_dmcontrol_vecenv)
+register_vecenv_type("MASKED_VELOCITY_CARTPOLE", _create_masked_velocity_vecenv)
+register_vecenv_type("ATARI", _create_atari_vecenv)
+# multi-agent and self-play envs, host and device
+for _vtype, _what in (("MULTIWALKER", "the PettingZoo multiwalker env (MULTIWALKER)"),
+                      ("CONNECT4", "the connect-four self-play env (CONNECT4)"),
+                      ("JAX_MULTIAGENT", "multi-agent device envs (JAX_MULTIAGENT)"),
+                      ("JAX_SELFPLAY", "self-play device envs (JAX_SELFPLAY)")):
+    register_vecenv_type(_vtype, _unported_type(_what, "A12"))
 
 
 def _creator(module: str, name: str):
@@ -49,6 +189,7 @@ def _creator(module: str, name: str):
     return create
 
 
+# --- device envs (:95-168) ---------------------------------------------------
 for _name, _module, _cls in (
     ("CartPole-v1", "classic", "CartPole"),
     ("Pendulum-v1", "classic", "Pendulum"),
@@ -65,3 +206,55 @@ for _name, _module, _cls in (
     ("Grasp2D", "arm2d", "Grasp2D"),
 ):
     register(_name, {"vecenv_type": "DEVICE", "env_creator": _creator(_module, _cls)})
+
+# --- named gym ids (:216-232; the reference's env_configurations table,
+# env_configurations.py:198-331). Unknown names also reach GYMNASIUM, so
+# these rows document the zoo the host path covers -----------------------
+for _gym_id in ("LunarLander-v3", "LunarLanderContinuous-v3", "BipedalWalker-v3",
+                "BipedalWalkerHardcore-v3", "CarRacing-v3", "Acrobot-v1", "MountainCar-v0", "Ant-v5",
+                "HalfCheetah-v5", "Hopper-v5", "Humanoid-v5", "Walker2d-v5", "Reacher-v5"):
+    register(_gym_id, {"vecenv_type": "GYMNASIUM"})
+
+# the native stepper's own env, with no gymnasium counterpart (:235)
+register("Hopper2D-v0", {"vecenv_type": "CPUENV"})
+
+# the reference's dm_control zoo (:245-257; configs/dm_control/*.yaml reach
+# these envpool ids through Envpool(flatten_obs=True))
+for _dmc_id in ("AcrobotSwingup-v1", "BallInCupCatch-v1", "CartpoleBalance-v1", "CartpoleSwingup-v1",
+                "CheetahRun-v1", "FishSwim-v1", "HopperHop-v1", "HopperStand-v1", "HumanoidRun-v1",
+                "HumanoidStand-v1", "HumanoidWalk-v1", "ManipulatorBringBall-v1", "PendulumSwingup-v1",
+                "ReacherEasy-v1", "ReacherHard-v1", "WalkerRun-v1", "WalkerStand-v1", "WalkerWalk-v1"):
+    register(_dmc_id, {"vecenv_type": "DMCONTROL"})
+
+register("CartPoleMaskedVelocity-v1", {"vecenv_type": "MASKED_VELOCITY_CARTPOLE"})
+
+# external-simulator bindings that the reference reaches through packages
+# outside this image (:266-302): their configs resolve to an ImportError
+# naming the missing dependency instead of a gym.make failure
+for _sim_name, _pkg, _hint in (
+    ("smac", "SMAC (StarCraft II)", ""),
+    ("smac_cnn", "SMAC (StarCraft II)", ""),
+    ("smac_v2", "SMACv2 (StarCraft II)", ""),
+    ("maniskill", "mani_skill", ""),
+    ("myo_gym", "myosuite", ""),
+    ("envpool", "envpool", " The GYMNASIUM / CPUENV / DMCONTROL backends cover its env zoo in-tree."),
+    ("brax", "brax", " The device envs (Ant2D, Cheetah2D, Walker2D) are the in-tree brax-class analogs."),
+    ("minigrid", "minigrid", ""),
+    ("mjlab_go1_velocity", "mjlab (MuJoCo-Warp)", ""),
+    ("mjlab_g1_velocity", "mjlab (MuJoCo-Warp)", ""),
+    ("mjlab_lift_cube_yam", "mjlab (MuJoCo-Warp)", ""),
+    ("mjlab_wujihand_reorient", "mjlab (MuJoCo-Warp)", ""),
+    ("mjlab", "mjlab (MuJoCo-Warp)", ""),
+):
+    _vt = f"_MISSING_{_sim_name.upper()}"
+    register_vecenv_type(_vt, _missing_sim(_sim_name, _pkg, _hint))
+    register(_sim_name, {"vecenv_type": _vt})
+
+# the multi-agent and self-play envs (A12) and the test envs (A8)
+for _name, _vtype in (("multiwalker_env", "MULTIWALKER"), ("connect4_env", "CONNECT4"),
+                      ("cooperative_gather", "JAX_MULTIAGENT"), ("competitive_forage", "JAX_SELFPLAY")):
+    register(_name, {"vecenv_type": _vtype})
+register_vecenv_type("_TEST_ENVS", _unported_type("the test envs (envs/jax/test_envs.py)", "A8"))
+for _name in ("test_env", "test_rnn_env", "test_asymmetric_env", "test_masked_env", "test_dict_obs_env",
+              "test_asymmetric_continuous_env"):
+    register(_name, {"vecenv_type": "_TEST_ENVS"})

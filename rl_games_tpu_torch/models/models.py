@@ -19,6 +19,7 @@ from rl_games_tpu_torch.models import distributions as D
 from rl_games_tpu_torch.models.network_builder import A2CNetwork
 from rl_games_tpu_torch.ops import divergence
 from rl_games_tpu_torch.ops.running_stats import RunningMeanStd
+from rl_games_tpu_torch.utils.unported import unported
 
 
 class BaseModel(nn.Module):
@@ -31,7 +32,7 @@ class BaseModel(nn.Module):
                  normalize_value: bool = False, value_size: int = 1, device=None):
         super().__init__()
         if isinstance(obs_shape, dict):
-            raise NotImplementedError("dict observations are not ported yet (see ROADMAP.md)")
+            unported("dict observations", "A8")
         self.a2c_network = a2c_network
         self.normalize_input = normalize_input
         self.normalize_value = normalize_value

@@ -200,14 +200,9 @@ class _FusedMLP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, activation, x, *params):
         n = len(params) // 2
-        ws, bs = params[:n], params[n:]
         ctx.activation = activation
         ctx.save_for_backward(x, *params)
-        if x.is_cuda:
-            return fused_mlp_cuda(x, ws, bs, activation)
-        if x.device.type == "cpu":
-            return plain_mlp(x, ws, bs, activation)
-        raise ValueError(f"no fused MLP for tensors on {x.device}")
+        return _chain(x, params[:n], params[n:], activation)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -224,7 +219,19 @@ class _FusedMLP(torch.autograd.Function):
         return (None, *full)
 
 
+def _chain(x, ws, bs, activation):
+    if x.is_cuda:
+        return fused_mlp_cuda(x, ws, bs, activation)
+    if x.device.type == "cpu":
+        return plain_mlp(x, ws, bs, activation)
+    raise ValueError(f"no fused MLP for tensors on {x.device}")
+
+
 def fused_mlp(x, ws, bs, activation):
     """The chain on the tensor's device: ``plain_mlp`` on the CPU, the CUDA
-    kernel on a CUDA device (which raises rather than fall back)."""
+    kernel on a CUDA device (which raises rather than fall back). Without
+    autograd (the rollout's and the player's forwards) it skips the
+    autograd.Function and the host time of its bookkeeping."""
+    if not torch.is_grad_enabled():
+        return _chain(x, ws, bs, activation)
     return _FusedMLP.apply(activation, x, *ws, *bs)

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of rl_games_tpu_torch and not
 chip_smoke.py imports jax, flax, optax or the JAX package, and the port
 trains, checkpoints and plays a fused-MLP policy through its Runner on the
-CPU in a process where importing jax fails."""
+CPU in a process where importing jax fails. Importing the port, its host
+envs' bridges included, needs neither gymnasium nor dm_control: only the
+modules that step their envs import them, when they are used."""
 
 import ast
 import os
@@ -62,4 +64,28 @@ def test_port_runs_with_jax_blocked(tmp_path):
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_host_modules_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"rl_games_tpu_torch/envs/host/{m}.py" for m in ("cpuenv", "gymnasium_env", "wrappers",
+                                                           "dm_control_env")} <= names
+    assert {"rl_games_tpu_torch/common/host_inference.py", "rl_games_tpu_torch/utils/native_build.py"} <= names
+
+
+def test_port_import_needs_neither_gymnasium_nor_dm_control():
+    code = (
+        "import sys\n"
+        "for name in ('gymnasium', 'dm_control'):\n"
+        "    sys.modules[name] = None  # any import of these now raises\n"
+        "import rl_games_tpu_torch, rl_games_tpu_torch.__main__, rl_games_tpu_torch.runner\n"
+        "import rl_games_tpu_torch.algos.ppo, rl_games_tpu_torch.algos.sac, rl_games_tpu_torch.common.player\n"
+        "import rl_games_tpu_torch.envs.registry, rl_games_tpu_torch.common.host_inference\n"
+        "import rl_games_tpu_torch.envs.host.cpuenv, rl_games_tpu_torch.envs.host.gymnasium_env\n"
+        "import chip_smoke\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

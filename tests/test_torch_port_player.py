@@ -119,9 +119,10 @@ def test_sigma_override():
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda: SACPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "GYMNASIUM"}},
-                       device="cpu"), "A11"),
-    (lambda: PpoPlayer(player_params(), device="cpu")._host_run(1), "A11"),
+    (lambda: SACPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "CONNECT4"}},
+                       device="cpu"), "A12"),
+    (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "JAX_SELFPLAY"}},
+                       device="cpu"), "A12"),
     (lambda: PpoPlayer(player_params(), device="cpu").make_export_policy(), "A12"),
     (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "use_action_masks": True}},
                        device="cpu"), "A8"),

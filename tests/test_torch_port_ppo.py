@@ -183,7 +183,7 @@ def test_default_device_never_falls_back_to_cpu():
     ("use_action_masks", True),
     ("mixed_precision", True),
     ("permute_batches", True),
-    ("vecenv_type", "GYMNASIUM"),
+    ("vecenv_type", "MULTIWALKER"),
 ])
 def test_unported_options_raise(key, value):
     params = flagship_params()

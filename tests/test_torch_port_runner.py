@@ -288,8 +288,10 @@ def test_cli_end_to_end(tmp_path):
     ({"train": True, "seeds": "1,2"}, {}, "A12"),
     ({"export": True}, {}, "A12"),
     ({"train": True, "load_critic_only": True}, {}, "A9"),
-    ({"train": True}, {"algo": {"name": "sac"}, "config": {"vecenv_type": "GYMNASIUM"}}, "A11"),
-    ({"play": True}, {"algo": {"name": "sac"}, "config": {"vecenv_type": "GYMNASIUM"}}, "A11"),
+    ({"train": True}, {"algo": {"name": "sac"},
+                       "config": {"env_name": "multiwalker_env", "num_actors": 2}}, "A12"),
+    ({"play": True}, {"algo": {"name": "sac"},
+                      "config": {"env_name": "connect4_env", "num_actors": 2}}, "A12"),
 ])
 def test_unported_verbs_raise(tmp_path, args, params_patch, item):
     params = {**tiny_params(tmp_path), **params_patch}

@@ -166,8 +166,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda p: SACAgent("t", {**p, "config": {**p["config"], "vecenv_type": "GYMNASIUM"}}, device="cpu"), "A11"),
-    (lambda p: SACPlayer({**p, "config": {**p["config"], "vecenv_type": "GYMNASIUM"}}, device="cpu"), "A11"),
+    (lambda p: SACAgent("t", {**p, "config": {**p["config"], "vecenv_type": "MULTIWALKER"}}, device="cpu"), "A12"),
+    (lambda p: SACPlayer({**p, "config": {**p["config"], "vecenv_type": "CONNECT4"}}, device="cpu"), "A12"),
     (lambda p: SACAgent("t", {**p, "network": {**p["network"], "normalization": "layer_norm"}}, device="cpu"), "A8"),
     (lambda p: SACAgent("t", {**p, "network": {**p["network"], "mlp": {**p["network"]["mlp"], "d2rl": True}}},
                         device="cpu"), "A8"),

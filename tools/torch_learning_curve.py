@@ -4,13 +4,16 @@
     python3 tools/torch_learning_curve.py rl_games_tpu/configs/ppo_humanoid3d.yaml --max-epochs 400
     python3 tools/torch_learning_curve.py rl_games_tpu/configs/ppo_ant3d.yaml --seed 11
     python3 tools/torch_learning_curve.py rl_games_tpu/configs/sac_ant2d.yaml --max-epochs 2000
+    python3 tools/torch_learning_curve.py rl_games_tpu/configs/sac_pendulum.yaml --max-epochs 1000 --vecenv-type CPUENV
+    python3 tools/torch_learning_curve.py rl_games_tpu/configs/ref/mujoco/halfcheetah.yaml --max-epochs 100 --device cpu
 
 Runs ``python3 -m rl_games_tpu_torch --train --file <config>`` (on the CUDA
 card: the CLI's default device), then ``--play -c <best checkpoint>``. The
-config is read in place; with --max-epochs or --seed a copy with those
-fields changed is written to --out first (with --seed, also its own
-train_dir, runs/seed<N>, so that runs of two seeds keep their own best
-checkpoint). Prints the card's name and power limit,
+config is read in place; with --max-epochs, --seed or --vecenv-type a copy
+with those fields changed is written to --out first (with --seed, also its
+own train_dir, runs/seed<N>, so that runs of two seeds keep their own best
+checkpoint). ``--device cpu`` runs both on the CPU (the CLI's --device); its
+times are the host's. Prints the card's name and power limit,
 the mean reward at epochs 100, 300, 500, 1000, 2000 and 5000 (those
 reached) and at the last epoch, the training's wall time, and the play score; the CLI's whole
 output goes to <out>/<name>.train.log and <name>.play.log.
@@ -35,6 +38,8 @@ def main():
     ap.add_argument("config")
     ap.add_argument("--max-epochs", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None, help="the config's seed unless given")
+    ap.add_argument("--vecenv-type", default=None, help="the config's vecenv_type unless given (e.g. CPUENV)")
+    ap.add_argument("--device", default=None, help="the CLI's --device (default: the CUDA card)")
     ap.add_argument("--out", default="runs/learning")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
@@ -49,15 +54,23 @@ def main():
         config["params"]["seed"] = args.seed
         cfg["train_dir"] = os.path.join("runs", f"seed{args.seed}")
         stem += f".seed{args.seed}"
-    if args.max_epochs is not None or args.seed is not None:
+    if args.vecenv_type is not None:
+        cfg["vecenv_type"] = args.vecenv_type
+        stem += f".{args.vecenv_type}"
+    if args.max_epochs is not None or args.seed is not None or args.vecenv_type is not None:
         path = os.path.join(args.out, stem + ".yaml")
         with open(path, "w") as f:
             yaml.safe_dump(config, f)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[device] {smi}")
+    if args.device == "cpu":
+        print("[device] cpu: every time below is the host's, not a device's")
+    else:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip()
+        print(f"[device] {smi}")
 
     cli = [sys.executable, "-m", "rl_games_tpu_torch", "--file", path]
+    if args.device is not None:
+        cli += ["--device", args.device]
     t0 = time.perf_counter()
     with open(os.path.join(args.out, stem + ".train.log"), "w") as log:
         subprocess.run(cli + ["--train"], stdout=log, stderr=subprocess.STDOUT, check=True)
