@@ -84,6 +84,20 @@ to a plain version):
                through Runner.run: its warmup and 8 update epochs (256
                updates), the replay rows against the env steps less the one
                pending transition, then played. No kernel.
+17. heads    — the test envs and the remaining heads at their configs' own
+               widths, each trained --epochs epochs through Runner.run and
+               played: (a) ref/test/test_discrete.yaml (separate relu
+               [32, 32], test_env's {'obs', 'states'} observations and
+               scores, 16 envs x 512 steps, 4 x 4 minibatches of 2048);
+               (b) the same on test_masked_env with use_action_masks (no
+               masked action sampled in training, play, or at the masks'
+               corner); (c) ref/test/test_discrete_multidiscrete_mhv.yaml
+               with multi_head_value (MultiDiscrete (2, 3), value_size 2);
+               (d) ref/ppo_pendulum.yaml with mlp.fused on the device
+               Pendulum-v1 (separate trunks, a state-dependent sigma; 2
+               fused launches a forward); (e) ref/ppo_pendulum_torch.yaml
+               as continuous_a2c and continuous_a2c_tanh. Each run's steady
+               epoch, env-steps/s and launches per epoch and player step.
 
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
@@ -94,12 +108,16 @@ CPU from the same state and draws, with a vec-env step at 512 and 4096
 envs. Phase 4 also holds one SAC update of sac_ant2d.yaml's networks (a
 batch of 2048) on the card against the CPU.
 
+Phases 3 and 4 also hold [heads]: GAE at [512, 16, 2], [512, 16, 1] and
+[128, 16, 1] and the fused MLP at 3->32->32 elu at B = 16 and 1024, and one
+update of (c)'s and of (d)'s model on the card against the CPU.
+
 Phases 3 and 4 also hold the host path: GAE at [256, 64, 1] and the fused
 MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
 phase 14's config on the card against the CPU (same weights, CPUENV seed
 and action noise), then one Adam step of its first minibatch.
 
-Launch counts are zeroed just before each of phases 6-16's runs and read
+Launch counts are zeroed just before each of phases 6-17's runs and read
 just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
@@ -277,8 +295,12 @@ def time_gae(T, N, V, gen, dev):
     args = gae_inputs(T, N, V, gen, dev)
     kernel, plain = (lambda: gae.gae_cuda(*args, 0.99, 0.95)), (lambda: gae.gae_plain(*args, 0.99, 0.95))
     kernel_ms, kernel_n = device_time_ms(kernel, 100)
-    plain_ms, plain_n = device_time_ms(plain, 20)
-    kernel_call_ms, plain_call_ms = cuda_time_ms(kernel, 200), cuda_time_ms(plain, 20)
+    # the plain loop launches 4 T + 8 kernels a call: at horizon 512 twenty
+    # calls come to about 41,000 events, where a session starts to drop some
+    # (and the sessions after it too), so long sweeps take fewer calls
+    plain_reps = 20 if T <= 256 else 5
+    plain_ms, plain_n = device_time_ms(plain, plain_reps)
+    kernel_call_ms, plain_call_ms = cuda_time_ms(kernel, 200), cuda_time_ms(plain, plain_reps)
     # what a launch alone costs: the source's empty kernel over the same grid
     floor_ms, _ = device_time_ms(lambda: gae.launch_floor_cuda(N, V), 100)
     nbytes = 4 * (3 * T * N * V + T * N + N * V + N)
@@ -306,7 +328,7 @@ def phase_kernel_gae():
     # ppo_breakout.yaml), then horizons that take every branch of the
     # kernel's sweep: one chunk of 16; the row-by-row tail alone; 16 + 8 + 5
     for T, N, V in ((16, 8192, 1), (16, 4096, 1), (64, 512, 1), (32, 16, 1), (256, 64, 1), (128, 64, 1),
-                    (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
+                    (512, 16, 2), (512, 16, 1), (128, 16, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
         args = gae_inputs(T, N, V, gen, dev)
         got = gae.gae_cuda(*args, 0.99, 0.95)
         want = gae.gae_plain(*args, 0.99, 0.95)
@@ -332,9 +354,12 @@ def phase_kernel_gae():
         # the 3D configs' shape (4096 envs), the pixel configs' (512 envs,
         # horizon 64), CartPole's, the host path's (64 envs, horizon 256:
         # 256 dependent steps over one block of 64 threads; [host_pixel]'s 128)
+        # [heads]: the multi-head value's [512, 16, 2] (test_discrete_multidiscrete_mhv.yaml),
+        # test_discrete.yaml's [512, 16, 1], the Pendulum configs' [128, 16, 1]
         "other_shapes": [time_gae(16, 4096, 1, gen, dev), time_gae(64, 512, 1, gen, dev),
                          time_gae(32, 16, 1, gen, dev), time_gae(256, 64, 1, gen, dev),
-                         time_gae(128, 64, 1, gen, dev)],
+                         time_gae(128, 64, 1, gen, dev), time_gae(512, 16, 2, gen, dev),
+                         time_gae(512, 16, 1, gen, dev), time_gae(128, 16, 1, gen, dev)],
     }
 
 
@@ -401,6 +426,8 @@ def phase_kernel_fused_mlp():
     shapes += [(CARTPOLE_DIMS, batch, 1.0, 1.0) for batch in (1, 16, 64)]
     # the host path's torso at the rollout's (and player's) and the minibatch's batch size
     shapes += [(HOPPER_DIMS, batch, 1.0, 1.0) for batch in (64, 2048)]
+    # [heads] (d): ref/ppo_pendulum.yaml's trunks at the rollout's and the minibatch's batch size
+    shapes += [(PENDULUM_DIMS, batch, 1.0, 1.0) for batch in (16, 1024)]
     if fm.kernel_plan(FLAGSHIP_DIMS, 5001)[0] != 32:
         raise AssertionError("B = 5001 was chosen to take the 32-row blocks with a ragged last block")
     worst, worst_ratio = 0.0, 0.0
@@ -459,6 +486,7 @@ def phase_kernel_fused_mlp():
                              for dims in (ANT3D_DIMS, HUMANOID3D_DIMS) for batch in (4096, 32768)]
     entry["other_shapes"] += [time_fused(CARTPOLE_DIMS, batch, gen, dev, "relu") for batch in (16, 64)]
     entry["other_shapes"] += [time_fused(HOPPER_DIMS, batch, gen, dev) for batch in (64, 2048)]
+    entry["other_shapes"] += [time_fused(PENDULUM_DIMS, batch, gen, dev) for batch in (16, 1024)]
     n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
     for batch, suffix in ((8192, ""), (32768, "_minibatch")):
         x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
@@ -584,6 +612,7 @@ def phase_reference():
         raise AssertionError("the Pong model's forward on the card disagrees with the CPU")
     reference_sac()
     reference_host_ppo()
+    reference_heads()
 
 
 def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
@@ -1240,11 +1269,14 @@ def phase_ant3d(epochs: int):
     return launches, epoch_s
 
 
-def train_and_play(name: str, params: dict, epochs: int):
+def train_and_play(name: str, params: dict, epochs: int, batches: list | None = None):
     """``params`` through Runner.run: train ``epochs`` epochs, then play the
     last checkpoint. Returns the launch counts of both runs (each counted
     from 0 just before it), the epoch times, the peak device memory of the
-    training, the player's output and mean reward, and the steady step."""
+    training, the player's output and mean reward, and the steady step.
+    ``batches``, a list the caller's kernel wrapper appends to, is cut at
+    the runs' ends into the histograms of the training, the player's run
+    and the steady-step run."""
     from rl_games_tpu_torch.ops import fused_mlp, gae
     from rl_games_tpu_torch.runner import Runner
 
@@ -1259,6 +1291,7 @@ def train_and_play(name: str, params: dict, epochs: int):
         _, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(ends)})
         torch.cuda.synchronize()
         train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        cuts = [len(batches or [])]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         nn_dir = os.path.join(train_dir, params["config"]["name"], "nn")
         final = [n for n in sorted(os.listdir(nn_dir)) if f"_ep_{epochs}_rew_" in n]
@@ -1276,12 +1309,16 @@ def train_and_play(name: str, params: dict, epochs: int):
         torch.cuda.synchronize()
         play_s = time.perf_counter() - t1
         play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        cuts.append(len(batches or []))
         steady_s, first, last = steady_player_step(runner, checkpoint)
     if not math.isfinite(mean_reward):
         raise AssertionError(f"{name} player: mean reward {mean_reward}")
+    runs = [(batches or [])[a:b] for a, b in zip([0, *cuts], [*cuts, None])]
+    train_batches, play_batches, steady_batches = ({b: run.count(b) for b in sorted(set(run))} for run in runs)
     return {"train": train_launches, "play": play_launches, "times": np.diff([t0, *ends]), "peak_gib": peak_gib,
             "play_out": out.getvalue().strip(), "play_s": play_s, "play_steps": steps, "mean_reward": mean_reward,
-            "steady_step_s": steady_s, "steady_of": (first, last)}
+            "steady_step_s": steady_s, "steady_of": (first, last), "train_batches": train_batches,
+            "play_batches": play_batches, "steady_batches": steady_batches}
 
 
 def report_epochs(tag, times, batch, peak_gib):
@@ -1932,6 +1969,202 @@ def phase_host_sac(update_epochs: int, play_steps: int = 300):
     return train_launches, play_launches, upd_s
 
 
+# ---------------------------------------------------------------------------
+# [heads]: separate trunks, the remaining policy heads, masks and the test envs
+# ---------------------------------------------------------------------------
+
+PENDULUM_DIMS = (3, 32, 32)  # ref/ppo_pendulum.yaml: obs 3, mlp [32, 32] elu, one chain per trunk
+
+
+def heads_params(tag: str):
+    """The config of each [heads] run and the changes made to it (printed
+    with the run): (a) ref/test/test_discrete.yaml as shipped; (b) the same
+    on test_masked_env with use_action_masks; (c)
+    ref/test/test_discrete_multidiscrete_mhv.yaml with multi_head_value on
+    (value_size 2); (d) ref/ppo_pendulum.yaml with mlp.fused on the device
+    Pendulum-v1 (its vecenv_type GYMNASIUM dropped: the card's machine has
+    no gymnasium); (e) ref/ppo_pendulum_torch.yaml on the device Pendulum-v1
+    as continuous_a2c (with sigma_activation softplus: the config's fixed
+    sigma starts at 0, which that model reads as the std itself) and as
+    continuous_a2c_tanh."""
+    changes = []
+    if tag in ("a", "b"):
+        params = load_config("ref/test/test_discrete.yaml")["params"]
+        if tag == "b":
+            params["config"].update(env_name="test_masked_env", use_action_masks=True)
+            changes.append("env_name test_masked_env, use_action_masks true")
+    elif tag == "c":
+        params = load_config("ref/test/test_discrete_multidiscrete_mhv.yaml")["params"]
+        params["config"]["env_config"]["multi_head_value"] = True
+        changes.append("env_config.multi_head_value true (value_size 2)")
+    elif tag == "d":
+        params = load_config("ref/ppo_pendulum.yaml")["params"]
+        params["network"]["mlp"]["fused"] = True
+        params["config"].pop("vecenv_type")
+        changes.append("network.mlp.fused true; vecenv_type GYMNASIUM dropped (device Pendulum-v1)")
+    else:
+        params = load_config("ref/ppo_pendulum_torch.yaml")["params"]
+        params["config"].pop("vecenv_type")
+        params["model"]["name"] = {"e1": "continuous_a2c", "e2": "continuous_a2c_tanh"}[tag]
+        changes.append(f"model.name {params['model']['name']}; vecenv_type GYMNASIUM dropped (device Pendulum-v1)")
+        if tag == "e1":
+            params["network"]["space"]["continuous"]["sigma_activation"] = "softplus"
+            changes.append("sigma_activation softplus")
+    return params, "; ".join(changes) or "as shipped"
+
+
+@contextlib.contextmanager
+def masked_action_check():
+    """Every step of a vec env that serves masks counts the step, its envs,
+    and, on the card, the envs whose action its masks forbid and the envs
+    with a forbidden action; read once at the end."""
+    from rl_games_tpu_torch.envs.device.base import DeviceVecEnv
+
+    step = DeviceVecEnv.step
+    seen = {"bad": torch.zeros((), dtype=torch.int64, device="cuda"),
+            "bound": torch.zeros((), dtype=torch.int64, device="cuda"), "steps": 0, "env_steps": 0}
+
+    def checked(self, state, actions):
+        if self.has_action_masks:
+            masks = self.get_action_masks(state)
+            seen["bad"] += (~masks.gather(1, actions.long()[:, None])).sum()
+            seen["bound"] += (~masks).any(-1).sum()
+            seen["steps"] += 1
+            seen["env_steps"] += actions.shape[0]
+        return step(self, state, actions)
+
+    DeviceVecEnv.step = checked
+    try:
+        yield seen
+    finally:
+        DeviceVecEnv.step = step
+
+
+def masked_border_play(runner, checkpoint, draws: int = 64):
+    """The trained policy on every env at the masks' corner (max_dist, -max_dist),
+    where +x and -y are forbidden: sampled and deterministic actions."""
+    player = runner.create_player()
+    player.restore(checkpoint)
+    env_state, obs = player.vec_env.reset(torch.Generator(device="cuda").manual_seed(0))
+    lim = player.vec_env.env.max_dist
+    env_state.estate.pos[:] = torch.tensor([lim, -lim], dtype=torch.int32, device="cuda")
+    masks = player.vec_env.get_action_masks(env_state)
+    gen, bad = torch.Generator(device="cuda").manual_seed(1), torch.zeros((), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        for deterministic in (False, True):
+            player.deterministic = deterministic
+            for _ in range(draws):
+                actions = player._play_actions(gen, obs, env_state)
+                bad += (~masks.gather(1, actions[:, None])).sum()
+    return int(bad), int((~masks).sum()), 2 * draws * player.num_actors
+
+
+def phase_heads(epochs: int):
+    """(a)-(e) of heads_params through Runner.run: train ``epochs`` epochs,
+    then play the last checkpoint. Per run: the steady epoch, env-steps/s,
+    the GAE and fused launches per epoch and per player step, held to the
+    counts the code implies (1 GAE an epoch; for (d) 2 fused launches a
+    forward: the actor's and the critic's trunk)."""
+    from rl_games_tpu_torch.ops import fused_mlp
+
+    out = {}
+    for tag in ("a", "b", "c", "d", "e1", "e2"):
+        params, changes = heads_params(tag)
+        cfg = params["config"]
+        horizon, n = cfg["horizon_length"], cfg["num_actors"]
+        minibatches = cfg["mini_epochs"] * n * horizon // cfg["minibatch_size"]
+        batches = []
+
+        def counted(x, *args):  # the batch of every kernel launch
+            batches.append(x.shape[0])
+            return launch(x, *args)
+
+        launch = fused_mlp.fused_mlp_cuda
+        fused_mlp.fused_mlp_cuda = counted
+        try:
+            with masked_action_check() as seen:
+                run = train_and_play(f"heads ({tag})", params, epochs, batches)
+        finally:
+            fused_mlp.fused_mlp_cuda = launch
+        steps = run["play_steps"]
+        fused = 2 if tag == "d" else 0
+        # the training's batches; the player's run and its steady-step
+        # run (steady_player_step) each play ``steps`` steps at B = n
+        expected_batches = {} if not fused else {
+            n: fused * (horizon + 1) * epochs, cfg["minibatch_size"]: fused * minibatches * epochs}
+        expected_play = {} if not fused else {n: fused * steps}
+        got_batches = run["train_batches"]
+        if (run["train"] != {"gae": epochs, "fused_mlp": fused * (horizon + 1 + minibatches) * epochs}
+                or run["play"] != {"gae": 0, "fused_mlp": fused * steps} or got_batches != expected_batches
+                or run["play_batches"] != expected_play or run["steady_batches"] != expected_play):
+            raise AssertionError(f"heads ({tag}): launches {run['train']} in {epochs} epochs, player {run['play']} "
+                                 f"in {steps} steps, fused batches {got_batches} in training, "
+                                 f"{run['play_batches']} / {run['steady_batches']} in the two player runs; expected "
+                                 f"1 GAE an epoch, {fused} fused launches a forward ({expected_batches}, "
+                                 f"{expected_play})")
+        print(f"[heads] ({tag}) {params['model']['name']} on {cfg['env_name']} ({changes}): {n} envs x {horizon} "
+              f"steps, {cfg['mini_epochs']} x {minibatches // cfg['mini_epochs']} minibatches of "
+              f"{cfg['minibatch_size']}; trained {epochs} epochs through Runner.run: launches {run['train']} "
+              f"({run['train']['gae'] / epochs:g} GAE and {run['train']['fused_mlp'] / epochs:g} fused an epoch, "
+              f"fused batches {got_batches}); played {steps} steps: launches {run['play']} at batches "
+              f"{run['play_batches']} "
+              f"({run['play']['fused_mlp'] / steps:g} fused a player step), {run['play_out']!r}")
+        epoch_s = report_epochs(f"heads ({tag})", run["times"], n * horizon, run["peak_gib"])
+        print(f"[heads] ({tag}) steady player step {run['steady_step_s'] * 1e3:.2f} ms at {n} envs")
+        if tag == "b":
+            bad = int(seen["bad"])
+            print(f"[heads] (b) masks checked at {seen['steps']} vec-env steps of training and play (the epoch "
+                  f"times above include the check), {seen['env_steps']} env-steps: {bad} masked actions sampled, "
+                  f"{int(seen['bound'])} of the env-steps with a forbidden action")
+            if bad or not seen["steps"]:
+                raise AssertionError(f"heads (b): {bad} masked actions sampled in {seen['steps']} checked steps")
+        out[tag] = {**run, "epoch_s": epoch_s}
+    # (b)'s policy where the masks bind, sampled and deterministic
+    params, _ = heads_params("b")
+    with tempfile.TemporaryDirectory() as train_dir:
+        from rl_games_tpu_torch.runner import Runner
+
+        params["config"].update(train_dir=train_dir, max_epochs=1)
+        runner = Runner()
+        runner.load({"params": params})
+        with contextlib.redirect_stdout(io.StringIO()):
+            runner.run({"train": True})
+        nn_dir = os.path.join(train_dir, params["config"]["name"], "nn")
+        checkpoint = os.path.join(nn_dir, [f for f in os.listdir(nn_dir) if "_rew_" in f][0])
+        bad, forbidden, actions = masked_border_play(runner, checkpoint)
+    print(f"[heads] (b) the player at the masks' corner: {actions} actions, {forbidden} forbidden (env, action) "
+          f"pairs, {bad} masked actions sampled")
+    if bad or not forbidden:
+        raise AssertionError(f"heads (b): the player at the masks' corner sampled {bad} masked actions")
+    return out
+
+
+def reference_heads():
+    """One update of (c)'s MultiDiscrete, multi-head-value model and of (d)'s
+    separate, state-dependent-sigma model (fused on the card, the plain chain
+    on the CPU), card against CPU on the same trajectory, held as the Pong
+    update is (check_first_update)."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
+    for tag, num_actors, horizon in (("c", 16, 64), ("d", 16, 64)):
+        params, _ = heads_params(tag)
+        params["config"].update(num_actors=num_actors, horizon_length=horizon, minibatch_size=256)
+        gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+        gstate, cstate = gpu.init_state(), cpu.init_state()
+        cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+        traj, last_values = gpu._rollout(gstate)
+        cstate.dones = gstate.dones.cpu()
+        gds = gpu._prepare_dataset(gstate, traj, last_values)
+        cds = cpu._prepare_dataset(cstate, {k: v.cpu() for k, v in traj.items()}, last_values.cpu())
+        dadv = float((gds["advantages"].cpu() - cds["advantages"]).abs().max())
+        update = check_first_update(gpu, cpu, gstate, cstate, gds, cds)
+        what = {"c": "MultiDiscrete (2, 3), value_size 2", "d": "separate trunks, state-dependent sigma, fused"}[tag]
+        print(f"[reference] heads ({tag}) {what}, {num_actors} envs x {horizon} steps: GAE of values "
+              f"{tuple(traj['values'].shape)} card vs CPU max |dadv| {dadv:.2e}; one minibatch of 256: {update}")
+        if not dadv < 1e-4:
+            raise AssertionError(f"heads ({tag}): the card's advantages disagree with the CPU's: {dadv}")
+
+
 def profile_report(tag: str, prof, wall_us: float, detail: str):
     """The device's busy time and idle share over ``wall_us`` of host time,
     and the device time by kernel, of one torch.profiler session."""
@@ -2037,6 +2270,7 @@ def main():
     host = phase_host_ppo(args.epochs, args.profile)
     pixel_launches = phase_host_pixel()
     host_sac_train, host_sac_play, _ = phase_host_sac(8)
+    heads = phase_heads(args.epochs)
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
@@ -2044,9 +2278,9 @@ def main():
     # CartPole player
     host_runs = tuple(host[tag]["train"] for tag in ("default", "cpu", "default fused"))
     runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train,
-            *host_runs, pixel_launches)
+            *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads))
     # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements
-    epochs_trained = (args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,)
+    epochs_trained = (args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
@@ -2054,12 +2288,15 @@ def main():
                                      "pong": pong_launches["gae"], "breakout": breakout_launches["gae"],
                                      "cartpole": cp_train["gae"], "sac_ant2d": sac_train["gae"],
                                      "host_ppo": {tag: host[tag]["train"]["gae"] for tag in host},
-                                     "host_pixel": pixel_launches["gae"], "host_sac": host_sac_train["gae"]}
+                                     "host_pixel": pixel_launches["gae"], "host_sac": host_sac_train["gae"],
+                                     "heads": {tag: heads[tag]["train"]["gae"] for tag in heads}}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
                                + cp_train["fused_mlp"] + cp_play["fused_mlp"]
-                               + host_fused["train"]["fused_mlp"] + host_fused["play"]["fused_mlp"])
+                               + host_fused["train"]["fused_mlp"] + host_fused["play"]["fused_mlp"]
+                               + sum(heads[tag]["train"]["fused_mlp"] + heads[tag]["play"]["fused_mlp"]
+                                     for tag in heads))
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -2077,6 +2314,16 @@ def main():
         "per_player_step": host_fused["play"]["fused_mlp"] / host_fused["play_steps"],
         "plain_runs": {tag: host[tag]["train"]["fused_mlp"] for tag in ("default", "cpu")},
         "host_sac": {"train": host_sac_train["fused_mlp"], "play": host_sac_play["fused_mlp"]}}
+    # [heads] (d): two chains a forward (the actor's and the critic's trunk)
+    # at B = 16 in the rollout and the player, B = 1024 in the minibatches
+    hd = heads["d"]
+    fused_entry["launches_heads"] = {
+        "train": hd["train"]["fused_mlp"], "play": hd["play"]["fused_mlp"], "train_batches": hd["train_batches"],
+        "play_batches": hd["play_batches"], "steady_player_batches": hd["steady_batches"],
+        "per_epoch": hd["train"]["fused_mlp"] / args.epochs,
+        "per_player_step": hd["play"]["fused_mlp"] / hd["play_steps"],
+        "other_runs": {tag: heads[tag]["train"]["fused_mlp"] + heads[tag]["play"]["fused_mlp"]
+                       for tag in heads if tag != "d"}}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

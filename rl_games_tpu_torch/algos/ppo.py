@@ -1,9 +1,9 @@
 """PPO over device-resident envs, in PyTorch.
 
 Port of the non-recurrent, single-agent subset of rl_games_tpu/algos/ppo.py,
-continuous and discrete (the reference's a2c_common.py play_steps
-:787-850 and train_epoch :1241-1307, a2c_continuous.py, a2c_discrete.py).
-One epoch (``train_epoch``) is
+continuous, discrete and multi-discrete (the reference's a2c_common.py
+play_steps :787-850 and train_epoch :1241-1307, a2c_continuous.py,
+a2c_discrete.py). One epoch (``train_epoch``) is
 
     rollout  = horizon × (policy forward + sample + env step + autoreset)
     gae      = ops.gae.compute_gae (the CUDA kernel on the card)
@@ -15,8 +15,18 @@ with the JAX package's semantics: the value bootstrap at time-outs
 (:1325-1332), advantage normalization, the 'legacy' per-minibatch
 adaptive LR with mu/sigma writeback for continuous actions
 (datasets.py:33-43), episode meters and the epoch/frame counters. Discrete
-actions are stored as integers and passed to the env as they are; their
-adaptive-LR KL is 0.5 · mean((old neglogp − neglogp)²) (ppo.py:959-962).
+actions are stored as integers ([N, heads] for MultiDiscrete) and passed to
+the env as they are; their adaptive-LR KL is 0.5 · mean((old neglogp −
+neglogp)²) (ppo.py:959-962). With ``use_action_masks`` each step reads the
+env's masks before the policy samples, stores them in the trajectory and
+the loss applies them (ppo.py:576-580, 654-655, 859-860). The actor sees
+the 'obs' entry of the asymmetric envs' {'obs', 'states'} observations
+(``actor_obs``). A multi-head value (``value_size`` > 1) keeps its
+rewards, values, returns and value normalizer per head, and sums the
+heads' advantages. The tanh policy's entropy is estimated from normals
+drawn fresh for each minibatch (ppo.py:861-868). Envs that report
+``infos['scores']`` feed a score meter at done rows, read as
+``mean_scores`` (ppo.py:628-633, 1296-1297).
 The JAX package compiles the epoch into one
 program over an immutable state; here it runs eagerly, the weights and
 normalizer stats live in ``agent.model`` (an ``nn.Module``) and the rest of
@@ -64,7 +74,7 @@ from rl_games_tpu_torch.common.tr_helpers import (
 )
 from rl_games_tpu_torch.envs import registry as env_registry
 from rl_games_tpu_torch.envs.device.base import VecEnvState
-from rl_games_tpu_torch.envs.spaces import Box, Discrete, actions_num_of, obs_shape_of
+from rl_games_tpu_torch.envs.spaces import Box, Discrete, MultiDiscrete, actions_num_of, obs_shape_of
 from rl_games_tpu_torch.models import model_builder
 from rl_games_tpu_torch.ops import losses as L
 from rl_games_tpu_torch.ops import masked as MK
@@ -220,6 +230,18 @@ class PPOTrainState:
     game_rewards: Meters
     game_shaped_rewards: Meters
     game_lengths: Meters
+    game_scores: Meters  # infos['scores'] at episode ends
+
+
+def actor_obs(obs):
+    """The actor's input: the 'obs' entry of the asymmetric envs'
+    {'obs', 'states'} observations (ppo.py:541-547). Other dict
+    observations wait for the dict normalizer."""
+    if isinstance(obs, dict):
+        if set(obs) <= {"obs", "states"}:
+            return obs["obs"]
+        unported("dict observations", "A8")
+    return obs
 
 
 class PPOAgent:
@@ -256,14 +278,15 @@ class PPOAgent:
         self.value_size = info.value_size
         self.num_agents = info.agents
         if self.num_agents != 1:
-            raise NotImplementedError("multi-agent envs are not ported yet (see ROADMAP.md)")
+            unported("multi-agent envs", "A12")
         self.observation_space = info.observation_space
         self.action_space = info.action_space
         self.obs_shape = obs_shape_of(info.observation_space)
         self.actions_num = actions_num_of(info.action_space)
         self.is_continuous = isinstance(info.action_space, Box)
-        if not self.is_continuous and not isinstance(info.action_space, Discrete):
-            unported(f"the action space {info.action_space}", "A8")
+        self.is_multi_discrete = isinstance(info.action_space, MultiDiscrete)
+        if not isinstance(info.action_space, (Box, Discrete, MultiDiscrete)):
+            raise ValueError(f"unsupported action space {info.action_space}")
 
         # --- config (a2c_common.py:137-330) ---------------------------------
         self.horizon_length = config["horizon_length"]
@@ -325,6 +348,8 @@ class PPOAgent:
                 f"max_frames {self.max_frames} exceeds the int32 frame counter"
             )
         self.rewards_shaper = build_reward_shaper(config)
+        self.use_action_masks = config.get("use_action_masks", False)
+        self._scores_seen = False  # set once the env has reported infos['scores']
         self.use_diagnostics = config.get("use_diagnostics", False)
         self.observer = (config.get("features") or {}).get("observer")
         self._rollout_time = None  # measured under use_diagnostics
@@ -341,6 +366,7 @@ class PPOAgent:
             device=self.device,
         )
         self.params = list(self.model.parameters())
+        self.sampled_entropy = getattr(self.model, "sampled_entropy", False)
         # a host rollout on another device than the model's runs a copy of
         # it there, given the model's weights once per epoch
         self._rollout_model = (self.model if self.rollout_device == self.device
@@ -353,12 +379,14 @@ class PPOAgent:
             self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.rollout_device)
 
     def _check_env(self, config: dict):
-        """What a vec env must offer (ppo.py:371-400): masks from a host env
-        that can serve them (masked PPO itself is A8), and a host env that
-        resets on done: next-step autoreset would put a row from after each
-        episode's end into the dataset (the reference resets inside the
-        worker, common/vecenv.py:70-178)."""
+        """What a vec env must offer (ppo.py:371-400): masks, where asked
+        for, from an env that can serve them, and a host env that resets on
+        done: next-step autoreset would put a row from after each episode's
+        end into the dataset (the reference resets inside the worker,
+        common/vecenv.py:70-178)."""
         if config.get("use_action_masks", False):
+            if not self.is_host_env and not getattr(self.vec_env, "has_action_masks", False):
+                raise ValueError("use_action_masks: this env serves no action masks (has_action_masks is False)")
             if self.is_host_env:
                 if not hasattr(self.vec_env, "get_action_masks"):
                     raise ValueError("use_action_masks requires the host vec env to expose get_action_masks() "
@@ -367,7 +395,6 @@ class PPOAgent:
                 if probe is not None and not probe():
                     raise ValueError("use_action_masks: this vec env cannot serve masks (async vectorization, "
                                      "or sub-envs without get_action_mask); see GymnasiumVecEnv.supports_action_masks")
-            unported("action masks (use_action_masks)", "A8")
         if self.is_host_env and getattr(self.vec_env, "autoreset_mode", "same_step") == "next_step":
             raise ValueError("PPO host rollout requires same_step autoreset (reset-on-done); construct the "
                              "vec env with autoreset_mode='same_step'")
@@ -379,22 +406,20 @@ class PPOAgent:
         network = params.get("network", {})
         features = config.get("features") or {}
         options = {
-            "an RNN torso (network.rnn; ROADMAP.md, item A9)": "rnn" in network,
-            "a central value net (central_value_config; ROADMAP.md, item A9)": config.get("central_value_config") is not None,
-            "RND curiosity (rnd_config; ROADMAP.md, item A9)": bool(config.get("rnd_config")),
-            "soft augmentation (features.soft_augmentation; ROADMAP.md, item A9)": bool(features.get("soft_augmentation")),
-            "mixed precision (mixed_precision)": config.get("mixed_precision", False),
-            "minibatch permutation (permute_batches)": config.get("permute_batches", False),
-            "RMS advantage normalization (normalize_rms_advantage; ROADMAP.md, item A2)":
+            ("an RNN torso (network.rnn)", "A9"): "rnn" in network,
+            ("a central value net (central_value_config)", "A9"): config.get("central_value_config") is not None,
+            ("RND curiosity (rnd_config)", "A9"): bool(config.get("rnd_config")),
+            ("soft augmentation (features.soft_augmentation)", "A9"): bool(features.get("soft_augmentation")),
+            ("mixed precision (mixed_precision)", "A9"): config.get("mixed_precision", False),
+            ("minibatch permutation (permute_batches)", "A9"): config.get("permute_batches", False),
+            ("RMS advantage normalization (normalize_rms_advantage)", "A2"):
                 config.get("normalize_rms_advantage", False),
-            "population based training (pbt; ROADMAP.md, item A12)": bool((config.get("pbt") or {}).get("enabled")),
-            "self-play (self_play_config; ROADMAP.md, item A12)": bool(config.get("self_play_config")),
+            ("population based training (pbt)", "A12"): bool((config.get("pbt") or {}).get("enabled")),
+            ("self-play (self_play_config)", "A12"): bool(config.get("self_play_config")),
         }
-        for what, asked in options.items():
+        for (what, item), asked in options.items():
             if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported to rl_games_tpu_torch yet (see ROADMAP.md)"
-                )
+                unported(what, item)
 
     # ------------------------------------------------------------------
     # state construction
@@ -415,6 +440,7 @@ class PPOAgent:
             env_state, obs = None, to_device_obs(self.vec_env.reset(), self.device)
         else:
             env_state, obs = self.vec_env.reset(generator(env_seed))
+            actor_obs(obs)  # refuses dict observations that are not {'obs', 'states'}
         n, v = self.num_actors, self.value_size
         f32 = dict(dtype=torch.float32, device=self.device)
         return PPOTrainState(
@@ -433,6 +459,7 @@ class PPOAgent:
             game_rewards=meters_init(self.games_to_track, v, self.device),
             game_shaped_rewards=meters_init(self.games_to_track, v, self.device),
             game_lengths=meters_init(self.games_to_track, 1, self.device),
+            game_scores=meters_init(self.games_to_track, 1, self.device),
         )
 
     # ------------------------------------------------------------------
@@ -448,12 +475,13 @@ class PPOAgent:
             return rescale_actions(self._action_low, self._action_high, a)
         return a
 
-    def _trajectory_buffers(self, device):
+    def _trajectory_buffers(self, device, mask_shape=None):
         """Uninitialized [T, N, ...] trajectory tensors on ``device`` that the
-        rollout fills step by step. The observations lie env-major ([N, T,
-        ...] in memory, a transposed view here), so that swap_and_flatten01
-        of them is a view: at 512 envs × 64 steps of 84×84×2 frames they are
-        1.85 GB."""
+        rollout fills step by step; with ``mask_shape`` (one step's masks,
+        [N, ...]) also the action masks. The observations lie env-major ([N,
+        T, ...] in memory, a transposed view here), so that
+        swap_and_flatten01 of them is a view: at 512 envs × 64 steps of
+        84×84×2 frames they are 1.85 GB."""
         T, N, V = self.horizon_length, self.num_actors, self.value_size
         f32 = dict(dtype=torch.float32, device=device)
         traj = {
@@ -466,8 +494,12 @@ class PPOAgent:
         if self.is_continuous:
             for k in ("actions", "mus", "sigmas"):
                 traj[k] = torch.empty((T, N, self.actions_num), **f32)
+        elif self.is_multi_discrete:
+            traj["actions"] = torch.empty((T, N, len(self.actions_num)), dtype=torch.int64, device=device)
         else:
             traj["actions"] = torch.empty((T, N), dtype=torch.int64, device=device)
+        if mask_shape is not None:
+            traj["action_masks"] = torch.empty((T, *mask_shape), dtype=torch.bool, device=device)
         return traj
 
     @torch.no_grad()
@@ -479,9 +511,12 @@ class PPOAgent:
         env_state, obs, dones = state.env_state, state.obs, state.dones
         cur_r, cur_sr = state.current_rewards, state.current_shaped_rewards
         cur_len = state.current_lengths
-        traj = self._trajectory_buffers(self.device)
+        masks = self.vec_env.get_action_masks if self.use_action_masks else None
+        traj = self._trajectory_buffers(self.device, masks(env_state).shape if masks else None)
         for t in range(self.horizon_length):
-            res = model.forward_play(obs, generator=state.generator)
+            # get_masked_action_values (a2c_common.py:793-797)
+            kw = {"action_masks": masks(env_state)} if masks else {}
+            res = model.forward_play(actor_obs(obs), generator=state.generator, **kw)
             env_state, next_obs, rewards, new_dones, infos = self.vec_env.step(
                 env_state, self._env_actions(res["actions"])
             )
@@ -501,19 +536,23 @@ class PPOAgent:
             meters_update(state.game_rewards, cur_r, done_mask)
             meters_update(state.game_shaped_rewards, cur_sr, done_mask)
             meters_update(state.game_lengths, cur_len[:, None], done_mask)
+            if "scores" in infos:
+                # the score at each episode's end (algo_observer.py:29-92)
+                meters_update(state.game_scores, infos["scores"].to(torch.float32).reshape(-1, 1), done_mask)
+                self._scores_seen = True
             not_done = 1.0 - new_dones.to(torch.float32)
             cur_r = cur_r * not_done[:, None]
             cur_sr = cur_sr * not_done[:, None]
             cur_len = cur_len * not_done
 
-            step = {**res, "obses": obs, "dones": dones, "values": values, "rewards": shaped}
+            step = {**res, **kw, "obses": actor_obs(obs), "dones": dones, "values": values, "rewards": shaped}
             for k, buf in traj.items():
                 buf[t] = step[k]
             obs, dones = next_obs, new_dones.to(torch.float32)
 
         # bootstrap values for the final obs (get_values, a2c_common:474-483);
         # they do not depend on the sample, so none is drawn
-        last_values = model.forward_play(obs, deterministic=True)["values"]
+        last_values = model.forward_play(actor_obs(obs), deterministic=True)["values"]
         state.env_state, state.obs, state.dones = env_state, obs, dones
         state.current_rewards, state.current_shaped_rewards = cur_r, cur_sr
         state.current_lengths = cur_len
@@ -557,10 +596,16 @@ class PPOAgent:
         dataset["old_logp_actions"] = dataset.pop("neglogpacs")
         return dataset
 
-    def _loss_and_kl(self, mb, entropy_coef):
+    def _loss_and_kl(self, mb, entropy_coef, entropy_noise=None):
         """Loss assembly (a2c_continuous.py:97-133, a2c_discrete.py:116-190).
-        Returns the scalar loss and detached diagnostics."""
-        res = self.model.forward_train(mb["obses"], mb["actions"])
+        ``entropy_noise``: the tanh policy's standard normals for its
+        sampled entropy. Returns the scalar loss and detached diagnostics."""
+        kw = {}
+        if self.use_action_masks:
+            kw["action_masks"] = mb["action_masks"]
+        if self.sampled_entropy:
+            kw["entropy_noise"] = entropy_noise
+        res = self.model.forward_train(mb["obses"], mb["actions"], **kw)
         actor_loss_fn = L.smoothed_actor_loss if self.use_smooth_clamp else L.actor_loss
         a_loss = actor_loss_fn(
             mb["old_logp_actions"], res["prev_neglogp"], mb["advantages"], self.ppo, self.e_clip
@@ -615,7 +660,7 @@ class PPOAgent:
             for i in range(self.num_minibatches):
                 sl = slice(i * self.minibatch_size, (i + 1) * self.minibatch_size)
                 mb = {k: v[sl] for k, v in dataset.items()}
-                total, aux = self._loss_and_kl(mb, ec)
+                total, aux = self._loss_and_kl(mb, ec, self._entropy_noise(state))
                 grads = torch.autograd.grad(total, self.params)
                 adam_step(self.params, grads, state.opt_state, lr, max_norm, self.weight_decay)
                 if legacy:
@@ -639,6 +684,16 @@ class PPOAgent:
             # per-mini-epoch kl and clip fraction (ppo.py:1060-1090)
             metrics["_diag"] = {k: torch.stack(v) for k, v in diag.items()}
         return metrics
+
+    def _entropy_noise(self, state: PPOTrainState):
+        """Fresh standard normals for one minibatch of the tanh policy's
+        sampled entropy (ppo.py:861-868), from the train state's generator;
+        None for every other model."""
+        if not self.sampled_entropy:
+            return None
+        gen = state.generator
+        noise = torch.randn((self.minibatch_size, self.actions_num), generator=gen, device=gen.device)
+        return noise.to(self.device)
 
     def _finish_epoch(self, state: PPOTrainState, traj, last_values):
         """prepare_dataset → minibatch updates → counters and metrics."""
@@ -666,6 +721,8 @@ class PPOAgent:
         metrics["mean_shaped_rewards"] = meters_mean(state.game_shaped_rewards)
         metrics["mean_lengths"] = meters_mean(state.game_lengths)[0]
         metrics["games_played"] = state.game_rewards.count.clone()
+        if self._scores_seen:
+            metrics["mean_scores"] = meters_mean(state.game_scores)[0]
         metrics["frame"] = state.frame
         metrics["epoch"] = state.epoch
         return state, metrics
@@ -694,17 +751,23 @@ class PPOAgent:
             model.load_state_dict(self.model.state_dict())  # this epoch's weights and stats
         T, N, V = self.horizon_length, self.num_actors, self.value_size
         obs, dones = state.obs.to(dev), state.dones.to(dev)
-        traj = self._trajectory_buffers(dev)
+        kw = {}
+        if self.use_action_masks:
+            # the masks of the step's observations, read with them (ppo.py:1395-1399)
+            kw["action_masks"] = self._upload(self.vec_env.get_action_masks())[0]
+        traj = self._trajectory_buffers(dev, kw["action_masks"].shape if kw else None)
         cur_r, cur_sr, cur_len = (x.cpu().numpy() for x in (
             state.current_rewards, state.current_shaped_rewards, state.current_lengths))
         finished = []  # (reward, shaped reward, length) of each episode that ended, in order
         step_time = 0.0  # the env's step alone (a2c_common.py:806-810)
         t_play0 = time.perf_counter()
         for t in range(T):
-            res = model.forward_play(obs, generator=state.generator)
+            res = model.forward_play(obs, generator=state.generator, **kw)
             env_actions = self._env_actions(res["actions"])
             host = torch.cat([env_actions.reshape(N, -1).to(torch.float32), res["values"]], dim=1).cpu().numpy()
-            actions = host[:, :-V] if self.is_continuous else host[:, 0].astype(np.int64)
+            actions = host[:, :-V]
+            if not self.is_continuous:
+                actions = actions.astype(np.int64) if self.is_multi_discrete else actions[:, 0].astype(np.int64)
             t0 = time.perf_counter()
             next_obs, rewards, new_dones, infos = self.vec_env.step(actions)
             step_time += time.perf_counter() - t0
@@ -720,11 +783,15 @@ class PPOAgent:
             finished += [(cur_r[i], cur_sr[i], cur_len[i]) for i in np.flatnonzero(new_dones)]
             not_done = 1.0 - new_dones.astype(np.float32)
             cur_r, cur_sr, cur_len = cur_r * not_done[:, None], cur_sr * not_done[:, None], cur_len * not_done
-            next_obs, shaped, new_dones = self._upload(next_obs, shaped, new_dones)
-            step = {**res, "obses": obs, "dones": dones, "rewards": shaped}
+            # the next step's masks go up in the same copy
+            uploaded = self._upload(next_obs, shaped, new_dones,
+                                    *((self.vec_env.get_action_masks(),) if kw else ()))
+            step = {**res, **kw, "obses": obs, "dones": dones, "rewards": uploaded[1]}
             for k, buf in traj.items():
                 buf[t] = step[k]
-            obs, dones = next_obs, new_dones
+            obs, dones = uploaded[0], uploaded[2]
+            if kw:
+                kw["action_masks"] = uploaded[3]
         last_values = model.forward_play(obs, deterministic=True)["values"]
         self._last_timing = {"step_time": step_time, "play_time": time.perf_counter() - t_play0}
 
@@ -765,6 +832,7 @@ class PPOAgent:
         state.game_rewards = meters_init(self.games_to_track, v, self.device)
         state.game_shaped_rewards = meters_init(self.games_to_track, v, self.device)
         state.game_lengths = meters_init(self.games_to_track, 1, self.device)
+        state.game_scores = meters_init(self.games_to_track, 1, self.device)
         if self.observer is not None:
             self.observer.after_clear_stats()
         return state
@@ -947,6 +1015,8 @@ class PPOAgent:
                     + (f"/{max_epochs}" if max_epochs > 0 else "")
                     + f" frames: {frame}"
                     + (f" rew: {mean_rewards:.2f}" if mean_rewards is not None else "")
+                    + (f" score: {float(metrics['mean_scores']):.3f}"
+                       if games_played and "mean_scores" in metrics else "")
                 )
 
             if save_due:

@@ -7,10 +7,13 @@ the vectorized env a fixed number of times with deterministic (or sampled)
 actions and collects completed-episode returns in a ring meter of
 ``games_num`` entries. Nothing inside the loop reads a device value on the
 host; the whole run is under ``torch.no_grad()``. Continuous actions are
-the mean (deterministic) or a sample, clipped and rescaled to the env's
-bounds; discrete ones the argmax of the logits (deterministic) or a sample,
-passed as they are. With ``network.mlp.fused: true`` every step's policy
-forward is one launch of the fused-MLP kernel. ``SACPlayer`` plays a SAC
+the mean (deterministic; tanh(mu) for the tanh policy) or a sample, clipped
+and rescaled to the env's bounds; discrete and multi-discrete ones the
+argmax of the (masked, with ``use_action_masks``) logits (deterministic) or
+a sample, passed as they are. The policy sees the 'obs' entry of the
+asymmetric envs' {'obs', 'states'} observations. With
+``network.mlp.fused: true`` every step's policy forward is one launch of
+the fused-MLP kernel (two with ``network.separate``). ``SACPlayer`` plays a SAC
 actor through the same loop. Over a host env (GYMNASIUM, CPUENV,
 DMCONTROL) the loop is ``_host_run`` (player.py:183-228): the env steps on
 the host until ``games_num`` episodes have ended, and the policy runs where
@@ -25,12 +28,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rl_games_tpu_torch.algos.ppo import CHECKPOINT_EXT, meters_init, meters_mean, meters_update
+from rl_games_tpu_torch.algos.ppo import CHECKPOINT_EXT, actor_obs, meters_init, meters_mean, meters_update
 from rl_games_tpu_torch.common import obs_utils
 from rl_games_tpu_torch.common.host_inference import rollout_device
 from rl_games_tpu_torch.common.tr_helpers import rescale_actions
 from rl_games_tpu_torch.envs import registry as env_registry
-from rl_games_tpu_torch.envs.spaces import Box, Discrete, actions_num_of, obs_shape_of
+from rl_games_tpu_torch.envs.spaces import Box, actions_num_of, obs_shape_of
 from rl_games_tpu_torch.models import layers, model_builder
 from rl_games_tpu_torch.models.sac import ActionRescale, SACActor, build_sac_networks, load_normalizer
 from rl_games_tpu_torch.ops.running_stats import RunningMeanStd
@@ -55,8 +58,8 @@ class BasePlayer:
             "deterministic", player_cfg.get("determenistic", True)
         )
         self.seed = config.get("seed", 7)
-        if config.get("use_action_masks", False):
-            unported("masked-action inference (use_action_masks)", "A8")
+        # masked-action inference (players.py get_masked_action)
+        self.use_action_masks = config.get("use_action_masks", False)
 
         self.vec_env = env_registry.create_vec_env(
             config["env_name"], self.num_actors,
@@ -75,8 +78,6 @@ class BasePlayer:
         self.obs_shape = obs_shape_of(info.observation_space)
         self.actions_num = actions_num_of(info.action_space)
         self.is_continuous = isinstance(info.action_space, Box)
-        if not self.is_continuous and not isinstance(info.action_space, Discrete):
-            unported(f"the action space {info.action_space}", "A8")
         self._build_policy(params)
         self._last_ckpt = None
 
@@ -165,28 +166,36 @@ class BasePlayer:
         act_seed = int(np.random.SeedSequence(self.seed + 1).generate_state(2)[1])
         act_generator = self._generator(act_seed)
         upload = obs_utils.HostUpload(self.device)
-        obs = obs_utils.to_device_obs(self.vec_env.reset(), self.device, upload)
+        host_obs = self.vec_env.reset()
         n = self.num_actors
         cur = np.zeros((n, self.value_size), np.float32)
         returns, steps = [], 0
         while len(returns) < games_num and steps < self.max_steps:
-            actions = self._play_actions(act_generator, obs).cpu().numpy()
-            next_obs, rewards, dones, _ = self.vec_env.step(actions)
+            if isinstance(host_obs, dict):
+                unported("dict observations from a host env", "A8")
+            # the observations and, with use_action_masks, the masks in one copy
+            obs, *masks = upload(host_obs, *((self.vec_env.get_action_masks(),) if self.use_action_masks else ()))
+            actions = self._play_actions(act_generator, obs, masks=masks[0] if masks else None).cpu().numpy()
+            host_obs, rewards, dones, _ = self.vec_env.step(actions)
             cur += np.asarray(rewards, np.float32).reshape(n, -1)
             for i in np.flatnonzero(dones):
                 returns.append(cur[i].copy())
                 cur[i] = 0.0
-            obs = obs_utils.to_device_obs(next_obs, self.device, upload)
             steps += 1
         mean_reward = float(np.mean([r[0] for r in returns])) if returns else 0.0
         print(f"av reward: {mean_reward:.2f} games played: {len(returns)}")
         return mean_reward
 
-    def _play_actions(self, generator, obs, env_state=None):
-        """env-space actions for the device eval loop; ``generator`` draws
-        the action noise when the player is not deterministic."""
+    def _play_actions(self, generator, obs, env_state=None, masks=None):
+        """env-space actions for the eval loops; ``generator`` draws the
+        action noise when the player is not deterministic. With
+        ``use_action_masks`` the masks are ``masks`` (a host env's) or the
+        device env's for ``env_state``."""
+        kw = {}
+        if self.use_action_masks:
+            kw["action_masks"] = masks if masks is not None else self.vec_env.get_action_masks(env_state)
         res = self.model.forward_play(
-            obs, generator=generator, deterministic=self.deterministic
+            actor_obs(obs), generator=generator, deterministic=self.deterministic, **kw
         )
         return self._env_actions(res["actions"])
 
@@ -269,7 +278,7 @@ class SACPlayer(BasePlayer):
         no-ops with a message (torch_runner.py:52-60)."""
         print("Cannot set new sigma: SAC policy has no fixed sigma parameter")
 
-    def _play_actions(self, generator, obs, env_state=None):
+    def _play_actions(self, generator, obs, env_state=None, masks=None):
         if self.running_mean_std is not None:
             obs = self.running_mean_std.normalize(obs)
         mu, std = self.actor(obs)

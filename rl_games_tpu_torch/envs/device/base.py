@@ -1,6 +1,6 @@
 """Device-resident vectorized environment core.
 
-Port of rl_games_tpu/envs/jax/base.py ``JaxVecEnv`` (:58-162). The JAX
+Port of rl_games_tpu/envs/jax/base.py ``JaxVecEnv`` (:34-162). The JAX
 package writes one environment's dynamics and vmaps it; here a
 ``DeviceEnv`` writes its dynamics batched over the env axis directly:
 
@@ -8,7 +8,9 @@ package writes one environment's dynamics and vmaps it; here a
     reset_from(noise) -> (estate, obs)
     step(estate, actions, noise) -> (estate, obs, reward, terminated, info)
 
-``estate`` is a dataclass of [N, ...] tensors. ``DeviceVecEnv`` adds
+``estate`` is a dataclass of [N, ...] tensors; ``obs`` a tensor or the
+asymmetric envs' {'obs', 'states'} dict of them. An env with
+``has_action_masks`` serves ``action_masks(estate)``. ``DeviceVecEnv`` adds
 time-limit truncation and in-step autoreset (a done env's returned obs is
 its next episode's first obs), and reports ``time_outs`` for the value
 bootstrap (a2c_common.py:813-814) and the true ``final_observation``.
@@ -37,10 +39,16 @@ class DeviceEnv:
     max_episode_steps: Optional[int] = None
     step_noise_shape: Optional[Tuple[int, ...]] = None  # per env; None: the step draws nothing
     reset_noise_shape: Tuple[int, ...] = ()
+    has_action_masks: bool = False
     device: torch.device
 
     def env_info(self) -> EnvInfo:
         raise NotImplementedError
+
+    def action_masks(self, estate):
+        """[N, num_actions] bool, the valid actions of each env (the
+        reference's IVecEnv.get_action_masks, common/ivecenv.py:24-26)."""
+        raise NotImplementedError(f"{type(self).__name__} serves no action masks")
 
     def reset(self, num_envs: int, generator: torch.Generator):
         """``reset_from`` of the reset's uniforms drawn from ``generator``."""
@@ -76,6 +84,12 @@ def uniform_between(u, low: float, high: float):
     return torch.clamp((u.double() * span + low32).float(), min=low)
 
 
+def uniform_int(u, low: int, n: int):
+    """u in [0, 1) mapped to the integers low .. low + n - 1, int32: what
+    the JAX package draws with ``jax.random.randint(low, low + n)``."""
+    return (low + torch.clamp(torch.floor(u * n), max=n - 1)).to(torch.int32)
+
+
 @dataclasses.dataclass
 class VecEnvState:
     estate: Any  # dataclass of [N, ...] tensors
@@ -84,12 +98,15 @@ class VecEnvState:
 
 
 def _pick(done, new, old):
-    """where(done, new, old) row-wise, over a tensor or a dataclass of them."""
+    """where(done, new, old) row-wise, over a tensor or a dataclass or dict
+    of them (the {'obs', 'states'} observations)."""
     if dataclasses.is_dataclass(old):
         return dataclasses.replace(old, **{
             f.name: _pick(done, getattr(new, f.name), getattr(old, f.name))
             for f in dataclasses.fields(old)
         })
+    if isinstance(old, dict):
+        return {k: _pick(done, new[k], v) for k, v in old.items()}
     d = done.reshape(done.shape + (1,) * (old.dim() - 1))
     return torch.where(d, new, old)
 
@@ -112,9 +129,18 @@ class DeviceVecEnv:
     def get_env_info(self) -> EnvInfo:
         return self.env.env_info()
 
+    @property
+    def has_action_masks(self) -> bool:
+        return self.env.has_action_masks
+
+    def get_action_masks(self, state: "VecEnvState"):
+        """[N, num_actions] bool valid-action masks of the envs' current
+        states (base.py:81-87)."""
+        return self.env.action_masks(state.estate)
+
     def reset(self, generator: torch.Generator):
         estate, obs = self.env.reset(self.num_envs, generator)
-        steps = torch.zeros(self.num_envs, dtype=torch.int32, device=obs.device)
+        steps = torch.zeros(self.num_envs, dtype=torch.int32, device=self.env.device)
         return VecEnvState(estate=estate, generator=generator, steps=steps), obs
 
     def step(self, state: VecEnvState, actions):

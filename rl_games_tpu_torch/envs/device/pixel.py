@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from rl_games_tpu_torch.envs.device.base import DeviceEnv
+from rl_games_tpu_torch.envs.device.base import DeviceEnv, uniform_int
 from rl_games_tpu_torch.envs.spaces import Box, Discrete, EnvInfo
 from rl_games_tpu_torch.utils.device import resolve_device
 
@@ -57,8 +57,8 @@ class PixelCatcher(DeviceEnv):
         lo, hi = self.PADDLE_HALF, self.WIDTH - self.PADDLE_HALF
         state = CatchState(
             ball_row=torch.zeros(noise.shape[0], dtype=torch.int32, device=noise.device),
-            ball_col=(noise[:, 0] * self.WIDTH).to(torch.int32),
-            paddle_col=lo + (noise[:, 1] * (hi - lo)).to(torch.int32),
+            ball_col=uniform_int(noise[:, 0], 0, self.WIDTH),
+            paddle_col=uniform_int(noise[:, 1], lo, hi - lo),
         )
         return state, self._render(state)
 

@@ -250,11 +250,38 @@ for _sim_name, _pkg, _hint in (
     register_vecenv_type(_vt, _missing_sim(_sim_name, _pkg, _hint))
     register(_sim_name, {"vecenv_type": _vt})
 
-# the multi-agent and self-play envs (A12) and the test envs (A8)
+# the multi-agent and self-play envs (A12)
 for _name, _vtype in (("multiwalker_env", "MULTIWALKER"), ("connect4_env", "CONNECT4"),
                       ("cooperative_gather", "JAX_MULTIAGENT"), ("competitive_forage", "JAX_SELFPLAY")):
     register(_name, {"vecenv_type": _vtype})
-register_vecenv_type("_TEST_ENVS", _unported_type("the test envs (envs/jax/test_envs.py)", "A8"))
-for _name in ("test_env", "test_rnn_env", "test_asymmetric_env", "test_masked_env", "test_dict_obs_env",
-              "test_asymmetric_continuous_env"):
-    register(_name, {"vecenv_type": "_TEST_ENVS"})
+
+
+def _create_test_env(device=None, name="TestRnnEnv-v0", multi_obs_space=False, aux_loss=False, **kwargs):
+    """The reference's ``test_env`` binding (:330-342): one flag-parameterized
+    MemoryEnv; its env_config keys (hide_object, min_dist, max_dist,
+    apply_dist_reward, multi_discrete_space, multi_head_value,
+    use_central_value) pass through. The dict-observation variant
+    (``multi_obs_space``) waits for the dict observations."""
+    from rl_games_tpu_torch.envs.device import test_envs
+
+    if multi_obs_space:
+        unported("the dict-observation test env (multi_obs_space)", "A8")
+    return test_envs.MemoryEnv(device=device, **kwargs)
+
+
+def _unported_env(what: str, item: str):
+    def create(device=None, **kwargs):
+        unported(what, item)
+
+    return create
+
+
+# the test envs (:497-533)
+register("test_env", {"vecenv_type": "DEVICE", "env_creator": _create_test_env})
+for _name, _cls in (("test_rnn_env", "MemoryEnv"), ("test_asymmetric_env", "AsymmetricEnv"),
+                    ("test_masked_env", "MaskedMemoryEnv"),
+                    ("test_asymmetric_continuous_env", "ContinuousAsymmetricEnv")):
+    register(_name, {"vecenv_type": "DEVICE", "env_creator": _creator("test_envs", _cls)})
+register("test_dict_obs_env", {"vecenv_type": "DEVICE",
+                               "env_creator": _unported_env("the dict-observation test env (test_dict_obs_env)",
+                                                            "A8")})

@@ -1,13 +1,14 @@
-"""Policy distributions: the diagonal Gaussian, the categorical and SAC's
-tanh-squashed normal.
+"""Policy distributions: the diagonal Gaussian, the categorical, SAC's
+tanh-squashed normal and the Brax-style NormalTanh policy.
 
-Port of the normal, categorical and squashed-normal parts of
+Port of the normal, categorical, squashed-normal and NormalTanh parts of
 rl_games_tpu/models/distributions.py (the reference's
-models.py:227-230,345-348, distributions.py:27-44 and sac_helper.py). The
-categorical functions take an optional action mask, as the JAX ones do.
-The samplers take their random numbers as tensors (``gumbel_max`` its
-uniforms, ``squashed_normal_sample`` its standard normals), so that a test
-can hand them the JAX package's draws.
+models.py:227-230,345-348,486-562, distributions.py:27-44 and
+sac_helper.py). The categorical functions take an optional action mask, as
+the JAX ones do. The samplers take their random numbers as tensors
+(``gumbel_max`` its uniforms, ``squashed_normal_sample`` and
+``NormalTanhDistribution`` their standard normals), so that a test can hand
+them the JAX package's draws.
 """
 
 import math
@@ -130,3 +131,37 @@ def squashed_normal_logp(action, mu, std, pre_tanh=None, eps: float = 1e-6):
     base = -(0.5 * torch.square((pre_tanh - mu) / std) + 0.5 * _LOG_2PI + torch.log(std))
     log_det = 2.0 * (math.log(2.0) - pre_tanh - F.softplus(-2.0 * pre_tanh))
     return (base - log_det).sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# NormalTanhDistribution, the Brax-style policy of continuous_a2c_tanh
+# (distributions.py:146-170; the reference's models.py:486-562)
+# ---------------------------------------------------------------------------
+
+
+class NormalTanhDistribution:
+    """A softplus-scaled std and a tanh bijector. ``sample`` and
+    ``entropy`` take standard normals of ``loc``'s shape."""
+
+    def __init__(self, loc, scale_raw, min_std: float = 0.001, var_scale: float = 1.0):
+        self.loc = loc
+        self.scale = (F.softplus(scale_raw) + min_std) * var_scale
+
+    def sample(self, noise):
+        """(action in [-1, 1], pre_tanh) from standard normals ``noise``."""
+        pre = self.loc + self.scale * noise
+        return torch.tanh(pre), pre
+
+    def mode(self):
+        return torch.tanh(self.loc)
+
+    def log_prob(self, action, pre_tanh=None):
+        return squashed_normal_logp(action, self.loc, self.scale, pre_tanh)
+
+    def entropy(self, noise):
+        """The entropy estimated from one sample, with the log-det
+        correction (models.py:544-556), from standard normals ``noise``."""
+        base_entropy = 0.5 + 0.5 * _LOG_2PI + torch.log(self.scale)
+        pre = self.loc + self.scale * noise
+        log_det = 2.0 * (math.log(2.0) - pre - F.softplus(-2.0 * pre))
+        return (base_entropy + log_det).sum(dim=-1)

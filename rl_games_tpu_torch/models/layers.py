@@ -1,12 +1,13 @@
 """Building-block layers for the config-driven network builder.
 
-Port of rl_games_tpu/models/layers.py :22-160, ``FusedMLP`` and
+Port of rl_games_tpu/models/layers.py :22-195, ``FusedMLP`` and
 ``build_mlp`` (:223-270), ``SpatialSoftArgmax`` and ``CNN`` (:279-363; the
-reference's network_builder.py:50-73,110-209, spatial_softmax.py):
+reference's network_builder.py:50-73,110-209, d2rl.py, spatial_softmax.py):
 activation and initializer factories, the Linear/Conv init convention, the
-sequential MLP and its fused form, and the conv stacks. Modules are named
-as the reference's ``nn.Sequential`` names them (Linear or Conv at 0,
-activation at 1, [LayerNorm at 2], ...), so a port ``state_dict()`` has the
+sequential MLP, its fused form and the D2RL dense-skip MLP, and the conv
+stacks. Modules are named as the reference's ``nn.Sequential`` names them
+(Linear or Conv at 0, activation at 1, [LayerNorm at 2], ...; a D2RL MLP's
+``linears.{i}`` and ``norm_layers.{i}``), so a port ``state_dict()`` has the
 reference checkpoint layout. The conv stacks run over NCHW (NCL for
 conv1d), the layout of the reference's torch builder; the JAX package runs
 them over NHWC.
@@ -110,10 +111,15 @@ def make_dense(in_features: int, out_features: int, init_cfg: Optional[dict],
 
 
 def reset_layer(layer: nn.Module, generator=None):
-    """Draw a Linear's or conv's weight with its ``weight_init``; zero its bias."""
+    """Draw a Linear's or conv's weight with its ``weight_init``; zero its
+    bias, or fill it with its ``bias_init`` where the layer has one."""
     with torch.no_grad():
         layer.weight_init(layer.weight, generator=generator)
-        layer.bias.zero_()
+        bias_init = getattr(layer, "bias_init", None)
+        if bias_init is None:
+            layer.bias.zero_()
+        else:
+            bias_init(layer.bias)
 
 
 def reset_parameters(module: nn.Module, generator=None):
@@ -169,11 +175,38 @@ class FusedMLP(nn.Sequential):
         return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
+class D2RLMLP(nn.Module):
+    """Dense-skip MLP (layers.py:161-195; the reference's d2rl.py): the input
+    is concatenated after the features before every layer but the first.
+    The norm comes after the activation on layer 0 and before it on later
+    layers, as in the reference."""
+
+    def __init__(self, in_features: int, units: Sequence[int], activation,
+                 initializer=None, norm_func_name=None, device=None):
+        super().__init__()
+        self.activations = nn.ModuleList(get_activation(activation) for _ in units)
+        self.linears = nn.ModuleList()
+        self.norm_layers = nn.ModuleList()
+        d = in_features
+        for unit in units:
+            self.linears.append(make_dense(d, unit, initializer, device=device))
+            self.norm_layers.append(nn.LayerNorm(unit, eps=1e-5, device=device)
+                                    if norm_func_name in ("layer_norm", "batch_norm") else nn.Identity())
+            d = unit + in_features
+
+    def forward(self, inp):
+        x = self.norm_layers[0](self.activations[0](self.linears[0](inp)))
+        for linear, norm, act in zip(self.linears[1:], self.norm_layers[1:], self.activations[1:]):
+            x = act(norm(linear(torch.cat([x, inp], dim=-1))))
+        return x
+
+
 def build_mlp(in_features: int, units: Sequence[int], activation,
               initializer=None, norm_func_name=None, d2rl=False,
               norm_only_first_layer=False, fused=False, device=None) -> nn.Sequential:
     """Sequential MLP (network_builder.py:110-135): Linear→act→[norm] per
-    unit. ``batch_norm`` is a LayerNorm stand-in, as in the JAX package."""
+    unit; the D2RL MLP with ``d2rl``. ``batch_norm`` is a LayerNorm
+    stand-in, as in the JAX package."""
     if fused:
         if d2rl or norm_func_name:
             raise ValueError(
@@ -183,7 +216,7 @@ def build_mlp(in_features: int, units: Sequence[int], activation,
             )
         return FusedMLP(in_features, units, activation, initializer, device=device)
     if d2rl:
-        raise NotImplementedError("d2rl MLP torsos are not ported yet (ROADMAP.md, item A8)")
+        return D2RLMLP(in_features, units, activation, initializer, norm_func_name, device=device)
 
     def norm_for(i, unit):
         if norm_func_name not in ("layer_norm", "batch_norm"):

@@ -1,9 +1,9 @@
 """Model/network registries and builder.
 
 Port of rl_games_tpu/models/model_builder.py (the reference's
-model_builder.py:9-60) for the two models ported so far,
-``continuous_a2c_logstd`` and ``discrete_a2c``, over the ``actor_critic``
-torso.
+model_builder.py:9-60) for the policy models over the ``actor_critic``
+torso: ``continuous_a2c_logstd``, ``continuous_a2c``,
+``continuous_a2c_tanh``, ``discrete_a2c`` and ``multi_discrete_a2c``.
 ``ModelBuilder.load(params)`` builds the torso from ``params['network']``
 and wraps it with the model named by ``params['model']['name']``.
 """
@@ -12,6 +12,7 @@ from typing import Callable, Dict
 
 from rl_games_tpu_torch.models import models
 from rl_games_tpu_torch.models.network_builder import A2CNetwork
+from rl_games_tpu_torch.utils.unported import unported
 
 NETWORK_REGISTRY: Dict[str, Callable] = {}
 MODEL_REGISTRY: Dict[str, Callable] = {}
@@ -36,12 +37,13 @@ def _model_factory(model_cls):
               normalize_input=False, normalize_value=False, obs_shape=None, device=None):
         name = network_params["name"]
         if name not in NETWORK_REGISTRY:
-            raise NotImplementedError(f"network '{name}' is not ported yet (see ROADMAP.md)")
+            # resnet_actor_critic (impala) and the custom networks
+            unported(f"network '{name}'", "A8")
         network = NETWORK_REGISTRY[name](
             network_params, actions_num, input_shape, value_size, device=device
         )
         kwargs = {}
-        if model_cls.is_continuous:
+        if model_cls in (models.ModelA2CContinuousLogStd, models.ModelA2CContinuousTanh):
             kwargs["space_cfg"] = network_params.get("space", {}).get("continuous", {})
         return model_cls(
             network,
@@ -57,7 +59,10 @@ def _model_factory(model_cls):
 
 
 register_model("continuous_a2c_logstd", _model_factory(models.ModelA2CContinuousLogStd))
+register_model("continuous_a2c", _model_factory(models.ModelA2CContinuous))
+register_model("continuous_a2c_tanh", _model_factory(models.ModelA2CContinuousTanh))
 register_model("discrete_a2c", _model_factory(models.ModelA2C))
+register_model("multi_discrete_a2c", _model_factory(models.ModelA2CMultiDiscrete))
 
 
 class ModelBuilder:
@@ -66,7 +71,5 @@ class ModelBuilder:
     def load(self, params: dict, **build_kwargs):
         model_name = params["model"]["name"]
         if model_name not in MODEL_REGISTRY:
-            raise NotImplementedError(
-                f"model '{model_name}' is not ported yet (see ROADMAP.md)"
-            )
+            unported(f"model '{model_name}'", "A9" if model_name == "central_value" else "A8")
         return MODEL_REGISTRY[model_name](dict(params["network"]), **build_kwargs)

@@ -1,13 +1,14 @@
 """Model wrappers: distribution head and normalizers over the network torso.
 
-Port of rl_games_tpu/models/models.py ``NormState`` .. ``ModelA2C`` and
-``ModelA2CContinuousLogStd`` (:36-333; the reference's
-models.py:16-125,289-348). The JAX package passes ``(params, norm)``
-through pure functions; here the model is an ``nn.Module`` that owns both:
-the torso as ``a2c_network`` and the normalizer states (the JAX
-``NormState``) as ``running_mean_std`` and ``value_mean_std``, the
-reference checkpoint names. Normalizer updates stay explicit calls, as in
-the JAX package, not a side effect of a forward.
+Port of rl_games_tpu/models/models.py ``NormState`` .. ``ModelA2CMultiDiscrete``
+(:36-412; the reference's models.py:16-200,203-348,351-407): the discrete
+model with its optional action masks, the multi-discrete one, and the
+continuous ones (log-std, std and the Brax-style tanh policy). The JAX
+package passes ``(params, norm)`` through pure functions; here the model is
+an ``nn.Module`` that owns both: the torso as ``a2c_network`` and the
+normalizer states (the JAX ``NormState``) as ``running_mean_std`` and
+``value_mean_std``, the reference checkpoint names. Normalizer updates stay
+explicit calls, as in the JAX package, not a side effect of a forward.
 """
 
 from typing import Optional
@@ -32,7 +33,7 @@ class BaseModel(nn.Module):
                  normalize_value: bool = False, value_size: int = 1, device=None):
         super().__init__()
         if isinstance(obs_shape, dict):
-            unported("dict observations", "A8")
+            unported("dict observations and the dict normalizer", "A8")
         self.a2c_network = a2c_network
         self.normalize_input = normalize_input
         self.normalize_value = normalize_value
@@ -71,40 +72,94 @@ class BaseModel(nn.Module):
 
 class ModelA2C(BaseModel):
     """'discrete_a2c' (models.py:291-333): a categorical head over the
-    torso's logits."""
+    torso's logits, with optional action masks (a masked action gets the
+    logit -1e8 and no entropy)."""
 
-    def forward_train(self, obs, prev_actions):
+    def forward_train(self, obs, prev_actions, action_masks=None):
         """The reference's train dict (models.py:95-125); ``logits`` are the
         log-probabilities, values stay normalized."""
         out = self.a2c_network(self.norm_obs(obs))
         logits = out["logits"]
         return {
-            "prev_neglogp": D.categorical_neglogp(logits, prev_actions),
+            "prev_neglogp": D.categorical_neglogp(logits, prev_actions, action_masks),
             "values": out["value"],
-            "entropy": D.categorical_entropy(logits),
-            "logits": D.categorical_log_probs(logits),
+            "entropy": D.categorical_entropy(logits, action_masks),
+            "logits": D.categorical_log_probs(logits, action_masks),
         }
 
-    def forward_play(self, obs, generator=None, deterministic: bool = False):
-        """Sampled (or, deterministic, argmax) actions with their neglogp and
-        denormalized values."""
+    def forward_play(self, obs, generator=None, deterministic: bool = False, action_masks=None):
+        """Sampled (or, deterministic, the argmax of the masked logits)
+        actions with their neglogp and denormalized values."""
         out = self.a2c_network(self.norm_obs(obs))
         logits = out["logits"]
         if deterministic:
-            actions = torch.argmax(logits, dim=-1)
+            actions = torch.argmax(D.masked_logits(logits, action_masks), dim=-1)
         else:
-            actions = D.categorical_sample(logits, generator)
+            actions = D.categorical_sample(logits, generator, action_masks)
         return {
-            "neglogpacs": D.categorical_neglogp(logits, actions),
+            "neglogpacs": D.categorical_neglogp(logits, actions, action_masks),
             "values": self.denorm_value(out["value"]),
             "actions": actions,
-            "logits": D.categorical_log_probs(logits),
+            "logits": D.categorical_log_probs(logits, action_masks),
         }
 
     @staticmethod
     def kl(old_logp, new_logp):
         """Categorical KL from log-probs (models.py:90-93)."""
         return divergence.d_kl_discrete(old_logp, new_logp)
+
+
+def _split_masks(action_masks, n_heads):
+    """One mask per head from None, a tuple, or a stacked [B, heads, n]
+    tensor (models.py:336-349)."""
+    if action_masks is None:
+        return (None,) * n_heads
+    if isinstance(action_masks, (tuple, list)):
+        return tuple(action_masks)
+    if action_masks.dim() >= 3 and action_masks.shape[-2] == n_heads:
+        return tuple(action_masks[..., i, :] for i in range(n_heads))
+    return (action_masks,) * n_heads if n_heads == 1 else tuple(action_masks[i] for i in range(n_heads))
+
+
+class ModelA2CMultiDiscrete(BaseModel):
+    """'multi_discrete_a2c' (models.py:351-412): one categorical head per
+    action dim; the heads' log-probabilities and entropies sum. Actions
+    are [B, heads] integers."""
+
+    def forward_train(self, obs, prev_actions, action_masks=None):
+        out = self.a2c_network(self.norm_obs(obs))
+        logits_list = out["logits"]
+        masks = _split_masks(action_masks, len(logits_list))
+        return {
+            "prev_neglogp": sum(D.categorical_neglogp(l, prev_actions[..., i], masks[i])
+                                for i, l in enumerate(logits_list)),
+            "values": out["value"],
+            "entropy": sum(D.categorical_entropy(l, masks[i]) for i, l in enumerate(logits_list)),
+            "logits": tuple(D.categorical_log_probs(l, masks[i]) for i, l in enumerate(logits_list)),
+        }
+
+    def forward_play(self, obs, generator=None, deterministic: bool = False, action_masks=None):
+        out = self.a2c_network(self.norm_obs(obs))
+        logits_list = out["logits"]
+        masks = _split_masks(action_masks, len(logits_list))
+        actions, neglogp = [], 0.0
+        for i, l in enumerate(logits_list):
+            if deterministic:
+                a = torch.argmax(D.masked_logits(l, masks[i]), dim=-1)
+            else:
+                a = D.categorical_sample(l, generator, masks[i])
+            neglogp = neglogp + D.categorical_neglogp(l, a, masks[i])
+            actions.append(a)
+        return {
+            "neglogpacs": neglogp,
+            "values": self.denorm_value(out["value"]),
+            "actions": torch.stack(actions, dim=-1),
+            "logits": tuple(D.categorical_log_probs(l, masks[i]) for i, l in enumerate(logits_list)),
+        }
+
+    @staticmethod
+    def kl(old_logp_list, new_logp_list):
+        return divergence.d_kl_discrete_list(old_logp_list, new_logp_list)
 
 
 class ModelA2CContinuousLogStd(BaseModel):
@@ -159,3 +214,66 @@ class ModelA2CContinuousLogStd(BaseModel):
     def kl(mu0, sigma0, mu1, sigma1):
         """Analytic Gaussian KL for adaptive LR (a2c_continuous.py:214-218)."""
         return divergence.d_kl_normal((mu0, sigma0), (mu1, sigma1))
+
+
+class ModelA2CContinuous(ModelA2CContinuousLogStd):
+    """'continuous_a2c' (models.py:208-221): the sigma head's output (after
+    sigma_activation, e.g. softplus) is the std itself."""
+
+    def _dist_params(self, obs):
+        out = self.a2c_network(self.norm_obs(obs))
+        sigma = out["sigma_raw"]
+        return out, out["mu"], sigma, torch.log(sigma)
+
+
+class ModelA2CContinuousTanh(BaseModel):
+    """'continuous_a2c_tanh' (models.py:223-289): the Brax-style NormalTanh
+    policy, a softplus-scaled std and a tanh bijector with log-det-corrected
+    log-probs; its entropy is estimated from one sample, so ``forward_train``
+    takes standard normals ``entropy_noise``, fresh for every minibatch."""
+
+    is_continuous = True
+    sampled_entropy = True
+
+    def __init__(self, a2c_network: A2CNetwork, *, space_cfg: Optional[dict] = None, **kwargs):
+        super().__init__(a2c_network, **kwargs)
+        self.min_std = float((space_cfg or {}).get("min_std", 0.001))
+
+    def _dist(self, obs):
+        out = self.a2c_network(self.norm_obs(obs))
+        return out, D.NormalTanhDistribution(out["mu"], out["sigma_raw"], min_std=self.min_std)
+
+    def forward_train(self, obs, prev_actions, entropy_noise=None):
+        if entropy_noise is None:
+            # a fixed draw would bias the entropy's gradient the same way in
+            # every minibatch
+            raise ValueError("ModelA2CContinuousTanh.forward_train needs entropy_noise, standard normals "
+                             "drawn fresh for every minibatch")
+        out, dist = self._dist(obs)
+        return {
+            "prev_neglogp": -dist.log_prob(prev_actions),
+            "values": out["value"],
+            "entropy": dist.entropy(entropy_noise),
+            "mus": dist.loc,
+            "sigmas": dist.scale,
+        }
+
+    def forward_play(self, obs, generator=None, deterministic: bool = False):
+        """tanh(mu) (deterministic) or a squashed sample, in [-1, 1]."""
+        out, dist = self._dist(obs)
+        if deterministic:
+            actions, pre = dist.mode(), dist.loc
+        else:
+            noise = torch.randn(dist.loc.shape, generator=generator, device=dist.loc.device,
+                                dtype=dist.loc.dtype)
+            actions, pre = dist.sample(noise)
+        return {
+            "neglogpacs": -dist.log_prob(actions, pre_tanh=pre),
+            "values": self.denorm_value(out["value"]),
+            "actions": actions,
+            "mus": dist.loc,
+            "sigmas": dist.scale,
+        }
+
+    # the Gaussian KL before the tanh, which the bijector leaves as it is
+    kl = staticmethod(ModelA2CContinuousLogStd.kl)

@@ -10,7 +10,8 @@ network_builder.py:919-1081):
   [obs, action].
 
 The submodules carry the reference SAC checkpoint's names: ``trunk.{k}``
-(the head is the trunk's last Linear) and ``Q1.{k}`` / ``Q2.{k}``, so an
+(the head is the trunk's last Linear; with ``mlp.d2rl`` the D2RL MLP is
+``trunk.0`` and the head ``trunk.1``) and ``Q1.{k}`` / ``Q2.{k}``, so an
 actor's or critic's ``state_dict`` is the reference's section and the JAX
 package's ``convert_sac_weights`` reads it unchanged. The MLPs are the
 plain sequential ones, as in the JAX package, whose SAC never takes the
@@ -30,11 +31,12 @@ from rl_games_tpu_torch.utils.unported import unported
 
 
 def _mlp_with_head(in_features: int, units: Sequence[int], activation, initializer,
-                   out_features: int, device) -> nn.Sequential:
-    """Linear→activation per unit, then a Linear head, in one Sequential."""
-    mlp = L.build_mlp(in_features, units, activation, initializer, device=device)
+                   out_features: int, device, d2rl: bool = False) -> nn.Sequential:
+    """Linear→activation per unit, then a Linear head, in one Sequential;
+    with ``d2rl`` the D2RL MLP at 0 and the head at 1."""
+    mlp = L.build_mlp(in_features, units, activation, initializer, d2rl=d2rl, device=device)
     head = L.make_dense(units[-1] if units else in_features, out_features, initializer, device=device)
-    return nn.Sequential(*mlp, head)
+    return nn.Sequential(mlp, head) if d2rl else nn.Sequential(*mlp, head)
 
 
 class SACActor(nn.Module):
@@ -42,11 +44,11 @@ class SACActor(nn.Module):
 
     def __init__(self, obs_dim: int, actions_num: int, units: Sequence[int], activation,
                  log_std_bounds: Tuple[float, float] = (-5.0, 2.0), initializer: Optional[dict] = None,
-                 device=None):
+                 device=None, d2rl: bool = False):
         super().__init__()
         self.actions_num = actions_num
         self.log_std_bounds = tuple(float(b) for b in log_std_bounds)
-        self.trunk = _mlp_with_head(obs_dim, units, activation, initializer, 2 * actions_num, device)
+        self.trunk = _mlp_with_head(obs_dim, units, activation, initializer, 2 * actions_num, device, d2rl)
 
     def forward(self, obs):
         mu, log_std = torch.chunk(self.trunk(obs), 2, dim=-1)
@@ -69,11 +71,11 @@ class SACDoubleCritic(nn.Module):
     """forward(obs, action) -> (q1, q2), each [B, 1]."""
 
     def __init__(self, obs_dim: int, actions_num: int, units: Sequence[int], activation,
-                 initializer: Optional[dict] = None, device=None):
+                 initializer: Optional[dict] = None, device=None, d2rl: bool = False):
         super().__init__()
         d = obs_dim + actions_num
-        self.Q1 = _mlp_with_head(d, units, activation, initializer, 1, device)
-        self.Q2 = _mlp_with_head(d, units, activation, initializer, 1, device)
+        self.Q1 = _mlp_with_head(d, units, activation, initializer, 1, device, d2rl)
+        self.Q2 = _mlp_with_head(d, units, activation, initializer, 1, device, d2rl)
 
     def forward(self, obs, action):
         x = torch.cat([obs, action], dim=-1)
@@ -84,12 +86,10 @@ def build_sac_networks(net_params: dict, obs_dim: int, actions_num: int, device=
     """Map the reference SAC YAML network schema to (actor, critic) modules
     (sac.py:84-102). Their weights are drawn by ``layers.reset_parameters``."""
     mlp = net_params["mlp"]
-    if mlp.get("d2rl", False):
-        unported("d2rl SAC torsos (network.mlp.d2rl)", "A8")
     if net_params.get("normalization"):
         unported("normalization layers in SAC torsos (network.normalization)", "A8")
     common = dict(units=tuple(mlp["units"]), activation=mlp["activation"],
-                  initializer=mlp.get("initializer"), device=device)
+                  initializer=mlp.get("initializer"), device=device, d2rl=bool(mlp.get("d2rl", False)))
     actor = SACActor(obs_dim, actions_num,
                      log_std_bounds=tuple(net_params.get("log_std_bounds", (-5.0, 2.0))), **common)
     return actor, SACDoubleCritic(obs_dim, actions_num, **common)

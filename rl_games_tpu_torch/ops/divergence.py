@@ -11,6 +11,14 @@ def d_kl_discrete(p_logits, q_logits):
     return (torch.exp(p_logits) * (p_logits - q_logits)).sum(-1)
 
 
+def d_kl_discrete_list(p_list, q_list):
+    """Summed KL over a multi-discrete head list (divergence.py:16-20)."""
+    total = 0.0
+    for p, q in zip(p_list, q_list):
+        total = total + d_kl_discrete(p, q)
+    return total
+
+
 def d_kl_normal(p, q):
     """Diagonal-Gaussian KL(p||q); p/q = (mean, sigma) (divergence.py:22-29)."""
     p_mean, p_sigma = p

@@ -5,18 +5,22 @@ dicts of numpy arrays, flax layout) and its ``NormState`` (numpy leaves)
 into a ``state_dict`` of the port's A2C models, which use the reference
 checkpoint layout:
 
-    params/actor_cnn/Conv_{i}/{kernel [kH,kW,I,O], bias}
-        -> a2c_network.actor_cnn.{k}.{weight [O,I,kH,kW], bias}
+    params/{actor,critic}_cnn/Conv_{i}/{kernel [kH,kW,I,O], bias}
+        -> a2c_network.{actor,critic}_cnn.{k}.{weight [O,I,kH,kW], bias}
            (k counts the Sequential's modules: Conv, activation[, LayerNorm])
-    params/actor_cnn/LayerNorm_{i}/{scale, bias} -> actor_cnn.{k}.{weight, bias}
-    params/actor_mlp/Dense_{i}/Dense_0/{kernel [in,out], bias}
-        -> a2c_network.actor_mlp.{k}.{weight [out,in], bias}
+    params/{actor,critic}_cnn/LayerNorm_{i}/{scale, bias} -> ..._cnn.{k}.{weight, bias}
+    params/{actor,critic}_mlp/Dense_{i}/Dense_0/{kernel [in,out], bias}
+        -> a2c_network.{actor,critic}_mlp.{k}.{weight [out,in], bias}
            (after a conv stack the first one's input rows go from the JAX
-           package's (h, w, c) flatten to the port's (c, h, w) flatten)
-    params/actor_mlp/LayerNorm_{i}/{scale, bias} -> actor_mlp.{k}.{weight, bias}
+           package's (h, w, c) flatten to the port's (c, h, w) flatten;
+           a D2RL MLP's go to ..._mlp.linears.{i})
+    params/{actor,critic}_mlp/LayerNorm_{i}/{scale, bias}
+        -> ..._mlp.{k}.{weight, bias} (a D2RL MLP's: ..._mlp.norm_layers.{i})
     params/{mu,value}/Dense_0/{kernel, bias}     -> a2c_network.{mu,value}.*
     params/Dense_0/Dense_0/{kernel, bias}        -> a2c_network.logits.* (discrete)
-    params/sigma [A]                             -> a2c_network.sigma
+    params/logits_{i}/Dense_0/{kernel, bias}     -> a2c_network.logits.{i}.* (multi-discrete)
+    params/sigma [A]                             -> a2c_network.sigma (fixed sigma)
+    params/sigma/{kernel, bias}                  -> a2c_network.sigma.* (state-dependent)
     norm.obs / norm.value {mean, var, count}     -> running_mean_std.* /
         value_mean_std.{running_mean, running_var, count}
 
@@ -76,41 +80,70 @@ def _sequential(sd, tree, layer_prefix: str, port_prefix: str, weight_of):
         sd[f"{port_prefix}.{per_unit * i + 2}.bias"] = _tensor(tree[name]["bias"], np.float32)
 
 
+def _d2rl(sd, tree, port_prefix: str):
+    """A flax D2RLMLP (``Dense_{i}/Dense_0``, ``LayerNorm_{i}``) into the
+    port's ``linears.{i}`` and ``norm_layers.{i}``."""
+    for i, name in enumerate(_numbered(tree, "Dense_")):
+        layer = tree[name]["Dense_0"]
+        sd[f"{port_prefix}.linears.{i}.weight"] = _tensor(np.asarray(layer["kernel"]).T, np.float32)
+        sd[f"{port_prefix}.linears.{i}.bias"] = _tensor(layer["bias"], np.float32)
+    for i, name in enumerate(_numbered(tree, "LayerNorm_")):
+        sd[f"{port_prefix}.norm_layers.{i}.weight"] = _tensor(tree[name]["scale"], np.float32)
+        sd[f"{port_prefix}.norm_layers.{i}.bias"] = _tensor(tree[name]["bias"], np.float32)
+
+
+def _dense(sd, layer, port_name: str):
+    sd[f"{port_name}.weight"] = _tensor(np.asarray(layer["kernel"]).T, np.float32)
+    sd[f"{port_name}.bias"] = _tensor(layer["bias"], np.float32)
+
+
 def jax_to_state_dict(params: Any, norm: Optional[Any] = None,
-                      cnn_type: str = "conv2d") -> Dict[str, torch.Tensor]:
+                      cnn_type: str = "conv2d", d2rl: bool = False) -> Dict[str, torch.Tensor]:
     """State dict of the port's A2C model from JAX params/norm. ``cnn_type``
     is the conv stack's ``cnn.type`` where there is one: a spatial soft
-    arg-max flattens alike in both layouts, every other stack does not."""
+    arg-max flattens alike in both layouts, every other stack does not.
+    ``d2rl`` is the config's ``mlp.d2rl``."""
     body = params["params"] if "params" in params else params
     sd: Dict[str, torch.Tensor] = {}
-    channels = None
-    if "actor_cnn" in body:
-        cnn = body["actor_cnn"]
-        _sequential(sd, cnn, "Conv_", "a2c_network.actor_cnn",
-                    lambda i, kernel: kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.transpose(2, 1, 0))
-        if cnn_type != "conv2d_spatial_softargmax":
-            channels = np.asarray(cnn[_numbered(cnn, "Conv_")[-1]]["bias"]).shape[0]
+    for trunk in ("actor_", "critic_"):
+        channels = None
+        if trunk + "cnn" in body:
+            cnn = body[trunk + "cnn"]
+            _sequential(sd, cnn, "Conv_", f"a2c_network.{trunk}cnn", lambda i, kernel: (
+                kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.transpose(2, 1, 0)))
+            if cnn_type != "conv2d_spatial_softargmax":
+                channels = np.asarray(cnn[_numbered(cnn, "Conv_")[-1]]["bias"]).shape[0]
 
-    def dense_weight(i, kernel):  # kernel [in, out]
-        if i == 0 and channels is not None:
-            # JAX input row s * C + c (spatial-major) -> port column c * S + s
-            spatial = kernel.shape[0] // channels
-            kernel = kernel.reshape(spatial, channels, -1).transpose(1, 0, 2).reshape(kernel.shape)
-        return kernel.T
+        def dense_weight(i, kernel, channels=channels):  # kernel [in, out]
+            if i == 0 and channels is not None:
+                # JAX input row s * C + c (spatial-major) -> port column c * S + s
+                spatial = kernel.shape[0] // channels
+                kernel = kernel.reshape(spatial, channels, -1).transpose(1, 0, 2).reshape(kernel.shape)
+            return kernel.T
 
-    mlp = body.get("actor_mlp", {})
-    heads = {"mu": "mu", "value": "value", "Dense_0": "logits"}
-    if channels is not None and not _numbered(mlp, "Dense_") and any(h in body for h in heads):
-        raise NotImplementedError("a conv stack with no mlp after it: the flatten's permutation "
-                                  "would land on a head")
-    _sequential(sd, mlp, "Dense_", "a2c_network.actor_mlp", dense_weight)
-    for jax_name, port_name in heads.items():
+        mlp = body.get(trunk + "mlp", {})
+        heads = ("mu", "value", "Dense_0", "logits_0")
+        if channels is not None and not _numbered(mlp, "Dense_") and any(h in body for h in heads):
+            raise NotImplementedError("a conv stack with no mlp after it: the flatten's permutation "
+                                      "would land on a head")
+        if d2rl:
+            if channels is not None:
+                # every layer's skip input is the flatten too
+                raise NotImplementedError("a D2RL MLP after a conv stack: the flatten's permutation "
+                                          "would apply to every layer's skip columns")
+            _d2rl(sd, mlp, f"a2c_network.{trunk}mlp")
+        else:
+            _sequential(sd, mlp, "Dense_", f"a2c_network.{trunk}mlp", dense_weight)
+    for jax_name, port_name in {"mu": "mu", "value": "value", "Dense_0": "logits"}.items():
         if jax_name in body:
-            layer = body[jax_name]["Dense_0"]
-            sd[f"a2c_network.{port_name}.weight"] = _tensor(np.asarray(layer["kernel"]).T, np.float32)
-            sd[f"a2c_network.{port_name}.bias"] = _tensor(layer["bias"], np.float32)
+            _dense(sd, body[jax_name]["Dense_0"], f"a2c_network.{port_name}")
+    for i, name in enumerate(_numbered(body, "logits_")):
+        _dense(sd, body[name]["Dense_0"], f"a2c_network.logits.{i}")
     if "sigma" in body:
-        sd["a2c_network.sigma"] = _tensor(body["sigma"], np.float32)
+        if isinstance(body["sigma"], dict):  # the state-dependent head, a bare nn.Dense
+            _dense(sd, body["sigma"], "a2c_network.sigma")
+        else:
+            sd["a2c_network.sigma"] = _tensor(body["sigma"], np.float32)
     if norm is not None:
         if _get(norm, "obs") is not None:
             sd.update(_rms(_get(norm, "obs"), "running_mean_std."))
@@ -119,10 +152,15 @@ def jax_to_state_dict(params: Any, norm: Optional[Any] = None,
     return sd
 
 
-def _sac_sequential(body, trunk: str, head: str, prefix: str) -> Dict[str, torch.Tensor]:
+def _sac_sequential(body, trunk: str, head: str, prefix: str, d2rl: bool = False) -> Dict[str, torch.Tensor]:
     """A flax trunk (``Dense_{i}/Dense_0``) and head (``Dense_0``) as one
-    Sequential of [Linear, activation] per unit, then the head's Linear."""
+    Sequential of [Linear, activation] per unit, then the head's Linear;
+    a D2RL trunk as ``{prefix}0.linears.{i}`` and the head as ``{prefix}1``."""
     sd: Dict[str, torch.Tensor] = {}
+    if d2rl:
+        _d2rl(sd, body[trunk], prefix + "0")
+        _dense(sd, body[head]["Dense_0"], prefix + "1")
+        return sd
     layers = [body[trunk][name]["Dense_0"] for name in _numbered(body[trunk], "Dense_")]
     layers.append(body[head]["Dense_0"])
     for i, layer in enumerate(layers):
@@ -133,20 +171,21 @@ def _sac_sequential(body, trunk: str, head: str, prefix: str) -> Dict[str, torch
 
 def sac_jax_to_state_dict(actor_params: Any, critic_params: Any = None,
                           critic_target_params: Any = None,
-                          obs_rms: Optional[Any] = None) -> Dict[str, Dict[str, torch.Tensor]]:
+                          obs_rms: Optional[Any] = None, d2rl: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
     """The reference SAC checkpoint's sections ({'actor', 'critic',
     'critic_target', 'running_mean_std'}, each a state_dict) from the JAX
     package's SAC trees; a section whose tree is None is left out. Any tree
-    of the params' structure converts alike (e.g. Adam's moments)."""
+    of the params' structure converts alike (e.g. Adam's moments).
+    ``d2rl`` is the config's ``mlp.d2rl``."""
     def body(tree):
         return tree["params"] if "params" in tree else tree
 
     def critic(tree):
         b = body(tree)
-        return {**_sac_sequential(b, "Q1_trunk", "Q1_head", "Q1."),
-                **_sac_sequential(b, "Q2_trunk", "Q2_head", "Q2.")}
+        return {**_sac_sequential(b, "Q1_trunk", "Q1_head", "Q1.", d2rl),
+                **_sac_sequential(b, "Q2_trunk", "Q2_head", "Q2.", d2rl)}
 
-    out = {"actor": _sac_sequential(body(actor_params), "trunk", "head", "trunk.")}
+    out = {"actor": _sac_sequential(body(actor_params), "trunk", "head", "trunk.", d2rl)}
     if critic_params is not None:
         out["critic"] = critic(critic_params)
     if critic_target_params is not None:

@@ -251,8 +251,12 @@ def test_cnn_model_names_and_unported_options():
             "a2c_network.actor_mlp.0.weight", "a2c_network.logits.weight", "a2c_network.value.weight"} <= names
     assert model.a2c_network.actor_mlp[0].weight.shape == (16, 8 * 7 * 7)
     for patch, item in (({"cnn": {"type": "impala", "conv_depths": [16]}}, "A8"),
-                        ({"separate": True}, "A8"), ({"rnn": {"name": "lstm"}}, "A9"),
-                        ({"space": {"multi_discrete": None}}, "A8")):
+                        ({"central_value": True}, "A9"), ({"rnn": {"name": "lstm"}}, "A9"),
+                        ({"value_head": "twohot"}, "A8")):
         bad = {**params, "network": {**params["network"], **patch}}
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             ModelBuilder().load(bad, actions_num=ACT, input_shape=SHAPE, device="cpu")
+    # separate conv trunks build: the critic's stack beside the actor's
+    separate = {**params, "network": {**params["network"], "separate": True}}
+    names = set(ModelBuilder().load(separate, actions_num=ACT, input_shape=SHAPE, device="cpu").state_dict())
+    assert {"a2c_network.critic_cnn.0.weight", "a2c_network.critic_mlp.0.weight"} <= names

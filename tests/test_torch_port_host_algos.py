@@ -453,7 +453,7 @@ def test_ppo_host_dict_observations_wait_for_a8():
 
 
 def test_ppo_host_masks_need_a_mask_source():
-    """A host env must serve masks (ppo.py:371-385); masked PPO itself is A8."""
+    """A host env must serve masks (ppo.py:371-385); one that does is taken."""
     params = continuous_params(use_action_masks=True)
     with pytest.raises(ValueError, match="get_action_masks"):
         PPOAgent("t", params, device="cpu", vec_env=FakeSameStepEnv(LENGTHS, tspaces))
@@ -462,8 +462,7 @@ def test_ppo_host_masks_need_a_mask_source():
                  device="cpu")
     masked = FakeSameStepEnv(LENGTHS, tspaces)
     masked.get_action_masks = lambda: np.ones((4, 2), bool)
-    with pytest.raises(NotImplementedError, match="item A8"):
-        PPOAgent("t", params, device="cpu", vec_env=masked)
+    assert PPOAgent("t", params, device="cpu", vec_env=masked).use_action_masks
 
 
 def test_ppo_player_runs_host_env():

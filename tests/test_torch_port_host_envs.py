@@ -414,7 +414,7 @@ def test_external_simulators_raise_import_error(name):
     ("multiwalker_env", None, "A12"),
     ("connect4_env", None, "A12"),
     ("CartPole-v1", "JAX_SELFPLAY", "A12"),
-    ("test_rnn_env", None, "A8"),
+    ("test_dict_obs_env", None, "A8"),
 ])
 def test_unported_envs_raise(name, vtype, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):

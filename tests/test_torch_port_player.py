@@ -124,7 +124,7 @@ def test_sigma_override():
     (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "JAX_SELFPLAY"}},
                        device="cpu"), "A12"),
     (lambda: PpoPlayer(player_params(), device="cpu").make_export_policy(), "A12"),
-    (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "use_action_masks": True}},
+    (lambda: PpoPlayer({**player_params(), "network": {**player_params()["network"], "name": "resnet_actor_critic"}},
                        device="cpu"), "A8"),
 ])
 def test_unported_player_paths_raise(make, item):

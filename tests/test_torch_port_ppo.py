@@ -180,7 +180,7 @@ def test_default_device_never_falls_back_to_cpu():
 @pytest.mark.parametrize("key, value", [
     ("central_value_config", {"network": {}}),
     ("rnd_config", {"network": {}}),
-    ("use_action_masks", True),
+    ("normalize_rms_advantage", True),
     ("mixed_precision", True),
     ("permute_batches", True),
     ("vecenv_type", "MULTIWALKER"),

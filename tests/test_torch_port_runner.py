@@ -363,3 +363,64 @@ def test_observer_options_reach_the_trainer(tmp_path, monkeypatch, option):
     else:
         assert runner.params["config"]["features"]["observer"] is observer
         assert observer.calls == ["before_init", "after_init"] + ["after_epoch", "after_print_stats"] * 2
+
+
+HEAD_CASES = {
+    # ref/ppo_pendulum.yaml's torso: separate trunks, a state-dependent sigma
+    "separate_state_sigma": ("ref/ppo_pendulum.yaml", {}, {}),
+    "d2rl": ("ref/ppo_pendulum_torch.yaml", {"mlp": {"units": [16, 8], "activation": "elu", "d2rl": True}}, {}),
+    "separate_discrete": ("ref/test/test_discrete.yaml", {}, {}),
+    "multi_discrete_value2": ("ref/test/test_discrete_multidiscrete_mhv.yaml", {},
+                              {"normalize_value": True, "normalize_input": True,
+                               "env_config": {"multi_discrete_space": True, "multi_head_value": True}}),
+    "separate_cnn": ("ppo_pixelcatcher.yaml", {"separate": True, "mlp": {"units": [16], "activation": "relu"}}, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HEAD_CASES))
+def test_jax_importer_reads_port_checkpoint_of_each_head(tmp_path, case):
+    """test_jax_importer_reads_port_checkpoint for each torso and head of
+    the port: the JAX package's importer reads the port's file and its
+    params give the same forward (rtol 1e-5, atol 1e-5). The JAX importer
+    looks for a state-dependent sigma head one level deeper
+    (sigma/Dense_0, torch_import.py:493-502) than the JAX torso declares it
+    (a bare nn.Dense, network_builder.py:300-318); the test nests the JAX
+    params alike around the call."""
+    import yaml
+
+    from rl_games_tpu_torch.algos.ppo import actor_obs
+
+    name, net_patch, config_patch = HEAD_CASES[case]
+    params = yaml.safe_load((ROOT / "rl_games_tpu" / "configs" / name).read_text())["params"]
+    params["network"].update(net_patch)
+    if "cnn" in params["network"]:
+        params["network"]["cnn"]["convs"] = [{"filters": 4, "kernel_size": 4, "strides": 2, "padding": 0}]
+    cfg = params["config"]
+    cfg.pop("vecenv_type", None)  # the device Pendulum
+    env_config = {**cfg.get("env_config", {}), **config_patch.pop("env_config", {})}
+    cfg.update(num_actors=4, horizon_length=8, minibatch_size=16, mini_epochs=1, env_config=env_config,
+               **config_patch)
+    agent = PPOAgent("a", params, device="cpu")
+    state, _ = agent.train_epoch(agent.init_state())
+    path = str(tmp_path / "p.pth")
+    ckpt.save_checkpoint(path, state, {}, weights=agent.get_weights())
+    sd = load_torch_state_dict(path)
+    assert sorted(sd) == sorted(agent.model.state_dict())
+    obs_shape = agent.obs_shape
+    kw = dict(actions_num=agent.actions_num, input_shape=obs_shape, value_size=agent.value_size,
+              normalize_input=agent.normalize_input, normalize_value=agent.normalize_value)
+    jmodel = JModelBuilder().load(params, **kw)
+    jparams, norm = jmodel.init(jax.random.PRNGKey(0), np.zeros((4, *obs_shape), np.float32))
+    body = jparams["params"]
+    nested = isinstance(body.get("sigma"), dict)
+    if nested:
+        body["sigma"] = {"Dense_0": body["sigma"]}
+    jparams, norm = convert_a2c_state_dict(sd, jparams, norm, params["network"], obs_shape)
+    if nested:
+        jparams["params"]["sigma"] = jparams["params"]["sigma"]["Dense_0"]
+    obs = actor_obs(state.obs).numpy()
+    jp = jmodel.forward_play(jparams, norm, jax.random.PRNGKey(0), obs, deterministic=True)
+    with torch.no_grad():
+        pp = agent.model.forward_play(torch.from_numpy(obs), deterministic=True)
+    for k in ("actions", "values", "neglogpacs") + (("sigmas",) if agent.is_continuous else ()):
+        np.testing.assert_allclose(pp[k].numpy(), np.asarray(jp[k]), rtol=1e-5, atol=1e-5, err_msg=k)

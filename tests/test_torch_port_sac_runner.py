@@ -169,8 +169,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     (lambda p: SACAgent("t", {**p, "config": {**p["config"], "vecenv_type": "MULTIWALKER"}}, device="cpu"), "A12"),
     (lambda p: SACPlayer({**p, "config": {**p["config"], "vecenv_type": "CONNECT4"}}, device="cpu"), "A12"),
     (lambda p: SACAgent("t", {**p, "network": {**p["network"], "normalization": "layer_norm"}}, device="cpu"), "A8"),
-    (lambda p: SACAgent("t", {**p, "network": {**p["network"], "mlp": {**p["network"]["mlp"], "d2rl": True}}},
-                        device="cpu"), "A8"),
+    (lambda p: SACAgent("t", {**p, "network": {**p["network"], "normalization": "layer_norm",
+                                               "mlp": {**p["network"]["mlp"], "d2rl": True}}}, device="cpu"), "A8"),
 ], ids=["host_env_agent", "host_env_player", "normalization", "d2rl"])
 def test_unported_sac_options_raise(make, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
