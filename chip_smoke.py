@@ -98,6 +98,22 @@ to a plain version):
                fused launches a forward); (e) ref/ppo_pendulum_torch.yaml
                as continuous_a2c and continuous_a2c_tanh. Each run's steady
                epoch, env-steps/s and launches per epoch and player step.
+18. rnn      — the recurrent torsos, the central value net and PPO's other
+               options at their configs' own widths, each trained 3 epochs
+               through Runner.run and played: (a) ref/test/test_rnn.yaml
+               (separate LSTM trunks, 16 envs x 512, seq_length 32);
+               (b) ref/test/test_asymmetric_continuous.yaml (LSTM trunks with
+               a layer norm, an LSTM central value net, 16 x 256); (c)
+               ref/test/test_asymmetric_discrete_mhv.yaml with
+               multi_head_value (the central value net at value_size 2);
+               (d) ref/ppo_walker_rnn.yaml on the device Walker2D with
+               mlp.fused (the MLP [256, 128, 64] in one launch into the GRU
+               64, seq_length 32); (f) ppo_cartpole.yaml with RND, Gaussian
+               soft augmentation, permute_batches and RMS advantages; and
+               (e) the fused flagship under mixed_precision, 3 epochs through
+               train_epoch. Each run's steady epoch, rollout step and its
+               device kernels, the kernels of a core step, the player's
+               step, and the GAE and fused launches, held exact.
 
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
@@ -112,12 +128,18 @@ Phases 3 and 4 also hold [heads]: GAE at [512, 16, 2], [512, 16, 1] and
 [128, 16, 1] and the fused MLP at 3->32->32 elu at B = 16 and 1024, and one
 update of (c)'s and of (d)'s model on the card against the CPU.
 
+Phases 3 and 4 also hold [rnn]: GAE at [256, 16, 1], the fused MLP at
+16->256->128->64 elu at B = 16 and 2048 and the flagship chain with
+bfloat16-rounded weights at B = 8192 and 32768, and one update of (b)'s and
+(d)'s model on the card against the CPU ((b) with its central value net's
+first minibatch).
+
 Phases 3 and 4 also hold the host path: GAE at [256, 64, 1] and the fused
 MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
 phase 14's config on the card against the CPU (same weights, CPUENV seed
 and action noise), then one Adam step of its first minibatch.
 
-Launch counts are zeroed just before each of phases 6-17's runs and read
+Launch counts are zeroed just before each of phases 6-18's runs and read
 just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
@@ -328,7 +350,7 @@ def phase_kernel_gae():
     # ppo_breakout.yaml), then horizons that take every branch of the
     # kernel's sweep: one chunk of 16; the row-by-row tail alone; 16 + 8 + 5
     for T, N, V in ((16, 8192, 1), (16, 4096, 1), (64, 512, 1), (32, 16, 1), (256, 64, 1), (128, 64, 1),
-                    (512, 16, 2), (512, 16, 1), (128, 16, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
+                    (512, 16, 2), (512, 16, 1), (128, 16, 1), (256, 16, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
         args = gae_inputs(T, N, V, gen, dev)
         got = gae.gae_cuda(*args, 0.99, 0.95)
         want = gae.gae_plain(*args, 0.99, 0.95)
@@ -359,7 +381,9 @@ def phase_kernel_gae():
         "other_shapes": [time_gae(16, 4096, 1, gen, dev), time_gae(64, 512, 1, gen, dev),
                          time_gae(32, 16, 1, gen, dev), time_gae(256, 64, 1, gen, dev),
                          time_gae(128, 64, 1, gen, dev), time_gae(512, 16, 2, gen, dev),
-                         time_gae(512, 16, 1, gen, dev), time_gae(128, 16, 1, gen, dev)],
+                         time_gae(512, 16, 1, gen, dev), time_gae(128, 16, 1, gen, dev),
+                         # [rnn]: test_asymmetric_continuous.yaml's and ppo_walker_rnn.yaml's 16 envs x 256
+                         time_gae(256, 16, 1, gen, dev)],
     }
 
 
@@ -369,25 +393,31 @@ ANT3D_DIMS = (33, 256, 128, 64)  # ppo_ant3d.yaml: obs 33
 HUMANOID3D_DIMS = (41, 256, 128, 64)  # ppo_humanoid3d.yaml: obs 41
 CARTPOLE_DIMS = (4, 32, 32)  # ppo_cartpole.yaml: obs 4, mlp [32, 32] relu
 HOPPER_DIMS = (5, 128, 64, 32)  # ref/mujoco/halfcheetah.yaml's mlp [128, 64, 32] elu on Hopper2D's 5 obs
+# ref/ppo_walker_rnn.yaml's mlp [256, 128, 64] elu on the device Walker2D's 16 observations, in front of its GRU
+WALKER_DIMS = (16, 256, 128, 64)
 
 
-def mlp_inputs(dims, batch, gen, device):
+def mlp_inputs(dims, batch, gen, device, bf16_weights=False):
     """x ~ N(0, 1); weights [out, in] ~ U(+-1/sqrt(in)), as the model's
     default init draws them, so activations stay of order 1 and an absolute
-    tolerance of 2e-5 is a float32 statement; biases ~ 0.1 N(0, 1)."""
+    tolerance of 2e-5 is a float32 statement; biases ~ 0.1 N(0, 1). With
+    ``bf16_weights`` the weights and biases are rounded to bfloat16 and
+    back, as mixed_precision hands them to the kernel."""
     f32 = dict(dtype=torch.float32, device=device)
     ws = [(torch.rand((dims[i + 1], dims[i]), generator=gen, **f32) * 2 - 1) / math.sqrt(dims[i])
           for i in range(len(dims) - 1)]
     bs = [torch.randn((dims[i + 1],), generator=gen, **f32) * 0.1 for i in range(len(dims) - 1)]
+    if bf16_weights:
+        ws, bs = ([p.to(torch.bfloat16).to(torch.float32) for p in ps] for ps in (ws, bs))
     return torch.randn((batch, dims[0]), generator=gen, **f32), ws, bs
 
 
-def time_fused(dims, batch, gen, dev, activation="elu"):
+def time_fused(dims, batch, gen, dev, activation="elu", bf16_weights=False):
     """Device time of the fused kernel and of the plain chain at one shape,
     in turns (plain, kernel, kernel, plain), beside the 3xTF32 bound."""
     from rl_games_tpu_torch.ops import fused_mlp as fm
 
-    x, ws, bs = mlp_inputs(dims, batch, gen, dev)
+    x, ws, bs = mlp_inputs(dims, batch, gen, dev, bf16_weights)
     kernel = lambda: fm.fused_mlp_cuda(x, ws, bs, activation)  # noqa: E731
     plain = lambda: fm.plain_mlp(x, ws, bs, activation)  # noqa: E731
     plain_a, plain_n = device_time_ms(plain, 50)
@@ -400,12 +430,14 @@ def time_fused(dims, batch, gen, dev, activation="elu"):
     nbytes = 4 * (x.numel() + batch * dims[-1] + n_weights + sum(dims[1:]))
     bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
     rows = fm.kernel_plan(dims, batch)
-    print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation} ({rows[0]} rows/block) device time: "
+    print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation}"
+          f"{' bfloat16-rounded weights' if bf16_weights else ''} ({rows[0]} rows/block) device time: "
           f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); "
           f"bound {bound * 1e3:.2f} us ({flops} TF32 flop, {nbytes} B, by {bound_by}); "
           f"kernel at {bound / kernel_ms:.3f} of the bound's rate")
     return {"shape": [batch, *dims], "activation": activation, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms}
+            "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms,
+            **({"weights": "bfloat16-rounded"} if bf16_weights else {})}
 
 
 def phase_kernel_fused_mlp():
@@ -428,12 +460,18 @@ def phase_kernel_fused_mlp():
     shapes += [(HOPPER_DIMS, batch, 1.0, 1.0) for batch in (64, 2048)]
     # [heads] (d): ref/ppo_pendulum.yaml's trunks at the rollout's and the minibatch's batch size
     shapes += [(PENDULUM_DIMS, batch, 1.0, 1.0) for batch in (16, 1024)]
+    # [rnn] (d): ref/ppo_walker_rnn.yaml's MLP in front of the GRU at the rollout's and the minibatch's batch size
+    shapes += [(WALKER_DIMS, batch, 1.0, 1.0) for batch in (16, 2048)]
     if fm.kernel_plan(FLAGSHIP_DIMS, 5001)[0] != 32:
         raise AssertionError("B = 5001 was chosen to take the 32-row blocks with a ragged last block")
     worst, worst_ratio = 0.0, 0.0
+    # [rnn] (e): the flagship torso with bfloat16-rounded weights (mixed_precision)
+    # at the rollout's and the minibatch's batch size
+    shapes += [(FLAGSHIP_DIMS, batch, 1.0, "bf16") for batch in (8192, 32768)]
     for i, (dims, batch, x_scale, w_scale) in enumerate(shapes):
-        x, ws, bs = mlp_inputs(dims, batch, gen, dev)
-        x, ws = x * x_scale, [w * w_scale for w in ws]
+        x, ws, bs = mlp_inputs(dims, batch, gen, dev, bf16_weights=w_scale == "bf16")
+        if w_scale != "bf16":
+            x, ws = x * x_scale, [w * w_scale for w in ws]
         for activation in (ACTIVATIONS if i == 0 else ("relu",) if dims == CARTPOLE_DIMS else ("elu",)):
             got = fm.fused_mlp_cuda(x, ws, bs, activation)
             want = fm.plain_mlp(x, ws, bs, activation)
@@ -441,7 +479,8 @@ def phase_kernel_fused_mlp():
             diff = (got - want).abs()
             err = float(diff.max())
             ratio = float((diff / (2e-5 + 2e-5 * want.abs())).max())  # <= 1: rtol = atol = 2e-5
-            scale = "" if x_scale == w_scale == 1.0 else f" (x * {x_scale:g}, weights * {w_scale:g})"
+            scale = ("" if x_scale == w_scale == 1.0 else " (bfloat16-rounded weights)" if w_scale == "bf16"
+                     else f" (x * {x_scale:g}, weights * {w_scale:g})")
             print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation}{scale}: "
                   f"max |kernel - plain| = {err:.3e} ({ratio:.3f} of the tolerance)")
             if not (math.isfinite(ratio) and ratio <= 1.0):
@@ -487,6 +526,8 @@ def phase_kernel_fused_mlp():
     entry["other_shapes"] += [time_fused(CARTPOLE_DIMS, batch, gen, dev, "relu") for batch in (16, 64)]
     entry["other_shapes"] += [time_fused(HOPPER_DIMS, batch, gen, dev) for batch in (64, 2048)]
     entry["other_shapes"] += [time_fused(PENDULUM_DIMS, batch, gen, dev) for batch in (16, 1024)]
+    entry["other_shapes"] += [time_fused(WALKER_DIMS, batch, gen, dev) for batch in (16, 2048)]
+    entry["other_shapes"] += [time_fused(FLAGSHIP_DIMS, batch, gen, dev, bf16_weights=True) for batch in (8192, 32768)]
     n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
     for batch, suffix in ((8192, ""), (32768, "_minibatch")):
         x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
@@ -613,6 +654,7 @@ def phase_reference():
     reference_sac()
     reference_host_ppo()
     reference_heads()
+    reference_rnn()
 
 
 def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
@@ -623,16 +665,17 @@ def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
     own gradients call for (clipped to the global norm, weight decay, then
     lr · g / (|g| + eps) in float64: the moments' bias corrections cancel
     at step 1, and where |g| is far above eps the step is lr · sign(g) to
-    within 1e-3 of lr whatever rounding g carries), on most entries; the
+    within 1e-3 of lr whatever rounding g carries), on most entries of the
+    tensors the loss reaches (a central value net's actor has a value head
+    without a gradient); the
     losses, means over the minibatch, within 2e-5 relative; float32 without
     TF32 on the card. Returns a summary; raises on a disagreement."""
     from rl_games_tpu_torch.algos.ppo import _ADAM_EPS
 
     for agent in (gpu, cpu):
         agent.mini_epochs_num = agent.num_minibatches = 1
-    first = slice(0, gpu.minibatch_size)
-    grads = [torch.autograd.grad(agent._loss_and_kl({k: v[first] for k, v in ds.items()}, state.entropy_coef)[0],
-                                 agent.params)
+    grads = [torch.autograd.grad(agent._loss_and_kl(agent._minibatch(ds, 0), state.entropy_coef)[0],
+                                 agent.params, allow_unused=True, materialize_grads=True)
              for agent, ds, state in ((gpu, gds, gstate), (cpu, cds, cstate))]
     dgrad = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30)) for g, c in zip(*grads))
     lr = float(gstate.lr)
@@ -645,14 +688,17 @@ def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
     far = [g.abs() > 1e-5 for g in g64]
     dstep = max(float(torch.where(f, (p.detach().cpu().double() - b) - (-lr * g / (g.abs() + _ADAM_EPS)), 0.0)
                       .abs().max()) for p, b, g, f in zip(gpu.params, before, g64, far))
-    n_far, n_all = sum(int(f.sum()) for f in far), sum(f.numel() for f in far)
+    # the entries of the tensors the loss reaches: with a central value net
+    # the actor's value head (and its separate critic trunk) take none
+    n_far, n_all = sum(int(f.sum()) for f in far), sum(f.numel() for f, g in zip(far, grads[1]) if g.any())
     csd = cpu.model.state_dict()
     dp = max(float((v.cpu().double() - csd[k].double()).abs().max()) for k, v in gpu.model.state_dict().items())
-    dloss = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("a_loss", "c_loss")}
+    # (with a central value net c_loss is 0 on both)
+    dloss = {k: abs(float(gm[k]) - float(cm[k])) / max(abs(float(cm[k])), 1e-30) for k in ("a_loss", "c_loss")}
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     summary = (f"gradients within {dgrad:.2e} of each tensor's largest entry (global norm {norm:.4e}, clipped by "
                f"{clip:.4e}); the card's Adam step against its own gradients' step where |g| > 1e-5 ({n_far} of "
-               f"{n_all} entries): max |d| {dstep:.2e} = {dstep / lr:.2e} lr (lr {lr:.1e}); max |dparam| against "
+               f"{n_all} entries of the tensors with a gradient): max |d| {dstep:.2e} = {dstep / lr:.2e} lr (lr {lr:.1e}); max |dparam| against "
                f"the CPU's update {dp:.2e}; a_loss {float(gm['a_loss']):.7f} / {float(cm['a_loss']):.7f}, c_loss "
                f"{float(gm['c_loss']):.7f} / {float(cm['c_loss']):.7f} (relative {dloss['a_loss']:.2e}, "
                f"{dloss['c_loss']:.2e}); Adam steps {int(gstate.opt_state.count)}; TF32 (matmul, cudnn) {tf32}")
@@ -2165,6 +2211,257 @@ def reference_heads():
             raise AssertionError(f"heads ({tag}): the card's advantages disagree with the CPU's: {dadv}")
 
 
+RND_CONFIG = {  # ref/smac/v1/3m_torch_sparse.yaml's rnd_config (the mlp.rnd / mlp.net schema)
+    "scale_value": 1, "episodic": True, "episode_length": 128, "gamma": 0.99, "mini_epochs": 2,
+    "minibatch_size": 1536, "learning_rate": 5e-4,
+    "network": {"name": "rnd_curiosity", "mlp": {"rnd": {"units": [512, 256, 128, 64]},
+                                                 "net": {"units": [128, 64, 64]}, "activation": "elu",
+                                                 "initializer": {"name": "default"}}},
+}
+
+
+def rnn_params(tag: str):
+    """The config of each [rnn] run and the changes made to it (printed
+    with the run): (a) ref/test/test_rnn.yaml (separate LSTM trunks on the
+    memory env); (b) ref/test/test_asymmetric_continuous.yaml (separate LSTM
+    trunks with a layer norm, an LSTM central value net); (c)
+    ref/test/test_asymmetric_discrete_mhv.yaml with multi_head_value on
+    (its LSTM central value net at value_size 2); (d) ref/ppo_walker_rnn.yaml
+    on the device Walker2D in place of BipedalWalker-v3 (the card's machine
+    has no gymnasium or Box2D) with mlp.fused: the MLP [256, 128, 64] in
+    one launch in front of the GRU 64; (f) ppo_cartpole.yaml with RND
+    (ref/smac/v1/3m_torch_sparse.yaml's rnd_config), Gaussian soft
+    augmentation, permute_batches and normalize_rms_advantage. The players
+    of (b), (d) and (f) play 200 steps."""
+    changes = []
+    if tag == "a":
+        params = load_config("ref/test/test_rnn.yaml")["params"]
+    elif tag == "b":
+        params = load_config("ref/test/test_asymmetric_continuous.yaml")["params"]
+    elif tag == "c":
+        params = load_config("ref/test/test_asymmetric_discrete_mhv.yaml")["params"]
+        params["config"]["env_config"]["multi_head_value"] = True
+        changes.append("env_config.multi_head_value true (value_size 2)")
+    elif tag == "d":
+        params = load_config("ref/ppo_walker_rnn.yaml")["params"]
+        params["config"]["env_name"] = "Walker2D"
+        params["config"].pop("vecenv_type")
+        params["network"]["mlp"]["fused"] = True
+        changes.append("env_name Walker2D (device), vecenv_type GYMNASIUM dropped; network.mlp.fused true")
+    else:
+        params = load_config("ppo_cartpole.yaml")["params"]
+        params["config"].update(rnd_config=RND_CONFIG, permute_batches=True, normalize_rms_advantage=True,
+                                features={"soft_augmentation": {"transform": {"name": "gaussian_noise", "std": 0.05},
+                                                                "aug_coef": 0.001}})
+        changes.append("rnd_config (ref/smac/v1/3m_torch_sparse.yaml's), soft augmentation gaussian_noise std 0.05, "
+                       "permute_batches, normalize_rms_advantage")
+    if tag in ("b", "d", "f"):
+        params["config"]["player"] = {**params["config"].get("player", {}), "max_steps": 200}
+        changes.append("player max_steps 200")
+    return params, "; ".join(changes) or "as shipped"
+
+
+def to_cpu(traj):
+    return {k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else v.cpu() for k, v in traj.items()}
+
+
+def rnn_rollout_profile(params):
+    """The rollout step of ``params`` on the card: the wall time of a step
+    (one rollout of the config's horizon after a warm-up one, over its
+    steps) and the device kernels a step launches (one rollout of two
+    windows under torch.profiler); with an RNN, the kernels of one step of
+    the actor's core alone, with dones (a forward of 9 steps less one of 1,
+    over 8)."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
+    agent = PPOAgent("rnn_profile", params)
+    state = agent.init_state()
+    agent._rollout(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent._rollout(state)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / agent.horizon_length
+    horizon = 2 * (agent.seq_length if agent.any_rnn else 8)
+    agent.horizon_length = horizon
+    kernels = len(device_events(lambda: agent._rollout(state), 1)) / horizon
+    core_kernels = None
+    if agent.is_rnn:
+        net = agent.model.a2c_network
+        core = getattr(net, "a_rnn" if net.separate else "rnn")
+        w = core.rnn.weight_ih_l0
+        x = torch.randn((agent.num_actors, 9, w.shape[1]), device=w.device)
+        dones = torch.zeros((agent.num_actors, 9), device=w.device)
+        with torch.no_grad():
+            nine = len(device_events(lambda: core(x, None, dones), 1))
+            one = len(device_events(lambda: core(x[:, :1], None, dones[:, :1]), 1))
+        core_kernels = (nine - one) / 8
+    return step_s, kernels, core_kernels
+
+
+def phase_rnn(epochs: int):
+    """(a)-(d) and (f) of rnn_params through Runner.run: train ``epochs``
+    epochs, then play the last checkpoint; (e) through train_epoch. Per
+    run: the steady epoch, env-steps/s, the rollout step and its kernels,
+    the player's steady step, the GAE and fused launches per epoch and per
+    player step, held to the counts the code implies (1 GAE an epoch; (d)
+    one fused launch a forward, (e) the flagship's 33 an epoch). The player
+    of a recurrent policy starts every step from zero states, as the JAX
+    package's does (ROADMAP §3, fault 4)."""
+    from rl_games_tpu_torch.ops import fused_mlp
+
+    out = {}
+    for tag in ("a", "b", "c", "d", "f"):
+        params, changes = rnn_params(tag)
+        cfg = params["config"]
+        horizon, n = cfg["horizon_length"], cfg["num_actors"]
+        minibatches = cfg["mini_epochs"] * n * horizon // cfg["minibatch_size"]
+        batches = []
+
+        def counted(x, *args):  # the batch of every kernel launch
+            batches.append(x.shape[0])
+            return launch(x, *args)
+
+        launch = fused_mlp.fused_mlp_cuda
+        fused_mlp.fused_mlp_cuda = counted
+        try:
+            run = train_and_play(f"rnn ({tag})", params, epochs, batches)
+        finally:
+            fused_mlp.fused_mlp_cuda = launch
+        steps = run["play_steps"]
+        fused = 1 if tag == "d" else 0
+        # use_diagnostics times the rollout once: 4 rollouts before the first epoch
+        rollouts = epochs + (4 if cfg.get("use_diagnostics") else 0)
+        expected_batches = {} if not fused else {
+            n: fused * (horizon + 1) * rollouts, cfg["minibatch_size"]: fused * minibatches * epochs}
+        expected_play = {} if not fused else {n: fused * steps}
+        if (run["train"] != {"gae": epochs, "fused_mlp": fused * ((horizon + 1) * rollouts + minibatches * epochs)}
+                or run["play"] != {"gae": 0, "fused_mlp": fused * steps} or run["train_batches"] != expected_batches
+                or run["play_batches"] != expected_play or run["steady_batches"] != expected_play):
+            raise AssertionError(f"rnn ({tag}): launches {run['train']} in {epochs} epochs, player {run['play']} in "
+                                 f"{steps} steps, fused batches {run['train_batches']} in training, "
+                                 f"{run['play_batches']} / {run['steady_batches']} in the two player runs; expected "
+                                 f"1 GAE an epoch, {fused} fused launch a forward ({expected_batches}, {expected_play})")
+        rnn = params["network"].get("rnn")
+        cv = (cfg.get("central_value_config") or {}).get("network", {}).get("rnn")
+        what = (f"{rnn['name']} {rnn['units']}" if rnn else "no rnn") + (f", central value {cv['name']} {cv['units']}"
+                                                                        if cv else "")
+        print(f"[rnn] ({tag}) {params['model']['name']} on {cfg['env_name']} ({what}; {changes}): {n} envs x "
+              f"{horizon} steps, seq_length {cfg.get('seq_length', 4)}, {cfg['mini_epochs']} x "
+              f"{minibatches // cfg['mini_epochs']} minibatches of {cfg['minibatch_size']}; trained {epochs} epochs "
+              f"through Runner.run: launches {run['train']} ({run['train']['gae'] / epochs:g} GAE and "
+              f"{run['train']['fused_mlp'] / epochs:g} fused an epoch, fused batches {run['train_batches']}); played "
+              f"{steps} steps: launches {run['play']} ({run['play']['fused_mlp'] / steps:g} fused a player step), "
+              f"{run['play_out']!r}")
+        epoch_s = report_epochs(f"rnn ({tag})", run["times"], n * horizon, run["peak_gib"])
+        step_s, kernels, core_kernels = rnn_rollout_profile(params)
+        print(f"[rnn] ({tag}) rollout step {step_s * 1e3:.3f} ms at {n} envs ({kernels:.1f} device kernels a step"
+              + (f"; the actor's {rnn['name']} core alone {core_kernels:g} a step" if core_kernels is not None else "")
+              + f"); steady player step {run['steady_step_s'] * 1e3:.2f} ms")
+        out[tag] = {**run, "epoch_s": epoch_s, "rollout_step_s": step_s, "kernels_per_step": kernels,
+                    "core_kernels_per_step": core_kernels}
+    out["e"] = phase_rnn_mixed_precision(3)
+    return out
+
+
+def phase_rnn_mixed_precision(epochs: int):
+    """(e): the fused flagship (8192 Ant2D envs) with mixed_precision through
+    train_epoch: each minibatch's forwards take the weights rounded to
+    bfloat16 (the fused kernel gets them as float32), the rollout the
+    float32 weights; 17 fused launches at B = 8192 and 16 at B = 32768 an
+    epoch."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+
+    params = flagship_params(8192)
+    params["network"]["mlp"]["fused"] = True
+    params["config"]["mixed_precision"] = True
+    agent = PPOAgent("chip_smoke_mixed", params)
+    state = agent.init_state()
+    batches = []
+    launch = fused_mlp.fused_mlp_cuda
+
+    def counted(x, *args):
+        batches.append(x.shape[0])
+        return launch(x, *args)
+
+    fused_mlp.fused_mlp_cuda = counted
+    torch.cuda.reset_peak_memory_stats()
+    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the main path's run starts here
+    times = []
+    try:
+        for epoch in range(epochs):
+            t0 = time.perf_counter()
+            state, m = agent.train_epoch(state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not (math.isfinite(float(m["a_loss"])) and math.isfinite(float(m["c_loss"]))):
+                raise AssertionError(f"rnn (e): non-finite losses in epoch {epoch + 1}")
+    finally:
+        fused_mlp.fused_mlp_cuda = launch
+    launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+    got_batches = {b: batches.count(b) for b in sorted(set(batches))}
+    expected_batches = {8192: 17 * epochs, 32768: 16 * epochs}
+    if launches != {"gae": epochs, "fused_mlp": 33 * epochs} or got_batches != expected_batches:
+        raise AssertionError(f"rnn (e): launches {launches} at batches {got_batches} in {epochs} epochs, expected "
+                             f"1 GAE and 33 fused an epoch at {expected_batches}")
+    print(f"[rnn] (e) the fused flagship (8192 Ant2D envs x 16) with mixed_precision, {epochs} epochs through "
+          f"train_epoch: launches {launches} at batches {got_batches}; a_loss {float(m['a_loss']):.4f}, "
+          f"c_loss {float(m['c_loss']):.4f}, kl {float(m['kl']):.5f}, lr {float(m['lr']):.2e}")
+    epoch_s = report_epochs("rnn (e)", np.array(times), agent.batch_size, torch.cuda.max_memory_allocated() / 2**30)
+    return {"train": launches, "train_batches": got_batches, "epoch_s": epoch_s}
+
+
+def reference_rnn():
+    """One update of [rnn] (b) (LSTM trunks and an LSTM central value net)
+    and (d) (the fused MLP into a GRU) on the card against the CPU on the
+    same trajectory: the policy's first Adam step held as the Pong update
+    is (check_first_update); for (b) also the central value net's first
+    minibatch: its loss within 2e-5 relative and its gradients within 1e-5
+    of each tensor's largest entry."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.ops import losses as PL
+
+    for tag in ("b", "d"):
+        params, _ = rnn_params(tag)
+        params["config"].update(num_actors=16, horizon_length=64, minibatch_size=256)
+        if tag == "b":
+            params["config"]["central_value_config"]["minibatch_size"] = 256
+        gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+        gstate, cstate = gpu.init_state(), cpu.init_state()
+        cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+        if gpu.has_central_value:
+            cpu.cv_model.load_state_dict({k: v.cpu() for k, v in gpu.cv_model.state_dict().items()})
+        traj, last_values = gpu._rollout(gstate)
+        cstate.dones = gstate.dones.cpu()
+        gds = gpu._prepare_dataset(gstate, traj, last_values)
+        cds = cpu._prepare_dataset(cstate, to_cpu(traj), last_values.cpu())
+        dadv = float((gds["advantages"].cpu() - cds["advantages"]).abs().max())
+        detail = ""
+        if gpu.has_central_value:
+            losses, grads = [], []
+            for agent, ds in ((gpu, gds), (cpu, cds)):
+                mb = agent._minibatch(ds, 0, agent.cv_minibatch_size, "cv_rnn_states", agent.cv_games_num)
+                res = agent.cv_model.forward_train(mb["states"], rnn_states=mb["rnn_states"], dones=mb["dones"],
+                                                   seq_length=agent.seq_length)
+                loss = PL.critic_loss(mb["old_values"], res["values"], agent.cv_e_clip, mb["returns"],
+                                      agent.cv_clip_value).mean()
+                losses.append(float(loss.detach()))
+                grads.append(torch.autograd.grad(loss, agent.cv_params, allow_unused=True, materialize_grads=True))
+            dgrad = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30)) for g, c in zip(*grads))
+            dloss = abs(losses[0] - losses[1]) / abs(losses[1])
+            detail = (f"; central value net's first minibatch: loss {losses[0]:.7f} / {losses[1]:.7f} (relative "
+                      f"{dloss:.2e}), gradients within {dgrad:.2e} of each tensor's largest entry")
+            if not (dloss < 2e-5 and dgrad < 1e-5):
+                raise AssertionError(f"rnn ({tag}): the central value net on the card disagrees with the CPU{detail}")
+        update = check_first_update(gpu, cpu, gstate, cstate, gds, cds)
+        what = {"b": "LSTM trunks, LSTM central value net", "d": "fused MLP into a GRU, Walker2D"}[tag]
+        print(f"[reference] rnn ({tag}) {what}, 16 envs x 64 steps: max |dadv| {dadv:.2e}{detail}; one minibatch "
+              f"of 256 (8 sequences of 32 for (d), 64 of 4 for (b)): {update}")
+        if not dadv < 1e-4:
+            raise AssertionError(f"rnn ({tag}): the card's advantages disagree with the CPU's: {dadv}")
+
+
 def profile_report(tag: str, prof, wall_us: float, detail: str):
     """The device's busy time and idle share over ``wall_us`` of host time,
     and the device time by kernel, of one torch.profiler session."""
@@ -2271,6 +2568,7 @@ def main():
     pixel_launches = phase_host_pixel()
     host_sac_train, host_sac_play, _ = phase_host_sac(8)
     heads = phase_heads(args.epochs)
+    rnn = phase_rnn(3)
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
@@ -2278,9 +2576,10 @@ def main():
     # CartPole player
     host_runs = tuple(host[tag]["train"] for tag in ("default", "cpu", "default fused"))
     runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train,
-            *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads))
-    # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements
-    epochs_trained = (args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
+            *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn))
+    # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn] run 3
+    epochs_trained = ((args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
+                      + (3,) * len(rnn))
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
@@ -2289,14 +2588,17 @@ def main():
                                      "cartpole": cp_train["gae"], "sac_ant2d": sac_train["gae"],
                                      "host_ppo": {tag: host[tag]["train"]["gae"] for tag in host},
                                      "host_pixel": pixel_launches["gae"], "host_sac": host_sac_train["gae"],
-                                     "heads": {tag: heads[tag]["train"]["gae"] for tag in heads}}
+                                     "heads": {tag: heads[tag]["train"]["gae"] for tag in heads},
+                                     "rnn": {tag: rnn[tag]["train"]["gae"] for tag in rnn}}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
                                + cp_train["fused_mlp"] + cp_play["fused_mlp"]
                                + host_fused["train"]["fused_mlp"] + host_fused["play"]["fused_mlp"]
                                + sum(heads[tag]["train"]["fused_mlp"] + heads[tag]["play"]["fused_mlp"]
-                                     for tag in heads))
+                                     for tag in heads)
+                               + sum(rnn[tag]["train"]["fused_mlp"] + rnn[tag].get("play", {}).get("fused_mlp", 0)
+                                     for tag in rnn))
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -2324,6 +2626,19 @@ def main():
         "per_player_step": hd["play"]["fused_mlp"] / hd["play_steps"],
         "other_runs": {tag: heads[tag]["train"]["fused_mlp"] + heads[tag]["play"]["fused_mlp"]
                        for tag in heads if tag != "d"}}
+    # [rnn] (d): one chain a forward in front of the GRU, B = 16 in the rollout
+    # and the player, 2048 in the minibatches; (e): the flagship's 33 an
+    # epoch with bfloat16-rounded weights in the minibatches' forwards
+    rd, re_ = rnn["d"], rnn["e"]
+    fused_entry["launches_rnn"] = {
+        "walker_gru": {"train": rd["train"]["fused_mlp"], "play": rd["play"]["fused_mlp"],
+                       "train_batches": rd["train_batches"], "play_batches": rd["play_batches"],
+                       "steady_player_batches": rd["steady_batches"], "per_epoch": rd["train"]["fused_mlp"] / 3,
+                       "per_player_step": rd["play"]["fused_mlp"] / rd["play_steps"]},
+        "flagship_mixed_precision": {"train": re_["train"]["fused_mlp"], "train_batches": re_["train_batches"],
+                                     "per_epoch": re_["train"]["fused_mlp"] / 3},
+        "other_runs": {tag: rnn[tag]["train"]["fused_mlp"] + rnn[tag]["play"]["fused_mlp"]
+                       for tag in rnn if tag not in ("d", "e")}}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """PPO over device-resident envs, in PyTorch.
 
-Port of the non-recurrent, single-agent subset of rl_games_tpu/algos/ppo.py,
-continuous, discrete and multi-discrete (the reference's a2c_common.py
-play_steps :787-850 and train_epoch :1241-1307, a2c_continuous.py,
-a2c_discrete.py). One epoch (``train_epoch``) is
+Port of the single-agent rl_games_tpu/algos/ppo.py, continuous, discrete
+and multi-discrete (the reference's a2c_common.py play_steps :787-939 and
+train_epoch :1241-1307, a2c_continuous.py, a2c_discrete.py,
+central_value.py). One epoch (``train_epoch``) is
 
     rollout  = horizon × (policy forward + sample + env step + autoreset)
     gae      = ops.gae.compute_gae (the CUDA kernel on the card)
@@ -27,6 +27,30 @@ heads' advantages. The tanh policy's entropy is estimated from normals
 drawn fresh for each minibatch (ppo.py:861-868). Envs that report
 ``infos['scores']`` feed a score meter at done rows, read as
 ``mean_scores`` (ppo.py:628-633, 1296-1297).
+
+PPO's further options, as the JAX package has them:
+- a recurrent torso (``network.rnn``): the rollout runs in windows of
+  ``seq_length`` steps and keeps each window's first states; the dones
+  entering a step zero the states before it (``zero_rnn_on_done``); the
+  dataset's states lie [layers, N · W, units], sequence s = e · W + w,
+  and a minibatch of whole sequences starts from its slice of them
+  (ppo.py:562-726, 817-836, 993-1003);
+- a central value net (``central_value_config``; ppo.py:319-370,
+  1134-1202): its own model over the env's 'states', its own Adam and
+  minibatches, its value normalizer and recurrent states; the actor's
+  value head then carries no loss;
+- RND curiosity (``rnd_config``; ppo.py:736-750, 1099-1132): the
+  intrinsic reward joins the shaped reward before GAE and the predictor
+  trains on the rollout's observations;
+- soft augmentation (``features.soft_augmentation``; ppo.py:927-945), RMS
+  advantage normalization (``normalize_rms_advantage``; :797-808),
+  ``permute_batches`` (without an RNN; :982-1043) and ``mixed_precision``:
+  the loss's forwards use the weights rounded to bfloat16 and compute in
+  float32, as the JAX package's cast parameters do (:844-851), so the
+  gradients are rounded alike.
+The order of an epoch's updates is the JAX package's: the central value
+net, then RND, then the policy (ppo.py:1259-1266).
+
 The JAX package compiles the epoch into one
 program over an immutable state; here it runs eagerly, the weights and
 normalizer stats live in ``agent.model`` (an ``nn.Module``) and the rest of
@@ -66,7 +90,14 @@ import numpy as np
 import torch
 
 from rl_games_tpu_torch.common.host_inference import rollout_device
-from rl_games_tpu_torch.common.obs_utils import HostUpload, fill_sigma, sigma_override_blocked, to_device_obs
+from rl_games_tpu_torch.common.obs_utils import (
+    HostUpload,
+    fill_sigma,
+    sigma_override_blocked,
+    to_device_obs,
+    upload_obs,
+)
+from rl_games_tpu_torch.common.transforms import build_transform
 from rl_games_tpu_torch.common.tr_helpers import (
     build_reward_shaper,
     rescale_actions,
@@ -76,8 +107,10 @@ from rl_games_tpu_torch.envs import registry as env_registry
 from rl_games_tpu_torch.envs.device.base import VecEnvState
 from rl_games_tpu_torch.envs.spaces import Box, Discrete, MultiDiscrete, actions_num_of, obs_shape_of
 from rl_games_tpu_torch.models import model_builder
+from rl_games_tpu_torch.models.rnd import RNDCuriosity
 from rl_games_tpu_torch.ops import losses as L
 from rl_games_tpu_torch.ops import masked as MK
+from rl_games_tpu_torch.ops import running_stats as RS
 from rl_games_tpu_torch.ops.gae import compute_gae
 from rl_games_tpu_torch.ops.schedulers import build_scheduler
 from rl_games_tpu_torch.utils import checkpoint as ckpt
@@ -89,6 +122,10 @@ _METRIC_KEYS = ("a_loss", "c_loss", "entropy", "b_loss", "kl", "clip_frac")
 # Checkpoints carry the reference's extension: their 'model' section has the
 # reference's .pth layout, so the JAX package's importer reads them.
 CHECKPOINT_EXT = ".pth"
+# the sections of a checkpoint beside 'model': the central value net under
+# the reference's name (a2c_common.py get_full_state_weights; its keys
+# 'model.' + the model's), RND's target, predictor and normalizer
+CV_SECTION, RND_SECTION = "assymetric_vf_nets", "rnd"
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +268,11 @@ class PPOTrainState:
     game_shaped_rewards: Meters
     game_lengths: Meters
     game_scores: Meters  # infos['scores'] at episode ends
+    rnn_states: Optional[tuple] = None  # the actor's, each [layers, N, units]
+    cv_rnn_states: Optional[tuple] = None  # the central value net's own
+    cv_opt: Optional[AdamState] = None
+    adv_rms: Optional[RS.GeneralizedMovingStats] = None  # normalize_rms_advantage
+    rnd_opt: Optional[AdamState] = None  # RND's predictor
 
 
 def actor_obs(obs):
@@ -265,11 +307,7 @@ class PPOAgent:
         # --- env ------------------------------------------------------------
         self.num_actors = config["num_actors"]
         if vec_env is None:
-            vec_env = env_registry.create_vec_env(
-                config["env_name"], self.num_actors,
-                vecenv_type=config.get("vecenv_type"), device=self.device,
-                **config.get("env_config", {}),
-            )
+            vec_env = env_registry.create_vec_env_from_config(config, self.num_actors, self.device)
         self.vec_env = vec_env
         self.is_host_env = bool(getattr(vec_env, "is_host_env", False))
         self._check_env(config)
@@ -353,6 +391,14 @@ class PPOAgent:
         self.use_diagnostics = config.get("use_diagnostics", False)
         self.observer = (config.get("features") or {}).get("observer")
         self._rollout_time = None  # measured under use_diagnostics
+        self.normalize_rms_advantage = config.get("normalize_rms_advantage", False)
+        self.adv_rms_momentum = config.get("adv_rms_momentum", 0.5)
+        self.mixed_precision = config.get("mixed_precision", False)
+        self.seq_length = config.get("seq_length", 4)
+        self.zero_rnn_on_done = config.get("zero_rnn_on_done", True)
+        soft_aug_cfg = (config.get("features") or {}).get("soft_augmentation")
+        self.soft_aug = build_transform(soft_aug_cfg.get("transform", {})) if soft_aug_cfg else None
+        self.soft_aug_coef = float(soft_aug_cfg.get("aug_coef", 0.001)) if soft_aug_cfg else 0.0
 
         # --- model ----------------------------------------------------------
         self.model = model_builder.ModelBuilder().load(
@@ -367,16 +413,90 @@ class PPOAgent:
         )
         self.params = list(self.model.parameters())
         self.sampled_entropy = getattr(self.model, "sampled_entropy", False)
+        self._build_central_value(config.get("central_value_config"), info)
+        self._build_rnd(config.get("rnd_config"))
+
+        # --- RNN wiring (ppo.py:401-428) ------------------------------------
+        self.is_rnn = self.model.is_rnn()
+        self.cv_is_rnn = self.has_central_value and self.cv_model.is_rnn()
+        self.any_rnn = self.is_rnn or self.cv_is_rnn
+        # the reference's minibatches are ordered unless asked; an RNN's always
+        self.permute_batches = config.get("permute_batches", False) and not self.any_rnn
+        if self.any_rnn:
+            if self.horizon_length % self.seq_length != 0:
+                raise ValueError("horizon_length must be divisible by seq_length")
+            if self.minibatch_size % self.seq_length != 0:
+                raise ValueError("minibatch_size must be divisible by seq_length")
+            self.games_num = self.minibatch_size // self.seq_length
+        if self.cv_is_rnn:
+            if self.cv_minibatch_size % self.seq_length != 0:
+                raise ValueError("central value minibatch_size must be divisible by seq_length")
+            self.cv_games_num = self.cv_minibatch_size // self.seq_length
+
         # a host rollout on another device than the model's runs a copy of
-        # it there, given the model's weights once per epoch
-        self._rollout_model = (self.model if self.rollout_device == self.device
-                               else copy.deepcopy(self.model).to(self.rollout_device))
+        # it (and of the central value net) there, given the weights once
+        # per epoch
+        def rollout_copy(module):
+            if module is None or self.rollout_device == self.device:
+                return module
+            return copy.deepcopy(module).to(self.rollout_device)
+
+        self._rollout_model = rollout_copy(self.model)
+        self._rollout_cv_model = rollout_copy(self.cv_model)
 
         if self.is_continuous:
             space = self.action_space
             self._rescale = bool(np.isfinite(space.low).all() and np.isfinite(space.high).all())
             self._action_low = torch.as_tensor(space.low, dtype=torch.float32, device=self.rollout_device)
             self._action_high = torch.as_tensor(space.high, dtype=torch.float32, device=self.rollout_device)
+
+    def _build_central_value(self, cv_cfg: Optional[dict], info):
+        """The asymmetric critic (ppo.py:319-370): a value-only model over
+        the env's states, its own Adam (eps 1e-8, a fixed learning rate,
+        the global-norm clip only with truncate_grads) and minibatches
+        (batch // minibatch_size of them: the tail is dropped). With it the
+        actor's value head carries no loss."""
+        self.has_central_value = cv_cfg is not None
+        self.has_value_loss = not self.has_central_value
+        self.cv_model = None
+        if not self.has_central_value:
+            return
+        self.state_shape = obs_shape_of(info.state_space or info.observation_space)
+        net = dict(cv_cfg["network"], central_value=True)
+        self.cv_model = model_builder.MODEL_REGISTRY["central_value"](
+            net, actions_num=None, input_shape=self.state_shape, value_size=self.value_size,
+            normalize_input=cv_cfg.get("normalize_input", False), normalize_value=self.normalize_value,
+            obs_shape=self.state_shape, device=self.device,
+        )
+        self.cv_params = list(self.cv_model.parameters())
+        self.cv_lr = float(cv_cfg["learning_rate"])
+        self.cv_mini_epochs = cv_cfg["mini_epochs"]
+        self.cv_minibatch_size = cv_cfg.get("minibatch_size",
+                                            self.num_actors * cv_cfg.get("minibatch_size_per_env", 0))
+        if self.cv_minibatch_size <= 0:
+            raise ValueError("central_value_config needs 'minibatch_size' or 'minibatch_size_per_env' > 0 "
+                             "(central_value.py:65-74)")
+        self.cv_num_minibatches = max(1, self.batch_size // self.cv_minibatch_size)
+        self.cv_clip_value = cv_cfg.get("clip_value", True)
+        self.cv_e_clip = cv_cfg.get("e_clip", 0.2)
+        self.cv_max_norm = cv_cfg.get("grad_norm", 1.0) if cv_cfg.get("truncate_grads", False) else None
+
+    def _build_rnd(self, rnd_cfg: Optional[dict]):
+        """RND curiosity (ppo.py:227-249): target, predictor and their own
+        observation normalizer, the predictor's Adam at rnd_config's rate."""
+        self.rnd = None
+        if not rnd_cfg:
+            return
+        if isinstance(self.obs_shape, dict) or len(self.obs_shape) != 1:
+            raise ValueError(f"rnd_config supports flat observation spaces, not {self.obs_shape}")
+        self.rnd = RNDCuriosity(rnd_cfg["network"], self.obs_shape[0], device=self.device)
+        self.rnd_scale = float(rnd_cfg.get("scale_value", 1.0))
+        self.rnd_lr = float(rnd_cfg.get("learning_rate", 5e-4))
+        self.rnd_mini_epochs = int(rnd_cfg.get("mini_epochs", 1))
+        self.rnd_minibatch = int(rnd_cfg.get("minibatch_size") or self.minibatch_size)
+        if rnd_cfg.get("episodic") or rnd_cfg.get("gamma"):
+            print("rnd_config: 'episodic'/'gamma' accepted but folded — the intrinsic reward joins the shaped "
+                  "reward before GAE (single advantage head) rather than getting a separate episodic return")
 
     def _check_env(self, config: dict):
         """What a vec env must offer (ppo.py:371-400): masks, where asked
@@ -403,17 +523,7 @@ class PPOAgent:
     def _refuse_unported(params: dict):
         """Options the JAX PPOAgent has and this port does not yet."""
         config = params["config"]
-        network = params.get("network", {})
-        features = config.get("features") or {}
         options = {
-            ("an RNN torso (network.rnn)", "A9"): "rnn" in network,
-            ("a central value net (central_value_config)", "A9"): config.get("central_value_config") is not None,
-            ("RND curiosity (rnd_config)", "A9"): bool(config.get("rnd_config")),
-            ("soft augmentation (features.soft_augmentation)", "A9"): bool(features.get("soft_augmentation")),
-            ("mixed precision (mixed_precision)", "A9"): config.get("mixed_precision", False),
-            ("minibatch permutation (permute_batches)", "A9"): config.get("permute_batches", False),
-            ("RMS advantage normalization (normalize_rms_advantage)", "A2"):
-                config.get("normalize_rms_advantage", False),
             ("population based training (pbt)", "A12"): bool((config.get("pbt") or {}).get("enabled")),
             ("self-play (self_play_config)", "A12"): bool(config.get("self_play_config")),
         }
@@ -428,14 +538,18 @@ class PPOAgent:
         """Draw fresh weights into ``self.model``, reset its normalizers and
         the envs, and return the rest of the train state."""
         seed = self.seed if seed is None else seed
-        model_seed, env_seed, act_seed = (
-            int(s) for s in np.random.SeedSequence(seed).generate_state(3)
+        model_seed, env_seed, act_seed, cv_seed, rnd_seed = (
+            int(s) for s in np.random.SeedSequence(seed).generate_state(5)
         )
 
         def generator(s):
             return torch.Generator(device=self.device).manual_seed(s)
 
         self.model.reset_parameters(generator(model_seed))
+        if self.has_central_value:
+            self.cv_model.reset_parameters(generator(cv_seed))
+        if self.rnd is not None:
+            self.rnd.reset_parameters(generator(rnd_seed))
         if self.is_host_env:
             env_state, obs = None, to_device_obs(self.vec_env.reset(), self.device)
         else:
@@ -460,6 +574,11 @@ class PPOAgent:
             game_shaped_rewards=meters_init(self.games_to_track, v, self.device),
             game_lengths=meters_init(self.games_to_track, 1, self.device),
             game_scores=meters_init(self.games_to_track, 1, self.device),
+            rnn_states=self.model.get_default_rnn_state(n) if self.is_rnn else None,
+            cv_rnn_states=self.cv_model.get_default_rnn_state(n) if self.cv_is_rnn else None,
+            cv_opt=adam_init(self.cv_params) if self.has_central_value else None,
+            adv_rms=RS.generalized_moving_stats_init((), self.device) if self.normalize_rms_advantage else None,
+            rnd_opt=adam_init(list(self.rnd.predictor.parameters())) if self.rnd is not None else None,
         )
 
     # ------------------------------------------------------------------
@@ -500,23 +619,54 @@ class PPOAgent:
             traj["actions"] = torch.empty((T, N), dtype=torch.int64, device=device)
         if mask_shape is not None:
             traj["action_masks"] = torch.empty((T, *mask_shape), dtype=torch.bool, device=device)
+        if self.has_central_value:  # the central value net's input (ppo.py:649-650)
+            traj["states"] = torch.empty((N, T, *self.state_shape), **f32).transpose(0, 1)
         return traj
+
+    def _rnn_kw(self, is_rnn: bool, states, dones):
+        """A one-step forward's recurrent arguments: the running states and,
+        with zero_rnn_on_done, the dones entering the step."""
+        if not is_rnn:
+            return {}
+        return {"rnn_states": states, "dones": dones if self.zero_rnn_on_done else None, "seq_length": 1}
+
+    def _stack_snapshots(self, traj, snaps, cv_snaps):
+        """The windows' first states, each tensor [W, layers, N, units], into
+        ``traj`` as 'rnn_snapshots' / 'cv_rnn_snapshots'."""
+        if self.is_rnn:
+            traj["rnn_snapshots"] = tuple(torch.stack(x) for x in zip(*snaps))
+        if self.cv_is_rnn:
+            traj["cv_rnn_snapshots"] = tuple(torch.stack(x) for x in zip(*cv_snaps))
 
     @torch.no_grad()
     def _rollout(self, state: PPOTrainState):
-        """horizon_length policy + env steps (play_steps, a2c_common.py:787-850).
-        Returns the trajectory (each entry [T, N, ...]) and the bootstrap
-        values of the final observations; updates ``state``."""
+        """horizon_length policy + env steps (play_steps / play_steps_rnn,
+        a2c_common.py:787-939). Returns the trajectory (each entry [T, N,
+        ...]; with an RNN also each window's first states, see
+        ``_stack_snapshots``) and the bootstrap values of the final
+        observations; updates ``state``."""
         model = self.model
         env_state, obs, dones = state.env_state, state.obs, state.dones
         cur_r, cur_sr = state.current_rewards, state.current_shaped_rewards
         cur_len = state.current_lengths
+        rnn, cv_rnn = state.rnn_states, state.cv_rnn_states
+        snaps, cv_snaps = [], []
         masks = self.vec_env.get_action_masks if self.use_action_masks else None
         traj = self._trajectory_buffers(self.device, masks(env_state).shape if masks else None)
         for t in range(self.horizon_length):
+            if self.any_rnn and t % self.seq_length == 0:
+                snaps.append(rnn)
+                cv_snaps.append(cv_rnn)
             # get_masked_action_values (a2c_common.py:793-797)
             kw = {"action_masks": masks(env_state)} if masks else {}
-            res = model.forward_play(actor_obs(obs), generator=state.generator, **kw)
+            res = model.forward_play(actor_obs(obs), generator=state.generator, **kw,
+                                     **self._rnn_kw(self.is_rnn, rnn, dones))
+            rnn = res["rnn_states"]
+            if self.has_central_value:
+                # the values come from the central net, whose own states
+                # advance in parallel (ppo.py:590-606)
+                cv_res = self.cv_model.forward_play(obs["states"], **self._rnn_kw(self.cv_is_rnn, cv_rnn, dones))
+                res["values"], cv_rnn = cv_res["values"], cv_res["rnn_states"]
             env_state, next_obs, rewards, new_dones, infos = self.vec_env.step(
                 env_state, self._env_actions(res["actions"])
             )
@@ -546,24 +696,47 @@ class PPOAgent:
             cur_len = cur_len * not_done
 
             step = {**res, **kw, "obses": actor_obs(obs), "dones": dones, "values": values, "rewards": shaped}
+            if self.has_central_value:
+                step["states"] = obs["states"]
             for k, buf in traj.items():
                 buf[t] = step[k]
             obs, dones = next_obs, new_dones.to(torch.float32)
 
-        # bootstrap values for the final obs (get_values, a2c_common:474-483);
-        # they do not depend on the sample, so none is drawn
-        last_values = model.forward_play(actor_obs(obs), deterministic=True)["values"]
+        last_values = self._bootstrap_values(model, self.cv_model, obs, dones, rnn, cv_rnn)
+        self._stack_snapshots(traj, snaps, cv_snaps)
         state.env_state, state.obs, state.dones = env_state, obs, dones
         state.current_rewards, state.current_shaped_rewards = cur_r, cur_sr
         state.current_lengths = cur_len
+        state.rnn_states, state.cv_rnn_states = rnn, cv_rnn
         return traj, last_values
+
+    def _bootstrap_values(self, model, cv_model, obs, dones, rnn, cv_rnn):
+        """The values of the final observations (get_values,
+        a2c_common:474-483; ppo.py:697-716), from the running states; they
+        do not depend on the sample, so none is drawn."""
+        if self.has_central_value:
+            return cv_model.forward_play(obs["states"], **self._rnn_kw(self.cv_is_rnn, cv_rnn, dones))["values"]
+        return model.forward_play(actor_obs(obs), deterministic=True,
+                                  **self._rnn_kw(self.is_rnn, rnn, dones))["values"]
 
     @torch.no_grad()
     def _prepare_dataset(self, state: PPOTrainState, traj, last_values):
-        """GAE + dataset assembly (a2c_common.py:836-849, 1309-1370)."""
+        """RND's intrinsic reward, GAE + dataset assembly (a2c_common.py:836-849,
+        1309-1370; ppo.py:728-836). With an RNN the dataset also holds the
+        windows' first states as 'rnn_states' / 'cv_rnn_states'."""
+        traj = dict(traj)
+        snaps, cv_snaps = traj.pop("rnn_snapshots", None), traj.pop("cv_rnn_snapshots", None)
         mb_values = traj["values"]  # [T, N, V] (denormalized)
+        mb_rewards = traj["rewards"]
+        if self.rnd is not None:
+            # RND's normalizer takes this rollout first; the intrinsic reward
+            # joins the shaped reward before GAE (ppo.py:736-750)
+            flat = traj["obses"].reshape(-1, traj["obses"].shape[-1])
+            self.rnd.running_mean_std.update_from_batch(flat)
+            intrinsic = self.rnd.intrinsic(self.rnd.running_mean_std.normalize(flat))
+            mb_rewards = mb_rewards + self.rnd_scale * intrinsic.reshape(mb_rewards.shape[:2])[..., None]
         mb_advs = compute_gae(
-            traj["rewards"], mb_values, traj["dones"], last_values, state.dones,
+            mb_rewards, mb_values, traj["dones"], last_values, state.dones,
             self.gamma, self.tau,
         )
         mb_returns = mb_advs + mb_values
@@ -573,46 +746,107 @@ class PPOAgent:
         values = dataset.pop("values")
         advantages = returns - values  # [B, V]
 
-        model = self.model
-        model.update_obs_stats(dataset["obses"])
+        self.model.update_obs_stats(dataset["obses"])
+        # the value normalizer lives on the central value net where there is
+        # one (a2c_continuous.py:73), whose input normalizer sees the states
+        value_model = self.model
+        if self.has_central_value:
+            value_model = self.cv_model
+            value_model.update_obs_stats(dataset["states"])
         # value-normalizer parity: the reference runs TWO train-mode
         # forwards, value_mean_std(values) then value_mean_std(returns)
         # (a2c_common.py:1325-1332), so the stats advance from both batches
         # and returns normalize with the post-values stats
         if self.normalize_value:
             if not self.freeze_critic:
-                model.update_value_stats(values)
-            values = model.normalize_values(values)
+                value_model.update_value_stats(values)
+            values = value_model.normalize_values(values)
             if not self.freeze_critic:
-                model.update_value_stats(returns)
-            returns = model.normalize_values(returns)
+                value_model.update_value_stats(returns)
+            returns = value_model.normalize_values(returns)
 
         advantages = advantages.sum(dim=1)  # [B] (a2c_common:1334)
         if self.normalize_advantage:
-            advantages = L.normalize_advantage(advantages)
+            if self.normalize_rms_advantage:
+                # GeneralizedMovingStats('mean_std', decay=momentum)
+                # (a2c_common.py:342-344; ppo.py:797-808)
+                state.adv_rms = RS.generalized_moving_stats_update(state.adv_rms, advantages,
+                                                                    decay=self.adv_rms_momentum)
+                advantages = RS.generalized_moving_stats_normalize(state.adv_rms, advantages,
+                                                                   decay=self.adv_rms_momentum)
+            else:
+                advantages = L.normalize_advantage(advantages)
         dataset["old_values"] = values
         dataset["returns"] = returns
         dataset["advantages"] = advantages
         dataset["old_logp_actions"] = dataset.pop("neglogpacs")
+
+        def to_dataset_states(snapshots):
+            # [W, layers, N, units] -> [layers, N * W, units]: sequence
+            # s = e * W + w, the env-major flatten's (ppo.py:817-827)
+            return tuple(x.permute(1, 2, 0, 3).reshape(x.shape[1], x.shape[2] * x.shape[0], x.shape[3])
+                         for x in snapshots)
+
+        if snaps is not None:
+            dataset["rnn_states"] = to_dataset_states(snaps)
+        if cv_snaps is not None:
+            dataset["cv_rnn_states"] = to_dataset_states(cv_snaps)
         return dataset
 
-    def _loss_and_kl(self, mb, entropy_coef, entropy_noise=None):
-        """Loss assembly (a2c_continuous.py:97-133, a2c_discrete.py:116-190).
-        ``entropy_noise``: the tanh policy's standard normals for its
-        sampled entropy. Returns the scalar loss and detached diagnostics."""
+    def _minibatch(self, dataset, sel, size: Optional[int] = None, states_key: str = "rnn_states",
+                   games: Optional[int] = None):
+        """The rows of a minibatch: ``size`` rows from row ``sel`` (an int), or
+        the rows ``sel`` (an index tensor, permute_batches). With the
+        dataset's recurrent states under ``states_key``, the minibatch's
+        sequences start from their slice of them, ``games`` sequences from
+        sequence sel // seq_length (ppo.py:993-1003)."""
+        size = self.minibatch_size if size is None else size
+        mb = {k: (v[sel] if torch.is_tensor(sel) else v[sel:sel + size])
+              for k, v in dataset.items() if k not in ("rnn_states", "cv_rnn_states")}
+        if states_key in dataset:
+            first = sel // self.seq_length
+            games = self.games_num if games is None else games
+            mb["rnn_states"] = tuple(x[:, first:first + games] for x in dataset[states_key])
+        return mb
+
+    def _forward_fn(self):
+        """``forward(mode, ...)``: the model's forwards, on its weights or,
+        under mixed_precision, on the weights rounded to bfloat16 (round to
+        nearest even) and back to float32 through a differentiable cast, so
+        that the gradients are rounded alike (ppo.py:844-851)."""
+        if not self.mixed_precision:
+            return self.model
+        rounded = {name: p.to(torch.bfloat16).to(torch.float32) if p.dtype == torch.float32 else p
+                   for name, p in self.model.named_parameters()}
+        return lambda mode, *args, **kwargs: torch.func.functional_call(self.model, rounded, (mode, *args), kwargs)
+
+    def _loss_and_kl(self, mb, entropy_coef, entropy_noise=None, aug_obs=None):
+        """Loss assembly (a2c_continuous.py:97-133, a2c_discrete.py:116-190;
+        ppo.py:838-969). ``entropy_noise``: the tanh policy's standard
+        normals for its sampled entropy; ``aug_obs``: the minibatch's
+        observations through the soft augmentation's transform. Returns the
+        scalar loss and detached diagnostics."""
         kw = {}
         if self.use_action_masks:
             kw["action_masks"] = mb["action_masks"]
         if self.sampled_entropy:
             kw["entropy_noise"] = entropy_noise
-        res = self.model.forward_train(mb["obses"], mb["actions"], **kw)
+        if self.is_rnn:
+            kw.update(rnn_states=mb["rnn_states"], dones=mb["dones"] if self.zero_rnn_on_done else None,
+                      seq_length=self.seq_length)
+        forward = self._forward_fn()
+        res = forward("forward_train", mb["obses"], mb["actions"], **kw)
         actor_loss_fn = L.smoothed_actor_loss if self.use_smooth_clamp else L.actor_loss
         a_loss = actor_loss_fn(
             mb["old_logp_actions"], res["prev_neglogp"], mb["advantages"], self.ppo, self.e_clip
         )
-        c_loss = L.critic_loss(
-            mb["old_values"], res["values"], self.e_clip, mb["returns"], self.clip_value
-        )
+        if self.has_value_loss:
+            c_loss = L.critic_loss(
+                mb["old_values"], res["values"], self.e_clip, mb["returns"], self.clip_value
+            )
+        else:
+            # the central value net owns the value loss (a2c_continuous.py:75)
+            c_loss = torch.zeros_like(res["values"])
         if self.is_continuous and self.bounds_loss_coef is not None:
             if self.bound_loss_type == "regularisation":
                 b_loss = L.reg_loss(res["mus"])
@@ -630,6 +864,19 @@ class PPOAgent:
             - entropy_coef * entropy_m
             + (self.bounds_loss_coef or 0.0) * b_loss_m
         )
+        if self.soft_aug is not None and aug_obs is not None:
+            # soft augmentation (soft_augmentation.py:18-31): the KL from the
+            # detached policy on the observations to the policy on their
+            # transform, and a value-consistency term
+            q = forward("forward_train", aug_obs, mb["actions"], **kw)
+            if self.is_continuous:
+                aug_kl = self.model.kl(res["mus"].detach(), res["sigmas"].detach(), q["mus"], q["sigmas"])
+            elif self.is_multi_discrete:
+                aug_kl = self.model.kl(tuple(x.detach() for x in res["logits"]), q["logits"])
+            else:
+                aug_kl = self.model.kl(res["logits"].detach(), q["logits"])
+            v_cons = (0.5 * torch.square(res["values"].detach() - q["values"])).sum(-1).mean()
+            total = total + self.soft_aug_coef * (aug_kl.mean() + v_cons)
         with torch.no_grad():
             if self.is_continuous:
                 kl = self.model.kl(res["mus"], res["sigmas"], mb["mus"], mb["sigmas"]).mean()
@@ -648,27 +895,33 @@ class PPOAgent:
         return total, aux
 
     def _update(self, state: PPOTrainState, dataset) -> Dict[str, torch.Tensor]:
-        """Minibatch epochs over ordered contiguous slices (train_epoch,
-        a2c_common.py:1269-1302; datasets.py)."""
+        """Minibatch epochs (train_epoch, a2c_common.py:1269-1302; datasets.py):
+        ordered contiguous slices, whole sequences with an RNN, or with
+        permute_batches a fresh permutation of the batch each mini-epoch."""
         legacy = self.schedule_type == "legacy"
         lr, ec = state.lr, state.entropy_coef
         max_norm = self.grad_norm if self.truncate_grads else None
         metrics = {k: torch.zeros((), dtype=torch.float32, device=self.device) for k in _METRIC_KEYS}
         diag = {"kl": [], "clip_frac": []}
         for _ in range(self.mini_epochs_num):
+            perm = self._permutation(state) if self.permute_batches else None
             ms = {k: [] for k in _METRIC_KEYS}
             for i in range(self.num_minibatches):
-                sl = slice(i * self.minibatch_size, (i + 1) * self.minibatch_size)
-                mb = {k: v[sl] for k, v in dataset.items()}
-                total, aux = self._loss_and_kl(mb, ec, self._entropy_noise(state))
-                grads = torch.autograd.grad(total, self.params)
+                start = i * self.minibatch_size
+                sel = start if perm is None else perm[start:start + self.minibatch_size]
+                mb = self._minibatch(dataset, sel)
+                total, aux = self._loss_and_kl(mb, ec, self._entropy_noise(state), self._augment(state, mb["obses"]))
+                # with a central value net the actor's value head has no
+                # gradient: zeros, as the JAX package's grad gives it
+                grads = torch.autograd.grad(total, self.params, allow_unused=True, materialize_grads=True)
                 adam_step(self.params, grads, state.opt_state, lr, max_norm, self.weight_decay)
                 if legacy:
                     if self.is_continuous:
                         # mu/sigma writeback (datasets.py:33-43), in place
                         # in the dataset rather than into a copy of it
-                        dataset["mus"][sl] = aux["mus"]
-                        dataset["sigmas"][sl] = aux["sigmas"]
+                        rows = slice(start, start + self.minibatch_size) if perm is None else sel
+                        dataset["mus"][rows] = aux["mus"]
+                        dataset["sigmas"][rows] = aux["sigmas"]
                     lr, ec = self.scheduler.update(lr, ec, state.epoch, state.frame, aux["kl"])
                 for k in _METRIC_KEYS:
                     ms[k].append(aux[k])
@@ -685,6 +938,20 @@ class PPOAgent:
             metrics["_diag"] = {k: torch.stack(v) for k, v in diag.items()}
         return metrics
 
+    def _permutation(self, state: PPOTrainState):
+        """One mini-epoch's permutation of the batch (permute_batches), from
+        the train state's generator."""
+        gen = state.generator
+        return torch.randperm(self.batch_size, generator=gen, device=gen.device).to(self.device)
+
+    def _augment(self, state: PPOTrainState, obs):
+        """One minibatch's observations through the soft augmentation's
+        transform, drawn from the train state's generator; None without
+        soft augmentation."""
+        if self.soft_aug is None:
+            return None
+        return self.soft_aug(state.generator, obs)
+
     def _entropy_noise(self, state: PPOTrainState):
         """Fresh standard normals for one minibatch of the tanh policy's
         sampled entropy (ppo.py:861-868), from the train state's generator;
@@ -695,10 +962,67 @@ class PPOAgent:
         noise = torch.randn((self.minibatch_size, self.actions_num), generator=gen, device=gen.device)
         return noise.to(self.device)
 
+    def _update_central_value(self, state: PPOTrainState, dataset):
+        """The central value net's epochs (central_value.py:246-339;
+        ppo.py:1134-1202): cv mini_epochs x (batch // minibatch) ordered
+        minibatches, whole sequences with an RNN; the clipped value loss on
+        the normalized returns; its own Adam. Returns the mean loss."""
+        size = self.cv_minibatch_size
+        keys = ("states", "old_values", "returns") + (("dones",) if self.cv_is_rnn else ())
+        cols = {k: dataset[k] for k in keys}
+        if self.cv_is_rnn:
+            cols["cv_rnn_states"] = dataset["cv_rnn_states"]
+        losses = []
+        for _ in range(self.cv_mini_epochs):
+            for i in range(self.cv_num_minibatches):
+                mb = self._minibatch(cols, i * size, size, "cv_rnn_states",
+                                     self.cv_games_num if self.cv_is_rnn else None)
+                kw = {}
+                if self.cv_is_rnn:
+                    kw = dict(rnn_states=mb["rnn_states"], dones=mb["dones"] if self.zero_rnn_on_done else None,
+                              seq_length=self.seq_length)
+                res = self.cv_model.forward_train(mb["states"], **kw)
+                loss = L.critic_loss(mb["old_values"], res["values"], self.cv_e_clip, mb["returns"],
+                                     self.cv_clip_value).mean()
+                grads = torch.autograd.grad(loss, self.cv_params)
+                adam_step(self.cv_params, grads, state.cv_opt, self.cv_lr, self.cv_max_norm)
+                losses.append(loss.detach())
+        return torch.stack(losses).mean()
+
+    def _update_rnd(self, state: PPOTrainState, dataset):
+        """The RND predictor's epochs (ppo.py:1099-1132): rnd mini_epochs x
+        (batch // minibatch) Adam steps over the rollout's observations,
+        normalized with the stats _prepare_dataset updated (the tail rows
+        are dropped). Returns the mean loss."""
+        obs = dataset["obses"]
+        with torch.no_grad():
+            obs_n = self.rnd.running_mean_std.normalize(obs.reshape(-1, obs.shape[-1]))
+        size = min(self.rnd_minibatch, obs_n.shape[0])
+        params = list(self.rnd.predictor.parameters())
+        losses = []
+        for _ in range(self.rnd_mini_epochs):
+            for i in range(max(obs_n.shape[0] // size, 1)):
+                loss = self.rnd.loss(obs_n[i * size:(i + 1) * size])
+                grads = torch.autograd.grad(loss, params)
+                adam_step(params, grads, state.rnd_opt, self.rnd_lr)
+                losses.append(loss.detach())
+        return torch.stack(losses).mean()
+
     def _finish_epoch(self, state: PPOTrainState, traj, last_values):
-        """prepare_dataset → minibatch updates → counters and metrics."""
+        """prepare_dataset → central value → RND → minibatch updates →
+        counters and metrics (ppo.py:1204-1300)."""
         dataset = self._prepare_dataset(state, traj, last_values)
+        # freeze_critic skips the central value net's training
+        # (central_value.py:253-255)
+        cval_loss = None
+        if self.has_central_value and not self.freeze_critic:
+            cval_loss = self._update_central_value(state, dataset)
+        rnd_loss = self._update_rnd(state, dataset) if self.rnd is not None else None
         metrics = self._update(state, dataset)
+        if rnd_loss is not None:
+            metrics["rnd_loss"] = rnd_loss
+        if cval_loss is not None:
+            metrics["cval_loss"] = cval_loss
         # PpoDiagnostics explained variance (diagnostics.py:18-60)
         metrics["explained_variance"] = MK.explained_variance(
             dataset["old_values"].reshape(-1), dataset["returns"].reshape(-1)
@@ -738,19 +1062,32 @@ class PPOAgent:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _host_rollout(self, state: PPOTrainState):
-        """horizon_length policy + host env steps. The policy runs on
-        ``rollout_device``; per step one copy brings the env's actions and
-        the values to the host and one takes the next observations, shaped
-        rewards and dones up. The episode accounting runs on the host, as
-        the JAX package's update_meters pass does it (ppo.py:1208-1248),
-        and its finished episodes reach the meters at the end. Returns the
-        trajectory and the bootstrap values on the agent's device; updates
-        ``state`` and ``_last_timing``."""
-        dev, model, observer = self.rollout_device, self._rollout_model, self.observer
+        """horizon_length policy + host env steps. The policy (and the
+        central value net) runs on ``rollout_device``; per step one copy
+        brings the env's actions and the values to the host and one takes
+        the next observations ({'obs', 'states'} of an asymmetric env
+        both), shaped rewards and dones up. The episode accounting runs on
+        the host, as the JAX package's update_meters pass does it
+        (ppo.py:1208-1248), and its finished episodes reach the meters at
+        the end. With an RNN the states are kept at every step t with t %
+        seq_length == 0 (ppo.py:1390-1392). Returns the trajectory and the
+        bootstrap values on the agent's device; updates ``state`` and
+        ``_last_timing``."""
+        dev, model, cv_model, observer = self.rollout_device, self._rollout_model, self._rollout_cv_model, self.observer
         if model is not self.model:
             model.load_state_dict(self.model.state_dict())  # this epoch's weights and stats
+        if cv_model is not self.cv_model:
+            cv_model.load_state_dict(self.cv_model.state_dict())
         T, N, V = self.horizon_length, self.num_actors, self.value_size
-        obs, dones = state.obs.to(dev), state.dones.to(dev)
+
+        def to_dev(x):
+            return None if x is None else tuple(t.to(dev) for t in x)
+
+        obs = ({k: v.to(dev) for k, v in state.obs.items()} if isinstance(state.obs, dict)
+               else state.obs.to(dev))
+        dones = state.dones.to(dev)
+        rnn, cv_rnn = to_dev(state.rnn_states), to_dev(state.cv_rnn_states)
+        snaps, cv_snaps = [], []
         kw = {}
         if self.use_action_masks:
             # the masks of the step's observations, read with them (ppo.py:1395-1399)
@@ -762,7 +1099,15 @@ class PPOAgent:
         step_time = 0.0  # the env's step alone (a2c_common.py:806-810)
         t_play0 = time.perf_counter()
         for t in range(T):
-            res = model.forward_play(obs, generator=state.generator, **kw)
+            if self.any_rnn and t % self.seq_length == 0:
+                snaps.append(rnn)
+                cv_snaps.append(cv_rnn)
+            res = model.forward_play(actor_obs(obs), generator=state.generator, **kw,
+                                     **self._rnn_kw(self.is_rnn, rnn, dones))
+            rnn = res["rnn_states"]
+            if self.has_central_value:
+                cv_res = cv_model.forward_play(obs["states"], **self._rnn_kw(self.cv_is_rnn, cv_rnn, dones))
+                res["values"], cv_rnn = cv_res["values"], cv_res["rnn_states"]
             env_actions = self._env_actions(res["actions"])
             host = torch.cat([env_actions.reshape(N, -1).to(torch.float32), res["values"]], dim=1).cpu().numpy()
             actions = host[:, :-V]
@@ -784,19 +1129,26 @@ class PPOAgent:
             not_done = 1.0 - new_dones.astype(np.float32)
             cur_r, cur_sr, cur_len = cur_r * not_done[:, None], cur_sr * not_done[:, None], cur_len * not_done
             # the next step's masks go up in the same copy
-            uploaded = self._upload(next_obs, shaped, new_dones,
-                                    *((self.vec_env.get_action_masks(),) if kw else ()))
-            step = {**res, **kw, "obses": obs, "dones": dones, "rewards": uploaded[1]}
+            next_obs, uploaded = upload_obs(self._upload, next_obs, shaped, new_dones,
+                                            *((self.vec_env.get_action_masks(),) if kw else ()))
+            step = {**res, **kw, "obses": actor_obs(obs), "dones": dones, "rewards": uploaded[0]}
+            if self.has_central_value:
+                step["states"] = obs["states"]
             for k, buf in traj.items():
                 buf[t] = step[k]
-            obs, dones = uploaded[0], uploaded[2]
+            obs, dones = next_obs, uploaded[1]
             if kw:
-                kw["action_masks"] = uploaded[3]
-        last_values = model.forward_play(obs, deterministic=True)["values"]
+                kw["action_masks"] = uploaded[2]
+        last_values = self._bootstrap_values(model, cv_model, obs, dones, rnn, cv_rnn)
+        self._stack_snapshots(traj, snaps, cv_snaps)
         self._last_timing = {"step_time": step_time, "play_time": time.perf_counter() - t_play0}
 
         to_dev = dict(device=self.device, dtype=torch.float32)
-        state.obs, state.dones = obs.to(self.device), dones.to(self.device)
+        state.obs = ({k: v.to(self.device) for k, v in obs.items()} if isinstance(obs, dict)
+                     else obs.to(self.device))
+        state.dones = dones.to(self.device)
+        state.rnn_states, state.cv_rnn_states = (None if x is None else tuple(t.to(self.device) for t in x)
+                                                 for x in (rnn, cv_rnn))
         state.current_rewards, state.current_shaped_rewards, state.current_lengths = (
             torch.as_tensor(x, **to_dev) for x in (cur_r, cur_sr, cur_len))
         if finished:
@@ -804,7 +1156,8 @@ class PPOAgent:
             meters_append(state.game_rewards, torch.as_tensor(r, **to_dev))
             meters_append(state.game_shaped_rewards, torch.as_tensor(sr, **to_dev))
             meters_append(state.game_lengths, torch.as_tensor(length[:, None], **to_dev))
-        return {k: v.to(self.device) for k, v in traj.items()}, last_values.to(self.device)
+        return ({k: (tuple(t.to(self.device) for t in v) if isinstance(v, tuple) else v.to(self.device))
+                 for k, v in traj.items()}, last_values.to(self.device))
 
     def host_train_epoch(self, state: PPOTrainState):
         """One PPO epoch over a host env: the host rollout, then GAE and the
@@ -860,17 +1213,39 @@ class PPOAgent:
     def set_weights(self, weights):
         self.model.load_state_dict(weights)
 
+    def _sections(self) -> dict:
+        """The checkpoint sections beside 'model': the central value net
+        (its state_dict under 'model.', as the reference's
+        CentralValueTrain holds it) and RND's target, predictor and
+        normalizer."""
+        out = {}
+        if self.has_central_value:
+            out[CV_SECTION] = {f"model.{k}": v.detach().clone() for k, v in self.cv_model.state_dict().items()}
+        if self.rnd is not None:
+            out[RND_SECTION] = {k: v.detach().clone() for k, v in self.rnd.state_dict().items()}
+        return out
+
+    def _load_sections(self, payload: dict, rnd: bool = True):
+        """The central value net and (with ``rnd``) RND from a checkpoint's
+        sections, where it has them."""
+        if self.has_central_value and CV_SECTION in payload:
+            self.cv_model.load_state_dict({k[len("model."):]: v for k, v in payload[CV_SECTION].items()})
+        if rnd and self.rnd is not None and RND_SECTION in payload:
+            self.rnd.load_state_dict(payload[RND_SECTION])
+
     def get_full_state_weights(self, state: PPOTrainState,
                                last_mean_rewards: float = -100500.0) -> dict:
         """The full resumable training state (a2c_common.py:650-668) as
-        plain containers of CPU tensors: weights, optimizer moments,
-        counters, generators, env state and meters."""
+        plain containers of CPU tensors: weights (the central value net's
+        and RND's in their sections), optimizer moments, counters,
+        generators, env state and meters."""
         out = {
             "state": ckpt.tree_to_plain(state),
             "weights": ckpt.tree_to_plain(self.get_weights()),
             "epoch": int(state.epoch),
             "frame": int(state.frame),
             "last_mean_rewards": last_mean_rewards,
+            **ckpt.tree_to_plain(self._sections()),
         }
         if self.is_host_env and hasattr(self.vec_env, "get_env_state"):  # ppo.py:1594
             out["env_state"] = self.vec_env.get_env_state()
@@ -887,7 +1262,32 @@ class PPOAgent:
         if self.is_host_env and full.get("env_state") is not None and hasattr(self.vec_env, "set_env_state"):
             self.vec_env.set_env_state(full["env_state"])
         self.set_weights(full["weights"])
+        self._load_sections(full)
         return new
+
+    def restore_central_value_only(self, checkpoint: str, state: PPOTrainState,
+                                   payload: Optional[dict] = None) -> PPOTrainState:
+        """load_critic_only (torch_runner.py:46-49; ppo.py:1693-1708): the
+        central value net's weights, normalizers and Adam moments from a
+        checkpoint, nothing else."""
+        if not self.has_central_value:
+            raise ValueError("Loading critic only works only for asymmetric actor critic")
+        payload = ckpt.read_payload(checkpoint) if payload is None else payload
+        if CV_SECTION not in payload:
+            raise ValueError(f"checkpoint {checkpoint} holds no central value net ('{CV_SECTION}')")
+        self._load_sections(payload, rnd=False)
+        saved_opt = (payload.get("state") or {}).get("cv_opt")
+        if saved_opt is not None:
+            state.cv_opt = ckpt.tree_from_plain(state.cv_opt, saved_opt)
+        return state
+
+    def reset_optimizer(self, state: PPOTrainState) -> PPOTrainState:
+        """Fresh Adam moments for the policy and the central value net
+        (ppo.py:1710-1717)."""
+        state.opt_state = adam_init(self.params)
+        if self.has_central_value:
+            state.cv_opt = adam_init(self.cv_params)
+        return state
 
     def override_sigma(self, sigma: float):
         """--sigma CLI override (_override_sigma, torch_runner.py:52-60)."""
@@ -898,16 +1298,18 @@ class PPOAgent:
         fill_sigma(self.model, sigma)
 
     def _save(self, path: str, state: PPOTrainState, meta: dict):
-        ckpt.save_checkpoint(path, state, meta, weights=self.model.state_dict())
+        ckpt.save_checkpoint(path, state, meta, weights=self.model.state_dict(), sections=self._sections())
 
     # ------------------------------------------------------------------
     # host train loop (ContinuousA2CBase.train, a2c_common.py:1372-1492)
     # ------------------------------------------------------------------
     def train(self, checkpoint: Optional[str] = None, stop_fn=None, writer=None,
-              max_epochs: Optional[int] = None, sigma: Optional[float] = None):
+              max_epochs: Optional[int] = None, sigma: Optional[float] = None,
+              load_critic_only: bool = False):
         """Train until max_epochs / max_frames / score_to_win / stop_fn.
-        Returns (last_mean_rewards, epoch_num); the final state stays in
-        ``self.last_state``."""
+        With ``load_critic_only`` the checkpoint gives the central value net
+        alone. Returns (last_mean_rewards, epoch_num); the final state stays
+        in ``self.last_state``."""
         config = self.config
         experiment_name = config.get("name", config.get("full_experiment_name", self.base_name))
         experiment_dir = os.path.join(config.get("train_dir", "runs"), experiment_name)
@@ -916,10 +1318,13 @@ class PPOAgent:
 
         state = self.init_state()
         last_mean_rewards = -100500.0  # reference sentinel
-        if checkpoint:
+        if checkpoint and load_critic_only:
+            state = self.restore_central_value_only(checkpoint, state)
+        elif checkpoint:
             payload = ckpt.read_payload(checkpoint)
             weights, meta = ckpt.load_checkpoint_weights(checkpoint, payload=payload)
             self.set_weights(weights)
+            self._load_sections(payload)
             if "state" in payload:
                 state, meta = ckpt.load_checkpoint(checkpoint, state, payload=payload)
                 last_mean_rewards = meta.get("last_mean_rewards", last_mean_rewards)

@@ -198,11 +198,7 @@ class SACAgent:
 
         self.num_actors = config["num_actors"]
         if vec_env is None:
-            vec_env = env_registry.create_vec_env(
-                config["env_name"], self.num_actors,
-                vecenv_type=config.get("vecenv_type"), device=self.device,
-                **config.get("env_config", {}),
-            )
+            vec_env = env_registry.create_vec_env_from_config(config, self.num_actors, self.device)
         self.vec_env = vec_env
         self.is_host_env = bool(getattr(vec_env, "is_host_env", False))
         # the host path's pipeline: the transition waiting for the next

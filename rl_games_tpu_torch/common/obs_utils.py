@@ -1,8 +1,10 @@
 """Small helpers shared by the trainers and the players.
 
-Port of rl_games_tpu/common/obs_utils.py: ``to_device_obs`` (:13-24),
-through ``HostUpload``, takes a host env's numpy observations to the
-device; ``sigma_override_blocked`` and ``fill_sigma`` (:26-55) serve the
+Port of rl_games_tpu/common/obs_utils.py: ``to_device_obs`` (:13-24) and
+``upload_obs``, through ``HostUpload``, take a host env's numpy
+observations to the device (an asymmetric env's {'obs', 'states'} both in
+the one copy; other dict observations wait for A8);
+``sigma_override_blocked`` and ``fill_sigma`` (:26-55) serve the
 ``--sigma`` override.
 """
 
@@ -53,12 +55,23 @@ class HostUpload:
         return out
 
 
-def to_device_obs(obs, device, upload: Optional[HostUpload] = None) -> torch.Tensor:
-    """A host env's observations as a float32 tensor on ``device``, through
-    ``upload`` (a new ``HostUpload`` when None)."""
+def upload_obs(upload: HostUpload, obs, *arrays):
+    """A host env's observations and further ``arrays`` to ``upload``'s
+    device in one copy: (the observations, a tensor or an {'obs',
+    'states'} dict of tensors; the arrays' tensors, a list)."""
     if isinstance(obs, dict):
-        unported("dict observations from a host env", "A8")
-    return (upload or HostUpload(device))(obs)[0]
+        if set(obs) != {"obs", "states"}:
+            unported("dict observations from a host env", "A8")
+        out = upload(obs["obs"], obs["states"], *arrays)
+        return {"obs": out[0], "states": out[1]}, out[2:]
+    out = upload(obs, *arrays)
+    return out[0], out[1:]
+
+
+def to_device_obs(obs, device, upload: Optional[HostUpload] = None):
+    """A host env's observations as float32 tensors on ``device`` (see
+    ``upload_obs``), through ``upload`` (a new ``HostUpload`` when None)."""
+    return upload_obs(upload or HostUpload(device), obs)[0]
 
 
 def sigma_override_blocked(is_continuous: bool,

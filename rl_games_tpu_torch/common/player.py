@@ -11,7 +11,10 @@ the mean (deterministic; tanh(mu) for the tanh policy) or a sample, clipped
 and rescaled to the env's bounds; discrete and multi-discrete ones the
 argmax of the (masked, with ``use_action_masks``) logits (deterministic) or
 a sample, passed as they are. The policy sees the 'obs' entry of the
-asymmetric envs' {'obs', 'states'} observations. With
+asymmetric envs' {'obs', 'states'} observations. A recurrent policy
+plays as the JAX package's does: every step's forward starts from zero
+states (the JAX player passes no ``rnn_states``, player.py:230-255, so its
+RNNCore starts from zeros; the reference's player would carry them). With
 ``network.mlp.fused: true`` every step's policy forward is one launch of
 the fused-MLP kernel (two with ``network.separate``). ``SACPlayer`` plays a SAC
 actor through the same loop. Over a host env (GYMNASIUM, CPUENV,
@@ -61,11 +64,7 @@ class BasePlayer:
         # masked-action inference (players.py get_masked_action)
         self.use_action_masks = config.get("use_action_masks", False)
 
-        self.vec_env = env_registry.create_vec_env(
-            config["env_name"], self.num_actors,
-            vecenv_type=config.get("vecenv_type"), device=self.device,
-            **config.get("env_config", {}),
-        )
+        self.vec_env = env_registry.create_vec_env_from_config(config, self.num_actors, self.device)
         self.is_host_env = bool(getattr(self.vec_env, "is_host_env", False))
         if self.is_host_env:  # the policy goes where host_inference_device puts it
             self.device = rollout_device(config.get("host_inference_device", "auto"), self.device,
@@ -171,10 +170,9 @@ class BasePlayer:
         cur = np.zeros((n, self.value_size), np.float32)
         returns, steps = [], 0
         while len(returns) < games_num and steps < self.max_steps:
-            if isinstance(host_obs, dict):
-                unported("dict observations from a host env", "A8")
             # the observations and, with use_action_masks, the masks in one copy
-            obs, *masks = upload(host_obs, *((self.vec_env.get_action_masks(),) if self.use_action_masks else ()))
+            obs, masks = obs_utils.upload_obs(upload, host_obs, *((self.vec_env.get_action_masks(),)
+                                                                  if self.use_action_masks else ()))
             actions = self._play_actions(act_generator, obs, masks=masks[0] if masks else None).cpu().numpy()
             host_obs, rewards, dones, _ = self.vec_env.step(actions)
             cur += np.asarray(rewards, np.float32).reshape(n, -1)

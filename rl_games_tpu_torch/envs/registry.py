@@ -33,6 +33,19 @@ def register_vecenv_type(name: str, func: Callable):
     VECENV_TYPES[name] = func
 
 
+def create_vec_env_from_config(config: dict, num_actors: int, device=None):
+    """``create_vec_env`` for a config's ``env_name``, ``vecenv_type`` and
+    ``env_config``. A config that needs a missing simulator gets its
+    ImportError first: such an env_config may hold the simulator's own
+    ``device`` or ``env_name``, which are no keywords here."""
+    kwargs = dict(config.get("env_config", {}) or {})
+    env_name, vecenv_type = config["env_name"], config.get("vecenv_type")
+    vtype = vecenv_type or ENV_CONFIGURATIONS.get(env_name, {}).get("vecenv_type")
+    if vtype in MISSING_SIMULATOR_TYPES:
+        VECENV_TYPES[vtype]({"env_id": env_name}, num_actors)
+    return create_vec_env(env_name, num_actors, vecenv_type=vecenv_type, device=device, **kwargs)
+
+
 def create_vec_env(env_name: str, num_actors: int, vecenv_type: str = None, device=None, **kwargs):
     """vecenv.create_vec_env (:379-391): a vec env of ``num_actors`` envs.
     A device env lies on ``device`` (CUDA when None); a host env lies on
@@ -231,6 +244,7 @@ register("CartPoleMaskedVelocity-v1", {"vecenv_type": "MASKED_VELOCITY_CARTPOLE"
 # external-simulator bindings that the reference reaches through packages
 # outside this image (:266-302): their configs resolve to an ImportError
 # naming the missing dependency instead of a gym.make failure
+MISSING_SIMULATOR_TYPES = set()
 for _sim_name, _pkg, _hint in (
     ("smac", "SMAC (StarCraft II)", ""),
     ("smac_cnn", "SMAC (StarCraft II)", ""),
@@ -240,6 +254,7 @@ for _sim_name, _pkg, _hint in (
     ("envpool", "envpool", " The GYMNASIUM / CPUENV / DMCONTROL backends cover its env zoo in-tree."),
     ("brax", "brax", " The device envs (Ant2D, Cheetah2D, Walker2D) are the in-tree brax-class analogs."),
     ("minigrid", "minigrid", ""),
+    ("minigrid_env", "minigrid", ""),
     ("mjlab_go1_velocity", "mjlab (MuJoCo-Warp)", ""),
     ("mjlab_g1_velocity", "mjlab (MuJoCo-Warp)", ""),
     ("mjlab_lift_cube_yam", "mjlab (MuJoCo-Warp)", ""),
@@ -249,6 +264,10 @@ for _sim_name, _pkg, _hint in (
     _vt = f"_MISSING_{_sim_name.upper()}"
     register_vecenv_type(_vt, _missing_sim(_sim_name, _pkg, _hint))
     register(_sim_name, {"vecenv_type": _vt})
+    MISSING_SIMULATOR_TYPES.add(_vt)
+# the reference's vecenv type of the mjlab configs (vecenv_type: MJLAB)
+register_vecenv_type("MJLAB", _missing_sim("mjlab", "mjlab (MuJoCo-Warp)"))
+MISSING_SIMULATOR_TYPES.add("MJLAB")
 
 # the multi-agent and self-play envs (A12)
 for _name, _vtype in (("multiwalker_env", "MULTIWALKER"), ("connect4_env", "CONNECT4"),

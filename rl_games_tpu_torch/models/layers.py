@@ -1,11 +1,12 @@
 """Building-block layers for the config-driven network builder.
 
 Port of rl_games_tpu/models/layers.py :22-195, ``FusedMLP`` and
-``build_mlp`` (:223-270), ``SpatialSoftArgmax`` and ``CNN`` (:279-363; the
-reference's network_builder.py:50-73,110-209, d2rl.py, spatial_softmax.py):
-activation and initializer factories, the Linear/Conv init convention, the
-sequential MLP, its fused form and the D2RL dense-skip MLP, and the conv
-stacks. Modules are named as the reference's ``nn.Sequential`` names them
+``build_mlp`` (:223-270), ``SpatialSoftArgmax`` and ``CNN`` (:279-363),
+``RNNCore`` and ``default_rnn_state`` (:605-703; the reference's
+network_builder.py:50-73,110-209, d2rl.py, spatial_softmax.py,
+recurrent.py): activation and initializer factories, the Linear/Conv init
+convention, the sequential MLP, its fused form and the D2RL dense-skip MLP,
+the conv stacks and the done-masked recurrent core. Modules are named as the reference's ``nn.Sequential`` names them
 (Linear or Conv at 0, activation at 1, [LayerNorm at 2], ...; a D2RL MLP's
 ``linears.{i}`` and ``norm_layers.{i}``), so a port ``state_dict()`` has the
 reference checkpoint layout. The conv stacks run over NCHW (NCL for
@@ -124,10 +125,13 @@ def reset_layer(layer: nn.Module, generator=None):
 
 def reset_parameters(module: nn.Module, generator=None):
     """Redraw every Linear and conv made by ``make_dense`` / ``CNN`` and
-    reset LayerNorms, in module order, from one generator."""
+    every ``RNNCore``, and reset LayerNorms, in module order, from one
+    generator."""
     for m in module.modules():
         if hasattr(m, "weight_init"):
             reset_layer(m, generator)
+        elif isinstance(m, RNNCore):
+            m.reset_parameters(generator)
         elif isinstance(m, nn.LayerNorm):
             m.reset_parameters()
 
@@ -318,3 +322,146 @@ class CNN(nn.Sequential):
                 x = torch.cat([x, xx, yy], dim=1)
             x = m(x)
         return x
+
+
+# ---------------------------------------------------------------------------
+# Done-masked recurrent core (layers.py:605-703)
+# ---------------------------------------------------------------------------
+
+# gates per cell, in the row order of the reference checkpoint's tensors
+# (torch's nn.LSTM: i, f, g, o; nn.GRU: r, z, n)
+RNN_GATES = {"lstm": 4, "gru": 3}
+
+
+def _no_gradient(grad):
+    return torch.zeros_like(grad)
+
+
+def _n_gate_gradient(grad):
+    """A GRU bias_hh's gradient kept on its n block only."""
+    return torch.cat([torch.zeros_like(grad[: 2 * grad.shape[0] // 3]), grad[2 * grad.shape[0] // 3:]])
+
+
+class RNNWeights(nn.Module):
+    """The cell tensors of a stack, named as the reference checkpoint names
+    them (its nn.LSTM / nn.GRU): ``weight_ih_l{k}`` [G·units, in],
+    ``weight_hh_l{k}`` [G·units, units], ``bias_ih_l{k}``, ``bias_hh_l{k}``
+    [G·units].
+
+    flax's cells keep one bias where torch's keep two: the LSTM's on the
+    hidden side, the GRU's r and z biases on the input side (its n gate has
+    both, b_in and b_hn). The other copy is kept in the reference's layout
+    (the cells add the two) but takes no gradient, so that an update moves
+    the sum as the JAX package moves its one bias; it stays at its value
+    (0 unless loaded)."""
+
+    def __init__(self, kind: str, in_features: int, units: int, num_layers: int, device=None):
+        super().__init__()
+        rows = RNN_GATES[kind] * units
+        for k in range(num_layers):
+            d = in_features if k == 0 else units
+            f32 = dict(dtype=torch.float32, device=device)
+            self.register_parameter(f"weight_ih_l{k}", nn.Parameter(torch.empty((rows, d), **f32)))
+            self.register_parameter(f"weight_hh_l{k}", nn.Parameter(torch.empty((rows, units), **f32)))
+            self.register_parameter(f"bias_ih_l{k}", nn.Parameter(torch.zeros(rows, **f32)))
+            self.register_parameter(f"bias_hh_l{k}", nn.Parameter(torch.zeros(rows, **f32)))
+            if kind == "lstm":
+                getattr(self, f"bias_ih_l{k}").register_hook(_no_gradient)
+            else:
+                getattr(self, f"bias_hh_l{k}").register_hook(_n_gate_gradient)
+
+    def layer(self, k: int):
+        return tuple(getattr(self, f"{name}_l{k}") for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+
+
+class RNNCore(nn.Module):
+    """Multi-layer LSTM / GRU / identity unrolled over time with done masking
+    (``RNNCore`` and ``_StackStep``, layers.py:605-703).
+
+    forward(x [num_seqs, seq_len, F], states, dones [num_seqs, seq_len] or
+    None) -> (out [num_seqs, seq_len, units], new_states). ``states`` is the
+    reference's layout: (h, c) for an LSTM, (h,) for a GRU, each [layers,
+    num_seqs, units]; None starts from zeros. A layer's carry is zeroed
+    before a step whose done is set. The time loop is written out (one
+    addmm over the gate blocks a step and layer): cuDNN's fused RNN cannot
+    zero the carry in mid-sequence. The cells compute what flax's do: the
+    LSTM's c' = σ(f)·c + σ(i)·tanh(g), h' = σ(o)·tanh(c'); the GRU's
+    n = tanh(W_in x + b_in + r ⊙ (W_hn h + b_hn)), h' = (1 − z)·n + z·h.
+    The input projection of a layer is one product over every step;
+    stacked layers run one after the other over the whole sequence."""
+
+    def __init__(self, kind: str, in_features: int, units: int, num_layers: int = 1, device=None):
+        super().__init__()
+        if kind not in ("lstm", "gru", "identity"):
+            raise ValueError(f"rnn.name must be lstm, gru or identity, got {kind!r}")
+        self.kind, self.units, self.num_layers = kind, units, num_layers
+        self.out_features = in_features if kind == "identity" else units
+        self.rnn = None if kind == "identity" else RNNWeights(kind, in_features, units, num_layers, device)
+
+    def reset_parameters(self, generator=None):
+        """flax's cell init: lecun-normal input kernels, an orthogonal
+        recurrent kernel per gate, zero biases."""
+        if self.rnn is None:
+            return
+        with torch.no_grad():
+            for k in range(self.num_layers):
+                w_ih, w_hh, b_ih, b_hh = self.rnn.layer(k)
+                _variance_scaling_truncated(w_ih, 1.0, generator)
+                for block in w_hh.split(self.units):
+                    nn.init.orthogonal_(block, generator=generator)
+                b_ih.zero_()
+                b_hh.zero_()
+
+    def forward(self, x, states=None, dones=None):
+        if self.kind == "identity":
+            return x, states
+        num_seqs, seq_len, _ = x.shape
+        if states is None:
+            states = default_rnn_state(self.kind, self.num_layers, num_seqs, self.units, x.device)
+        keep = None if dones is None else (1.0 - dones.to(x.dtype)).t()[..., None]  # [L, S, 1]
+        lstm = self.kind == "lstm"
+        new_h, new_c = [], []
+        seq = x
+        for k in range(self.num_layers):
+            w_ih, w_hh, b_ih, b_hh = self.rnn.layer(k)
+            # the layer's input products for every step at once, time-major
+            xw = torch.addmm(b_ih, seq.transpose(0, 1).reshape(seq_len * num_seqs, -1), w_ih.t())
+            xw = xw.view(seq_len, num_seqs, -1)
+            h = states[0][k]
+            c = states[1][k] if lstm else None
+            outs = []
+            for t in range(seq_len):
+                if keep is not None:
+                    h = h * keep[t]
+                    if lstm:
+                        c = c * keep[t]
+                hw = torch.addmm(b_hh, h, w_hh.t())
+                if lstm:
+                    i, f, g, o = (xw[t] + hw).chunk(4, dim=1)
+                    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                    h = torch.sigmoid(o) * torch.tanh(c)
+                else:
+                    xr, xz, xn = xw[t].chunk(3, dim=1)
+                    hr, hz, hn = hw.chunk(3, dim=1)
+                    r = torch.sigmoid(xr + hr)
+                    z = torch.sigmoid(xz + hz)
+                    n = torch.tanh(xn + r * hn)
+                    h = (1.0 - z) * n + z * h
+                outs.append(h)
+            seq = torch.stack(outs, dim=1)  # [S, L, units]
+            new_h.append(h)
+            if lstm:
+                new_c.append(c)
+        new_states = (torch.stack(new_h), torch.stack(new_c)) if lstm else (torch.stack(new_h),)
+        return seq, new_states
+
+
+def default_rnn_state(kind: str, num_layers: int, num_seqs: int, units: int, device=None):
+    """Zero initial states in the reference layout (layers.py:697-703): (h, c)
+    for an LSTM, (h,) otherwise, each [layers, num_seqs, units]; the
+    identity core's are one unit wide."""
+    if kind == "identity":
+        units = 1
+    shape = (num_layers, num_seqs, units)
+    zeros = lambda: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+    return (zeros(), zeros()) if kind == "lstm" else (zeros(),)

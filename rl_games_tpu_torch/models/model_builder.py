@@ -3,7 +3,8 @@
 Port of rl_games_tpu/models/model_builder.py (the reference's
 model_builder.py:9-60) for the policy models over the ``actor_critic``
 torso: ``continuous_a2c_logstd``, ``continuous_a2c``,
-``continuous_a2c_tanh``, ``discrete_a2c`` and ``multi_discrete_a2c``.
+``continuous_a2c_tanh``, ``discrete_a2c``, ``multi_discrete_a2c`` and the
+value-only ``central_value``.
 ``ModelBuilder.load(params)`` builds the torso from ``params['network']``
 and wraps it with the model named by ``params['model']['name']``.
 """
@@ -63,6 +64,7 @@ register_model("continuous_a2c", _model_factory(models.ModelA2CContinuous))
 register_model("continuous_a2c_tanh", _model_factory(models.ModelA2CContinuousTanh))
 register_model("discrete_a2c", _model_factory(models.ModelA2C))
 register_model("multi_discrete_a2c", _model_factory(models.ModelA2CMultiDiscrete))
+register_model("central_value", _model_factory(models.ModelCentralValue))
 
 
 class ModelBuilder:
@@ -71,5 +73,5 @@ class ModelBuilder:
     def load(self, params: dict, **build_kwargs):
         model_name = params["model"]["name"]
         if model_name not in MODEL_REGISTRY:
-            unported(f"model '{model_name}'", "A9" if model_name == "central_value" else "A8")
+            unported(f"model '{model_name}'", "A8")
         return MODEL_REGISTRY[model_name](dict(params["network"]), **build_kwargs)

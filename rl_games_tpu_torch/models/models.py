@@ -1,9 +1,12 @@
 """Model wrappers: distribution head and normalizers over the network torso.
 
-Port of rl_games_tpu/models/models.py ``NormState`` .. ``ModelA2CMultiDiscrete``
-(:36-412; the reference's models.py:16-200,203-348,351-407): the discrete
-model with its optional action masks, the multi-discrete one, and the
-continuous ones (log-std, std and the Brax-style tanh policy). The JAX
+Port of rl_games_tpu/models/models.py ``NormState`` .. ``ModelCentralValue``
+(:36-432; the reference's models.py:16-200,203-348,351-448): the discrete
+model with its optional action masks, the multi-discrete one, the
+continuous ones (log-std, std and the Brax-style tanh policy) and the
+value-only central value model. Every forward takes the recurrent torso's
+``rnn_states``, ``dones`` and ``seq_length`` (models.py:139-190) and
+returns the new states as 'rnn_states'. The JAX
 package passes ``(params, norm)`` through pure functions; here the model is
 an ``nn.Module`` that owns both: the torso as ``a2c_network`` and the
 normalizer states (the JAX ``NormState``) as ``running_mean_std`` and
@@ -43,6 +46,22 @@ class BaseModel(nn.Module):
         if normalize_value:
             self.value_mean_std = RunningMeanStd((value_size,), device=device)
 
+    def forward(self, mode: str, *args, **kwargs):
+        """``model(mode, ...)`` is ``model.<mode>(...)``: the call that
+        ``torch.func.functional_call`` makes, so that a forward can run on
+        substituted parameters (mixed precision's rounded weights)."""
+        return getattr(self, mode)(*args, **kwargs)
+
+    # -- the recurrent state (models.py:139-145) -----------------------------
+    def is_rnn(self) -> bool:
+        return self.a2c_network.is_rnn()
+
+    def get_default_rnn_state(self, num_seqs: int):
+        return self.a2c_network.get_default_rnn_state(num_seqs, self.a2c_network.value.weight.device)
+
+    def _net(self, obs, rnn_states=None, dones=None, seq_length: int = 1):
+        return self.a2c_network(self.norm_obs(obs), rnn_states=rnn_states, dones=dones, seq_length=seq_length)
+
     # -- normalizer state (models.py:44-90) ----------------------------------
     def reset_parameters(self, generator=None):
         """Draw fresh torso weights and reset both normalizers."""
@@ -75,22 +94,25 @@ class ModelA2C(BaseModel):
     torso's logits, with optional action masks (a masked action gets the
     logit -1e8 and no entropy)."""
 
-    def forward_train(self, obs, prev_actions, action_masks=None):
+    def forward_train(self, obs, prev_actions, action_masks=None, rnn_states=None, dones=None,
+                      seq_length: int = 1):
         """The reference's train dict (models.py:95-125); ``logits`` are the
         log-probabilities, values stay normalized."""
-        out = self.a2c_network(self.norm_obs(obs))
+        out = self._net(obs, rnn_states, dones, seq_length)
         logits = out["logits"]
         return {
             "prev_neglogp": D.categorical_neglogp(logits, prev_actions, action_masks),
             "values": out["value"],
             "entropy": D.categorical_entropy(logits, action_masks),
             "logits": D.categorical_log_probs(logits, action_masks),
+            "rnn_states": out["rnn_states"],
         }
 
-    def forward_play(self, obs, generator=None, deterministic: bool = False, action_masks=None):
+    def forward_play(self, obs, generator=None, deterministic: bool = False, action_masks=None,
+                     rnn_states=None, dones=None, seq_length: int = 1):
         """Sampled (or, deterministic, the argmax of the masked logits)
         actions with their neglogp and denormalized values."""
-        out = self.a2c_network(self.norm_obs(obs))
+        out = self._net(obs, rnn_states, dones, seq_length)
         logits = out["logits"]
         if deterministic:
             actions = torch.argmax(D.masked_logits(logits, action_masks), dim=-1)
@@ -101,6 +123,7 @@ class ModelA2C(BaseModel):
             "values": self.denorm_value(out["value"]),
             "actions": actions,
             "logits": D.categorical_log_probs(logits, action_masks),
+            "rnn_states": out["rnn_states"],
         }
 
     @staticmethod
@@ -126,8 +149,9 @@ class ModelA2CMultiDiscrete(BaseModel):
     action dim; the heads' log-probabilities and entropies sum. Actions
     are [B, heads] integers."""
 
-    def forward_train(self, obs, prev_actions, action_masks=None):
-        out = self.a2c_network(self.norm_obs(obs))
+    def forward_train(self, obs, prev_actions, action_masks=None, rnn_states=None, dones=None,
+                      seq_length: int = 1):
+        out = self._net(obs, rnn_states, dones, seq_length)
         logits_list = out["logits"]
         masks = _split_masks(action_masks, len(logits_list))
         return {
@@ -136,10 +160,12 @@ class ModelA2CMultiDiscrete(BaseModel):
             "values": out["value"],
             "entropy": sum(D.categorical_entropy(l, masks[i]) for i, l in enumerate(logits_list)),
             "logits": tuple(D.categorical_log_probs(l, masks[i]) for i, l in enumerate(logits_list)),
+            "rnn_states": out["rnn_states"],
         }
 
-    def forward_play(self, obs, generator=None, deterministic: bool = False, action_masks=None):
-        out = self.a2c_network(self.norm_obs(obs))
+    def forward_play(self, obs, generator=None, deterministic: bool = False, action_masks=None,
+                     rnn_states=None, dones=None, seq_length: int = 1):
+        out = self._net(obs, rnn_states, dones, seq_length)
         logits_list = out["logits"]
         masks = _split_masks(action_masks, len(logits_list))
         actions, neglogp = [], 0.0
@@ -155,6 +181,7 @@ class ModelA2CMultiDiscrete(BaseModel):
             "values": self.denorm_value(out["value"]),
             "actions": torch.stack(actions, dim=-1),
             "logits": tuple(D.categorical_log_probs(l, masks[i]) for i, l in enumerate(logits_list)),
+            "rnn_states": out["rnn_states"],
         }
 
     @staticmethod
@@ -175,32 +202,35 @@ class ModelA2CContinuousLogStd(BaseModel):
         self.logstd_bounds = sc.get("logstd_bounds", None)
         self.sigma_parametrization = sc.get("sigma_parametrization", "exp")
 
-    def _dist_params(self, obs):
-        out = self.a2c_network(self.norm_obs(obs))
+    def _dist_params(self, out):
         sigma, logstd = D.apply_sigma_parametrization(
             out["sigma_raw"],
             parametrization=self.sigma_parametrization,
             min_sigma=self.min_sigma,
             logstd_bounds=self.logstd_bounds,
         )
-        return out, out["mu"], sigma, logstd
+        return out["mu"], sigma, logstd
 
-    def forward_train(self, obs, prev_actions):
+    def forward_train(self, obs, prev_actions, rnn_states=None, dones=None, seq_length: int = 1):
         """The reference's train dict (models.py:313-343); values stay in the
         normalized space the value loss works in."""
-        out, mu, sigma, logstd = self._dist_params(obs)
+        out = self._net(obs, rnn_states, dones, seq_length)
+        mu, sigma, logstd = self._dist_params(out)
         return {
             "prev_neglogp": D.normal_neglogp(prev_actions, mu, sigma, logstd),
             "values": out["value"],
             "entropy": D.normal_entropy(logstd),
             "mus": mu,
             "sigmas": sigma,
+            "rnn_states": out["rnn_states"],
         }
 
-    def forward_play(self, obs, generator=None, deterministic: bool = False):
+    def forward_play(self, obs, generator=None, deterministic: bool = False, rnn_states=None, dones=None,
+                     seq_length: int = 1):
         """Sampled (or, deterministic, mean) actions with their neglogp and
         denormalized values."""
-        out, mu, sigma, logstd = self._dist_params(obs)
+        out = self._net(obs, rnn_states, dones, seq_length)
+        mu, sigma, logstd = self._dist_params(out)
         actions = mu if deterministic else D.normal_sample(mu, sigma, generator)
         return {
             "neglogpacs": D.normal_neglogp(actions, mu, sigma, logstd),
@@ -208,6 +238,7 @@ class ModelA2CContinuousLogStd(BaseModel):
             "actions": actions,
             "mus": mu,
             "sigmas": sigma,
+            "rnn_states": out["rnn_states"],
         }
 
     @staticmethod
@@ -220,10 +251,9 @@ class ModelA2CContinuous(ModelA2CContinuousLogStd):
     """'continuous_a2c' (models.py:208-221): the sigma head's output (after
     sigma_activation, e.g. softplus) is the std itself."""
 
-    def _dist_params(self, obs):
-        out = self.a2c_network(self.norm_obs(obs))
+    def _dist_params(self, out):
         sigma = out["sigma_raw"]
-        return out, out["mu"], sigma, torch.log(sigma)
+        return out["mu"], sigma, torch.log(sigma)
 
 
 class ModelA2CContinuousTanh(BaseModel):
@@ -239,28 +269,31 @@ class ModelA2CContinuousTanh(BaseModel):
         super().__init__(a2c_network, **kwargs)
         self.min_std = float((space_cfg or {}).get("min_std", 0.001))
 
-    def _dist(self, obs):
-        out = self.a2c_network(self.norm_obs(obs))
+    def _dist(self, obs, rnn_states=None, dones=None, seq_length: int = 1):
+        out = self._net(obs, rnn_states, dones, seq_length)
         return out, D.NormalTanhDistribution(out["mu"], out["sigma_raw"], min_std=self.min_std)
 
-    def forward_train(self, obs, prev_actions, entropy_noise=None):
+    def forward_train(self, obs, prev_actions, entropy_noise=None, rnn_states=None, dones=None,
+                      seq_length: int = 1):
         if entropy_noise is None:
             # a fixed draw would bias the entropy's gradient the same way in
             # every minibatch
             raise ValueError("ModelA2CContinuousTanh.forward_train needs entropy_noise, standard normals "
                              "drawn fresh for every minibatch")
-        out, dist = self._dist(obs)
+        out, dist = self._dist(obs, rnn_states, dones, seq_length)
         return {
             "prev_neglogp": -dist.log_prob(prev_actions),
             "values": out["value"],
             "entropy": dist.entropy(entropy_noise),
             "mus": dist.loc,
             "sigmas": dist.scale,
+            "rnn_states": out["rnn_states"],
         }
 
-    def forward_play(self, obs, generator=None, deterministic: bool = False):
+    def forward_play(self, obs, generator=None, deterministic: bool = False, rnn_states=None, dones=None,
+                     seq_length: int = 1):
         """tanh(mu) (deterministic) or a squashed sample, in [-1, 1]."""
-        out, dist = self._dist(obs)
+        out, dist = self._dist(obs, rnn_states, dones, seq_length)
         if deterministic:
             actions, pre = dist.mode(), dist.loc
         else:
@@ -273,7 +306,23 @@ class ModelA2CContinuousTanh(BaseModel):
             "actions": actions,
             "mus": dist.loc,
             "sigmas": dist.scale,
+            "rnn_states": out["rnn_states"],
         }
 
     # the Gaussian KL before the tanh, which the bijector leaves as it is
     kl = staticmethod(ModelA2CContinuousLogStd.kl)
+
+
+class ModelCentralValue(BaseModel):
+    """'central_value' (models.py:414-432): the value-only forward of the
+    asymmetric critic, over the env's states."""
+
+    def forward_train(self, obs, rnn_states=None, dones=None, seq_length: int = 1):
+        """Normalized values and the new recurrent states."""
+        out = self._net(obs, rnn_states, dones, seq_length)
+        return {"values": out["value"], "rnn_states": out["rnn_states"]}
+
+    def forward_play(self, obs, rnn_states=None, dones=None, seq_length: int = 1):
+        """Denormalized values and the new recurrent states."""
+        out = self._net(obs, rnn_states, dones, seq_length)
+        return {"values": self.denorm_value(out["value"]), "rnn_states": out["rnn_states"]}

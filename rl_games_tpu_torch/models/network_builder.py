@@ -5,16 +5,23 @@ one trunk, or with ``separate: True`` an actor trunk and a critic trunk
 that the value head reads (:216-229); each trunk an optional conv stack
 (``cnn``, NHWC observations permuted to NCHW as the reference torch
 builder's ``permute_input`` does, and flattened in NCHW order, the
-reference checkpoint's) and an MLP (plain, fused or D2RL); a linear value
-head of ``value_size`` outputs; and a continuous head (mu, and sigma either
-a fixed, state-independent parameter or a Linear of the actor's features),
-a discrete one (``logits``) or a multi-discrete one (a ``logits`` Linear per
-action head). The reference YAML ``network:`` schema is read as in the JAX
-package; the branches not ported yet (RNN, impala, central value, two-hot
-value head) raise NotImplementedError naming their ROADMAP.md item.
+reference checkpoint's), an MLP (plain, fused or D2RL) and an optional
+recurrent core (``rnn``: LSTM, GRU or identity, after the MLP or with
+``before_mlp`` in front of it, ``concat_input`` / ``concat_output`` of the
+flattened input, a LayerNorm of its output with ``layer_norm``;
+:152-208); a linear value head of ``value_size`` outputs; and a continuous
+head (mu, and sigma either a fixed, state-independent parameter or a
+Linear of the actor's features), a discrete one (``logits``) or a
+multi-discrete one (a ``logits`` Linear per action head). A central value
+net (``central_value: True``, or no action space) has the value head only
+(:131, :264-270). The reference YAML ``network:`` schema is read as in the
+JAX package; the branches not ported yet (impala, two-hot value head)
+raise NotImplementedError naming their ROADMAP.md item.
 
 Submodules carry the reference checkpoint names (``actor_cnn``,
-``actor_mlp``, ``critic_cnn``, ``critic_mlp``, ``mu``, ``sigma``,
+``actor_mlp``, ``critic_cnn``, ``critic_mlp``, the recurrent core ``rnn``
+and its ``layer_norm`` on a shared trunk, ``a_rnn`` / ``c_rnn`` and
+``a_layer_norm`` / ``c_layer_norm`` on separate ones, ``mu``, ``sigma``,
 ``logits`` or ``logits.{i}``, ``value``).
 """
 
@@ -28,34 +35,42 @@ from rl_games_tpu_torch.utils.unported import unported
 
 
 def action_space_of(cfg: dict):
-    """(kind, its config): 'continuous', 'multi_discrete' or 'discrete'
-    (network_builder.py:74-82)."""
-    space = cfg.get("space", {})
+    """(kind, its config): 'continuous', 'multi_discrete' or 'discrete', or
+    (None, {}) for a network without an action space (network_builder.py:74-82)."""
+    space = cfg.get("space", {}) or {}
     for kind in ("continuous", "multi_discrete", "discrete"):
         if kind in space:
             return kind, space[kind] or {}
-    unported(f"a network without an action space ({sorted(space)}: a central value net)", "A9")
+    return None, {}
+
+
+# the recurrent core's module names by trunk: a shared trunk's core is
+# 'rnn', separate trunks' are 'a_rnn' and 'c_rnn' (the reference builder's)
+RNN_MODULE_NAMES = {("actor_", False): ("rnn", "layer_norm"), ("actor_", True): ("a_rnn", "a_layer_norm"),
+              ("critic_", True): ("c_rnn", "c_layer_norm")}
 
 
 class A2CNetwork(nn.Module):
-    """forward(obs) -> {'mu', 'sigma_raw', 'value'} (continuous),
-    {'logits', 'value'} (discrete) or {'logits': tuple, 'value'}
-    (multi-discrete).
+    """forward(obs, rnn_states=None, dones=None, seq_length=1) ->
+    {'mu', 'sigma_raw', 'value', 'rnn_states'} (continuous),
+    {'logits', 'value', 'rnn_states'} (discrete), {'logits': tuple, 'value',
+    'rnn_states'} (multi-discrete) or {'value', 'rnn_states'} (central
+    value).
 
     'sigma_raw' is the sigma parameter or head after sigma_activation,
     broadcast to mu's shape; the model applies the sigma parametrization to
-    it.
+    it. With an RNN, obs is [num_seqs · seq_length, ...] in sequence-major
+    order, ``dones`` [num_seqs · seq_length] and ``rnn_states`` the tuple of
+    ``get_default_rnn_state``'s layout (separate trunks: the actor's tensors,
+    then the critic's); 'rnn_states' comes back alike (None without an RNN).
     """
 
     def __init__(self, params: dict, actions_num, input_shape: Sequence[int],
                  value_size: int = 1, device=None):
         super().__init__()
         cfg = params
-        if "rnn" in cfg:
-            unported("network.rnn", "A9")
-        if cfg.get("central_value", False):
-            unported("a central value network", "A9")
         self.space, space_cfg = action_space_of(cfg)
+        self.central_value = bool(cfg.get("central_value", False)) or self.space is None
         self.discrete = self.space != "continuous"
         self.separate = bool(cfg.get("separate", False))
         if cfg.get("value_head", cfg.get("value_type", "legacy")) not in ("legacy", "default"):
@@ -72,10 +87,16 @@ class A2CNetwork(nn.Module):
         elif len(input_shape) != 1:
             unported(f"observation shape {tuple(input_shape)} without a cnn", "A8")
 
+        self.rnn_cfg = dict(cfg["rnn"]) if "rnn" in cfg else None
+        rnn_cfg = self.rnn_cfg or {}
+        if rnn_cfg.get("before_mlp") and cnn_cfg is not None:
+            # the JAX package's RNN input is the NHWC flatten; carrying its
+            # weights across would need the rows permuted (jax_params)
+            unported("rnn.before_mlp behind a conv stack", "A8")
         mlp_cfg = cfg["mlp"]
         units = list(mlp_cfg["units"])
         for prefix in ("actor_", "critic_") if self.separate else ("actor_",):
-            in_features = int(input_shape[0])
+            flat = int(input_shape[0])
             cnn = None
             if cnn_cfg is not None:
                 cnn = L.CNN(
@@ -84,20 +105,50 @@ class A2CNetwork(nn.Module):
                     norm_func_name=cfg.get("normalization", None),
                     ctype=cnn_cfg.get("type", "conv2d"), device=device,
                 )
-                in_features = cnn.output_size(input_shape[:-1])
+                flat = cnn.output_size(input_shape[:-1])
             setattr(self, prefix + "cnn", cnn)
-            setattr(self, prefix + "mlp", L.build_mlp(
-                in_features, units, mlp_cfg["activation"],
-                initializer=mlp_cfg.get("initializer"),
-                norm_func_name=cfg.get("normalization", None),
-                d2rl=mlp_cfg.get("d2rl", False),
-                norm_only_first_layer=mlp_cfg.get("norm_only_first_layer", False),
-                fused=mlp_cfg.get("fused", False),
-                device=device,
-            ))
-        out_size = units[-1] if units else in_features
+
+            def mlp(in_features):
+                return L.build_mlp(
+                    in_features, units, mlp_cfg["activation"],
+                    initializer=mlp_cfg.get("initializer"),
+                    norm_func_name=cfg.get("normalization", None),
+                    d2rl=mlp_cfg.get("d2rl", False),
+                    norm_only_first_layer=mlp_cfg.get("norm_only_first_layer", False),
+                    fused=mlp_cfg.get("fused", False),
+                    device=device,
+                )
+
+            def mlp_out(in_features):
+                return units[-1] if units else in_features
+
+            if self.rnn_cfg is None:
+                setattr(self, prefix + "mlp", mlp(flat))
+                out_size = mlp_out(flat)
+                continue
+            core_name, ln_name = RNN_MODULE_NAMES[(prefix, self.separate)]
+            before_mlp = rnn_cfg.get("before_mlp", False)
+            if before_mlp:
+                rnn_in = flat
+            else:
+                setattr(self, prefix + "mlp", mlp(flat))
+                rnn_in = mlp_out(flat) + (flat if rnn_cfg.get("concat_input", False) else 0)
+            core = L.RNNCore(rnn_cfg["name"], rnn_in, rnn_cfg["units"], rnn_cfg["layers"], device=device)
+            setattr(self, core_name, core)
+            rnn_out = core.out_features
+            if rnn_cfg.get("layer_norm", False):
+                setattr(self, ln_name, nn.LayerNorm(rnn_out, eps=1e-5, device=device))
+            if rnn_cfg.get("concat_output", False):
+                rnn_out += flat
+            if before_mlp:
+                setattr(self, prefix + "mlp", mlp(rnn_out))
+                out_size = mlp_out(rnn_out)
+            else:
+                out_size = rnn_out
         self.value = L.make_dense(out_size, value_size, mlp_cfg.get("initializer"), device)
         self.value_act = L.get_activation(cfg.get("value_activation", "None"))
+        if self.central_value:
+            return
         if self.space == "discrete":
             self.logits = L.make_dense(out_size, actions_num, mlp_cfg.get("initializer"), device)
             return
@@ -127,30 +178,82 @@ class A2CNetwork(nn.Module):
 
     def reset_parameters(self, generator=None):
         L.reset_parameters(self, generator)
-        if self.space == "continuous" and self.fixed_sigma:
+        if self.space == "continuous" and not self.central_value and self.fixed_sigma:
             with torch.no_grad():
                 self.sigma.fill_(self.sigma_init_val)
 
-    def _trunk(self, obs, prefix: str):
+    # -- the recurrent state (network_builder.py:91-101) ---------------------
+    def is_rnn(self) -> bool:
+        return self.rnn_cfg is not None
+
+    def get_default_rnn_state(self, num_seqs: int, device=None):
+        """Zero states for ``num_seqs`` sequences; separate trunks carry the
+        actor's tensors, then the critic's."""
+        if self.rnn_cfg is None:
+            return None
+        c = self.rnn_cfg
+        states = L.default_rnn_state(c["name"], c["layers"], num_seqs, c["units"], device)
+        if self.separate:
+            return states + L.default_rnn_state(c["name"], c["layers"], num_seqs, c["units"], device)
+        return states
+
+    def _apply_rnn(self, x, flat, prefix, states, dones, seq_length):
+        """x [B, F] through the trunk's core as [B / seq_length, seq_length,
+        F] sequences; returns ([B, F'], new_states)."""
+        core_name, ln_name = RNN_MODULE_NAMES[(prefix, self.separate)]
+        batch = x.shape[0]
+        num_seqs = batch // seq_length
+        d = None if dones is None else dones.reshape(num_seqs, seq_length)
+        out, new_states = getattr(self, core_name)(x.reshape(num_seqs, seq_length, -1), states, d)
+        out = out.reshape(batch, -1)
+        if self.rnn_cfg.get("layer_norm", False):
+            out = getattr(self, ln_name)(out)
+        if self.rnn_cfg.get("concat_output", False):
+            out = torch.cat([out, flat], dim=-1)
+        return out, new_states
+
+    def _trunk(self, obs, prefix: str, states=None, dones=None, seq_length: int = 1):
         x, cnn = obs, getattr(self, prefix + "cnn")
         if cnn is not None:
             # channels-last observations to channels-first (permute_input),
             # flattened in (c, h, w) order
             x = cnn(x.movedim(-1, 1)).flatten(1)
-        return getattr(self, prefix + "mlp")(x)
+        mlp = getattr(self, prefix + "mlp")
+        if self.rnn_cfg is None:
+            return mlp(x), None
+        flat = x
+        if self.rnn_cfg.get("before_mlp", False):
+            out, states = self._apply_rnn(flat, flat, prefix, states, dones, seq_length)
+            return mlp(out), states
+        out = mlp(flat)
+        if self.rnn_cfg.get("concat_input", False):
+            out = torch.cat([out, flat], dim=-1)
+        return self._apply_rnn(out, flat, prefix, states, dones, seq_length)
 
-    def forward(self, obs):
-        a_out = self._trunk(obs, "actor_")
-        c_out = self._trunk(obs, "critic_") if self.separate else a_out
+    def forward(self, obs, rnn_states=None, dones=None, seq_length: int = 1):
+        if self.separate:
+            half = None if rnn_states is None else len(rnn_states) // 2
+            a_states = None if half is None else tuple(rnn_states[:half])
+            c_states = None if half is None else tuple(rnn_states[half:])
+            a_out, a_states = self._trunk(obs, "actor_", a_states, dones, seq_length)
+            c_out, c_states = self._trunk(obs, "critic_", c_states, dones, seq_length)
+            new_states = None if self.rnn_cfg is None else tuple(a_states) + tuple(c_states)
+        else:
+            a_out, new_states = self._trunk(obs, "actor_", rnn_states, dones, seq_length)
+            c_out = a_out
+            new_states = None if new_states is None else tuple(new_states)
         value = self.value_act(self.value(c_out))
+        if self.central_value:
+            return {"value": value, "rnn_states": new_states}
         if self.space == "discrete":
-            return {"logits": self.logits(a_out), "value": value}
+            return {"logits": self.logits(a_out), "value": value, "rnn_states": new_states}
         if self.space == "multi_discrete":
-            return {"logits": tuple(head(a_out) for head in self.logits), "value": value}
+            return {"logits": tuple(head(a_out) for head in self.logits), "value": value,
+                    "rnn_states": new_states}
         mu = self.mu_act(self.mu(a_out))
         if self.fixed_sigma:
             # mu * 0.0 broadcasts sigma to mu's shape, as the JAX torso does
             sigma_raw = self.sigma_act(self.sigma) + mu * 0.0
         else:
             sigma_raw = self.sigma_act(self.sigma(a_out))
-        return {"mu": mu, "sigma_raw": sigma_raw, "value": value}
+        return {"mu": mu, "sigma_raw": sigma_raw, "value": value, "rnn_states": new_states}

@@ -10,8 +10,13 @@ The functions are pure over ``(mean, var, count)`` tensors and mirror the
 JAX functions one for one. ``RunningMeanStd`` holds the three as buffers
 named as in the reference checkpoint layout (``running_mean``,
 ``running_var``, ``count``) and updates them in place.
+
+``generalized_moving_stats_*`` port the JAX package's exponential moving
+stats (:180-279, the reference's moving_mean_std.py:50-126) that
+``normalize_rms_advantage`` normalizes the advantages with.
 """
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -113,3 +118,78 @@ class RunningMeanStd(nn.Module):
 
     def denormalize(self, x, *, clamp: float = 5.0):
         return rms_denormalize(self.running_mean, self.running_var, x, clamp=clamp)
+
+
+# ---------------------------------------------------------------------------
+# Generalized moving stats (running_stats.py:180-279)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GeneralizedMovingStats:
+    low: torch.Tensor  # the mean for the mean_std impls; low / offset otherwise
+    high: torch.Tensor  # E[x²] for the mean_std impls; high otherwise
+    step: torch.Tensor  # () int32, drives the '_corr' zero-debias
+
+
+def generalized_moving_stats_init(shape, device=None) -> GeneralizedMovingStats:
+    """Zero stats; the step starts at 1 (moving_mean_std.py:25,29,39), so
+    after k updates the '_corr' debias is 1 - decay^(k + 1)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    f32 = dict(dtype=torch.float32, device=device)
+    return GeneralizedMovingStats(low=torch.zeros(shape, **f32), high=torch.zeros(shape, **f32),
+                                  step=torch.ones((), dtype=torch.int32, device=device))
+
+
+def generalized_moving_stats_update(state: GeneralizedMovingStats, x, impl: str = "mean_std",
+                                    decay: float = 0.99, perclo: float = 0.05,
+                                    perchi: float = 0.95) -> GeneralizedMovingStats:
+    """_update_stats (moving_mean_std.py:107-126): one EMA step of the
+    batch's statistics."""
+    m = decay
+    x = x.to(torch.float32)
+    if impl == "off":
+        return state
+    if impl in ("mean_std", "mean_std_corr"):
+        dims = _batch_dims(x, state.low.dim())
+        low, high = x.mean(dim=dims), (x * x).mean(dim=dims)
+        return GeneralizedMovingStats(low=m * state.low + (1 - m) * low, high=m * state.high + (1 - m) * high,
+                                      step=state.step + 1)
+    if impl == "min_max":
+        low, high = x.min(), x.max()
+        return GeneralizedMovingStats(low=m * state.low + (1 - m) * torch.minimum(state.low, low),
+                                      high=m * state.high + (1 - m) * torch.maximum(state.high, high),
+                                      step=state.step + 1)
+    if impl in ("perc_ema", "perc_ema_corr"):
+        flat = x.reshape(-1)
+        low, high = torch.quantile(flat, perclo), torch.quantile(flat, perchi)
+        return GeneralizedMovingStats(low=m * state.low + (1 - m) * low, high=m * state.high + (1 - m) * high,
+                                      step=state.step + 1)
+    raise NotImplementedError(impl)
+
+
+def generalized_moving_stats_get(state: GeneralizedMovingStats, impl: str = "mean_std", decay: float = 0.99,
+                                 max_scale: float = 1e5, eps: float = 0.0):
+    """_get_stats (moving_mean_std.py:50-79): (offset, invscale)."""
+    if impl == "off":
+        return 0.0, 1.0
+    corr = None
+    if impl.endswith("_corr"):
+        corr = torch.clamp(1.0 - decay ** state.step.to(torch.float32), min=1e-8)
+    if impl in ("mean_std", "mean_std_corr"):
+        mean, sqrs = (state.low, state.high) if corr is None else (state.low / corr, state.high / corr)
+        var = sqrs - torch.square(mean)
+        return mean, torch.sqrt(torch.clamp(var, min=1.0 / max_scale ** 2) + eps)
+    if impl in ("min_max", "perc_ema", "perc_ema_corr"):
+        lo, hi = (state.low, state.high) if corr is None else (state.low / corr, state.high / corr)
+        return lo, torch.clamp(hi - lo, min=1.0 / max_scale)
+    raise NotImplementedError(impl)
+
+
+def generalized_moving_stats_normalize(state: GeneralizedMovingStats, x, impl: str = "mean_std",
+                                       decay: float = 0.99, denorm: bool = False):
+    """(x - offset) / invscale clamped to ±5, or with ``denorm`` its inverse."""
+    offset, invscale = generalized_moving_stats_get(state, impl, decay)
+    if denorm:
+        return x * invscale + offset
+    return torch.clamp((x - offset) / invscale, -5.0, 5.0)

@@ -130,8 +130,6 @@ class Runner:
         """torch_runner.py:233-321."""
         if args.get("seeds"):
             unported("multi-seed training (--seeds)", "A12")
-        if args.get("load_critic_only"):
-            unported("load_critic_only (central value nets)", "A9")
         print("Started to train")
         agent = self.create_agent()
         # stop_fn: programmatic args win over YAML config (torch_runner.py
@@ -140,8 +138,11 @@ class Runner:
             args.get("stop_fn") or self.params["config"].get("stop_fn")
         )
         kwargs = {}
-        if args.get("sigma") is not None and self.algo_name != "sac":
-            kwargs["sigma"] = args["sigma"]
+        if self.algo_name != "sac":
+            if args.get("sigma") is not None:
+                kwargs["sigma"] = args["sigma"]
+            if args.get("load_critic_only"):
+                kwargs["load_critic_only"] = True
         return agent.train(checkpoint=args.get("checkpoint"), stop_fn=stop_fn, **kwargs)
 
     def create_player(self):

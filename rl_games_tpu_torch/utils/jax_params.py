@@ -21,8 +21,27 @@ checkpoint layout:
     params/logits_{i}/Dense_0/{kernel, bias}     -> a2c_network.logits.{i}.* (multi-discrete)
     params/sigma [A]                             -> a2c_network.sigma (fixed sigma)
     params/sigma/{kernel, bias}                  -> a2c_network.sigma.* (state-dependent)
+    params/{actor,critic}_rnn/stack/{lstm,gru}_{k}/<gate Dense>
+        -> a2c_network.{rnn | a_rnn, c_rnn}.rnn.{weight_ih,weight_hh,bias_ih,bias_hh}_l{k}
+           (the shared trunk's core is 'rnn', separate trunks' 'a_rnn' and
+           'c_rnn'; a gate's [in, units] kernel is its [units, in] block of
+           rows, in the order i, f, g, o (LSTM) or r, z, n (GRU); the LSTM's
+           bias, on flax's hidden side, goes to bias_hh; the GRU's r and z
+           biases, on flax's input side, go to bias_ih, its n gate keeps
+           'in' in bias_ih and 'hn' in bias_hh)
+    params/{actor,critic}_rnn_ln/{scale, bias}
+        -> a2c_network.{layer_norm | a_layer_norm, c_layer_norm}.{weight, bias}
     norm.obs / norm.value {mean, var, count}     -> running_mean_std.* /
         value_mean_std.{running_mean, running_var, count}
+
+The central value net's params and norm convert alike (the value head and
+the trunks only). ``rnd_jax_to_state_dict`` converts RND's trees into the
+port's ``RNDCuriosity`` state dict:
+
+    target params/Dense_{i}/Dense_0/*           -> target.{2i}.*
+    predictor params/MLP_0/Dense_{i}/Dense_0/*  -> predictor.0.{2i}.*
+    predictor params/head/Dense_0/*             -> predictor.1.*
+    rms {mean, var, count}                      -> running_mean_std.*
 
 ``sac_jax_to_state_dict`` converts the JAX package's SAC trees into the
 sections of the reference SAC checkpoint, which the port's SAC networks use:
@@ -41,6 +60,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from rl_games_tpu_torch.models.network_builder import RNN_MODULE_NAMES
 
 
 def _get(x, name):
@@ -97,6 +118,36 @@ def _dense(sd, layer, port_name: str):
     sd[f"{port_name}.bias"] = _tensor(layer["bias"], np.float32)
 
 
+# flax's per-gate Dense names in the row order of the reference's tensors
+_GATES = {"lstm": "ifgo", "gru": "rzn"}
+
+
+def _rnn_core(sd, stack, port_prefix: str):
+    """A flax RNNCore's ``stack`` into the port's ``{port_prefix}.rnn.*``."""
+    for cell in _numbered(stack, ""):
+        kind, k = cell.rsplit("_", 1)
+        dense = stack[cell]
+        gates = _GATES[kind]
+
+        def rows(side):
+            return np.concatenate([np.asarray(dense[side + g]["kernel"]).T for g in gates], axis=0)
+
+        def biases(side, present):
+            return np.concatenate([np.asarray(dense[side + g]["bias"]) if g in present
+                                   else np.zeros(np.asarray(dense["h" + g]["kernel"]).shape[1], np.float32)
+                                   for g in gates])
+
+        base = f"{port_prefix}.rnn"
+        sd[f"{base}.weight_ih_l{k}"] = _tensor(rows("i"), np.float32)
+        sd[f"{base}.weight_hh_l{k}"] = _tensor(rows("h"), np.float32)
+        if kind == "lstm":
+            sd[f"{base}.bias_ih_l{k}"] = _tensor(biases("i", ""), np.float32)
+            sd[f"{base}.bias_hh_l{k}"] = _tensor(biases("h", gates), np.float32)
+        else:
+            sd[f"{base}.bias_ih_l{k}"] = _tensor(biases("i", gates), np.float32)
+            sd[f"{base}.bias_hh_l{k}"] = _tensor(biases("h", "n"), np.float32)
+
+
 def jax_to_state_dict(params: Any, norm: Optional[Any] = None,
                       cnn_type: str = "conv2d", d2rl: bool = False) -> Dict[str, torch.Tensor]:
     """State dict of the port's A2C model from JAX params/norm. ``cnn_type``
@@ -121,6 +172,15 @@ def jax_to_state_dict(params: Any, norm: Optional[Any] = None,
                 kernel = kernel.reshape(spatial, channels, -1).transpose(1, 0, 2).reshape(kernel.shape)
             return kernel.T
 
+        if trunk + "rnn" in body or trunk + "rnn_ln" in body:  # an identity core has no params
+            separate = any(k.startswith("critic_") for k in body)
+            core, norm_name = RNN_MODULE_NAMES[(trunk, separate)]
+            if trunk + "rnn" in body:
+                _rnn_core(sd, body[trunk + "rnn"]["stack"], f"a2c_network.{core}")
+            if trunk + "rnn_ln" in body:
+                ln = body[trunk + "rnn_ln"]
+                sd[f"a2c_network.{norm_name}.weight"] = _tensor(ln["scale"], np.float32)
+                sd[f"a2c_network.{norm_name}.bias"] = _tensor(ln["bias"], np.float32)
         mlp = body.get(trunk + "mlp", {})
         heads = ("mu", "value", "Dense_0", "logits_0")
         if channels is not None and not _numbered(mlp, "Dense_") and any(h in body for h in heads):
@@ -193,3 +253,22 @@ def sac_jax_to_state_dict(actor_params: Any, critic_params: Any = None,
     if obs_rms is not None:
         out["running_mean_std"] = _rms(obs_rms)
     return out
+
+
+def rnd_jax_to_state_dict(target_params: Any, pred_params: Any, rms: Optional[Any] = None) -> Dict[str, torch.Tensor]:
+    """The port's ``RNDCuriosity`` state dict from the JAX package's RND
+    target and predictor params and RND's normalizer state."""
+    def body(tree):
+        return tree["params"] if "params" in tree else tree
+
+    sd: Dict[str, torch.Tensor] = {}
+    target, pred = body(target_params), body(pred_params)
+    for i, name in enumerate(_numbered(target, "Dense_")):
+        _dense(sd, target[name]["Dense_0"], f"target.{2 * i}")
+    hidden = pred.get("MLP_0", {})
+    for i, name in enumerate(_numbered(hidden, "Dense_")):
+        _dense(sd, hidden[name]["Dense_0"], f"predictor.0.{2 * i}")
+    _dense(sd, pred["head"]["Dense_0"], "predictor.1")
+    if rms is not None:
+        sd.update(_rms(rms, "running_mean_std."))
+    return sd

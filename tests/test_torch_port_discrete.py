@@ -250,12 +250,20 @@ def test_cnn_model_names_and_unported_options():
     assert {"a2c_network.actor_cnn.0.weight", "a2c_network.actor_cnn.4.weight",
             "a2c_network.actor_mlp.0.weight", "a2c_network.logits.weight", "a2c_network.value.weight"} <= names
     assert model.a2c_network.actor_mlp[0].weight.shape == (16, 8 * 7 * 7)
+    rnn = {"name": "lstm", "units": 8, "layers": 1}
     for patch, item in (({"cnn": {"type": "impala", "conv_depths": [16]}}, "A8"),
-                        ({"central_value": True}, "A9"), ({"rnn": {"name": "lstm"}}, "A9"),
+                        ({"rnn": {**rnn, "before_mlp": True}}, "A8"),
                         ({"value_head": "twohot"}, "A8")):
         bad = {**params, "network": {**params["network"], **patch}}
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             ModelBuilder().load(bad, actions_num=ACT, input_shape=SHAPE, device="cpu")
+    # a conv stack in front of an RNN after the MLP, and a conv central value net, build (A9)
+    names = set(ModelBuilder().load({**params, "network": {**params["network"], "rnn": rnn}}, actions_num=ACT,
+                                    input_shape=SHAPE, device="cpu").state_dict())
+    assert {"a2c_network.actor_cnn.0.weight", "a2c_network.rnn.rnn.weight_hh_l0"} <= names
+    cv = {"model": {"name": "central_value"}, "network": {**params["network"], "central_value": True}}
+    names = set(ModelBuilder().load(cv, actions_num=None, input_shape=SHAPE, device="cpu").state_dict())
+    assert "a2c_network.value.weight" in names and "a2c_network.logits.weight" not in names
     # separate conv trunks build: the critic's stack beside the actor's
     separate = {**params, "network": {**params["network"], "separate": True}}
     names = set(ModelBuilder().load(separate, actions_num=ACT, input_shape=SHAPE, device="cpu").state_dict())

@@ -434,13 +434,24 @@ def test_ppo_host_observer_sees_every_step():
     assert infos[2] == ("infos", ["final_observation", "time_outs"], [0])  # env 0 ends after 3 steps
 
 
+CV_CONFIG = {"learning_rate": 1e-3, "mini_epochs": 1, "minibatch_size": 16,
+             "network": {"name": "actor_critic", "central_value": True, "mlp": {"units": [8], "activation": "elu"}}}
+
+
 @pytest.mark.parametrize("config, item", [
     ({"vecenv_type": "MULTIWALKER"}, "A12"),
-    ({"central_value_config": {"network": {}}}, "A9"),
-])
+    ({"central_value_config": CV_CONFIG}, None),
+], ids=["config0-A12", "config1-A9"])
 def test_ppo_host_refusals(config, item):
+    """What the host path refuses names its item; a central value net over
+    a host env (item None, A9) is built."""
+    make = lambda: PPOAgent("t", discrete_params(num_actors=2, horizon_length=8, minibatch_size=16, **config),  # noqa: E731
+                            device="cpu")
+    if item is None:
+        assert make().has_central_value
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        PPOAgent("t", discrete_params(num_actors=2, horizon_length=8, minibatch_size=16, **config), device="cpu")
+        make()
 
 
 def test_ppo_host_dict_observations_wait_for_a8():

@@ -253,6 +253,8 @@ def _leaves(tree, prefix=""):
     elif isinstance(tree, list):
         for i, v in enumerate(tree):
             yield from _leaves(v, f"{prefix}/{i}")
+    elif tree is None:  # an option the train state does not use
+        return
     else:
         yield prefix, tree
 

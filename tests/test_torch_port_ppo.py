@@ -177,6 +177,14 @@ def test_default_device_never_falls_back_to_cpu():
         PPOAgent("port", flagship_params(), device=None)
 
 
+A9_OPTIONS = {
+    "central_value_config": {"learning_rate": 1e-3, "mini_epochs": 1, "minibatch_size": 64,
+                             "network": {"name": "actor_critic", "central_value": True,
+                                         "mlp": {"units": [8], "activation": "elu"}}},
+    "rnd_config": {"network": {"mlp": {"rnd": {"units": [8, 4]}, "net": {"units": [8]}}}},
+}
+
+
 @pytest.mark.parametrize("key, value", [
     ("central_value_config", {"network": {}}),
     ("rnd_config", {"network": {}}),
@@ -186,10 +194,26 @@ def test_default_device_never_falls_back_to_cpu():
     ("vecenv_type", "MULTIWALKER"),
 ])
 def test_unported_options_raise(key, value):
+    """MULTIWALKER (A12) is refused; the options A9 ported build an agent
+    that trains an epoch (the central value net and RND with a network
+    they can build: Ant2D gives no 'states', so its central net reads the
+    observations)."""
     params = flagship_params()
-    params["config"][key] = value
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PPOAgent("port", params, device="cpu")
+    if key == "vecenv_type":
+        params["config"][key] = value
+        with pytest.raises(NotImplementedError, match="not ported"):
+            PPOAgent("port", params, device="cpu")
+        return
+    params["config"][key] = A9_OPTIONS.get(key, value)
+    params["config"].update(num_actors=8, minibatch_size=64)
+    agent = PPOAgent("port", params, device="cpu")
+    if key == "central_value_config":
+        # Ant2D's observations are no {'obs', 'states'} dict: the central
+        # net has nothing to read in the rollout, as in the JAX package
+        assert agent.has_central_value and agent.state_shape == agent.obs_shape
+        return
+    state, metrics = agent.train_epoch(agent.init_state())
+    assert np.isfinite(float(metrics["a_loss"]))
 
 
 def test_meters_match_jax():

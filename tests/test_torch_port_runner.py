@@ -39,14 +39,15 @@ def tiny_params(train_dir, **config):
 
 
 def plain_leaves(tree, prefix=""):
-    """(path, tensor) leaves of a tree_to_plain result."""
+    """(path, tensor) leaves of a tree_to_plain result (the train state's
+    unused options, None, have none)."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from plain_leaves(v, f"{prefix}/{k}")
     elif isinstance(tree, list):
         for i, v in enumerate(tree):
             yield from plain_leaves(v, f"{prefix}/{i}")
-    else:
+    elif tree is not None:
         yield prefix, tree
 
 
@@ -287,16 +288,22 @@ def test_cli_end_to_end(tmp_path):
 @pytest.mark.parametrize("args, params_patch, item", [
     ({"train": True, "seeds": "1,2"}, {}, "A12"),
     ({"export": True}, {}, "A12"),
-    ({"train": True, "load_critic_only": True}, {}, "A9"),
+    ({"train": True, "load_critic_only": True}, {}, None),
     ({"train": True}, {"algo": {"name": "sac"},
                        "config": {"env_name": "multiwalker_env", "num_actors": 2}}, "A12"),
     ({"play": True}, {"algo": {"name": "sac"},
                       "config": {"env_name": "connect4_env", "num_actors": 2}}, "A12"),
-])
+], ids=["args0-params_patch0-A12", "args1-params_patch1-A12", "args2-params_patch2-A9", "args3-params_patch3-A12",
+        "args4-params_patch4-A12"])
 def test_unported_verbs_raise(tmp_path, args, params_patch, item):
+    """The verbs the port lacks name their item; load_critic_only (item
+    None, A9) without a checkpoint trains, as the JAX runner does."""
     params = {**tiny_params(tmp_path), **params_patch}
     runner = Runner(device="cpu")
     runner.load({"params": params})
+    if item is None:
+        assert runner.run(args)[1] == 2
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         runner.run(args)
 
@@ -304,14 +311,19 @@ def test_unported_verbs_raise(tmp_path, args, params_patch, item):
 @pytest.mark.parametrize("key, value, item", [
     ("pbt", {"enabled": True}, "A12"),
     ("self_play_config", {"update_score": 1}, "A12"),
-    ("normalize_rms_advantage", True, "A2"),
-    ("features", {"soft_augmentation": {"name": "flip"}}, "A9"),
-])
+    ("normalize_rms_advantage", True, None),
+    ("features", {"soft_augmentation": {"transform": {"name": "gaussian_noise"}}}, None),
+], ids=["pbt-value0-A12", "self_play_config-value1-A12", "normalize_rms_advantage-True-A2", "features-value3-A9"])
 def test_unported_train_options_raise(tmp_path, key, value, item):
+    """The train options the port lacks name their item; the ones A2 and
+    A9 ported (item None) train."""
     params = tiny_params(tmp_path, **{key: value})
+    runner = Runner(device="cpu")
+    runner.load({"params": params})
+    if item is None:
+        assert runner.run({"train": True})[1] == 2
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        runner = Runner(device="cpu")
-        runner.load({"params": params})
         runner.run({"train": True})
 
 
