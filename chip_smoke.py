@@ -114,6 +114,22 @@ to a plain version):
                train_epoch. Each run's steady epoch, rollout step and its
                device kernels, the kernels of a core step, the player's
                step, and the GAE and fused launches, held exact.
+19. dict     — dict observations and the custom test networks at their
+               configs' own widths, each trained 3 epochs through Runner.run
+               (import_modules naming rl_games_tpu.models.test_network,
+               mapped to the port's) and played: (mops)
+               ref/test/test_asymmetric_discrete_mhv_mops.yaml (testnet_dict
+               over test_dict_obs_env's {'pos', 'info'}) and (aux)
+               ref/test/test_discrite_testnet_aux_loss.yaml (testnet_aux_loss,
+               'aux_target' and the aux loss), 16 envs x 256 steps, 4 x 2
+               minibatches of 2048: steady epoch, rollout step and its
+               kernels, the idle share of an epoch, 1 GAE launch an epoch at
+               [256, 16, 1], no fused one.
+20. sac_norm — ref/mujoco/sac_ant_tuned.yaml's separate layer-norm
+               [256, 256] trunks (32 envs, batch 256, 32 updates per env
+               step, 10000 warmup frames) on Hopper2D-v0 (CPUENV) as
+               host_sac runs sac_ant.yaml: its warmup and 8 update epochs
+               through Runner.run, then played. No kernel.
 
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
@@ -134,12 +150,17 @@ bfloat16-rounded weights at B = 8192 and 32768, and one update of (b)'s and
 (d)'s model on the card against the CPU ((b) with its central value net's
 first minibatch).
 
+Phases 3 and 4 also hold [dict] and [sac_norm]: GAE at [256, 16, 1] (held
+for [rnn] already), one update of (aux)'s model over a trajectory of dict
+observations and one SAC update of sac_ant_tuned.yaml's layer-norm networks
+on the card against the CPU.
+
 Phases 3 and 4 also hold the host path: GAE at [256, 64, 1] and the fused
 MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
 phase 14's config on the card against the CPU (same weights, CPUENV seed
 and action noise), then one Adam step of its first minibatch.
 
-Launch counts are zeroed just before each of phases 6-18's runs and read
+Launch counts are zeroed just before each of phases 6-20's runs and read
 just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
@@ -226,6 +247,20 @@ def device_events(fn, reps: int):
             fn()
         torch.cuda.synchronize()
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def idle_share(fn):
+    """(the device's idle share of a call of fn(), its busy seconds, the
+    call's wall seconds): the wall time of one call without the profiler
+    (a CUDA-only torch.profiler session slows an eager epoch's host side
+    about tenfold), the device's busy time of the next call under one."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in device_events(fn, 1)) / 1e6
+    return 1 - busy / wall, busy, wall
 
 
 def device_time_ms(fn, reps: int):
@@ -655,6 +690,8 @@ def phase_reference():
     reference_host_ppo()
     reference_heads()
     reference_rnn()
+    reference_dict()
+    reference_sac("sac_norm")
 
 
 def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
@@ -764,22 +801,33 @@ def reference_host_ppo():
           + check_first_update(gpu, cpu, gstate, cstate, gds, cds))
 
 
-def reference_sac():
+def reference_sac(tag: str = "sac"):
     """One SAC update (the critic, actor and α steps and the Polyak update)
     of sac_ant2d.yaml's networks on the card against the same update on the
     CPU: the same weights from a seed, a ring of 8192 rows and the
     normalizer fed with them, one batch of 2048 at the same indices, the
     same normals. Each Adam step's parameters and gradients are recorded as
-    the update takes them."""
+    the update takes them. ``tag`` "sac_norm": the networks and config of
+    ref/mujoco/sac_ant_tuned.yaml (separate layer-norm [256, 256] trunks, a
+    batch of 256, no input normalizer) on the same Ant2D rows."""
     from rl_games_tpu_torch.algos import sac as sac_module
     from rl_games_tpu_torch.algos.ppo import _ADAM_EPS
 
     params = load_config("sac_ant2d.yaml")["params"]
     params["config"].update(num_actors=64, replay_buffer_size=8192)
+    what = "sac_ant2d.yaml's networks"
+    if tag == "sac_norm":
+        tuned = load_config("ref/mujoco/sac_ant_tuned.yaml")["params"]
+        params["network"] = tuned["network"]
+        params["config"].update({k: tuned["config"][k] for k in (
+            "batch_size", "normalize_input", "init_alpha", "alpha_lr", "actor_lr", "critic_lr", "critic_tau",
+            "learnable_temperature", "policy_frequency", "gamma")})
+        what = "sac_ant_tuned.yaml's layer-norm networks on Ant2D rows"
     gpu, cpu = sac_module.SACAgent("ref", params, device="cuda"), sac_module.SACAgent("ref", params, device="cpu")
     gstate, cstate = gpu.init_state(), cpu.init_state()
     for name in ("actor", "critic", "critic_target", "running_mean_std"):
-        getattr(cpu, name).load_state_dict({k: v.cpu() for k, v in getattr(gpu, name).state_dict().items()})
+        if getattr(gpu, name) is not None:
+            getattr(cpu, name).load_state_dict({k: v.cpu() for k, v in getattr(gpu, name).state_dict().items()})
     gen = torch.Generator().manual_seed(6)
     n, batch = 8192, gpu.batch_size
     shift, scale = torch.randn(26, generator=gen), torch.rand(26, generator=gen) * 3 + 0.1
@@ -789,7 +837,8 @@ def reference_sac():
             torch.zeros(n, dtype=torch.bool))
     for agent, state in ((gpu, gstate), (cpu, cstate)):
         sac_module.replay_add(state.replay, *(x.to(agent.device) for x in rows))
-        agent.running_mean_std.update_from_batch(obs.to(agent.device))
+        if agent.running_mean_std is not None:
+            agent.running_mean_std.update_from_batch(obs.to(agent.device))
         state.update_counter = 1  # policy_frequency 2: this update runs the actor
     idx = torch.randint(0, n, (batch,), generator=gen)
     noise = [torch.randn((batch, 8), generator=gen) for _ in range(2)]
@@ -803,6 +852,7 @@ def reference_sac():
         adam(params, grads, opt, lr, max_norm, weight_decay)
 
     sac_module.adam_step = recorded
+    log_alpha_before = cstate.log_alpha.detach().clone()
     try:
         target_before = [p.detach().cpu().double() for p in gpu.critic_target.parameters()]
         recording = steps["cuda"]
@@ -817,6 +867,15 @@ def reference_sac():
     # tensor to 1e-5 of its largest entry
     dgrad = [max(float((g - c).abs().max() / c.abs().max().clamp(min=1e-30)) for g, c in zip(gs[1], cs[1]))
              for gs, cs in zip(steps["cuda"], steps["cpu"])]
+    # the actor's float32 gradient against the same step in float64 on the
+    # CPU: how far float32 itself is from the exact gradient. The log-prob's
+    # (pre - mu) / std recovers std · noise from pre = mu + std · noise, so
+    # where log_std_bounds reach -20 (sac_ant_tuned.yaml) an ulp of mu is
+    # many ulps of the result, and two devices' reduction orders differ by
+    # that much; the card may differ from the CPU by at most as much as the
+    # CPU's float32 differs from float64 (and by 1e-5 where that is less)
+    f32_err = actor_f32_error(cpu, steps["cpu"][1], rows[0][idx], noise[1], log_alpha_before)
+    actor_tol = max(1e-5, f32_err) if tag == "sac_norm" else 1e-5
     # Adam's first step from the card's own gradients, in float64: the
     # critic's clipped to the global norm first; where |g| > 1e-5 the step
     # is lr * sign(g) to within 1e-3 of lr whatever rounding g carries
@@ -842,18 +901,46 @@ def reference_sac():
     dtarget_cpu = max(float((t.detach().cpu() - c).abs().max())
                       for t, c in zip(gpu.critic_target.parameters(), cpu.critic_target.parameters()))
     dalpha = abs(float(gstate.log_alpha) - float(cstate.log_alpha))
-    print(f"[reference] SAC update of sac_ant2d.yaml's networks, batch {batch}, cuda vs cpu: losses "
+    print(f"[reference] {tag}: SAC update of {what}, batch {batch}, cuda vs cpu: losses "
           + ", ".join(f"{k} {float(gm[k]):.7f} / {float(cm[k]):.7f}" for k in keys)
           + f" (relative at most {max(dloss.values()):.2e}); gradients within {dgrad[0]:.2e} (critic), "
-          f"{dgrad[1]:.2e} (actor), {dgrad[2]:.2e} (log alpha) of each tensor's largest entry; the card's "
+          f"{dgrad[1]:.2e} (actor; the CPU's float32 actor gradient against float64 {f32_err:.2e}, the bound "
+          f"{actor_tol:.2e}), {dgrad[2]:.2e} (log alpha) of each tensor's largest entry; the card's "
           f"Adam steps against its own gradients' where |g| > 1e-5 ({n_far} of {n_all} entries): "
           f"max |d| {worst[0]:.2e} (critic), {worst[1]:.2e} (actor), {worst[2]:.2e} (log alpha) of lr; "
           f"target against the card's own Polyak {dtarget:.3f} of two ulps, max |dtarget| against the CPU "
           f"{dtarget_cpu:.2e}; log alpha {float(gstate.log_alpha):.9f} / {float(cstate.log_alpha):.9f}")
     if not (gm["actor_updated"] and cm["actor_updated"] and len(steps["cuda"]) == len(steps["cpu"]) == 3
-            and max(dloss.values()) < 2e-5 and max(dgrad) < 1e-5 and max(worst) < 1e-3
+            and max(dloss.values()) < 2e-5 and max(dgrad[0], dgrad[2]) < 1e-5 and dgrad[1] < actor_tol
+            and max(worst) < 1e-3
             and n_far > n_all // 2 and dtarget <= 1.0 and dalpha < 1e-3 * gpu.alpha_lr):
-        raise AssertionError("the SAC update on the card disagrees with the CPU")
+        raise AssertionError(f"{tag}: the SAC update on the card disagrees with the CPU")
+
+
+def actor_f32_error(agent, step, obs, noise, log_alpha) -> float:
+    """The largest |float32 - float64| of the actor step's gradient ``step``
+    (its params before and gradients, as recorded) over each tensor's largest
+    float64 entry: the step rerun on float64 copies of the actor (from
+    ``step``'s params) and of the critic the step read, on the CPU."""
+    import copy
+    import types
+
+    from rl_games_tpu_torch.algos import sac as sac_module
+
+    actor64, critic64 = copy.deepcopy(agent.actor).double(), copy.deepcopy(agent.critic).double()
+    with torch.no_grad():
+        for p, before in zip(actor64.parameters(), step[0]):
+            p.copy_(before)
+    grads, saved, adam = [], (agent.actor, agent.critic, agent.actor_params), sac_module.adam_step
+    sac_module.adam_step = lambda params, g, *args, **kwargs: grads.append([x.detach().double() for x in g])
+    try:
+        agent.actor, agent.critic, agent.actor_params = actor64, critic64, list(actor64.parameters())
+        agent._update_actor_and_alpha(types.SimpleNamespace(log_alpha=log_alpha.clone(), actor_opt=None,
+                                                            alpha_opt=None), obs.double(), noise.double())
+    finally:
+        (agent.actor, agent.critic, agent.actor_params), sac_module.adam_step = saved, adam
+    return max(float((g32 - g64).abs().max() / g64.abs().max().clamp(min=1e-30))
+               for g32, g64 in zip(step[1], grads[0]))
 
 
 ENV_NAMES = ("Ant3D", "Humanoid3D", "Walker2D", "Cheetah2D", "Arm2D", "Grasp2D")
@@ -1925,19 +2012,21 @@ def phase_host_pixel(epochs: int = 3):
     return launches
 
 
-def phase_host_sac(update_epochs: int, play_steps: int = 300):
+def phase_host_sac(update_epochs: int, play_steps: int = 300, config: str = "sac_ant.yaml", tag: str = "host_sac"):
     """rl_games_tpu/configs/sac_ant.yaml at full width (32 envs, MLPs
     [256, 256] relu, batch 256, utd_ratio 1: 32 updates per env step,
     policy_frequency 2, a ring of 1e6 rows, 5000 warmup frames) with the env
     swapped as in host_ppo_params (Hopper2D-v0 on CPUENV: no MuJoCo on the
     card's machine) through Runner.run: its warmup epochs and
     ``update_epochs`` epochs of updates, then its last checkpoint played. It
-    launches neither kernel."""
+    launches neither kernel. [sac_norm] runs ``config``
+    ref/mujoco/sac_ant_tuned.yaml (separate layer-norm [256, 256] trunks,
+    10000 warmup frames) the same way."""
     from rl_games_tpu_torch.algos import sac as sac_module
     from rl_games_tpu_torch.ops import fused_mlp, gae
     from rl_games_tpu_torch.runner import Runner
 
-    params = load_config("sac_ant.yaml")["params"]
+    params = load_config(config)["params"]
     cfg = params["config"]
     cfg.update(env_name="Hopper2D-v0", vecenv_type="CPUENV")
     n = cfg["num_actors"]
@@ -1956,7 +2045,7 @@ def phase_host_sac(update_epochs: int, play_steps: int = 300):
     sac_module.create_writer = lambda _dir: log
     try:
         with tempfile.TemporaryDirectory() as train_dir:
-            cfg.update(name="chip_smoke_host_sac", train_dir=train_dir, max_epochs=epochs, max_frames=-1)
+            cfg.update(name=f"chip_smoke_{tag}", train_dir=train_dir, max_epochs=epochs, max_frames=-1)
             runner = Runner()  # the default device: the card
             runner.load({"params": params})
             gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
@@ -1967,7 +2056,7 @@ def phase_host_sac(update_epochs: int, play_steps: int = 300):
             train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
             agent = agents[0]
             state = agent.last_state
-            checkpoint = os.path.join(train_dir, "chip_smoke_host_sac", "nn", f"last_chip_smoke_host_sac_ep_{epochs}.pth")
+            checkpoint = os.path.join(train_dir, f"chip_smoke_{tag}", "nn", f"last_chip_smoke_{tag}_ep_{epochs}.pth")
 
             gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
             out = io.StringIO()
@@ -1988,30 +2077,35 @@ def phase_host_sac(update_epochs: int, play_steps: int = 300):
     expected_rows = (epochs - 1) * n
     losses = {k: log.tags.get(f"losses/{k}", []) for k in ("critic_loss", "actor_loss", "alpha")}
     if epoch_num != epochs or state.update_counter != updates or updates < 200 or per_step != n:
-        raise AssertionError(f"host_sac: {epoch_num} epochs, {state.update_counter} updates; expected {epochs} "
+        raise AssertionError(f"{tag}: {epoch_num} epochs, {state.update_counter} updates; expected {epochs} "
                              f"epochs and {updates} updates ({n} per env step after {warmup} warmup epochs)")
     if rows != expected_rows or state.frame != expected_rows:
-        raise AssertionError(f"host_sac: {rows} replay rows, frame {state.frame}; expected {expected_rows}")
+        raise AssertionError(f"{tag}: {rows} replay rows, frame {state.frame}; expected {expected_rows}")
     if not all(v and all(math.isfinite(x) for x in v) for v in losses.values()) or losses["alpha"][-1] == 1.0:
-        raise AssertionError(f"host_sac: losses {losses}")
+        raise AssertionError(f"{tag}: losses {losses}")
     no_kernel = {"gae": 0, "fused_mlp": 0}
     if train_launches != no_kernel or play_launches != no_kernel or not math.isfinite(mean_reward):
-        raise AssertionError(f"host_sac: launches train {train_launches}, play {play_launches}, reward {mean_reward}")
+        raise AssertionError(f"{tag}: launches train {train_launches}, play {play_launches}, reward {mean_reward}")
     times = np.diff([t0, *ends])
     warm, upd = times[:warmup], times[warmup:]
     warm_s, upd_s = float(np.median(warm[1:])), float(np.median(upd[1:]))
-    print(f"[host_sac] trained {epoch_num} epochs of sac_ant.yaml on Hopper2D-v0 (CPUENV, {n} envs x 1 step an "
+    print(f"[{tag}] trained {epoch_num} epochs of {config} on Hopper2D-v0 (CPUENV, {n} envs x 1 step an "
           f"epoch, {warmup} warmup epochs, then {per_step} updates of batch {agent.batch_size} per env step) through "
           f"Runner.run: launches {train_launches}; {state.update_counter} updates; warmup step: first (with set-up) "
           f"{warm[0] * 1e3:.2f} ms, steady {warm_s * 1e3:.2f} ms (median of {len(warm) - 1}), "
           f"{n / warm_s:,.0f} env-steps/s; update step: first {upd[0] * 1e3:.1f} ms, steady {upd_s * 1e3:.1f} ms "
           f"(median of {len(upd) - 1}), {per_step / upd_s:,.1f} updates/s, {n / upd_s:,.0f} env-steps/s")
-    print(f"[host_sac] replay rows written {rows} = ({epochs} env steps - 1 pending) x {n} envs, frame "
+    print(f"[{tag}] replay rows written {rows} = ({epochs} env steps - 1 pending) x {n} envs, frame "
           f"{state.frame}; last logged critic_loss {losses['critic_loss'][-1]:.4f}, actor_loss "
           f"{losses['actor_loss'][-1]:.4f}, alpha {losses['alpha'][-1]:.5f}")
-    print(f"[host_sac] played through Runner.run: launches {play_launches}, {out.getvalue().strip()!r}, "
+    print(f"[{tag}] played through Runner.run: launches {play_launches}, {out.getvalue().strip()!r}, "
           f"{play_s:.2f} s with set-up; steady step without set-up {steady_step_s * 1e3:.3f} ms (mean of steps "
           f"{first}-{last} of a second run)")
+    train_fn = agent.make_train_fn()
+    with contextlib.redirect_stdout(io.StringIO()):
+        idle, busy, wall = idle_share(lambda: train_fn(state))
+    print(f"[{tag}] one more update step {wall * 1e3:.1f} ms, the device busy {busy * 1e3:.1f} ms of the next "
+          f"one (profiled), idle share {idle:.3f}")
     return train_launches, play_launches, upd_s
 
 
@@ -2262,7 +2356,16 @@ def rnn_params(tag: str):
 
 
 def to_cpu(traj):
-    return {k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else v.cpu() for k, v in traj.items()}
+    """A trajectory's tensors on the CPU: the recurrent snapshots' tuples and
+    a dict observation's keys entry by entry."""
+    def cpu(v):
+        if isinstance(v, tuple):
+            return tuple(x.cpu() for x in v)
+        if isinstance(v, dict):
+            return {k: x.cpu() for k, x in v.items()}
+        return v.cpu()
+
+    return {k: cpu(v) for k, v in traj.items()}
 
 
 def rnn_rollout_profile(params):
@@ -2462,6 +2565,88 @@ def reference_rnn():
             raise AssertionError(f"rnn ({tag}): the card's advantages disagree with the CPU's: {dadv}")
 
 
+# ---------------------------------------------------------------------------
+# [dict]: dict observations and the custom test networks (A8 (a))
+# ---------------------------------------------------------------------------
+
+DICT_CONFIGS = {"mops": "ref/test/test_asymmetric_discrete_mhv_mops.yaml",
+                "aux": "ref/test/test_discrite_testnet_aux_loss.yaml"}
+
+
+def phase_dict(epochs: int):
+    """ref/test/test_asymmetric_discrete_mhv_mops.yaml (testnet_dict over
+    test_dict_obs_env's {'pos', 'info'}) and test_discrite_testnet_aux_loss.yaml
+    (testnet_aux_loss, its 'aux_target' and aux loss) as shipped: 16 envs x
+    256 steps, 4 mini-epochs of 2 minibatches of 2048, each config's
+    import_modules mapped to the port's test network; trained ``epochs``
+    epochs through Runner.run, then played (100 games, deterministic). Per
+    run: the steady epoch, env-steps/s, the rollout step and its device
+    kernels, the player's steady step; 1 GAE launch an epoch at [256, 16, 1]
+    and no fused one (the custom network's MLP is the plain chain); the
+    device's idle share of one more epoch."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
+    out = {}
+    for tag, name in DICT_CONFIGS.items():
+        params = load_config(name)["params"]
+        cfg = params["config"]
+        horizon, n = cfg["horizon_length"], cfg["num_actors"]
+        minibatches = cfg["mini_epochs"] * n * horizon // cfg["minibatch_size"]
+        run = train_and_play(f"dict ({tag})", params, epochs)
+        steps = run["play_steps"]
+        if run["train"] != {"gae": epochs, "fused_mlp": 0} or run["play"] != {"gae": 0, "fused_mlp": 0}:
+            raise AssertionError(f"dict ({tag}): launches {run['train']} in {epochs} epochs, player {run['play']} in "
+                                 f"{steps} steps; expected 1 GAE an epoch and no fused launch")
+        print(f"[dict] ({tag}) {params['network']['name']} on {cfg['env_name']} "
+              f"(env_config {cfg.get('env_config', {})}, import_modules {cfg['import_modules']}): {n} envs x {horizon} "
+              f"steps, {cfg['mini_epochs']} x {minibatches // cfg['mini_epochs']} minibatches of "
+              f"{cfg['minibatch_size']}; trained {epochs} epochs through Runner.run: launches {run['train']} "
+              f"({run['train']['gae'] / epochs:g} GAE an epoch at [{horizon}, {n}, 1]); played {steps} steps: launches "
+              f"{run['play']}, {run['play_out']!r}")
+        epoch_s = report_epochs(f"dict ({tag})", run["times"], n * horizon, run["peak_gib"])
+        step_s, kernels, _ = rnn_rollout_profile(params)
+        agent = PPOAgent("dict_profile", params)
+        state = agent.init_state()
+        agent.train_epoch(state)  # a warm-up epoch
+        idle, busy, wall = idle_share(lambda: agent.train_epoch(state))
+        print(f"[dict] ({tag}) rollout step {step_s * 1e3:.3f} ms at {n} envs ({kernels:.1f} device kernels a step); "
+              f"steady player step {run['steady_step_s'] * 1e3:.2f} ms; one more epoch {wall * 1e3:.1f} ms, the "
+              f"device busy {busy * 1e3:.1f} ms of the next one (profiled), idle share {idle:.3f}")
+        out[tag] = {**run, "epoch_s": epoch_s, "rollout_step_s": step_s, "kernels_per_step": kernels, "idle": idle}
+    return out
+
+
+def reference_dict():
+    """One update of test_discrite_testnet_aux_loss.yaml's model (the aux
+    loss among it) on the card against the CPU on the same trajectory of
+    dict observations (16 envs x 64 steps), through check_first_update."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.runner import import_user_module
+
+    params = load_config(DICT_CONFIGS["aux"])["params"]
+    for module in params["config"]["import_modules"]:
+        import_user_module(module)
+    params["config"].update(num_actors=16, horizon_length=64, minibatch_size=256)
+    gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+    gstate, cstate = gpu.init_state(), cpu.init_state()
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    traj, last_values = gpu._rollout(gstate)
+    if set(traj["obses"]) != {"pos", "info", "aux_target"}:
+        raise AssertionError(f"dict: the trajectory's observations are {sorted(traj['obses'])}")
+    cstate.dones = gstate.dones.cpu()
+    gds = gpu._prepare_dataset(gstate, traj, last_values)
+    cds = cpu._prepare_dataset(cstate, to_cpu(traj), last_values.cpu())
+    dadv = float((gds["advantages"].cpu() - cds["advantages"]).abs().max())
+    aux = [float(agent._loss_and_kl(agent._minibatch(ds, 0), st.entropy_coef)[0].detach())
+           for agent, ds, st in ((gpu, gds, gstate), (cpu, cds, cstate))]
+    update = check_first_update(gpu, cpu, gstate, cstate, gds, cds)
+    print(f"[reference] dict (aux) testnet_aux_loss over {{'pos', 'info', 'aux_target'}}, 16 envs x 64 steps: max "
+          f"|dadv| {dadv:.2e}; first minibatch's total loss (the aux loss in it) {aux[0]:.7f} / {aux[1]:.7f}; one "
+          f"minibatch of 256: {update}")
+    if not (dadv < 1e-4 and abs(aux[0] - aux[1]) <= 2e-5 * abs(aux[1])):
+        raise AssertionError(f"dict: the card disagrees with the CPU: advantages {dadv}, losses {aux}")
+
+
 def profile_report(tag: str, prof, wall_us: float, detail: str):
     """The device's busy time and idle share over ``wall_us`` of host time,
     and the device time by kernel, of one torch.profiler session."""
@@ -2569,6 +2754,10 @@ def main():
     host_sac_train, host_sac_play, _ = phase_host_sac(8)
     heads = phase_heads(args.epochs)
     rnn = phase_rnn(3)
+    # A8 (a): dict observations and the custom test networks, then SAC's
+    # layer-norm torsos over the native stepper as [host_sac] runs
+    dict_runs = phase_dict(3)
+    norm_train, norm_play, _ = phase_host_sac(8, config="ref/mujoco/sac_ant_tuned.yaml", tag="sac_norm")
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
@@ -2576,10 +2765,11 @@ def main():
     # CartPole player
     host_runs = tuple(host[tag]["train"] for tag in ("default", "cpu", "default fused"))
     runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train,
-            *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn))
-    # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn] run 3
+            *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn),
+            *(dict_runs[tag]["train"] for tag in dict_runs))
+    # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn] and [dict] run 3
     epochs_trained = ((args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
-                      + (3,) * len(rnn))
+                      + (3,) * len(rnn) + (3,) * len(dict_runs))
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
@@ -2589,7 +2779,10 @@ def main():
                                      "host_ppo": {tag: host[tag]["train"]["gae"] for tag in host},
                                      "host_pixel": pixel_launches["gae"], "host_sac": host_sac_train["gae"],
                                      "heads": {tag: heads[tag]["train"]["gae"] for tag in heads},
-                                     "rnn": {tag: rnn[tag]["train"]["gae"] for tag in rnn}}
+                                     "rnn": {tag: rnn[tag]["train"]["gae"] for tag in rnn},
+                                     # [dict]: GAE at [256, 16, 1] once an epoch; [sac_norm] none
+                                     "dict": {tag: dict_runs[tag]["train"]["gae"] for tag in dict_runs},
+                                     "sac_norm": norm_train["gae"]}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
@@ -2639,6 +2832,10 @@ def main():
                                      "per_epoch": re_["train"]["fused_mlp"] / 3},
         "other_runs": {tag: rnn[tag]["train"]["fused_mlp"] + rnn[tag]["play"]["fused_mlp"]
                        for tag in rnn if tag not in ("d", "e")}}
+    # [dict] and [sac_norm] take the plain chain: no fused launch
+    fused_entry["launches_dict"] = {tag: {"train": dict_runs[tag]["train"]["fused_mlp"],
+                                          "play": dict_runs[tag]["play"]["fused_mlp"]} for tag in dict_runs}
+    fused_entry["launches_sac_norm"] = {"train": norm_train["fused_mlp"], "play": norm_play["fused_mlp"]}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

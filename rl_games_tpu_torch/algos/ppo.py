@@ -21,7 +21,12 @@ neglogp)²) (ppo.py:959-962). With ``use_action_masks`` each step reads the
 env's masks before the policy samples, stores them in the trajectory and
 the loss applies them (ppo.py:576-580, 654-655, 859-860). The actor sees
 the 'obs' entry of the asymmetric envs' {'obs', 'states'} observations
-(``actor_obs``). A multi-head value (``value_size`` > 1) keeps its
+(``actor_obs``); other dict observations (a custom network's, or the
+resnet builder's extras) reach the model whole: the trajectory keeps a
+[T, N, ...] tensor per key, in the key's own dtype, the minibatches slice
+each key, the model's normalizer has one set of stats per key, and the
+'aux_losses' a network reports join the loss (ppo.py:923-926). A
+multi-head value (``value_size`` > 1) keeps its
 rewards, values, returns and value normalizer per head, and sums the
 heads' advantages. The tanh policy's entropy is estimated from normals
 drawn fresh for each minibatch (ppo.py:861-868). Envs that report
@@ -277,13 +282,16 @@ class PPOTrainState:
 
 def actor_obs(obs):
     """The actor's input: the 'obs' entry of the asymmetric envs'
-    {'obs', 'states'} observations (ppo.py:541-547). Other dict
-    observations wait for the dict normalizer."""
-    if isinstance(obs, dict):
-        if set(obs) <= {"obs", "states"}:
-            return obs["obs"]
-        unported("dict observations", "A8")
+    {'obs', 'states'} observations (ppo.py:541-547); any other dict
+    observation passes whole."""
+    if isinstance(obs, dict) and set(obs) <= {"obs", "states"}:
+        return obs["obs"]
     return obs
+
+
+def tree_map(fn, x):
+    """``fn`` over a tensor, or over each entry of a dict observation."""
+    return {k: fn(v) for k, v in x.items()} if isinstance(x, dict) else fn(x)
 
 
 class PPOAgent:
@@ -554,7 +562,6 @@ class PPOAgent:
             env_state, obs = None, to_device_obs(self.vec_env.reset(), self.device)
         else:
             env_state, obs = self.vec_env.reset(generator(env_seed))
-            actor_obs(obs)  # refuses dict observations that are not {'obs', 'states'}
         n, v = self.num_actors, self.value_size
         f32 = dict(dtype=torch.float32, device=self.device)
         return PPOTrainState(
@@ -594,17 +601,25 @@ class PPOAgent:
             return rescale_actions(self._action_low, self._action_high, a)
         return a
 
-    def _trajectory_buffers(self, device, mask_shape=None):
+    def _trajectory_buffers(self, device, obs, mask_shape=None):
         """Uninitialized [T, N, ...] trajectory tensors on ``device`` that the
         rollout fills step by step; with ``mask_shape`` (one step's masks,
-        [N, ...]) also the action masks. The observations lie env-major ([N,
-        T, ...] in memory, a transposed view here), so that
-        swap_and_flatten01 of them is a view: at 512 envs × 64 steps of
-        84×84×2 frames they are 1.85 GB."""
+        [N, ...]) also the action masks. The actor's observations ``obs``
+        (one step's) give the observations' buffer: float32 of the
+        observation shape, or for a dict observation one buffer per key of
+        the key's shape and dtype. The observations lie env-major ([N, T,
+        ...] in memory, a transposed view here), so that swap_and_flatten01
+        of them is a view: at 512 envs × 64 steps of 84×84×2 frames they are
+        1.85 GB."""
         T, N, V = self.horizon_length, self.num_actors, self.value_size
         f32 = dict(dtype=torch.float32, device=device)
+        if isinstance(obs, dict):
+            obses = {k: torch.empty((N, T, *v.shape[1:]), dtype=v.dtype, device=device).transpose(0, 1)
+                     for k, v in obs.items()}
+        else:
+            obses = torch.empty((N, T, *self.obs_shape), **f32).transpose(0, 1)
         traj = {
-            "obses": torch.empty((N, T, *self.obs_shape), **f32).transpose(0, 1),
+            "obses": obses,
             "dones": torch.empty((T, N), **f32),
             "values": torch.empty((T, N, V), **f32),
             "neglogpacs": torch.empty((T, N), **f32),
@@ -622,6 +637,16 @@ class PPOAgent:
         if self.has_central_value:  # the central value net's input (ppo.py:649-650)
             traj["states"] = torch.empty((N, T, *self.state_shape), **f32).transpose(0, 1)
         return traj
+
+    @staticmethod
+    def _write_step(traj, t, step):
+        """Step ``t``'s entries into the trajectory's buffers."""
+        for k, buf in traj.items():
+            if isinstance(buf, dict):
+                for key, b in buf.items():
+                    b[t] = step[k][key]
+            else:
+                buf[t] = step[k]
 
     def _rnn_kw(self, is_rnn: bool, states, dones):
         """A one-step forward's recurrent arguments: the running states and,
@@ -652,7 +677,7 @@ class PPOAgent:
         rnn, cv_rnn = state.rnn_states, state.cv_rnn_states
         snaps, cv_snaps = [], []
         masks = self.vec_env.get_action_masks if self.use_action_masks else None
-        traj = self._trajectory_buffers(self.device, masks(env_state).shape if masks else None)
+        traj = self._trajectory_buffers(self.device, actor_obs(obs), masks(env_state).shape if masks else None)
         for t in range(self.horizon_length):
             if self.any_rnn and t % self.seq_length == 0:
                 snaps.append(rnn)
@@ -698,8 +723,7 @@ class PPOAgent:
             step = {**res, **kw, "obses": actor_obs(obs), "dones": dones, "values": values, "rewards": shaped}
             if self.has_central_value:
                 step["states"] = obs["states"]
-            for k, buf in traj.items():
-                buf[t] = step[k]
+            self._write_step(traj, t, step)
             obs, dones = next_obs, new_dones.to(torch.float32)
 
         last_values = self._bootstrap_values(model, self.cv_model, obs, dones, rnn, cv_rnn)
@@ -741,7 +765,7 @@ class PPOAgent:
         )
         mb_returns = mb_advs + mb_values
 
-        dataset = {k: swap_and_flatten01(v) for k, v in traj.items()}
+        dataset = {k: tree_map(swap_and_flatten01, v) for k, v in traj.items()}
         returns = swap_and_flatten01(mb_returns)
         values = dataset.pop("values")
         advantages = returns - values  # [B, V]
@@ -801,8 +825,11 @@ class PPOAgent:
         sequences start from their slice of them, ``games`` sequences from
         sequence sel // seq_length (ppo.py:993-1003)."""
         size = self.minibatch_size if size is None else size
-        mb = {k: (v[sel] if torch.is_tensor(sel) else v[sel:sel + size])
-              for k, v in dataset.items() if k not in ("rnn_states", "cv_rnn_states")}
+
+        def rows(v):
+            return v[sel] if torch.is_tensor(sel) else v[sel:sel + size]
+
+        mb = {k: tree_map(rows, v) for k, v in dataset.items() if k not in ("rnn_states", "cv_rnn_states")}
         if states_key in dataset:
             first = sel // self.seq_length
             games = self.games_num if games is None else games
@@ -864,6 +891,10 @@ class PPOAgent:
             - entropy_coef * entropy_m
             + (self.bounds_loss_coef or 0.0) * b_loss_m
         )
+        # a custom network's auxiliary losses (get_aux_loss,
+        # a2c_continuous.py:194-202; ppo.py:923-926)
+        for v in (res.get("aux_losses") or {}).values():
+            total = total + v.mean()
         if self.soft_aug is not None and aug_obs is not None:
             # soft augmentation (soft_augmentation.py:18-31): the KL from the
             # detached policy on the observations to the policy on their
@@ -1030,7 +1061,8 @@ class PPOAgent:
         if self.use_diagnostics:
             # the normalizers' state (ppo.py:1274-1282)
             model = self.model
-            if self.normalize_input:
+            # a dict observation's stats are per key: none reported (ppo.py:1276)
+            if self.normalize_input and not isinstance(model.running_mean_std, RS.RunningMeanStdObs):
                 metrics["_diag"]["obs_rms_mean"] = model.running_mean_std.running_mean.mean()
                 metrics["_diag"]["obs_rms_var"] = model.running_mean_std.running_var.mean()
             if self.normalize_value:
@@ -1092,7 +1124,7 @@ class PPOAgent:
         if self.use_action_masks:
             # the masks of the step's observations, read with them (ppo.py:1395-1399)
             kw["action_masks"] = self._upload(self.vec_env.get_action_masks())[0]
-        traj = self._trajectory_buffers(dev, kw["action_masks"].shape if kw else None)
+        traj = self._trajectory_buffers(dev, actor_obs(obs), kw["action_masks"].shape if kw else None)
         cur_r, cur_sr, cur_len = (x.cpu().numpy() for x in (
             state.current_rewards, state.current_shaped_rewards, state.current_lengths))
         finished = []  # (reward, shaped reward, length) of each episode that ended, in order
@@ -1134,8 +1166,7 @@ class PPOAgent:
             step = {**res, **kw, "obses": actor_obs(obs), "dones": dones, "rewards": uploaded[0]}
             if self.has_central_value:
                 step["states"] = obs["states"]
-            for k, buf in traj.items():
-                buf[t] = step[k]
+            self._write_step(traj, t, step)
             obs, dones = next_obs, uploaded[1]
             if kw:
                 kw["action_masks"] = uploaded[2]
@@ -1156,7 +1187,8 @@ class PPOAgent:
             meters_append(state.game_rewards, torch.as_tensor(r, **to_dev))
             meters_append(state.game_shaped_rewards, torch.as_tensor(sr, **to_dev))
             meters_append(state.game_lengths, torch.as_tensor(length[:, None], **to_dev))
-        return ({k: (tuple(t.to(self.device) for t in v) if isinstance(v, tuple) else v.to(self.device))
+        return ({k: (tuple(t.to(self.device) for t in v) if isinstance(v, tuple)
+                     else tree_map(lambda x: x.to(self.device), v))
                  for k, v in traj.items()}, last_values.to(self.device))
 
     def host_train_epoch(self, state: PPOTrainState):

@@ -2,8 +2,8 @@
 
 Port of rl_games_tpu/common/obs_utils.py: ``to_device_obs`` (:13-24) and
 ``upload_obs``, through ``HostUpload``, take a host env's numpy
-observations to the device (an asymmetric env's {'obs', 'states'} both in
-the one copy; other dict observations wait for A8);
+observations to the device (every key of a dict observation in the one
+copy; a key of integers comes back as int64, the rest as float32);
 ``sigma_override_blocked`` and ``fill_sigma`` (:26-55) serve the
 ``--sigma`` override.
 """
@@ -12,8 +12,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-
-from rl_games_tpu_torch.utils.unported import unported
 
 
 class HostUpload:
@@ -57,13 +55,19 @@ class HostUpload:
 
 def upload_obs(upload: HostUpload, obs, *arrays):
     """A host env's observations and further ``arrays`` to ``upload``'s
-    device in one copy: (the observations, a tensor or an {'obs',
-    'states'} dict of tensors; the arrays' tensors, a list)."""
+    device in one copy: (the observations, a tensor or a dict of tensors;
+    the arrays' tensors, a list). The JAX package keeps each key's dtype
+    (obs_utils.py:13-24); here the copy is float32 and a key of integers
+    (a last action that a network one-hot encodes) is cast back to int64
+    on the device, exact below 2**24. Floats, booleans and uint8 frames stay
+    float32: every reader of them (the normalizer, a concatenation, a
+    layer) computes in float32 in the JAX package too."""
     if isinstance(obs, dict):
-        if set(obs) != {"obs", "states"}:
-            unported("dict observations from a host env", "A8")
-        out = upload(obs["obs"], obs["states"], *arrays)
-        return {"obs": out[0], "states": out[1]}, out[2:]
+        keys = list(obs)
+        out = upload(*(obs[k] for k in keys), *arrays)
+        tensors = {k: (t.to(torch.int64) if np.issubdtype(np.asarray(obs[k]).dtype, np.integer) else t)
+                   for k, t in zip(keys, out)}
+        return tensors, out[len(keys):]
     out = upload(obs, *arrays)
     return out[0], out[1:]
 

@@ -11,7 +11,8 @@ the mean (deterministic; tanh(mu) for the tanh policy) or a sample, clipped
 and rescaled to the env's bounds; discrete and multi-discrete ones the
 argmax of the (masked, with ``use_action_masks``) logits (deterministic) or
 a sample, passed as they are. The policy sees the 'obs' entry of the
-asymmetric envs' {'obs', 'states'} observations. A recurrent policy
+asymmetric envs' {'obs', 'states'} observations, and any other dict
+observation whole (player.py:114-119). A recurrent policy
 plays as the JAX package's does: every step's forward starts from zero
 states (the JAX player passes no ``rnn_states``, player.py:230-255, so its
 RNNCore starts from zeros; the reference's player would carry them). With

@@ -12,6 +12,9 @@ rl_games/envs/test/ fixtures):
   {'obs', 'states'}, the state never hiding the goal),
   ``apply_dist_reward``. Every step reports ``infos['scores']``, 1 where the
   goal was reached.
+* ``DictObsMemoryEnv`` (:160-201) — MemoryEnv with dict observations
+  {'pos': 2, 'info': 4} and, with ``aux_loss``, 'aux_target' (1): the
+  squared distance to the goal over (max_dist - min_dist)².
 * ``MaskedMemoryEnv`` (:204-222) — MemoryEnv with action masks: a move along
   an axis is valid while the agent is inside ±max_dist on it.
 * ``AsymmetricEnv`` (:225-256) — CartPole whose actor observation hides the
@@ -30,7 +33,7 @@ import torch
 
 from rl_games_tpu_torch.envs.device.base import DeviceEnv, uniform_int
 from rl_games_tpu_torch.envs.device.classic import CartPole, Pendulum
-from rl_games_tpu_torch.envs.spaces import Box, Discrete, EnvInfo, MultiDiscrete
+from rl_games_tpu_torch.envs.spaces import Box, DictSpace, Discrete, EnvInfo, MultiDiscrete
 from rl_games_tpu_torch.utils.device import resolve_device
 
 
@@ -132,6 +135,44 @@ class MemoryEnv(DeviceEnv):
         else:
             reward = win_reward + dist_reward
         return state, self._wrap(self._obs(state), state), reward, reached, {"scores": win_reward}
+
+
+class DictObsMemoryEnv(MemoryEnv):
+    """MemoryEnv with dict observations {'pos': 2, 'info': 4 (+ 'aux_target':
+    1)} (the reference's multi_obs_space variant, rnn_env.py:31-45): 'pos'
+    is the position, 'info' the goal and the two flags; 'aux_target' the
+    squared distance to the goal over (max_dist - min_dist)², the target
+    of testnet_aux_loss's auxiliary head."""
+
+    def __init__(self, aux_loss=False, device=None, **kwargs):
+        super().__init__(device=device, **kwargs)
+        self.aux_loss = bool(aux_loss)
+        # XLA compiles the JAX env's division by the constant (max_dist -
+        # min_dist)² into a product with its float32 reciprocal; the same
+        # product here, by a device tensor
+        self._inv_bound_sq = torch.tensor(1.0 / (self.max_dist - self.min_dist) ** 2, dtype=torch.float32,
+                                          device=self.device)
+
+    def env_info(self):
+        spaces = {"pos": Box(shape=(2,)), "info": Box(shape=(4,))}
+        if self.aux_loss:
+            spaces["aux_target"] = Box(shape=(1,))
+        return EnvInfo(observation_space=DictSpace.create(spaces), action_space=Discrete(n=4))
+
+    def _split(self, obs, state: MemoryState):
+        out = {"pos": obs[:, :2], "info": obs[:, 2:]}
+        if self.aux_loss:
+            d = state.goal - state.pos
+            out["aux_target"] = (d * d).sum(-1, keepdim=True).float() * self._inv_bound_sq
+        return out
+
+    def reset_from(self, noise):
+        state, obs = super().reset_from(noise)
+        return state, self._split(obs, state)
+
+    def step(self, estate: MemoryState, actions, noise=None):
+        state, obs, reward, terminated, info = super().step(estate, actions, noise)
+        return state, self._split(obs, state), reward, terminated, info
 
 
 class MaskedMemoryEnv(MemoryEnv):

@@ -279,28 +279,20 @@ def _create_test_env(device=None, name="TestRnnEnv-v0", multi_obs_space=False, a
     """The reference's ``test_env`` binding (:330-342): one flag-parameterized
     MemoryEnv; its env_config keys (hide_object, min_dist, max_dist,
     apply_dist_reward, multi_discrete_space, multi_head_value,
-    use_central_value) pass through. The dict-observation variant
-    (``multi_obs_space``) waits for the dict observations."""
+    use_central_value) pass through. ``multi_obs_space`` gives the
+    dict-observation variant (which drops use_central_value), with
+    ``aux_loss`` its 'aux_target'."""
     from rl_games_tpu_torch.envs.device import test_envs
 
     if multi_obs_space:
-        unported("the dict-observation test env (multi_obs_space)", "A8")
+        kwargs.pop("use_central_value", None)
+        return test_envs.DictObsMemoryEnv(aux_loss=aux_loss, device=device, **kwargs)
     return test_envs.MemoryEnv(device=device, **kwargs)
-
-
-def _unported_env(what: str, item: str):
-    def create(device=None, **kwargs):
-        unported(what, item)
-
-    return create
 
 
 # the test envs (:497-533)
 register("test_env", {"vecenv_type": "DEVICE", "env_creator": _create_test_env})
 for _name, _cls in (("test_rnn_env", "MemoryEnv"), ("test_asymmetric_env", "AsymmetricEnv"),
-                    ("test_masked_env", "MaskedMemoryEnv"),
+                    ("test_masked_env", "MaskedMemoryEnv"), ("test_dict_obs_env", "DictObsMemoryEnv"),
                     ("test_asymmetric_continuous_env", "ContinuousAsymmetricEnv")):
     register(_name, {"vecenv_type": "DEVICE", "env_creator": _creator("test_envs", _cls)})
-register("test_dict_obs_env", {"vecenv_type": "DEVICE",
-                               "env_creator": _unported_env("the dict-observation test env (test_dict_obs_env)",
-                                                            "A8")})

@@ -6,7 +6,12 @@ torso: ``continuous_a2c_logstd``, ``continuous_a2c``,
 ``continuous_a2c_tanh``, ``discrete_a2c``, ``multi_discrete_a2c`` and the
 value-only ``central_value``.
 ``ModelBuilder.load(params)`` builds the torso from ``params['network']``
-and wraps it with the model named by ``params['model']['name']``.
+and wraps it with the model named by ``params['model']['name']``. A network
+builder is called in the JAX package's keyword form, ``build(net_params, *,
+actions_num, input_shape, value_size, device)``, so a custom network
+(``models/test_network.py``) registers with ``register_network``. The torso's input shape is the 'obs' entry of a dict
+observation that has one (algos/ppo.py:301-303, common/player.py:58-68);
+the model's normalizer takes the whole observation shape.
 """
 
 from typing import Callable, Dict
@@ -38,17 +43,17 @@ def _model_factory(model_cls):
               normalize_input=False, normalize_value=False, obs_shape=None, device=None):
         name = network_params["name"]
         if name not in NETWORK_REGISTRY:
-            # resnet_actor_critic (impala) and the custom networks
+            # resnet_actor_critic (impala), connect4net
             unported(f"network '{name}'", "A8")
-        network = NETWORK_REGISTRY[name](
-            network_params, actions_num, input_shape, value_size, device=device
-        )
+        net_shape = input_shape["obs"] if isinstance(input_shape, dict) and "obs" in input_shape else input_shape
+        network = NETWORK_REGISTRY[name](network_params, actions_num=actions_num, input_shape=net_shape,
+                                         value_size=value_size, device=device)
         kwargs = {}
         if model_cls in (models.ModelA2CContinuousLogStd, models.ModelA2CContinuousTanh):
             kwargs["space_cfg"] = network_params.get("space", {}).get("continuous", {})
         return model_cls(
             network,
-            obs_shape=obs_shape if obs_shape is not None else tuple(input_shape),
+            obs_shape=obs_shape if obs_shape is not None else input_shape,
             normalize_input=normalize_input,
             normalize_value=normalize_value,
             value_size=value_size,

@@ -11,7 +11,11 @@ package passes ``(params, norm)`` through pure functions; here the model is
 an ``nn.Module`` that owns both: the torso as ``a2c_network`` and the
 normalizer states (the JAX ``NormState``) as ``running_mean_std`` and
 ``value_mean_std``, the reference checkpoint names. Normalizer updates stay
-explicit calls, as in the JAX package, not a side effect of a forward.
+explicit calls, as in the JAX package, not a side effect of a forward. A
+dict ``obs_shape`` gets one normalizer per key (``RunningMeanStdObs``):
+every key is normalized, as in the JAX package. A network's optional
+'aux_losses' (custom networks, ``models/test_network.py``) pass through
+``forward_train`` to the loss (``passthrough_extras``, :93-101).
 """
 
 from typing import Optional
@@ -22,8 +26,16 @@ from torch import nn
 from rl_games_tpu_torch.models import distributions as D
 from rl_games_tpu_torch.models.network_builder import A2CNetwork
 from rl_games_tpu_torch.ops import divergence
-from rl_games_tpu_torch.ops.running_stats import RunningMeanStd
-from rl_games_tpu_torch.utils.unported import unported
+from rl_games_tpu_torch.ops.running_stats import RunningMeanStd, RunningMeanStdObs
+
+
+def passthrough_extras(out, result):
+    """A network's optional 'aux_losses' into the train dict, for the loss
+    to add (models.py:93-101; the reference's get_aux_loss,
+    a2c_continuous.py:194-202)."""
+    if "aux_losses" in out:
+        result["aux_losses"] = out["aux_losses"]
+    return result
 
 
 class BaseModel(nn.Module):
@@ -35,14 +47,13 @@ class BaseModel(nn.Module):
     def __init__(self, a2c_network: A2CNetwork, *, obs_shape, normalize_input: bool = False,
                  normalize_value: bool = False, value_size: int = 1, device=None):
         super().__init__()
-        if isinstance(obs_shape, dict):
-            unported("dict observations and the dict normalizer", "A8")
         self.a2c_network = a2c_network
         self.normalize_input = normalize_input
         self.normalize_value = normalize_value
         self.value_size = value_size
         if normalize_input:
-            self.running_mean_std = RunningMeanStd(obs_shape, device=device)
+            self.running_mean_std = (RunningMeanStdObs(obs_shape, device=device) if isinstance(obs_shape, dict)
+                                     else RunningMeanStd(obs_shape, device=device))
         if normalize_value:
             self.value_mean_std = RunningMeanStd((value_size,), device=device)
 
@@ -100,13 +111,13 @@ class ModelA2C(BaseModel):
         log-probabilities, values stay normalized."""
         out = self._net(obs, rnn_states, dones, seq_length)
         logits = out["logits"]
-        return {
+        return passthrough_extras(out, {
             "prev_neglogp": D.categorical_neglogp(logits, prev_actions, action_masks),
             "values": out["value"],
             "entropy": D.categorical_entropy(logits, action_masks),
             "logits": D.categorical_log_probs(logits, action_masks),
             "rnn_states": out["rnn_states"],
-        }
+        })
 
     def forward_play(self, obs, generator=None, deterministic: bool = False, action_masks=None,
                      rnn_states=None, dones=None, seq_length: int = 1):
@@ -154,14 +165,14 @@ class ModelA2CMultiDiscrete(BaseModel):
         out = self._net(obs, rnn_states, dones, seq_length)
         logits_list = out["logits"]
         masks = _split_masks(action_masks, len(logits_list))
-        return {
+        return passthrough_extras(out, {
             "prev_neglogp": sum(D.categorical_neglogp(l, prev_actions[..., i], masks[i])
                                 for i, l in enumerate(logits_list)),
             "values": out["value"],
             "entropy": sum(D.categorical_entropy(l, masks[i]) for i, l in enumerate(logits_list)),
             "logits": tuple(D.categorical_log_probs(l, masks[i]) for i, l in enumerate(logits_list)),
             "rnn_states": out["rnn_states"],
-        }
+        })
 
     def forward_play(self, obs, generator=None, deterministic: bool = False, action_masks=None,
                      rnn_states=None, dones=None, seq_length: int = 1):
@@ -216,14 +227,14 @@ class ModelA2CContinuousLogStd(BaseModel):
         normalized space the value loss works in."""
         out = self._net(obs, rnn_states, dones, seq_length)
         mu, sigma, logstd = self._dist_params(out)
-        return {
+        return passthrough_extras(out, {
             "prev_neglogp": D.normal_neglogp(prev_actions, mu, sigma, logstd),
             "values": out["value"],
             "entropy": D.normal_entropy(logstd),
             "mus": mu,
             "sigmas": sigma,
             "rnn_states": out["rnn_states"],
-        }
+        })
 
     def forward_play(self, obs, generator=None, deterministic: bool = False, rnn_states=None, dones=None,
                      seq_length: int = 1):
@@ -281,14 +292,14 @@ class ModelA2CContinuousTanh(BaseModel):
             raise ValueError("ModelA2CContinuousTanh.forward_train needs entropy_noise, standard normals "
                              "drawn fresh for every minibatch")
         out, dist = self._dist(obs, rnn_states, dones, seq_length)
-        return {
+        return passthrough_extras(out, {
             "prev_neglogp": -dist.log_prob(prev_actions),
             "values": out["value"],
             "entropy": dist.entropy(entropy_noise),
             "mus": dist.loc,
             "sigmas": dist.scale,
             "rnn_states": out["rnn_states"],
-        }
+        })
 
     def forward_play(self, obs, generator=None, deterministic: bool = False, rnn_states=None, dones=None,
                      seq_length: int = 1):
@@ -320,7 +331,7 @@ class ModelCentralValue(BaseModel):
     def forward_train(self, obs, rnn_states=None, dones=None, seq_length: int = 1):
         """Normalized values and the new recurrent states."""
         out = self._net(obs, rnn_states, dones, seq_length)
-        return {"values": out["value"], "rnn_states": out["rnn_states"]}
+        return passthrough_extras(out, {"values": out["value"], "rnn_states": out["rnn_states"]})
 
     def forward_play(self, obs, rnn_states=None, dones=None, seq_length: int = 1):
         """Denormalized values and the new recurrent states."""

@@ -18,6 +18,19 @@ net (``central_value: True``, or no action space) has the value head only
 JAX package; the branches not ported yet (impala, two-hot value head)
 raise NotImplementedError naming their ROADMAP.md item.
 
+The resnet builder's extras (:108-126, 173-174): a dict observation with an
+'observation' key feeds that entry to the trunks, and with
+``require_rewards`` its 'reward' ([B] or [B, 1]) and with
+``require_last_actions`` its 'last_action' join the recurrent core's input,
+after the features the core would read without them. An integer last action
+is one-hot encoded over ``actions_num``, a float one is flattened as it is.
+The core's width is fixed when it is built: a scalar last action (shape ())
+is taken as an action index, one-hot encoded, as the JAX package's init
+decides from an integer example; a forward checks that the tensor it gets
+agrees. Behind the input normalizer the last action arrives as a float, and
+both packages refuse it: the JAX package's apply with a shape error, the
+port with a ValueError.
+
 Submodules carry the reference checkpoint names (``actor_cnn``,
 ``actor_mlp``, ``critic_cnn``, ``critic_mlp``, the recurrent core ``rnn``
 and its ``layer_norm`` on a shared trunk, ``a_rnn`` / ``c_rnn`` and
@@ -25,6 +38,7 @@ and its ``layer_norm`` on a shared trunk, ``a_rnn`` / ``c_rnn`` and
 ``logits`` or ``logits.{i}``, ``value``).
 """
 
+import math
 from typing import Sequence
 
 import torch
@@ -43,6 +57,9 @@ def action_space_of(cfg: dict):
             return kind, space[kind] or {}
     return None, {}
 
+
+_NO_OBSERVATION = ("the actor_critic network reads a dict observation through its 'observation' entry (the "
+                   "resnet builder's extras); this one has the keys {}: a custom network reads others")
 
 # the recurrent core's module names by trunk: a shared trunk's core is
 # 'rnn', separate trunks' are 'a_rnn' and 'c_rnn' (the reference builder's)
@@ -70,6 +87,7 @@ class A2CNetwork(nn.Module):
         super().__init__()
         cfg = params
         self.space, space_cfg = action_space_of(cfg)
+        input_shape, extra = self._extras_of(cfg, actions_num, input_shape)
         self.central_value = bool(cfg.get("central_value", False)) or self.space is None
         self.discrete = self.space != "continuous"
         self.separate = bool(cfg.get("separate", False))
@@ -133,6 +151,7 @@ class A2CNetwork(nn.Module):
             else:
                 setattr(self, prefix + "mlp", mlp(flat))
                 rnn_in = mlp_out(flat) + (flat if rnn_cfg.get("concat_input", False) else 0)
+            rnn_in += extra
             core = L.RNNCore(rnn_cfg["name"], rnn_in, rnn_cfg["units"], rnn_cfg["layers"], device=device)
             setattr(self, core_name, core)
             rnn_out = core.out_features
@@ -176,6 +195,48 @@ class A2CNetwork(nn.Module):
         else:
             self.sigma = L.make_dense(out_size, actions_num, sigma_init, device)
 
+    def _extras_of(self, cfg: dict, actions_num, input_shape):
+        """(the trunks' input shape, the width the extras add to the core's
+        input) for ``input_shape``, which is a dict for a dict observation:
+        its 'observation' entry and, where the config asks for them, its
+        'reward' and 'last_action'."""
+        self.require_rewards = bool(cfg.get("require_rewards", False))
+        self.require_last_actions = bool(cfg.get("require_last_actions", False))
+        self.actions_num = actions_num
+        self.one_hot_last_action = False
+        if not isinstance(input_shape, dict):
+            return input_shape, 0
+        if "observation" not in input_shape:
+            raise ValueError(_NO_OBSERVATION.format(sorted(input_shape)))
+        extra = 1 if self.require_rewards else 0
+        if self.require_last_actions:
+            shape = tuple(input_shape["last_action"])
+            self.one_hot_last_action = shape == () and isinstance(actions_num, int)
+            extra += actions_num if self.one_hot_last_action else math.prod(shape)
+        return input_shape["observation"], extra
+
+    def _split_obs(self, obs):
+        """(the trunks' input, the extras for the core's input or None)."""
+        if not isinstance(obs, dict):
+            return obs, None
+        if "observation" not in obs:
+            raise ValueError(_NO_OBSERVATION.format(sorted(obs)))
+        if self.rnn_cfg is None:  # the extras feed the core alone
+            return obs["observation"], None
+        parts = []
+        if self.require_rewards:
+            parts.append(obs["reward"].reshape(-1, 1).to(torch.float32))
+        if self.require_last_actions:
+            la = obs["last_action"]
+            integer = not la.is_floating_point()
+            if integer != self.one_hot_last_action:
+                raise ValueError(f"the core was built for {'an integer' if self.one_hot_last_action else 'a float'} "
+                                 f"last action and got a {la.dtype} one of shape {tuple(la.shape)}")
+            if integer:
+                la = torch.nn.functional.one_hot(la.long(), self.actions_num).to(torch.float32)
+            parts.append(la.reshape(la.shape[0], -1))
+        return obs["observation"], (torch.cat(parts, dim=-1) if parts else None)
+
     def reset_parameters(self, generator=None):
         L.reset_parameters(self, generator)
         if self.space == "continuous" and not self.central_value and self.fixed_sigma:
@@ -197,10 +258,13 @@ class A2CNetwork(nn.Module):
             return states + L.default_rnn_state(c["name"], c["layers"], num_seqs, c["units"], device)
         return states
 
-    def _apply_rnn(self, x, flat, prefix, states, dones, seq_length):
-        """x [B, F] through the trunk's core as [B / seq_length, seq_length,
-        F] sequences; returns ([B, F'], new_states)."""
+    def _apply_rnn(self, x, flat, prefix, states, dones, seq_length, extra=None):
+        """x [B, F] (and the extras after it) through the trunk's core as
+        [B / seq_length, seq_length, F] sequences; returns ([B, F'],
+        new_states)."""
         core_name, ln_name = RNN_MODULE_NAMES[(prefix, self.separate)]
+        if extra is not None:
+            x = torch.cat([x, extra], dim=-1)
         batch = x.shape[0]
         num_seqs = batch // seq_length
         d = None if dones is None else dones.reshape(num_seqs, seq_length)
@@ -212,7 +276,7 @@ class A2CNetwork(nn.Module):
             out = torch.cat([out, flat], dim=-1)
         return out, new_states
 
-    def _trunk(self, obs, prefix: str, states=None, dones=None, seq_length: int = 1):
+    def _trunk(self, obs, prefix: str, states=None, dones=None, seq_length: int = 1, extra=None):
         x, cnn = obs, getattr(self, prefix + "cnn")
         if cnn is not None:
             # channels-last observations to channels-first (permute_input),
@@ -223,23 +287,24 @@ class A2CNetwork(nn.Module):
             return mlp(x), None
         flat = x
         if self.rnn_cfg.get("before_mlp", False):
-            out, states = self._apply_rnn(flat, flat, prefix, states, dones, seq_length)
+            out, states = self._apply_rnn(flat, flat, prefix, states, dones, seq_length, extra)
             return mlp(out), states
         out = mlp(flat)
         if self.rnn_cfg.get("concat_input", False):
             out = torch.cat([out, flat], dim=-1)
-        return self._apply_rnn(out, flat, prefix, states, dones, seq_length)
+        return self._apply_rnn(out, flat, prefix, states, dones, seq_length, extra)
 
     def forward(self, obs, rnn_states=None, dones=None, seq_length: int = 1):
+        obs, extra = self._split_obs(obs)
         if self.separate:
             half = None if rnn_states is None else len(rnn_states) // 2
             a_states = None if half is None else tuple(rnn_states[:half])
             c_states = None if half is None else tuple(rnn_states[half:])
-            a_out, a_states = self._trunk(obs, "actor_", a_states, dones, seq_length)
-            c_out, c_states = self._trunk(obs, "critic_", c_states, dones, seq_length)
+            a_out, a_states = self._trunk(obs, "actor_", a_states, dones, seq_length, extra)
+            c_out, c_states = self._trunk(obs, "critic_", c_states, dones, seq_length, extra)
             new_states = None if self.rnn_cfg is None else tuple(a_states) + tuple(c_states)
         else:
-            a_out, new_states = self._trunk(obs, "actor_", rnn_states, dones, seq_length)
+            a_out, new_states = self._trunk(obs, "actor_", rnn_states, dones, seq_length, extra)
             c_out = a_out
             new_states = None if new_states is None else tuple(new_states)
         value = self.value_act(self.value(c_out))

@@ -12,10 +12,15 @@ network_builder.py:919-1081):
 The submodules carry the reference SAC checkpoint's names: ``trunk.{k}``
 (the head is the trunk's last Linear; with ``mlp.d2rl`` the D2RL MLP is
 ``trunk.0`` and the head ``trunk.1``) and ``Q1.{k}`` / ``Q2.{k}``, so an
-actor's or critic's ``state_dict`` is the reference's section and the JAX
-package's ``convert_sac_weights`` reads it unchanged. The MLPs are the
-plain sequential ones, as in the JAX package, whose SAC never takes the
-fused kernel. ``ActionRescale`` maps the actor's [-1, 1] actions to the
+actor's or critic's ``state_dict`` is the reference's section. With
+``network.normalization`` (``layer_norm``, or ``batch_norm``, a LayerNorm
+stand-in in both packages) every unit of a plain trunk is Linear, activation,
+LayerNorm, at indices 3i, 3i + 1, 3i + 2, and the head follows at 3n; a D2RL
+trunk keeps its norms as ``trunk.0.norm_layers.{i}`` (sac.py:84-101,
+layers.py:132-195). The JAX package's ``convert_sac_weights`` reads the
+plain trunks without norms; it takes a LayerNorm's weight for a Linear's
+(ROADMAP.md §3, fault 5). The MLPs are the plain sequential ones, as in the
+JAX package, whose SAC never takes the fused kernel. ``ActionRescale`` maps the actor's [-1, 1] actions to the
 env's bounds, for the trainer and the player alike.
 """
 
@@ -27,14 +32,14 @@ from torch import nn
 
 from rl_games_tpu_torch.models import distributions as D
 from rl_games_tpu_torch.models import layers as L
-from rl_games_tpu_torch.utils.unported import unported
 
 
 def _mlp_with_head(in_features: int, units: Sequence[int], activation, initializer,
-                   out_features: int, device, d2rl: bool = False) -> nn.Sequential:
-    """Linear→activation per unit, then a Linear head, in one Sequential;
-    with ``d2rl`` the D2RL MLP at 0 and the head at 1."""
-    mlp = L.build_mlp(in_features, units, activation, initializer, d2rl=d2rl, device=device)
+                   out_features: int, device, d2rl: bool = False, norm_func_name=None) -> nn.Sequential:
+    """Linear→activation[→LayerNorm] per unit, then a Linear head, in one
+    Sequential; with ``d2rl`` the D2RL MLP at 0 and the head at 1."""
+    mlp = L.build_mlp(in_features, units, activation, initializer, norm_func_name=norm_func_name, d2rl=d2rl,
+                      device=device)
     head = L.make_dense(units[-1] if units else in_features, out_features, initializer, device=device)
     return nn.Sequential(mlp, head) if d2rl else nn.Sequential(*mlp, head)
 
@@ -44,11 +49,12 @@ class SACActor(nn.Module):
 
     def __init__(self, obs_dim: int, actions_num: int, units: Sequence[int], activation,
                  log_std_bounds: Tuple[float, float] = (-5.0, 2.0), initializer: Optional[dict] = None,
-                 device=None, d2rl: bool = False):
+                 device=None, d2rl: bool = False, norm_func_name=None):
         super().__init__()
         self.actions_num = actions_num
         self.log_std_bounds = tuple(float(b) for b in log_std_bounds)
-        self.trunk = _mlp_with_head(obs_dim, units, activation, initializer, 2 * actions_num, device, d2rl)
+        self.trunk = _mlp_with_head(obs_dim, units, activation, initializer, 2 * actions_num, device, d2rl,
+                                    norm_func_name)
 
     def forward(self, obs):
         mu, log_std = torch.chunk(self.trunk(obs), 2, dim=-1)
@@ -71,11 +77,11 @@ class SACDoubleCritic(nn.Module):
     """forward(obs, action) -> (q1, q2), each [B, 1]."""
 
     def __init__(self, obs_dim: int, actions_num: int, units: Sequence[int], activation,
-                 initializer: Optional[dict] = None, device=None, d2rl: bool = False):
+                 initializer: Optional[dict] = None, device=None, d2rl: bool = False, norm_func_name=None):
         super().__init__()
         d = obs_dim + actions_num
-        self.Q1 = _mlp_with_head(d, units, activation, initializer, 1, device, d2rl)
-        self.Q2 = _mlp_with_head(d, units, activation, initializer, 1, device, d2rl)
+        self.Q1 = _mlp_with_head(d, units, activation, initializer, 1, device, d2rl, norm_func_name)
+        self.Q2 = _mlp_with_head(d, units, activation, initializer, 1, device, d2rl, norm_func_name)
 
     def forward(self, obs, action):
         x = torch.cat([obs, action], dim=-1)
@@ -86,10 +92,9 @@ def build_sac_networks(net_params: dict, obs_dim: int, actions_num: int, device=
     """Map the reference SAC YAML network schema to (actor, critic) modules
     (sac.py:84-102). Their weights are drawn by ``layers.reset_parameters``."""
     mlp = net_params["mlp"]
-    if net_params.get("normalization"):
-        unported("normalization layers in SAC torsos (network.normalization)", "A8")
     common = dict(units=tuple(mlp["units"]), activation=mlp["activation"],
-                  initializer=mlp.get("initializer"), device=device, d2rl=bool(mlp.get("d2rl", False)))
+                  initializer=mlp.get("initializer"), device=device, d2rl=bool(mlp.get("d2rl", False)),
+                  norm_func_name=net_params.get("normalization"))
     actor = SACActor(obs_dim, actions_num,
                      log_std_bounds=tuple(net_params.get("log_std_bounds", (-5.0, 2.0))), **common)
     return actor, SACDoubleCritic(obs_dim, actions_num, **common)

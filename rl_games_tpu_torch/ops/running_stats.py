@@ -9,7 +9,9 @@ the merge is Chan's parallel form; variances are population variances
 The functions are pure over ``(mean, var, count)`` tensors and mirror the
 JAX functions one for one. ``RunningMeanStd`` holds the three as buffers
 named as in the reference checkpoint layout (``running_mean``,
-``running_var``, ``count``) and updates them in place.
+``running_var``, ``count``) and updates them in place;
+``RunningMeanStdObs`` holds one per key of a dict observation (``rms_*_obs``,
+:121-131).
 
 ``generalized_moving_stats_*`` port the JAX package's exponential moving
 stats (:180-279, the reference's moving_mean_std.py:50-126) that
@@ -118,6 +120,33 @@ class RunningMeanStd(nn.Module):
 
     def denormalize(self, x, *, clamp: float = 5.0):
         return rms_denormalize(self.running_mean, self.running_var, x, clamp=clamp)
+
+
+class RunningMeanStdObs(nn.Module):
+    """One ``RunningMeanStd`` per key of a dict observation (``rms_init_obs``,
+    ``rms_normalize_obs``, ``rms_update_obs``; the reference's
+    RunningMeanStdObs, running_mean_std.py:117-128), in the ModuleDict
+    ``running_mean_std``: a model's checkpoint names them
+    ``running_mean_std.running_mean_std.<key>.{running_mean,running_var,count}``.
+    Update and normalize go over the keys of the observation they are given,
+    each key's stats over its own shape; a key of integers is taken as
+    float32."""
+
+    def __init__(self, shapes: dict, device=None):
+        super().__init__()
+        self.running_mean_std = nn.ModuleDict({k: RunningMeanStd(v, device=device) for k, v in shapes.items()})
+
+    def reset(self):
+        for rms in self.running_mean_std.values():
+            rms.reset()
+
+    @torch.no_grad()
+    def update_from_batch(self, obs: dict, mask=None):
+        for k, v in obs.items():
+            self.running_mean_std[k].update_from_batch(v, mask)
+
+    def normalize(self, obs: dict, *, norm_only: bool = False, clamp: float = 5.0) -> dict:
+        return {k: self.running_mean_std[k].normalize(v, norm_only=norm_only, clamp=clamp) for k, v in obs.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,14 @@ Port of rl_games_tpu/runner.py (the reference's torch_runner.py Runner,
 device=None)`` hands the observer to the agent (``config.features.observer``;
 ``config.algo_observer: isaac`` or any other true value picks one when none
 is given) and its device to the agent and the player: CUDA by default,
-which raises without a card; the CPU only when asked for.
+which raises without a card; the CPU only when asked for. A config's
+``import_modules`` that name a module of the JAX package import the port's
+module of the same path (``import_user_module``).
 """
 
 import copy
 import importlib
+import importlib.util
 import random
 from typing import Any, Dict
 
@@ -69,6 +72,28 @@ def _resolve_stop_fn(stop_fn):
     return fn
 
 
+# the JAX package's modules that a config may name in import_modules and
+# whose port is still to come, with the ROADMAP.md item that ports each
+UNPORTED_MODULES = {"rl_games_tpu.models.connect4_network": ("the connect4 network (connect4net)", "A8 (b)")}
+
+
+def import_user_module(module: str):
+    """Import a config's ``import_modules`` entry. A module of the JAX
+    package (``rl_games_tpu.x.y``) is the port's module of the same path
+    (``rl_games_tpu_torch.x.y``), so the registrations land in the port's
+    registries and the JAX package is never imported; one the port has no
+    counterpart of yet is refused naming its ROADMAP.md item. Any other
+    name is imported as given (runner.py:135-136)."""
+    if module != "rl_games_tpu" and not module.startswith("rl_games_tpu."):
+        return importlib.import_module(module)
+    if module in UNPORTED_MODULES:
+        unported(*UNPORTED_MODULES[module])
+    target = "rl_games_tpu_torch" + module[len("rl_games_tpu"):]
+    if importlib.util.find_spec(target) is None:
+        raise ModuleNotFoundError(f"import_modules names {module}, which has no counterpart {target} in the port")
+    return importlib.import_module(target)
+
+
 class Runner:
     def __init__(self, algo_observer=None, device=None):
         self.algo_factory = ObjectFactory()
@@ -115,7 +140,7 @@ class Runner:
         # user modules imported for their registration side effects —
         # custom networks / env plugins (torch_runner.py:152-155)
         for module in config.get("import_modules", []) or []:
-            importlib.import_module(module)
+            import_user_module(module)
         config["reward_shaper"] = config.get("reward_shaper", {})
         config.setdefault("features", {})["observer"] = self.algo_observer
         self.params = params

@@ -33,6 +33,14 @@ checkpoint layout:
         -> a2c_network.{layer_norm | a_layer_norm, c_layer_norm}.{weight, bias}
     norm.obs / norm.value {mean, var, count}     -> running_mean_std.* /
         value_mean_std.{running_mean, running_var, count}
+    norm.obs {key: {mean, var, count}} (a dict observation)
+        -> running_mean_std.running_mean_std.<key>.*
+
+A custom network converts by the same rules where its names are the
+JAX package's: ``models/test_network.TestDictObsNet``'s
+
+    params/mlp/Dense_{i}/Dense_0/*               -> a2c_network.mlp.{2i}.*
+    params/{logits,value,aux_head}/Dense_0/*     -> a2c_network.{logits,value,aux_head}.*
 
 The central value net's params and norm convert alike (the value head and
 the trunks only). ``rnd_jax_to_state_dict`` converts RND's trees into the
@@ -51,6 +59,13 @@ sections of the reference SAC checkpoint, which the port's SAC networks use:
     critic params/Q{1,2}_trunk/Dense_{i}/Dense_0/*       -> Q{1,2}.{2i}.*
            params/Q{1,2}_head/Dense_0/*                  -> Q{1,2}.{2n}.*
     obs_rms {mean, var, count} -> running_mean_std.{running_mean, running_var, count}
+
+and with ``network.normalization`` the trunks' LayerNorms too:
+
+    params/trunk/LayerNorm_{i}/{scale, bias}       -> trunk.{3i + 2}.{weight, bias}
+           (the Linears then at trunk.{3i}, the head at trunk.{3n}; the
+           critic's Q{1,2}_trunk alike; a D2RL trunk's at
+           trunk.0.norm_layers.{i})
 
 It reads only numpy arrays and plain attributes, so it needs neither JAX nor
 the JAX package.
@@ -204,28 +219,37 @@ def jax_to_state_dict(params: Any, norm: Optional[Any] = None,
             _dense(sd, body["sigma"], "a2c_network.sigma")
         else:
             sd["a2c_network.sigma"] = _tensor(body["sigma"], np.float32)
+    if "mlp" in body:  # a custom network's (TestDictObsNet)
+        _sequential(sd, body["mlp"], "Dense_", "a2c_network.mlp", lambda i, kernel: kernel.T)
+    for name in ("logits", "aux_head"):
+        if name in body:
+            _dense(sd, body[name]["Dense_0"], f"a2c_network.{name}")
     if norm is not None:
-        if _get(norm, "obs") is not None:
-            sd.update(_rms(_get(norm, "obs"), "running_mean_std."))
+        obs_norm = _get(norm, "obs")
+        if isinstance(obs_norm, dict):  # one set of stats per key of a dict observation
+            for key, stats in obs_norm.items():
+                sd.update(_rms(stats, f"running_mean_std.running_mean_std.{key}."))
+        elif obs_norm is not None:
+            sd.update(_rms(obs_norm, "running_mean_std."))
         if _get(norm, "value") is not None:
             sd.update(_rms(_get(norm, "value"), "value_mean_std."))
     return sd
 
 
 def _sac_sequential(body, trunk: str, head: str, prefix: str, d2rl: bool = False) -> Dict[str, torch.Tensor]:
-    """A flax trunk (``Dense_{i}/Dense_0``) and head (``Dense_0``) as one
-    Sequential of [Linear, activation] per unit, then the head's Linear;
-    a D2RL trunk as ``{prefix}0.linears.{i}`` and the head as ``{prefix}1``."""
+    """A flax trunk (``Dense_{i}/Dense_0``, ``LayerNorm_{i}``) and head
+    (``Dense_0``) as one Sequential of [Linear, activation[, LayerNorm]] per
+    unit, then the head's Linear; a D2RL trunk as ``{prefix}0.linears.{i}``
+    (and ``.norm_layers.{i}``) and the head as ``{prefix}1``."""
     sd: Dict[str, torch.Tensor] = {}
     if d2rl:
         _d2rl(sd, body[trunk], prefix + "0")
         _dense(sd, body[head]["Dense_0"], prefix + "1")
         return sd
-    layers = [body[trunk][name]["Dense_0"] for name in _numbered(body[trunk], "Dense_")]
-    layers.append(body[head]["Dense_0"])
-    for i, layer in enumerate(layers):
-        sd[f"{prefix}{2 * i}.weight"] = _tensor(np.asarray(layer["kernel"]).T, np.float32)
-        sd[f"{prefix}{2 * i}.bias"] = _tensor(layer["bias"], np.float32)
+    tree = body[trunk]
+    _sequential(sd, tree, "Dense_", prefix[:-1], lambda i, kernel: kernel.T)
+    per_unit = 3 if _numbered(tree, "LayerNorm_") else 2
+    _dense(sd, body[head]["Dense_0"], f"{prefix}{per_unit * len(_numbered(tree, 'Dense_'))}")
     return sd
 
 

@@ -455,12 +455,29 @@ def test_ppo_host_refusals(config, item):
 
 
 def test_ppo_host_dict_observations_wait_for_a8():
-    env = FakeSameStepEnv(LENGTHS, tspaces)
-    env.get_env_info = lambda: tspaces.EnvInfo(
-        observation_space=tspaces.DictSpace.create({"obs": tspaces.Box(shape=(3,)), "goal": tspaces.Box(shape=(2,))}),
-        action_space=tspaces.Box(shape=(1,), low=-1.0, high=1.0))
-    with pytest.raises(NotImplementedError, match="item A8"):
-        PPOAgent("t", continuous_params(), device="cpu", vec_env=env)
+    """Dict observations {'obs', 'goal'} from a host env under the
+    actor_critic network, as the JAX package takes them: the network's
+    input shape is the 'obs' entry, the whole dict reaches it, and it reads
+    a dict only through an 'observation' entry, so both packages refuse the
+    first forward (the JAX package in init_state, with an AttributeError
+    from its trunk's reshape of the dict). A custom network reads such keys:
+    test_torch_port_dict_obs.py::test_host_dict_rollout_matches_jax."""
+    def env(spaces):
+        e = FakeSameStepEnv(LENGTHS, spaces)
+        e.get_env_info = lambda: spaces.EnvInfo(
+            observation_space=spaces.DictSpace.create({"obs": spaces.Box(shape=(3,)), "goal": spaces.Box(shape=(2,))}),
+            action_space=spaces.Box(shape=(1,), low=-1.0, high=1.0))
+        obs = e._obs
+        e._obs = lambda: {"obs": obs(), "goal": np.zeros((e.n, 2), np.float32)}
+        return e
+
+    with pytest.raises(AttributeError, match="'dict' object has no attribute 'reshape'"):
+        JPPOAgent("t", continuous_params(), vec_env=env(jspaces)).init_state()
+    agent = PPOAgent("t", continuous_params(), device="cpu", vec_env=env(tspaces))
+    state = agent.init_state()
+    assert set(state.obs) == {"obs", "goal"}
+    with pytest.raises(ValueError, match=r"through its 'observation' entry .*; this one has the keys \['goal', 'obs'\]"):
+        agent.host_train_epoch(state)
 
 
 def test_ppo_host_masks_need_a_mask_source():

@@ -414,9 +414,22 @@ def test_external_simulators_raise_import_error(name):
     ("multiwalker_env", None, "A12"),
     ("connect4_env", None, "A12"),
     ("CartPole-v1", "JAX_SELFPLAY", "A12"),
-    ("test_dict_obs_env", None, "A8"),
-])
+    ("test_dict_obs_env", None, None),
+], ids=["multiwalker_env-None-A12", "connect4_env-None-A12", "CartPole-v1-JAX_SELFPLAY-A12",
+        "test_dict_obs_env-None-A8"])
 def test_unported_envs_raise(name, vtype, item):
+    """What the registry refuses names its item; test_dict_obs_env, ported
+    in A8 (a) (item None), binds a device env with the JAX env's dict
+    observation space."""
+    if item is None:
+        from rl_games_tpu.envs import registry as jregistry
+
+        info = registry.create_vec_env(name, 2, vecenv_type=vtype, device="cpu").get_env_info()
+        jinfo = jregistry.create_vec_env(name, 2, vecenv_type=vtype).get_env_info()
+        assert ({k: v.shape for k, v in info.observation_space.spaces}
+                == {k: v.shape for k, v in jinfo.observation_space.spaces} == {"info": (4,), "pos": (2,)})
+        assert info.action_space.n == jinfo.action_space.n == 4
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         registry.create_vec_env(name, 2, vecenv_type=vtype)
 

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of rl_games_tpu_torch and not
 chip_smoke.py imports jax, flax, optax or the JAX package, and the port
-trains, checkpoints and plays a fused-MLP policy through its Runner on the
-CPU in a process where importing jax fails. Importing the port, its host
+trains, checkpoints and plays a fused-MLP policy, and a config whose
+import_modules names the JAX package's test network, through its Runner on
+the CPU in a process where importing jax fails. Importing the port, its host
 envs' bridges included, needs neither gymnasium nor dm_control: only the
 modules that step their envs import them, when they are used."""
 
@@ -58,6 +59,43 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "runner.load({'params': params})\n"
         "assert runner.run({'train': True})[1] == 1\n"
         "runner.run({'play': True, 'checkpoint': sys.argv[1] + '/iso/nn/last_iso_ep_1_rew_0.00.pth'})\n"
+        "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'rl_games_tpu')\n"
+        "               for m, mod in sys.modules.items() if mod is not None)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_testnet_config_runs_with_jax_blocked(tmp_path):
+    """ref/test/test_discrite_testnet_aux_loss.yaml, whose import_modules
+    names rl_games_tpu.models.test_network, trains 2 epochs and plays
+    through Runner.run in a process where importing jax, flax, optax or
+    rl_games_tpu fails: the name maps to the port's module. The connect4
+    self-play config's network module has no port yet: it is refused naming
+    its ROADMAP.md item, again without importing the JAX package."""
+    code = (
+        "import sys, glob, re, yaml\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'rl_games_tpu'):\n"
+        "    sys.modules[name] = None  # any import of these now raises\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from rl_games_tpu_torch.runner import Runner\n"
+        "doc = yaml.safe_load(open('rl_games_tpu/configs/ref/test/test_discrite_testnet_aux_loss.yaml'))\n"
+        "doc['params']['config'].update(num_actors=4, horizon_length=8, minibatch_size=16, mini_epochs=1,\n"
+        "    max_epochs=2, train_dir=sys.argv[1], print_stats=False, player={'games_num': 2, 'deterministic': True})\n"
+        "runner = Runner(device='cpu')\n"
+        "runner.load(doc)\n"
+        "assert runner.run({'train': True})[1] == 2\n"
+        "ckpt = glob.glob(sys.argv[1] + '/test_md_multi_obs/nn/last_*_ep_2_rew_*.pth')[0]\n"
+        "runner.run({'play': True, 'checkpoint': ckpt})\n"
+        "doc = yaml.safe_load(open('rl_games_tpu/configs/ref/ma/ppo_connect4_self_play_resnet.yaml'))\n"
+        "try:\n"
+        "    Runner(device='cpu').load(doc)\n"
+        "    raise SystemExit('the connect4 network module was not refused')\n"
+        "except NotImplementedError as e:\n"
+        "    assert re.search(r'ROADMAP\\.md, item A8', str(e)), e\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'rl_games_tpu')\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"
     )

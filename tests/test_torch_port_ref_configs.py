@@ -44,6 +44,9 @@ MUST_RUN = {
     "ref/test/test_asymmetric_discrete.yaml", "ref/test/test_asymmetric_discrete_mhv.yaml",
     "ref/test/test_asymmetric_continuous.yaml", "ref/ppo_cartpole_masked_velocity_rnn.yaml",
     "ref/ppo_continuous_lstm.yaml", "ref/ppo_lunar_continiuos_torch.yaml", "ref/ppo_walker_rnn.yaml",
+    # dict observations, the custom test networks, normalized SAC torsos (A8 (a))
+    "ref/test/test_asymmetric_discrete_mhv_mops.yaml", "ref/test/test_discrite_testnet_aux_loss.yaml",
+    "ref/mujoco/sac_ant_tuned.yaml",
 }
 MISSING_SIMULATORS = ("ale_py", "envpool", "brax", "SMAC", "mani_skill", "mjlab", "minigrid", "myosuite")
 

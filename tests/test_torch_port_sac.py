@@ -4,8 +4,9 @@ Against the JAX package, on sac_pendulum.yaml cut to 4 envs, 4 steps per
 epoch, MLP [32, 32], batch 16 and a ring of 64 rows (2 updates per env
 step, policy_frequency 2): the replay functions, the squashed normal, the
 networks with weights carried by ``sac_jax_to_state_dict``, one
-``_update`` with and without the actor step, and one ``train_epoch`` past
-warmup. The JAX programs' draws (sample indices, normals, uniforms) come
+``_update`` with and without the actor step, one ``train_epoch`` past
+warmup, and one ``_update`` over sac_ant_tuned.yaml's layer-norm trunks,
+plain and D2RL. The JAX programs' draws (sample indices, normals, uniforms) come
 from the same key splits the JAX agent makes and are handed to the port.
 The two JAX programs (the epoch and the update) compile in about 4 s and
 2 s on the CPU.
@@ -27,6 +28,7 @@ counts and UTD accounting on a deterministic fake device env.
 """
 
 import dataclasses
+import functools
 import math
 from pathlib import Path
 
@@ -204,12 +206,15 @@ def load_adam(port_opt, module, section, jopt, convert):
             dst[i].copy_(sd[name])
 
 
-def carry_state(jagent, jstate):
-    """A port agent on the CPU and a state holding the JAX state: weights,
-    normalizer, log α, optimizers, replay, env state, counters."""
-    agent = SACAgent("port", pendulum_params(), device="cpu")
+def carry_state(jagent, jstate, params=None):
+    """A port agent on the CPU (of ``params``, sac_pendulum.yaml's cut when
+    None) and a state holding the JAX state: weights, normalizer, log α,
+    optimizers, replay, env state, counters."""
+    params = pendulum_params() if params is None else params
+    agent = SACAgent("port", params, device="cpu")
     state = agent.init_state()
     js = to_np(jstate)
+    sac_jax_to_state_dict = converter(params)
     sections = sac_jax_to_state_dict(js.actor_params, js.critic_params, js.critic_target_params, js.obs_rms)
     agent.actor.load_state_dict(sections["actor"])
     agent.critic.load_state_dict(sections["critic"])
@@ -238,11 +243,17 @@ def carry_state(jagent, jstate):
     return agent, state
 
 
-def assert_matches(agent, state, jstate, weight_tol, adam_tol):
+def converter(params):
+    """``sac_jax_to_state_dict`` for the trunks of ``params``."""
+    return functools.partial(sac_jax_to_state_dict, d2rl=bool(params["network"]["mlp"].get("d2rl", False)))
+
+
+def assert_matches(agent, state, jstate, weight_tol, adam_tol, params=None):
     """Weights, normalizer, log α and Adam's moments against the JAX state;
     the moments at rtol ``adam_tol`` and an atol of ``adam_tol`` times each
     tensor's largest entry (a gradient entry far below the largest carries
     the rounding of the largest)."""
+    sac_jax_to_state_dict = converter(pendulum_params() if params is None else params)
     js = to_np(jstate)
     want = sac_jax_to_state_dict(js.actor_params, js.critic_params, js.critic_target_params, js.obs_rms)
     for name, module in (("actor", agent.actor), ("critic", agent.critic), ("critic_target", agent.critic_target),
@@ -350,6 +361,43 @@ def test_train_epoch_matches_jax(jax_agent):
     assert_matches(agent, state, jnew, dict(rtol=1e-5, atol=1e-7), 1e-5)
     for k in ("critic_loss", "actor_loss", "entropy", "alpha_loss", "alpha"):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def tuned_params(d2rl: bool):
+    """This file's Pendulum cut with ref/mujoco/sac_ant_tuned.yaml's
+    networks: separate layer-norm [256, 256] relu trunks, log_std_bounds
+    [-20, 2]; with ``d2rl`` their D2RL form."""
+    params = pendulum_params()
+    tuned = yaml.safe_load((ROOT / "rl_games_tpu" / "configs" / "ref" / "mujoco" / "sac_ant_tuned.yaml").read_text())
+    params["network"] = tuned["params"]["network"]
+    params["network"]["mlp"]["d2rl"] = d2rl
+    return params
+
+
+@pytest.mark.parametrize("d2rl", [False, True], ids=["layer_norm", "layer_norm_d2rl"])
+def test_layer_norm_update_matches_jax(d2rl):
+    """One _update (critic, actor and α steps, Polyak) over sac_ant_tuned.yaml's
+    layer-norm trunks, plain (LayerNorms at trunk.{3i + 2}, the head at
+    trunk.6) and D2RL (trunk.0.norm_layers.{i}), from the JAX state after 3
+    epochs, at the tolerances of test_update_matches_jax."""
+    params = tuned_params(d2rl)
+    jagent = jsac.SACAgent("jax", params)
+    epoch = jax.jit(jagent.train_epoch)
+    jstate = jagent.init_state()
+    for _ in range(3):
+        jstate, _ = epoch(jstate)
+    jstate = jstate.replace(update_counter=jnp.asarray(int(jstate.update_counter) | 1, jnp.int32))
+    agent, state = carry_state(jagent, jstate, params)
+    norms = ("trunk.0.norm_layers.1.weight", "Q1.0.norm_layers.1.weight") if d2rl else ("trunk.5.weight",
+                                                                                          "Q1.5.weight")
+    assert norms[0] in agent.actor.state_dict() and norms[1] in agent.critic.state_dict()
+    key = jax.random.PRNGKey(12)
+    jnew, jm = jax.jit(jagent._update)(jstate, key)
+    m = agent._update(state, *update_draws(key, tsac.replay_size(state.replay)))
+    assert m["actor_updated"] and bool(jm["actor_updated"])
+    for k in ("critic_loss", "critic1_loss", "critic2_loss", "actor_loss", "entropy", "alpha_loss"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    assert_matches(agent, state, jnew, dict(rtol=1e-5, atol=1e-7), 1e-5, params)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's SAC through its entry points on the CPU: ``Runner`` train,
 resume and play of a shrunk sac_pendulum.yaml, ``python -m
 rl_games_tpu_torch``, the JAX package's importer on the port's SAC
-checkpoint, a weights-only warm start, and the refusals (no card, host
-envs, the A8 torso options)."""
+checkpoint (and its refusal of layer-norm trunks, ROADMAP.md §3 fault 5),
+a weights-only warm start, and the refusals (no card, host envs) beside
+the normalized torsos that build."""
 
 import copy
 import os
@@ -168,10 +169,51 @@ def test_entry_points_default_to_the_card(monkeypatch):
 @pytest.mark.parametrize("make, item", [
     (lambda p: SACAgent("t", {**p, "config": {**p["config"], "vecenv_type": "MULTIWALKER"}}, device="cpu"), "A12"),
     (lambda p: SACPlayer({**p, "config": {**p["config"], "vecenv_type": "CONNECT4"}}, device="cpu"), "A12"),
-    (lambda p: SACAgent("t", {**p, "network": {**p["network"], "normalization": "layer_norm"}}, device="cpu"), "A8"),
+    (lambda p: SACAgent("t", {**p, "network": {**p["network"], "normalization": "layer_norm"}}, device="cpu"), None),
     (lambda p: SACAgent("t", {**p, "network": {**p["network"], "normalization": "layer_norm",
-                                               "mlp": {**p["network"]["mlp"], "d2rl": True}}}, device="cpu"), "A8"),
+                                               "mlp": {**p["network"]["mlp"], "d2rl": True}}}, device="cpu"), None),
 ], ids=["host_env_agent", "host_env_player", "normalization", "d2rl"])
 def test_unported_sac_options_raise(make, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make(pendulum("unused"))
+    """What SAC refuses names its item; the normalized torsos A8 (a) ported
+    (item None: plain and D2RL) build their LayerNorms and run an update
+    epoch (their updates against the JAX package:
+    test_torch_port_sac.py::test_layer_norm_update_matches_jax)."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            make(pendulum("unused"))
+        return
+    agent = make(pendulum("unused", num_warmup_steps=1))
+    norms = [m for m in agent.actor.modules() if isinstance(m, torch.nn.LayerNorm)]
+    assert len(norms) == 2
+    state = agent.init_state()
+    for _ in range(2):
+        state, metrics = agent.train_epoch(state)
+    assert state.update_counter > 0 and np.isfinite(float(metrics["critic_loss"]))
+
+
+def test_jax_importer_refuses_layer_norm_trunks(tmp_path):
+    """ROADMAP.md §3, fault 5 (latent, in the JAX package): convert_sac_weights
+    collects every key of a trunk that ends in '.weight' as a Linear
+    (torch_import.py:626-635), a LayerNorm's too, and _fill_seq_module pairs
+    those four with the JAX trunk's four scopes (Dense_0, LayerNorm_0,
+    Dense_1, LayerNorm_1), so it refuses the reference layout of a
+    layer-norm SAC checkpoint that the port writes with a KeyError on the
+    'Dense_0' inside LayerNorm_0. The port's own reader restores it."""
+    from rl_games_tpu.models.sac import build_sac_networks as jbuild_sac_networks
+    from rl_games_tpu.utils.torch_import import convert_sac_weights
+
+    params = pendulum(tmp_path, max_epochs=3, normalize_input=False)
+    params["network"]["normalization"] = "layer_norm"
+    agent = SACAgent("a", params, device="cpu")
+    agent.train()
+    last = str(tmp_path / "pendulum_sac" / "nn" / "last_pendulum_sac_ep_3.pth")
+    raw = ckpt.read_payload(last)
+    jactor, jcritic = jbuild_sac_networks(params["network"], 1)
+    obs, act = np.zeros((1, 3), np.float32), np.zeros((1, 1), np.float32)
+    ja, jc = jactor.init(jax.random.PRNGKey(0), obs), jcritic.init(jax.random.PRNGKey(1), obs, act)
+    with pytest.raises(KeyError, match="Dense_0"):
+        convert_sac_weights(raw, ja, jc)
+    player = SACPlayer(params, device="cpu")
+    player.restore(last)
+    for k, v in player.actor.state_dict().items():
+        assert torch.equal(v, agent.actor.state_dict()[k]), k

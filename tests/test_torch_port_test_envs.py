@@ -1,7 +1,8 @@
 """The port's test envs and the PPO paths they drive, against the JAX package.
 
 - Envs: each test env's reset (from uniforms that land on the JAX draws)
-  and step from the same states, MemoryEnv under each of its flags, the
+  and step from the same states, MemoryEnv under each of its flags and its
+  dict-observation variant (with and without 'aux_target'), the
   masks of MaskedMemoryEnv, and the {'obs', 'states'} observations through
   the vec env's autoreset. MemoryEnv computes in integers and one float32
   product and division: exact. The asymmetric envs repeat the classic
@@ -30,6 +31,7 @@ import torch
 import yaml
 
 from rl_games_tpu.algos.ppo import PPOAgent as JPPOAgent
+from rl_games_tpu.envs import registry as jregistry
 from rl_games_tpu.envs.jax import test_envs as jtest_envs
 from rl_games_tpu.ops.gae import compute_gae as jcompute_gae
 from rl_games_tpu_torch.algos.ppo import PPOAgent
@@ -138,6 +140,44 @@ def test_memory_env_reachable():
     assert torch.all(obs[:, 2:4] == 0)
 
 
+@pytest.mark.parametrize("aux_loss", [False, True], ids=["pos_info", "aux_target"])
+def test_dict_obs_memory_env_matches_jax(aux_loss):
+    """DictObsMemoryEnv: {'pos', 'info'} (and 'aux_target', the squared
+    distance over (max_dist - min_dist)², computed by the JAX program, as it
+    trains, as a product with the float32 reciprocal) from the reset's
+    uniforms that land on the JAX draws, then a step from random states,
+    jitted as the JAX package runs it, and the vec env's autoreset of the
+    dict: exactly."""
+    jenv, env = jtest_envs.DictObsMemoryEnv(aux_loss=aux_loss), test_envs.DictObsMemoryEnv(aux_loss, device="cpu")
+    info, jinfo = env.env_info(), jenv.env_info()
+    assert info.observation_space.as_dict().keys() == jinfo.observation_space.as_dict().keys()
+    assert {k: v.shape for k, v in info.observation_space.spaces} == {k: v.shape for k, v in jinfo.observation_space.spaces}
+    keys = jax.random.split(jax.random.PRNGKey(2), N)
+    jstate, jobs = jax.jit(jax.vmap(jenv.reset))(keys)
+    goal = np.asarray(jstate.goal)
+    bit, dist = (1 - np.sign(goal)) // 2, np.abs(goal)
+    span = env.max_dist + 1 - env.min_dist
+    u = np.concatenate([(bit + 0.5) / 2, (dist - env.min_dist + 0.5) / span], axis=1).astype(np.float32)
+    state, obs = env.reset_from(t(u))
+    assert_tree_equal(obs, jobs, "reset obs")
+    s = memory_states(np.random.default_rng(7))
+    actions = np.random.default_rng(8).integers(0, 4, N).astype(np.int32)
+    want = jax.jit(jax.vmap(jenv.step))(jtest_envs.MemoryState(**{k: jnp.asarray(v) for k, v in s.items()}),
+                                        jnp.asarray(actions), keys)
+    got = env.step(test_envs.MemoryState(**{k: t(v) for k, v in s.items()}), t(actions).long())
+    assert_tree_equal(got[1], want[1], "obs")
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    vec = registry.create_vec_env("test_dict_obs_env", 4, device="cpu", aux_loss=aux_loss)
+    vstate, vobs = vec.reset(torch.Generator().manual_seed(0))
+    vstate.estate.goal = torch.tensor([[0, 0], [5, 5], [0, 0], [5, 5]], dtype=torch.int32)  # rows 0, 2 reach at once
+    _, vobs, _, dones, infos = vec.step(vstate, torch.zeros(4, dtype=torch.int64))
+    np.testing.assert_array_equal(dones.numpy(), [True, False, True, False])
+    assert set(vobs) == set(infos["final_observation"]) == ({"pos", "info", "aux_target"} if aux_loss
+                                                             else {"pos", "info"})
+    assert torch.all(vobs["info"][[0, 2], 3] == 0) and torch.all(infos["final_observation"]["info"][:, 3] == 1)
+
+
 def test_masked_memory_env_masks_match_jax():
     jenv, env = jtest_envs.MaskedMemoryEnv(), test_envs.MaskedMemoryEnv(device="cpu")
     s = memory_states(np.random.default_rng(4), n=64)
@@ -201,9 +241,13 @@ def test_registry_binds_the_test_envs():
                       ("test_masked_env", "MaskedMemoryEnv"),
                       ("test_asymmetric_continuous_env", "ContinuousAsymmetricEnv")):
         assert type(registry.create_vec_env(name, 2, device="cpu").env).__name__ == cls
-    for name, kw in (("test_dict_obs_env", {}), ("test_env", {"multi_obs_space": True})):
-        with pytest.raises(NotImplementedError, match="item A8"):
-            registry.create_vec_env(name, 2, device="cpu", **kw)
+    # the dict-observation variant (A8 (a)), as the JAX registry binds it
+    for name, kw in (("test_dict_obs_env", {}), ("test_env", {"multi_obs_space": True, "aux_loss": True,
+                                                               "use_central_value": True})):
+        env = registry.create_vec_env(name, 2, device="cpu", **kw).env
+        jenv = jregistry.create_vec_env(name, 2, **kw).env
+        assert type(env).__name__ == type(jenv).__name__ == "DictObsMemoryEnv"
+        assert (env.aux_loss, env.use_central_value) == (jenv.aux_loss, jenv.use_central_value)
 
 
 # ---------------------------------------------------------------------------
