@@ -130,6 +130,22 @@ to a plain version):
                step, 10000 warmup frames) on Hopper2D-v0 (CPUENV) as
                host_sac runs sac_ant.yaml: its warmup and 8 update epochs
                through Runner.run, then played. No kernel.
+21. impala   — the Impala tower: (a) ref/atari/ppo_breakout_torch_impala.yaml
+               as shipped (resnet_actor_critic, depths 16/32/32, MLP 512,
+               LSTM 256; 16 envs x 256 steps, seq_length 8, 3 mini-epochs of
+               minibatch 512) over PixelHostEnv's 84x84x4 frames (the card's
+               machine has no ale_py), registered as a vecenv type; (b) the
+               same with cnn.use_attention. Each trained 3 epochs through
+               Runner.run and played: steady epoch, env-steps/s, the host
+               rollout's step and its device kernels, the idle share of an
+               epoch; 1 GAE launch an epoch at [256, 16, 1], none fused.
+               Its profiler sessions meet PERF.md §7's lost events: in the
+               runs PERF.md §6 records each lost one (the kernels a step
+               read one event over 16 steps, 0.06, low).
+22. twohot   — ppo_cartpole.yaml with network.value_head: twohot and
+               mlp.fused: true through Runner.run, 3 epochs, then played:
+               [cartpole]'s launch count (1 GAE at [32, 16, 1] an epoch, the
+               fused launches at B = 16 and 64, 1 a player step).
 
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
@@ -155,12 +171,21 @@ for [rnn] already), one update of (aux)'s model over a trajectory of dict
 observations and one SAC update of sac_ant_tuned.yaml's layer-norm networks
 on the card against the CPU.
 
+[reference] also holds [impala] and [twohot], after phase 22 (their GAE and
+fused shapes are held for [rnn] and [cartpole] already; these checks come
+after every profiled phase, see main()): one minibatch update of [impala]
+(a)'s model on the card against the CPU (float32 convolutions), the same
+tower with use_bn and use_zero_init and weight_decay 0.01 (the frozen
+statistics moved by the decay alone, alike on both), one update of the
+two-hot CartPole model, and connect4net's forward and gradients
+(ref/ma/ppo_connect4_self_play_resnet.yaml's 5 blocks of 128 channels).
+
 Phases 3 and 4 also hold the host path: GAE at [256, 64, 1] and the fused
 MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
 phase 14's config on the card against the CPU (same weights, CPUENV seed
 and action noise), then one Adam step of its first minibatch.
 
-Launch counts are zeroed just before each of phases 6-20's runs and read
+Launch counts are zeroed just before each of phases 6-22's runs and read
 just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
@@ -263,25 +288,48 @@ def idle_share(fn):
     return 1 - busy / wall, busy, wall
 
 
-def device_time_ms(fn, reps: int):
+def device_time_ms(fn, reps: int, sessions: int = 8):
     """(mean device time of the kernels fn() launches, kernels per call),
     from torch.profiler's CUDA activity: the card's own time, without the
-    host's gaps between launches. About one session in a hundred comes back
-    with some or all of its device events missing, two or three sessions in
-    a row (phase_profiler_sessions counts them), and would read too low. So
-    a session counts only if it holds the same number of events for every
-    call; any other is announced and taken again, five times at most. (Not
-    for use after phase_profile: see phase_profiler_sessions.)"""
+    host's gaps between launches. The profiler loses device events: about
+    one session in a hundred comes back with some or all of them missing,
+    two or three sessions in a row, and a process can come to lose one or
+    a few events in every CUDA-only session (PERF.md §7; see
+    phase_profiler_sessions). So a session counts whole if it holds the
+    same number of events for every call, and up to ``sessions`` are taken
+    until one is, or until two in a row keep the same number short of
+    whole. Failing that, the fullest session is read: its kernels per
+    call are its events over reps rounded up, and its time reads low by at
+    most the missing events times its longest kernel, over reps; both are
+    printed. Where no session held an event at all, the time is taken
+    between CUDA events, host gaps included, and the kernels per call are
+    not measured (nan). (Not for use after phase_profile: see
+    phase_profiler_sessions.)"""
     fn()
     torch.cuda.synchronize()
-    for attempt in range(5):
+    fullest = []
+    for attempt in range(sessions):
         kernels = device_events(fn, reps)
         if kernels and len(kernels) % reps == 0:
-            total_us = sum(e.time_range.elapsed_us() for e in kernels)
-            return total_us / reps / 1e3, len(kernels) // reps
+            return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3, len(kernels) // reps
         print(f"[kernels] torch.profiler kept {len(kernels)} device events of {reps} calls "
-              f"(attempt {attempt + 1}), profiling again")
-    raise AssertionError("torch.profiler lost device events in five sessions in a row")
+              f"(session {attempt + 1} of {sessions})")
+        if kernels and len(kernels) == len(fullest):
+            break  # the same loss twice in a row: the process's steady mode, which more sessions keep
+        if len(kernels) > len(fullest):
+            fullest = kernels
+    if not fullest:
+        ms = cuda_time_ms(fn, reps)
+        print(f"[kernels] no device events in {sessions} profiler sessions: {ms * 1e3:.1f} us a call between "
+              f"CUDA events, host gaps included; kernels per call not measured")
+        return ms, float("nan")
+    per_call = -(-len(fullest) // reps)
+    times = [e.time_range.elapsed_us() for e in fullest]
+    missing = per_call * reps - len(fullest)
+    print(f"[kernels] no whole profiler session: the fullest kept {len(fullest)} events, {per_call} kernels "
+          f"a call; its time per call reads low by at most {missing * max(times) / reps:.1f} us "
+          f"({missing} missing events times its longest kernel, over {reps} calls)")
+    return sum(times) / reps / 1e3, per_call
 
 
 def phase_device():
@@ -694,7 +742,34 @@ def phase_reference():
     reference_sac("sac_norm")
 
 
-def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
+def float64_gradients(agent, ds, state):
+    """The first minibatch's loss gradients of a CPU agent in float64: its
+    model cast to float64 and back (float32 values survive the round trip)
+    and the minibatch's float tensors cast."""
+    def cast(v):
+        if isinstance(v, tuple):
+            return tuple(cast(x) for x in v)
+        if isinstance(v, dict):
+            return {k: cast(x) for k, x in v.items()}
+        return v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+
+    agent.model.double()
+    try:
+        loss = agent._loss_and_kl(cast(agent._minibatch(ds, 0)), state.entropy_coef)[0]
+        return torch.autograd.grad(loss, agent.params, allow_unused=True, materialize_grads=True)
+    finally:
+        agent.model.float()
+
+
+def float64_distance(grads, ref) -> float:
+    """The largest distance of ``grads`` from the float64 gradients ``ref``,
+    relative to each tensor's largest entry (tensors without a gradient
+    left out)."""
+    return max(float((g.cpu().double() - r).abs().max() / r.abs().max().clamp(min=1e-30))
+               for g, r in zip(grads, ref) if r.any())
+
+
+def check_first_update(gpu, cpu, gstate, cstate, gds, cds, float64_reference=False, min_far_share=0.5) -> str:
     """One Adam step of the first minibatch of the same dataset, card
     against CPU: the minibatch's gradients within 1e-5 of each tensor's
     largest entry (as the CPU tests hold them to the JAX package); the
@@ -702,11 +777,19 @@ def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
     own gradients call for (clipped to the global norm, weight decay, then
     lr · g / (|g| + eps) in float64: the moments' bias corrections cancel
     at step 1, and where |g| is far above eps the step is lr · sign(g) to
-    within 1e-3 of lr whatever rounding g carries), on most entries of the
-    tensors the loss reaches (a central value net's actor has a value head
-    without a gradient); the
+    within 1e-3 of lr whatever rounding g carries), on more than
+    ``min_far_share`` (most) of the entries of the tensors the loss reaches
+    (a central value net's actor has a value head without a gradient); the
     losses, means over the minibatch, within 2e-5 relative; float32 without
-    TF32 on the card. Returns a summary; raises on a disagreement."""
+    TF32 on the card. With ``float64_reference`` the gradients are held to
+    the CPU's float64 gradients instead: no tensor's card gradient further
+    from them, relative to its largest entry, than the larger of 1e-5 and
+    three times the CPU float32 gradients' worst such distance (another
+    float32 summation order; the card measured 0.99-1.75 times the CPU's,
+    PERF.md §6). Where gradients sum over hundreds of thousands
+    of products (a deep conv tower) or cancel (a discrete policy's logit
+    biases under normalized advantages), float32 keeps no 1e-5 of them on
+    either device. Returns a summary; raises on a disagreement."""
     from rl_games_tpu_torch.algos.ppo import _ADAM_EPS
 
     for agent in (gpu, cpu):
@@ -715,6 +798,13 @@ def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
                                  agent.params, allow_unused=True, materialize_grads=True)
              for agent, ds, state in ((gpu, gds, gstate), (cpu, cds, cstate))]
     dgrad = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30)) for g, c in zip(*grads))
+    grad_bound, f64_note = 1e-5, ""
+    if float64_reference:
+        ref = [r.double() for r in float64_gradients(cpu, cds, cstate)]
+        dgrad, cpu_f32 = float64_distance(grads[0], ref), float64_distance(grads[1], ref)
+        grad_bound = max(1e-5, 3 * cpu_f32)
+        f64_note = (f" of the CPU's float64 gradients (the CPU's float32 gradients within {cpu_f32:.2e}, bound "
+                    f"{grad_bound:.2e})")
     lr = float(gstate.lr)
     before = [p.detach().cpu().double() for p in gpu.params]
     gm, cm = gpu._update(gstate, gds), cpu._update(cstate, cds)
@@ -733,14 +823,16 @@ def check_first_update(gpu, cpu, gstate, cstate, gds, cds) -> str:
     # (with a central value net c_loss is 0 on both)
     dloss = {k: abs(float(gm[k]) - float(cm[k])) / max(abs(float(cm[k])), 1e-30) for k in ("a_loss", "c_loss")}
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    summary = (f"gradients within {dgrad:.2e} of each tensor's largest entry (global norm {norm:.4e}, clipped by "
+    summary = (f"gradients within {dgrad:.2e} of each tensor's largest entry{f64_note} (global norm {norm:.4e}, "
+               f"clipped by "
                f"{clip:.4e}); the card's Adam step against its own gradients' step where |g| > 1e-5 ({n_far} of "
                f"{n_all} entries of the tensors with a gradient): max |d| {dstep:.2e} = {dstep / lr:.2e} lr (lr {lr:.1e}); max |dparam| against "
                f"the CPU's update {dp:.2e}; a_loss {float(gm['a_loss']):.7f} / {float(cm['a_loss']):.7f}, c_loss "
                f"{float(gm['c_loss']):.7f} / {float(cm['c_loss']):.7f} (relative {dloss['a_loss']:.2e}, "
                f"{dloss['c_loss']:.2e}); Adam steps {int(gstate.opt_state.count)}; TF32 (matmul, cudnn) {tf32}")
-    if tf32 != (False, False) or not (dgrad < 1e-5 and int(gstate.opt_state.count) == 1 and n_far > n_all // 2
-                                      and dstep < 1e-3 * lr and max(dloss.values()) < 2e-5):
+    if tf32 != (False, False) or not (dgrad < grad_bound and int(gstate.opt_state.count) == 1
+                                      and n_far > min_far_share * n_all and dstep < 1e-3 * lr
+                                      and max(dloss.values()) < 2e-5):
         raise AssertionError(f"the update on the card disagrees with the CPU: {summary}")
     return summary
 
@@ -1510,13 +1602,16 @@ def phase_breakout(epochs: int):
     return agent, state, launches, epoch_s
 
 
-def phase_cartpole(epochs: int, play_steps: int = 200):
-    """ppo_cartpole.yaml with network.mlp.fused: true through Runner.run:
-    train, then play; the fused launches held to the count the code implies."""
+def phase_cartpole(epochs: int, play_steps: int = 200, tag: str = "cartpole", value_head: str | None = None):
+    """ppo_cartpole.yaml with network.mlp.fused: true (and ``value_head``,
+    where given: [twohot]) through Runner.run: train, then play; the fused
+    launches held to the count the code implies, GAE once an epoch."""
     from rl_games_tpu_torch.ops import fused_mlp
 
     params = load_config("ppo_cartpole.yaml")["params"]
     params["network"]["mlp"]["fused"] = True
+    if value_head is not None:
+        params["network"]["value_head"] = value_head
     params["config"]["player"] = {**params["config"]["player"], "max_steps": play_steps}
     cfg = params["config"]
     horizon, mini_epochs = cfg["horizon_length"], cfg["mini_epochs"]
@@ -1530,7 +1625,7 @@ def phase_cartpole(epochs: int, play_steps: int = 200):
     launch = fused_mlp.fused_mlp_cuda
     fused_mlp.fused_mlp_cuda = counted
     try:
-        run = train_and_play("cartpole", params, epochs)
+        run = train_and_play(tag, params, epochs)
     finally:
         fused_mlp.fused_mlp_cuda = launch
     # per epoch: horizon rollout forwards and 1 bootstrap forward at B =
@@ -1544,14 +1639,15 @@ def phase_cartpole(epochs: int, play_steps: int = 200):
     if (run["train"] != {"gae": epochs, "fused_mlp": per_epoch * epochs}
             or run["play"] != {"gae": 0, "fused_mlp": play_steps} or run["play_steps"] != play_steps
             or got_batches != expected_batches):
-        raise AssertionError(f"cartpole: launches {run['train']} in {epochs} epochs, player {run['play']} in "
+        raise AssertionError(f"{tag}: launches {run['train']} in {epochs} epochs, player {run['play']} in "
                              f"{run['play_steps']} steps, batches {got_batches}; expected {per_epoch} fused per "
                              f"epoch, 1 per player step, batches {expected_batches}")
-    print(f"[cartpole] trained {epochs} epochs of ppo_cartpole.yaml (fused) through Runner.run: launches "
-          f"{run['train']} ({per_epoch} fused per epoch) at batches {got_batches} with the player's; "
-          f"played {play_steps} steps: launches {run['play']}, {run['play_out']!r}")
-    epoch_s = report_epochs("cartpole", run["times"], cfg["num_actors"] * horizon, run["peak_gib"])
-    print(f"[cartpole] steady player step {run['steady_step_s'] * 1e3:.2f} ms at {cfg['num_actors']} envs")
+    head = "" if value_head is None else f", value_head: {value_head}"
+    print(f"[{tag}] trained {epochs} epochs of ppo_cartpole.yaml (fused{head}) through Runner.run: launches "
+          f"{run['train']} ({per_epoch} fused per epoch, GAE at [{horizon}, {cfg['num_actors']}, 1]) at batches "
+          f"{got_batches} with the player's; played {play_steps} steps: launches {run['play']}, {run['play_out']!r}")
+    epoch_s = report_epochs(tag, run["times"], cfg["num_actors"] * horizon, run["peak_gib"])
+    print(f"[{tag}] steady player step {run['steady_step_s'] * 1e3:.2f} ms at {cfg['num_actors']} envs")
     return run["train"], run["play"], play_steps, epoch_s
 
 
@@ -1931,6 +2027,7 @@ class PixelHostEnv:
 
     is_host_env = True
     autoreset_mode = "same_step"
+    max_episode_steps = None  # the player's step budget takes its default
 
     def __init__(self, num_envs: int, seed: int = 0, pool: int = 8):
         rng = np.random.default_rng(seed)
@@ -2647,6 +2744,212 @@ def reference_dict():
         raise AssertionError(f"dict: the card disagrees with the CPU: advantages {dadv}, losses {aux}")
 
 
+PIXEL_VECENV = "CHIP_SMOKE_PIXEL"  # PixelHostEnv under a vecenv type of its own
+
+
+def impala_params(tag: str) -> dict:
+    """ref/atari/ppo_breakout_torch_impala.yaml as shipped (resnet_actor_critic,
+    depths 16/32/32, MLP 512, LSTM 256; 16 envs x 256 steps, seq_length 8,
+    3 mini-epochs of minibatch 512), its env swapped for PixelHostEnv (the
+    card's machine has no ale_py), registered as a vecenv type so that
+    Runner, the trainer and the player build it; (b) with cnn.use_attention."""
+    from rl_games_tpu_torch.envs import registry
+
+    registry.register_vecenv_type(PIXEL_VECENV, lambda cfg, num_actors, device=None, **kw: PixelHostEnv(num_actors,
+                                                                                                       seed=3))
+    params = load_config("ref/atari/ppo_breakout_torch_impala.yaml")["params"]
+    params["config"].update(vecenv_type=PIXEL_VECENV, env_config={})
+    if tag == "b":
+        params["network"]["cnn"]["use_attention"] = True
+    return params
+
+
+def host_rollout_profile(params, steps: int = 16):
+    """The host rollout of ``params`` on the card: (its step's wall time, the
+    device kernels a step launches, the device's idle share of an epoch and
+    its busy and wall seconds). The step time comes from one epoch after a
+    warm-up one (its rollout over the horizon), the idle share from the next
+    two (``idle_share``), the kernels from a profiled rollout of ``steps``
+    steps."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
+    agent = PPOAgent("host_profile", params)
+    state = agent.init_state()
+    agent.host_train_epoch(state)  # a warm-up epoch
+    agent.host_train_epoch(state)
+    step_s = agent._last_timing["play_time"] / agent.horizon_length
+    idle, busy, wall = idle_share(lambda: agent.host_train_epoch(state))
+    agent.horizon_length = steps
+    kernels = len(device_events(lambda: agent._host_rollout(state), 1)) / steps
+    return step_s, kernels, idle, busy, wall
+
+
+def phase_impala(epochs: int, play_steps: int = 100):
+    """impala_params (a) and (b) through Runner.run: train ``epochs`` epochs,
+    then play ``play_steps`` steps of the last checkpoint. Per run: the steady
+    epoch, env-steps/s, the host rollout's step and its device kernels, the
+    idle share of an epoch; 1 GAE launch an epoch, at [256, 16, 1] (each
+    launch's shape recorded), and no fused one (the MLP behind the tower is
+    the plain chain). PixelHostEnv's frames are those of the [host_pixel]
+    phase; a conv torso's rollout runs on the card (host_inference_device
+    auto)."""
+    from rl_games_tpu_torch.ops import gae
+
+    out = {}
+    for tag in ("a", "b"):
+        params = impala_params(tag)
+        cfg = params["config"]
+        cfg["player"] = {**cfg["player"], "max_steps": play_steps}
+        horizon, n = cfg["horizon_length"], cfg["num_actors"]
+        shapes = []
+        launch = gae.gae_cuda
+
+        def counted(rewards, *args):  # the shape of every GAE launch
+            shapes.append(tuple(rewards.shape))
+            return launch(rewards, *args)
+
+        gae.gae_cuda = counted
+        try:
+            run = train_and_play(f"impala ({tag})", params, epochs)
+        finally:
+            gae.gae_cuda = launch
+        if (run["train"] != {"gae": epochs, "fused_mlp": 0} or run["play"] != {"gae": 0, "fused_mlp": 0}
+                or shapes != [(horizon, n, 1)] * epochs):
+            raise AssertionError(f"impala ({tag}): launches {run['train']} in {epochs} epochs at {shapes}, player "
+                                 f"{run['play']}; expected 1 GAE an epoch at [{horizon}, {n}, 1], no fused launch")
+        net = params["network"]
+        print(f"[impala] ({tag}) {net['name']} (depths {net['cnn']['conv_depths']}, attention "
+              f"{net['cnn'].get('use_attention', False)}, MLP {net['mlp']['units']}, {net['rnn']['name']} "
+              f"{net['rnn']['units']}) over PixelHostEnv's 84x84x4 frames: {n} envs x {horizon} steps, seq_length "
+              f"{cfg['seq_length']}, {cfg['mini_epochs']} x {n * horizon // cfg['minibatch_size']} minibatches of "
+              f"{cfg['minibatch_size']}; trained {epochs} epochs through Runner.run: launches {run['train']} (GAE at "
+              f"{shapes[0]}); played {run['play_steps']} steps: launches {run['play']}, {run['play_out']!r}")
+        epoch_s = report_epochs(f"impala ({tag})", run["times"], n * horizon, run["peak_gib"])
+        step_s, kernels, idle, busy, wall = host_rollout_profile(params)
+        print(f"[impala] ({tag}) rollout step {step_s * 1e3:.3f} ms at {n} envs ({kernels:.1f} device kernels a "
+              f"step); steady player step {run['steady_step_s'] * 1e3:.2f} ms; one more epoch {wall * 1e3:.1f} ms, "
+              f"the device busy {busy * 1e3:.1f} ms of the next one (profiled), idle share {idle:.3f}")
+        out[tag] = {**run, "epoch_s": epoch_s, "rollout_step_s": step_s, "kernels_per_step": kernels, "idle": idle}
+    return out
+
+
+def reference_impala():
+    """[impala] on the card against the CPU, through check_first_update
+    (float32 convolutions: TF32 would show), the gradients of both held to
+    the CPU's float64 gradients: (a)'s model, one minibatch of 128 of a host
+    trajectory of 16 envs x 16 steps (two windows of 8); then
+    its tower with use_bn and use_zero_init (statistics and alphas drawn off
+    their init) and weight_decay 0.01: the frozen statistics take no
+    gradient, so the decay alone moves them, alike on the card and the
+    CPU."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
+    for label, patch in (("(a)", {}), ("use_bn + use_zero_init, weight_decay 0.01",
+                                       {"cnn": {"use_bn": True, "use_zero_init": True}})):
+        params = impala_params("a")
+        params["network"]["cnn"].update(patch.get("cnn", {}))
+        params["config"].update(horizon_length=16, minibatch_size=128, weight_decay=0.01 if patch else 0.0)
+        gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+        gstate, cstate = gpu.init_state(), cpu.init_state()
+        if patch:
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            with torch.no_grad():
+                for name, p in gpu.model.named_parameters():
+                    if name.endswith(("running_mean", "alpha")):
+                        p.normal_(0.0, 0.5, generator=gen)
+                    elif name.endswith("running_var"):
+                        p.uniform_(0.5, 2.0, generator=gen)
+        cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+        before = {k: v.clone() for k, v in gpu.model.state_dict().items()}
+        traj, last_values = gpu._host_rollout(gstate)
+        cstate.dones = gstate.dones.cpu()
+        gds = gpu._prepare_dataset(gstate, traj, last_values)
+        cds = cpu._prepare_dataset(cstate, to_cpu(traj), last_values.cpu())
+        # the tower's first conv sums its gradients over 128 x 84 x 84 positions: the CPU's float32 gradients
+        # are about 1e-2 of the largest entry from float64 there (PERF.md §6), so the 1e-5 between
+        # card and CPU cannot hold: both are held to float64. grad_norm 0.5 clips the gradients by about 5e-3,
+        # which leaves about a fifth of the entries above |g| = 1e-5 for the step check
+        update = check_first_update(gpu, cpu, gstate, cstate, gds, cds, float64_reference=True, min_far_share=0.1)
+        print(f"[reference] impala {label} over PixelHostEnv's 84x84x4 frames, 16 envs x 16 steps, one minibatch of "
+              f"128: {update}")
+        if patch:
+            stats = [k for k in before if k.startswith("a2c_network") and k.endswith(("running_mean", "running_var"))]
+            gsd, csd = gpu.model.state_dict(), cpu.model.state_dict()
+            moved = min(float((gsd[k] - before[k]).abs().max()) for k in stats)
+            apart = max(float((gsd[k].cpu() - csd[k]).abs().max()) for k in stats)
+            print(f"[reference] impala frozen statistics ({len(stats)} tensors): each moved by the decay, at least "
+                  f"{moved:.3e} at its largest entry; card against CPU {apart:.2e}")
+            if not (moved > 0 and apart < 1e-6):
+                raise AssertionError(f"impala: the frozen statistics moved {moved} on the card, {apart} from the CPU")
+
+
+def reference_twohot():
+    """[twohot]: one minibatch update of ppo_cartpole.yaml's model with the
+    two-hot value head (its loss the two-hot log-prob of the symlog
+    returns), card against CPU, through check_first_update, the gradients
+    of both held to the CPU's float64 gradients."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
+    params = load_config("ppo_cartpole.yaml")["params"]
+    params["network"]["value_head"] = "twohot"
+    gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+    gstate, cstate = gpu.init_state(), cpu.init_state()
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    traj, last_values = gpu._rollout(gstate)
+    cstate.dones = gstate.dones.cpu()
+    gds = gpu._prepare_dataset(gstate, traj, last_values)
+    cds = cpu._prepare_dataset(cstate, to_cpu(traj), last_values.cpu())
+    # the policy's logit biases take a gradient that cancels over the minibatch's normalized advantages:
+    # the CPU's float32 gradient there is 1.55e-5 of its largest entry from float64 (PERF.md §6)
+    print(f"[reference] twohot ppo_cartpole.yaml, 255-bin value head, one minibatch of {gpu.minibatch_size}: "
+          + check_first_update(gpu, cpu, gstate, cstate, gds, cds, float64_reference=True))
+
+
+def reference_connect4():
+    """connect4net as ref/ma/ppo_connect4_self_play_resnet.yaml configures it
+    (5 blocks of 128 channels), card against CPU on 256 random boards: the
+    train dict within 1e-5, and the gradients of a loss over it held to the
+    CPU's float64 gradients as check_first_update's float64_reference holds
+    them (no tensor's card gradient further from float64, relative to its
+    largest entry, than the larger of 1e-5 and three times the CPU float32
+    gradients' worst distance: behind GroupNorm some biases' gradients
+    cancel to 1e-3 of float32's reach)."""
+    import copy
+
+    from rl_games_tpu_torch.models.model_builder import ModelBuilder
+    from rl_games_tpu_torch.runner import import_user_module
+    from rl_games_tpu_torch.utils.device import use_full_float32
+
+    use_full_float32(torch.device("cuda"))  # as PPOAgent and the players set it
+    params = load_config("ref/ma/ppo_connect4_self_play_resnet.yaml")["params"]
+    for module in params["config"]["import_modules"]:
+        import_user_module(module)
+    shape, kw = (6, 7, 2), dict(actions_num=7, input_shape=(6, 7, 2))
+    gpu, cpu = (ModelBuilder().load(params, **kw, device=d) for d in ("cuda", "cpu"))
+    gpu.reset_parameters(torch.Generator(device="cuda").manual_seed(5))
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    gen = torch.Generator().manual_seed(6)
+    obs = torch.randint(0, 2, (256, *shape), generator=gen).to(torch.float32)
+    actions = torch.randint(0, 7, (256,), generator=gen)
+    results = []
+    for model, dev, dtype in ((gpu, "cuda", torch.float32), (cpu, "cpu", torch.float32),
+                              (copy.deepcopy(cpu).double(), "cpu", torch.float64)):
+        res = model.forward_train(obs.to(dev, dtype), actions.to(dev))
+        loss = res["prev_neglogp"].mean() + res["values"].mean() + 0.1 * res["entropy"].mean()
+        results.append((res, [g.double() for g in torch.autograd.grad(loss, list(model.parameters()))]))
+    (gres, ggrads), (cres, cgrads), (_, ref) = results
+    dout = max(float((gres[k].detach().cpu() - cres[k].detach()).abs().max()) for k in ("logits", "values"))
+    dgrad, cpu_f32 = float64_distance(ggrads, ref), float64_distance(cgrads, ref)
+    bound = max(1e-5, 3 * cpu_f32)
+    blocks = params["network"]["blocks"]
+    print(f"[reference] connect4net ({blocks} blocks, {gpu.a2c_network.stem.out_channels} channels) on 256 boards, "
+          f"cuda vs cpu: max |d logits, values| {dout:.2e}; the card's gradients within {dgrad:.2e} of each tensor's "
+          f"largest entry of the CPU's float64 gradients (the CPU's float32 gradients within {cpu_f32:.2e}, bound "
+          f"{bound:.2e}); TF32 {(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)}")
+    if not (dout < 1e-5 and dgrad < bound):
+        raise AssertionError(f"connect4net: the card disagrees with the CPU: outputs {dout}, gradients {dgrad}")
+
+
 def profile_report(tag: str, prof, wall_us: float, detail: str):
     """The device's busy time and idle share over ``wall_us`` of host time,
     and the device time by kernel, of one torch.profiler session."""
@@ -2758,6 +3061,15 @@ def main():
     # layer-norm torsos over the native stepper as [host_sac] runs
     dict_runs = phase_dict(3)
     norm_train, norm_play, _ = phase_host_sac(8, config="ref/mujoco/sac_ant_tuned.yaml", tag="sac_norm")
+    # A8 (b): the Impala tower (with and without attention) and the two-hot value head
+    impala = phase_impala(3)
+    th_train, th_play, th_steps, _ = phase_cartpole(3, tag="twohot", value_head="twohot")
+    # [reference]'s A8 (b) checks come after every profiled phase: once every profiler session after
+    # reference_impala lost one device event (other runs met the same from [envs] on without it: the
+    # mode is the profiler's, and device_time_ms takes it; PERF.md §6-7)
+    reference_impala()
+    reference_twohot()
+    reference_connect4()
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
@@ -2766,10 +3078,11 @@ def main():
     host_runs = tuple(host[tag]["train"] for tag in ("default", "cpu", "default fused"))
     runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train,
             *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn),
-            *(dict_runs[tag]["train"] for tag in dict_runs))
-    # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn] and [dict] run 3
+            *(dict_runs[tag]["train"] for tag in dict_runs), *(impala[tag]["train"] for tag in impala), th_train)
+    # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn], [dict], [impala] and
+    # [twohot] run 3
     epochs_trained = ((args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
-                      + (3,) * len(rnn) + (3,) * len(dict_runs))
+                      + (3,) * len(rnn) + (3,) * len(dict_runs) + (3,) * len(impala) + (3,))
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
@@ -2782,7 +3095,10 @@ def main():
                                      "rnn": {tag: rnn[tag]["train"]["gae"] for tag in rnn},
                                      # [dict]: GAE at [256, 16, 1] once an epoch; [sac_norm] none
                                      "dict": {tag: dict_runs[tag]["train"]["gae"] for tag in dict_runs},
-                                     "sac_norm": norm_train["gae"]}
+                                     "sac_norm": norm_train["gae"],
+                                     # [impala]: GAE at [256, 16, 1] once an epoch; [twohot] at [32, 16, 1]
+                                     "impala": {tag: impala[tag]["train"]["gae"] for tag in impala},
+                                     "twohot": th_train["gae"]}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
@@ -2791,7 +3107,8 @@ def main():
                                + sum(heads[tag]["train"]["fused_mlp"] + heads[tag]["play"]["fused_mlp"]
                                      for tag in heads)
                                + sum(rnn[tag]["train"]["fused_mlp"] + rnn[tag].get("play", {}).get("fused_mlp", 0)
-                                     for tag in rnn))
+                                     for tag in rnn)
+                               + th_train["fused_mlp"] + th_play["fused_mlp"])
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -2836,6 +3153,13 @@ def main():
     fused_entry["launches_dict"] = {tag: {"train": dict_runs[tag]["train"]["fused_mlp"],
                                           "play": dict_runs[tag]["play"]["fused_mlp"]} for tag in dict_runs}
     fused_entry["launches_sac_norm"] = {"train": norm_train["fused_mlp"], "play": norm_play["fused_mlp"]}
+    # [impala] takes the plain chain behind the tower: no fused launch; [twohot]
+    # is [cartpole]'s fused 4->32->32 relu at B = 16 and 64 with the two-hot head
+    fused_entry["launches_impala"] = {tag: {"train": impala[tag]["train"]["fused_mlp"],
+                                            "play": impala[tag]["play"]["fused_mlp"]} for tag in impala}
+    fused_entry["launches_twohot"] = {"train": th_train["fused_mlp"], "play": th_play["fused_mlp"],
+                                      "per_epoch": th_train["fused_mlp"] / 3,
+                                      "per_player_step": th_play["fused_mlp"] / th_steps}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,10 @@ the 'obs' entry of the asymmetric envs' {'obs', 'states'} observations
 resnet builder's extras) reach the model whole: the trajectory keeps a
 [T, N, ...] tensor per key, in the key's own dtype, the minibatches slice
 each key, the model's normalizer has one set of stats per key, and the
-'aux_losses' a network reports join the loss (ppo.py:923-926). A
+'aux_losses' a network reports join the loss (ppo.py:923-926). With
+the two-hot value head the value loss, the actor-critic's and the central
+value net's, is the negative two-hot log-prob of the symlog returns
+(ppo.py:886-898, :1174-1186). A
 multi-head value (``value_size`` > 1) keeps its
 rewards, values, returns and value normalizer per head, and sums the
 heads' advantages. The tanh policy's entropy is estimated from normals
@@ -111,6 +114,7 @@ from rl_games_tpu_torch.common.tr_helpers import (
 from rl_games_tpu_torch.envs import registry as env_registry
 from rl_games_tpu_torch.envs.device.base import VecEnvState
 from rl_games_tpu_torch.envs.spaces import Box, Discrete, MultiDiscrete, actions_num_of, obs_shape_of
+from rl_games_tpu_torch.models import distributions as D
 from rl_games_tpu_torch.models import model_builder
 from rl_games_tpu_torch.models.rnd import RNDCuriosity
 from rl_games_tpu_torch.ops import losses as L
@@ -248,6 +252,16 @@ def adam_step(params, grads, opt: AdamState, lr, max_norm: Optional[float] = Non
         nu.copy_((1.0 - _B2) * (g * g) + _B2 * nu)
         update = (mu / bc1) / (torch.sqrt(nu / bc2) + _ADAM_EPS)
         p.add_(-update * lr)
+
+
+def _value_loss(res, mb, e_clip, clip_value):
+    """The clipped value loss on the normalized returns, or with the two-hot
+    value head the negative two-hot log-prob of their symlog (the
+    reference's TwoHotEncodedValue.loss, common/layers/value.py:33-38;
+    ppo.py:886-898, :1174-1186)."""
+    if "value_logits" in res:
+        return -D.twohot_log_prob(res["value_logits"], D.symlog(mb["returns"][..., 0]))
+    return L.critic_loss(mb["old_values"], res["values"], e_clip, mb["returns"], clip_value)
 
 
 # ---------------------------------------------------------------------------
@@ -868,9 +882,7 @@ class PPOAgent:
             mb["old_logp_actions"], res["prev_neglogp"], mb["advantages"], self.ppo, self.e_clip
         )
         if self.has_value_loss:
-            c_loss = L.critic_loss(
-                mb["old_values"], res["values"], self.e_clip, mb["returns"], self.clip_value
-            )
+            c_loss = _value_loss(res, mb, self.e_clip, self.clip_value)
         else:
             # the central value net owns the value loss (a2c_continuous.py:75)
             c_loss = torch.zeros_like(res["values"])
@@ -1013,8 +1025,7 @@ class PPOAgent:
                     kw = dict(rnn_states=mb["rnn_states"], dones=mb["dones"] if self.zero_rnn_on_done else None,
                               seq_length=self.seq_length)
                 res = self.cv_model.forward_train(mb["states"], **kw)
-                loss = L.critic_loss(mb["old_values"], res["values"], self.cv_e_clip, mb["returns"],
-                                     self.cv_clip_value).mean()
+                loss = _value_loss(res, mb, self.cv_e_clip, self.cv_clip_value).mean()
                 grads = torch.autograd.grad(loss, self.cv_params)
                 adam_step(self.cv_params, grads, state.cv_opt, self.cv_lr, self.cv_max_norm)
                 losses.append(loss.detach())

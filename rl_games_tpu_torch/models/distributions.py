@@ -1,14 +1,14 @@
 """Policy distributions: the diagonal Gaussian, the categorical, SAC's
-tanh-squashed normal and the Brax-style NormalTanh policy.
+tanh-squashed normal, the Brax-style NormalTanh policy, the two-hot value
+distribution and the straight-through one-hot categorical.
 
-Port of the normal, categorical, squashed-normal and NormalTanh parts of
-rl_games_tpu/models/distributions.py (the reference's
-models.py:227-230,345-348,486-562, distributions.py:27-44 and
+Port of rl_games_tpu/models/distributions.py (the reference's
+models.py:227-230,345-348,486-562, distributions.py:27-93 and
 sac_helper.py). The categorical functions take an optional action mask, as
 the JAX ones do. The samplers take their random numbers as tensors
-(``gumbel_max`` its uniforms, ``squashed_normal_sample`` and
-``NormalTanhDistribution`` their standard normals), so that a test can hand
-them the JAX package's draws.
+(``gumbel_max`` and ``OneHotDist.sample`` their uniforms,
+``squashed_normal_sample`` and ``NormalTanhDistribution`` their standard
+normals), so that a test can hand them the JAX package's draws.
 """
 
 import math
@@ -165,3 +165,97 @@ class NormalTanhDistribution:
         pre = self.loc + self.scale * noise
         log_det = 2.0 * (math.log(2.0) - pre - F.softplus(-2.0 * pre))
         return (base_entropy + log_det).sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Two-hot / symlog, the value targets of the two-hot value head
+# (distributions.py:177-230; the reference's distributions.py:62-93)
+# ---------------------------------------------------------------------------
+
+
+def symlog(x):
+    return torch.sign(x) * torch.log1p(torch.abs(x))
+
+
+def symexp(x):
+    return torch.sign(x) * (torch.exp(torch.abs(x)) - 1.0)
+
+
+def twohot_encode(x, bins):
+    """Scalars ``x`` as two-hot weight vectors over the sorted 1-D ``bins``:
+    the mass splits between the two bins around each value."""
+    x = torch.clamp(x, bins[0], bins[-1])
+    idx_hi = torch.clamp(torch.searchsorted(bins, x.contiguous()), 1, len(bins) - 1)
+    idx_lo = idx_hi - 1
+    lo, hi = bins[idx_lo], bins[idx_hi]
+    w_hi = (x - lo) / torch.clamp(hi - lo, min=1e-8)
+    w_lo = 1.0 - w_hi
+    n = len(bins)
+    return F.one_hot(idx_lo, n).to(x.dtype) * w_lo[..., None] + F.one_hot(idx_hi, n).to(x.dtype) * w_hi[..., None]
+
+
+def twohot_decode(logits, bins):
+    """The expected bin under softmax(logits)."""
+    return (torch.softmax(logits, dim=-1) * bins).sum(dim=-1)
+
+
+def twohot_bins(device=None):
+    """The reference TwoHotDist's fixed grid (distributions.py:72): 255 bins
+    over [-20, 20] in symlog space. torch's float32 linspace rounds some
+    interior bins one ulp away from jnp.linspace's (at most 1.9e-6)."""
+    return torch.linspace(-20.0, 20.0, 255, device=device)
+
+
+TWOHOT_BINS = twohot_bins()
+
+
+def twohot_log_prob(logits, targets, bins=None):
+    """TwoHotDist.log_prob (distributions.py:80-93): the log-prob of scalar
+    ``targets`` interpolated between their two bins. As in the reference,
+    the width is (hi - lo) / len(bins), not the bins' spacing, the position
+    truncates toward zero and only the lower bin is clipped, to
+    [0, len(bins) - 2]."""
+    n = 255 if bins is None else len(bins)
+    first, last = (-20.0, 20.0) if bins is None else (bins[0], bins[-1])
+    width = (last - first) / n
+    x = (targets - first) / width
+    lo = torch.clamp(x.to(torch.int32), 0, n - 2).long()
+    hi = lo + 1
+    w_lo = torch.abs(x - hi)
+    w_hi = torch.abs(x - lo)
+    logp = torch.log_softmax(logits, dim=-1)
+    lo_lp = torch.gather(logp, -1, lo[..., None])[..., 0]
+    hi_lp = torch.gather(logp, -1, hi[..., None])[..., 0]
+    return w_lo * lo_lp + w_hi * hi_lp
+
+
+class OneHotDist:
+    """Straight-through one-hot categorical (distributions.py:233-265; the
+    reference's OneHotDist, distributions.py:47-58): a sample's gradient
+    flows through the softmax probabilities, the mode's through the raw
+    logits (the reference's ``_mode.detach() + logits - logits.detach()``),
+    not the softmax."""
+
+    def __init__(self, logits, unimix_ratio: float = 0.0):
+        if unimix_ratio > 0.0:
+            probs = torch.softmax(logits, dim=-1)
+            probs = probs * (1.0 - unimix_ratio) + unimix_ratio / probs.shape[-1]
+            logits = torch.log(probs)
+        self.logits = logits
+
+    def _straight_through(self, hard):
+        probs = torch.softmax(self.logits, dim=-1)
+        return (hard - probs).detach() + probs
+
+    def mode(self):
+        hard = F.one_hot(torch.argmax(self.logits, dim=-1), self.logits.shape[-1]).to(self.logits.dtype)
+        return (hard - self.logits).detach() + self.logits
+
+    def sample(self, uniform):
+        """A one-hot draw by Gumbel-max from uniforms in (0, 1) of the
+        logits' shape (``jax.random.categorical``'s sampler)."""
+        hard = F.one_hot(gumbel_max(self.logits, uniform), self.logits.shape[-1]).to(self.logits.dtype)
+        return self._straight_through(hard)
+
+    def log_prob(self, one_hot):
+        return (torch.log_softmax(self.logits, dim=-1) * one_hot).sum(dim=-1)

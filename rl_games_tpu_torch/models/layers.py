@@ -2,16 +2,20 @@
 
 Port of rl_games_tpu/models/layers.py :22-195, ``FusedMLP`` and
 ``build_mlp`` (:223-270), ``SpatialSoftArgmax`` and ``CNN`` (:279-363),
-``RNNCore`` and ``default_rnn_state`` (:605-703; the reference's
-network_builder.py:50-73,110-209, d2rl.py, spatial_softmax.py,
-recurrent.py): activation and initializer factories, the Linear/Conv init
-convention, the sequential MLP, its fused form and the D2RL dense-skip MLP,
-the conv stacks and the done-masked recurrent core. Modules are named as the reference's ``nn.Sequential`` names them
-(Linear or Conv at 0, activation at 1, [LayerNorm at 2], ...; a D2RL MLP's
-``linears.{i}`` and ``norm_layers.{i}``), so a port ``state_dict()`` has the
-reference checkpoint layout. The conv stacks run over NCHW (NCL for
-conv1d), the layout of the reference's torch builder; the JAX package runs
-them over NHWC.
+the Impala tower with its attention and frozen batch-norm blocks
+(:366-515), the Noisy layers (:518-603), ``RNNCore`` and
+``default_rnn_state`` (:605-703; the reference's network_builder.py:50-73,
+110-209, 599-727, d2rl.py, spatial_softmax.py, recurrent.py,
+algos_torch/layers.py): activation and initializer factories, the
+Linear/Conv init convention, the sequential MLP, its fused form and the
+D2RL dense-skip MLP, the conv stacks and the done-masked recurrent core.
+Modules are named as the reference's ``nn.Sequential`` names them (Linear
+or Conv at 0, activation at 1, [LayerNorm at 2], ...; a D2RL MLP's
+``linears.{i}`` and ``norm_layers.{i}``; an Impala stage's ``conv.conv``,
+``conv.bn``, ``res_block{1,2}.conv{1,2}`` and ``alpha``), so a port
+``state_dict()`` has the reference checkpoint layout. The conv stacks run
+over NCHW (NCL for conv1d), the layout of the reference's torch builder;
+the JAX package runs them over NHWC.
 """
 
 import math
@@ -72,6 +76,12 @@ def _variance_scaling_truncated(weight, scale, generator):
                           generator=generator)
 
 
+def lecun_normal(weight, generator=None):
+    """flax's default kernel init (Dense, Conv): variance_scaling(1,
+    'fan_in', 'truncated_normal')."""
+    _variance_scaling_truncated(weight, 1.0, generator)
+
+
 def get_initializer(cfg: Optional[dict]) -> Callable:
     """Map a reference initializer config {'name': ..., **kw} to an in-place
     weight initializer ``init(weight, generator)``."""
@@ -117,22 +127,30 @@ def reset_layer(layer: nn.Module, generator=None):
     with torch.no_grad():
         layer.weight_init(layer.weight, generator=generator)
         bias_init = getattr(layer, "bias_init", None)
+        if layer.bias is None:
+            return
         if bias_init is None:
             layer.bias.zero_()
         else:
             bias_init(layer.bias)
 
 
+def with_init(layer: nn.Module, weight_init: Callable) -> nn.Module:
+    """``layer`` with the weight init that ``reset_parameters`` draws."""
+    layer.weight_init = weight_init
+    return layer
+
+
 def reset_parameters(module: nn.Module, generator=None):
-    """Redraw every Linear and conv made by ``make_dense`` / ``CNN`` and
-    every ``RNNCore``, and reset LayerNorms, in module order, from one
-    generator."""
+    """Redraw every Linear and conv that carries a ``weight_init`` and every
+    ``RNNCore``, and reset the norms and the residual scalars, in module
+    order, from one generator."""
     for m in module.modules():
         if hasattr(m, "weight_init"):
             reset_layer(m, generator)
         elif isinstance(m, RNNCore):
             m.reset_parameters(generator)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm2d, ImpalaResidualBlock)):
             m.reset_parameters()
 
 
@@ -269,18 +287,35 @@ def _pair(v, n: int):
     return (v,) * n if isinstance(v, int) else tuple(v)
 
 
+def conv_output_dims(convs: Sequence[dict], spatial: Sequence[int]) -> list:
+    """The spatial extent after a ``convs`` stack of an input of extent
+    ``spatial`` (H, W; or L)."""
+    dims = list(spatial)
+    for conv in convs:
+        k, s, p = (_pair(conv[key], len(dims)) for key in ("kernel_size", "strides", "padding"))
+        dims = [(d + 2 * p[i] - k[i]) // s[i] + 1 for i, d in enumerate(dims)]
+    return dims
+
+
+def impala_output_dims(stages: int, spatial: Sequence[int]) -> list:
+    """The spatial extent after ``stages`` Impala stages: each stage's pool
+    (3, stride 2, padding 1) takes a side d to (d - 1) // 2 + 1."""
+    dims = list(spatial)
+    for _ in range(stages):
+        dims = [(d - 1) // 2 + 1 for d in dims]
+    return dims
+
+
 class CNN(nn.Sequential):
     """Conv stack from a ``convs`` config list (layers.py:307-363): per conv
     [Conv, activation, [ChannelLayerNorm]]; ``ctype`` is ``conv2d``,
     ``conv1d``, ``coord_conv2d`` (normalized x and y channels appended
     before each conv, torch_ext.py:223-240) or ``conv2d_spatial_softargmax``
-    (a SpatialSoftArgmax after the stack). Input NCHW (NCL for conv1d)."""
+    (a SpatialSoftArgmax after the stack); any other type is a plain
+    conv2d stack, as in the JAX package. Input NCHW (NCL for conv1d)."""
 
     def __init__(self, in_channels: int, convs: Sequence[dict], activation,
                  initializer=None, norm_func_name=None, ctype: str = "conv2d", device=None):
-        if ctype not in ("conv2d", "conv1d", "coord_conv2d", "conv2d_spatial_softargmax"):
-            raise NotImplementedError(f"cnn.type {ctype!r} is not ported to rl_games_tpu_torch yet "
-                                      "(ROADMAP.md, item A8)")
         self.ctype = ctype
         self.convs = [dict(c) for c in convs]
         n = 1 if ctype == "conv1d" else 2
@@ -304,14 +339,10 @@ class CNN(nn.Sequential):
     def output_size(self, spatial: Sequence[int]) -> int:
         """Features per sample after the stack and its flatten, for an input
         of spatial extent ``spatial`` (H, W; or L)."""
-        dims = list(spatial)
-        for conv in self.convs:
-            k, s, p = (_pair(conv[key], len(dims)) for key in ("kernel_size", "strides", "padding"))
-            dims = [(d + 2 * p[i] - k[i]) // s[i] + 1 for i, d in enumerate(dims)]
         channels = self.convs[-1]["filters"]
         if self.ctype == "conv2d_spatial_softargmax":
             return 2 * channels
-        return channels * math.prod(dims)
+        return channels * math.prod(conv_output_dims(self.convs, spatial))
 
     def forward(self, x):
         for m in self:
@@ -322,6 +353,227 @@ class CNN(nn.Sequential):
                 x = torch.cat([x, xx, yy], dim=1)
             x = m(x)
         return x
+
+
+# ---------------------------------------------------------------------------
+# The Impala tower (layers.py:366-515; network_builder.py:599-727)
+# ---------------------------------------------------------------------------
+
+
+class ChannelAttention(nn.Module):
+    """The squeeze-and-excitation channel gate (layers.py:366-381):
+    sigmoid(fc2(relu(fc1(avgpool))) + fc2(relu(fc1(maxpool)))), the two
+    bias-free Linears shared by both pools, ``max(1, C // 16)`` hidden.
+    Returns the gate [B, C, 1, 1] of an NCHW map."""
+
+    def __init__(self, channels: int, reduction: int = 16, device=None):
+        super().__init__()
+        hidden = max(1, channels // reduction)
+        self.fc1 = with_init(nn.Linear(channels, hidden, bias=False, device=device), lecun_normal)
+        self.fc2 = with_init(nn.Linear(hidden, channels, bias=False, device=device), lecun_normal)
+
+    def forward(self, x):
+        avg = self.fc2(torch.relu(self.fc1(x.mean(dim=(2, 3)))))
+        mx = self.fc2(torch.relu(self.fc1(x.amax(dim=(2, 3)))))
+        return torch.sigmoid(avg + mx)[:, :, None, None]
+
+
+class SpatialAttention(nn.Module):
+    """The spatial gate (layers.py:384-398): sigmoid of a bias-free 7x7 SAME
+    conv over [channel mean, channel max]. Returns [B, 1, H, W]."""
+
+    def __init__(self, kernel_size: int = 7, device=None):
+        super().__init__()
+        self.conv = with_init(nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False, device=device),
+                              lecun_normal)
+
+    def forward(self, x):
+        pooled = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
+        return torch.sigmoid(self.conv(pooled))
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """A batch norm with frozen statistics (layers.py:400-427): (x - mean) ·
+    rsqrt(var + eps) · weight + bias over NCHW channels, never the batch's
+    statistics. As in the JAX package, ``running_mean`` and ``running_var``
+    are parameters that take no gradient: Adam leaves them where they are,
+    weight decay moves them. Named as the reference's BatchNorm2d
+    (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``, which stays 0)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        f32 = dict(dtype=torch.float32, device=device)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, **f32))
+        self.bias = nn.Parameter(torch.zeros(channels, **f32))
+        self.running_mean = nn.Parameter(torch.zeros(channels, **f32))
+        self.running_var = nn.Parameter(torch.ones(channels, **f32))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long, device=device))
+
+    def reset_parameters(self):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        inv = torch.rsqrt(self.running_var.detach() + self.eps) * self.weight
+        return (x - self.running_mean.detach()[:, None, None]) * inv[:, None, None] + self.bias[:, None, None]
+
+
+class ImpalaConvBlock(nn.Module):
+    """A 3x3 SAME conv, stride 1 (layers.py:429-443); with ``use_bn`` it has
+    no bias and a FrozenBatchNorm2d follows. flax's Conv init: lecun-normal
+    weights, zero biases."""
+
+    def __init__(self, in_channels: int, channels: int, use_bn: bool = False, device=None):
+        super().__init__()
+        self.conv = with_init(nn.Conv2d(in_channels, channels, 3, padding=1, bias=not use_bn, device=device),
+                              lecun_normal)
+        self.bn = FrozenBatchNorm2d(channels, device=device) if use_bn else None
+
+    def forward(self, x):
+        x = self.conv(x)
+        return x if self.bn is None else self.bn(x)
+
+
+class ImpalaResidualBlock(nn.Module):
+    """relu → conv1 → relu → conv2, then the channel and spatial gates
+    (``use_attention``, as ``ca`` and ``sa``), and the residual added, or
+    with ``use_zero_init`` the block's output scaled by ``alpha`` (0 at
+    init) first (layers.py:446-471)."""
+
+    def __init__(self, channels: int, use_attention=False, use_bn=False, use_zero_init=False, device=None):
+        super().__init__()
+        self.conv1 = ImpalaConvBlock(channels, channels, use_bn, device)
+        self.conv2 = ImpalaConvBlock(channels, channels, use_bn, device)
+        self.ca = ChannelAttention(channels, device=device) if use_attention else None
+        self.sa = SpatialAttention(device=device) if use_attention else None
+        self.alpha = nn.Parameter(torch.zeros(1, device=device)) if use_zero_init else None
+
+    def reset_parameters(self):
+        if self.alpha is not None:
+            with torch.no_grad():
+                self.alpha.zero_()
+
+    def forward(self, x):
+        residual = x
+        x = self.conv2(torch.relu(self.conv1(torch.relu(x))))
+        if self.ca is not None:
+            x = self.ca(x) * x
+            x = self.sa(x) * x
+        if self.alpha is not None:
+            return x * self.alpha + residual
+        return x + residual
+
+
+class ImpalaSequential(nn.Module):
+    """conv → max pool 3/2 (padding 1, padded with -inf) → two residual
+    blocks (layers.py:474-492)."""
+
+    def __init__(self, in_channels: int, channels: int, use_attention=False, use_bn=False, use_zero_init=False,
+                 device=None):
+        super().__init__()
+        self.conv = ImpalaConvBlock(in_channels, channels, use_bn, device)
+        self.max_pool = nn.MaxPool2d(3, 2, padding=1)
+        self.res_block1 = ImpalaResidualBlock(channels, use_attention, use_bn, use_zero_init, device)
+        self.res_block2 = ImpalaResidualBlock(channels, use_attention, use_bn, use_zero_init, device)
+
+    def forward(self, x):
+        return self.res_block2(self.res_block1(self.max_pool(self.conv(x))))
+
+
+class ImpalaCNN(nn.Sequential):
+    """The Impala tower from ``conv_depths`` (layers.py:495-515): a stage a
+    depth, then a relu; NCHW in, a map out that the torso flattens. It takes
+    no ``cnn.initializer``, as the JAX package's takes none."""
+
+    def __init__(self, in_channels: int, conv_depths: Sequence[int], use_attention=False, use_bn=False,
+                 use_zero_init=False, device=None):
+        stages, c = [], in_channels
+        for depth in conv_depths:
+            stages.append(ImpalaSequential(c, depth, use_attention, use_bn, use_zero_init, device))
+            c = depth
+        super().__init__(*stages)
+        self.depths = list(conv_depths)
+
+    def output_size(self, spatial: Sequence[int]) -> int:
+        """Features per sample after the tower and its flatten."""
+        return self.depths[-1] * math.prod(impala_output_dims(len(self.depths), spatial))
+
+    def forward(self, x):
+        return torch.relu(super().forward(x))
+
+
+# ---------------------------------------------------------------------------
+# NoisyNet layers (layers.py:518-603; the reference's algos_torch/layers.py)
+# ---------------------------------------------------------------------------
+
+
+class NoisyLinear(nn.Module):
+    """A linear layer with independent Gaussian noise on every weight and
+    bias (layers.py:518-560): w = weight + sigma_weight · ε, ε ~ N(0, 1) per
+    element; sigma 0.017, weight and bias U(±sqrt(3 / fan_in)).
+    ``forward(x, noise=None, generator=None)``: with neither, the
+    mean-weight forward; ``noise`` is (ε_w [out, in], ε_b [out]), else
+    drawn from ``generator``."""
+
+    def __init__(self, in_features: int, out_features: int, sigma_init: float = 0.017, device=None):
+        super().__init__()
+        f32 = dict(dtype=torch.float32, device=device)
+        self.in_features, self.out_features, self.sigma_init = in_features, out_features, sigma_init
+        self.weight = nn.Parameter(torch.empty((out_features, in_features), **f32))
+        self.bias = nn.Parameter(torch.empty(out_features, **f32))
+        self.sigma_weight = nn.Parameter(torch.empty((out_features, in_features), **f32))
+        self.sigma_bias = nn.Parameter(torch.empty(out_features, **f32))
+        self.reset_parameters()
+
+    def mu_bound(self) -> float:
+        return math.sqrt(3.0 / self.in_features)
+
+    def reset_parameters(self, generator=None):
+        bound = self.mu_bound()
+        with torch.no_grad():
+            nn.init.uniform_(self.weight, -bound, bound, generator=generator)
+            nn.init.uniform_(self.bias, -bound, bound, generator=generator)
+            self.sigma_weight.fill_(self.sigma_init)
+            self.sigma_bias.fill_(self.sigma_init)
+
+    def forward(self, x, noise=None, generator=None):
+        if noise is None and generator is None:
+            return torch.nn.functional.linear(x, self.weight, self.bias)
+        if noise is None:
+            noise = (torch.randn(self.weight.shape, generator=generator, device=x.device),
+                     torch.randn(self.bias.shape, generator=generator, device=x.device))
+        eps_w, eps_b = noise
+        return torch.nn.functional.linear(x, self.weight + self.sigma_weight * eps_w,
+                                          self.bias + self.sigma_bias * eps_b)
+
+
+class NoisyFactorizedLinear(NoisyLinear):
+    """The factorized Gaussian variant (layers.py:563-603): w = weight +
+    sigma_weight · f(ε_out) f(ε_in)ᵀ, b = bias + sigma_bias · f(ε_out),
+    f(e) = sign(e) · sqrt(|e|); sigma sigma_zero / sqrt(fan_in), weight and
+    bias torch's Linear init U(±1 / sqrt(fan_in)). ``noise`` is (ε_in [in],
+    ε_out [out])."""
+
+    def __init__(self, in_features: int, out_features: int, sigma_zero: float = 0.4, device=None):
+        super().__init__(in_features, out_features, sigma_zero / math.sqrt(in_features), device)
+
+    def mu_bound(self) -> float:
+        return 1.0 / math.sqrt(self.in_features)
+
+    def forward(self, x, noise=None, generator=None):
+        if noise is None and generator is None:
+            return torch.nn.functional.linear(x, self.weight, self.bias)
+        if noise is None:
+            noise = (torch.randn(self.in_features, generator=generator, device=x.device),
+                     torch.randn(self.out_features, generator=generator, device=x.device))
+        eps_in, eps_out = (torch.sign(e) * torch.sqrt(torch.abs(e)) for e in noise)
+        return torch.nn.functional.linear(x, self.weight + self.sigma_weight * torch.outer(eps_out, eps_in),
+                                          self.bias + self.sigma_bias * eps_out)
 
 
 # ---------------------------------------------------------------------------

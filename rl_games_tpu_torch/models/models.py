@@ -15,7 +15,8 @@ explicit calls, as in the JAX package, not a side effect of a forward. A
 dict ``obs_shape`` gets one normalizer per key (``RunningMeanStdObs``):
 every key is normalized, as in the JAX package. A network's optional
 'aux_losses' (custom networks, ``models/test_network.py``) pass through
-``forward_train`` to the loss (``passthrough_extras``, :93-101).
+``forward_train`` to the loss, as do the two-hot value head's
+'value_logits' (``passthrough_extras``, :93-101).
 """
 
 from typing import Optional
@@ -30,11 +31,13 @@ from rl_games_tpu_torch.ops.running_stats import RunningMeanStd, RunningMeanStdO
 
 
 def passthrough_extras(out, result):
-    """A network's optional 'aux_losses' into the train dict, for the loss
-    to add (models.py:93-101; the reference's get_aux_loss,
-    a2c_continuous.py:194-202)."""
-    if "aux_losses" in out:
-        result["aux_losses"] = out["aux_losses"]
+    """A network's optional 'aux_losses' (the reference's get_aux_loss,
+    a2c_continuous.py:194-202) and the two-hot value head's 'value_logits'
+    (common/layers/value.py:33-38) into the train dict, for the loss
+    (models.py:93-101)."""
+    for k in ("aux_losses", "value_logits"):
+        if k in out:
+            result[k] = out[k]
     return result
 
 

@@ -3,20 +3,23 @@
 Port of rl_games_tpu/models/network_builder.py ``A2CNetwork`` (:41-323):
 one trunk, or with ``separate: True`` an actor trunk and a critic trunk
 that the value head reads (:216-229); each trunk an optional conv stack
-(``cnn``, NHWC observations permuted to NCHW as the reference torch
-builder's ``permute_input`` does, and flattened in NCHW order, the
-reference checkpoint's), an MLP (plain, fused or D2RL) and an optional
-recurrent core (``rnn``: LSTM, GRU or identity, after the MLP or with
-``before_mlp`` in front of it, ``concat_input`` / ``concat_output`` of the
-flattened input, a LayerNorm of its output with ``layer_norm``;
-:152-208); a linear value head of ``value_size`` outputs; and a continuous
-head (mu, and sigma either a fixed, state-independent parameter or a
-Linear of the actor's features), a discrete one (``logits``) or a
-multi-discrete one (a ``logits`` Linear per action head). A central value
-net (``central_value: True``, or no action space) has the value head only
-(:131, :264-270). The reference YAML ``network:`` schema is read as in the
-JAX package; the branches not ported yet (impala, two-hot value head)
-raise NotImplementedError naming their ROADMAP.md item.
+(``cnn``: the conv stacks of ``convs``, or with ``type: impala`` the Impala
+tower of ``conv_depths``; NHWC observations permuted to NCHW as the
+reference torch builder's ``permute_input`` does, and flattened in NCHW
+order, the reference checkpoint's), an MLP (plain, fused or D2RL; none with
+``units: []``) and an optional recurrent core (``rnn``: LSTM, GRU or
+identity, after the MLP or with ``before_mlp`` in front of it,
+``concat_input`` / ``concat_output`` of the flattened input, a LayerNorm of
+its output with ``layer_norm``; :152-208); a value head: linear, of
+``value_size`` outputs, or with ``value_head: twohot`` the 255-bin two-hot
+head (:235-260: logits over ``distributions.TWOHOT_BINS``, the value
+symexp of their expected bin, the logits as 'value_logits' for the loss);
+and a continuous head (mu, and sigma either a fixed, state-independent
+parameter or a Linear of the actor's features), a discrete one
+(``logits``) or a multi-discrete one (a ``logits`` Linear per action head).
+A central value net (``central_value: True``, or no action space) has the
+value head only (:131, :264-270). The reference YAML ``network:`` schema is
+read as in the JAX package.
 
 The resnet builder's extras (:108-126, 173-174): a dict observation with an
 'observation' key feeds that entry to the trunks, and with
@@ -32,7 +35,8 @@ both packages refuse it: the JAX package's apply with a shape error, the
 port with a ValueError.
 
 Submodules carry the reference checkpoint names (``actor_cnn``,
-``actor_mlp``, ``critic_cnn``, ``critic_mlp``, the recurrent core ``rnn``
+``actor_mlp``, ``critic_cnn``, ``critic_mlp``; an Impala tower on a shared
+trunk, the resnet builder's, ``cnn`` and ``mlp``; the recurrent core ``rnn``
 and its ``layer_norm`` on a shared trunk, ``a_rnn`` / ``c_rnn`` and
 ``a_layer_norm`` / ``c_layer_norm`` on separate ones, ``mu``, ``sigma``,
 ``logits`` or ``logits.{i}``, ``value``).
@@ -44,8 +48,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from rl_games_tpu_torch.models import distributions as D
 from rl_games_tpu_torch.models import layers as L
-from rl_games_tpu_torch.utils.unported import unported
 
 
 def action_space_of(cfg: dict):
@@ -66,13 +70,25 @@ _NO_OBSERVATION = ("the actor_critic network reads a dict observation through it
 RNN_MODULE_NAMES = {("actor_", False): ("rnn", "layer_norm"), ("actor_", True): ("a_rnn", "a_layer_norm"),
               ("critic_", True): ("c_rnn", "c_layer_norm")}
 
+TWOHOT_HEADS = ("twohot", "twohot_encoded")
+
+
+def trunk_module_names(prefix: str, separate: bool, impala: bool):
+    """(the conv stack's, the MLP's) module names of a trunk: the resnet
+    builder's ``cnn`` and ``mlp`` for an Impala tower on a shared trunk
+    (the reference checkpoint's, network_builder.py:729-760), else
+    ``{prefix}cnn`` and ``{prefix}mlp``."""
+    if impala and not separate:
+        return "cnn", "mlp"
+    return prefix + "cnn", prefix + "mlp"
+
 
 class A2CNetwork(nn.Module):
     """forward(obs, rnn_states=None, dones=None, seq_length=1) ->
     {'mu', 'sigma_raw', 'value', 'rnn_states'} (continuous),
     {'logits', 'value', 'rnn_states'} (discrete), {'logits': tuple, 'value',
     'rnn_states'} (multi-discrete) or {'value', 'rnn_states'} (central
-    value).
+    value); with the two-hot value head also 'value_logits' [B, 255].
 
     'sigma_raw' is the sigma parameter or head after sigma_activation,
     broadcast to mu's shape; the model applies the sigma parametrization to
@@ -91,40 +107,44 @@ class A2CNetwork(nn.Module):
         self.central_value = bool(cfg.get("central_value", False)) or self.space is None
         self.discrete = self.space != "continuous"
         self.separate = bool(cfg.get("separate", False))
-        if cfg.get("value_head", cfg.get("value_type", "legacy")) not in ("legacy", "default"):
-            unported("the two-hot value head", "A8")
+        self.twohot = cfg.get("value_head", cfg.get("value_type", "legacy")) in TWOHOT_HEADS
 
         cnn_cfg = cfg.get("cnn")
+        impala = cnn_cfg is not None and cnn_cfg.get("type") == "impala"
         if cnn_cfg is not None:
-            if cnn_cfg.get("type") == "impala":
-                unported("the impala conv tower (cnn.type: impala)", "A8")
             conv1d = cnn_cfg.get("type") == "conv1d"
             if len(input_shape) != (2 if conv1d else 3):
                 raise ValueError(f"a {cnn_cfg.get('type', 'conv2d')} torso takes channels-last "
                                  f"observations, not shape {tuple(input_shape)}")
         elif len(input_shape) != 1:
-            unported(f"observation shape {tuple(input_shape)} without a cnn", "A8")
+            raise ValueError(f"an MLP torso takes flat observations, not shape {tuple(input_shape)}: "
+                             "give the network a cnn")
 
         self.rnn_cfg = dict(cfg["rnn"]) if "rnn" in cfg else None
         rnn_cfg = self.rnn_cfg or {}
-        if rnn_cfg.get("before_mlp") and cnn_cfg is not None:
-            # the JAX package's RNN input is the NHWC flatten; carrying its
-            # weights across would need the rows permuted (jax_params)
-            unported("rnn.before_mlp behind a conv stack", "A8")
         mlp_cfg = cfg["mlp"]
         units = list(mlp_cfg["units"])
+        self.trunk_names = {}
         for prefix in ("actor_", "critic_") if self.separate else ("actor_",):
+            cnn_name, mlp_name = self.trunk_names[prefix] = trunk_module_names(prefix, self.separate, impala)
             flat = int(input_shape[0])
             cnn = None
-            if cnn_cfg is not None:
+            if impala:
+                cnn = L.ImpalaCNN(
+                    int(input_shape[-1]), cnn_cfg["conv_depths"], use_attention=cnn_cfg.get("use_attention", False),
+                    use_bn=cnn_cfg.get("use_bn", False), use_zero_init=cnn_cfg.get("use_zero_init", False),
+                    device=device,
+                )
+            elif cnn_cfg is not None:
                 cnn = L.CNN(
                     int(input_shape[-1]), cnn_cfg["convs"], cnn_cfg["activation"],
                     initializer=cnn_cfg.get("initializer"),
                     norm_func_name=cfg.get("normalization", None),
                     ctype=cnn_cfg.get("type", "conv2d"), device=device,
                 )
+            if cnn is not None:
                 flat = cnn.output_size(input_shape[:-1])
-            setattr(self, prefix + "cnn", cnn)
+            setattr(self, cnn_name, cnn)
 
             def mlp(in_features):
                 return L.build_mlp(
@@ -141,7 +161,7 @@ class A2CNetwork(nn.Module):
                 return units[-1] if units else in_features
 
             if self.rnn_cfg is None:
-                setattr(self, prefix + "mlp", mlp(flat))
+                setattr(self, mlp_name, mlp(flat))
                 out_size = mlp_out(flat)
                 continue
             core_name, ln_name = RNN_MODULE_NAMES[(prefix, self.separate)]
@@ -149,7 +169,7 @@ class A2CNetwork(nn.Module):
             if before_mlp:
                 rnn_in = flat
             else:
-                setattr(self, prefix + "mlp", mlp(flat))
+                setattr(self, mlp_name, mlp(flat))
                 rnn_in = mlp_out(flat) + (flat if rnn_cfg.get("concat_input", False) else 0)
             rnn_in += extra
             core = L.RNNCore(rnn_cfg["name"], rnn_in, rnn_cfg["units"], rnn_cfg["layers"], device=device)
@@ -160,11 +180,18 @@ class A2CNetwork(nn.Module):
             if rnn_cfg.get("concat_output", False):
                 rnn_out += flat
             if before_mlp:
-                setattr(self, prefix + "mlp", mlp(rnn_out))
+                setattr(self, mlp_name, mlp(rnn_out))
                 out_size = mlp_out(rnn_out)
             else:
                 out_size = rnn_out
-        self.value = L.make_dense(out_size, value_size, mlp_cfg.get("initializer"), device)
+        if self.twohot:
+            if value_size != 1:
+                raise ValueError(f"the two-hot value head takes value_size 1, not {value_size}")
+            self.value = L.with_init(nn.Linear(out_size, 255, device=device),
+                                     lambda w, generator=None: nn.init.xavier_uniform_(w, 0.05, generator))
+            self.register_buffer("twohot_bins", D.twohot_bins(device), persistent=False)
+        else:
+            self.value = L.make_dense(out_size, value_size, mlp_cfg.get("initializer"), device)
         self.value_act = L.get_activation(cfg.get("value_activation", "None"))
         if self.central_value:
             return
@@ -277,12 +304,13 @@ class A2CNetwork(nn.Module):
         return out, new_states
 
     def _trunk(self, obs, prefix: str, states=None, dones=None, seq_length: int = 1, extra=None):
-        x, cnn = obs, getattr(self, prefix + "cnn")
+        cnn_name, mlp_name = self.trunk_names[prefix]
+        x, cnn = obs, getattr(self, cnn_name)
         if cnn is not None:
             # channels-last observations to channels-first (permute_input),
             # flattened in (c, h, w) order
             x = cnn(x.movedim(-1, 1)).flatten(1)
-        mlp = getattr(self, prefix + "mlp")
+        mlp = getattr(self, mlp_name)
         if self.rnn_cfg is None:
             return mlp(x), None
         flat = x
@@ -307,18 +335,24 @@ class A2CNetwork(nn.Module):
             a_out, new_states = self._trunk(obs, "actor_", rnn_states, dones, seq_length, extra)
             c_out = a_out
             new_states = None if new_states is None else tuple(new_states)
-        value = self.value_act(self.value(c_out))
+        out = {"rnn_states": new_states}
+        if self.twohot:
+            out["value_logits"] = self.value(c_out)
+            out["value"] = D.symexp(D.twohot_decode(out["value_logits"], self.twohot_bins))[..., None]
+        else:
+            out["value"] = self.value_act(self.value(c_out))
         if self.central_value:
-            return {"value": value, "rnn_states": new_states}
+            return out
         if self.space == "discrete":
-            return {"logits": self.logits(a_out), "value": value, "rnn_states": new_states}
+            out["logits"] = self.logits(a_out)
+            return out
         if self.space == "multi_discrete":
-            return {"logits": tuple(head(a_out) for head in self.logits), "value": value,
-                    "rnn_states": new_states}
-        mu = self.mu_act(self.mu(a_out))
+            out["logits"] = tuple(head(a_out) for head in self.logits)
+            return out
+        out["mu"] = mu = self.mu_act(self.mu(a_out))
         if self.fixed_sigma:
             # mu * 0.0 broadcasts sigma to mu's shape, as the JAX torso does
-            sigma_raw = self.sigma_act(self.sigma) + mu * 0.0
+            out["sigma_raw"] = self.sigma_act(self.sigma) + mu * 0.0
         else:
-            sigma_raw = self.sigma_act(self.sigma(a_out))
-        return {"mu": mu, "sigma_raw": sigma_raw, "value": value, "rnn_states": new_states}
+            out["sigma_raw"] = self.sigma_act(self.sigma(a_out))
+        return out

@@ -74,7 +74,9 @@ def _resolve_stop_fn(stop_fn):
 
 # the JAX package's modules that a config may name in import_modules and
 # whose port is still to come, with the ROADMAP.md item that ports each
-UNPORTED_MODULES = {"rl_games_tpu.models.connect4_network": ("the connect4 network (connect4net)", "A8 (b)")}
+# (none: both that shipped configs name, test_network and connect4_network,
+# have their ports)
+UNPORTED_MODULES = {}
 
 
 def import_user_module(module: str):

@@ -553,8 +553,9 @@ def test_jax_importer_reads_dict_obs_checkpoint(tmp_path):
 
 def test_import_modules_map_to_the_port(monkeypatch):
     """A JAX package module named in import_modules is the port's module of
-    the same path; one without a port yet names its ROADMAP.md item; any
-    other name is imported as given."""
+    the same path (connect4_network, whose port came in A8 (b), among them);
+    one listed in UNPORTED_MODULES names its ROADMAP.md item; any other name
+    is imported as given."""
     import importlib
 
     from rl_games_tpu_torch import runner as runner_module
@@ -566,6 +567,12 @@ def test_import_modules_map_to_the_port(monkeypatch):
     runner_module.import_user_module("rl_games_tpu.models.test_network")
     assert imported == ["rl_games_tpu_torch.models.test_network"]
     assert model_builder.NETWORK_REGISTRY["testnet_aux_loss"].__module__ == "rl_games_tpu_torch.models.test_network"
+    runner_module.import_user_module("rl_games_tpu.models.connect4_network")
+    assert imported[-1] == "rl_games_tpu_torch.models.connect4_network"
+    assert model_builder.NETWORK_REGISTRY["connect4net"].__module__ == "rl_games_tpu_torch.models.connect4_network"
+    assert runner_module.UNPORTED_MODULES == {}
+    monkeypatch.setitem(runner_module.UNPORTED_MODULES, "rl_games_tpu.models.connect4_network",
+                        ("the connect4 network (connect4net)", "A8 (b)"))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, item A8 \(b\)"):
         runner_module.import_user_module("rl_games_tpu.models.connect4_network")
     with pytest.raises(ModuleNotFoundError, match="no counterpart"):

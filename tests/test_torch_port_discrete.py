@@ -34,6 +34,7 @@ from rl_games_tpu_torch.models import layers as L
 from rl_games_tpu_torch.models.model_builder import ModelBuilder
 from rl_games_tpu_torch.ops import divergence
 from rl_games_tpu_torch.utils.jax_params import jax_to_state_dict
+from test_torch_port_impala import models
 
 torch.set_num_threads(1)
 
@@ -124,7 +125,7 @@ def test_cnn_matches_jax(ctype, padding, norm):
     want = np.asarray(jcnn.apply(jparams, x))
     pcnn = L.CNN(shape[-1], convs, "elu", initializer={"name": "default"}, norm_func_name=norm,
                  ctype=ctype, device="cpu")
-    sd = jax_to_state_dict({"actor_cnn": jparams["params"]}, cnn_type=ctype)
+    sd = jax_to_state_dict({"actor_cnn": jparams["params"]}, network={"cnn": {"type": ctype}})
     pcnn.load_state_dict({k[len("a2c_network.actor_cnn."):]: v for k, v in sd.items()})
     with torch.no_grad():
         got = pcnn(t(x).movedim(-1, 1))
@@ -251,12 +252,21 @@ def test_cnn_model_names_and_unported_options():
             "a2c_network.actor_mlp.0.weight", "a2c_network.logits.weight", "a2c_network.value.weight"} <= names
     assert model.a2c_network.actor_mlp[0].weight.shape == (16, 8 * 7 * 7)
     rnn = {"name": "lstm", "units": 8, "layers": 1}
-    for patch, item in (({"cnn": {"type": "impala", "conv_depths": [16]}}, "A8"),
-                        ({"rnn": {**rnn, "before_mlp": True}}, "A8"),
-                        ({"value_head": "twohot"}, "A8")):
-        bad = {**params, "network": {**params["network"], **patch}}
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            ModelBuilder().load(bad, actions_num=ACT, input_shape=SHAPE, device="cpu")
+    # the options A8 (b) ported build, their checkpoint names as the
+    # reference's, and compute what the JAX torso computes (the weights
+    # carried across; 2 frames, from zero states; rtol 1e-5, atol 1e-5)
+    for patch, name in (({"cnn": {"type": "impala", "conv_depths": [16]}}, "a2c_network.cnn.0.conv.conv.weight"),
+                        ({"rnn": {**rnn, "before_mlp": True}}, "a2c_network.rnn.rnn.weight_ih_l0"),
+                        ({"value_head": "twohot"}, "a2c_network.value.weight")):
+        net = {**params["network"], **patch}
+        jmodel, jparams, _, model = models(net, SHAPE, actions_num=ACT)
+        assert name in model.state_dict()
+        obs = np.random.default_rng(1).normal(size=(2, *SHAPE)).astype(np.float32)
+        jout = jax.jit(jmodel.network.apply)(jparams, obs)
+        with torch.no_grad():
+            out = model.a2c_network(torch.from_numpy(obs))
+        for k in ("logits", "value"):
+            np.testing.assert_allclose(out[k].numpy(), np.asarray(jout[k]), rtol=1e-5, atol=1e-5, err_msg=str(patch))
     # a conv stack in front of an RNN after the MLP, and a conv central value net, build (A9)
     names = set(ModelBuilder().load({**params, "network": {**params["network"], "rnn": rnn}}, actions_num=ACT,
                                     input_shape=SHAPE, device="cpu").state_dict())

@@ -80,7 +80,7 @@ def build_pair(model_name, net, space, value_size=1, seed=0, normalize=True):
         )
     norm = jax.tree.map(np.asarray, norm)
     pmodel = ModelBuilder().load(params, device="cpu", **kw)
-    pmodel.load_state_dict(jax_to_state_dict(jparams, norm, d2rl=net["mlp"].get("d2rl", False)))
+    pmodel.load_state_dict(jax_to_state_dict(jparams, norm, network=net))
     return jmodel, jparams, norm, pmodel
 
 
@@ -154,7 +154,8 @@ def test_d2rl_mlp(normalization):
     mlp = L.build_mlp(OBS, (16, 8, 8), "elu", norm_func_name=normalization, d2rl=True, device="cpu")
     assert type(mlp).__name__ == "D2RLMLP"
     assert mlp.linears[1].weight.shape == (8, 16 + OBS)
-    sd = {k.split(".", 2)[2]: v for k, v in jax_to_state_dict({"actor_mlp": jparams["params"]}, d2rl=True).items()}
+    sd = {k.split(".", 2)[2]: v for k, v in jax_to_state_dict({"actor_mlp": jparams["params"]},
+                                                                         network={"mlp": {"d2rl": True}}).items()}
     mlp.load_state_dict(sd)
     with torch.no_grad():
         got = mlp(t(x))
@@ -388,26 +389,35 @@ def test_sac_d2rl_torso_matches_jax():
     ({"rnn": {"name": "lstm", "units": 8, "layers": 1}}, None),
     ({"central_value": True}, None),
     ({"space": {}}, None),
-    ({"value_head": "twohot"}, "A8"),
-    ({"name": "resnet_actor_critic"}, "A8"),
+    ({"value_head": "twohot"}, None),
+    ({"name": "resnet_actor_critic", "cnn": {"conv_depths": [4, 8]}}, None),
 ], ids=["rnn", "central_value", "no_action_space", "twohot", "resnet"])
 def test_unported_torso_options_name_their_item(patch, item):
-    """The torso options the port lacks name their ROADMAP item; those A9
-    ported (item None: an RNN, a central value net, a network without an
-    action space) build and run their forward."""
+    """The torso options that once named their ROADMAP item build and compute
+    what the JAX torso computes: those A9 ported (an RNN, a central value
+    net, a network without an action space) and those of A8 (b) (the
+    two-hot value head, the resnet builder's Impala tower, here on separate
+    trunks over 8x8x2 frames): the deterministic play forward from zero
+    states, the weights carried across, at rtol 1e-5 / atol 1e-6."""
+    assert item is None  # nothing of the torso is left to port
     net = {**network("discrete"), **patch}
+    shape = (8, 8, 2) if "cnn" in patch else (OBS,)
     value_only = patch.get("central_value") or patch.get("space") == {}
-    model_name = "central_value" if value_only else "discrete_a2c"
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            ModelBuilder().load({"model": {"name": model_name}, "network": net}, actions_num=5,
-                                input_shape=(OBS,), device="cpu")
-        return
-    model = ModelBuilder().load({"model": {"name": model_name}, "network": net}, actions_num=5,
-                                input_shape=(OBS,), device="cpu")
+    params = {"model": {"name": "central_value" if value_only else "discrete_a2c"}, "network": net}
+    kw = dict(actions_num=None if value_only else 5, input_shape=shape)
+    jmodel = JModelBuilder().load(params, **kw)
+    obs = np.random.default_rng(3).normal(size=(B, *shape)).astype(np.float32)
+    jparams, norm = jmodel.init(jax.random.PRNGKey(0), obs[:2], rnn_states=jmodel.get_default_rnn_state(2))
+    model = ModelBuilder().load(params, **kw, device="cpu")
+    model.load_state_dict(jax_to_state_dict(jax.tree.map(np.asarray, jparams), network=net, input_shape=shape))
     with torch.no_grad():
-        out = model.forward_play(torch.zeros(B, OBS))
+        out = (model.forward_play(torch.from_numpy(obs)) if value_only
+               else model.forward_play(torch.from_numpy(obs), deterministic=True))
+    jout = (jmodel.forward_play(jparams, norm, None, obs) if value_only
+            else jmodel.forward_play(jparams, norm, jax.random.PRNGKey(0), obs, deterministic=True))
     assert out["values"].shape == (B, 1) and ("actions" in out) != bool(value_only)
+    for k in ("values",) if value_only else ("values", "logits", "actions"):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(jout[k]), err_msg=k, **FWD)
 
 
 def test_normal_tanh_distribution_matches_jax():

@@ -73,8 +73,10 @@ def test_testnet_config_runs_with_jax_blocked(tmp_path):
     names rl_games_tpu.models.test_network, trains 2 epochs and plays
     through Runner.run in a process where importing jax, flax, optax or
     rl_games_tpu fails: the name maps to the port's module. The connect4
-    self-play config's network module has no port yet: it is refused naming
-    its ROADMAP.md item, again without importing the JAX package."""
+    self-play config's network module (rl_games_tpu.models.connect4_network)
+    maps to the port's as well and registers connect4net; the config is
+    refused later, at its env and self-play, naming their ROADMAP.md item,
+    again without importing the JAX package."""
     code = (
         "import sys, glob, re, yaml\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'rl_games_tpu'):\n"
@@ -91,11 +93,15 @@ def test_testnet_config_runs_with_jax_blocked(tmp_path):
         "ckpt = glob.glob(sys.argv[1] + '/test_md_multi_obs/nn/last_*_ep_2_rew_*.pth')[0]\n"
         "runner.run({'play': True, 'checkpoint': ckpt})\n"
         "doc = yaml.safe_load(open('rl_games_tpu/configs/ref/ma/ppo_connect4_self_play_resnet.yaml'))\n"
+        "runner = Runner(device='cpu')\n"
+        "runner.load(doc)\n"
+        "from rl_games_tpu_torch.models.model_builder import NETWORK_REGISTRY\n"
+        "assert NETWORK_REGISTRY['connect4net'].__module__ == 'rl_games_tpu_torch.models.connect4_network'\n"
         "try:\n"
-        "    Runner(device='cpu').load(doc)\n"
-        "    raise SystemExit('the connect4 network module was not refused')\n"
+        "    runner.create_agent()\n"
+        "    raise SystemExit('the connect4 self-play config was not refused')\n"
         "except NotImplementedError as e:\n"
-        "    assert re.search(r'ROADMAP\\.md, item A8', str(e)), e\n"
+        "    assert re.search(r'ROADMAP\\.md, item A12', str(e)), e\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'rl_games_tpu')\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"
     )

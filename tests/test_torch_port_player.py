@@ -3,6 +3,8 @@ fused Ant2D config: deterministic actions and three env steps from a
 carried-over state, the eval loop's step arithmetic, and the meter
 accounting on synthetic dones."""
 
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from rl_games_tpu_torch.utils.jax_params import jax_to_state_dict
 from test_torch_port_ppo import flagship_params, t, to_np
 
 torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def player_params(**player_cfg):
@@ -124,9 +127,36 @@ def test_sigma_override():
     (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "JAX_SELFPLAY"}},
                        device="cpu"), "A12"),
     (lambda: PpoPlayer(player_params(), device="cpu").make_export_policy(), "A12"),
-    (lambda: PpoPlayer({**player_params(), "network": {**player_params()["network"], "name": "resnet_actor_critic"}},
-                       device="cpu"), "A8"),
-])
+    (lambda: resnet_catcher_params(), None),
+], ids=["make0-A12", "make1-A12", "make2-A12", "make3-A8"])
 def test_unported_player_paths_raise(make, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make()
+    """What the player refuses names its ROADMAP item. The resnet builder's
+    network, refused until A8 (b) (make3), plays: ppo_pixelcatcher.yaml with
+    resnet_actor_critic (depths [4, 8], MLP [16]) on 16x16x1 frames, its
+    deterministic actions for the JAX player's observations as the JAX
+    player's with the same weights, step by step for 20 steps."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            make()
+        return
+    params = make()
+    jplayer, player = JPpoPlayer(params), PpoPlayer(params, device="cpu")
+    player.model.load_state_dict(jax_to_state_dict(to_np(jplayer.net_params), to_np(jplayer.norm)))
+    env_state, obs = jplayer.vec_env.reset(jax.random.PRNGKey(4))
+    step = jax.jit(jplayer.vec_env.step)
+    for _ in range(20):
+        actions = jplayer._play_actions(None, obs, env_state)
+        with torch.no_grad():
+            np.testing.assert_array_equal(player._play_actions(None, t(obs)).numpy(), np.asarray(actions))
+        env_state, obs, _, _, _ = step(env_state, actions)
+    assert np.isfinite(player.run(games_num=4))
+
+
+def resnet_catcher_params() -> dict:
+    import yaml
+
+    params = yaml.safe_load((ROOT / "rl_games_tpu/configs/ppo_pixelcatcher.yaml").read_text())["params"]
+    params["network"] = {"name": "resnet_actor_critic", "separate": False, "space": {"discrete": {}},
+                         "cnn": {"conv_depths": [4, 8]}, "mlp": {"units": [16], "activation": "relu"}}
+    params["config"].update(num_actors=8, player={"games_num": 4, "deterministic": True})
+    return params

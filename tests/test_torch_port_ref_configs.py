@@ -16,7 +16,11 @@ rl_games_tpu/configs/ does one of three things on the CPU:
   ``_build_only`` does for those families, or their refusal names a
   ROADMAP.md item.
 
-The configs this slice unlocks must run (``MUST_RUN``).
+The configs a slice unlocks must run (``MUST_RUN``); those whose simulator
+is missing must build their networks (``MUST_BUILD``: since A8 (b) the
+Impala configs and ref/minigrid/lava_rnn_img.yaml); the refusals named in
+``REFUSED_AT`` name their item; and the only A8 refusal left is SAC over
+observations that are not 1-D.
 """
 
 import glob
@@ -48,6 +52,14 @@ MUST_RUN = {
     "ref/test/test_asymmetric_discrete_mhv_mops.yaml", "ref/test/test_discrite_testnet_aux_loss.yaml",
     "ref/mujoco/sac_ant_tuned.yaml",
 }
+# simulators missing: their networks must build (A8 (b): the Impala tower, a
+# conv stack's flatten straight into an LSTM)
+MUST_BUILD = {"ref/atari/ppo_breakout_torch_impala.yaml", "ref/atari/ppo_pong_envpool_resnet.yaml",
+              "ref/atari/ppo_space_invaders_resnet.yaml", "ref/minigrid/lava_rnn_img.yaml"}
+# the refusals that name a later item: connect4net came in A8 (b); the
+# connect4 env and self-play wait for A12
+REFUSED_AT = {"ref/ma/ppo_connect4_self_play_resnet.yaml": "A12", "ref/ma/ppo_connect4_self_play.yaml": "A12",
+              "ref/ppo_multiwalker.yaml": "A12"}
 MISSING_SIMULATORS = ("ale_py", "envpool", "brax", "SMAC", "mani_skill", "mjlab", "minigrid", "myosuite")
 
 
@@ -123,6 +135,12 @@ def _build_only(params):
         assert torch.isfinite(out["values"]).all()
 
 
+def _only_sac_refused_for_a8(rel, refusal):
+    """A8 has one refusal left: SAC over observations that are not 1-D."""
+    if re.search(r"item A8\b", str(refusal)):
+        assert "SAC over observations" in str(refusal), f"{rel}: an A8 refusal other than SAC's: {refusal}"
+
+
 @pytest.mark.parametrize("path", ALL_CONFIGS, ids=IDS)
 def test_port_runs_or_names_its_item(path):
     from rl_games_tpu_torch.runner import Runner
@@ -140,8 +158,11 @@ def test_port_runs_or_names_its_item(path):
         agent = runner.create_agent()
         state, metrics = agent.make_train_fn()(agent.init_state())
     except NotImplementedError as e:
-        assert rel not in MUST_RUN, f"{rel} must run: {e}"
+        assert rel not in MUST_RUN | MUST_BUILD, f"{rel} must run: {e}"
         assert re.search(r"ROADMAP\.md, item A\d+", str(e)), f"{rel}: the refusal names no ROADMAP.md item: {e}"
+        _only_sac_refused_for_a8(rel, e)
+        if rel in REFUSED_AT:
+            assert f"item {REFUSED_AT[rel]}" in str(e), f"{rel}: {e}"
         return
     except ImportError as e:
         assert rel not in MUST_RUN, f"{rel} must run: {e}"
@@ -149,8 +170,11 @@ def test_port_runs_or_names_its_item(path):
         try:
             _build_only(runner.params)
         except NotImplementedError as refusal:
+            assert rel not in MUST_BUILD, f"{rel} must build its networks: {refusal}"
             assert re.search(r"ROADMAP\.md, item A\d+", str(refusal)), f"{rel}: {refusal}"
+            _only_sac_refused_for_a8(rel, refusal)
         return
+    assert rel not in REFUSED_AT, f"{rel} runs where it should be refused at {REFUSED_AT[rel]}"
     for key in ("a_loss", "c_loss", "critic_loss", "actor_loss"):
         if key in metrics:
             assert np.isfinite(float(metrics[key])), (rel, key)
