@@ -147,6 +147,25 @@ to a plain version):
                [cartpole]'s launch count (1 GAE at [32, 16, 1] an epoch, the
                fused launches at B = 16 and 64, 1 a player step).
 
+23. population — multi-seed training and PBT (after every profiled phase,
+               as [reference]'s A8 (b) checks): (a) benchruns/pbt_ant2d_ab.yaml
+               as shipped (4 members of 2048 Ant2D envs x 16, MLP [256, 128,
+               64] elu, minibatch 16384, its pbt block) through Runner.run
+               with --seeds 7,11,17,23 for 8 epochs, interval_steps shrunk to
+               2 epochs of a member's frames (a pbt_step every second epoch),
+               then a member's checkpoint played: population and member
+               epoch, 4 GAE launches at [16, 2048, 1] an epoch, none fused;
+               (b) a 2-member MultiSeedTrainer of the fused flagship, 2
+               epochs, each member against a solo run of its seed (bit for
+               bit unless two solo runs differ; 1 GAE and 33 fused a member
+               epoch); (c) PopulationTrainer.pbt_step over 3 such members with
+               tests/test_multiseed.py's fake metrics; (d) PbtManager through
+               Runner.run with pbt.enabled against a leader's record (the
+               leader's weights, fresh Adam, gamma mutated); (e)
+               sac_ant2d.yaml with --seeds 2,4 (a ring of 1e6 rows a member;
+               no kernel); (f) SAC's set_param over [host_sac]'s host env,
+               the pending transition kept.
+
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
 give it, the Pong model's forward and one minibatch update on the card
@@ -185,7 +204,7 @@ MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
 phase 14's config on the card against the CPU (same weights, CPUENV seed
 and action noise), then one Adam step of its first minibatch.
 
-Launch counts are zeroed just before each of phases 6-22's runs and read
+Launch counts are zeroed just before each of phases 6-23's runs and read
 just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
@@ -197,6 +216,7 @@ Prints a {"kernels": [...]} line, then as its last line
 import argparse
 import collections
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -432,7 +452,7 @@ def phase_kernel_gae():
     # Breakout's, CartPole's, the host path's halfcheetah.yaml and
     # ppo_breakout.yaml), then horizons that take every branch of the
     # kernel's sweep: one chunk of 16; the row-by-row tail alone; 16 + 8 + 5
-    for T, N, V in ((16, 8192, 1), (16, 4096, 1), (64, 512, 1), (32, 16, 1), (256, 64, 1), (128, 64, 1),
+    for T, N, V in ((16, 8192, 1), (16, 4096, 1), (16, 2048, 1), (64, 512, 1), (32, 16, 1), (256, 64, 1), (128, 64, 1),
                     (512, 16, 2), (512, 16, 1), (128, 16, 1), (256, 16, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
         args = gae_inputs(T, N, V, gen, dev)
         got = gae.gae_cuda(*args, 0.99, 0.95)
@@ -466,7 +486,9 @@ def phase_kernel_gae():
                          time_gae(128, 64, 1, gen, dev), time_gae(512, 16, 2, gen, dev),
                          time_gae(512, 16, 1, gen, dev), time_gae(128, 16, 1, gen, dev),
                          # [rnn]: test_asymmetric_continuous.yaml's and ppo_walker_rnn.yaml's 16 envs x 256
-                         time_gae(256, 16, 1, gen, dev)],
+                         time_gae(256, 16, 1, gen, dev),
+                         # [population] (a): benchruns/pbt_ant2d_ab.yaml's 2048 envs x 16, once a member epoch
+                         time_gae(16, 2048, 1, gen, dev)],
     }
 
 
@@ -2950,6 +2972,447 @@ def reference_connect4():
         raise AssertionError(f"connect4net: the card disagrees with the CPU: outputs {dout}, gradients {dgrad}")
 
 
+# ---------------------------------------------------------------------------
+# [population]: multi-seed training and PBT
+# ---------------------------------------------------------------------------
+
+POPULATION_SEEDS = (7, 11, 17, 23)  # docs/PBT_SELFPLAY.md's seeds for benchruns/pbt_ant2d_ab.yaml
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Records the shape of each GAE launch ([T, N, V]) and the batch of each
+    fused-MLP launch while the block runs; the counters move as always."""
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+
+    shapes = {"gae": [], "fused_mlp": []}
+    gae_launch, fused_launch = gae.gae_cuda, fused_mlp.fused_mlp_cuda
+
+    def gae_counted(rewards, *args):
+        shapes["gae"].append(tuple(rewards.shape))
+        return gae_launch(rewards, *args)
+
+    def fused_counted(x, *args):
+        shapes["fused_mlp"].append(x.shape[0])
+        return fused_launch(x, *args)
+
+    gae.gae_cuda, fused_mlp.fused_mlp_cuda = gae_counted, fused_counted
+    try:
+        yield shapes
+    finally:
+        gae.gae_cuda, fused_mlp.fused_mlp_cuda = gae_launch, fused_launch
+
+
+def histogram(values) -> dict:
+    return {v: values.count(v) for v in sorted(set(values))}
+
+
+def launches_now() -> dict:
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+
+    return {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}
+
+
+def zero_launches():
+    from rl_games_tpu_torch.ops import fused_mlp, gae
+
+    gae.gae_launches = fused_mlp.fused_mlp_launches = 0
+
+
+def fused_flagship_params(num_actors: int = 8192) -> dict:
+    params = flagship_params(num_actors)
+    params["network"]["mlp"]["fused"] = True
+    return params
+
+
+def population_run(epochs: int, play_steps: int = 100):
+    """(a) benchruns/pbt_ant2d_ab.yaml as shipped (Ant2D, 2048 envs x 16, MLP
+    [256, 128, 64] elu, 4 mini-epochs of minibatch 16384, its pbt block)
+    through Runner.run with --seeds 7,11,17,23 for ``epochs`` epochs; only
+    interval_steps shrunk to 2 epochs of one member's frames, so that a
+    pbt_step runs every second epoch. Then one member's checkpoint played
+    through Runner.run. 4 GAE launches at [16, 2048, 1] an epoch, no fused."""
+    import yaml
+
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.runner import Runner
+    from rl_games_tpu_torch.utils.multiseed import PopulationTrainer
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchruns", "pbt_ant2d_ab.yaml")) as f:
+        params = yaml.safe_load(f)["params"]
+    cfg = params["config"]
+    k, n, horizon = len(POPULATION_SEEDS), cfg["num_actors"], cfg["horizon_length"]
+    member_frames = n * horizon
+    cfg["pbt"]["interval_steps"] = 2 * member_frames  # 65,536
+    cfg["player"] = {**cfg["player"], "max_steps": play_steps}
+    spans, pbt_steps = [], []
+    train_epoch, pbt_step = PPOAgent.train_epoch, PopulationTrainer.pbt_step
+
+    def timed(self, state):  # each member epoch's start and end, the device drained at both
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_epoch(self, state)
+        torch.cuda.synchronize()
+        spans.append((t0, time.perf_counter()))
+        return out
+
+    def counted(self, states, metrics):
+        pbt_steps.append(int(metrics["epoch"][0]))
+        return pbt_step(self, states, metrics)
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as train_dir:
+        cfg["train_dir"] = train_dir
+        runner = Runner()  # the default device: the card
+        runner.load({"params": params})
+        PPOAgent.train_epoch, PopulationTrainer.pbt_step = timed, counted
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with launch_shapes() as shapes, contextlib.redirect_stdout(out):
+                zero_launches()  # the training run starts here
+                t0 = time.perf_counter()
+                paths = runner.run({"train": True, "seeds": ",".join(map(str, POPULATION_SEEDS)),
+                                    "max_epochs": epochs})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                train_launches = launches_now()  # read right after
+        finally:
+            PPOAgent.train_epoch, PopulationTrainer.pbt_step = train_epoch, pbt_step
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        names = sorted(os.path.basename(p) for p in paths)
+        finite = all(bool(torch.isfinite(p).all()) for a in runner.trainer.agents for p in a.model.parameters())
+
+        zero_launches()  # the player's run starts here
+        play_out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(play_out):
+            mean_reward = runner.run({"play": True, "checkpoint": paths[0]})
+        torch.cuda.synchronize()
+        play_s = time.perf_counter() - t1
+        play_launches = launches_now()  # read right after
+    log = out.getvalue()
+    for line in log.strip().splitlines():
+        print(f"[population] (a) | {line}")
+    events = [line for line in log.splitlines() if line.startswith("pbt: seed")]
+    expected = {"gae": k * epochs, "fused_mlp": 0}
+    if (train_launches != expected or histogram(shapes["gae"]) != {(horizon, n, 1): k * epochs}
+            or shapes["fused_mlp"] or len(spans) != k * epochs):
+        raise AssertionError(f"population (a): launches {train_launches}, GAE shapes {histogram(shapes['gae'])}, "
+                             f"{len(spans)} member epochs; expected {expected} at [{horizon}, {n}, 1]")
+    if pbt_steps != list(range(2, epochs + 1, 2)) or len(paths) != k or not finite:
+        raise AssertionError(f"population (a): pbt_step after epochs {pbt_steps}, checkpoints {names}")
+    if play_launches != {"gae": 0, "fused_mlp": 0} or not math.isfinite(mean_reward):
+        raise AssertionError(f"population (a) player: launches {play_launches}, mean reward {mean_reward}")
+    ends = [end for _, end in spans]
+    epoch_s = np.diff([spans[0][0]] + ends[k - 1::k])  # each epoch of the population, pbt_step and logs included
+    member_s = np.array([end - start for start, end in spans[k:]] or [end - start for start, end in spans])
+    steady = epoch_s[1:] if len(epoch_s) > 1 else epoch_s
+    pop_s = float(np.median(steady))
+    print(f"[population] (a) trained benchruns/pbt_ant2d_ab.yaml ({k} members x {n} envs x {horizon}, "
+          f"interval_steps {cfg['pbt']['interval_steps']}) {epochs} epochs through Runner.run in {wall:.2f} s: "
+          f"launches {train_launches}, GAE shapes {histogram(shapes['gae'])}; pbt_step after epochs {pbt_steps}, "
+          f"{len(events)} adoption events; checkpoints {names}")
+    print(f"[population] (a) first population epoch {epoch_s[0] * 1e3:.1f} ms; steady population epoch "
+          f"{pop_s * 1e3:.1f} ms (median of {len(steady)}), {k * member_frames / pop_s:,.0f} env-steps/s "
+          f"({k} x {member_frames} an epoch); a member's epoch {np.median(member_s) * 1e3:.1f} ms (median of "
+          f"{len(member_s)}, {member_frames / np.median(member_s):,.0f} env-steps/s); peak device memory "
+          f"{peak_gib:.2f} GiB")
+    print(f"[population] (a) played {os.path.basename(paths[0])} through Runner.run "
+          f"({play_steps} steps x {n} envs): launches {play_launches}, {play_out.getvalue().strip()!r}, "
+          f"{play_s:.2f} s with set-up")
+    return {"train": train_launches, "play": play_launches, "member_epochs": k * epochs, "epoch_s": pop_s,
+            "member_s": float(np.median(member_s)), "events": len(events)}
+
+
+def member_snapshot(agent, state, losses):
+    """A member's or solo agent's weights and normalizers, Adam moments and
+    per-epoch losses, on the CPU."""
+    out = {f"model/{k}": v.detach().cpu().clone() for k, v in agent.model.state_dict().items()}
+    opt = state.opt_state
+    out.update({f"adam/mu/{i}": t.cpu().clone() for i, t in enumerate(opt.mu)})
+    out.update({f"adam/nu/{i}": t.cpu().clone() for i, t in enumerate(opt.nu)})
+    out["adam/count"] = opt.count.cpu().clone()
+    out.update({f"{k}/{e}": v for e, m in enumerate(losses) for k, v in m.items()})
+    return out
+
+
+def snapshot_diff(a, b) -> float:
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"snapshots differ in their entries: {sorted(set(a) ^ set(b))}")
+    return max(float((a[k].to(torch.float64) - b[k].to(torch.float64)).abs().max()) for k in a)
+
+
+def population_solo_equality(epochs: int = 2, seeds=(7, 11)):
+    """(b) a 2-member MultiSeedTrainer of the fused flagship (8192 envs) for
+    ``epochs`` epochs: each member's weights, Adam moments and a_loss /
+    c_loss against a solo agent's run from the same seed, bit for bit
+    unless two solo runs of one seed already differ on the card (then
+    within that difference). Per member epoch 1 GAE at [16, 8192, 1] and
+    33 fused launches (17 at B = 8192, 16 at B = 32768)."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.utils.multiseed import MultiSeedTrainer
+
+    def losses(m, i=None):
+        return {k: (m[k] if i is None else m[k][i]).detach().cpu().clone() for k in ("a_loss", "c_loss")}
+
+    params = fused_flagship_params()
+    n, mb = params["config"]["num_actors"], params["config"]["minibatch_size"]
+    ms = MultiSeedTrainer(PPOAgent("chip_smoke", params), seeds)
+    states = ms.init_state()
+    per_epoch = []
+    with launch_shapes() as shapes:
+        zero_launches()  # the members' run starts here
+        for _ in range(epochs):
+            states, m = ms.epoch(states)
+            per_epoch.append(m)
+        torch.cuda.synchronize()
+        launches = launches_now()  # read right after
+    k = len(seeds)
+    expected = {"gae": k * epochs, "fused_mlp": 33 * k * epochs}
+    batches = {n: 17 * k * epochs, mb: 16 * k * epochs}
+    if (launches != expected or histogram(shapes["gae"]) != {(16, n, 1): k * epochs}
+            or histogram(shapes["fused_mlp"]) != batches):
+        raise AssertionError(f"population (b): launches {launches}, GAE {histogram(shapes['gae'])}, fused batches "
+                             f"{histogram(shapes['fused_mlp'])}; expected {expected}, fused batches {batches}")
+    members = [member_snapshot(ms.agents[i], states[i], [losses(m, i) for m in per_epoch]) for i in range(k)]
+    del ms, states
+
+    def solo(seed):
+        agent = PPOAgent("chip_smoke", fused_flagship_params())
+        state, ls = agent.init_state(seed=seed), []
+        for _ in range(epochs):
+            state, m = agent.train_epoch(state)
+            ls.append(losses(m))
+        return member_snapshot(agent, state, ls)
+
+    solos = [solo(s) for s in seeds]
+    noise = snapshot_diff(solos[0], solo(seeds[0]))  # two solo runs of one seed
+    diffs = [snapshot_diff(member, s) for member, s in zip(members, solos)]
+    print(f"[population] (b) {k} members of the fused flagship ({n} envs), {epochs} epochs: launches {launches}, "
+          f"GAE {histogram(shapes['gae'])}, fused batches {histogram(shapes['fused_mlp'])}; member against its "
+          f"solo run (weights, normalizers, Adam moments, a_loss / c_loss): max |diff| "
+          f"{', '.join(f'seed {s}: {d:.3e}' for s, d in zip(seeds, diffs))}; two solo runs of seed {seeds[0]}: "
+          f"{noise:.3e}" + (" (bit for bit)" if max(diffs) == 0.0 and noise == 0.0 else ""))
+    if max(diffs) > noise:
+        raise AssertionError(f"population (b): members differ from their solo runs by {diffs}, two solo runs "
+                             f"of one seed by {noise}")
+    return {"train": launches, "member_epochs": k * epochs, "max_diff": max(diffs), "solo_noise": noise}
+
+
+def population_pbt_step(seeds=(7, 11, 17)):
+    """(c) a 3-member PopulationTrainer of (b)'s config, as
+    tests/test_multiseed.py:132-164 builds one (threshold_std 0.1,
+    threshold_abs 0.05, mutation_rate 1.0, change_range (1.2, 1.2)): one
+    epoch, then pbt_step with that test's fake metrics (scores 200 / 100 /
+    10, 5 games each) under random.seed(0), then one more epoch."""
+    import random
+
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.utils.multiseed import PopulationTrainer
+
+    tr = PopulationTrainer(PPOAgent("chip_smoke", fused_flagship_params()), seeds, threshold_std=0.1,
+                           threshold_abs=0.05, mutation_rate=1.0, change_range=(1.2, 1.2))
+    states, _ = tr.epoch(tr.init_state())
+    before = [{k: v.clone() for k, v in a.model.state_dict().items()} for a in tr.agents]
+    lrs = [float(s.lr) for s in states]
+    counts = [int(s.game_rewards.count) for s in states]
+    fake = {"mean_rewards": np.asarray([[200.0], [100.0], [10.0]]), "games_played": np.asarray([5, 5, 5])}
+    random.seed(0)
+    t0 = time.perf_counter()
+    states, events = tr.pbt_step(states, fake)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    adopter, leader, state = tr.agents[2], tr.agents[0], states[2]
+    opt, adopter_lr = state.opt_state, float(state.lr)
+    checks = {
+        "one event, seed 17 adopts seed 7": [(e["dst"], e["src"]) for e in events] == [(seeds[2], seeds[0])],
+        "the adopter's state_dict is the leader's": all(torch.equal(v, leader.model.state_dict()[k])
+                                                        for k, v in adopter.model.state_dict().items()),
+        "its Adam moments are zero": int(opt.count) == 0 and all(float(t.abs().max()) == 0.0 for t in opt.mu + opt.nu),
+        "its lr is the leader's x or / 1.2": adopter_lr in (float(np.float32(lrs[0] * 1.2)),
+                                                            float(np.float32(lrs[0] / 1.2))),
+        "its meters are cleared": int(state.game_rewards.count) == 0,
+        "the others are untouched": all(
+            float(states[i].lr) == lrs[i] and int(states[i].game_rewards.count) == counts[i]
+            and all(torch.equal(v, before[i][k]) for k, v in tr.agents[i].model.state_dict().items())
+            for i in (0, 1)),
+    }
+    states, m = tr.epoch(states)
+    checks["one more epoch of every member is finite"] = bool(
+        torch.isfinite(m["a_loss"]).all() and torch.isfinite(m["c_loss"]).all())
+    failed = [what for what, ok in checks.items() if not ok]
+    print(f"[population] (c) pbt_step over 3 fused flagship members in {step_s * 1e3:.1f} ms: events {events}; "
+          f"leader lr {lrs[0]:.4e} -> adopter lr {adopter_lr:.4e}; "
+          + ("every check held: " + "; ".join(checks) if not failed else f"FAILED: {failed}"))
+    if failed:
+        raise AssertionError(f"population (c): {failed}")
+    return events
+
+
+def population_manager(leader_seed: int = 11):
+    """(d) the filesystem protocol on the card: one fused flagship member
+    trained 2 epochs through Runner.run with pbt.enabled (policy 1 of 2,
+    threshold_std and threshold_abs 0, interval one epoch's frames,
+    mutation_rate 1, gamma mutated by mutate_discount); its workspace holds
+    a leader's record beforehand (another seed's weights, score 1e9). At the
+    first interval it adopts: the leader's weights, fresh Adam moments,
+    get_param('gamma') the mutated value; the next epoch is finite."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.runner import Runner
+    from rl_games_tpu_torch.utils import pbt
+
+    params = fused_flagship_params()
+    n = params["config"]["num_actors"]
+    member_frames = n * 16
+    params["config"]["pbt"] = {"enabled": True, "policy_idx": 1, "num_policies": 2, "interval_steps": member_frames,
+                               "threshold_std": 0.0, "threshold_abs": 0.0, "mutation_rate": 1.0,
+                               "mutation": {"gamma": "mutate_discount"}}
+    seen, step = [], pbt.PbtManager.step
+
+    def checked(self, algo, state, metrics):
+        state = step(self, algo, state, metrics)
+        opt = state.opt_state
+        seen.append({"epoch": int(metrics["epoch"]), "a_loss": float(metrics["a_loss"]),
+                     "c_loss": float(metrics["c_loss"]),
+                     "weights": all(torch.equal(v.cpu(), leader_weights[k]) for k, v in algo.get_weights().items()),
+                     "adam_zero": int(opt.count) == 0 and all(float(t.abs().max()) == 0.0 for t in opt.mu + opt.nu),
+                     "gamma": algo.get_param("gamma"), "mutable": dict(self.mutable_params)})
+        return state
+
+    with tempfile.TemporaryDirectory() as train_dir:
+        params["config"].update(name="chip_smoke_pbt", train_dir=train_dir, max_epochs=2)
+        leader = PPOAgent("chip_smoke", copy.deepcopy(params))
+        leader.init_state(seed=leader_seed)
+        leader_weights = {k: v.cpu() for k, v in leader.get_weights().items()}
+        pbt.save_member(os.path.join(train_dir, "pbt_workspace"), 0, 1e9, member_frames, leader_weights,
+                        {"gamma": 0.99})
+        del leader
+        runner = Runner()  # the default device: the card
+        runner.load({"params": params})
+        pbt.PbtManager.step = checked
+        try:
+            with launch_shapes() as shapes, contextlib.redirect_stdout(io.StringIO()) as out:
+                zero_launches()  # the training run starts here
+                _, epoch_num = runner.run({"train": True})
+                torch.cuda.synchronize()
+                launches = launches_now()  # read right after
+        finally:
+            pbt.PbtManager.step = step
+        records = sorted(os.listdir(os.path.join(train_dir, "pbt_workspace")))
+    adopted = [line for line in out.getvalue().splitlines() if line.startswith("PBT: ")]
+    first = seen[0] if seen else {}
+    checks = {
+        "2 epochs, a step after each": epoch_num == 2 and [s["epoch"] for s in seen] == [1, 2],
+        "it adopts at the first interval": bool(first.get("weights")) and len(adopted) >= 1,
+        "fresh Adam moments": bool(first.get("adam_zero")),
+        "gamma mutated through set_param": first.get("gamma") == first.get("mutable", {}).get("gamma", 0.99) != 0.99,
+        "the next epoch is finite": len(seen) == 2 and math.isfinite(seen[1]["a_loss"])
+                                    and math.isfinite(seen[1]["c_loss"]),
+        "both records in the workspace": records == ["policy_000.pbt", "policy_001.pbt"],
+        "launches exact": launches == {"gae": 2, "fused_mlp": 66}
+                          and histogram(shapes["gae"]) == {(16, n, 1): 2},
+    }
+    failed = [what for what, ok in checks.items() if not ok]
+    print(f"[population] (d) PbtManager through Runner.run (pbt.enabled, policy 1 of 2): {adopted[:1]}; gamma "
+          f"0.99 -> {first.get('gamma')}; launches {launches}; "
+          + ("every check held: " + "; ".join(checks) if not failed else f"FAILED: {failed}"))
+    if failed:
+        raise AssertionError(f"population (d): {failed}; steps seen {seen}")
+    return {"train": launches, "member_epochs": 2}
+
+
+def population_sac(update_epochs: int = 2, seeds=(2, 4)):
+    """(e) sac_ant2d.yaml as shipped with --seeds 2,4 through Runner.run: its
+    warmup epochs and ``update_epochs`` epochs of updates, one agent and
+    one replay ring of 1e6 rows per member; per-member checkpoints, peak
+    device memory. No kernel."""
+    from rl_games_tpu_torch.algos import sac as sac_module
+    from rl_games_tpu_torch.runner import Runner
+
+    params = load_config("sac_ant2d.yaml")["params"]
+    cfg = params["config"]
+    warmup, steps, n = cfg["num_warmup_steps"], cfg["num_steps_per_episode"], cfg["num_actors"]
+    epochs = warmup + update_epochs
+    with tempfile.TemporaryDirectory() as train_dir:
+        cfg.update(name="chip_smoke_sac_seeds", train_dir=train_dir)
+        runner = Runner()  # the default device: the card
+        runner.load({"params": params})
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            zero_launches()  # the training run starts here
+            t0 = time.perf_counter()
+            paths = runner.run({"train": True, "seeds": ",".join(map(str, seeds)), "max_epochs": epochs})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launches_now()  # read right after
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in paths}
+    agents, states = runner.trainer.agents, runner.last_states
+    rows = [sac_module.replay_size(s.replay) for s in states]
+    ring_gib = sum(t.numel() * t.element_size() for t in (
+        states[0].replay.obses, states[0].replay.next_obses, states[0].replay.actions, states[0].replay.rewards,
+        states[0].replay.dones, states[0].replay.truncated)) / 2**30
+    updates = update_epochs * steps * agents[0].num_updates_per_step
+    if (launches != {"gae": 0, "fused_mlp": 0} or rows != [epochs * steps * n] * len(seeds)
+            or [s.update_counter for s in states] != [updates] * len(seeds)
+            or states[0].replay is states[1].replay or len(sizes) != len(seeds)
+            or any(s.replay.capacity != cfg["replay_buffer_size"] for s in states)):
+        raise AssertionError(f"population (e): launches {launches}, replay rows {rows}, updates "
+                             f"{[s.update_counter for s in states]}, checkpoints {sizes}")
+    curve = [line for line in out.getvalue().splitlines() if line.startswith("fps total")]
+    print(f"[population] (e) sac_ant2d.yaml --seeds {','.join(map(str, seeds))} through Runner.run: {epochs} epochs "
+          f"({warmup} warmup, {update_epochs} of {steps * agents[0].num_updates_per_step} updates) in {wall:.2f} s; "
+          f"launches {launches}; replay rows {rows} of {cfg['replay_buffer_size']} each, a ring "
+          f"{ring_gib:.3f} GiB; peak device memory {peak_gib:.2f} GiB; checkpoints {sizes}; {curve[-1:]}")
+    return {"peak_gib": peak_gib, "ring_gib": ring_gib}
+
+
+def population_host_set_param(update_epochs: int = 2):
+    """(f) [host_sac]'s path (sac_ant.yaml on Hopper2D-v0, CPUENV):
+    set_param('gamma', 0.95) between two update epochs keeps the pending
+    transition, so the replay rows equal the env steps less that one."""
+    from rl_games_tpu_torch.algos import sac as sac_module
+    from rl_games_tpu_torch.algos.sac import SACAgent
+
+    params = load_config("sac_ant.yaml")["params"]
+    params["config"].update(env_name="Hopper2D-v0", vecenv_type="CPUENV")
+    agent = SACAgent("chip_smoke", params)  # the default device: the card
+    state = agent.init_state()
+    train = agent.make_train_fn()
+    warmup, n = agent.num_warmup_steps, agent.num_actors
+    for _ in range(warmup + 1):
+        state, _ = train(state)
+    pending = agent._pending
+    state = agent.set_param("gamma", 0.95, state)
+    kept = pending is not None and agent._pending is pending
+    for _ in range(update_epochs - 1):
+        state, m = train(state)
+    epochs = warmup + update_epochs
+    rows = sac_module.replay_size(state.replay)
+    checks = {"the pending transition kept": kept,
+              "rows = (env steps - 1 pending) x envs": rows == (epochs - 1) * n == state.frame,
+              "gamma": agent.get_param("gamma") == 0.95,
+              "updates": state.update_counter == update_epochs * agent.num_updates_per_step,
+              "finite": math.isfinite(float(m["critic_loss"]))}
+    failed = [what for what, ok in checks.items() if not ok]
+    print(f"[population] (f) sac_ant.yaml on Hopper2D-v0 (CPUENV, {n} envs): set_param('gamma', 0.95) after "
+          f"epoch {warmup + 1} of {epochs}; replay rows {rows} = ({epochs} env steps - 1 pending) x {n}; "
+          f"{state.update_counter} updates; " + ("every check held" if not failed else f"FAILED: {failed}"))
+    if failed:
+        raise AssertionError(f"population (f): {failed}")
+
+
+def phase_population(epochs: int = 8):
+    """[population]: multi-seed training and PBT, (a)-(f)."""
+    t0 = time.perf_counter()
+    runs = {"a": population_run(epochs), "b": population_solo_equality(), "d": population_manager()}
+    population_pbt_step()
+    runs["e"] = population_sac()
+    population_host_set_param()
+    print(f"[population] phase in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def profile_report(tag: str, prof, wall_us: float, detail: str):
     """The device's busy time and idle share over ``wall_us`` of host time,
     and the device time by kernel, of one torch.profiler session."""
@@ -3070,6 +3533,8 @@ def main():
     reference_impala()
     reference_twohot()
     reference_connect4()
+    # multi-seed training and PBT, after every profiled phase as well
+    population = phase_population(8)
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
@@ -3078,11 +3543,14 @@ def main():
     host_runs = tuple(host[tag]["train"] for tag in ("default", "cpu", "default fused"))
     runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train,
             *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn),
-            *(dict_runs[tag]["train"] for tag in dict_runs), *(impala[tag]["train"] for tag in impala), th_train)
+            *(dict_runs[tag]["train"] for tag in dict_runs), *(impala[tag]["train"] for tag in impala), th_train,
+            *(population[tag]["train"] for tag in ("a", "b", "d")))
     # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn], [dict], [impala] and
     # [twohot] run 3
     epochs_trained = ((args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
-                      + (3,) * len(rnn) + (3,) * len(dict_runs) + (3,) * len(impala) + (3,))
+                      + (3,) * len(rnn) + (3,) * len(dict_runs) + (3,) * len(impala) + (3,)
+                      # [population]: its runs' member epochs, each with its own GAE launch
+                      + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d")))
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
@@ -3098,7 +3566,10 @@ def main():
                                      "sac_norm": norm_train["gae"],
                                      # [impala]: GAE at [256, 16, 1] once an epoch; [twohot] at [32, 16, 1]
                                      "impala": {tag: impala[tag]["train"]["gae"] for tag in impala},
-                                     "twohot": th_train["gae"]}
+                                     "twohot": th_train["gae"],
+                                     # [population]: (a) 4 members at [16, 2048, 1] an epoch; (b) 2 members
+                                     # and (d) 1 of the fused flagship at [16, 8192, 1]
+                                     "population": {tag: population[tag]["train"]["gae"] for tag in ("a", "b", "d")}}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
@@ -3108,7 +3579,8 @@ def main():
                                      for tag in heads)
                                + sum(rnn[tag]["train"]["fused_mlp"] + rnn[tag].get("play", {}).get("fused_mlp", 0)
                                      for tag in rnn)
-                               + th_train["fused_mlp"] + th_play["fused_mlp"])
+                               + th_train["fused_mlp"] + th_play["fused_mlp"]
+                               + population["b"]["train"]["fused_mlp"] + population["d"]["train"]["fused_mlp"])
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -3160,6 +3632,8 @@ def main():
     fused_entry["launches_twohot"] = {"train": th_train["fused_mlp"], "play": th_play["fused_mlp"],
                                       "per_epoch": th_train["fused_mlp"] / 3,
                                       "per_player_step": th_play["fused_mlp"] / th_steps}
+    # [population]: (a) plain (0), (b) and (d) the fused flagship's 33 a member epoch
+    fused_entry["launches_population"] = {tag: population[tag]["train"]["fused_mlp"] for tag in ("a", "b", "d")}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,7 +45,7 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: the CUDA card; 'cpu' must be asked for)")
     ap.add_argument("--seeds", type=str, default=None,
-                    help="multi-seed training (not ported yet)")
+                    help="multi-seed training: comma- or space-separated seeds, trained in one process")
     ap.add_argument("--track", action="store_true", help="wandb tracking")
     ap.add_argument("--wandb-project-name", type=str, default="rl_games_tpu_torch")
     ap.add_argument("--wandb-entity", type=str, default=None)

@@ -81,7 +81,9 @@ GAE and the updates are the device path's. The env must reset on done
 ``train`` is the host loop around it (ContinuousA2CBase.train,
 a2c_common.py:1372-1492): run directories, resume from a checkpoint,
 logging, the algo observer's hooks (``features.observer``), the three
-kinds of checkpoint and the stop conditions. Metrics cross to the host only
+kinds of checkpoint and the stop conditions; with ``pbt.enabled`` a
+``utils/pbt.PbtManager`` steps after every epoch, through ``get_weights`` /
+``set_weights``, ``reset_optimizer`` and ``set_param``. Metrics cross to the host only
 on log epochs. With ``use_diagnostics`` an epoch also reports kl and the
 clip fraction per mini-epoch and the normalizers' state (PpoDiagnostics,
 diagnostics.py:18-60), and the rollout is timed once so that the step rate
@@ -124,8 +126,9 @@ from rl_games_tpu_torch.ops.gae import compute_gae
 from rl_games_tpu_torch.ops.schedulers import build_scheduler
 from rl_games_tpu_torch.utils import checkpoint as ckpt
 from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
+from rl_games_tpu_torch.utils.pbt import PbtCfg, PbtManager
 from rl_games_tpu_torch.utils.unported import unported
-from rl_games_tpu_torch.utils.writer import create_writer, write_ppo_stats
+from rl_games_tpu_torch.utils.writer import IntervalSummaryWriter, create_writer, write_ppo_stats
 
 _METRIC_KEYS = ("a_loss", "c_loss", "entropy", "b_loss", "kl", "clip_frac")
 # Checkpoints carry the reference's extension: their 'model' section has the
@@ -545,13 +548,8 @@ class PPOAgent:
     def _refuse_unported(params: dict):
         """Options the JAX PPOAgent has and this port does not yet."""
         config = params["config"]
-        options = {
-            ("population based training (pbt)", "A12"): bool((config.get("pbt") or {}).get("enabled")),
-            ("self-play (self_play_config)", "A12"): bool(config.get("self_play_config")),
-        }
-        for (what, item), asked in options.items():
-            if asked:
-                unported(what, item)
+        if config.get("self_play_config"):
+            unported("self-play (self_play_config)", "A12")
 
     # ------------------------------------------------------------------
     # state construction
@@ -1332,6 +1330,59 @@ class PPOAgent:
             state.cv_opt = adam_init(self.cv_params)
         return state
 
+    # ------------------------------------------------------------------
+    # get_param / set_param (a2c_common.py:725-772; ppo.py:1612-1700): the
+    # PBT / external controller surface. lr and entropy_coef live in the
+    # train state; the others are attributes that every epoch reads afresh
+    # (the rollout's and GAE's gamma and tau, the loss's e_clip and
+    # coefficients, _update's grad_norm and mini_epochs_num), so a change
+    # takes effect at the next epoch. The central value net and RND keep
+    # settings of their own (cv e_clip, grad_norm and lr; rnd lr), which no
+    # name here reaches, as in the JAX package.
+    # ------------------------------------------------------------------
+    _STATIC_PARAMS = ("grad_norm", "critic_coef", "bounds_loss_coef", "gamma", "tau", "mini_epochs_num", "e_clip")
+
+    def get_param(self, param_name: str, state: Optional[PPOTrainState] = None):
+        if param_name in self._STATIC_PARAMS:
+            return getattr(self, param_name)
+        if param_name == "learning_rate":
+            return float(state.lr) if state is not None else self.learning_rate
+        if param_name == "entropy_coef":
+            return float(state.entropy_coef) if state is not None else self.entropy_coef_init
+        if param_name == "kl_threshold":
+            return self.config.get("kl_threshold")
+        raise NotImplementedError(f"Can't get param {param_name}")
+
+    def set_param(self, param_name: str, value, state: Optional[PPOTrainState] = None):
+        """Set one param; returns ``state`` (updated in place where the
+        param lives in it)."""
+        if param_name in self._STATIC_PARAMS:
+            setattr(self, param_name, value)
+            return state
+        if param_name == "learning_rate":
+            if self.config.get("lr_schedule") == "adaptive":
+                raise NotImplementedError("Can't directly mutate LR on this schedule")
+            self.learning_rate = float(value)
+            if state is not None:
+                state.lr = torch.tensor(value, dtype=torch.float32, device=self.device)
+            return state
+        if param_name == "entropy_coef":
+            self.entropy_coef_init = float(value)
+            if state is not None:
+                state.entropy_coef = torch.tensor(value, dtype=torch.float32, device=self.device)
+            return state
+        if param_name == "kl_threshold":
+            if self.config.get("lr_schedule") != "adaptive":
+                raise NotImplementedError("Can't mutate kl threshold on this schedule")
+            self.config["kl_threshold"] = float(value)
+            self.scheduler = build_scheduler(
+                {**self.config,
+                 "max_epochs": self.max_epochs if self.max_epochs > 0 else self.config.get("max_epochs", 1000000)},
+                self.learning_rate,
+            )
+            return state
+        raise NotImplementedError(f"No param found for {param_name}")
+
     def override_sigma(self, sigma: float):
         """--sigma CLI override (_override_sigma, torch_runner.py:52-60)."""
         blocked = sigma_override_blocked(self.is_continuous, self.full_params.get("network", {}))
@@ -1377,6 +1428,19 @@ class PPOAgent:
 
         if writer is None:
             writer = create_writer(os.path.join(experiment_dir, "summaries"))
+        pbt_cfg_dict = config.get("pbt") or {}
+        interval_writer = pbt_manager = None
+        if pbt_cfg_dict.get("enabled"):
+            # PBT-scale runs throttle their summaries (a2c_common.py:326-328;
+            # the reference's keys summaries_interval_sec_min/max and
+            # defer_summaries_sec in the top-level config), and a member
+            # steps the filesystem protocol after each epoch (ppo.py:1782-1815)
+            interval_writer = writer = IntervalSummaryWriter(writer, config)
+            pbt_cfg = PbtCfg.from_dict(pbt_cfg_dict)
+            if not pbt_cfg.directory:
+                pbt_cfg.directory = config.get("train_dir", "runs")
+            pbt_manager = PbtManager(pbt_cfg, {"learning_rate": self.learning_rate,
+                                               "entropy_coef": self.entropy_coef_init})
         self.writer = writer
         observer = self.observer
         if observer is not None:
@@ -1414,14 +1478,17 @@ class PPOAgent:
             stop_requested = stop_fn is not None and stop_fn(self)
             do_log = (epoch_num % log_interval == 0) or will_exit or stop_requested
             save_due = self.save_freq > 0 and epoch_num % self.save_freq == 0
-            if not (do_log or save_due):
+            if not (do_log or save_due or pbt_manager is not None):
                 continue
             meta = {"last_mean_rewards": last_mean_rewards, "epoch": epoch_num, "frame": frame}
             last_path = os.path.join(nn_dir, f"last_{experiment_name}_ep_{epoch_num}{CHECKPOINT_EXT}")
+            metrics = _to_host(metrics_dev) if do_log or pbt_manager is not None else None
+            if pbt_manager is not None:  # PBT decides every epoch, on fresh metrics
+                state = self.last_state = pbt_manager.step(self, state, metrics)
             if not do_log:
-                self._save(last_path, state, meta)
+                if save_due:
+                    self._save(last_path, state, meta)
                 continue
-            metrics = _to_host(metrics_dev)
             now = time.perf_counter()
             total_time = now - start_time
             # divide by the ACTUAL epochs since the last log: an early log
@@ -1455,6 +1522,8 @@ class PPOAgent:
             if observer is not None:
                 observer.after_epoch(metrics)
                 observer.after_print_stats(frame, epoch_num, total_time)
+            if interval_writer is not None:
+                interval_writer.tick()
             games_played = int(metrics["games_played"])
             mean_rewards = float(metrics["mean_rewards"][0]) if games_played else None
             if config.get("print_stats", True):

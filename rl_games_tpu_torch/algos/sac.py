@@ -603,8 +603,10 @@ class SACAgent:
         raise NotImplementedError(f"Can't get param {param_name}")
 
     def set_param(self, param_name: str, value, state=None):
-        if self.is_host_env:
-            unported("set_param over a host env's pending transition", "A12")
+        """gamma and critic_tau (sac.py:880-900). The epoch runs eagerly and
+        reads both at each update, so a change takes effect at the next
+        one; over a host env the pending transition (``_pending``) stays,
+        so every env step lands in replay exactly once."""
         if param_name == "tau":
             param_name = "critic_tau"
         if param_name in ("gamma", "critic_tau"):

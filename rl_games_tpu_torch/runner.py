@@ -156,7 +156,7 @@ class Runner:
     def run_train(self, args: Dict[str, Any]):
         """torch_runner.py:233-321."""
         if args.get("seeds"):
-            unported("multi-seed training (--seeds)", "A12")
+            return self.run_train_multiseed(args)
         print("Started to train")
         agent = self.create_agent()
         # stop_fn: programmatic args win over YAML config (torch_runner.py
@@ -171,6 +171,108 @@ class Runner:
             if args.get("load_critic_only"):
                 kwargs["load_critic_only"] = True
         return agent.train(checkpoint=args.get("checkpoint"), stop_fn=stop_fn, **kwargs)
+
+    def run_train_multiseed(self, args: Dict[str, Any]):
+        """``--seeds a,b,c``: train every seed in this one process
+        (utils/multiseed.py; runner.py:176-305 of the JAX package). Device
+        envs only; PPO and SAC. With a ``pbt`` block a PPO population
+        exploits and explores every ``interval_steps`` frames
+        (``PopulationTrainer``). Prints one curve line per log_interval and
+        writes a single-seed checkpoint per member at the end,
+        ``<name>_seed<s>.pth`` in ``nn/``, which the player restores
+        unchanged. Returns their paths; the trainer and the members' last
+        states stay in ``self.trainer`` and ``self.last_states``."""
+        import os
+        import time
+
+        from rl_games_tpu_torch.algos.ppo import _to_host  # metrics, nested dicts of tensors, as numpy
+        from rl_games_tpu_torch.utils.multiseed import MultiSeedTrainer, PopulationTrainer
+        from rl_games_tpu_torch.utils.pbt import PbtCfg
+
+        seeds = args["seeds"]
+        if isinstance(seeds, str):
+            seeds = [int(s) for s in seeds.replace(",", " ").split()]
+        if args.get("checkpoint"):
+            raise ValueError(
+                "--seeds starts every member from its own seeded init; "
+                "resuming a population from a single checkpoint is "
+                "ambiguous — drop -c, or warm-start one seed per process "
+                "with the single-seed path"
+            )
+        if args.get("sigma") is not None:
+            raise ValueError("--sigma is not supported with --seeds")
+        print(f"Started to train {len(seeds)} seeds in one process: {seeds}")
+        agent = self.create_agent()
+        config = self.params["config"]
+        pbt_interval_epochs = 0
+        if config.get("pbt") and self.algo_name == "sac":
+            print(
+                "pbt block ignored: on-device PBT mutates TrainState "
+                "hyperparameters of the PPO family; SAC seeds train as a "
+                "plain multi-seed stack"
+            )
+        if config.get("pbt") and self.algo_name != "sac":
+            pcfg = PbtCfg.from_dict(dict(config["pbt"]))
+            trainer = PopulationTrainer(
+                agent, seeds, threshold_std=pcfg.threshold_std, threshold_abs=pcfg.threshold_abs,
+                mutation_rate=pcfg.mutation_rate, change_range=pcfg.change_range,
+            )
+            pbt_interval_epochs = max(1, pcfg.interval_steps // trainer.frames_per_epoch())
+            print(f"on-device PBT: band exploit every {pbt_interval_epochs} epochs over the "
+                  f"{len(seeds)}-member population")
+        else:
+            trainer = MultiSeedTrainer(agent, seeds)
+        del agent  # the members are agents of their own
+        states = trainer.init_state()
+        fn = trainer.train_fn()
+
+        name = config.get("name", "run")
+        # programmatic args win over YAML
+        max_epochs = int(args.get("max_epochs") or config.get("max_epochs", 0) or 0)
+        if not max_epochs:
+            # SAC configs bound runs by frames (sac_agent.py max_frames)
+            max_frames = int(config.get("max_frames", 0))
+            max_epochs = max(1, max_frames // trainer.frames_per_epoch()) if max_frames else 1000
+        log_interval = int(config.get("log_interval", 10))
+        frames_per_epoch = trainer.frames_per_epoch() * len(seeds)
+        nn_dir = os.path.join(config.get("train_dir", "runs"), name, "nn")
+        os.makedirs(nn_dir, exist_ok=True)
+
+        start = time.perf_counter()
+        for epoch in range(1, max_epochs + 1):
+            states, metrics = fn(states)
+            m = None
+            if pbt_interval_epochs and epoch % pbt_interval_epochs == 0:
+                m = _to_host(metrics)
+                states, events = trainer.pbt_step(states, m)
+                for ev in events:
+                    print(f"pbt: seed{ev['dst']} adopts seed{ev['src']} (lr={ev['lr']:.2e} "
+                          f"entropy_coef={ev['entropy_coef']:.4f})", flush=True)
+            if epoch % log_interval == 0 or epoch == max_epochs:
+                m = _to_host(metrics) if m is None else m
+                fps = frames_per_epoch * epoch / (time.perf_counter() - start)
+                played = m.get("games_played")
+                rews = " ".join(
+                    f"seed{s}: {float(m['mean_rewards'][i][0]):.2f}"
+                    if played is None or int(played[i]) > 0 else f"seed{s}: n/a"
+                    for i, s in enumerate(seeds)
+                )
+                print(f"fps total: {fps:.0f} epoch: {epoch}/{max_epochs} "
+                      f"frames: {frames_per_epoch * epoch} {rews}", flush=True)
+        paths = []
+        for i, s in enumerate(seeds):
+            path = os.path.join(nn_dir, f"{name}_seed{s}.pth")
+            reward = float(m["mean_rewards"][i][0])
+            meta = {"epoch": max_epochs, "frame": trainer.frames_per_epoch() * max_epochs,
+                    "last_mean_rewards": reward}
+            member = trainer.agents[i]
+            if self.algo_name == "sac":
+                meta["has_replay"] = member.save_replay_buffer
+            member._save(path, trainer.state_for_seed(states, i), meta)
+            paths.append(path)
+            print(f"seed {s}: reward {reward:.2f} -> {path}")
+        self.trainer, self.last_states = trainer, states
+        return paths
 
     def create_player(self):
         return self.player_factory.create(

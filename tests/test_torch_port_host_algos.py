@@ -741,10 +741,20 @@ def test_resume_from_stripped_replay_pauses_updates(tmp_path):
     assert state2.update_counter > upd0
 
 
-def test_sac_host_set_param_waits_for_a12():
-    agent, _ = fake_sac()
-    with pytest.raises(NotImplementedError, match="item A12"):
-        agent.set_param("gamma", 0.95, agent.init_state())
+def test_set_param_preserves_pending_transition():
+    """tests/test_sac_correctness.py::test_set_param_preserves_pending_transition:
+    set_param between epochs keeps the pending transition, so every env
+    step lands in replay exactly once: 10 epochs x 2 steps of 2 envs, one
+    transition still pending, each row a transition inside one episode."""
+    agent, _ = fake_sac(lengths=(100, 100), num_steps_per_episode=2)
+    state, _ = run_epochs(agent, agent.init_state(), 5)
+    pending = agent._pending
+    state = agent.set_param("gamma", 0.95, state)
+    assert agent._pending is pending and agent.get_param("gamma") == 0.95
+    state, _ = run_epochs(agent, state, 5)
+    obs, nxt, rew, _, _, _ = replay_rows(state)
+    assert len(obs) == 2 * (10 * 2 - 1) == 38
+    check_rows(obs, nxt, rew)
 
 
 def test_sac_host_metrics_repeat_the_last_update_epoch():

@@ -286,7 +286,7 @@ def test_cli_end_to_end(tmp_path):
 
 
 @pytest.mark.parametrize("args, params_patch, item", [
-    ({"train": True, "seeds": "1,2"}, {}, "A12"),
+    ({"train": True, "seeds": "1,2"}, {}, "seeds"),
     ({"export": True}, {}, "A12"),
     ({"train": True, "load_critic_only": True}, {}, None),
     ({"train": True}, {"algo": {"name": "sac"},
@@ -297,31 +297,45 @@ def test_cli_end_to_end(tmp_path):
         "args4-params_patch4-A12"])
 def test_unported_verbs_raise(tmp_path, args, params_patch, item):
     """The verbs the port lacks name their item; load_critic_only (item
-    None, A9) without a checkpoint trains, as the JAX runner does."""
+    None, A9) without a checkpoint trains, as the JAX runner does, and
+    --seeds (A12) trains both members and returns their checkpoints."""
     params = {**tiny_params(tmp_path), **params_patch}
     runner = Runner(device="cpu")
     runner.load({"params": params})
     if item is None:
         assert runner.run(args)[1] == 2
         return
+    if item == "seeds":
+        paths = runner.run(args)
+        assert paths == [str(tmp_path / "tiny" / "nn" / f"tiny_seed{s}.pth") for s in (1, 2)]
+        assert all(ckpt.peek_meta(p)["epoch"] == 2 for p in paths)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         runner.run(args)
 
 
 @pytest.mark.parametrize("key, value, item", [
-    ("pbt", {"enabled": True}, "A12"),
+    ("pbt", {"enabled": True, "interval_steps": 128}, "pbt"),
     ("self_play_config", {"update_score": 1}, "A12"),
     ("normalize_rms_advantage", True, None),
     ("features", {"soft_augmentation": {"transform": {"name": "gaussian_noise"}}}, None),
 ], ids=["pbt-value0-A12", "self_play_config-value1-A12", "normalize_rms_advantage-True-A2", "features-value3-A9"])
 def test_unported_train_options_raise(tmp_path, key, value, item):
     """The train options the port lacks name their item; the ones A2 and
-    A9 ported (item None) train."""
+    A9 ported (item None) train, and pbt.enabled (A12) trains its 2 epochs
+    with its record in the workspace under train_dir and no adoption (it is
+    the population's only member)."""
     params = tiny_params(tmp_path, **{key: value})
     runner = Runner(device="cpu")
     runner.load({"params": params})
     if item is None:
         assert runner.run({"train": True})[1] == 2
+        return
+    if item == "pbt":
+        assert runner.run({"train": True})[1] == 2
+        record = torch.load(tmp_path / "pbt_workspace" / "policy_000.pbt", weights_only=True)
+        assert record["frame"] == 2 * 128 and set(record["params"]) == {"learning_rate", "entropy_coef"}
+        assert os.listdir(tmp_path / "pbt_workspace") == ["policy_000.pbt"]
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         runner.run({"train": True})
