@@ -165,6 +165,26 @@ to a plain version):
                sac_ant2d.yaml with --seeds 2,4 (a ring of 1e6 rows a member;
                no kernel); (f) SAC's set_param over [host_sac]'s host env,
                the pending transition kept.
+24. selfplay — self-play and multi-agent PPO: (a) benchruns/selfplay_forage.yaml
+               as shipped (1024 competitive_forage envs x 32, MLP [128, 64]
+               elu, 2 x 4 minibatches of 8192, the self-play manager as
+               configured; each env's opponent from its own slot of the
+               learner's weights, a vmapped forward) through Runner.run for
+               --epochs epochs, then its last checkpoint played as a mirror
+               match (its weights in every opponent seat) through Runner.run:
+               steady epoch, env-steps/s, peak memory, the rollout step's wall
+               time and device kernels with the opponents' forward apart, the
+               player's step; 1 GAE at [32, 1024, 1] an epoch, none fused;
+               (b) a forced push on (a)'s agent (SelfPlayManager, update_score
+               -100 over 1 game, 512 envs a push): slots 0-511 the learner's,
+               512-1023 bit for bit, the opponents' actions on the card
+               within 1e-5 of the CPU's; (c) cooperative_gather at 1024 envs x
+               3 agents x 16 with tests/test_multiagent.py's networks and its
+               central value net, 4 minibatches of 12,288 rows, 3 epochs: 1
+               GAE at [16, 3072, 1] an epoch, games_played counting envs, not
+               rows. The connect-four and multiwalker host envs need
+               pettingzoo and Box2D, which the card's machine lacks: they run
+               in the CPU tests alone.
 
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
@@ -199,12 +219,16 @@ statistics moved by the decay alone, alike on both), one update of the
 two-hot CartPole model, and connect4net's forward and gradients
 (ref/ma/ppo_connect4_self_play_resnet.yaml's 5 blocks of 128 channels).
 
+Phases 3 and 4 also hold [selfplay]: GAE at [32, 1024, 1] and [16, 3072, 1]
+(bit for bit, timed), and one multi-agent update with the central value net
+(64 envs x 3 agents) on the card against the CPU.
+
 Phases 3 and 4 also hold the host path: GAE at [256, 64, 1] and the fused
 MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
 phase 14's config on the card against the CPU (same weights, CPUENV seed
 and action noise), then one Adam step of its first minibatch.
 
-Launch counts are zeroed just before each of phases 6-23's runs and read
+Launch counts are zeroed just before each of phases 6-24's runs and read
 just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
@@ -392,6 +416,10 @@ def phase_build():
         raise AssertionError(f"expected the sources fused_mlp and gae, built {sorted(logs)}")
 
 
+# GAE's [T, N·A, V] on [selfplay]'s two paths: benchruns/selfplay_forage.yaml's and cooperative_gather's
+SELFPLAY_SHAPE, MULTIAGENT_SHAPE = (32, 1024, 1), (16, 3072, 1)
+
+
 def gae_inputs(T, N, V, gen, device):
     f32 = dict(dtype=torch.float32, device=device)
     r = torch.randn((T, N, V), generator=gen, **f32)
@@ -453,7 +481,8 @@ def phase_kernel_gae():
     # ppo_breakout.yaml), then horizons that take every branch of the
     # kernel's sweep: one chunk of 16; the row-by-row tail alone; 16 + 8 + 5
     for T, N, V in ((16, 8192, 1), (16, 4096, 1), (16, 2048, 1), (64, 512, 1), (32, 16, 1), (256, 64, 1), (128, 64, 1),
-                    (512, 16, 2), (512, 16, 1), (128, 16, 1), (256, 16, 1), (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
+                    (512, 16, 2), (512, 16, 1), (128, 16, 1), (256, 16, 1), SELFPLAY_SHAPE, MULTIAGENT_SHAPE,
+                    (16, 1000, 2), (7, 33, 3), (29, 777, 2)):
         args = gae_inputs(T, N, V, gen, dev)
         got = gae.gae_cuda(*args, 0.99, 0.95)
         want = gae.gae_plain(*args, 0.99, 0.95)
@@ -488,7 +517,10 @@ def phase_kernel_gae():
                          # [rnn]: test_asymmetric_continuous.yaml's and ppo_walker_rnn.yaml's 16 envs x 256
                          time_gae(256, 16, 1, gen, dev),
                          # [population] (a): benchruns/pbt_ant2d_ab.yaml's 2048 envs x 16, once a member epoch
-                         time_gae(16, 2048, 1, gen, dev)],
+                         time_gae(16, 2048, 1, gen, dev),
+                         # [selfplay] (a): benchruns/selfplay_forage.yaml's 1024 envs x 32; (c): cooperative_gather's
+                         # 1024 envs x 3 agents x 16; each once an epoch
+                         time_gae(*SELFPLAY_SHAPE, gen, dev), time_gae(*MULTIAGENT_SHAPE, gen, dev)],
     }
 
 
@@ -762,6 +794,7 @@ def phase_reference():
     reference_rnn()
     reference_dict()
     reference_sac("sac_norm")
+    reference_multiagent()
 
 
 def float64_gradients(agent, ds, state):
@@ -3413,6 +3446,302 @@ def phase_population(epochs: int = 8):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# [selfplay]: self-play and multi-agent PPO (A12, second part)
+# ---------------------------------------------------------------------------
+
+def selfplay_params() -> dict:
+    """benchruns/selfplay_forage.yaml as shipped: competitive_forage, 1024 envs
+    x 32, MLP [128, 64] elu, 2 mini-epochs of 4 minibatches of 8192, the
+    self-play manager at update_score 0.25 over 512 games, 512 envs a push."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchruns", "selfplay_forage.yaml")) as f:
+        return yaml.safe_load(f)["params"]
+
+
+def multiagent_params(num_actors: int = 1024, minibatch_size: int = 12288) -> dict:
+    """tests/test_multiagent.py's config (cooperative_gather, MLP [32, 32] elu,
+    its central value net's [32]) at 1024 envs x 3 agents x horizon 16, 4
+    minibatches of 12,288 rows for both nets."""
+    cfg = {
+        "name": "chip_smoke_multiagent", "env_name": "cooperative_gather", "num_actors": num_actors,
+        "horizon_length": 16, "minibatch_size": minibatch_size, "mini_epochs": 2, "learning_rate": 5e-4,
+        "lr_schedule": "adaptive", "kl_threshold": 0.008, "e_clip": 0.2, "clip_value": True, "gamma": 0.99,
+        "tau": 0.95, "critic_coef": 1.0, "entropy_coef": 0.0, "grad_norm": 1.0, "truncate_grads": True,
+        "normalize_advantage": True, "normalize_input": False, "normalize_value": False, "value_bootstrap": True,
+        "seed": 5, "bounds_loss_coef": 0.0001,
+        "central_value_config": {
+            "learning_rate": 5e-4, "mini_epochs": 2, "minibatch_size": minibatch_size, "clip_value": True,
+            "normalize_input": False,
+            "network": {"name": "actor_critic", "central_value": True,
+                        "mlp": {"units": [32], "activation": "elu", "initializer": {"name": "default"}}},
+        },
+    }
+    return {
+        "algo": {"name": "a2c_continuous"}, "model": {"name": "continuous_a2c_logstd"},
+        "network": {
+            "name": "actor_critic", "separate": False,
+            "mlp": {"units": [32, 32], "activation": "elu", "initializer": {"name": "default"}},
+            "space": {"continuous": {"mu_activation": "None", "sigma_activation": "None",
+                                     "mu_init": {"name": "default"},
+                                     "sigma_init": {"name": "const_initializer", "val": 0.0}, "fixed_sigma": True}},
+        },
+        "config": cfg,
+    }
+
+
+def selfplay_run(epochs: int):
+    """(a) benchruns/selfplay_forage.yaml as shipped through Runner.run for
+    ``epochs`` epochs, then its last checkpoint plays a mirror match through
+    Runner.run (the restored weights in every opponent seat, checked). The
+    steady epoch, env-steps/s, peak memory; a rollout step's wall time and
+    device kernels with the opponent's forward apart; the player's step; 1
+    GAE launch an epoch at [32, 1024, 1], none fused, none in the player."""
+    from rl_games_tpu_torch.envs.device.selfplay import SelfPlayVecEnv
+    from rl_games_tpu_torch.runner import Runner
+    from rl_games_tpu_torch.utils import checkpoint as ckpt
+
+    params = selfplay_params()
+    cfg = params["config"]
+    n, horizon = cfg["num_actors"], cfg["horizon_length"]
+    ends, agents, seats = [], [], []
+    mark = epoch_marker(ends)
+
+    def stop_fn(agent):
+        agents[:] = [agent]
+        return mark(agent)
+
+    init_opponent = SelfPlayVecEnv.init_opponent
+
+    def recorded(self, env_state, weights):
+        seats.append({k: v.detach().cpu().clone() for k, v in weights.items()})
+        return init_opponent(self, env_state, weights)
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as train_dir:
+        cfg.update(train_dir=train_dir, max_epochs=epochs)
+        runner = Runner()  # the default device: the card
+        runner.load({"params": params})
+        torch.cuda.reset_peak_memory_stats()
+        with launch_shapes() as shapes, contextlib.redirect_stdout(out):
+            zero_launches()  # the training run starts here
+            t0 = time.perf_counter()
+            _, epoch_num = runner.run({"train": True, "stop_fn": stop_fn})
+            torch.cuda.synchronize()
+            train_launches = launches_now()  # read right after
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        nn_dir = os.path.join(train_dir, cfg["name"], "nn")
+        final = [f for f in sorted(os.listdir(nn_dir)) if f"_ep_{epochs}_rew_" in f]
+        if epoch_num != epochs or len(final) != 1:
+            raise AssertionError(f"selfplay (a): {epoch_num} epochs, checkpoints {os.listdir(nn_dir)}")
+        checkpoint = os.path.join(nn_dir, final[0])
+        saved, _ = ckpt.load_checkpoint_weights(checkpoint)
+        SelfPlayVecEnv.init_opponent = recorded
+        try:
+            play_out = io.StringIO()
+            with launch_shapes() as play_shapes, contextlib.redirect_stdout(play_out):
+                zero_launches()  # the player's run starts here
+                t1 = time.perf_counter()
+                mean_reward = runner.run({"play": True, "checkpoint": checkpoint})
+                torch.cuda.synchronize()
+                play_s = time.perf_counter() - t1
+                play_launches = launches_now()  # read right after
+        finally:
+            SelfPlayVecEnv.init_opponent = init_opponent
+        steady_s, first, last = steady_player_step(runner, checkpoint)
+    for line in out.getvalue().strip().splitlines():
+        print(f"[selfplay] (a) | {line}")
+    expected = {"gae": epochs, "fused_mlp": 0}
+    if (train_launches != expected or histogram(shapes["gae"]) != {SELFPLAY_SHAPE: epochs} or shapes["fused_mlp"]
+            or play_launches != {"gae": 0, "fused_mlp": 0} or play_shapes["gae"] or play_shapes["fused_mlp"]):
+        raise AssertionError(f"selfplay (a): launches {train_launches} (GAE shapes {histogram(shapes['gae'])}), "
+                             f"player {play_launches}; expected {expected} at {list(SELFPLAY_SHAPE)}, player none")
+    mirror = len(seats) == 1 and sorted(seats[0]) == sorted(saved) and all(
+        torch.equal(seats[0][k], v) for k, v in saved.items())
+    if not (mirror and math.isfinite(mean_reward)):
+        raise AssertionError(f"selfplay (a) player: mirror match {mirror} ({len(seats)} seatings), "
+                             f"mean reward {mean_reward}")
+    times = np.diff([t0, *ends])
+    epoch_s = report_epochs("selfplay", times, n * horizon, peak_gib)
+
+    # the rollout step, from the trained agent's state: its wall time (one
+    # rollout after a warm-up one, over its steps), its kernels (a profiled
+    # rollout of 8 steps), and the opponent's vmapped forward apart
+    agent = agents[0]
+    state = agent.last_state
+    agent._rollout(state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    agent._rollout(state)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t2) / horizon
+    agent.horizon_length = 8
+    try:
+        step_kernels = len(device_events(lambda: agent._rollout(state), 1)) / 8
+    finally:
+        agent.horizon_length = horizon
+    opp_ms = cuda_time_ms(lambda: agent.vec_env._opp_actions(state.env_state), 50)
+    opp_kernels = len(device_events(lambda: agent.vec_env._opp_actions(state.env_state), 1))
+    pushes = out.getvalue().count("updating opponent weights")
+    print(f"[selfplay] (a) trained benchruns/selfplay_forage.yaml as shipped ({n} envs x {horizon}, MLP [128, 64] elu, 2 x 4 "
+          f"minibatches of 8192) {epochs} epochs through Runner.run: launches {train_launches}, GAE shapes "
+          f"{histogram(shapes['gae'])}, {pushes} opponent pushes")
+    print(f"[selfplay] (a) rollout step {step_s * 1e3:.3f} ms wall, {step_kernels:.1f} device kernels a step; of it "
+          f"the opponent's forward over the {n} slots {opp_ms * 1e3:.1f} us a call between CUDA events, "
+          f"{opp_kernels} device kernels")
+    print(f"[selfplay] (a) mirror match of {os.path.basename(checkpoint)} through Runner.run (its weights in all "
+          f"{n} opponent seats): launches {play_launches}, {play_out.getvalue().strip()!r}, {play_s:.2f} s with "
+          f"set-up; steady player step {steady_s * 1e3:.3f} ms (steps {first}-{last})")
+    return {"train": train_launches, "play": play_launches, "epoch_s": epoch_s, "agent": agent, "state": state,
+            "step_s": step_s, "step_kernels": step_kernels, "opp_ms": opp_ms, "opp_kernels": opp_kernels}
+
+
+def selfplay_push(agent, state):
+    """(b) a forced push on (a)'s agent: SelfPlayManager at update_score
+    -100 over 1 game, half the envs (512) a push. Slots 0-511 take the
+    learner's weights and 512-1023 stay bit for bit; from the same state the
+    opponents' actions on the card agree with the CPU's within 1e-5."""
+    from rl_games_tpu_torch.algos.ppo import meters_mean
+    from rl_games_tpu_torch.envs.device.selfplay import CompetitiveForage, SelfPlayVecEnv, SelfPlayVecEnvState
+    from rl_games_tpu_torch.utils.self_play import SelfPlayManager
+
+    n = agent.num_actors
+    half = n // 2  # 512 of the shipped config's 1024
+    before = {k: v.clone() for k, v in state.env_state.opp_weights.items()}
+    metrics = {"games_played": int(state.game_rewards.count), "frame": int(state.frame),
+               "mean_rewards": meters_mean(state.game_rewards).cpu().numpy()}
+    manager = SelfPlayManager({"update_score": -100.0, "games_to_check": 1, "env_update_num": half})
+    with contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pushed, state = manager.update(agent, state, metrics)
+        torch.cuda.synchronize()
+        push_s = time.perf_counter() - t0
+    weights = agent.get_weights()
+    pushed_rows = all(torch.equal(state.env_state.opp_weights[k][:half], v[None].expand(half, *v.shape))
+                      for k, v in weights.items())
+    kept_rows = all(torch.equal(state.env_state.opp_weights[k][half:], v[half:]) for k, v in before.items())
+    cpu_env = SelfPlayVecEnv(CompetitiveForage(device="cpu"), n)
+    cpu_env.bind_policy(copy.deepcopy(agent.model).cpu())
+    est = state.env_state.estate
+    cpu_state = SelfPlayVecEnvState(
+        estate=dataclasses.replace(est, **{f.name: getattr(est, f.name).cpu() for f in dataclasses.fields(est)}),
+        generator=torch.Generator(), steps=state.env_state.steps.cpu(),
+        opp_weights={k: v.cpu() for k, v in state.env_state.opp_weights.items()})
+    got, want = agent.vec_env._opp_actions(state.env_state).cpu(), cpu_env._opp_actions(cpu_state)
+    err = float((got - want).abs().max())
+    print(f"[selfplay] (b) forced push on (a)'s agent ({metrics['games_played']} games, {half} envs a push) in "
+          f"{push_s * 1e3:.2f} ms: slots 0-{half - 1} the learner's weights {pushed_rows}, slots {half}-{n - 1} "
+          f"bit for bit "
+          f"{kept_rows}, next envs {manager.env_indexes[:2].tolist()}...; the opponents' actions on the card "
+          f"against the CPU's from the same state: max |d| {err:.2e}")
+    if not (pushed and pushed_rows and kept_rows and err < 1e-5 and int(manager.env_indexes[0]) == 1):
+        raise AssertionError(f"selfplay (b): pushed {pushed}, rows {pushed_rows} / {kept_rows}, error {err}")
+    return {"push_s": push_s, "max_abs_err": err}
+
+
+def multiagent_run(epochs: int = 3):
+    """(c) the device multi-agent path: cooperative_gather at 1024 envs x 3
+    agents x 16 (multiagent_params, its central value net among it) through
+    train_epoch's two halves, ``epochs`` epochs, each env's step counter
+    staggered over the 64-step limit (env i at i mod 64) so that episodes end
+    in every epoch; 1 GAE an epoch at [16, 3072, 1], none fused; the
+    meters count each env's ended episode once, not once a row."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
+    params = multiagent_params()
+    params["config"]["games_to_track"] = 1_000_000  # the meters keep every ended episode
+    agent = PPOAgent("chip_smoke_multiagent", params)
+    state = agent.init_state()
+    n, a = agent.num_actors, agent.num_agents
+    state.env_state.steps = (torch.arange(n, device=agent.device) % 64).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # (c)'s own peak, its agent's state included
+    times, env_ends, row_ends = [], 0, 0
+    with launch_shapes() as shapes:
+        zero_launches()  # the main path's run starts here
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            traj, last_values = agent._rollout(state)
+            ended = torch.cat([traj["dones"][1:], state.dones[None]])  # the dones each step produced
+            env_ends += int(ended[:, ::a].sum())
+            row_ends += int(ended.sum())
+            state, m = agent._finish_epoch(state, traj, last_values)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = launches_now()  # read right after
+    games = int(m["games_played"])
+    losses = [float(m[k]) for k in ("a_loss", "cval_loss")]
+    print(f"[selfplay] (c) cooperative_gather {n} envs x {a} agents x {agent.horizon_length} (batch "
+          f"{agent.batch_size}, {agent.num_minibatches} minibatches of {agent.minibatch_size}, central value net) "
+          f"{epochs} epochs: launches {launches}, GAE shapes {histogram(shapes['gae'])}; games_played {games}, "
+          f"ended episodes {env_ends} (at {row_ends} rows); a_loss {losses[0]:.4f}, cval_loss {losses[1]:.4f}")
+    epoch_s = report_epochs("selfplay (c)", np.array(times), agent.batch_size, torch.cuda.max_memory_allocated() / 2**30)
+    if (launches != {"gae": epochs, "fused_mlp": 0} or histogram(shapes["gae"]) != {MULTIAGENT_SHAPE: epochs}
+            or games != env_ends or env_ends == 0 or row_ends != a * env_ends
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"selfplay (c): launches {launches}, GAE shapes {histogram(shapes['gae'])}, "
+                             f"games_played {games} against {env_ends} ended episodes ({row_ends} rows), "
+                             f"losses {losses}")
+    return {"train": launches, "epoch_s": epoch_s, "games": games}
+
+
+def phase_selfplay(epochs: int):
+    """[selfplay]: (a) benchruns/selfplay_forage.yaml through Runner.run,
+    trained and played as a mirror match; (b) a forced push on its agent;
+    (c) the device multi-agent path. ((d): GAE at both paths' shapes in
+    phase_kernel_gae; (e): reference_multiagent in phase_reference.) The
+    connect-four and multiwalker host envs need pettingzoo and Box2D, which
+    the card's machine lacks: they run in the CPU tests alone."""
+    t0 = time.perf_counter()
+    runs = {"a": selfplay_run(epochs)}
+    runs["b"] = selfplay_push(runs["a"]["agent"], runs["a"]["state"])
+    runs["c"] = multiagent_run(3)
+    del runs["a"]["agent"], runs["a"]["state"]
+    print(f"[selfplay] phase in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def reference_multiagent():
+    """(e) one multi-agent update with the central value net (multiagent_params
+    at 64 envs x 3 agents x 16, minibatches of 768) on the card against the
+    CPU on the same trajectory: the central value net's first minibatch
+    (loss within 2e-5 relative, gradients within 1e-5 of each tensor's
+    largest entry) and the policy's first Adam step (check_first_update)."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.ops import losses as PL
+
+    params = multiagent_params(num_actors=64, minibatch_size=768)
+    gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
+    gstate, cstate = gpu.init_state(), cpu.init_state()
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    cpu.cv_model.load_state_dict({k: v.cpu() for k, v in gpu.cv_model.state_dict().items()})
+    traj, last_values = gpu._rollout(gstate)
+    cstate.dones = gstate.dones.cpu()
+    gds = gpu._prepare_dataset(gstate, traj, last_values)
+    cds = cpu._prepare_dataset(cstate, to_cpu(traj), last_values.cpu())
+    dadv = float((gds["advantages"].cpu() - cds["advantages"]).abs().max())
+    losses, grads = [], []
+    for agent, ds in ((gpu, gds), (cpu, cds)):
+        mb = agent._minibatch(ds, 0, agent.cv_minibatch_size)
+        res = agent.cv_model.forward_train(mb["states"])
+        loss = PL.critic_loss(mb["old_values"], res["values"], agent.cv_e_clip, mb["returns"],
+                              agent.cv_clip_value).mean()
+        losses.append(float(loss.detach()))
+        grads.append(torch.autograd.grad(loss, agent.cv_params))
+    dgrad = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30)) for g, c in zip(*grads))
+    dloss = abs(losses[0] - losses[1]) / abs(losses[1])
+    update = check_first_update(gpu, cpu, gstate, cstate, gds, cds)
+    print(f"[reference] selfplay (e) multi-agent cooperative_gather, 64 envs x 3 agents x 16 (3072 rows): max "
+          f"|dadv| {dadv:.2e}; central value net's first minibatch: loss {losses[0]:.7f} / {losses[1]:.7f} "
+          f"(relative {dloss:.2e}), gradients within {dgrad:.2e} of each tensor's largest entry; one minibatch of "
+          f"768: {update}")
+    if not (dadv < 1e-4 and dloss < 2e-5 and dgrad < 1e-5):
+        raise AssertionError(f"selfplay (e): the card disagrees with the CPU: advantages {dadv}, central value "
+                             f"loss {dloss}, gradients {dgrad}")
+
+
 def profile_report(tag: str, prof, wall_us: float, detail: str):
     """The device's busy time and idle share over ``wall_us`` of host time,
     and the device time by kernel, of one torch.profiler session."""
@@ -3535,6 +3864,8 @@ def main():
     reference_connect4()
     # multi-seed training and PBT, after every profiled phase as well
     population = phase_population(8)
+    # self-play and multi-agent PPO (A12, second part)
+    selfplay = phase_selfplay(args.epochs)
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
@@ -3544,13 +3875,13 @@ def main():
     runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train,
             *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn),
             *(dict_runs[tag]["train"] for tag in dict_runs), *(impala[tag]["train"] for tag in impala), th_train,
-            *(population[tag]["train"] for tag in ("a", "b", "d")))
+            *(population[tag]["train"] for tag in ("a", "b", "d")), selfplay["a"]["train"], selfplay["c"]["train"])
     # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn], [dict], [impala] and
-    # [twohot] run 3
+    # [twohot] run 3; [selfplay] (a) --epochs, (c) 3
     epochs_trained = ((args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
                       + (3,) * len(rnn) + (3,) * len(dict_runs) + (3,) * len(impala) + (3,)
                       # [population]: its runs' member epochs, each with its own GAE launch
-                      + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d")))
+                      + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d")) + (args.epochs, 3))
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
@@ -3569,7 +3900,10 @@ def main():
                                      "twohot": th_train["gae"],
                                      # [population]: (a) 4 members at [16, 2048, 1] an epoch; (b) 2 members
                                      # and (d) 1 of the fused flagship at [16, 8192, 1]
-                                     "population": {tag: population[tag]["train"]["gae"] for tag in ("a", "b", "d")}}
+                                     "population": {tag: population[tag]["train"]["gae"] for tag in ("a", "b", "d")},
+                                     # [selfplay]: (a) at [32, 1024, 1], (c) at [16, 3072, 1], once an epoch
+                                     "selfplay": selfplay["a"]["train"]["gae"],
+                                     "multiagent": selfplay["c"]["train"]["gae"]}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
@@ -3580,7 +3914,9 @@ def main():
                                + sum(rnn[tag]["train"]["fused_mlp"] + rnn[tag].get("play", {}).get("fused_mlp", 0)
                                      for tag in rnn)
                                + th_train["fused_mlp"] + th_play["fused_mlp"]
-                               + population["b"]["train"]["fused_mlp"] + population["d"]["train"]["fused_mlp"])
+                               + population["b"]["train"]["fused_mlp"] + population["d"]["train"]["fused_mlp"]
+                               + selfplay["a"]["train"]["fused_mlp"] + selfplay["a"]["play"]["fused_mlp"]
+                               + selfplay["c"]["train"]["fused_mlp"])
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -3634,6 +3970,10 @@ def main():
                                       "per_player_step": th_play["fused_mlp"] / th_steps}
     # [population]: (a) plain (0), (b) and (d) the fused flagship's 33 a member epoch
     fused_entry["launches_population"] = {tag: population[tag]["train"]["fused_mlp"] for tag in ("a", "b", "d")}
+    # [selfplay]: plain MLPs on both paths (the opponents' vmapped forward is a batched product): 0
+    fused_entry["launches_selfplay"] = {"train": selfplay["a"]["train"]["fused_mlp"],
+                                        "play": selfplay["a"]["play"]["fused_mlp"]}
+    fused_entry["launches_multiagent"] = {"train": selfplay["c"]["train"]["fused_mlp"]}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,7 +127,7 @@ from rl_games_tpu_torch.ops.schedulers import build_scheduler
 from rl_games_tpu_torch.utils import checkpoint as ckpt
 from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
 from rl_games_tpu_torch.utils.pbt import PbtCfg, PbtManager
-from rl_games_tpu_torch.utils.unported import unported
+from rl_games_tpu_torch.utils.self_play import SelfPlayManager
 from rl_games_tpu_torch.utils.writer import IntervalSummaryWriter, create_writer, write_ppo_stats
 
 _METRIC_KEYS = ("a_loss", "c_loss", "entropy", "b_loss", "kl", "clip_frac")
@@ -327,7 +327,6 @@ class PPOAgent:
         self.config = config
         self.device = resolve_device(device)
         use_full_float32(self.device)
-        self._refuse_unported(params)
 
         # --- env ------------------------------------------------------------
         self.num_actors = config["num_actors"]
@@ -339,9 +338,9 @@ class PPOAgent:
         info = self.vec_env.get_env_info()
         self.env_info = info
         self.value_size = info.value_size
+        # a multi-agent env's N envs x A agents are N * A rows, agents-minor
         self.num_agents = info.agents
-        if self.num_agents != 1:
-            unported("multi-agent envs", "A12")
+        self.num_rows = self.num_actors * self.num_agents
         self.observation_space = info.observation_space
         self.action_space = info.action_space
         self.obs_shape = obs_shape_of(info.observation_space)
@@ -353,7 +352,7 @@ class PPOAgent:
 
         # --- config (a2c_common.py:137-330) ---------------------------------
         self.horizon_length = config["horizon_length"]
-        self.batch_size = self.horizon_length * self.num_actors
+        self.batch_size = self.horizon_length * self.num_rows
         if "minibatch_size" not in config and "minibatch_size_per_env" not in config:
             raise ValueError("Config must include 'minibatch_size' or 'minibatch_size_per_env'")
         self.minibatch_size = config.get(
@@ -412,6 +411,11 @@ class PPOAgent:
             )
         self.rewards_shaper = build_reward_shaper(config)
         self.use_action_masks = config.get("use_action_masks", False)
+        # multi-agent: the episode meters count each env once, at its first
+        # agent row (env_done_indices = all_done_indices[::num_agents],
+        # a2c_common.py:825-827; ppo.py:270-278)
+        self._env_rows = (torch.arange(self.num_rows, device=self.device) % self.num_agents == 0
+                          if self.num_agents > 1 else None)
         self._scores_seen = False  # set once the env has reported infos['scores']
         self.use_diagnostics = config.get("use_diagnostics", False)
         self.observer = (config.get("features") or {}).get("observer")
@@ -437,6 +441,10 @@ class PPOAgent:
             device=self.device,
         )
         self.params = list(self.model.parameters())
+        # a self-play device env applies the learner's own architecture on
+        # the opponent seat (ppo.py:315-317)
+        if hasattr(self.vec_env, "bind_policy"):
+            self.vec_env.bind_policy(self.model)
         self.sampled_entropy = getattr(self.model, "sampled_entropy", False)
         self._build_central_value(config.get("central_value_config"), info)
         self._build_rnd(config.get("rnd_config"))
@@ -544,13 +552,6 @@ class PPOAgent:
             raise ValueError("PPO host rollout requires same_step autoreset (reset-on-done); construct the "
                              "vec env with autoreset_mode='same_step'")
 
-    @staticmethod
-    def _refuse_unported(params: dict):
-        """Options the JAX PPOAgent has and this port does not yet."""
-        config = params["config"]
-        if config.get("self_play_config"):
-            unported("self-play (self_play_config)", "A12")
-
     # ------------------------------------------------------------------
     # state construction
     # ------------------------------------------------------------------
@@ -574,7 +575,10 @@ class PPOAgent:
             env_state, obs = None, to_device_obs(self.vec_env.reset(), self.device)
         else:
             env_state, obs = self.vec_env.reset(generator(env_seed))
-        n, v = self.num_actors, self.value_size
+            if hasattr(self.vec_env, "init_opponent"):
+                # the learner's initial weights into every opponent slot (ppo.py:479-483)
+                env_state = self.vec_env.init_opponent(env_state, self.get_weights())
+        n, v = self.num_rows, self.value_size
         f32 = dict(dtype=torch.float32, device=self.device)
         return PPOTrainState(
             opt_state=adam_init(self.params),
@@ -623,7 +627,7 @@ class PPOAgent:
         ...] in memory, a transposed view here), so that swap_and_flatten01
         of them is a view: at 512 envs × 64 steps of 84×84×2 frames they are
         1.85 GB."""
-        T, N, V = self.horizon_length, self.num_actors, self.value_size
+        T, N, V = self.horizon_length, self.num_rows, self.value_size
         f32 = dict(dtype=torch.float32, device=device)
         if isinstance(obs, dict):
             obses = {k: torch.empty((N, T, *v.shape[1:]), dtype=v.dtype, device=device).transpose(0, 1)
@@ -720,6 +724,8 @@ class PPOAgent:
             cur_sr = cur_sr + shaped
             cur_len = cur_len + 1.0
             done_mask = new_dones.to(torch.bool)
+            if self._env_rows is not None:
+                done_mask = done_mask & self._env_rows
             meters_update(state.game_rewards, cur_r, done_mask)
             meters_update(state.game_shaped_rewards, cur_sr, done_mask)
             meters_update(state.game_lengths, cur_len[:, None], done_mask)
@@ -1119,7 +1125,8 @@ class PPOAgent:
             model.load_state_dict(self.model.state_dict())  # this epoch's weights and stats
         if cv_model is not self.cv_model:
             cv_model.load_state_dict(self.cv_model.state_dict())
-        T, N, V = self.horizon_length, self.num_actors, self.value_size
+        T, N, V = self.horizon_length, self.num_rows, self.value_size
+        first_rows = np.arange(N) % self.num_agents == 0  # each env's first agent row (ppo.py:1226-1228)
 
         def to_dev(x):
             return None if x is None else tuple(t.to(dev) for t in x)
@@ -1166,7 +1173,7 @@ class PPOAgent:
             if self.value_bootstrap and "time_outs" in infos:
                 shaped = shaped + self.gamma * host[:, -V:] * np.asarray(infos["time_outs"], np.float32)[:, None]
             cur_r, cur_sr, cur_len = cur_r + rewards, cur_sr + shaped, cur_len + 1.0
-            finished += [(cur_r[i], cur_sr[i], cur_len[i]) for i in np.flatnonzero(new_dones)]
+            finished += [(cur_r[i], cur_sr[i], cur_len[i]) for i in np.flatnonzero(new_dones & first_rows)]
             not_done = 1.0 - new_dones.astype(np.float32)
             cur_r, cur_sr, cur_len = cur_r * not_done[:, None], cur_sr * not_done[:, None], cur_len * not_done
             # the next step's masks go up in the same copy
@@ -1217,8 +1224,10 @@ class PPOAgent:
     # ------------------------------------------------------------------
     def clear_stats(self, state: PPOTrainState) -> PPOTrainState:
         """Reset episode meters + accumulators, then tell the observer
-        (algo.clear_stats, a2c_common.py:645-648)."""
-        n, v = self.num_actors, self.value_size
+        (algo.clear_stats, a2c_common.py:645-648), e.g. after a self-play
+        push, so that the manager's threshold re-arms on fresh games. The
+        accumulators are one a row: N * A for a multi-agent env (ppo.py:1558-1570)."""
+        n, v = self.num_rows, self.value_size
         f32 = dict(dtype=torch.float32, device=self.device)
         state.current_rewards = torch.zeros((n, v), **f32)
         state.current_shaped_rewards = torch.zeros((n, v), **f32)
@@ -1442,6 +1451,9 @@ class PPOAgent:
             pbt_manager = PbtManager(pbt_cfg, {"learning_rate": self.learning_rate,
                                                "entropy_coef": self.entropy_coef_init})
         self.writer = writer
+        # self-play (a2c_common's has_self_play_config path; ppo.py:1799-1805)
+        self_play_manager = (SelfPlayManager(config["self_play_config"], writer)
+                             if config.get("self_play_config") else None)
         observer = self.observer
         if observer is not None:
             observer.before_init(self.base_name, config, experiment_name)
@@ -1478,12 +1490,19 @@ class PPOAgent:
             stop_requested = stop_fn is not None and stop_fn(self)
             do_log = (epoch_num % log_interval == 0) or will_exit or stop_requested
             save_due = self.save_freq > 0 and epoch_num % self.save_freq == 0
-            if not (do_log or save_due or pbt_manager is not None):
+            # self-play and PBT decide every epoch, on fresh metrics
+            every_epoch = self_play_manager is not None or pbt_manager is not None
+            if not (do_log or save_due or every_epoch):
                 continue
             meta = {"last_mean_rewards": last_mean_rewards, "epoch": epoch_num, "frame": frame}
             last_path = os.path.join(nn_dir, f"last_{experiment_name}_ep_{epoch_num}{CHECKPOINT_EXT}")
-            metrics = _to_host(metrics_dev) if do_log or pbt_manager is not None else None
-            if pbt_manager is not None:  # PBT decides every epoch, on fresh metrics
+            metrics = _to_host(metrics_dev) if do_log or every_epoch else None
+            if self_play_manager is not None:  # ppo.py:1966-1973
+                pushed, state = self_play_manager.update(self, state, metrics)
+                if pushed:  # re-arm the threshold on fresh games; clear_stats tells the observer
+                    state = self.clear_stats(state)
+                self.last_state = state
+            if pbt_manager is not None:
                 state = self.last_state = pbt_manager.step(self, state, metrics)
             if not do_log:
                 if save_due:

@@ -213,6 +213,10 @@ class SACAgent:
         space = info.action_space
         if not isinstance(space, Box):
             raise ValueError(f"SAC requires a continuous action space, the env has {space}")
+        if info.agents != 1:
+            # the JAX package's SAC takes one row an env too: it reshapes a
+            # multi-agent env's N * A rewards to [num_actors] and fails
+            raise ValueError(f"SAC takes one agent an env; this env has {info.agents}")
         self.action_dim = space.shape[0]
         self.obs_shape = obs_shape_of(info.observation_space)
         if isinstance(self.obs_shape, dict) or len(self.obs_shape) != 1:

@@ -22,7 +22,11 @@ actor through the same loop. Over a host env (GYMNASIUM, CPUENV,
 DMCONTROL) the loop is ``_host_run`` (player.py:183-228): the env steps on
 the host until ``games_num`` episodes have ended, and the policy runs where
 ``host_inference_device`` puts it (common/host_inference.py), the player's
-whole policy on that device.
+whole policy on that device. On a self-play device env the player plays a
+mirror match: its restored weights fill every opponent seat (player.py:
+271-277). Over a multi-agent env an episode counts once, at its env's first
+agent row, as the trainer's meters count it; the JAX player's return
+accumulator has one row an env and fails on the N · A rows.
 """
 
 import glob
@@ -70,15 +74,21 @@ class BasePlayer:
         if self.is_host_env:  # the policy goes where host_inference_device puts it
             self.device = rollout_device(config.get("host_inference_device", "auto"), self.device,
                                          params.get("network", {}))
-        if hasattr(self.vec_env, "bind_policy"):
-            unported("self-play envs (bind_policy)", "A12")
         info = self.vec_env.get_env_info()
         self.env_info = info
         self.value_size = info.value_size
+        # a multi-agent env's N envs x A agents are N * A rows; an episode
+        # counts once, at its env's first agent row
+        self.num_agents = info.agents
+        self.num_rows = self.num_actors * self.num_agents
         self.obs_shape = obs_shape_of(info.observation_space)
         self.actions_num = actions_num_of(info.action_space)
         self.is_continuous = isinstance(info.action_space, Box)
         self._build_policy(params)
+        # a self-play device env's opponent seat applies the player's own
+        # architecture (player.py:79-83)
+        if hasattr(self.vec_env, "bind_policy") and hasattr(self, "model"):
+            self.vec_env.bind_policy(self.model)
         self._last_ckpt = None
 
     def _build_policy(self, params):
@@ -167,7 +177,8 @@ class BasePlayer:
         act_generator = self._generator(act_seed)
         upload = obs_utils.HostUpload(self.device)
         host_obs = self.vec_env.reset()
-        n = self.num_actors
+        n = self.num_rows
+        first_rows = np.arange(n) % self.num_agents == 0
         cur = np.zeros((n, self.value_size), np.float32)
         returns, steps = [], 0
         while len(returns) < games_num and steps < self.max_steps:
@@ -178,7 +189,8 @@ class BasePlayer:
             host_obs, rewards, dones, _ = self.vec_env.step(actions)
             cur += np.asarray(rewards, np.float32).reshape(n, -1)
             for i in np.flatnonzero(dones):
-                returns.append(cur[i].copy())
+                if first_rows[i]:
+                    returns.append(cur[i].copy())
                 cur[i] = 0.0
             steps += 1
         mean_reward = float(np.mean([r[0] for r in returns])) if returns else 0.0
@@ -221,8 +233,13 @@ class BasePlayer:
             int(s) for s in np.random.SeedSequence(self.seed + 1).generate_state(2)
         )
         env_state, obs = self.vec_env.reset(self._generator(env_seed))
+        if hasattr(self.vec_env, "init_opponent"):
+            # a mirror match: the restored weights fill every opponent seat
+            # (player.py:271-277)
+            env_state = self.vec_env.init_opponent(env_state, self.model.state_dict())
         act_generator = self._generator(act_seed)
-        n = self.num_actors
+        n = self.num_rows
+        first_rows = torch.arange(n, device=self.device) % self.num_agents == 0
         meters = meters_init(max(games_num, 1), self.value_size, self.device)
         cur_rew = torch.zeros((n, self.value_size), dtype=torch.float32, device=self.device)
         for _ in range(self.steps_needed(games_num)):
@@ -232,7 +249,7 @@ class BasePlayer:
             if rewards.dim() == 1:
                 rewards = rewards[:, None]
             cur_rew = cur_rew + rewards
-            meters_update(meters, cur_rew, dones.to(torch.bool))
+            meters_update(meters, cur_rew, dones.to(torch.bool) & first_rows)
             cur_rew = cur_rew * (1.0 - dones.to(torch.float32))[:, None]
         games_played = int(meters.count)
         mean_reward = float(meters_mean(meters)[0]) if games_played else 0.0

@@ -143,10 +143,21 @@ class DeviceVecEnv:
         steps = torch.zeros(self.num_envs, dtype=torch.int32, device=self.env.device)
         return VecEnvState(estate=estate, generator=generator, steps=steps), obs
 
+    def _env_step(self, state: VecEnvState, actions, noise):
+        """The env's batched step; a subclass threads extra per-step inputs
+        through here (the self-play opponent's actions) without forking the
+        autoreset contract of ``step`` (base.py:118-122)."""
+        return self.env.step(state.estate, actions, noise)
+
+    def _next_state(self, state: VecEnvState, estate, steps):
+        """The vec-env state after a step; a subclass carries its extra
+        fields through here, past the autoreset (base.py:124-126)."""
+        return VecEnvState(estate=estate, generator=state.generator, steps=steps)
+
     def step(self, state: VecEnvState, actions):
         shape = self.env.step_noise_shape
         noise = None if shape is None else uniform(self.num_envs, shape, state.generator, self.env.device)
-        estate, obs, reward, terminated, info = self.env.step(state.estate, actions, noise)
+        estate, obs, reward, terminated, info = self._env_step(state, actions, noise)
         steps = state.steps + 1
         terminated = terminated.to(torch.bool)
         if self.max_episode_steps is not None:
@@ -167,5 +178,4 @@ class DeviceVecEnv:
         infos = dict(info or {})
         infos["time_outs"] = time_outs
         infos["final_observation"] = final_obs
-        new_state = VecEnvState(estate=estate, generator=state.generator, steps=steps)
-        return new_state, obs, reward, done, infos
+        return self._next_state(state, estate, steps), obs, reward, done, infos

@@ -9,15 +9,18 @@ in a ``DeviceVecEnv`` on the agent's device; the host types build numpy vec
 envs that the trainers step on the host: ``GYMNASIUM`` (gymnasium's
 vector envs or a thread pool), ``CPUENV`` (the native C++ stepper),
 ``DMCONTROL`` (dm_control suite tasks), ``MASKED_VELOCITY_CARTPOLE`` and
-``ATARI`` (the deepmind wrapper stack). Each host type imports its module,
-and with it gymnasium or dm_control, only when it is used. An unknown name
-with no ``vecenv_type`` goes to GYMNASIUM, as in the JAX package (:28-44).
+``ATARI`` (the deepmind wrapper stack), ``MULTIWALKER`` and ``CONNECT4``
+(pettingzoo's multiwalker and connect-four). ``JAX_MULTIAGENT`` flattens a
+multi-agent device env's agents into rows and ``JAX_SELFPLAY`` carries a
+self-play env's opponent slots. Each host type imports its module, and with
+it gymnasium, dm_control or pettingzoo, only when it is used. An unknown
+name with no ``vecenv_type`` goes to GYMNASIUM, as in the JAX package
+(:28-44).
 """
 
 import importlib
+import os
 from typing import Callable, Dict
-
-from rl_games_tpu_torch.utils.unported import unported
 
 ENV_CONFIGURATIONS: Dict[str, dict] = {}
 VECENV_TYPES: Dict[str, Callable] = {}
@@ -168,13 +171,6 @@ def _missing_sim(name: str, package: str, hint: str = ""):
     return create
 
 
-def _unported_type(what: str, item: str):
-    def create(cfg, num_actors, device=None, **kwargs):
-        unported(what, item)
-
-    return create
-
-
 register_vecenv_type("DEVICE", _create_device_vecenv)
 register_vecenv_type("JAX", _create_device_vecenv)
 register_vecenv_type("GYMNASIUM", _create_gymnasium_vecenv)
@@ -182,12 +178,6 @@ register_vecenv_type("CPUENV", _create_cpu_vecenv)
 register_vecenv_type("DMCONTROL", _create_dmcontrol_vecenv)
 register_vecenv_type("MASKED_VELOCITY_CARTPOLE", _create_masked_velocity_vecenv)
 register_vecenv_type("ATARI", _create_atari_vecenv)
-# multi-agent and self-play envs, host and device
-for _vtype, _what in (("MULTIWALKER", "the PettingZoo multiwalker env (MULTIWALKER)"),
-                      ("CONNECT4", "the connect-four self-play env (CONNECT4)"),
-                      ("JAX_MULTIAGENT", "multi-agent device envs (JAX_MULTIAGENT)"),
-                      ("JAX_SELFPLAY", "self-play device envs (JAX_SELFPLAY)")):
-    register_vecenv_type(_vtype, _unported_type(_what, "A12"))
 
 
 def _creator(module: str, name: str):
@@ -269,10 +259,83 @@ for _sim_name, _pkg, _hint in (
 register_vecenv_type("MJLAB", _missing_sim("mjlab", "mjlab (MuJoCo-Warp)"))
 MISSING_SIMULATOR_TYPES.add("MJLAB")
 
-# the multi-agent and self-play envs (A12)
-for _name, _vtype in (("multiwalker_env", "MULTIWALKER"), ("connect4_env", "CONNECT4"),
-                      ("cooperative_gather", "JAX_MULTIAGENT"), ("competitive_forage", "JAX_SELFPLAY")):
-    register(_name, {"vecenv_type": _vtype})
+
+
+# --- the multi-agent and self-play envs, device and host ---------------------
+def _create_multiagent_vecenv(cfg, num_actors, device=None, **kwargs):
+    """A multi-agent device env (:305-316): ``num_actors`` envs of
+    ``env.num_agents`` agent rows each, on ``device``."""
+    from rl_games_tpu_torch.envs.device.multiagent import MultiAgentDeviceVecEnv
+
+    kwargs.pop("seed", None)  # device envs draw from the agent's generator
+    env = cfg["env_creator"](device=device, **{**cfg.get("env_config", {}), **kwargs})
+    return MultiAgentDeviceVecEnv(env, num_actors, max_episode_steps=cfg.get("max_episode_steps"))
+
+
+def _create_selfplay_vecenv(cfg, num_actors, device=None, **kwargs):
+    """A self-play device env with embedded opponent slots (:477-495): the
+    contract of the DEVICE type; a JAX_SELFPLAY registration may name its
+    own ``env_creator``, else it is CompetitiveForage (whatever the env's
+    name, as in the JAX package)."""
+    from rl_games_tpu_torch.envs.device.selfplay import CompetitiveForage, SelfPlayVecEnv
+
+    kwargs.pop("seed", None)
+    creator = cfg.get("env_creator", CompetitiveForage)
+    env = creator(device=device, **{**cfg.get("env_config", {}), **kwargs})
+    return SelfPlayVecEnv(env, num_actors, max_episode_steps=cfg.get("max_episode_steps"))
+
+
+def _create_multiwalker_vecenv(cfg, num_actors, device=None, **kwargs):
+    """PettingZoo SISL multiwalker (:426-437; the reference's multiwalker_env
+    binding, envs/multiwalker.py), stepped on the host."""
+    from rl_games_tpu_torch.envs.host.pettingzoo_env import MultiWalkerVecEnv
+
+    merged = {**cfg.get("env_config", {}), **kwargs}
+    merged.pop("env_name", None)
+    return MultiWalkerVecEnv(num_actors, **merged)
+
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _create_connect4_vecenv(cfg, num_actors, device=None, **kwargs):
+    """Connect-four self-play over pettingzoo.classic (:440-474; the
+    reference's ma/ppo_connect4_self_play.yaml 'connect4_env' binding). The
+    opponent's network comes from env_config['network_params'] or the
+    training YAML at env_config['config_path'] (a path that does not exist
+    as given is read against the repo root); it sits where the host path
+    puts the policy (``host_inference_device`` of that YAML, on ``device``)."""
+    from rl_games_tpu_torch.common.host_inference import rollout_device
+    from rl_games_tpu_torch.envs.host.connect4_env import Connect4SelfPlayVecEnv
+    from rl_games_tpu_torch.utils.device import resolve_device
+
+    merged = {**cfg.get("env_config", {}), **kwargs}
+    for k in ("name", "env_name", "self_play", "is_human", "random_agent"):
+        merged.pop(k, None)
+    network_params = merged.pop("network_params", None)
+    config_path = merged.pop("config_path", None)
+    if network_params is None and config_path:
+        import yaml
+
+        path = config_path if os.path.exists(config_path) else os.path.join(REPO_ROOT, config_path)
+        with open(path) as f:
+            network_params = yaml.safe_load(f)["params"]
+    opp_device = None
+    if network_params is not None:
+        preference = (network_params.get("config") or {}).get("host_inference_device", "auto")
+        opp_device = rollout_device(preference, resolve_device(device), network_params.get("network", {}))
+    return Connect4SelfPlayVecEnv(num_actors, network_params=network_params, device=opp_device, **merged)
+
+
+register_vecenv_type("JAX_MULTIAGENT", _create_multiagent_vecenv)
+register_vecenv_type("JAX_SELFPLAY", _create_selfplay_vecenv)
+register_vecenv_type("MULTIWALKER", _create_multiwalker_vecenv)
+register_vecenv_type("CONNECT4", _create_connect4_vecenv)
+register("cooperative_gather", {"vecenv_type": "JAX_MULTIAGENT",
+                                "env_creator": _creator("multiagent", "CooperativeGather")})
+register("competitive_forage", {"vecenv_type": "JAX_SELFPLAY"})
+register("multiwalker_env", {"vecenv_type": "MULTIWALKER"})
+register("connect4_env", {"vecenv_type": "CONNECT4"})
 
 
 def _create_test_env(device=None, name="TestRnnEnv-v0", multi_obs_space=False, aux_loss=False, **kwargs):

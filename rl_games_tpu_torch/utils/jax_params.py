@@ -90,10 +90,15 @@ and with ``network.normalization`` the trunks' LayerNorms too:
            critic's Q{1,2}_trunk alike; a D2RL trunk's at
            trunk.0.norm_layers.{i})
 
+``jax_slots_to_state_dict`` converts the JAX self-play env's opponent slots
+({'params', 'norm'} with a leading env axis) into the port's stacked slots,
+each env's by ``jax_to_state_dict``.
+
 It reads only numpy arrays and plain attributes, so it needs neither JAX nor
 the JAX package.
 """
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional
 
@@ -514,3 +519,30 @@ def rnd_jax_to_state_dict(target_params: Any, pred_params: Any, rms: Optional[An
     if rms is not None:
         sd.update(_rms(rms, "running_mean_std."))
     return sd
+
+
+def _index(tree, i: int):
+    """Entry ``i`` of every leaf of a tree of dicts, dataclasses and arrays
+    with a leading env axis."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: _index(getattr(tree, f.name), i) for f in dataclasses.fields(tree)})
+    return np.asarray(tree)[i]
+
+
+def jax_slots_to_state_dict(opp_weights: Any, network: Optional[dict] = None,
+                            input_shape=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's self-play opponent slots (``SelfPlayVecEnvState.
+    opp_weights``: {'params', 'norm'}, each leaf with a leading env axis,
+    numpy) as the port's (``envs/device/selfplay.SelfPlayVecEnvState.
+    opp_weights``): each key of the model's ``state_dict`` stacked [N, ...],
+    every env's slot converted as ``jax_to_state_dict`` converts one."""
+    first = opp_weights["params"]
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    per_env = [jax_to_state_dict(_index(opp_weights["params"], i), _index(opp_weights["norm"], i), network,
+                                 input_shape) for i in range(np.asarray(first).shape[0])]
+    return {k: torch.stack([sd[k] for sd in per_env]) for k in per_env[0]}

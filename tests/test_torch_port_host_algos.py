@@ -440,18 +440,22 @@ CV_CONFIG = {"learning_rate": 1e-3, "mini_epochs": 1, "minibatch_size": 16,
 
 @pytest.mark.parametrize("config, item", [
     ({"vecenv_type": "MULTIWALKER"}, "A12"),
-    ({"central_value_config": CV_CONFIG}, None),
+    ({"central_value_config": CV_CONFIG}, "A9"),
 ], ids=["config0-A12", "config1-A9"])
 def test_ppo_host_refusals(config, item):
-    """What the host path refuses names its item; a central value net over
-    a host env (item None, A9) is built."""
-    make = lambda: PPOAgent("t", discrete_params(num_actors=2, horizon_length=8, minibatch_size=16, **config),  # noqa: E731
-                            device="cpu")
-    if item is None:
-        assert make().has_central_value
+    """The host path refuses none of these now; ``item`` names the ROADMAP
+    item that ported each: a central value net over a host env (A9) is
+    built, and PPO over pettingzoo's multiwalker (A12's second part) trains
+    a host epoch over its 2 envs x 3 walkers, 6 rows."""
+    if item == "A9":
+        assert PPOAgent("t", discrete_params(num_actors=2, horizon_length=8, minibatch_size=16, **config),
+                        device="cpu").has_central_value
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make()
+    agent = PPOAgent("t", continuous_params(env_name="multiwalker_env", num_actors=2, horizon_length=8,
+                                            minibatch_size=16, **config), device="cpu")
+    assert agent.is_host_env and agent.num_agents == 3 and agent.batch_size == 8 * 6
+    state, metrics = agent.host_train_epoch(agent.init_state())
+    assert np.isfinite(float(metrics["a_loss"])) and state.current_rewards.shape == (6, 1)
 
 
 def test_ppo_host_dict_observations_wait_for_a8():

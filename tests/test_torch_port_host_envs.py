@@ -410,28 +410,49 @@ def test_external_simulators_raise_import_error(name):
         registry.create_vec_env(name, 2)
 
 
+def space_summary(space):
+    """A space's kind and shapes (a dict space's per key), its discrete
+    sizes and bounds, comparable across the two packages."""
+    if hasattr(space, "spaces"):
+        return {k: space_summary(v) for k, v in space.spaces}
+    return (type(space).__name__, getattr(space, "shape", None), getattr(space, "n", None),
+            np.asarray(getattr(space, "low", 0.0)).tolist(), np.asarray(getattr(space, "high", 0.0)).tolist())
+
+
 @pytest.mark.parametrize("name, vtype, item", [
     ("multiwalker_env", None, "A12"),
     ("connect4_env", None, "A12"),
     ("CartPole-v1", "JAX_SELFPLAY", "A12"),
-    ("test_dict_obs_env", None, None),
+    ("test_dict_obs_env", None, "A8"),
 ], ids=["multiwalker_env-None-A12", "connect4_env-None-A12", "CartPole-v1-JAX_SELFPLAY-A12",
         "test_dict_obs_env-None-A8"])
 def test_unported_envs_raise(name, vtype, item):
-    """What the registry refuses names its item; test_dict_obs_env, ported
-    in A8 (a) (item None), binds a device env with the JAX env's dict
-    observation space."""
-    if item is None:
-        from rl_games_tpu.envs import registry as jregistry
+    """The registry refuses none of these now; ``item`` names the ROADMAP
+    item that ported each. Each binds the env the JAX registry binds, with
+    its env_info: the multiwalker and connect-four host envs and, under
+    JAX_SELFPLAY, the self-play vec env around the name's registered env
+    (CartPole here, in both packages; CompetitiveForage for a name without
+    a creator) (A12's second part); test_dict_obs_env's dict observation
+    space (A8 (a))."""
+    from rl_games_tpu.envs import registry as jregistry
 
-        info = registry.create_vec_env(name, 2, vecenv_type=vtype, device="cpu").get_env_info()
-        jinfo = jregistry.create_vec_env(name, 2, vecenv_type=vtype).get_env_info()
-        assert ({k: v.shape for k, v in info.observation_space.spaces}
-                == {k: v.shape for k, v in jinfo.observation_space.spaces} == {"info": (4,), "pos": (2,)})
-        assert info.action_space.n == jinfo.action_space.n == 4
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        registry.create_vec_env(name, 2, vecenv_type=vtype)
+    env = registry.create_vec_env(name, 2, vecenv_type=vtype, device="cpu")
+    jenv = jregistry.create_vec_env(name, 2, vecenv_type=vtype)
+    info, jinfo = env.get_env_info(), jenv.get_env_info()
+    for field in ("observation_space", "action_space", "state_space"):
+        got, want = getattr(info, field), getattr(jinfo, field)
+        assert (got is None) == (want is None), field
+        if got is not None:
+            assert space_summary(got) == space_summary(want), field
+    assert (info.agents, info.value_size) == (jinfo.agents, jinfo.value_size)
+    assert type(env.env if hasattr(env, "env") else env).__name__ == type(jenv.env if hasattr(jenv, "env")
+                                                                            else jenv).__name__
+    if name == "test_dict_obs_env":
+        assert {k: v.shape for k, v in info.observation_space.spaces} == {"info": (4,), "pos": (2,)}
+        assert info.action_space.n == 4
+    for e in (env, jenv):
+        if hasattr(e, "close"):
+            e.close()
 
 
 def test_device_type_needs_a_registered_env():

@@ -3,7 +3,7 @@ chip_smoke.py imports jax, flax, optax or the JAX package, and the port
 trains, checkpoints and plays a fused-MLP policy, and a config whose
 import_modules names the JAX package's test network, through its Runner on
 the CPU in a process where importing jax fails. Importing the port, its host
-envs' bridges included, needs neither gymnasium nor dm_control: only the
+envs' bridges included, needs none of gymnasium, dm_control and pettingzoo: only the
 modules that step their envs import them, when they are used."""
 
 import ast
@@ -74,11 +74,11 @@ def test_testnet_config_runs_with_jax_blocked(tmp_path):
     through Runner.run in a process where importing jax, flax, optax or
     rl_games_tpu fails: the name maps to the port's module. The connect4
     self-play config's network module (rl_games_tpu.models.connect4_network)
-    maps to the port's as well and registers connect4net; the config is
-    refused later, at its env and self-play, naming their ROADMAP.md item,
-    again without importing the JAX package."""
+    maps to the port's as well and registers connect4net; the config, shrunk
+    to 2 envs x 8, trains an epoch over its connect-four env, again without
+    importing the JAX package."""
     code = (
-        "import sys, glob, re, yaml\n"
+        "import sys, glob, yaml\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'rl_games_tpu'):\n"
         "    sys.modules[name] = None  # any import of these now raises\n"
         "import torch\n"
@@ -97,11 +97,10 @@ def test_testnet_config_runs_with_jax_blocked(tmp_path):
         "runner.load(doc)\n"
         "from rl_games_tpu_torch.models.model_builder import NETWORK_REGISTRY\n"
         "assert NETWORK_REGISTRY['connect4net'].__module__ == 'rl_games_tpu_torch.models.connect4_network'\n"
-        "try:\n"
-        "    runner.create_agent()\n"
-        "    raise SystemExit('the connect4 self-play config was not refused')\n"
-        "except NotImplementedError as e:\n"
-        "    assert re.search(r'ROADMAP\\.md, item A12', str(e)), e\n"
+        "runner.params['config'].update(num_actors=2, horizon_length=8, minibatch_size=16, mini_epochs=1)\n"
+        "agent = runner.create_agent()\n"
+        "state, metrics = agent.make_train_fn()(agent.init_state())\n"
+        "assert torch.isfinite(metrics['a_loss']) and type(agent.vec_env).__name__ == 'Connect4SelfPlayVecEnv'\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'rl_games_tpu')\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"
     )
@@ -114,19 +113,24 @@ def test_testnet_config_runs_with_jax_blocked(tmp_path):
 def test_host_modules_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {f"rl_games_tpu_torch/envs/host/{m}.py" for m in ("cpuenv", "gymnasium_env", "wrappers",
-                                                           "dm_control_env")} <= names
+                                                           "dm_control_env", "connect4_env", "pettingzoo_env")} <= names
+    # the self-play and multi-agent modules
+    assert {"rl_games_tpu_torch/envs/device/selfplay.py", "rl_games_tpu_torch/envs/device/multiagent.py",
+            "rl_games_tpu_torch/utils/self_play.py"} <= names
     assert {"rl_games_tpu_torch/common/host_inference.py", "rl_games_tpu_torch/utils/native_build.py"} <= names
 
 
 def test_port_import_needs_neither_gymnasium_nor_dm_control():
     code = (
         "import sys\n"
-        "for name in ('gymnasium', 'dm_control'):\n"
+        "for name in ('gymnasium', 'dm_control', 'pettingzoo'):\n"
         "    sys.modules[name] = None  # any import of these now raises\n"
         "import rl_games_tpu_torch, rl_games_tpu_torch.__main__, rl_games_tpu_torch.runner\n"
         "import rl_games_tpu_torch.algos.ppo, rl_games_tpu_torch.algos.sac, rl_games_tpu_torch.common.player\n"
         "import rl_games_tpu_torch.envs.registry, rl_games_tpu_torch.common.host_inference\n"
         "import rl_games_tpu_torch.envs.host.cpuenv, rl_games_tpu_torch.envs.host.gymnasium_env\n"
+        "import rl_games_tpu_torch.envs.host.connect4_env, rl_games_tpu_torch.envs.host.pettingzoo_env\n"
+        "import rl_games_tpu_torch.envs.device.selfplay, rl_games_tpu_torch.utils.self_play\n"
         "import chip_smoke\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}

@@ -16,7 +16,7 @@ On the same numpy-seeded inputs:
   gradients with the JAX params (GroupNorm's epsilon 1e-6, the policy
   conv's flatten permuted), at rtol 1e-5 / 1e-4; ref/ma/
   ppo_connect4_self_play_resnet.yaml loads its network through
-  ``import_modules`` and is refused later, at its env and self-play (A12);
+  ``import_modules`` and builds its agent over the CONNECT4 env;
 - ``network.name: rnd_curiosity`` raises the JAX package's ValueError.
 """
 
@@ -203,15 +203,16 @@ def test_connect4net_matches_jax():
 def test_connect4_resnet_config_loads_its_network():
     """ref/ma/ppo_connect4_self_play_resnet.yaml: its import_modules entry
     (rl_games_tpu.models.connect4_network) imports the port's module, which
-    registers connect4net; the config is refused at its CONNECT4 env and
-    self-play (ROADMAP.md, item A12)."""
+    registers connect4net; since A12's second part the config builds its
+    agent, a connect4net over the CONNECT4 env with its masks."""
     doc = yaml.safe_load((ROOT / "rl_games_tpu/configs/ref/ma/ppo_connect4_self_play_resnet.yaml").read_text())
     runner = Runner(device="cpu")
     runner.load(doc)
     net = ModelBuilder().load(runner.params, actions_num=7, input_shape=(6, 7, 2), device="cpu").a2c_network
     assert type(net).__name__ == "Connect4Net" and net.blocks == doc["params"]["network"]["blocks"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, item A12"):
-        runner.create_agent()
+    agent = runner.create_agent()
+    assert type(agent.model.a2c_network).__name__ == "Connect4Net" and agent.use_action_masks
+    assert type(agent.vec_env).__name__ == "Connect4SelfPlayVecEnv" and agent.vec_env.num_envs == 4
 
 
 def test_rnd_curiosity_is_no_policy_network():

@@ -123,20 +123,39 @@ def test_sigma_override():
 
 @pytest.mark.parametrize("make, item", [
     (lambda: SACPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "CONNECT4"}},
-                       device="cpu"), "A12"),
-    (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "JAX_SELFPLAY"}},
-                       device="cpu"), "A12"),
+                       device="cpu"), "SAC requires a continuous action space"),
+    (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "JAX_SELFPLAY",
+                                                      "env_name": "competitive_forage"}}, device="cpu"), "plays"),
     (lambda: PpoPlayer(player_params(), device="cpu").make_export_policy(), "A12"),
     (lambda: resnet_catcher_params(), None),
 ], ids=["make0-A12", "make1-A12", "make2-A12", "make3-A8"])
 def test_unported_player_paths_raise(make, item):
-    """What the player refuses names its ROADMAP item. The resnet builder's
-    network, refused until A8 (b) (make3), plays: ppo_pixelcatcher.yaml with
+    """What the player refuses names its ROADMAP item: export (make2, A12).
+    The self-play envs came with A12's second part: SAC's player on the
+    connect-four env stops at SAC's own ValueError, its actions being
+    discrete (make0; the JAX SACPlayer has no action shape to read there
+    either), and the PPO player on competitive_forage (JAX_SELFPLAY) plays
+    a mirror match of its policy with the MLP plain (make1); with the MLP
+    fused the opponent seat is refused (A14). The resnet builder's network,
+    refused until A8 (b) (make3), plays: ppo_pixelcatcher.yaml with
     resnet_actor_critic (depths [4, 8], MLP [16]) on 16x16x1 frames, its
     deterministic actions for the JAX player's observations as the JAX
     player's with the same weights, step by step for 20 steps."""
-    if item is not None:
+    if item == "plays":
+        with pytest.raises(NotImplementedError, match=r"mlp\.fused .*item A14"):
+            make()
+        params = player_params()
+        params["network"]["mlp"]["fused"] = False
+        params["config"].update(vecenv_type="JAX_SELFPLAY", env_name="competitive_forage")
+        player = PpoPlayer(params, device="cpu")
+        assert player.vec_env._policy is not None and np.isfinite(player.run(games_num=4))
+        return
+    if item == "A12":
         with pytest.raises(NotImplementedError, match=f"item {item}"):
+            make()
+        return
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
             make()
         return
     params = make()

@@ -194,15 +194,20 @@ A9_OPTIONS = {
     ("vecenv_type", "MULTIWALKER"),
 ])
 def test_unported_options_raise(key, value):
-    """MULTIWALKER (A12) is refused; the options A9 ported build an agent
+    """None of these is refused now. MULTIWALKER (A12's second part) builds
+    the flagship network over pettingzoo's multiwalker and trains a host
+    epoch over its 2 envs x 3 walkers; the options A9 ported build an agent
     that trains an epoch (the central value net and RND with a network
     they can build: Ant2D gives no 'states', so its central net reads the
     observations)."""
     params = flagship_params()
     if key == "vecenv_type":
         params["config"][key] = value
-        with pytest.raises(NotImplementedError, match="not ported"):
-            PPOAgent("port", params, device="cpu")
+        params["config"].update(num_actors=2, minibatch_size=48)
+        agent = PPOAgent("port", params, device="cpu")
+        assert agent.num_rows == 6 and agent.batch_size == 16 * 6
+        state, metrics = agent.host_train_epoch(agent.init_state())
+        assert np.isfinite(float(metrics["a_loss"]))
         return
     params["config"][key] = A9_OPTIONS.get(key, value)
     params["config"].update(num_actors=8, minibatch_size=64)

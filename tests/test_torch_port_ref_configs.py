@@ -51,15 +51,16 @@ MUST_RUN = {
     # dict observations, the custom test networks, normalized SAC torsos (A8 (a))
     "ref/test/test_asymmetric_discrete_mhv_mops.yaml", "ref/test/test_discrite_testnet_aux_loss.yaml",
     "ref/mujoco/sac_ant_tuned.yaml",
+    # multi-agent PPO over pettingzoo's multiwalker, connect-four self-play (A12's second part)
+    "ref/ppo_multiwalker.yaml", "ref/ma/ppo_connect4_self_play.yaml", "ref/ma/ppo_connect4_self_play_resnet.yaml",
 }
 # simulators missing: their networks must build (A8 (b): the Impala tower, a
 # conv stack's flatten straight into an LSTM)
 MUST_BUILD = {"ref/atari/ppo_breakout_torch_impala.yaml", "ref/atari/ppo_pong_envpool_resnet.yaml",
               "ref/atari/ppo_space_invaders_resnet.yaml", "ref/minigrid/lava_rnn_img.yaml"}
-# the refusals that name a later item: connect4net came in A8 (b); the
-# connect4 env and self-play wait for A12
-REFUSED_AT = {"ref/ma/ppo_connect4_self_play_resnet.yaml": "A12", "ref/ma/ppo_connect4_self_play.yaml": "A12",
-              "ref/ppo_multiwalker.yaml": "A12"}
+# the refusals that name a later item: none is left since the connect-four
+# and multiwalker configs came with A12's second part
+REFUSED_AT = {}
 MISSING_SIMULATORS = ("ale_py", "envpool", "brax", "SMAC", "mani_skill", "mjlab", "minigrid", "myosuite")
 
 

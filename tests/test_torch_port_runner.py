@@ -290,15 +290,18 @@ def test_cli_end_to_end(tmp_path):
     ({"export": True}, {}, "A12"),
     ({"train": True, "load_critic_only": True}, {}, None),
     ({"train": True}, {"algo": {"name": "sac"},
-                       "config": {"env_name": "multiwalker_env", "num_actors": 2}}, "A12"),
+                       "config": {"env_name": "multiwalker_env", "num_actors": 2}}, "SAC takes one agent an env"),
     ({"play": True}, {"algo": {"name": "sac"},
-                      "config": {"env_name": "connect4_env", "num_actors": 2}}, "A12"),
+                      "config": {"env_name": "connect4_env", "num_actors": 2}}, "SAC requires a continuous action"),
 ], ids=["args0-params_patch0-A12", "args1-params_patch1-A12", "args2-params_patch2-A9", "args3-params_patch3-A12",
         "args4-params_patch4-A12"])
 def test_unported_verbs_raise(tmp_path, args, params_patch, item):
-    """The verbs the port lacks name their item; load_critic_only (item
-    None, A9) without a checkpoint trains, as the JAX runner does, and
-    --seeds (A12) trains both members and returns their checkpoints."""
+    """The verbs the port lacks name their item (export, A12);
+    load_critic_only (item None, A9) without a checkpoint trains, as the
+    JAX runner does, and --seeds (A12) trains both members and returns
+    their checkpoints. The multiwalker and connect-four envs came with
+    A12's second part: SAC stops at them with its own ValueError, as the
+    JAX package's SAC fails there (N · A rows; discrete actions)."""
     params = {**tiny_params(tmp_path), **params_patch}
     runner = Runner(device="cpu")
     runner.load({"params": params})
@@ -310,21 +313,28 @@ def test_unported_verbs_raise(tmp_path, args, params_patch, item):
         assert paths == [str(tmp_path / "tiny" / "nn" / f"tiny_seed{s}.pth") for s in (1, 2)]
         assert all(ckpt.peek_meta(p)["epoch"] == 2 for p in paths)
         return
+    if item.startswith("SAC"):
+        with pytest.raises(ValueError, match=item):
+            runner.run(args)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         runner.run(args)
 
 
 @pytest.mark.parametrize("key, value, item", [
     ("pbt", {"enabled": True, "interval_steps": 128}, "pbt"),
-    ("self_play_config", {"update_score": 1}, "A12"),
+    ("self_play_config", {"update_score": -100, "games_to_check": 0, "env_update_num": 2}, "A12"),
     ("normalize_rms_advantage", True, None),
     ("features", {"soft_augmentation": {"transform": {"name": "gaussian_noise"}}}, None),
 ], ids=["pbt-value0-A12", "self_play_config-value1-A12", "normalize_rms_advantage-True-A2", "features-value3-A9"])
-def test_unported_train_options_raise(tmp_path, key, value, item):
-    """The train options the port lacks name their item; the ones A2 and
-    A9 ported (item None) train, and pbt.enabled (A12) trains its 2 epochs
-    with its record in the workspace under train_dir and no adoption (it is
-    the population's only member)."""
+def test_unported_train_options_raise(tmp_path, capsys, key, value, item):
+    """None of these train options is refused now: the ones A2 and A9
+    ported (item None) train; pbt.enabled (A12) trains its 2 epochs with its
+    record in the workspace under train_dir and no adoption (it is the
+    population's only member); self_play_config (A12's second part) trains
+    2 epochs on competitive_forage with a plain MLP and pushes into the
+    opponents' slots after each; the fused MLP is refused on the opponent
+    seat (A14)."""
     params = tiny_params(tmp_path, **{key: value})
     runner = Runner(device="cpu")
     runner.load({"params": params})
@@ -337,8 +347,17 @@ def test_unported_train_options_raise(tmp_path, key, value, item):
         assert record["frame"] == 2 * 128 and set(record["params"]) == {"learning_rate", "entropy_coef"}
         assert os.listdir(tmp_path / "pbt_workspace") == ["policy_000.pbt"]
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    params["config"]["env_name"] = "competitive_forage"
+    runner = Runner(device="cpu")
+    runner.load({"params": params})
+    with pytest.raises(NotImplementedError, match=r"mlp\.fused .*item A14"):
         runner.run({"train": True})
+    params["network"]["mlp"]["fused"] = False
+    runner = Runner(device="cpu")
+    runner.load({"params": params})
+    capsys.readouterr()
+    assert runner.run({"train": True})[1] == 2
+    assert capsys.readouterr().out.count("— updating opponent weights") == 2
 
 
 class HookLog(AlgoObserver):

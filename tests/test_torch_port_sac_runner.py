@@ -167,19 +167,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda p: SACAgent("t", {**p, "config": {**p["config"], "vecenv_type": "MULTIWALKER"}}, device="cpu"), "A12"),
-    (lambda p: SACPlayer({**p, "config": {**p["config"], "vecenv_type": "CONNECT4"}}, device="cpu"), "A12"),
+    (lambda p: SACAgent("t", {**p, "config": {**p["config"], "vecenv_type": "MULTIWALKER"}}, device="cpu"),
+     "SAC takes one agent an env"),
+    (lambda p: SACPlayer({**p, "config": {**p["config"], "vecenv_type": "CONNECT4"}}, device="cpu"),
+     "SAC requires a continuous action space"),
     (lambda p: SACAgent("t", {**p, "network": {**p["network"], "normalization": "layer_norm"}}, device="cpu"), None),
     (lambda p: SACAgent("t", {**p, "network": {**p["network"], "normalization": "layer_norm",
                                                "mlp": {**p["network"]["mlp"], "d2rl": True}}}, device="cpu"), None),
 ], ids=["host_env_agent", "host_env_player", "normalization", "d2rl"])
 def test_unported_sac_options_raise(make, item):
-    """What SAC refuses names its item; the normalized torsos A8 (a) ported
-    (item None: plain and D2RL) build their LayerNorms and run an update
-    epoch (their updates against the JAX package:
-    test_torch_port_sac.py::test_layer_norm_update_matches_jax)."""
+    """The multi-agent and self-play host envs (A12's second part) build,
+    and SAC stops at them with its own ValueError, as the JAX package's SAC
+    fails there: multiwalker's 3 walkers an env (the JAX SAC reshapes the
+    N · A rewards to [num_actors]), connect four's discrete actions. The
+    normalized torsos A8 (a) ported (item None: plain and D2RL) build their
+    LayerNorms and run an update epoch (their updates against the JAX
+    package: test_torch_port_sac.py::test_layer_norm_update_matches_jax)."""
     if item is not None:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        with pytest.raises(ValueError, match=item):
             make(pendulum("unused"))
         return
     agent = make(pendulum("unused", num_warmup_steps=1))
