@@ -186,6 +186,30 @@ to a plain version):
                pettingzoo and Box2D, which the card's machine lacks: they run
                in the CPU tests alone.
 
+25. export  — policy export through torch.export (A12's last part): (a) the
+               fused flagship (8192 Ant2D envs) trained 1 epoch through
+               Runner.run, exported through Runner.run({"export": True}) to a
+               .pt2 and loaded in this process: at B = 1, 7 and 8192 its
+               actions against the player's deterministic forward within
+               rtol = atol = 2e-5, one fused launch a call (the chain is the
+               registered operator rl_games_tpu_torch::fused_mlp in the
+               exported graph), a call at 8192 timed beside the player's
+               forward; (b) sac_ant2d.yaml after its warmup and 1 update
+               epoch, the actions inside the bounds (no kernel); (c)
+               ref/ppo_walker_rnn.yaml fused ([rnn] (d)'s config) from zero
+               states; (d) (a)'s artifact in a fresh process that imports only
+               rl_games_tpu_torch.utils.export; and the operator's host cost
+               against a direct call at B = 16 and 8192.
+26. jax_ckpt — tests/data/jax_ppo_cartpole_fused.ckpt (the JAX package's
+               ppo_cartpole.yaml, fused, after 2 epochs; written by
+               tools/write_jax_ckpt_fixture.py) restored on the card and on the
+               CPU: 200 deterministic steps with equal actions, --play, 2
+               resumed epochs through Runner.run (epochs 3 and 4; 1 GAE and 65
+               fused launches an epoch), --export of the fixture.
+27. replay   — common/experience.py's prioritized replay at capacity 65,536,
+               observations of 27, batch 256, on the card against the CPU with
+               the same noise: indexes equal, weights within 1e-6.
+
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
 give it, the Pong model's forward and one minibatch update on the card
@@ -228,7 +252,7 @@ MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
 phase 14's config on the card against the CPU (same weights, CPUENV seed
 and action noise), then one Adam step of its first minibatch.
 
-Launch counts are zeroed just before each of phases 6-24's runs and read
+Launch counts are zeroed just before each of phases 6-26's runs and read
 just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
@@ -247,6 +271,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3742,6 +3767,342 @@ def reference_multiagent():
                              f"loss {dloss}, gradients {dgrad}")
 
 
+JAX_FIXTURE = os.path.join("tests", "data", "jax_ppo_cartpole_fused.ckpt")  # tools/write_jax_ckpt_fixture.py
+EXPORT_BATCHES = (1, 7, 8192)
+
+
+def train_to_checkpoint(tag: str, params: dict, epochs: int, train_dir: str, checkpoint=None):
+    """``params`` trained ``epochs`` epochs through Runner.run into
+    ``train_dir`` (from ``checkpoint`` where given). Returns the runner, the
+    last checkpoint and the training's launches, counted from 0 just before
+    it and read just after."""
+    from rl_games_tpu_torch.runner import Runner
+
+    params["config"].update(train_dir=train_dir, max_epochs=epochs)
+    runner = Runner()  # the default device: the card
+    runner.load({"params": params})
+    zero_launches()  # the training run starts here
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, epoch_num = runner.run({"train": True, "checkpoint": checkpoint})
+    torch.cuda.synchronize()
+    launches = launches_now()  # read right after
+    name = params["config"]["name"]
+    nn_dir = os.path.join(train_dir, name, "nn")
+    final = [n for n in sorted(os.listdir(nn_dir)) if re.fullmatch(f"last_{name}_ep_{epochs}(_rew_.*)?\\.pth", n)]
+    if epoch_num != epochs or len(final) != 1:
+        raise AssertionError(f"[{tag}] trained to epoch {epoch_num} of {epochs}; checkpoints {os.listdir(nn_dir)}")
+    return runner, os.path.join(nn_dir, final[0]), launches
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time per call of fn(), in µs: the enqueue alone, the card synchronised
+    before and after, with fewer calls than the launch queue holds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def export_check(tag: str, runner, checkpoint: str, fused_per_call: int, batches=EXPORT_BATCHES, bounds=False,
+                 device_timing=False):
+    """Runner.run's --export of ``checkpoint``, the .pt2 loaded in this
+    process (utils/export.load_policy): at each batch its actions against the
+    player's deterministic forward on the same observations (rtol = atol =
+    2e-5; discrete actions equal), the fused launches of each call (counted
+    from 0 just before it), with ``bounds`` the actions inside the env's
+    bounds. Times a call at the largest batch beside the player's forward
+    on the host's clock and, with ``device_timing``, its device time and
+    kernels a call. Returns the artifact's path and the per-call results."""
+    from rl_games_tpu_torch.utils.export import load_policy
+
+    path = runner.run({"export": True, "checkpoint": checkpoint, "export_path": checkpoint + ".pt2"})
+    with open(path, "rb") as f:
+        blob = f.read()
+    policy = load_policy(blob)
+    player = runner.create_player()
+    player.restore(checkpoint)
+    player.deterministic = True
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for batch in batches:
+        obs = torch.randn((batch, *player.obs_shape), generator=gen, device="cuda") * 2.0
+        zero_launches()  # the exported call starts here
+        got = policy(obs)
+        torch.cuda.synchronize()
+        launches = launches_now()  # read right after
+        with torch.no_grad():
+            want = player._play_actions(None, obs)
+        if got.is_floating_point():
+            ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
+            err = float((got - want).abs().max())
+        else:
+            ok, err = bool(torch.equal(got, want)), float((got != want).sum())
+        if bounds:
+            space = player.env_info.action_space
+            low = torch.as_tensor(np.asarray(space.low, np.float32), device="cuda")
+            high = torch.as_tensor(np.asarray(space.high, np.float32), device="cuda")
+            ok = ok and bool(((got >= low) & (got <= high)).all())
+        if not ok or launches != {"gae": 0, "fused_mlp": fused_per_call} or tuple(got.shape[:1]) != (batch,):
+            raise AssertionError(f"[export] {tag} at B = {batch}: shape {tuple(got.shape)}, max |d| {err}, launches "
+                                 f"{launches} (expected {fused_per_call} fused), within bounds required: {bounds}")
+        rows.append({"batch": batch, "max_abs_err": err, "launches": launches["fused_mlp"]})
+    obs = torch.randn((batches[-1], *player.obs_shape), generator=gen, device="cuda")
+    with torch.no_grad():
+        timings = {"export_host_us": host_us_per_call(lambda: policy(obs)),
+                   "player_host_us": host_us_per_call(lambda: player._play_actions(None, obs))}
+        if device_timing:
+            timings["export_device"] = device_time_ms(lambda: policy(obs), 20)
+            timings["player_device"] = device_time_ms(lambda: player._play_actions(None, obs), 20)
+    device = {key: f", {timings[key][0] * 1e3:.2f} us of device time in {timings[key][1]} kernels"
+              for key in ("export_device", "player_device") if key in timings}
+    print(f"[export] {tag}: {os.path.basename(path)} ({len(blob):,} bytes); the artifact against the player's "
+          f"deterministic forward: " + ", ".join(f"B = {r['batch']} max |d| {r['max_abs_err']:.2e} with "
+                                                 f"{r['launches']} fused launch(es)" for r in rows)
+          + f"; at B = {batches[-1]} a call {timings['export_host_us']:.1f} us on the host"
+          f"{device.get('export_device', '')}; the player's forward {timings['player_host_us']:.1f} us"
+          f"{device.get('player_device', '')}")
+    return path, rows, timings
+
+
+def operator_host_cost(rounds: int = 3):
+    """The host cost of one call through the registered operator
+    (torch.ops.rl_games_tpu_torch.fused_mlp) against the direct call of the
+    same implementation (what the eager no-grad path takes), at B = 16 and
+    8192 over the flagship chain, in turns (direct, operator, operator,
+    direct), without autograd. Returns {batch: (direct µs, operator µs)}."""
+    from rl_games_tpu_torch.ops import fused_mlp
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for batch in (16, 8192):
+        x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, "cuda")
+        with torch.no_grad():
+            calls = {"direct": lambda: fused_mlp.fused_mlp_cuda(x, ws, bs, "elu"),
+                     "operator": lambda: fused_mlp.fused_mlp_op(x, list(ws), list(bs), "elu")}
+            if not torch.equal(calls["direct"](), calls["operator"]()):
+                raise AssertionError(f"[export] the operator and the direct call differ at B = {batch}")
+            times = {"direct": [], "operator": []}
+            for _ in range(rounds):
+                for name in ("direct", "operator", "operator", "direct"):
+                    times[name].append(host_us_per_call(calls[name]))
+        out[batch] = (float(np.median(times["direct"])), float(np.median(times["operator"])))
+        print(f"[export] operator dispatch at B = {batch}: direct call {out[batch][0]:.2f} us, through "
+              f"torch.ops.rl_games_tpu_torch.fused_mlp {out[batch][1]:.2f} us on the host (+{out[batch][1] - out[batch][0]:.2f}"
+              f" us; medians of {2 * rounds} runs of 200 calls each, in turns)")
+    return out
+
+
+FRESH_PROCESS = """
+import sys, json
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "rl_games_tpu"):
+    sys.modules[name] = None  # any import of these now raises
+import torch
+from rl_games_tpu_torch.utils.export import load_policy
+from rl_games_tpu_torch.ops import fused_mlp
+inputs = torch.load(sys.argv[2])
+policy = load_policy(open(sys.argv[1], "rb").read())
+out = {}
+for key, obs in inputs.items():
+    before = fused_mlp.fused_mlp_launches
+    actions = policy(obs.cuda())
+    torch.cuda.synchronize()
+    out[key] = {"launches": fused_mlp.fused_mlp_launches - before, "actions": actions.cpu()}
+torch.save(out, sys.argv[3])
+print(json.dumps(sorted(m for m in sys.modules if m.startswith("rl_games_tpu_torch"))))
+"""
+
+
+def export_fresh_process(path: str, work_dir: str):
+    """(d) the artifact at ``path`` in a new Python process that imports only
+    rl_games_tpu_torch.utils.export (jax, flax, optax, msgpack and the JAX
+    package blocked): its actions at each batch equal this process's, one
+    fused launch a call."""
+    from rl_games_tpu_torch.utils.export import load_policy
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    policy = load_policy(open(path, "rb").read())
+    inputs = {str(b): torch.randn((b, FLAGSHIP_DIMS[0]), generator=gen, device="cuda") for b in EXPORT_BATCHES}
+    here = {k: policy(obs).cpu() for k, obs in inputs.items()}
+    src, dst = os.path.join(work_dir, "obs.pt"), os.path.join(work_dir, "actions.pt")
+    torch.save({k: v.cpu() for k, v in inputs.items()}, src)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_PROCESS, path, src, dst], cwd=root, capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "PYTHONPATH": root})
+    if proc.returncode != 0:
+        raise AssertionError(f"[export] (d) the fresh process failed: {proc.stderr[-3000:]}")
+    there = torch.load(dst)
+    modules = json.loads(proc.stdout.strip().splitlines()[-1])
+    for k in inputs:
+        if there[k]["launches"] != 1 or not torch.equal(there[k]["actions"], here[k]):
+            raise AssertionError(f"[export] (d) B = {k}: {there[k]['launches']} fused launches, actions equal: "
+                                 f"{torch.equal(there[k]['actions'], here[k])}")
+    print(f"[export] (d) a fresh process ({time.perf_counter() - t0:.1f} s) that imported {modules} of the port: "
+          f"actions equal to this process's at B = {', '.join(inputs)}, 1 fused launch a call")
+    return sum(there[k]["launches"] for k in inputs)
+
+
+def phase_export():
+    """[export]: (a) the fused flagship (8192 Ant2D envs) trained 1 epoch
+    through Runner.run, exported through Runner.run({"export": True}) and its
+    .pt2 loaded: at B = 1, 7 and 8192 its actions against the player's
+    deterministic forward within 2e-5 and 1 fused launch a call; a call
+    timed at 8192 beside the player's forward; (b) sac_ant2d.yaml after its
+    warmup and 1 update epoch: the actions inside the bounds (no kernel);
+    (c) ref/ppo_walker_rnn.yaml on the device Walker2D, fused, from zero
+    states ([rnn] (d)'s config), 1 epoch; (d) (a)'s artifact in a fresh
+    process. Also the operator's host cost against a direct call."""
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as train_dir:
+        params = fused_flagship_params()
+        params["config"].update(name="chip_smoke_export", player={"deterministic": True})
+        runner, checkpoint, train = train_to_checkpoint("export (a)", params, 1, train_dir)
+        if train != {"gae": 1, "fused_mlp": 33}:
+            raise AssertionError(f"[export] (a) training launches {train}, expected 1 GAE and 33 fused")
+        path, rows, timings = export_check("(a) fused flagship", runner, checkpoint, 1, device_timing=True)
+        runs["a"] = {"train": train, "rows": rows, "timings": timings}
+        runs["d"] = {"launches": export_fresh_process(path, train_dir)}
+
+        params = load_config("sac_ant2d.yaml")["params"]
+        params["config"]["name"] = "chip_smoke_export_sac"
+        epochs = params["config"]["num_warmup_steps"] + 1
+        runner, checkpoint, train = train_to_checkpoint("export (b)", params, epochs, train_dir)
+        if train != {"gae": 0, "fused_mlp": 0}:
+            raise AssertionError(f"[export] (b) SAC's training launched {train}: its MLPs are plain, it has no GAE")
+        _, rows, timings = export_check("(b) sac_ant2d.yaml", runner, checkpoint, 0, bounds=True)
+        runs["b"] = {"train": train, "rows": rows, "timings": timings}
+
+        params, changes = rnn_params("d")
+        params["config"]["name"] = "chip_smoke_export_walker"
+        runner, checkpoint, train = train_to_checkpoint("export (c)", params, 1, train_dir)
+        # 256 rollout + 1 bootstrap forwards at B = 16 and 8 minibatch forwards a epoch, 4 x 257 once to time
+        # the rollout (use_diagnostics), as [rnn] (d) counts them
+        if train != {"gae": 1, "fused_mlp": 265 + 4 * 257}:
+            raise AssertionError(f"[export] (c) training launches {train}, expected 1 GAE and {265 + 4 * 257} fused")
+        _, rows, timings = export_check("(c) ppo_walker_rnn.yaml (" + changes + ")", runner, checkpoint, 1)
+        runs["c"] = {"train": train, "rows": rows, "timings": timings}
+    runs["operator"] = operator_host_cost()
+    print(f"[export] phase in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def phase_jax_ckpt(play_steps: int = 200, resume_epochs: int = 2):
+    """[jax_ckpt]: the committed fixture (the JAX package's ppo_cartpole.yaml,
+    fused, 2 epochs; tools/write_jax_ckpt_fixture.py) restored by the
+    player on the card and on the CPU: ``play_steps`` deterministic steps on
+    the card's env, each step's actions from both (equal) and their logits
+    (within 2e-5); --play through Runner.run; training resumed through
+    Runner.run for ``resume_epochs`` epochs from the JAX epoch (GAE once an
+    epoch, the fused kernel 65 times); --export of the fixture."""
+    from rl_games_tpu_torch.runner import Runner
+
+    t0 = time.perf_counter()
+    params = load_config("ppo_cartpole.yaml")["params"]
+    params["network"]["mlp"]["fused"] = True
+    params["config"]["player"] = {**params["config"]["player"], "max_steps": play_steps}
+    card, cpu = Runner(), Runner(device="cpu")
+    for runner in (card, cpu):
+        runner.load({"params": copy.deepcopy(params)})
+    players = [runner.create_player() for runner in (card, cpu)]
+    for player in players:
+        player.restore(JAX_FIXTURE)
+    gpu_player, cpu_player = players
+    env_state, obs = gpu_player.vec_env.reset(torch.Generator(device="cuda").manual_seed(5))
+    worst = 0.0
+    zero_launches()  # the player's steps start here
+    with torch.no_grad():
+        for _ in range(play_steps):
+            logits = gpu_player.model.forward_play(obs, deterministic=True)["logits"]
+            actions = torch.argmax(logits, dim=-1)
+            cpu_logits = cpu_player.model.forward_play(obs.cpu(), deterministic=True)["logits"]
+            worst = max(worst, float((logits.cpu() - cpu_logits).abs().max()))
+            if not torch.equal(actions.cpu(), torch.argmax(cpu_logits, dim=-1)) or worst > 2e-5:
+                raise AssertionError(f"[jax_ckpt] the card's restore and the CPU's disagree: logits within {worst}")
+            env_state, obs, _, _, _ = gpu_player.vec_env.step(env_state, actions)
+    torch.cuda.synchronize()
+    steps_launches = launches_now()  # read right after
+    if steps_launches != {"gae": 0, "fused_mlp": play_steps}:
+        raise AssertionError(f"[jax_ckpt] {play_steps} player steps launched {steps_launches}")
+    zero_launches()  # --play starts here
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        mean_reward = card.run({"play": True, "checkpoint": JAX_FIXTURE})
+    torch.cuda.synchronize()
+    play_launches = launches_now()  # read right after
+    if play_launches["fused_mlp"] != gpu_player.steps_needed(gpu_player.games_num) or not math.isfinite(mean_reward):
+        raise AssertionError(f"[jax_ckpt] --play launches {play_launches}, mean reward {mean_reward}")
+    print(f"[jax_ckpt] {JAX_FIXTURE} restored on the card and on the CPU: {play_steps} deterministic steps, actions "
+          f"equal, logits within {worst:.2e}; launches {steps_launches}; --play through Runner.run: "
+          f"{out.getvalue().strip()!r}, launches {play_launches}")
+
+    ends = []
+    with tempfile.TemporaryDirectory() as train_dir:
+        params = copy.deepcopy(params)
+        params["config"].update(train_dir=train_dir, max_epochs=2 + resume_epochs)
+        runner = Runner()
+        runner.load({"params": params})
+        zero_launches()  # the resumed training starts here
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, epoch_num = runner.run({"train": True, "checkpoint": JAX_FIXTURE, "stop_fn": epoch_marker(ends)})
+        torch.cuda.synchronize()
+        train = launches_now()  # read right after
+        times = np.diff([t1, *ends])
+        per_epoch = 32 + 1 + 4 * (16 * 32 // 64)  # ppo_cartpole.yaml: horizon 32, 4 mini-epochs of 8 minibatches
+        if epoch_num != 2 + resume_epochs or train != {"gae": resume_epochs, "fused_mlp": per_epoch * resume_epochs}:
+            raise AssertionError(f"[jax_ckpt] resumed to epoch {epoch_num}, launches {train}; expected epoch "
+                                 f"{2 + resume_epochs}, {resume_epochs} GAE and {per_epoch * resume_epochs} fused")
+        nn_dir = os.path.join(train_dir, params["config"]["name"], "nn")
+        print(f"[jax_ckpt] training resumed from the JAX epoch 2 through Runner.run: epochs 3-{epoch_num}, "
+              f"launches {train}; epochs {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; {sorted(os.listdir(nn_dir))}")
+        checkpoint = os.path.join(train_dir, "fixture.ckpt")
+        shutil.copyfile(JAX_FIXTURE, checkpoint)
+        _, rows, timings = export_check("[jax_ckpt] the fixture", card, checkpoint, 1, batches=(1, 7, 16))
+    print(f"[jax_ckpt] phase in {time.perf_counter() - t0:.1f} s")
+    return {"play_steps": steps_launches, "play": play_launches, "train": train, "epoch_s": times,
+            "export_rows": rows, "export_timings": timings}
+
+
+def phase_replay(capacity: int = 65536, obs_dim: int = 27, batch: int = 256, adds: int = 4):
+    """[replay]: common/experience.py's prioritized add, update and sample
+    at capacity 65,536, observations of 27, batch 256, on the card against
+    the CPU with the same rows, priorities and Gumbel noise: the indexes
+    equal, the weights within 1e-6; the device time of a sample."""
+    from rl_games_tpu_torch.common import experience as E
+
+    gen = torch.Generator().manual_seed(18)
+    states = [E.prioritized_init(capacity, (obs_dim,), (8,), device) for device in ("cuda", "cpu")]
+    rows = capacity * 3 // 8  # the adds wrap past the end
+    for _ in range(adds):
+        obs = torch.randn((rows, obs_dim), generator=gen)
+        act, rew = torch.randn((rows, 8), generator=gen), torch.randn((rows,), generator=gen)
+        done = torch.rand((rows,), generator=gen) < 0.05
+        idx = torch.randint(0, capacity, (batch,), generator=gen)
+        prio = torch.rand((batch,), generator=gen) * 4.0
+        for s in states:
+            E.prioritized_add(s, obs, act, rew, obs + 1.0, done)
+            E.prioritized_update(s, idx, prio)
+    noise = E.gumbel_noise(gen, (batch, capacity))
+    (gb, gw, gi), (cb, cw, ci) = (E.prioritized_sample(s, None, batch, 0.4, noise=noise) for s in states)
+    dw = float((gw.cpu() - cw).abs().max())
+    dp = float((states[0].p_alpha.cpu() - states[1].p_alpha).abs().max())
+    if not (torch.equal(gi.cpu(), ci) and dw <= 1e-6 and torch.equal(gb["obs"].cpu(), cb["obs"])):
+        raise AssertionError(f"[replay] the card's sample differs from the CPU's: indexes equal "
+                             f"{torch.equal(gi.cpu(), ci)}, weights within {dw}")
+    gnoise = noise.cuda()
+    ms, kernels = device_time_ms(lambda: E.prioritized_sample(states[0], None, batch, 0.4, noise=gnoise), 20)
+    print(f"[replay] prioritized replay at capacity {capacity:,}, obs {obs_dim}, batch {batch} ({adds} adds of "
+          f"{rows:,} rows, wrapping; {adds} updates): indexes equal, weights within {dw:.2e}, p_alpha within "
+          f"{dp:.2e} (card against CPU); a sample with the noise given {ms * 1e3:.1f} us of device time in "
+          f"{kernels} kernels")
+    return {"weights_err": dw, "sample_ms": ms}
+
+
 def profile_report(tag: str, prof, wall_us: float, detail: str):
     """The device's busy time and idle share over ``wall_us`` of host time,
     and the device time by kernel, of one torch.profiler session."""
@@ -3866,6 +4227,10 @@ def main():
     population = phase_population(8)
     # self-play and multi-agent PPO (A12, second part)
     selfplay = phase_selfplay(args.epochs)
+    # the rest of A12: policy export, the JAX package's .ckpt, prioritized replay
+    export = phase_export()
+    jax_ckpt = phase_jax_ckpt()
+    phase_replay()
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
@@ -3875,13 +4240,16 @@ def main():
     runs = (plain_launches, train_launches, h_train, a3_launches, pong_launches, breakout_launches, cp_train,
             *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn),
             *(dict_runs[tag]["train"] for tag in dict_runs), *(impala[tag]["train"] for tag in impala), th_train,
-            *(population[tag]["train"] for tag in ("a", "b", "d")), selfplay["a"]["train"], selfplay["c"]["train"])
+            *(population[tag]["train"] for tag in ("a", "b", "d")), selfplay["a"]["train"], selfplay["c"]["train"],
+            export["a"]["train"], export["c"]["train"], jax_ckpt["train"])
     # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn], [dict], [impala] and
     # [twohot] run 3; [selfplay] (a) --epochs, (c) 3
     epochs_trained = ((args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
                       + (3,) * len(rnn) + (3,) * len(dict_runs) + (3,) * len(impala) + (3,)
                       # [population]: its runs' member epochs, each with its own GAE launch
-                      + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d")) + (args.epochs, 3))
+                      + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d")) + (args.epochs, 3)
+                      # [export] (a) and (c) 1 epoch each, [jax_ckpt] 2 resumed epochs
+                      + (1, 1, 2))
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
@@ -3903,7 +4271,11 @@ def main():
                                      "population": {tag: population[tag]["train"]["gae"] for tag in ("a", "b", "d")},
                                      # [selfplay]: (a) at [32, 1024, 1], (c) at [16, 3072, 1], once an epoch
                                      "selfplay": selfplay["a"]["train"]["gae"],
-                                     "multiagent": selfplay["c"]["train"]["gae"]}
+                                     "multiagent": selfplay["c"]["train"]["gae"],
+                                     # [export] (a) at [16, 8192, 1], (c) at [256, 16, 1]; (b) SAC none
+                                     "export": {tag: export[tag]["train"]["gae"] for tag in ("a", "b", "c")},
+                                     # [jax_ckpt]: the resumed epochs at [32, 16, 1]
+                                     "jax_ckpt": jax_ckpt["train"]["gae"]}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
@@ -3916,7 +4288,11 @@ def main():
                                + th_train["fused_mlp"] + th_play["fused_mlp"]
                                + population["b"]["train"]["fused_mlp"] + population["d"]["train"]["fused_mlp"]
                                + selfplay["a"]["train"]["fused_mlp"] + selfplay["a"]["play"]["fused_mlp"]
-                               + selfplay["c"]["train"]["fused_mlp"])
+                               + selfplay["c"]["train"]["fused_mlp"]
+                               + sum(export[tag]["train"]["fused_mlp"] + sum(r["launches"] for r in export[tag]["rows"])
+                                     for tag in ("a", "b", "c")) + export["d"]["launches"]
+                               + sum(jax_ckpt[key]["fused_mlp"] for key in ("play_steps", "play", "train"))
+                               + sum(r["launches"] for r in jax_ckpt["export_rows"]))
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -3974,6 +4350,20 @@ def main():
     fused_entry["launches_selfplay"] = {"train": selfplay["a"]["train"]["fused_mlp"],
                                         "play": selfplay["a"]["play"]["fused_mlp"]}
     fused_entry["launches_multiagent"] = {"train": selfplay["c"]["train"]["fused_mlp"]}
+    # [export]: each exported program's call launches the chain once ((b), SAC, none), also in a fresh
+    # process (d); its time at B = 8192 beside the player's forward; the operator's host cost
+    fused_entry["launches_export"] = {
+        tag: {"train": export[tag]["train"]["fused_mlp"], "per_call": {r["batch"]: r["launches"] for r in export[tag]["rows"]}}
+        for tag in ("a", "b", "c")}
+    fused_entry["launches_export"]["fresh_process"] = export["d"]["launches"]
+    timing = export["a"]["timings"]
+    fused_entry["export_flagship_8192"] = {
+        "host_us": timing["export_host_us"], "device_ms": timing["export_device"][0], "kernels": timing["export_device"][1],
+        "player_host_us": timing["player_host_us"], "player_device_ms": timing["player_device"][0],
+        "player_kernels": timing["player_device"][1]}
+    fused_entry["operator_host_us"] = {b: {"direct": d, "operator": o} for b, (d, o) in export["operator"].items()}
+    # [jax_ckpt]: the restored fixture's 200 steps and --play (1 a step), the resumed epochs (65 each), its export
+    fused_entry["launches_jax_ckpt"] = {key: jax_ckpt[key]["fused_mlp"] for key in ("play_steps", "play", "train")}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Port of rl_games_tpu/__main__.py (the reference's runner.py:16-76 argument
 surface: --train/--play/--file/--checkpoint/--seed/--num_actors/--sigma/
---track/--profile), plus ``--device``: the run goes to the CUDA card unless
-another device is named.
+--track/--profile, and the JAX package's --export/--export-path), plus
+``--device``: the run goes to the CUDA card unless another device is named.
+``-c`` also takes a JAX package's ``.ckpt`` (utils/jax_checkpoint.py).
 """
 
 import argparse
@@ -51,8 +52,9 @@ def main(argv=None):
     ap.add_argument("--wandb-entity", type=str, default=None)
     ap.add_argument("--profile", action="store_true",
                     help="capture a torch.profiler trace of the run")
-    ap.add_argument("--export", action="store_true", help="policy export (not ported yet)")
-    ap.add_argument("--export-path", type=str, default=None)
+    ap.add_argument("--export", action="store_true",
+                    help="export -c's deterministic policy through torch.export to a .pt2 file")
+    ap.add_argument("--export-path", type=str, default=None, help="where --export writes (default <checkpoint>.pt2)")
     args = vars(ap.parse_args(argv))
 
     import yaml

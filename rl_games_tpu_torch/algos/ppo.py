@@ -125,6 +125,7 @@ from rl_games_tpu_torch.ops import running_stats as RS
 from rl_games_tpu_torch.ops.gae import compute_gae
 from rl_games_tpu_torch.ops.schedulers import build_scheduler
 from rl_games_tpu_torch.utils import checkpoint as ckpt
+from rl_games_tpu_torch.utils import jax_checkpoint, jax_params
 from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
 from rl_games_tpu_torch.utils.pbt import PbtCfg, PbtManager
 from rl_games_tpu_torch.utils.self_play import SelfPlayManager
@@ -233,6 +234,18 @@ def adam_init(params) -> AdamState:
         mu=[torch.zeros_like(p) for p in params],
         nu=[torch.zeros_like(p) for p in params],
     )
+
+
+def adam_from_named(carried: dict, module: torch.nn.Module, device, prefix: str = "") -> AdamState:
+    """An ``AdamState`` over ``module.parameters()`` from {'count', 'mu',
+    'nu'} whose moments are keyed by parameter name (``prefix`` + the
+    module's names), as ``utils/jax_params`` carries a JAX optimizer state."""
+    named = [(prefix + n, p) for n, p in module.named_parameters()]
+    for n, p in named:
+        if n not in carried["mu"] or tuple(carried["mu"][n].shape) != tuple(p.shape):
+            raise ValueError(f"the checkpoint's Adam moments have no {n} of shape {tuple(p.shape)}")
+    return AdamState(count=carried["count"].to(device), mu=[carried["mu"][n].to(device) for n, _ in named],
+                     nu=[carried["nu"][n].to(device) for n, _ in named])
 
 
 @torch.no_grad()
@@ -1322,6 +1335,8 @@ class PPOAgent:
         checkpoint, nothing else."""
         if not self.has_central_value:
             raise ValueError("Loading critic only works only for asymmetric actor critic")
+        if jax_checkpoint.is_jax_checkpoint(checkpoint):
+            return self.restore_jax_checkpoint(checkpoint, state, critic_only=True)[0]
         payload = ckpt.read_payload(checkpoint) if payload is None else payload
         if CV_SECTION not in payload:
             raise ValueError(f"checkpoint {checkpoint} holds no central value net ('{CV_SECTION}')")
@@ -1330,6 +1345,40 @@ class PPOAgent:
         if saved_opt is not None:
             state.cv_opt = ckpt.tree_from_plain(state.cv_opt, saved_opt)
         return state
+
+    def restore_jax_checkpoint(self, checkpoint: str, state: PPOTrainState, critic_only: bool = False):
+        """Resume from a JAX package's ``.ckpt`` (utils/jax_checkpoint.py,
+        utils/jax_params.ppo_jax_state): the weights and normalizers, the Adam
+        moments, lr, entropy_coef, epoch and frame, the RMS advantage stats,
+        the central value net and RND with their Adam states; with
+        ``critic_only`` the central value net's part alone. The envs, the
+        action noise, the meters and the recurrent states stay ``state``'s
+        own reset: the random streams differ. Returns (state, meta)."""
+        payload = jax_checkpoint.read_jax_checkpoint(checkpoint)
+        cv_cfg = self.config.get("central_value_config") or {}
+        carried = jax_params.ppo_jax_state(payload["state"], self.full_params["network"], self.obs_shape,
+                                           cv_cfg.get("network"), getattr(self, "state_shape", None))
+        for part, here in (("cv_model", self.has_central_value), ("rnd", self.rnd is not None)):
+            if (carried[part] is not None) != here:
+                raise ValueError(f"{checkpoint}: the JAX train state {'has' if here is False else 'lacks'} "
+                                 f"{part}, the config {'has' if here else 'lacks'} it")
+        if self.has_central_value:
+            self.cv_model.load_state_dict(carried["cv_model"])
+            state.cv_opt = adam_from_named(carried["cv_opt"], self.cv_model, self.device)
+        if critic_only:
+            return state, payload["meta"]
+        self.model.load_state_dict(carried["model"])
+        state.opt_state = adam_from_named(carried["opt"], self.model, self.device)
+        if self.rnd is not None:
+            self.rnd.load_state_dict(carried["rnd"])
+            state.rnd_opt = adam_from_named(carried["rnd_opt"], self.rnd.predictor, self.device, "predictor.")
+        if state.adv_rms is not None and carried["adv_rms"] is not None:
+            state.adv_rms = RS.GeneralizedMovingStats(**{k: v.to(self.device) for k, v in carried["adv_rms"].items()})
+        state.lr = carried["lr"].to(self.device)
+        state.entropy_coef = carried["entropy_coef"].to(self.device)
+        state.epoch = torch.tensor(carried["epoch"], dtype=torch.int32, device=self.device)
+        state.frame = torch.tensor(carried["frame"], dtype=torch.int32, device=self.device)
+        return state, payload["meta"]
 
     def reset_optimizer(self, state: PPOTrainState) -> PPOTrainState:
         """Fresh Adam moments for the policy and the central value net
@@ -1423,6 +1472,10 @@ class PPOAgent:
         last_mean_rewards = -100500.0  # reference sentinel
         if checkpoint and load_critic_only:
             state = self.restore_central_value_only(checkpoint, state)
+        elif checkpoint and jax_checkpoint.is_jax_checkpoint(checkpoint):
+            # a JAX package's train state: resumes at its epoch + 1 (ppo.py:1759-1775)
+            state, meta = self.restore_jax_checkpoint(checkpoint, state)
+            last_mean_rewards = meta.get("last_mean_rewards", last_mean_rewards)
         elif checkpoint:
             payload = ckpt.read_payload(checkpoint)
             weights, meta = ckpt.load_checkpoint_weights(checkpoint, payload=payload)

@@ -57,6 +57,7 @@ from rl_games_tpu_torch.algos.ppo import (
     CHECKPOINT_EXT,
     AdamState,
     Meters,
+    adam_from_named,
     adam_init,
     adam_step,
     meters_init,
@@ -72,6 +73,7 @@ from rl_games_tpu_torch.models.layers import reset_parameters
 from rl_games_tpu_torch.models.sac import ActionRescale, SACActor, build_sac_networks, load_normalizer
 from rl_games_tpu_torch.ops.running_stats import RunningMeanStd
 from rl_games_tpu_torch.utils import checkpoint as ckpt
+from rl_games_tpu_torch.utils import jax_checkpoint, jax_params
 from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
 from rl_games_tpu_torch.utils.unported import unported
 from rl_games_tpu_torch.utils.writer import create_writer
@@ -643,6 +645,38 @@ class SACAgent:
             state.replay = fresh
         return self.set_weights(state, payload), meta
 
+    def restore_jax_checkpoint(self, checkpoint: str, state: SACTrainState):
+        """Resume from a JAX package's SAC ``.ckpt`` (utils/jax_checkpoint.py,
+        utils/jax_params.sac_jax_state): actor, critic, target, log α, the
+        three Adam states, the input normalizer, epoch, frame and update
+        counter, and the replay ring where the file holds it
+        (``meta['has_replay']``) at the config's capacity (else it raises,
+        naming both). Without it the ring starts empty and the update gate
+        rises to ``replay_resume_min_fill`` (sac.py:921-945). The envs, the
+        random stream and the meters stay ``state``'s own reset. Returns
+        (state, meta)."""
+        payload = jax_checkpoint.read_jax_checkpoint(checkpoint)
+        meta = payload["meta"]
+        carried = jax_params.sac_jax_state(payload["state"], self.full_params["network"])
+        state = self.set_weights(state, carried["sections"])
+        state.actor_opt = adam_from_named(carried["actor_opt"], self.actor, self.device)
+        state.critic_opt = adam_from_named(carried["critic_opt"], self.critic, self.device)
+        alpha = carried["alpha_opt"]
+        state.alpha_opt = AdamState(count=alpha["count"].to(self.device),
+                                    mu=[m.to(self.device) for m in alpha["mu"]],
+                                    nu=[v.to(self.device) for v in alpha["nu"]])
+        replay = carried["replay"]
+        if meta.get("has_replay", True):
+            if replay["obses"].shape[0] != self.replay_buffer_size:
+                raise ValueError(f"{checkpoint}: its replay ring holds {replay['obses'].shape[0]} rows, the "
+                                 f"config's replay_buffer_size is {self.replay_buffer_size}")
+            state.replay = ReplayBuffer(**{k: v.to(self.device) if torch.is_tensor(v) else v
+                                           for k, v in replay.items()})
+        else:
+            self._update_min_fill = min(self.replay_resume_min_fill, self.replay_buffer_size)
+        state.epoch, state.frame, state.update_counter = carried["epoch"], carried["frame"], carried["update_counter"]
+        return state, meta
+
     # ------------------------------------------------------------------
     # host train loop (sac.py:946-1124; sac_agent.py:753-852)
     # ------------------------------------------------------------------
@@ -661,7 +695,10 @@ class SACAgent:
 
         state = self.init_state()
         last_mean_rewards = -100500.0
-        if checkpoint:
+        if checkpoint and jax_checkpoint.is_jax_checkpoint(checkpoint):
+            state, meta = self.restore_jax_checkpoint(checkpoint, state)
+            last_mean_rewards = meta.get("last_mean_rewards", last_mean_rewards)
+        elif checkpoint:
             payload = ckpt.read_payload(checkpoint)
             if "state" in payload:
                 state, meta = self._restore(checkpoint, state, payload)

@@ -46,7 +46,9 @@ from rl_games_tpu_torch.models import layers, model_builder
 from rl_games_tpu_torch.models.sac import ActionRescale, SACActor, build_sac_networks, load_normalizer
 from rl_games_tpu_torch.ops.running_stats import RunningMeanStd
 from rl_games_tpu_torch.utils import checkpoint as ckpt
+from rl_games_tpu_torch.utils import jax_checkpoint, jax_params
 from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
+from rl_games_tpu_torch.utils.export import make_deterministic_policy_fn
 from rl_games_tpu_torch.utils.unported import unported
 
 
@@ -116,12 +118,22 @@ class BasePlayer:
 
     def restore(self, checkpoint_path: str):
         """players.py:71-79 — load model weights from a training checkpoint
-        (or any file with the reference's {'model': state_dict} layout)."""
-        weights, _ = ckpt.load_checkpoint_weights(checkpoint_path)
+        (or any file with the reference's {'model': state_dict} layout), or
+        from a JAX package's ``.ckpt`` (its 'weights_bytes', mapped by
+        ``utils/jax_params``)."""
+        if jax_checkpoint.is_jax_checkpoint(checkpoint_path):
+            payload = jax_checkpoint.read_jax_checkpoint(checkpoint_path)
+            weights = jax_params.jax_weights_to_state_dict(payload["weights"], self.params["network"],
+                                                           self.obs_shape)
+        else:
+            weights, _ = ckpt.load_checkpoint_weights(checkpoint_path)
         self.model.load_state_dict(weights)
 
-    def make_export_policy(self):
-        unported("policy export (make_export_policy, --export)", "A12")
+    def make_export_policy(self) -> torch.nn.Module:
+        """The deterministic policy obs -> env-space action for --export
+        (utils/export.py; player.py:102-111): the normalizers and, for a
+        bounded Box, the action rescale inside it."""
+        return make_deterministic_policy_fn(self.model, self.env_info.action_space if self.is_continuous else None)
 
     def override_sigma(self, sigma: float):
         """--sigma at play time (_override_sigma, torch_runner.py:52-60)."""
@@ -281,8 +293,13 @@ class SACPlayer(BasePlayer):
 
     def restore(self, checkpoint_path: str):
         """The actor and the normalizer from a SAC checkpoint (the port's,
-        or a reference SAC .pth, its sections at the top or under 'model')."""
-        payload = ckpt.read_payload(checkpoint_path)
+        a reference SAC .pth, its sections at the top or under 'model', or
+        a JAX package's ``.ckpt``, mapped by ``utils/jax_params``)."""
+        if jax_checkpoint.is_jax_checkpoint(checkpoint_path):
+            payload = jax_params.sac_jax_weights_to_sections(
+                jax_checkpoint.read_jax_checkpoint(checkpoint_path)["weights"], self.params["network"])
+        else:
+            payload = ckpt.read_payload(checkpoint_path)
         if "model" in payload and "actor" not in payload:
             payload = payload["model"]
         self.actor.load_state_dict(payload["actor"])
@@ -294,6 +311,11 @@ class SACPlayer(BasePlayer):
         no-ops with a message (torch_runner.py:52-60)."""
         print("Cannot set new sigma: SAC policy has no fixed sigma parameter")
 
+    def make_export_policy(self) -> torch.nn.Module:
+        """The deterministic SAC policy for --export (player.py:403-418):
+        normalize, the actor's mu, tanh, rescale and clip to the bounds."""
+        return SACDeterministicPolicy(self.actor, self.running_mean_std, self._rescale_actions)
+
     def _play_actions(self, generator, obs, env_state=None, masks=None):
         if self.running_mean_std is not None:
             obs = self.running_mean_std.normalize(obs)
@@ -304,3 +326,20 @@ class SACPlayer(BasePlayer):
             noise = torch.randn(mu.shape, generator=generator, device=self.device)
             actions, _ = SACActor.sample(mu, std, noise)
         return self._rescale_actions(actions)
+
+
+class SACDeterministicPolicy(torch.nn.Module):
+    """obs -> clip(tanh(mu) * scale + bias, low, high) of a SAC actor, the
+    input normalizer (where there is one) first: the module --export traces."""
+
+    def __init__(self, actor, running_mean_std, rescale: ActionRescale):
+        super().__init__()
+        self.actor, self.running_mean_std = actor, running_mean_std
+        for name in ("scale", "bias", "low", "high"):
+            self.register_buffer(name, getattr(rescale, name).clone())
+
+    def forward(self, obs):
+        if self.running_mean_std is not None:
+            obs = self.running_mean_std.normalize(obs)
+        mu, _ = self.actor(obs)
+        return torch.clamp(torch.tanh(mu) * self.scale + self.bias, self.low, self.high)

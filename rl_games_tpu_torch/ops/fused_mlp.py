@@ -18,10 +18,17 @@ raises on any input it does not take. There is no fallback between the two
 and no switch that turns the kernel off. Gradients are exact: the backward
 recomputes through ``plain_mlp``, as the JAX package's custom VJP does, so
 the kernel is the forward (rollout, player, loss forward) path.
+
+The chain is also a registered PyTorch operator,
+``torch.ops.rl_games_tpu_torch.fused_mlp(x, ws, bs, activation)`` (CUDA: the
+kernel; CPU: ``plain_mlp``; a fake implementation for tracing; the backward
+above), so that ``torch.export`` records it in an exported policy and the
+exported program launches the kernel on the card (``utils/export.py``).
+Importing this module registers it.
 """
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -193,30 +200,55 @@ def fused_mlp_cuda(x, ws, bs, activation):
     return out
 
 
-class _FusedMLP(torch.autograd.Function):
-    """forward: the kernel (CUDA) or the plain chain (CPU); backward: exact
-    gradients through a recomputed plain chain."""
+# ---------------------------------------------------------------------------
+# The registered operator rl_games_tpu_torch::fused_mlp: what torch.export
+# records in a graph (a ctypes call is opaque to its tracer), and the route of
+# every forward that needs gradients. Its CUDA implementation is the kernel
+# (``fused_mlp_cuda``, looked up when called), its CPU implementation
+# ``plain_mlp``; its fake implementation gives tracing the output's shape; its
+# backward recomputes through ``plain_mlp``, as the JAX package's custom VJP
+# does (rl_games_tpu/ops/fused_mlp.py:189-212).
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, activation, x, *params):
-        n = len(params) // 2
-        ctx.activation = activation
-        ctx.save_for_backward(x, *params)
-        return _chain(x, params[:n], params[n:], activation)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        saved = ctx.saved_tensors
-        wanted = [i for i, need in enumerate(ctx.needs_input_grad[1:]) if need]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
-            n = (len(leaves) - 1) // 2
-            y = plain_mlp(leaves[0], leaves[1:1 + n], leaves[1 + n:], ctx.activation)
-            grads = torch.autograd.grad(y, [leaves[i] for i in wanted], grad_out)
-        full = [None] * len(saved)
-        for i, g in zip(wanted, grads):
-            full[i] = g
-        return (None, *full)
+@torch.library.custom_op("rl_games_tpu_torch::fused_mlp", mutates_args=(), device_types="cuda")
+def fused_mlp_op(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor], activation: str) -> torch.Tensor:
+    return fused_mlp_cuda(x, ws, bs, activation)
+
+
+@fused_mlp_op.register_kernel("cpu")
+def _fused_mlp_cpu(x, ws, bs, activation):
+    return plain_mlp(x, ws, bs, activation)
+
+
+@fused_mlp_op.register_fake
+def _fused_mlp_fake(x, ws, bs, activation):
+    return x.new_empty((x.shape[0], ws[-1].shape[0]))
+
+
+def _setup_context(ctx, inputs, output):
+    x, ws, bs, activation = inputs
+    ctx.activation, ctx.n = activation, len(ws)
+    ctx.save_for_backward(x, *ws, *bs)
+
+
+def _backward(ctx, grad_out):
+    """Exact gradients through a recomputed plain chain, for the inputs that
+    need them."""
+    need_x, need_ws, need_bs, _ = ctx.needs_input_grad
+    needs = [need_x, *need_ws, *need_bs]
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        n = ctx.n
+        y = plain_mlp(leaves[0], leaves[1:1 + n], leaves[1 + n:], ctx.activation)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, grad_out))
+    full = [next(grads) if need else None for need in needs]
+    return full[0], full[1:1 + n], full[1 + n:], None
+
+
+fused_mlp_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def _chain(x, ws, bs, activation):
@@ -229,9 +261,11 @@ def _chain(x, ws, bs, activation):
 
 def fused_mlp(x, ws, bs, activation):
     """The chain on the tensor's device: ``plain_mlp`` on the CPU, the CUDA
-    kernel on a CUDA device (which raises rather than fall back). Without
-    autograd (the rollout's and the player's forwards) it skips the
-    autograd.Function and the host time of its bookkeeping."""
-    if not torch.is_grad_enabled():
-        return _chain(x, ws, bs, activation)
-    return _FusedMLP.apply(activation, x, *ws, *bs)
+    kernel on a CUDA device (which raises rather than fall back). A forward
+    that needs gradients, and any forward that ``torch.export`` traces, goes
+    through the registered operator; an eager forward without autograd (the
+    rollout's and the player's) calls the same implementation directly and
+    skips the operator's dispatch on the host."""
+    if torch.is_grad_enabled() or torch.compiler.is_exporting():
+        return fused_mlp_op(x, list(ws), list(bs), str(activation))
+    return _chain(x, ws, bs, activation)

@@ -19,6 +19,7 @@ import random
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from rl_games_tpu_torch.common.object_factory import ObjectFactory
 from rl_games_tpu_torch.utils.unported import unported
@@ -290,13 +291,39 @@ class Runner:
             player.override_sigma(args["sigma"])
         return player.run(**args.get("player", {}))
 
+    def run_export(self, args: Dict[str, Any]):
+        """--export (runner.py:323-356): the checkpoint's deterministic
+        policy (obs -> env-space action, the normalizers and the action
+        rescale inside it, a dynamic batch) through torch.export to a
+        ``.pt2`` file (utils/export.py), ``<checkpoint>.pt2`` unless
+        ``export_path`` names another; the JAX package writes
+        ``.stablehlo``. Returns the path."""
+        from rl_games_tpu_torch.utils.export import export_policy_fn
+
+        checkpoint = args.get("checkpoint")
+        if not checkpoint:
+            raise ValueError("--export requires -c <checkpoint>: refusing to export a randomly initialized policy")
+        player = self.create_player()
+        player.restore(checkpoint)
+        if isinstance(player.obs_shape, dict):
+            raise ValueError("--export supports flat observation spaces; dict-obs policies need a custom "
+                             "export module (utils/export.make_deterministic_policy_fn)")
+        # a batch of 2: torch.export would fix a batch of 1 (utils/export.py)
+        example_obs = torch.zeros((2, *player.obs_shape), dtype=torch.float32, device=player.device)
+        path = args.get("export_path") or checkpoint + ".pt2"
+        blob = export_policy_fn(player.make_export_policy(), example_obs)
+        with open(path, "wb") as f:
+            f.write(blob)
+        print(f"exported policy to {path}")
+        return path
+
     def run(self, args: Dict[str, Any]):
         if args.get("train"):
             return self.run_train(args)
         elif args.get("play"):
             return self.run_play(args)
         elif args.get("export"):
-            unported("policy export (--export)", "A12")
+            return self.run_export(args)
         else:
             return self.run_train(args)
 

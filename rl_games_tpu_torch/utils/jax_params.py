@@ -94,6 +94,15 @@ and with ``network.normalization`` the trunks' LayerNorms too:
 ({'params', 'norm'} with a leading env axis) into the port's stacked slots,
 each env's by ``jax_to_state_dict``.
 
+``ppo_jax_state`` and ``sac_jax_state`` map whole train states, as
+``utils/jax_checkpoint`` decodes them from a JAX package's ``.ckpt``: the
+weights and normalizers as above; optax's Adam state, found in its chain by
+its fields (count, mu, nu), its moments through the same mapping as the
+weights (Adam is elementwise); the counters, lr and entropy_coef, the RMS
+advantage stats, the central value net and RND (PPO); log α, the three Adam
+states and the replay ring (SAC). ``env_state``, ``rng``, ``obs``, the
+meters and the recurrent carries are not carried: the random streams differ.
+
 It reads only numpy arrays and plain attributes, so it needs neither JAX nor
 the JAX package.
 """
@@ -449,7 +458,9 @@ def _norm_state(norm) -> Dict[str, torch.Tensor]:
     if norm is None:
         return sd
     obs_norm = _get(norm, "obs")
-    if isinstance(obs_norm, dict):  # one set of stats per key of a dict observation
+    # one set of stats per key of a dict observation (a checkpoint's decoded
+    # RunningMeanStdState is itself a dict of its three fields)
+    if isinstance(obs_norm, dict) and set(obs_norm) != {"mean", "var", "count"}:
         for key, stats in obs_norm.items():
             sd.update(_rms(stats, f"running_mean_std.running_mean_std.{key}."))
     elif obs_norm is not None:
@@ -546,3 +557,129 @@ def jax_slots_to_state_dict(opp_weights: Any, network: Optional[dict] = None,
     per_env = [jax_to_state_dict(_index(opp_weights["params"], i), _index(opp_weights["norm"], i), network,
                                  input_shape) for i in range(np.asarray(first).shape[0])]
     return {k: torch.stack([sd[k] for sd in per_env]) for k in per_env[0]}
+
+
+# ---------------------------------------------------------------------------
+# Whole train states from a JAX package checkpoint (utils/jax_checkpoint.py
+# decodes them into nested dicts of numpy arrays)
+# ---------------------------------------------------------------------------
+
+
+def find_adam_state(opt_tree):
+    """optax's ScaleByAdamState inside an optimizer chain's state: the entry
+    with the fields count, mu and nu, wherever the chain put it (its index
+    depends on truncate_grads and weight_decay, ppo.py:436-447; optax.adam is
+    itself a chain). None where there is none."""
+    if isinstance(opt_tree, dict):
+        if {"count", "mu", "nu"} <= set(opt_tree):
+            return opt_tree
+        for v in opt_tree.values():
+            found = find_adam_state(v)
+            if found is not None:
+                return found
+    return None
+
+
+def jax_adam(opt_tree, convert) -> Dict[str, Any]:
+    """{'count', 'mu', 'nu'} of the Adam state in an optax chain's state;
+    ``convert`` maps a tree of the params' structure (a moment) to the
+    port's names. Adam is elementwise, so a moment takes the same transposes
+    and row permutations as the weights."""
+    adam = find_adam_state(opt_tree)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam state (count, mu, nu)")
+    return {"count": _tensor(adam["count"], np.int32), "mu": convert(adam["mu"]), "nu": convert(adam["nu"])}
+
+
+def jax_weights_to_state_dict(weights, network: Optional[dict] = None, input_shape=None) -> Dict[str, torch.Tensor]:
+    """The port's A2C ``state_dict`` from a checkpoint's weights section
+    ({'params', 'norm'})."""
+    return jax_to_state_dict(weights["params"], weights.get("norm"), network, input_shape)
+
+
+def _gms(stats) -> Optional[Dict[str, torch.Tensor]]:
+    if stats is None:
+        return None
+    return {"low": _tensor(stats["low"], np.float32), "high": _tensor(stats["high"], np.float32),
+            "step": _tensor(stats["step"], np.int32)}
+
+
+def ppo_jax_state(tree, network: Optional[dict] = None, input_shape=None, cv_network: Optional[dict] = None,
+                  cv_input_shape=None) -> Dict[str, Any]:
+    """What a ``PPOTrainState`` (rl_games_tpu/algos/ppo.py:104-132) carries
+    into the port: {'model': the A2C state_dict, 'opt': its Adam state
+    ({'count', 'mu', 'nu'}, the moments by parameter name), 'lr',
+    'entropy_coef', 'epoch', 'frame', 'adv_rms' ({'low', 'high', 'step'}),
+    'cv_model' / 'cv_opt' (the central value net's state_dict and Adam
+    state), 'rnd' / 'rnd_opt' (RND's state_dict and its predictor's Adam
+    state)}, None where the JAX state has none. ``env_state``, ``rng``,
+    ``obs``, ``dones``, the meters and the recurrent carries stay behind:
+    the random streams differ, so the port resets its own."""
+    def model(t):
+        return jax_to_state_dict(t, None, network, input_shape)
+
+    out = {
+        "model": jax_to_state_dict(tree["params"], tree.get("norm"), network, input_shape),
+        "opt": jax_adam(tree["opt_state"], model),
+        "lr": _tensor(tree["lr"], np.float32),
+        "entropy_coef": _tensor(tree["entropy_coef"], np.float32),
+        "epoch": int(tree["epoch"]),
+        "frame": int(tree["frame"]),
+        "adv_rms": _gms(tree.get("adv_rms")),
+        "cv_model": None, "cv_opt": None, "rnd": None, "rnd_opt": None,
+    }
+    if tree.get("cv_params") is not None:
+        def cv(t):
+            return jax_to_state_dict(t, None, cv_network, cv_input_shape)
+
+        out["cv_model"] = jax_to_state_dict(tree["cv_params"], tree.get("cv_norm"), cv_network, cv_input_shape)
+        out["cv_opt"] = jax_adam(tree["cv_opt"], cv)
+    if tree.get("rnd_pred") is not None:
+        def predictor(t):
+            return {k: v for k, v in rnd_jax_to_state_dict(tree["rnd_target"], t).items()
+                    if k.startswith("predictor.")}
+
+        out["rnd"] = rnd_jax_to_state_dict(tree["rnd_target"], tree["rnd_pred"], tree.get("rnd_rms"))
+        out["rnd_opt"] = jax_adam(tree["rnd_opt"], predictor)
+    return out
+
+
+def sac_jax_weights_to_sections(weights, network: Optional[dict] = None) -> Dict[str, Any]:
+    """The reference SAC checkpoint's sections ({'actor', 'critic',
+    'running_mean_std'}) from a JAX SAC checkpoint's weights section
+    ({'actor_params', 'critic_params', 'obs_rms'})."""
+    d2rl = bool((network or {}).get("mlp", {}).get("d2rl", False))
+    return sac_jax_to_state_dict(weights["actor_params"], weights["critic_params"],
+                                 obs_rms=weights.get("obs_rms"), d2rl=d2rl)
+
+
+def sac_jax_state(tree, network: Optional[dict] = None) -> Dict[str, Any]:
+    """What a ``SACTrainState`` (rl_games_tpu/algos/sac.py:146-165) carries
+    into the port: {'sections': the reference SAC checkpoint's sections
+    ('actor', 'critic', 'critic_target', 'log_alpha', 'running_mean_std'),
+    'actor_opt' / 'critic_opt' (Adam states, the moments by parameter name),
+    'alpha_opt' (its moments as one-element lists), 'replay' (the ring's
+    arrays as tensors, its cursor and fill flag as Python values), 'epoch',
+    'frame', 'update_counter'}. ``env_state``, ``rng``, ``obs`` and the meters
+    stay behind, as for PPO."""
+    d2rl = bool((network or {}).get("mlp", {}).get("d2rl", False))
+    actor = tree["actor_params"]
+    sections = sac_jax_to_state_dict(actor, tree["critic_params"], tree["critic_target_params"],
+                                     tree.get("obs_rms"), d2rl)
+    sections["log_alpha"] = _tensor(tree["log_alpha"], np.float32)
+    alpha = find_adam_state(tree["alpha_opt"])
+    replay = tree["replay"]
+    return {
+        "sections": sections,
+        "actor_opt": jax_adam(tree["actor_opt"], lambda t: sac_jax_to_state_dict(t, d2rl=d2rl)["actor"]),
+        "critic_opt": jax_adam(tree["critic_opt"],
+                               lambda t: sac_jax_to_state_dict(actor, t, d2rl=d2rl)["critic"]),
+        "alpha_opt": {"count": _tensor(alpha["count"], np.int32), "mu": [_tensor(alpha["mu"], np.float32)],
+                      "nu": [_tensor(alpha["nu"], np.float32)]},
+        "replay": {**{k: _tensor(replay[k]) for k in ("obses", "next_obses", "actions", "rewards", "dones",
+                                                     "truncated")},
+                   "idx": int(replay["idx"]), "full": bool(replay["full"])},
+        "epoch": int(tree["epoch"]),
+        "frame": int(tree["frame"]),
+        "update_counter": int(tree["update_counter"]),
+    }

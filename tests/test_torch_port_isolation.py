@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of rl_games_tpu_torch and not
-chip_smoke.py imports jax, flax, optax or the JAX package, and the port
+chip_smoke.py imports jax, flax, optax, msgpack or the JAX package, and the port
 trains, checkpoints and plays a fused-MLP policy, and a config whose
 import_modules names the JAX package's test network, through its Runner on
-the CPU in a process where importing jax fails. Importing the port, its host
+the CPU in a process where importing jax fails, and reads, plays, resumes
+and exports a JAX package's .ckpt there. Importing the port, its host
 envs' bridges included, needs none of gymnasium, dm_control and pettingzoo: only the
 modules that step their envs import them, when they are used."""
 
@@ -15,7 +16,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "rl_games_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "rl_games_tpu"}
 SOURCES = sorted((ROOT / "rl_games_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -110,6 +111,41 @@ def test_testnet_config_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
+def test_jax_checkpoint_and_export_with_jax_blocked(tmp_path):
+    """In a process where importing jax, flax, optax, msgpack, ml_dtypes or
+    the JAX package fails: the committed JAX .ckpt fixture decodes, its
+    player plays and its training resumes through Runner.run, --export
+    writes a .pt2 of it, and that artifact loads and acts."""
+    code = (
+        "import sys, yaml\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ml_dtypes', 'rl_games_tpu'):\n"
+        "    sys.modules[name] = None  # any import of these now raises\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from rl_games_tpu_torch.runner import Runner\n"
+        "from rl_games_tpu_torch.utils.export import load_policy\n"
+        "from rl_games_tpu_torch.utils.jax_checkpoint import read_jax_checkpoint\n"
+        "fixture = 'tests/data/jax_ppo_cartpole_fused.ckpt'\n"
+        "assert read_jax_checkpoint(fixture)['meta']['epoch'] == 2\n"
+        "doc = yaml.safe_load(open('rl_games_tpu/configs/ppo_cartpole.yaml'))\n"
+        "doc['params']['network']['mlp']['fused'] = True\n"
+        "doc['params']['config'].update(max_epochs=3, train_dir=sys.argv[1], print_stats=False,\n"
+        "                               player={'games_num': 2, 'max_steps': 5, 'deterministic': True})\n"
+        "runner = Runner(device='cpu')\n"
+        "runner.load(doc)\n"
+        "runner.run({'play': True, 'checkpoint': fixture})\n"
+        "assert runner.run({'train': True, 'checkpoint': fixture})[1] == 3\n"
+        "path = runner.run({'export': True, 'checkpoint': fixture, 'export_path': sys.argv[1] + '/p.pt2'})\n"
+        "assert load_policy(open(path, 'rb').read())(torch.zeros((3, 4))).shape == (3,)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'ml_dtypes', 'rl_games_tpu')\n"
+        "               for m, mod in sys.modules.items() if mod is not None)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
 def test_host_modules_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {f"rl_games_tpu_torch/envs/host/{m}.py" for m in ("cpuenv", "gymnasium_env", "wrappers",
@@ -118,6 +154,9 @@ def test_host_modules_are_scanned():
     assert {"rl_games_tpu_torch/envs/device/selfplay.py", "rl_games_tpu_torch/envs/device/multiagent.py",
             "rl_games_tpu_torch/utils/self_play.py"} <= names
     assert {"rl_games_tpu_torch/common/host_inference.py", "rl_games_tpu_torch/utils/native_build.py"} <= names
+    # export, the JAX checkpoint reader, prioritized replay
+    assert {"rl_games_tpu_torch/utils/export.py", "rl_games_tpu_torch/utils/jax_checkpoint.py",
+            "rl_games_tpu_torch/common/experience.py"} <= names
 
 
 def test_port_import_needs_neither_gymnasium_nor_dm_control():

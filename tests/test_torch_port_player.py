@@ -14,6 +14,7 @@ from rl_games_tpu.common.player import PpoPlayer as JPpoPlayer
 from rl_games_tpu_torch.common.player import PpoPlayer, SACPlayer
 from rl_games_tpu_torch.envs.device.ant2d import Ant2DState
 from rl_games_tpu_torch.envs.device.base import VecEnvState
+from rl_games_tpu_torch.utils.export import export_policy_fn, load_policy
 from rl_games_tpu_torch.utils.jax_params import jax_to_state_dict
 
 from test_torch_port_ppo import flagship_params, t, to_np
@@ -126,12 +127,13 @@ def test_sigma_override():
                        device="cpu"), "SAC requires a continuous action space"),
     (lambda: PpoPlayer({**player_params(), "config": {**player_params()["config"], "vecenv_type": "JAX_SELFPLAY",
                                                       "env_name": "competitive_forage"}}, device="cpu"), "plays"),
-    (lambda: PpoPlayer(player_params(), device="cpu").make_export_policy(), "A12"),
+    (lambda: PpoPlayer(player_params(), device="cpu").make_export_policy(), "export"),
     (lambda: resnet_catcher_params(), None),
 ], ids=["make0-A12", "make1-A12", "make2-A12", "make3-A8"])
 def test_unported_player_paths_raise(make, item):
-    """What the player refuses names its ROADMAP item: export (make2, A12).
-    The self-play envs came with A12's second part: SAC's player on the
+    """What the player refused until its item came: export (make2, A12's
+    last part) now gives the deterministic policy module, whose exported
+    program acts as the module does. The self-play envs came with A12's second part: SAC's player on the
     connect-four env stops at SAC's own ValueError, its actions being
     discrete (make0; the JAX SACPlayer has no action shape to read there
     either), and the PPO player on competitive_forage (JAX_SELFPLAY) plays
@@ -150,9 +152,12 @@ def test_unported_player_paths_raise(make, item):
         player = PpoPlayer(params, device="cpu")
         assert player.vec_env._policy is not None and np.isfinite(player.run(games_num=4))
         return
-    if item == "A12":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            make()
+    if item == "export":
+        policy = make()
+        obs = torch.randn((5, 26), generator=torch.Generator().manual_seed(3)) * 2  # Ant2D's observations
+        exported = load_policy(export_policy_fn(policy, obs[:1]))
+        with torch.no_grad():
+            torch.testing.assert_close(exported(obs), policy(obs), rtol=0, atol=0)
         return
     if item is not None:
         with pytest.raises(ValueError, match=item):

@@ -19,8 +19,8 @@ rl_games_tpu/configs/ does one of three things on the CPU:
 The configs a slice unlocks must run (``MUST_RUN``); those whose simulator
 is missing must build their networks (``MUST_BUILD``: since A8 (b) the
 Impala configs and ref/minigrid/lava_rnn_img.yaml); the refusals named in
-``REFUSED_AT`` name their item; and the only A8 refusal left is SAC over
-observations that are not 1-D.
+``REFUSED_AT`` name their item; the only refusal labels left are A8 and
+A14, and the only A8 refusal left is SAC over observations that are not 1-D.
 """
 
 import glob
@@ -137,7 +137,9 @@ def _build_only(params):
 
 
 def _only_sac_refused_for_a8(rel, refusal):
-    """A8 has one refusal left: SAC over observations that are not 1-D."""
+    """Only A8 and A14 are refusal labels since A12's last part (export);
+    A8 has one refusal left: SAC over observations that are not 1-D."""
+    assert re.search(r"item A(8|14)\b", str(refusal)), f"{rel}: a refusal other than A8's or A14's: {refusal}"
     if re.search(r"item A8\b", str(refusal)):
         assert "SAC over observations" in str(refusal), f"{rel}: an A8 refusal other than SAC's: {refusal}"
 

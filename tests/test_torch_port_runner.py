@@ -19,6 +19,7 @@ from rl_games_tpu_torch.algos.ppo import PPOAgent
 from rl_games_tpu_torch.runner import Runner, _resolve_stop_fn
 from rl_games_tpu_torch.utils import checkpoint as ckpt
 from rl_games_tpu_torch.utils import writer as port_writer
+from rl_games_tpu_torch.utils.export import load_policy
 from rl_games_tpu_torch.utils.observers import AlgoObserver
 
 from test_torch_port_ppo import flagship_params
@@ -287,7 +288,7 @@ def test_cli_end_to_end(tmp_path):
 
 @pytest.mark.parametrize("args, params_patch, item", [
     ({"train": True, "seeds": "1,2"}, {}, "seeds"),
-    ({"export": True}, {}, "A12"),
+    ({"export": True}, {}, "export"),
     ({"train": True, "load_critic_only": True}, {}, None),
     ({"train": True}, {"algo": {"name": "sac"},
                        "config": {"env_name": "multiwalker_env", "num_actors": 2}}, "SAC takes one agent an env"),
@@ -296,10 +297,11 @@ def test_cli_end_to_end(tmp_path):
 ], ids=["args0-params_patch0-A12", "args1-params_patch1-A12", "args2-params_patch2-A9", "args3-params_patch3-A12",
         "args4-params_patch4-A12"])
 def test_unported_verbs_raise(tmp_path, args, params_patch, item):
-    """The verbs the port lacks name their item (export, A12);
-    load_critic_only (item None, A9) without a checkpoint trains, as the
-    JAX runner does, and --seeds (A12) trains both members and returns
-    their checkpoints. The multiwalker and connect-four envs came with
+    """The verbs that were refused until their items came: --export
+    (A12's last part) raises without -c, as the JAX runner does, and after
+    training writes <checkpoint>.pt2 that loads and acts; load_critic_only
+    (item None, A9) without a checkpoint trains, as the JAX runner does, and
+    --seeds (A12) trains both members and returns their checkpoints. The multiwalker and connect-four envs came with
     A12's second part: SAC stops at them with its own ValueError, as the
     JAX package's SAC fails there (N · A rows; discrete actions)."""
     params = {**tiny_params(tmp_path), **params_patch}
@@ -307,6 +309,18 @@ def test_unported_verbs_raise(tmp_path, args, params_patch, item):
     runner.load({"params": params})
     if item is None:
         assert runner.run(args)[1] == 2
+        return
+    if item == "export":
+        with pytest.raises(ValueError, match="requires -c"):
+            runner.run(args)
+        runner.run({"train": True})
+        nn_dir = tmp_path / "tiny" / "nn"
+        checkpoint = str(next(p for p in nn_dir.iterdir() if p.name.startswith("last_")))
+        path = runner.run({**args, "checkpoint": checkpoint})
+        assert path == checkpoint + ".pt2"
+        with open(path, "rb") as f:
+            policy = load_policy(f.read())
+        assert policy(torch.zeros((3, 26))).shape == (3, 8)
         return
     if item == "seeds":
         paths = runner.run(args)
