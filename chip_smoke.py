@@ -209,6 +209,23 @@ to a plain version):
 27. replay   — common/experience.py's prioritized replay at capacity 65,536,
                observations of 27, batch 256, on the card against the CPU with
                the same noise: indexes equal, weights within 1e-6.
+28. mesh     — data parallelism over torch.distributed (parallel/mesh.py):
+               (a) the flagship at 8192 Ant2D envs through an NCCL world of 1
+               in this process, 3 epochs, bit for bit the plain process:
+               weights, normalizers, Adam state, lr, every metric and the
+               meters; (b) a world of 2 processes sharing the card through
+               gloo over CUDA tensors: the flagship, the fused flagship and
+               sac_ant2d.yaml at its own widths (warmup cut to 1 epoch, then
+               3 epochs of 64 updates), each epoch's losses at rtol 1e-3 /
+               atol 1e-5 (PPO a_loss and c_loss, SAC critic_loss and
+               actor_loss; log_alpha at rtol 1e-4) against the plain
+               process's epoch from the same state: the plain run's own first
+               epoch, and for a later epoch one the plain process runs from
+               the world's state at that epoch's start (gathered on rank 0),
+               since after an update the world's weights differ by rounding,
+               which the contact dynamics amplify from epoch to epoch; the two ranks bit for bit; GAE and the fused kernel
+               launched in each rank and counted per rank; each world's
+               steady epoch beside the plain one.
 
 Phases 3-5 also hold the discrete slice: GAE at [64, 512, 1] and [32, 16,
 1], the fused MLP at 4->32->32 relu (CartPole) at the batches its paths
@@ -252,7 +269,7 @@ MLP at 5->128->64->32 elu at B = 64 and 2048, and one host PPO rollout of
 phase 14's config on the card against the CPU (same weights, CPUENV seed
 and action noise), then one Adam step of its first minibatch.
 
-Launch counts are zeroed just before each of phases 6-26's runs and read
+Launch counts are zeroed just before each of phases 6-28's runs and read
 just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
@@ -266,6 +283,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -4119,6 +4137,124 @@ def profile_report(tag: str, prof, wall_us: float, detail: str):
     return 1 - device_us / wall_us
 
 
+def phase_mesh(epochs: int = 3):
+    """[mesh]: see the module docstring, phase 28. Returns the launch counts
+    of each world's runs, per rank, with the epochs each trained."""
+    import torch.distributed as dist
+
+    from rl_games_tpu_torch.parallel import dryrun
+    from rl_games_tpu_torch.parallel.mesh import create_mesh, initialize_multihost
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    fused = flagship_params(8192)
+    fused["network"]["mlp"]["fused"] = True
+    sac = load_config("sac_ant2d.yaml")["params"]
+    sac["config"].update(num_warmup_steps=1, print_stats=False)
+    sac_epochs = epochs + 1  # the warmup epoch, then epochs of updates
+    specs = {"flagship": ("flagship", flagship_params(8192), epochs, {}),
+             "fused": ("fused", fused, epochs, {}),
+             "sac": ("sac", sac, sac_epochs, {})}
+    # the world of 2 also records the state at each later epoch's start, from which the plain process then
+    # runs that epoch: after an update the world's weights differ from the plain run's by rounding (the
+    # gradients summed in another order), which 16 steps of contact dynamics amplify from epoch to epoch
+    world_specs = {name: (program, params, n, {"record_starts": True})
+                   for name, (program, params, n, _) in specs.items()}
+    t0 = time.perf_counter()
+    plain = dryrun.run_programs(specs, device="cuda")
+    print(f"[mesh] plain process: {time.perf_counter() - t0:.1f} s")
+
+    def leaves(result):
+        """Every tensor of a run; of each meter its ring, pointer and count (its last row is the spare row
+        that takes the scatter's writes of the rows that did not finish, in no set order on the card)."""
+        out = dict(dryrun._leaves({k: result[k] for k in ("metrics", "weights", "opt")}))
+        for name, m in result["meters"].items():
+            out.update({f"/meters/{name}/ring": m["buf"][:-1], f"/meters/{name}/ptr": m["ptr"],
+                        f"/meters/{name}/count": m["count"]})
+        return out
+
+    # (a) an NCCL world of 1 in this process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_multihost(f"file://{tmp}/nccl_init", 1, 0, "nccl")
+        try:
+            one = dryrun.run_program("flagship", flagship_params(8192), mesh=create_mesh("cuda"), device="cuda",
+                                     epochs=epochs)
+        finally:
+            dist.destroy_process_group()
+    expected, got = leaves(plain["flagship"]), leaves(one)
+    differ = [k for k in expected if k not in got or not torch.equal(expected[k], got[k])]
+    if differ or expected.keys() != got.keys():
+        raise AssertionError(f"[mesh] (a) the NCCL world of 1 differs from the plain process in {differ[:8]} "
+                             f"({len(differ)} of {len(expected)} tensors)")
+    print(f"[mesh] (a) NCCL world of 1: {len(expected)} tensors bit for bit the plain process after {epochs} "
+          f"epochs (weights, Adam state, lr, metrics, meters; {int(one['meters']['game_rewards']['count'])} "
+          f"games in the meters); {time.perf_counter() - t0:.1f} s with the world's set-up")
+
+    # (b) a gloo world of 2 on the one card
+    t0 = time.perf_counter()
+    two = dryrun.run_world(dryrun.run_programs, 2, world_specs, backend="gloo", device="cuda")
+    print(f"[mesh] (b) gloo world of 2 over CUDA tensors: {time.perf_counter() - t0:.1f} s with the spawn")
+    t0 = time.perf_counter()
+    for name in specs:
+        differ = dryrun.ranks_differ([r[name] for r in two])
+        if differ:
+            raise AssertionError(f"[mesh] (b) {name}: the ranks differ in {differ[:8]}")
+        program, params, n, _ = specs[name]
+        keys = ("critic_loss", "actor_loss") if name == "sac" else ("a_loss", "c_loss")
+        first = 1 if name == "sac" else 0  # the first epoch with updates (SAC's first is its warmup)
+        for e in range(first, n):
+            m1, m2 = plain[name]["metrics"][e], two[0][name]["metrics"][e]
+            ref, source = m1, "plain"
+            if e > 0:  # the plain process's epoch from the world's state at its start
+                start = functools.partial(dryrun.restore_state, full=two[0][name]["starts"][e - 1])
+                ref = dryrun.run_program(program, params, device="cuda", setup=start)["metrics"][0]
+                source = "plain from the world's state"
+            for k in keys:
+                a, b = float(ref[k]), float(m2[k])
+                if not (math.isfinite(b) and abs(b - a) <= 1e-5 + 1e-3 * abs(a)):
+                    raise AssertionError(f"[mesh] (b) {name} epoch {e + 1} {k}: world {b} against {source} {a}")
+            print(f"[mesh] (b) {name} epoch {e + 1}: " + ", ".join(
+                f"{k} {float(m2[k]):.6f} ({source} {float(ref[k]):.6f}, |d| {abs(float(m2[k]) - float(ref[k])):.3g}; "
+                f"the plain run's own {float(m1[k]):.6f})" for k in keys))
+        if name == "sac":
+            a = float(plain[name]["weights"]["log_alpha"])
+            b = float(two[0][name]["weights"]["log_alpha"])
+            if not abs(b - a) <= 1e-4 * abs(a):
+                raise AssertionError(f"[mesh] (b) sac log_alpha: world {b} against plain {a}")
+            print(f"[mesh] (b) sac log_alpha {b:.7f} (plain {a:.7f})")
+
+    print(f"[mesh] (b) the plain process's epochs from the world's states: {time.perf_counter() - t0:.1f} s")
+
+    # the kernels in every rank, and the epochs
+    runs = {"nccl_world1": (one, epochs)}
+    for name in ("flagship", "fused"):
+        for r, rank in enumerate(two):
+            runs[f"gloo_world2_{name}_rank{r}"] = (rank[name], epochs)
+    for tag, (res, n) in runs.items():
+        want = {"gae": n, "fused_mlp": 33 * n if "fused" in tag else 0}
+        if res["launches"] != want:
+            raise AssertionError(f"[mesh] {tag}: launches {res['launches']}, expected {want}")
+    for r, rank in enumerate(two):
+        if rank["sac"]["launches"] != {"gae": 0, "fused_mlp": 0}:
+            raise AssertionError(f"[mesh] sac rank {r}: launches {rank['sac']['launches']}, expected none")
+    print("[mesh] launches per rank: " + ", ".join(f"{tag} {res['launches']}" for tag, (res, _) in runs.items()))
+
+    def steady(res):
+        return float(np.median(res["seconds"][1:]))
+
+    batch = 8192 * 16
+    for name in specs:
+        line = f"[mesh] {name} steady epoch: plain {steady(plain[name]) * 1e3:.1f} ms"
+        if name == "flagship":
+            line += f", NCCL world of 1 {steady(one) * 1e3:.1f} ms"
+        line += ", gloo world of 2 " + " / ".join(f"{steady(rank[name]) * 1e3:.1f}" for rank in two) + " ms"
+        if name != "sac":
+            line += f" ({batch / steady(two[0][name]):,.0f} env-steps/s)"
+        print(line + f"; {smi}")
+    return {tag: {"launches": res["launches"], "epochs": n} for tag, (res, n) in runs.items()}
+
+
 def phase_profile_sac(agent, state):
     """One SAC update epoch under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -4231,6 +4367,8 @@ def main():
     export = phase_export()
     jax_ckpt = phase_jax_ckpt()
     phase_replay()
+    # data parallelism (A13): an NCCL world of 1, a gloo world of 2 on the card
+    mesh = phase_mesh()
 
     # launches of the main paths' runs, each counted from 0: the plain
     # trainer, the fused trainer and its player, the Humanoid3D trainer and
@@ -4250,6 +4388,9 @@ def main():
                       + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d")) + (args.epochs, 3)
                       # [export] (a) and (c) 1 epoch each, [jax_ckpt] 2 resumed epochs
                       + (1, 1, 2))
+    # [mesh]: each world's runs, a rank each
+    runs += tuple(m["launches"] for m in mesh.values())
+    epochs_trained += tuple(m["epochs"] for m in mesh.values())
     gae_entry["launches"] = sum(r["gae"] for r in runs)
     gae_entry["launches_per_epoch"] = gae_entry["launches"] / sum(epochs_trained)
     gae_entry["launches_by_path"] = {"flagship_plain": plain_launches["gae"], "flagship_fused": train_launches["gae"],
@@ -4275,7 +4416,9 @@ def main():
                                      # [export] (a) at [16, 8192, 1], (c) at [256, 16, 1]; (b) SAC none
                                      "export": {tag: export[tag]["train"]["gae"] for tag in ("a", "b", "c")},
                                      # [jax_ckpt]: the resumed epochs at [32, 16, 1]
-                                     "jax_ckpt": jax_ckpt["train"]["gae"]}
+                                     "jax_ckpt": jax_ckpt["train"]["gae"],
+                                     # [mesh]: at [16, 8192, 1] once an epoch in every rank
+                                     "mesh": {tag: m["launches"]["gae"] for tag, m in mesh.items()}}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
@@ -4292,7 +4435,8 @@ def main():
                                + sum(export[tag]["train"]["fused_mlp"] + sum(r["launches"] for r in export[tag]["rows"])
                                      for tag in ("a", "b", "c")) + export["d"]["launches"]
                                + sum(jax_ckpt[key]["fused_mlp"] for key in ("play_steps", "play", "train"))
-                               + sum(r["launches"] for r in jax_ckpt["export_rows"]))
+                               + sum(r["launches"] for r in jax_ckpt["export_rows"])
+                               + sum(m["launches"]["fused_mlp"] for m in mesh.values()))
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -4364,6 +4508,9 @@ def main():
     fused_entry["operator_host_us"] = {b: {"direct": d, "operator": o} for b, (d, o) in export["operator"].items()}
     # [jax_ckpt]: the restored fixture's 200 steps and --play (1 a step), the resumed epochs (65 each), its export
     fused_entry["launches_jax_ckpt"] = {key: jax_ckpt[key]["fused_mlp"] for key in ("play_steps", "play", "train")}
+    # [mesh]: the fused flagship's 33 an epoch in each rank of the world of 2 (16 rollout forwards of its
+    # 4096 envs, 1 bootstrap, 16 minibatch forwards of 16384 rows), none in the plain runs
+    fused_entry["launches_mesh"] = {tag: m["launches"]["fused_mlp"] for tag, m in mesh.items()}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,6 +94,7 @@ import copy
 import dataclasses
 import os
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -124,6 +125,16 @@ from rl_games_tpu_torch.ops import masked as MK
 from rl_games_tpu_torch.ops import running_stats as RS
 from rl_games_tpu_torch.ops.gae import compute_gae
 from rl_games_tpu_torch.ops.schedulers import build_scheduler
+from rl_games_tpu_torch.parallel.mesh import (
+    _PPO_DATA_FIELDS,
+    _PPO_RNN_FIELDS,
+    LOCAL,
+    RowGenerator,
+    all_reduce_mean_,
+    gather_rows,
+    shard_rows,
+    unshard_rows,
+)
 from rl_games_tpu_torch.utils import checkpoint as ckpt
 from rl_games_tpu_torch.utils import jax_checkpoint, jax_params
 from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
@@ -171,15 +182,18 @@ def meters_init(capacity: int, width: int, device) -> Meters:
 
 def meters_update(m: Meters, values, mask):
     """Scatter the rows where ``mask`` is set into the ring, in place. When
-    more rows finish in one call than the ring holds, slots repeat and which
-    write wins is unspecified, as in the JAX package."""
+    more rows finish in one call than the ring holds, the last ``capacity``
+    of them stay, as K one-row calls would leave them (the JAX package
+    leaves which write wins unspecified): the earlier ones go to the spare
+    row, so no slot is written twice and the result is the same on every
+    device."""
     cap = m.capacity
     mask_i = mask.to(torch.int32)
     slot = torch.cumsum(mask_i, dim=0) - 1  # position among the done rows
-    pos = torch.remainder(m.ptr + slot, cap)
-    pos = torch.where(mask, pos, torch.full_like(pos, cap)).to(torch.int64)
-    m.buf.index_put_((pos,), values.to(torch.float32))
     n = mask_i.sum(dtype=torch.int32)
+    pos = torch.remainder(m.ptr + slot, cap)
+    pos = torch.where(mask & (slot >= n - cap), pos, torch.full_like(pos, cap)).to(torch.int64)
+    m.buf.index_put_((pos,), values.to(torch.float32))
     m.ptr.copy_(torch.remainder(m.ptr + n, cap))
     m.count.copy_(torch.clamp(m.count + n, max=cap))
 
@@ -401,6 +415,7 @@ class PPOAgent:
         self.rollout_device = (rollout_device(self.host_inference, self.device, params.get("network", {}))
                                if self.is_host_env else self.device)
         self._last_timing = None  # the host path's step / play split
+        self.mesh = LOCAL  # the data-parallel world, once make_train_fn(mesh=) is given one
         self._upload = HostUpload(self.rollout_device)  # the host path's per-step upload
         self.use_smooth_clamp = config.get("use_smooth_clamp", False)
         self.weight_decay = config.get("weight_decay", 0.0)
@@ -639,8 +654,9 @@ class PPOAgent:
         the key's shape and dtype. The observations lie env-major ([N, T,
         ...] in memory, a transposed view here), so that swap_and_flatten01
         of them is a view: at 512 envs × 64 steps of 84×84×2 frames they are
-        1.85 GB."""
-        T, N, V = self.horizon_length, self.num_rows, self.value_size
+        1.85 GB. The rows are ``obs``'s: a data-parallel rank's own."""
+        T, V = self.horizon_length, self.value_size
+        N = (next(iter(obs.values())) if isinstance(obs, dict) else obs).shape[0]
         f32 = dict(dtype=torch.float32, device=device)
         if isinstance(obs, dict):
             obses = {k: torch.empty((N, T, *v.shape[1:]), dtype=v.dtype, device=device).transpose(0, 1)
@@ -698,7 +714,8 @@ class PPOAgent:
         a2c_common.py:787-939). Returns the trajectory (each entry [T, N,
         ...]; with an RNN also each window's first states, see
         ``_stack_snapshots``) and the bootstrap values of the final
-        observations; updates ``state``."""
+        observations; updates ``state`` and, after the last step, the
+        meters (``_write_meters``)."""
         model = self.model
         env_state, obs, dones = state.env_state, state.obs, state.dones
         cur_r, cur_sr = state.current_rewards, state.current_shaped_rewards
@@ -707,6 +724,7 @@ class PPOAgent:
         snaps, cv_snaps = [], []
         masks = self.vec_env.get_action_masks if self.use_action_masks else None
         traj = self._trajectory_buffers(self.device, actor_obs(obs), masks(env_state).shape if masks else None)
+        finished = []
         for t in range(self.horizon_length):
             if self.any_rnn and t % self.seq_length == 0:
                 snaps.append(rnn)
@@ -737,15 +755,9 @@ class PPOAgent:
             cur_sr = cur_sr + shaped
             cur_len = cur_len + 1.0
             done_mask = new_dones.to(torch.bool)
-            if self._env_rows is not None:
-                done_mask = done_mask & self._env_rows
-            meters_update(state.game_rewards, cur_r, done_mask)
-            meters_update(state.game_shaped_rewards, cur_sr, done_mask)
-            meters_update(state.game_lengths, cur_len[:, None], done_mask)
-            if "scores" in infos:
-                # the score at each episode's end (algo_observer.py:29-92)
-                meters_update(state.game_scores, infos["scores"].to(torch.float32).reshape(-1, 1), done_mask)
-                self._scores_seen = True
+            scores = infos["scores"].to(torch.float32).reshape(-1, 1) if "scores" in infos else None
+            self._scores_seen = self._scores_seen or scores is not None
+            finished.append((cur_r, cur_sr, cur_len, done_mask, scores))
             not_done = 1.0 - new_dones.to(torch.float32)
             cur_r = cur_r * not_done[:, None]
             cur_sr = cur_sr * not_done[:, None]
@@ -763,7 +775,27 @@ class PPOAgent:
         state.current_rewards, state.current_shaped_rewards = cur_r, cur_sr
         state.current_lengths = cur_len
         state.rnn_states, state.cv_rnn_states = rnn, cv_rnn
+        self._write_meters(state, finished)
         return traj, last_values
+
+    def _write_meters(self, state: PPOTrainState, finished):
+        """The rollout's episode accounting into the meters (a2c_common.py:820-834):
+        ``finished`` holds each step's accumulators, dones and any scores;
+        the world's rows are gathered (a collective) and the rows that
+        finished are written in (step, global row) order, in one
+        ``meters_update`` a meter, which leaves what one call a step would.
+        An env counts once, at its first agent row; the score at each
+        episode's end (algo_observer.py:29-92)."""
+        cur_r, cur_sr, cur_len, done, scores = (
+            None if x[0] is None else gather_rows(torch.stack(x), self.mesh, axis=1).flatten(0, 1)
+            for x in zip(*finished))
+        if self._env_rows is not None:
+            done = done & self._env_rows.repeat(self.horizon_length)
+        meters_update(state.game_rewards, cur_r, done)
+        meters_update(state.game_shaped_rewards, cur_sr, done)
+        meters_update(state.game_lengths, cur_len[:, None], done)
+        if scores is not None:
+            meters_update(state.game_scores, scores, done)
 
     def _bootstrap_values(self, model, cv_model, obs, dones, rnn, cv_rnn):
         """The values of the final observations (get_values,
@@ -775,10 +807,12 @@ class PPOAgent:
                                   **self._rnn_kw(self.is_rnn, rnn, dones))["values"]
 
     @torch.no_grad()
-    def _prepare_dataset(self, state: PPOTrainState, traj, last_values):
+    def _prepare_dataset(self, state: PPOTrainState, traj, last_values, last_dones=None):
         """RND's intrinsic reward, GAE + dataset assembly (a2c_common.py:836-849,
         1309-1370; ppo.py:728-836). With an RNN the dataset also holds the
-        windows' first states as 'rnn_states' / 'cv_rnn_states'."""
+        windows' first states as 'rnn_states' / 'cv_rnn_states'.
+        ``last_dones``: the dones after the last step (``state.dones``
+        unless given: a data-parallel rank gives the world's)."""
         traj = dict(traj)
         snaps, cv_snaps = traj.pop("rnn_snapshots", None), traj.pop("cv_rnn_snapshots", None)
         mb_values = traj["values"]  # [T, N, V] (denormalized)
@@ -791,7 +825,7 @@ class PPOAgent:
             intrinsic = self.rnd.intrinsic(self.rnd.running_mean_std.normalize(flat))
             mb_rewards = mb_rewards + self.rnd_scale * intrinsic.reshape(mb_rewards.shape[:2])[..., None]
         mb_advs = compute_gae(
-            mb_rewards, mb_values, traj["dones"], last_values, state.dones,
+            mb_rewards, mb_values, traj["dones"], last_values, state.dones if last_dones is None else last_dones,
             self.gamma, self.tau,
         )
         mb_returns = mb_advs + mb_values
@@ -954,34 +988,65 @@ class PPOAgent:
             aux["mus"], aux["sigmas"] = res["mus"].detach(), res["sigmas"].detach()
         return total, aux
 
+    def _reduce(self, grads, scalars: dict):
+        """A data-parallel rank's gradients and the scalars beside them (the
+        losses, kl, the clip fraction) averaged over the world in one
+        all-reduce; as they are in a single process."""
+        keys = list(scalars)
+        vals = torch.stack([scalars[k] for k in keys])
+        all_reduce_mean_([*grads, vals], self.mesh)
+        return grads, {**scalars, **dict(zip(keys, vals.unbind()))}
+
     def _update(self, state: PPOTrainState, dataset) -> Dict[str, torch.Tensor]:
         """Minibatch epochs (train_epoch, a2c_common.py:1269-1302; datasets.py):
         ordered contiguous slices, whole sequences with an RNN, or with
-        permute_batches a fresh permutation of the batch each mini-epoch."""
+        permute_batches a fresh permutation of the batch each mini-epoch.
+        A data-parallel rank computes rows [lo, hi) of each minibatch (its
+        draws taken at the minibatch's shape and sliced alike) and the
+        world averages the gradients, kl and the metrics before the step."""
         legacy = self.schedule_type == "legacy"
         lr, ec = state.lr, state.entropy_coef
         max_norm = self.grad_norm if self.truncate_grads else None
         metrics = {k: torch.zeros((), dtype=torch.float32, device=self.device) for k in _METRIC_KEYS}
         diag = {"kl": [], "clip_frac": []}
+        size = self.minibatch_size
+        lo, hi = self.mesh.block(size, "minibatch_size")
+        games = (hi - lo) // self.seq_length if self.any_rnn else None
         for _ in range(self.mini_epochs_num):
             perm = self._permutation(state) if self.permute_batches else None
             ms = {k: [] for k in _METRIC_KEYS}
             for i in range(self.num_minibatches):
-                start = i * self.minibatch_size
-                sel = start if perm is None else perm[start:start + self.minibatch_size]
-                mb = self._minibatch(dataset, sel)
-                total, aux = self._loss_and_kl(mb, ec, self._entropy_noise(state), self._augment(state, mb["obses"]))
+                start = i * size
+                sel = start if perm is None else perm[start:start + size]
+                mb = self._minibatch(dataset, start + lo if perm is None else sel[lo:hi], hi - lo, games=games)
+                # the draws at the whole minibatch's shape, this rank's rows of them
+                noise, aug = self._entropy_noise(state), None
+                if self.soft_aug is not None:
+                    whole = tree_map(lambda v: v[start:start + size] if perm is None else v[sel], dataset["obses"])
+                    aug = self._augment(state, whole)
+                noise, aug = (None if x is None else tree_map(lambda v: v[lo:hi], x) for x in (noise, aug))
+                total, aux = self._loss_and_kl(mb, ec, noise, aug)
                 # with a central value net the actor's value head has no
                 # gradient: zeros, as the JAX package's grad gives it
                 grads = torch.autograd.grad(total, self.params, allow_unused=True, materialize_grads=True)
+                grads, reduced = self._reduce(grads, {k: aux[k] for k in _METRIC_KEYS})
+                aux = {**aux, **reduced}
                 adam_step(self.params, grads, state.opt_state, lr, max_norm, self.weight_decay)
                 if legacy:
                     if self.is_continuous:
                         # mu/sigma writeback (datasets.py:33-43), in place
-                        # in the dataset rather than into a copy of it
-                        rows = slice(start, start + self.minibatch_size) if perm is None else sel
-                        dataset["mus"][rows] = aux["mus"]
-                        dataset["sigmas"][rows] = aux["sigmas"]
+                        # in the dataset rather than into a copy of it. A
+                        # rank writes the rows it computed; under a
+                        # permutation rows change rank, so every rank takes
+                        # the whole minibatch's
+                        mus, sigmas = aux["mus"], aux["sigmas"]
+                        if perm is None:
+                            rows = slice(start + lo, start + hi)
+                        else:
+                            rows = sel
+                            mus, sigmas = gather_rows(mus, self.mesh), gather_rows(sigmas, self.mesh)
+                        dataset["mus"][rows] = mus
+                        dataset["sigmas"][rows] = sigmas
                     lr, ec = self.scheduler.update(lr, ec, state.epoch, state.frame, aux["kl"])
                 for k in _METRIC_KEYS:
                     ms[k].append(aux[k])
@@ -1028,6 +1093,7 @@ class PPOAgent:
         minibatches, whole sequences with an RNN; the clipped value loss on
         the normalized returns; its own Adam. Returns the mean loss."""
         size = self.cv_minibatch_size
+        lo, hi = self.mesh.block(size, "central value minibatch_size")
         keys = ("states", "old_values", "returns") + (("dones",) if self.cv_is_rnn else ())
         cols = {k: dataset[k] for k in keys}
         if self.cv_is_rnn:
@@ -1035,8 +1101,8 @@ class PPOAgent:
         losses = []
         for _ in range(self.cv_mini_epochs):
             for i in range(self.cv_num_minibatches):
-                mb = self._minibatch(cols, i * size, size, "cv_rnn_states",
-                                     self.cv_games_num if self.cv_is_rnn else None)
+                mb = self._minibatch(cols, i * size + lo, hi - lo, "cv_rnn_states",
+                                     (hi - lo) // self.seq_length if self.cv_is_rnn else None)
                 kw = {}
                 if self.cv_is_rnn:
                     kw = dict(rnn_states=mb["rnn_states"], dones=mb["dones"] if self.zero_rnn_on_done else None,
@@ -1044,8 +1110,10 @@ class PPOAgent:
                 res = self.cv_model.forward_train(mb["states"], **kw)
                 loss = _value_loss(res, mb, self.cv_e_clip, self.cv_clip_value).mean()
                 grads = torch.autograd.grad(loss, self.cv_params)
+                # the central value net's own all-reduce (central_value.py:322-339)
+                grads, reduced = self._reduce(grads, {"loss": loss.detach()})
                 adam_step(self.cv_params, grads, state.cv_opt, self.cv_lr, self.cv_max_norm)
-                losses.append(loss.detach())
+                losses.append(reduced["loss"])
         return torch.stack(losses).mean()
 
     def _update_rnd(self, state: PPOTrainState, dataset):
@@ -1057,20 +1125,22 @@ class PPOAgent:
         with torch.no_grad():
             obs_n = self.rnd.running_mean_std.normalize(obs.reshape(-1, obs.shape[-1]))
         size = min(self.rnd_minibatch, obs_n.shape[0])
+        lo, hi = self.mesh.block(size, "RND minibatch_size")
         params = list(self.rnd.predictor.parameters())
         losses = []
         for _ in range(self.rnd_mini_epochs):
             for i in range(max(obs_n.shape[0] // size, 1)):
-                loss = self.rnd.loss(obs_n[i * size:(i + 1) * size])
+                loss = self.rnd.loss(obs_n[i * size + lo:i * size + hi])
                 grads = torch.autograd.grad(loss, params)
+                grads, reduced = self._reduce(grads, {"loss": loss.detach()})
                 adam_step(params, grads, state.rnd_opt, self.rnd_lr)
-                losses.append(loss.detach())
+                losses.append(reduced["loss"])
         return torch.stack(losses).mean()
 
-    def _finish_epoch(self, state: PPOTrainState, traj, last_values):
+    def _finish_epoch(self, state: PPOTrainState, traj, last_values, last_dones=None):
         """prepare_dataset → central value → RND → minibatch updates →
         counters and metrics (ppo.py:1204-1300)."""
-        dataset = self._prepare_dataset(state, traj, last_values)
+        dataset = self._prepare_dataset(state, traj, last_values, last_dones)
         # freeze_critic skips the central value net's training
         # (central_value.py:253-255)
         cval_loss = None
@@ -1112,9 +1182,73 @@ class PPOAgent:
         return state, metrics
 
     def train_epoch(self, state: PPOTrainState):
-        """One full PPO epoch: rollout → GAE → minibatch updates."""
+        """One full PPO epoch: rollout → GAE → minibatch updates. A
+        data-parallel rank steps its rows (the state is cut to them first,
+        if it is not yet), the world gathers the trajectory, and every rank
+        prepares the single process's dataset and computes its slice of
+        each minibatch. In ``LOCAL`` the gathers return their input."""
+        mesh = self.mesh
+        if mesh.size > 1 and not isinstance(state.generator, RowGenerator):
+            state = self._shard_state(state)
         traj, last_values = self._rollout(state)
-        return self._finish_epoch(state, traj, last_values)
+
+        def rows(x, axis):
+            return tree_map(lambda v: gather_rows(v, mesh, axis), x)
+
+        out = {}
+        for k, v in traj.items():
+            if k in ("obses", "states"):  # env-major [n, T, ...] memory, kept so
+                out[k] = tree_map(lambda x: gather_rows(x.movedim(1, 0), mesh).movedim(0, 1), v)
+            elif k in ("rnn_snapshots", "cv_rnn_snapshots"):  # [W, layers, n, units]
+                out[k] = gather_rows(v, mesh, axis=2)
+            else:
+                out[k] = rows(v, 1)
+        return self._finish_epoch(state, out, rows(last_values, 0), rows(state.dones, 0))
+
+    # ------------------------------------------------------------------
+    # data parallelism (parallel/mesh.py; the reference's DDP path,
+    # a2c_common.py:109, :362-378): each rank steps its block of the envs,
+    # the world gathers the trajectory, every rank prepares the same global
+    # dataset and computes its slice of each minibatch
+    # ------------------------------------------------------------------
+    def _check_world(self, mesh):
+        """The sizes a world of ``mesh.size`` ranks must divide, checked
+        before the first epoch (ValueError)."""
+        mesh.block(self.num_actors, "num_actors")
+        mesh.block(self.minibatch_size, "minibatch_size")
+        if self.any_rnn:
+            mesh.block(self.games_num, "minibatch_size // seq_length (a minibatch's sequences)")
+        if self.has_central_value:
+            mesh.block(self.cv_minibatch_size, "central value minibatch_size")
+            if self.cv_is_rnn:
+                mesh.block(self.cv_games_num, "central value minibatch_size // seq_length")
+        if self.rnd is not None:
+            mesh.block(min(self.rnd_minibatch, self.batch_size), "RND minibatch_size")
+
+    def _shard_state(self, state: PPOTrainState) -> PPOTrainState:
+        """The rank's rows of a single-process train state (the counterpart of
+        ppo_state_shardings): the vec env and its state cut to the rank's
+        block of envs, the row fields to its N·A rows (the recurrent states
+        on their axis 1), the action noise's generator drawing the world's
+        rows; the rest replicated. Every rank starts from the same state."""
+        lo, hi = self.mesh.block(self.num_actors, "num_actors")
+        a, rows = self.num_agents, self.num_rows
+        state.env_state = self.vec_env.take_rows(state.env_state, lo, hi)
+        for f in _PPO_DATA_FIELDS[1:] + ("generator",):
+            setattr(state, f, shard_rows(getattr(state, f), lo * a, hi * a, rows))
+        for f in _PPO_RNN_FIELDS:
+            setattr(state, f, shard_rows(getattr(state, f), lo * a, hi * a, rows, axis=1))
+        return state
+
+    def _world_state(self, state: PPOTrainState) -> PPOTrainState:
+        """The single process's train state from a data-parallel rank's: the
+        row fields gathered from every rank (a collective: every rank calls
+        it), so that a checkpoint holds the world's rows."""
+        if not isinstance(state.generator, RowGenerator):
+            return state
+        rows = {f: unshard_rows(getattr(state, f), self.mesh) for f in _PPO_DATA_FIELDS}
+        rows.update({f: unshard_rows(getattr(state, f), self.mesh, axis=1) for f in _PPO_RNN_FIELDS})
+        return dataclasses.replace(state, **rows)
 
     # ------------------------------------------------------------------
     # the host-env rollout (ppo.py:1311-1490; the reference's Ray/envpool
@@ -1226,9 +1360,24 @@ class PPOAgent:
         traj, last_values = self._host_rollout(state)
         return self._finish_epoch(state, traj, last_values)
 
-    def make_train_fn(self):
-        """The epoch function for this agent's env (ppo.py:1492-1510)."""
-        return self.host_train_epoch if self.is_host_env else self.train_epoch
+    def make_train_fn(self, mesh=None):
+        """The epoch function for this agent's env (ppo.py:1489-1530). With
+        a ``mesh`` (parallel/mesh.create_mesh) the agent becomes one rank of
+        a data-parallel world: its epoch steps the rank's block of the envs
+        and N ranks compute the single process's epoch at the same global
+        batch. A host env ignores the mesh, with a UserWarning, as the JAX
+        package does."""
+        if self.is_host_env:
+            if mesh is not None:
+                warnings.warn(
+                    "make_train_fn(mesh=...) with a host-stepped env: the mesh is ignored; host envs run the "
+                    "single-process path. Run one env pool per process instead.",
+                    UserWarning, stacklevel=2)
+            return self.host_train_epoch
+        if mesh is not None:
+            self._check_world(mesh)
+            self.mesh = mesh
+        return self.train_epoch
 
     # ------------------------------------------------------------------
     # weights and checkpoints (a2c_common.py:645-710). The JAX package keeps
@@ -1239,8 +1388,9 @@ class PPOAgent:
         """Reset episode meters + accumulators, then tell the observer
         (algo.clear_stats, a2c_common.py:645-648), e.g. after a self-play
         push, so that the manager's threshold re-arms on fresh games. The
-        accumulators are one a row: N * A for a multi-agent env (ppo.py:1558-1570)."""
-        n, v = self.num_rows, self.value_size
+        accumulators are one a row: N * A for a multi-agent env (ppo.py:1558-1570),
+        a data-parallel rank's own rows."""
+        n, v = state.dones.shape[0], self.value_size
         f32 = dict(dtype=torch.float32, device=self.device)
         state.current_rewards = torch.zeros((n, v), **f32)
         state.current_shaped_rewards = torch.zeros((n, v), **f32)
@@ -1457,16 +1607,27 @@ class PPOAgent:
     # ------------------------------------------------------------------
     def train(self, checkpoint: Optional[str] = None, stop_fn=None, writer=None,
               max_epochs: Optional[int] = None, sigma: Optional[float] = None,
-              load_critic_only: bool = False):
+              load_critic_only: bool = False, mesh=None):
         """Train until max_epochs / max_frames / score_to_win / stop_fn.
         With ``load_critic_only`` the checkpoint gives the central value net
-        alone. Returns (last_mean_rewards, epoch_num); the final state stays
-        in ``self.last_state``."""
+        alone. With a ``mesh`` this process is one rank of a data-parallel
+        world (``make_train_fn``); the checkpoints, the summaries and the
+        epoch prints are rank 0's alone (a2c_common.py:113-115). Returns
+        (last_mean_rewards, epoch_num); the final state stays in
+        ``self.last_state``."""
         config = self.config
+        main = mesh is None or mesh.rank == 0
         experiment_name = config.get("name", config.get("full_experiment_name", self.base_name))
         experiment_dir = os.path.join(config.get("train_dir", "runs"), experiment_name)
         nn_dir = os.path.join(experiment_dir, "nn")
-        os.makedirs(nn_dir, exist_ok=True)
+        if main:
+            os.makedirs(nn_dir, exist_ok=True)
+
+        def save(path, state, meta):
+            # every rank takes part in gathering the world's rows; rank 0 writes
+            state = self._world_state(state)
+            if main:
+                self._save(path, state, meta)
 
         state = self.init_state()
         last_mean_rewards = -100500.0  # reference sentinel
@@ -1489,7 +1650,7 @@ class PPOAgent:
             self.override_sigma(sigma)
 
         if writer is None:
-            writer = create_writer(os.path.join(experiment_dir, "summaries"))
+            writer = create_writer(os.path.join(experiment_dir, "summaries") if main else None)
         pbt_cfg_dict = config.get("pbt") or {}
         interval_writer = pbt_manager = None
         if pbt_cfg_dict.get("enabled"):
@@ -1502,7 +1663,7 @@ class PPOAgent:
             if not pbt_cfg.directory:
                 pbt_cfg.directory = config.get("train_dir", "runs")
             pbt_manager = PbtManager(pbt_cfg, {"learning_rate": self.learning_rate,
-                                               "entropy_coef": self.entropy_coef_init})
+                                               "entropy_coef": self.entropy_coef_init}, mesh=mesh)
         self.writer = writer
         # self-play (a2c_common's has_self_play_config path; ppo.py:1799-1805)
         self_play_manager = (SelfPlayManager(config["self_play_config"], writer)
@@ -1516,7 +1677,7 @@ class PPOAgent:
         # timed once, under use_diagnostics
         if self.use_diagnostics and self._rollout_time is None and not self.is_host_env:
             self._rollout_time, state = self._calibrate_rollout_time(state)
-        train_fn = self.make_train_fn()
+        train_fn = self.make_train_fn(mesh)
 
         # metrics reach the host only every ``log_interval`` epochs; loop
         # control stays host-side (epoch and frame advance deterministically)
@@ -1559,7 +1720,7 @@ class PPOAgent:
                 state = self.last_state = pbt_manager.step(self, state, metrics)
             if not do_log:
                 if save_due:
-                    self._save(last_path, state, meta)
+                    save(last_path, state, meta)
                 continue
             now = time.perf_counter()
             total_time = now - start_time
@@ -1598,7 +1759,7 @@ class PPOAgent:
                 interval_writer.tick()
             games_played = int(metrics["games_played"])
             mean_rewards = float(metrics["mean_rewards"][0]) if games_played else None
-            if config.get("print_stats", True):
+            if config.get("print_stats", True) and main:
                 print(
                     f"fps total: {fps_total:.0f} epoch: {epoch_num}"
                     + (f"/{max_epochs}" if max_epochs > 0 else "")
@@ -1609,7 +1770,7 @@ class PPOAgent:
                 )
 
             if save_due:
-                self._save(last_path, state, meta)
+                save(last_path, state, meta)
             if (
                 mean_rewards is not None
                 and epoch_num >= self.save_best_after
@@ -1617,7 +1778,7 @@ class PPOAgent:
             ):
                 last_mean_rewards = mean_rewards
                 meta["last_mean_rewards"] = last_mean_rewards
-                self._save(best_path, state, meta)
+                save(best_path, state, meta)
                 if self.score_to_win is not None and mean_rewards > self.score_to_win:
                     print("Maximum reward achieved. Network won!")
                     break
@@ -1630,7 +1791,7 @@ class PPOAgent:
                 print("Custom stop condition met!")
                 should_exit = True
             if should_exit:
-                self._save(
+                save(
                     os.path.join(
                         nn_dir,
                         f"last_{experiment_name}_ep_{epoch_num}_rew_"

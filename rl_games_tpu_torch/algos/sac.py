@@ -37,10 +37,10 @@ row after each done is not written. Everything stays on the agent's
 device, as in the JAX package: each step reads the actions back once and
 sends the step's results up in one copy.
 
-Every random number comes from the state's generator through ``_normal``,
-``_uniform_actions`` and ``replay_sample``; ``_update`` also takes its
-sample indices and normals as tensors, so a test can hand it the JAX
-package's draws.
+Every random number comes from the state's generator: the acting draws
+through ``_normal`` and ``_uniform_actions``, each update's sample indices
+and normals in ``_update``, which also takes them as tensors, so a test
+can hand it the JAX package's draws.
 """
 
 import copy
@@ -48,6 +48,7 @@ import dataclasses
 import math
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -72,6 +73,16 @@ from rl_games_tpu_torch.envs.spaces import Box, obs_shape_of
 from rl_games_tpu_torch.models.layers import reset_parameters
 from rl_games_tpu_torch.models.sac import ActionRescale, SACActor, build_sac_networks, load_normalizer
 from rl_games_tpu_torch.ops.running_stats import RunningMeanStd
+from rl_games_tpu_torch.parallel.mesh import (
+    _SAC_DATA_FIELDS,
+    LOCAL,
+    RowGenerator,
+    all_reduce_mean_,
+    draw_rows,
+    gather_rows,
+    shard_rows,
+    unshard_rows,
+)
 from rl_games_tpu_torch.utils import checkpoint as ckpt
 from rl_games_tpu_torch.utils import jax_checkpoint, jax_params
 from rl_games_tpu_torch.utils.device import resolve_device, use_full_float32
@@ -142,13 +153,17 @@ def replay_size(buf: ReplayBuffer) -> int:
     return buf.capacity if buf.full else buf.idx
 
 
+def replay_indices(buf: ReplayBuffer, generator: torch.Generator, batch_size: int):
+    """``batch_size`` uniform indices in [0, max(size, 1)) from ``generator``."""
+    return torch.randint(0, max(replay_size(buf), 1), (batch_size,), generator=generator, device=buf.obses.device)
+
+
 def replay_sample(buf: ReplayBuffer, generator: torch.Generator, batch_size: int, idx=None):
     """Uniform sample with replacement (experience.py:264-296): rows at
-    ``idx``, or at indices drawn in [0, max(size, 1)) from ``generator``.
-    Returns (obs, action, reward, next_obs, done, truncated)."""
+    ``idx``, or at ``replay_indices`` drawn from ``generator``. Returns
+    (obs, action, reward, next_obs, done, truncated)."""
     if idx is None:
-        idx = torch.randint(0, max(replay_size(buf), 1), (batch_size,), generator=generator,
-                            device=buf.obses.device)
+        idx = replay_indices(buf, generator, batch_size)
     return (buf.obses[idx], buf.actions[idx], buf.rewards[idx], buf.next_obses[idx],
             buf.dones[idx], buf.truncated[idx])
 
@@ -210,6 +225,7 @@ class SACAgent:
         self._host_prev_dones = np.zeros(self.num_actors, bool)
         self._last_host_metrics = None
         self._upload = HostUpload(self.device)
+        self.mesh = LOCAL  # the data-parallel world, once make_train_fn(mesh=) is given one
         info = self.vec_env.get_env_info()
         self.env_info = info
         space = info.action_space
@@ -342,22 +358,30 @@ class SACAgent:
         return logp_norm - self.log_action_scale_sum
 
     def _normal(self, state: SACTrainState, shape):
-        """Standard normals for an actor sample."""
-        return torch.randn(shape, generator=state.generator, device=self.device)
+        """Standard normals for an actor sample (a data-parallel rank's
+        acting: its rows of the world's draw)."""
+        return draw_rows(torch.randn, shape, state.generator, device=self.device)
 
     def _uniform_actions(self, state: SACTrainState):
-        """Warmup actions, U(-1, 1)."""
-        u = torch.rand((self.num_actors, self.action_dim), generator=state.generator, device=self.device)
+        """Warmup actions, U(-1, 1), one row an env of ``state.obs`` (a
+        data-parallel rank's of the world's draw)."""
+        u = draw_rows(torch.rand, (state.obs.shape[0], self.action_dim), state.generator, device=self.device)
         return u * 2.0 - 1.0
 
+    def _reduce(self, grads, scalars: dict):
+        """A data-parallel rank's gradients and losses averaged over the
+        world in one all-reduce; as they are in a single process."""
+        keys = list(scalars)
+        vals = torch.stack([scalars[k] for k in keys])
+        all_reduce_mean_([*grads, vals], self.mesh)
+        return grads, dict(zip(keys, vals.unbind()))
+
     # -- updates (sac.py:352-483) --------------------------------------------
-    def _update_critic(self, state: SACTrainState, obs, action, reward, next_obs, not_done, noise=None):
+    def _update_critic(self, state: SACTrainState, obs, action, reward, next_obs, not_done, noise):
         with torch.no_grad():
             obs_n = self._preproc_obs(obs)
             next_obs_n = self._preproc_obs(next_obs)
             mu, std = self.actor(next_obs_n)
-            if noise is None:
-                noise = self._normal(state, mu.shape)
             next_action, pre = SACActor.sample(mu, std, noise)
             log_prob = self._env_log_prob(SACActor.log_prob(next_action, mu, std, pre))[:, None]
             tq1, tq2 = self.critic_target(next_obs_n, self._rescale(next_action))
@@ -368,10 +392,12 @@ class SACAgent:
         c2 = torch.square(q2 - target_q).mean()
         c_loss = 0.5 * (c1 + c2)
         grads = torch.autograd.grad(c_loss, self.critic_params)
+        grads, metrics = self._reduce(grads, {"critic_loss": c_loss.detach(), "critic1_loss": c1.detach(),
+                                              "critic2_loss": c2.detach()})
         adam_step(self.critic_params, grads, state.critic_opt, self.critic_lr, self._critic_max_norm)
-        return {"critic_loss": c_loss.detach(), "critic1_loss": c1.detach(), "critic2_loss": c2.detach()}
+        return metrics
 
-    def _update_actor_and_alpha(self, state: SACTrainState, obs, noise=None):
+    def _update_actor_and_alpha(self, state: SACTrainState, obs, noise):
         """The actor step against the current critic, then the α step from
         the actor's pre-step log-probs. Gradients reach the actor's weights
         and log α only."""
@@ -379,23 +405,25 @@ class SACAgent:
             obs_n = self._preproc_obs(obs)
             alpha = torch.clamp(torch.exp(state.log_alpha), min=self.min_alpha)
         mu, std = self.actor(obs_n)
-        if noise is None:
-            noise = self._normal(state, mu.shape)
         action, pre = SACActor.sample(mu, std, noise)
         log_prob = self._env_log_prob(SACActor.log_prob(action, mu, std, pre))[:, None]
         q1, q2 = self.critic(obs_n, self._rescale(action))
         a_loss = (alpha * log_prob - torch.minimum(q1, q2)).mean()
-        grads = torch.autograd.grad(a_loss, self.actor_params)
-        adam_step(self.actor_params, grads, state.actor_opt, self.actor_lr)
+        grads = list(torch.autograd.grad(a_loss, self.actor_params))
         log_prob = log_prob.detach()
         metrics = {"actor_loss": a_loss.detach(), "entropy": -log_prob.mean()}
         if self.learnable_temperature:
+            # α's gradient does not depend on the actor's step: it travels
+            # in the actor's all-reduce
             target_term = -log_prob - self.target_entropy
             log_alpha = state.log_alpha.detach().requires_grad_(True)
             alpha_loss = (torch.exp(log_alpha) * target_term).mean()
-            grads = torch.autograd.grad(alpha_loss, [log_alpha])
-            adam_step([state.log_alpha], grads, state.alpha_opt, self.alpha_lr)
+            grads += torch.autograd.grad(alpha_loss, [log_alpha])
             metrics["alpha_loss"] = alpha_loss.detach()
+        grads, metrics = self._reduce(grads, metrics)
+        adam_step(self.actor_params, grads[:len(self.actor_params)], state.actor_opt, self.actor_lr)
+        if self.learnable_temperature:
+            adam_step([state.log_alpha], grads[len(self.actor_params):], state.alpha_opt, self.alpha_lr)
         else:
             metrics["alpha_loss"] = torch.zeros((), dtype=torch.float32, device=self.device)
         return metrics
@@ -409,8 +437,18 @@ class SACAgent:
         """One gradient update (sac.py:447-483): the critic step, the
         counter, every ``policy_frequency``-th update the actor and α steps
         against the just-updated critic, then the Polyak update. Returns
-        the losses (tensors) and ``actor_updated`` (a bool)."""
-        obs, action, reward, next_obs, done, _ = replay_sample(state.replay, state.generator, self.batch_size, idx)
+        the losses (tensors) and ``actor_updated`` (a bool). Unless given,
+        the sample indices and the normals are drawn at the batch's shape
+        from the state's generator; a data-parallel rank computes its block
+        of the batch."""
+        if idx is None:
+            lo, hi = self.mesh.block(self.batch_size, "batch_size")
+            shape, gen = (self.batch_size, self.action_dim), state.generator
+            idx = replay_indices(state.replay, gen, self.batch_size)[lo:hi]
+            critic_noise = torch.randn(shape, generator=gen, device=self.device)[lo:hi]
+            if (state.update_counter + 1) % self.policy_frequency == 0:
+                actor_noise = torch.randn(shape, generator=gen, device=self.device)[lo:hi]
+        obs, action, reward, next_obs, done, _ = replay_sample(state.replay, None, self.batch_size, idx)
         not_done = 1.0 - done.to(torch.float32)
         metrics = self._update_critic(state, obs, action, reward, next_obs, not_done, critic_noise)
         state.update_counter += 1
@@ -453,11 +491,15 @@ class SACAgent:
 
     @torch.no_grad()
     def _env_step(self, state: SACTrainState, warmup: bool):
-        """One device env step: act, step, record the transition."""
+        """One device env step: act, step, record the transition. A
+        data-parallel rank steps its block of the envs and records the
+        world's transition, gathered, so every rank's replay ring, meters
+        and normalizer are the single process's."""
         env_actions = self._act(state, warmup)
         env_state, next_obs, rewards, dones, infos = self.vec_env.step(state.env_state, env_actions)
-        self._record(state, state.obs, env_actions, rewards.reshape(self.num_actors).to(torch.float32),
-                     dones.to(torch.bool), infos["time_outs"], infos["final_observation"], next_obs)
+        step = (state.obs, env_actions, rewards.reshape(-1).to(torch.float32), dones.to(torch.bool),
+                infos["time_outs"], infos["final_observation"], next_obs)
+        self._record(state, *(gather_rows(x, self.mesh) for x in step))
         state.env_state, state.obs = env_state, next_obs
 
     def _updates_due(self, state: SACTrainState, warmup: bool) -> list:
@@ -471,7 +513,10 @@ class SACAgent:
         """play_steps (sac_agent.py:664-745): env steps with the UTD updates
         inline. Returns (state, metrics): the critic's losses are means over
         every update of the epoch, the actor's, the entropy and α's over the
-        updates where the actor ran (zeros where none did)."""
+        updates where the actor ran (zeros where none did). A data-parallel
+        rank's state is first cut to its block of the envs."""
+        if self.mesh.size > 1 and not isinstance(state.generator, RowGenerator):
+            state = self._shard_state(state)
         warmup = state.epoch < self.num_warmup_steps
         per_update = []
         for _ in range(self.num_steps_per_episode):
@@ -513,9 +558,45 @@ class SACAgent:
             self._last_host_metrics = self._loss_means(per_update)
         return state, self._epoch_metrics(state, self._last_host_metrics)
 
-    def make_train_fn(self):
-        """The epoch function for this agent's env (sac.py:611-624)."""
-        return self.host_train_epoch if self.is_host_env else self.train_epoch
+    def make_train_fn(self, mesh=None):
+        """The epoch function for this agent's env (sac.py:611-654). With a
+        ``mesh`` the agent becomes one rank of a data-parallel world (beyond
+        the reference, whose SAC is single-GPU): each rank steps its block
+        of the envs, every rank holds the whole replay ring (the JAX package
+        shards its capacity), and each update's batch is split evenly with
+        the gradients all-reduced. A host env ignores the mesh, with a
+        UserWarning, as the JAX package does."""
+        if self.is_host_env:
+            if mesh is not None:
+                warnings.warn(
+                    "make_train_fn(mesh=...) with a host-stepped env: the mesh is ignored; host envs run the "
+                    "single-process path. Run one env pool per process instead.",
+                    UserWarning, stacklevel=2)
+            return self.host_train_epoch
+        if mesh is not None:
+            mesh.block(self.num_actors, "num_actors")
+            mesh.block(self.batch_size, "batch_size")
+            self.mesh = mesh
+        return self.train_epoch
+
+    def _world_state(self, state: SACTrainState) -> SACTrainState:
+        """The single process's train state from a data-parallel rank's: its
+        env state and observations gathered from every rank (a collective),
+        so that a checkpoint holds the world's rows."""
+        if not isinstance(state.generator, RowGenerator):
+            return state
+        return dataclasses.replace(state, **{f: unshard_rows(getattr(state, f), self.mesh) for f in _SAC_DATA_FIELDS})
+
+    def _shard_state(self, state: SACTrainState) -> SACTrainState:
+        """The rank's rows of a single-process train state (the counterpart of
+        sac_state_shardings): the vec env and its state cut to the rank's
+        block of envs, its observations, and the generator drawing the
+        world's rows; the replay, the accumulators and the rest replicated."""
+        lo, hi = self.mesh.block(self.num_actors, "num_actors")
+        state.env_state = self.vec_env.take_rows(state.env_state, lo, hi)
+        for f in _SAC_DATA_FIELDS[1:] + ("generator",):
+            setattr(state, f, shard_rows(getattr(state, f), lo, hi, self.num_actors))
+        return state
 
     def _loss_means(self, per_update: list) -> Dict[str, object]:
         """The critic's losses averaged over ``per_update``, the actor's,
@@ -681,17 +762,27 @@ class SACAgent:
     # host train loop (sac.py:946-1124; sac_agent.py:753-852)
     # ------------------------------------------------------------------
     def train(self, checkpoint: Optional[str] = None, stop_fn=None, writer=None,
-              max_epochs: Optional[int] = None):
+              max_epochs: Optional[int] = None, mesh=None):
         """Train until max_epochs / max_frames / score_to_win / stop_fn.
         Returns (last_mean_rewards, epoch_num); the final state stays in
         ``self.last_state``. ``checkpoint`` resumes from one of the port's
         SAC checkpoints, or warm-starts from a file of weights only (a
-        reference SAC ``.pth``)."""
+        reference SAC ``.pth``). With a ``mesh`` this process is one rank of
+        a data-parallel world; the checkpoints, the summaries and the prints
+        are rank 0's alone."""
         config = self.config
+        main = mesh is None or mesh.rank == 0
         experiment_name = config.get("name", self.base_name)
         experiment_dir = os.path.join(config.get("train_dir", "runs"), experiment_name)
         nn_dir = os.path.join(experiment_dir, "nn")
-        os.makedirs(nn_dir, exist_ok=True)
+        if main:
+            os.makedirs(nn_dir, exist_ok=True)
+
+        def save(path, state, meta):
+            # every rank takes part in gathering the world's rows; rank 0 writes
+            state = self._world_state(state)
+            if main:
+                self._save(path, state, meta)
 
         state = self.init_state()
         last_mean_rewards = -100500.0
@@ -708,7 +799,7 @@ class SACAgent:
                     payload = payload["model"]
                 state = self.set_weights(state, payload)
         if writer is None:
-            writer = create_writer(os.path.join(experiment_dir, "summaries"))
+            writer = create_writer(os.path.join(experiment_dir, "summaries") if main else None)
         max_epochs = self.max_epochs if max_epochs is None else max_epochs
 
         # metrics reach the host only every log_interval epochs; the loop
@@ -719,7 +810,7 @@ class SACAgent:
         epoch_num = state.epoch
         t_last_log, ep_last_log = time.perf_counter(), epoch_num
         best_path = os.path.join(nn_dir, experiment_name + CHECKPOINT_EXT)
-        train_fn = self.make_train_fn()
+        train_fn = self.make_train_fn(mesh)
         while True:
             state, metrics_dev = train_fn(state)
             epoch_num = state.epoch
@@ -750,17 +841,17 @@ class SACAgent:
                     writer.add_scalar("rewards/step", mean_rewards, frame)
                     writer.add_scalar("rewards/iter", mean_rewards, epoch_num)
                     writer.add_scalar("episode_lengths/step", float(metrics["mean_lengths"]), frame)
-                if config.get("print_stats", True):
+                if config.get("print_stats", True) and main:
                     print(f"fps: {fps:.0f} epoch: {epoch_num} frames: {frame}"
                           + (f" rew: {mean_rewards:.2f}" if mean_rewards is not None else ""), flush=True)
 
             last_path = os.path.join(nn_dir, f"last_{experiment_name}_ep_{epoch_num}{CHECKPOINT_EXT}")
             if self.save_freq > 0 and epoch_num % self.save_freq == 0:
-                self._save(last_path, state, meta)
+                save(last_path, state, meta)
             if mean_rewards is not None and epoch_num >= self.save_best_after and mean_rewards > last_mean_rewards:
                 last_mean_rewards = mean_rewards
                 meta["last_mean_rewards"] = last_mean_rewards
-                self._save(best_path, state, meta)
+                save(best_path, state, meta)
                 if self.score_to_win is not None and mean_rewards > self.score_to_win:
                     print("Maximum reward achieved. Network won!")
                     break
@@ -771,7 +862,7 @@ class SACAgent:
             if stop_requested:
                 print("Custom stop condition met!")
             if will_exit or stop_requested:
-                self._save(last_path, state, meta)
+                save(last_path, state, meta)
                 break
 
         writer.flush()

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from rl_games_tpu_torch.envs.spaces import EnvInfo
+from rl_games_tpu_torch.parallel.mesh import draw_rows, shard_rows
 
 
 class DeviceEnv:
@@ -62,8 +63,9 @@ class DeviceEnv:
 
 
 def uniform(num_envs: int, shape, generator: torch.Generator, device) -> torch.Tensor:
-    """[num_envs, *shape] float32 uniforms in [0, 1)."""
-    return torch.rand((num_envs, *shape), generator=generator, device=device)
+    """[num_envs, *shape] float32 uniforms in [0, 1); from a data-parallel
+    rank's generator, its block of the world's draw (parallel/mesh.py)."""
+    return draw_rows(torch.rand, (num_envs, *shape), generator, device=device)
 
 
 def standard_normal(u):
@@ -122,6 +124,7 @@ class DeviceVecEnv:
                  max_episode_steps: Optional[int] = None):
         self.env = env
         self.num_envs = num_envs
+        self.env_offset = 0  # the first env of a data-parallel rank's block
         self.max_episode_steps = (
             max_episode_steps if max_episode_steps is not None else env.max_episode_steps
         )
@@ -142,6 +145,15 @@ class DeviceVecEnv:
         estate, obs = self.env.reset(self.num_envs, generator)
         steps = torch.zeros(self.num_envs, dtype=torch.int32, device=self.env.device)
         return VecEnvState(estate=estate, generator=generator, steps=steps), obs
+
+    def take_rows(self, state: VecEnvState, lo: int, hi: int) -> VecEnvState:
+        """This vec env cut to envs [lo, hi) of its ``num_envs``, one rank's
+        block of a data-parallel world (parallel/mesh.py): returns the
+        state's rows, whose generator draws the world's rows and keeps
+        these, so the block steps as the single process's envs [lo, hi)."""
+        state = shard_rows(state, lo, hi, self.num_envs)
+        self.num_envs, self.env_offset = hi - lo, self.env_offset + lo
+        return state
 
     def _env_step(self, state: VecEnvState, actions, noise):
         """The env's batched step; a subclass threads extra per-step inputs

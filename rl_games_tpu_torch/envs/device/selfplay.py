@@ -128,7 +128,10 @@ class SelfPlayVecEnv(DeviceVecEnv):
         new env state; ``env_state`` is left unchanged."""
         if env_state is None:
             raise ValueError("device self-play env needs env_state= to push weights into")
-        idx = torch.as_tensor(indices, dtype=torch.int64).to(self.env.device)
+        # the manager's indices are global; a data-parallel rank fills the
+        # slots of its own block of envs
+        idx = torch.as_tensor(indices, dtype=torch.int64).to(self.env.device) - self.env_offset
+        idx = idx[(idx >= 0) & (idx < self.num_envs)]
         new = {}
         for k, cur in env_state.opp_weights.items():
             cur = cur.clone()

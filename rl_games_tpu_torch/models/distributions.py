@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from rl_games_tpu_torch.parallel.mesh import draw_rows
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -34,10 +36,9 @@ def normal_entropy(logstd):
 
 
 def normal_sample(mean, std, generator=None):
-    """mean + std * N(0, 1) noise drawn from ``generator``."""
-    noise = torch.randn(
-        mean.shape, generator=generator, device=mean.device, dtype=mean.dtype
-    )
+    """mean + std * N(0, 1) noise drawn from ``generator`` (a data-parallel
+    rank's: its rows of the world's draw, parallel/mesh.py)."""
+    noise = draw_rows(torch.randn, mean.shape, generator, device=mean.device, dtype=mean.dtype)
     return mean + std * noise
 
 
@@ -100,8 +101,9 @@ def gumbel_max(logits, uniform, mask=None):
 
 
 def categorical_sample(logits, generator=None, mask=None):
-    """One action per row, drawn by Gumbel-max from ``generator``."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
+    """One action per row, drawn by Gumbel-max from ``generator`` (a
+    data-parallel rank's: its rows of the world's draw)."""
+    u = draw_rows(torch.rand, logits.shape, generator, device=logits.device, dtype=logits.dtype)
     return gumbel_max(logits, u, mask)
 
 

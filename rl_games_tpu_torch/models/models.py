@@ -28,6 +28,7 @@ from rl_games_tpu_torch.models import distributions as D
 from rl_games_tpu_torch.models.network_builder import A2CNetwork
 from rl_games_tpu_torch.ops import divergence
 from rl_games_tpu_torch.ops.running_stats import RunningMeanStd, RunningMeanStdObs
+from rl_games_tpu_torch.parallel.mesh import draw_rows
 
 
 def passthrough_extras(out, result):
@@ -311,8 +312,8 @@ class ModelA2CContinuousTanh(BaseModel):
         if deterministic:
             actions, pre = dist.mode(), dist.loc
         else:
-            noise = torch.randn(dist.loc.shape, generator=generator, device=dist.loc.device,
-                                dtype=dist.loc.dtype)
+            noise = draw_rows(torch.randn, dist.loc.shape, generator, device=dist.loc.device,
+                              dtype=dist.loc.dtype)
             actions, pre = dist.sample(noise)
         return {
             "neglogpacs": -dist.log_prob(actions, pre_tanh=pre),

@@ -10,6 +10,15 @@ is given) and its device to the agent and the player: CUDA by default,
 which raises without a card; the CPU only when asked for. A config's
 ``import_modules`` that name a module of the JAX package import the port's
 module of the same path (``import_user_module``).
+
+``Runner.mesh`` (runner.py:87 of the JAX package) is None, or a data-parallel
+world's handle (parallel/mesh.create_mesh) that the caller sets; training
+passes it to the agent or the multi-seed trainer. Every rank of a world
+trains on rank 0's seed (the config's, or the one rank 0 drew), since a
+device env's ranks draw the world's rows of one stream; only where the
+world is ignored (the built vec env says ``is_host_env``, each rank then
+training alone) is the seed offset by the rank, as the JAX package offsets
+every process's (runner.py:102-113). The CLI stays single-process.
 """
 
 import copy
@@ -113,6 +122,8 @@ class Runner:
         self.algo_observer = algo_observer
         self.device = device
         self.params = None
+        self.mesh = None
+        self.agent = None  # the last run_train's agent
 
     # -- config ------------------------------------------------------------
     def load(self, yaml_config: Dict[str, Any]):
@@ -154,12 +165,38 @@ class Runner:
             self.algo_name, base_name="run", params=self.params, device=self.device,
         )
 
+    def _world_seed(self, offset: int = 0):
+        """The seed rule of a world of several ranks: rank 0's seed on every
+        rank, plus ``offset`` (and the env_config's seed likewise)."""
+        from rl_games_tpu_torch.parallel.mesh import broadcast_
+
+        config = self.params["config"]
+        if self.mesh is None or self.mesh.size == 1:
+            return
+        seed = torch.tensor([self.seed], dtype=torch.int64)
+        self.seed = int(broadcast_([seed], 0, self.mesh)[0]) + offset
+        env_cfg = config.get("env_config")
+        if offset and env_cfg and "seed" in env_cfg:
+            env_cfg["seed"] = int(env_cfg["seed"]) + offset
+        config["seed"] = self.seed
+        random.seed(self.seed)
+        np.random.seed(self.seed)
+
     def run_train(self, args: Dict[str, Any]):
         """torch_runner.py:233-321."""
         if args.get("seeds"):
             return self.run_train_multiseed(args)
-        print("Started to train")
+        if self.mesh is None or self.mesh.rank == 0:
+            print("Started to train")
+        self._world_seed()
         agent = self.create_agent()
+        if self.mesh is not None and self.mesh.size > 1 and agent.is_host_env:
+            # a host env ignores the world (the agent warns), so each rank
+            # trains alone: from its own seed, the agent built anew
+            agent.vec_env.close()
+            self._world_seed(self.mesh.rank)
+            agent = self.create_agent()
+        self.agent = agent
         # stop_fn: programmatic args win over YAML config (torch_runner.py
         # _apply_stop_fn :83-95); strings resolve to import paths
         stop_fn = _resolve_stop_fn(
@@ -171,7 +208,7 @@ class Runner:
                 kwargs["sigma"] = args["sigma"]
             if args.get("load_critic_only"):
                 kwargs["load_critic_only"] = True
-        return agent.train(checkpoint=args.get("checkpoint"), stop_fn=stop_fn, **kwargs)
+        return agent.train(checkpoint=args.get("checkpoint"), stop_fn=stop_fn, mesh=self.mesh, **kwargs)
 
     def run_train_multiseed(self, args: Dict[str, Any]):
         """``--seeds a,b,c``: train every seed in this one process
@@ -182,7 +219,9 @@ class Runner:
         writes a single-seed checkpoint per member at the end,
         ``<name>_seed<s>.pth`` in ``nn/``, which the player restores
         unchanged. Returns their paths; the trainer and the members' last
-        states stay in ``self.trainer`` and ``self.last_states``."""
+        states stay in ``self.trainer`` and ``self.last_states``. Over a
+        world (``self.mesh``) each rank trains its block of the members and
+        writes their checkpoints, and rank 0 prints."""
         import os
         import time
 
@@ -202,6 +241,7 @@ class Runner:
             )
         if args.get("sigma") is not None:
             raise ValueError("--sigma is not supported with --seeds")
+        self._world_seed()  # PBT draws from Python's random alike on every rank
         print(f"Started to train {len(seeds)} seeds in one process: {seeds}")
         agent = self.create_agent()
         config = self.params["config"]
@@ -225,7 +265,8 @@ class Runner:
             trainer = MultiSeedTrainer(agent, seeds)
         del agent  # the members are agents of their own
         states = trainer.init_state()
-        fn = trainer.train_fn()
+        fn = trainer.train_fn(self.mesh)
+        main = self.mesh is None or self.mesh.rank == 0
 
         name = config.get("name", "run")
         # programmatic args win over YAML
@@ -246,7 +287,7 @@ class Runner:
             if pbt_interval_epochs and epoch % pbt_interval_epochs == 0:
                 m = _to_host(metrics)
                 states, events = trainer.pbt_step(states, m)
-                for ev in events:
+                for ev in events if main else ():
                     print(f"pbt: seed{ev['dst']} adopts seed{ev['src']} (lr={ev['lr']:.2e} "
                           f"entropy_coef={ev['entropy_coef']:.4f})", flush=True)
             if epoch % log_interval == 0 or epoch == max_epochs:
@@ -258,11 +299,14 @@ class Runner:
                     if played is None or int(played[i]) > 0 else f"seed{s}: n/a"
                     for i, s in enumerate(seeds)
                 )
-                print(f"fps total: {fps:.0f} epoch: {epoch}/{max_epochs} "
-                      f"frames: {frames_per_epoch * epoch} {rews}", flush=True)
+                if main:
+                    print(f"fps total: {fps:.0f} epoch: {epoch}/{max_epochs} "
+                          f"frames: {frames_per_epoch * epoch} {rews}", flush=True)
         paths = []
         for i, s in enumerate(seeds):
             path = os.path.join(nn_dir, f"{name}_seed{s}.pth")
+            if trainer.owner(i) != trainer.mesh.rank:
+                continue
             reward = float(m["mean_rewards"][i][0])
             meta = {"epoch": max_epochs, "frame": trainer.frames_per_epoch() * max_epochs,
                     "last_mean_rewards": reward}

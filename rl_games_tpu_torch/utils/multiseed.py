@@ -16,10 +16,14 @@ device memory scales by k). ``state_for_seed`` returns one member's train
 state, which that member's agent (``agents[i]``) checkpoints and the
 standard player restores unchanged.
 
-It takes no mesh: sharding the seed axis over several cards is ROADMAP.md
-item A13. Running the members' launches as one stream (a grouped forward
-over k weight sets, GAE once at [T, k * N, V]) is perf work for later; the
-members run one after another.
+Over a data-parallel world (``make_train_fn(mesh=...)``, parallel/mesh.py)
+whole members go to the ranks in contiguous blocks, the seed axis over
+'data' as in the JAX package: a rank runs its members' epochs, with no
+collective inside them, and the stacked metrics are gathered so that every
+rank sees the single process's [k] metrics. The states of the other
+ranks' members stay as they were given. Running the members' launches as
+one stream (a grouped forward over k weight sets, GAE once at
+[T, k * N, V]) is perf work for later; the members run one after another.
 """
 
 import copy
@@ -29,6 +33,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from rl_games_tpu_torch.parallel.mesh import LOCAL, broadcast_, gather_rows
 from rl_games_tpu_torch.utils.pbt import classify, mutate_float
 
 
@@ -68,29 +73,40 @@ class MultiSeedTrainer:
             for _ in self.seeds
         ]
         self._fn = None
+        self.mesh = LOCAL  # the data-parallel world, once make_train_fn(mesh=) is given one
+
+    def owner(self, index: int) -> int:
+        """The rank that trains member ``index`` (0 in a single process)."""
+        return index // (len(self.seeds) // self.mesh.size)
 
     def init_state(self) -> list:
         """Each member's train state; member i is seeded with ``seeds[i]``."""
         return [a.init_state(seed=s) for a, s in zip(self.agents, self.seeds)]
 
-    def make_train_fn(self):
+    def make_train_fn(self, mesh=None):
         """The epoch of every member, in turn: states -> (states, metrics)
-        with each metric stacked on a leading [k] axis."""
+        with each metric stacked on a leading [k] axis. With a ``mesh`` this
+        rank runs its block of the members (``len(seeds)`` must divide by
+        the world's size, else ValueError) and the metrics are gathered."""
+        if mesh is not None:
+            mesh.block(len(self.seeds), "the number of seeds")
+            self.mesh = mesh
         fns = [a.make_train_fn() for a in self.agents]
+        mine = [i for i in range(len(self.seeds)) if self.owner(i) == self.mesh.rank]
 
         def run(states):
-            out, metrics = [], []
-            for fn, state in zip(fns, states):
-                state, m = fn(state)
-                out.append(state)
+            out, metrics = list(states), []
+            for i in mine:
+                out[i], m = fns[i](states[i])
                 metrics.append(m)
-            return out, stack_metrics(metrics)
+            # every rank's members' metrics, concatenated on the seed axis
+            return out, gather_rows(stack_metrics(metrics), self.mesh)
 
         return run
 
-    def train_fn(self):
+    def train_fn(self, mesh=None):
         if self._fn is None:
-            self._fn = self.make_train_fn()
+            self._fn = self.make_train_fn(mesh)
         return self._fn
 
     def epoch(self, states):
@@ -156,17 +172,32 @@ class PopulationTrainer(MultiSeedTrainer):
         for dst in laggards.tolist():
             src = int(random.choice(leaders.tolist()))
             donor, adopter, member = self.agents[src], self.agents[dst], states[dst]
+            # the leader's weights, lr and entropy_coef travel from its rank
+            # to every rank; every rank draws the mutations, so that Python's
+            # random stream stays the same on all of them
+            self._broadcast_member(src, states)
             f32 = dict(dtype=torch.float32, device=adopter.device)
             # mutated from the leader's values, rounded to float32 as the
             # JAX package's jnp.asarray(..., float32) rounds them
             lr = torch.tensor(self._maybe_mutate(float(states[src].lr)), **f32)
             entropy_coef = torch.tensor(self._maybe_mutate(float(states[src].entropy_coef)), **f32)
-            adopter.model.load_state_dict(donor.model.state_dict())
-            if adopter.has_central_value:
-                adopter.cv_model.load_state_dict(donor.cv_model.state_dict())
-            member = adopter.reset_optimizer(member)  # both nets' moments
-            member.lr, member.entropy_coef = lr, entropy_coef
-            states[dst] = adopter.clear_stats(member)
+            if self.owner(dst) == self.mesh.rank:
+                adopter.model.load_state_dict(donor.model.state_dict())
+                if adopter.has_central_value:
+                    adopter.cv_model.load_state_dict(donor.cv_model.state_dict())
+                member = adopter.reset_optimizer(member)  # both nets' moments
+                member.lr, member.entropy_coef = lr, entropy_coef
+                states[dst] = adopter.clear_stats(member)
             events.append({"dst": self.seeds[dst], "src": self.seeds[src],
                            "lr": float(lr), "entropy_coef": float(entropy_coef)})
         return states, events
+
+    def _broadcast_member(self, src: int, states):
+        """Member ``src``'s weights (and its central value net's), lr and
+        entropy_coef from the rank that trains it into every rank's copy."""
+        agent = self.agents[src]
+        tensors = [*agent.model.state_dict().values()]
+        if agent.has_central_value:
+            tensors += [*agent.cv_model.state_dict().values()]
+        states[src].lr, states[src].entropy_coef = states[src].lr.clone(), states[src].entropy_coef.clone()
+        broadcast_(tensors + [states[src].lr, states[src].entropy_coef], self.owner(src), self.mesh)

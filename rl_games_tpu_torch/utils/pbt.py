@@ -168,8 +168,11 @@ class PbtManager:
     ``set_param(key, value, state)`` for each mutated key, as there."""
 
     def __init__(self, cfg: PbtCfg, mutable_params: Dict[str, Any],
-                 restart_fn: Optional[Callable] = None):
+                 restart_fn: Optional[Callable] = None, mesh=None):
         self.cfg = cfg
+        # a member trained by a data-parallel world: rank 0 writes its
+        # record, and every rank reads the population after it
+        self.mesh = mesh
         self.mutable_params = dict(mutable_params)
         self.last_interval = 0
         self.restart_fn = restart_fn or self._default_restart
@@ -191,10 +194,13 @@ class PbtManager:
         self.last_interval = frame
         objective = metrics.get(self.cfg.objective, metrics.get("mean_rewards"))
         score = float(np.asarray(objective).reshape(-1)[0])
-        save_member(
-            self.workspace, self.cfg.policy_idx, score, frame,
-            algo.get_weights(), self.mutable_params,
-        )
+        if self.mesh is None or self.mesh.rank == 0:
+            save_member(
+                self.workspace, self.cfg.policy_idx, score, frame,
+                algo.get_weights(), self.mutable_params,
+            )
+        if self.mesh is not None:
+            torch.distributed.barrier()
         members = load_population(self.workspace, self.cfg.num_policies)
         valid = [(i, m) for i, m in enumerate(members) if m is not None]
         if len(valid) < max(2, self.cfg.num_policies // 2):

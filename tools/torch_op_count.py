@@ -6,7 +6,8 @@ For DevicePong, DeviceBreakout, PixelCatcher and CartPole: one vec-env
 step at 64 envs; for ppo_pong_device.yaml, ppo_breakout_device.yaml (cut to
 16 envs, horizon 8, minibatch 32) and ppo_cartpole.yaml: the policy
 forward, one rollout (and its mean per step) and one minibatch step (loss,
-backward, clip, Adam, scheduler); for sac_ant2d.yaml (cut to 16 envs,
+backward, clip, Adam, scheduler); for the flagship (chip_smoke.py's, cut to
+64 envs): one rollout and one whole epoch; for sac_ant2d.yaml (cut to 16 envs,
 batch 64, ring 4096): one env step during warmup and after it, one update
 with the actor step and one without. Each op on the host is a kernel launch
 on a card, so the counts predict the host's share of a step; they are
@@ -66,6 +67,16 @@ def main():
 
         print(f"{config}: policy forward {forward} ops, rollout {rollout} ops "
               f"({rollout / agent.horizon_length:.1f} per step), minibatch step {top_level_ops(minibatch_step)} ops")
+
+    # the flagship (chip_smoke.flagship_params: Ant2D, horizon 16), cut to 64 envs
+    from chip_smoke import flagship_params
+
+    agent = PPOAgent("count", flagship_params(64), device="cpu")
+    state = agent.init_state()
+    rollout = top_level_ops(lambda: agent._rollout(state))
+    epoch = top_level_ops(lambda: agent.train_epoch(state))
+    print(f"flagship: rollout {rollout} ops ({rollout / agent.horizon_length:.1f} per step), "
+          f"epoch {epoch} ops")
 
     with open(os.path.join(CONFIGS, "sac_ant2d.yaml")) as f:
         params = yaml.safe_load(f)["params"]
