@@ -14,7 +14,12 @@ to a plain version):
 3. kernels   — each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and ragged ones (the fused MLP over all
                nine activations, with inputs and weights beyond the init
-               scale, and its gradients); device time per call
+               scale, and its gradients; its grouped launch over G weight
+               sets against plain_mlp_grouped: the self-play opponents'
+               6->128->64 at G = 1024 and 512, B = 1, timed, the JAX
+               test shapes at G = 3, shared weights, biases and x, set
+               strides that break 16-byte alignment, G = 1 bit for bit the
+               ordinary launch); device time per call
                (torch.profiler) and time per call between CUDA events, with
                the least time the card could take on the unit the kernel uses
                beside them, and for GAE the time of an empty kernel over the
@@ -182,9 +187,16 @@ to a plain version):
                3 agents x 16 with tests/test_multiagent.py's networks and its
                central value net, 4 minibatches of 12,288 rows, 3 epochs: 1
                GAE at [16, 3072, 1] an epoch, games_played counting envs, not
-               rows. The connect-four and multiwalker host envs need
-               pettingzoo and Box2D, which the card's machine lacks: they run
-               in the CPU tests alone.
+               rows; (f) (a) and (b) with network.mlp.fused: true, 3 epochs:
+               the opponents' forward one grouped launch of the fused kernel
+               over the 1024 slots a step (41 ordinary and 32 grouped launches
+               an epoch, one of each a player step, held exact), the pushed
+               opponents' actions on the card within 1e-5 of the CPU's, one
+               gradient through torch.func.vmap of the operator against a
+               loop over the sets (rtol 1e-5, atol 1e-6), the opponents'
+               forward's kernels and time beside (a)'s. The connect-four and
+               multiwalker host envs need pettingzoo and Box2D, which the
+               card's machine lacks: they run in the CPU tests alone.
 
 25. export  — policy export through torch.export (A12's last part): (a) the
                fused flagship (8192 Ant2D envs) trained 1 epoch through
@@ -575,6 +587,9 @@ CARTPOLE_DIMS = (4, 32, 32)  # ppo_cartpole.yaml: obs 4, mlp [32, 32] relu
 HOPPER_DIMS = (5, 128, 64, 32)  # ref/mujoco/halfcheetah.yaml's mlp [128, 64, 32] elu on Hopper2D's 5 obs
 # ref/ppo_walker_rnn.yaml's mlp [256, 128, 64] elu on the device Walker2D's 16 observations, in front of its GRU
 WALKER_DIMS = (16, 256, 128, 64)
+# benchruns/selfplay_forage.yaml's mlp [128, 64] elu on competitive_forage's 6 observations: the opponents'
+# chain, one weight set an env's slot
+FORAGE_DIMS = (6, 128, 64)
 
 
 def mlp_inputs(dims, batch, gen, device, bf16_weights=False):
@@ -620,6 +635,137 @@ def time_fused(dims, batch, gen, dev, activation="elu", bf16_weights=False):
             **({"weights": "bfloat16-rounded"} if bf16_weights else {})}
 
 
+def grouped_inputs(dims, groups, batch, gen, device):
+    """G weight sets at mlp_inputs' scales: x [G, B, D_0], weights
+    [G, out, in], biases [G, out]."""
+    f32 = dict(dtype=torch.float32, device=device)
+    ws = [(torch.rand((groups, dims[i + 1], dims[i]), generator=gen, **f32) * 2 - 1) / math.sqrt(dims[i])
+          for i in range(len(dims) - 1)]
+    bs = [torch.randn((groups, dims[i + 1]), generator=gen, **f32) * 0.1 for i in range(len(dims) - 1)]
+    return torch.randn((groups, batch, dims[0]), generator=gen, **f32), ws, bs
+
+
+def check_grouped(tag, x, ws, bs, activation):
+    """The grouped launch against plain_mlp_grouped on the same inputs at
+    rtol = atol = 2e-5; returns (max abs error, its share of the tolerance)."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    got = fm.fused_mlp_grouped_cuda(x, ws, bs, activation)
+    want = fm.plain_mlp_grouped(x, ws, bs, activation)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ratio = float((diff / (2e-5 + 2e-5 * want.abs())).max())
+    print(f"[kernels] fused_mlp grouped {tag} {activation}: max |kernel - plain| = {err:.3e} "
+          f"({ratio:.3f} of the tolerance)")
+    if not (math.isfinite(ratio) and ratio <= 1.0):
+        raise AssertionError(f"grouped fused_mlp disagrees with plain_mlp_grouped at {tag}, {activation}: "
+                             f"max abs {err}, {ratio} of rtol = atol = 2e-5")
+    return err, ratio
+
+
+def time_fused_grouped(tag, x, ws, bs, activation="elu"):
+    """Device time of the grouped launch and of plain_mlp_grouped in turns
+    (plain, kernel, kernel, plain), beside the bound: each tensor read once
+    (a shared one once), the output written once, against 3xTF32 products."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    groups, dims = fm.grouped_dims(x, ws, bs)
+    batch = x.shape[-2]
+    kernel = lambda: fm.fused_mlp_grouped_cuda(x, ws, bs, activation)  # noqa: E731
+    plain = lambda: fm.plain_mlp_grouped(x, ws, bs, activation)  # noqa: E731
+    plain_a, plain_n = device_time_ms(plain, 50)
+    kernel_a, kernel_n = device_time_ms(kernel, 50)
+    kernel_b, _ = device_time_ms(kernel, 50)
+    plain_b, _ = device_time_ms(plain, 50)
+    kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+    flops = 3 * 2 * groups * batch * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    nbytes = 4 * (x.numel() + sum(t.numel() for t in (*ws, *bs)) + groups * batch * dims[-1])
+    bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
+    print(f"[kernels] fused_mlp grouped {tag} ({'x'.join(map(str, dims))} {activation}, G={groups}, B={batch}) "
+          f"device time: kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), plain {plain_ms * 1e3:.2f} us "
+          f"({plain_n:.0f} kernels/call); bound {bound * 1e3:.2f} us ({nbytes} B, {flops} TF32 flop, by {bound_by}); "
+          f"kernel at {bound / kernel_ms:.3f} of the bound's rate")
+    return {"shape": [groups, batch, *dims], "activation": activation, "ms": kernel_ms, "plain_ms": plain_ms,
+            "plain_kernels": plain_n, "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms}
+
+
+def set_strided(t, stride, offset=0):
+    """t [G, ...] copied into a buffer whose sets lie ``stride`` floats apart
+    from ``offset`` on, each set's rows contiguous."""
+    buf = torch.zeros(offset + stride * t.shape[0], dtype=t.dtype, device=t.device)
+    out = buf.as_strided(t.shape, (stride, *t[0].stride()), offset)
+    out.copy_(t)
+    return out
+
+
+def kernel_fused_mlp_grouped(gen, dev):
+    """The grouped launch (a weight set a row of blocks) against
+    plain_mlp_grouped at rtol = atol = 2e-5: the forage opponents' chain at
+    G = 1024 and 512 (half the slots, as after a push), B = 1, timed; the JAX
+    package's kernel test shapes at G = 3, B = 19 over every activation; a
+    layer's weights shared (set stride 0); x shared; set strides that break
+    the 16-byte alignment of a set's rows (a 6 -> 7 layer's 42 floats; a
+    4-wide layer's sets 17 floats apart, x's rows one float past a multiple
+    of 4, a weight whose base lies one float past an aligned address); G = 1
+    against the ordinary launch bit for bit; the refusals."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    worst, worst_ratio, timed = 0.0, 0.0, []
+
+    def check(tag, x, ws, bs, activations=("elu",)):
+        nonlocal worst, worst_ratio
+        for activation in activations:
+            err, ratio = check_grouped(tag, x, ws, bs, activation)
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+
+    for groups in (1024, 512):
+        x, ws, bs = grouped_inputs(FORAGE_DIMS, groups, 1, gen, dev)
+        check(f"forage opponents G={groups} B=1", x, ws, bs)
+        timed.append(time_fused_grouped("forage opponents", x, ws, bs))
+    x, ws, bs = grouped_inputs((37, 50, 33, 7), 3, 19, gen, dev)
+    check("37x50x33x7 G=3 B=19", x, ws, bs, ACTIVATIONS)
+    x, ws, bs = grouped_inputs(FORAGE_DIMS, 64, 3, gen, dev)
+    check("ws[0] shared G=64 B=3", x, [ws[0][0], ws[1]], bs)
+    check("x shared G=64 B=3", x[0], ws, bs)
+    check("biases shared G=64 B=3", x, ws, [b[0] for b in bs])
+    x, ws, bs = grouped_inputs((6, 7, 5), 9, 3, gen, dev)
+    check("6x7x5 (sets of 42 and 35 floats) G=9 B=3", x, ws, bs, ("elu", "tanh"))
+    x, ws, bs = grouped_inputs((4, 4, 8), 9, 5, gen, dev)
+    skewed_x, skewed_w0 = set_strided(x, 5 * 4 + 1), set_strided(ws[0], 17)
+    skewed_w1 = set_strided(ws[1], 8 * 4, offset=1)
+    check("4x4x8 set strides 21 (x) and 17 (ws[0]) floats, ws[1] one float off", skewed_x, [skewed_w0, skewed_w1], bs,
+          ("elu", "relu"))
+    if skewed_w0.stride(0) % 4 == 0 or skewed_w1.data_ptr() % 16 == 0:
+        raise AssertionError("the skewed sets were meant to break 16-byte alignment")
+
+    # G = 1: the grouped entry is the ordinary launch, bit for bit
+    for dims, batch in ((FLAGSHIP_DIMS, 8192), ((37, 50, 33, 7), 19)):
+        x, ws, bs = mlp_inputs(dims, batch, gen, dev)
+        one = fm.fused_mlp_grouped_cuda(x[None], [w[None] for w in ws], [b[None] for b in bs], "elu")[0]
+        same = torch.equal(one, fm.fused_mlp_cuda(x, ws, bs, "elu"))
+        print(f"[kernels] fused_mlp grouped G=1 {'x'.join(map(str, dims))} B={batch}: bit for bit the ordinary "
+              f"launch {same}")
+        if not same:
+            raise AssertionError(f"the grouped launch at G = 1 differs from the ordinary one at {dims}, B={batch}")
+
+    # refusals: nothing falls back
+    x, ws, bs = grouped_inputs(FORAGE_DIMS, 4, 1, gen, dev)
+    many = fm.MAX_GROUPS + 1  # one set expanded: no memory
+    bad = (((x.cpu(), [w.cpu() for w in ws], [b.cpu() for b in bs]), ValueError),
+           ((x.double(), ws, bs), TypeError),
+           ((x[0].expand(many, 1, FORAGE_DIMS[0]), [ws[0][0].expand(many, 128, 6), ws[1][0]], [b[0] for b in bs]),
+            ValueError))
+    for args, exc in bad:
+        try:
+            fm.fused_mlp_grouped_cuda(*args, "elu")
+        except exc:
+            continue
+        raise AssertionError("fused_mlp_grouped_cuda took an input it must refuse")
+    return {"grouped_shapes": timed, "grouped_max_abs_err": worst, "grouped_max_err_over_tolerance": worst_ratio,
+            "grouped_g1_bit_for_bit": True}
+
+
 def phase_kernel_fused_mlp():
     from rl_games_tpu_torch.ops import fused_mlp as fm
 
@@ -642,6 +788,8 @@ def phase_kernel_fused_mlp():
     shapes += [(PENDULUM_DIMS, batch, 1.0, 1.0) for batch in (16, 1024)]
     # [rnn] (d): ref/ppo_walker_rnn.yaml's MLP in front of the GRU at the rollout's and the minibatch's batch size
     shapes += [(WALKER_DIMS, batch, 1.0, 1.0) for batch in (16, 2048)]
+    # [selfplay] (f): benchruns/selfplay_forage.yaml's torso fused, the learner's rollout and minibatch batch size
+    shapes += [(FORAGE_DIMS, batch, 1.0, 1.0) for batch in (1024, 8192)]
     if fm.kernel_plan(FLAGSHIP_DIMS, 5001)[0] != 32:
         raise AssertionError("B = 5001 was chosen to take the 32-row blocks with a ragged last block")
     worst, worst_ratio = 0.0, 0.0
@@ -708,6 +856,11 @@ def phase_kernel_fused_mlp():
     entry["other_shapes"] += [time_fused(PENDULUM_DIMS, batch, gen, dev) for batch in (16, 1024)]
     entry["other_shapes"] += [time_fused(WALKER_DIMS, batch, gen, dev) for batch in (16, 2048)]
     entry["other_shapes"] += [time_fused(FLAGSHIP_DIMS, batch, gen, dev, bf16_weights=True) for batch in (8192, 32768)]
+    # [selfplay] (f): the learner's fused chain at the rollout's and the minibatch's batch size
+    entry["other_shapes"] += [time_fused(FORAGE_DIMS, batch, gen, dev) for batch in (1024, 8192)]
+    # the grouped launch: the self-play opponents' chain over every env's own weight set
+    entry.update(kernel_fused_mlp_grouped(gen, dev))
+    entry["max_abs_err"] = max(entry["max_abs_err"], entry["grouped_max_abs_err"])
     n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
     for batch, suffix in ((8192, ""), (32768, "_minibatch")):
         x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
@@ -3057,12 +3210,13 @@ POPULATION_SEEDS = (7, 11, 17, 23)  # docs/PBT_SELFPLAY.md's seeds for benchruns
 
 @contextlib.contextmanager
 def launch_shapes():
-    """Records the shape of each GAE launch ([T, N, V]) and the batch of each
-    fused-MLP launch while the block runs; the counters move as always."""
+    """Records the shape of each GAE launch ([T, N, V]), the batch of each
+    ordinary fused-MLP launch and the (G, B) of each grouped one while the
+    block runs; the counters move as always."""
     from rl_games_tpu_torch.ops import fused_mlp, gae
 
-    shapes = {"gae": [], "fused_mlp": []}
-    gae_launch, fused_launch = gae.gae_cuda, fused_mlp.fused_mlp_cuda
+    shapes = {"gae": [], "fused_mlp": [], "fused_mlp_grouped": []}
+    gae_launch, fused_launch, grouped_launch = gae.gae_cuda, fused_mlp.fused_mlp_cuda, fused_mlp.fused_mlp_grouped_cuda
 
     def gae_counted(rewards, *args):
         shapes["gae"].append(tuple(rewards.shape))
@@ -3072,11 +3226,15 @@ def launch_shapes():
         shapes["fused_mlp"].append(x.shape[0])
         return fused_launch(x, *args)
 
-    gae.gae_cuda, fused_mlp.fused_mlp_cuda = gae_counted, fused_counted
+    def grouped_counted(x, ws, bs, activation):
+        shapes["fused_mlp_grouped"].append((fused_mlp.grouped_dims(x, ws, bs)[0], x.shape[-2]))
+        return grouped_launch(x, ws, bs, activation)
+
+    gae.gae_cuda, fused_mlp.fused_mlp_cuda, fused_mlp.fused_mlp_grouped_cuda = gae_counted, fused_counted, grouped_counted
     try:
         yield shapes
     finally:
-        gae.gae_cuda, fused_mlp.fused_mlp_cuda = gae_launch, fused_launch
+        gae.gae_cuda, fused_mlp.fused_mlp_cuda, fused_mlp.fused_mlp_grouped_cuda = gae_launch, fused_launch, grouped_launch
 
 
 def histogram(values) -> dict:
@@ -3092,7 +3250,7 @@ def launches_now() -> dict:
 def zero_launches():
     from rl_games_tpu_torch.ops import fused_mlp, gae
 
-    gae.gae_launches = fused_mlp.fused_mlp_launches = 0
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_grouped_launches = 0
 
 
 def fused_flagship_params(num_actors: int = 8192) -> dict:
@@ -3534,20 +3692,29 @@ def multiagent_params(num_actors: int = 1024, minibatch_size: int = 12288) -> di
     }
 
 
-def selfplay_run(epochs: int):
+def selfplay_run(epochs: int, fused: bool = False):
     """(a) benchruns/selfplay_forage.yaml as shipped through Runner.run for
     ``epochs`` epochs, then its last checkpoint plays a mirror match through
     Runner.run (the restored weights in every opponent seat, checked). The
     steady epoch, env-steps/s, peak memory; a rollout step's wall time and
     device kernels with the opponent's forward apart; the player's step; 1
-    GAE launch an epoch at [32, 1024, 1], none fused, none in the player."""
+    GAE launch an epoch at [32, 1024, 1], none fused, none in the player.
+    (f) with ``fused``: the same with network.mlp.fused: true, the
+    opponents' forward one grouped launch over the 1024 slots a step. An
+    epoch launches the chain 32 + 1 times at B = 1024 (rollout, bootstrap)
+    and 8 times at B = 8192 (2 x 4 minibatches), and 32 times grouped at
+    G = 1024, B = 1; a player step once each way."""
     from rl_games_tpu_torch.envs.device.selfplay import SelfPlayVecEnv
+    from rl_games_tpu_torch.ops import fused_mlp
     from rl_games_tpu_torch.runner import Runner
     from rl_games_tpu_torch.utils import checkpoint as ckpt
 
+    tag = "(f)" if fused else "(a)"
     params = selfplay_params()
+    params["network"]["mlp"]["fused"] = fused
     cfg = params["config"]
     n, horizon = cfg["num_actors"], cfg["horizon_length"]
+    minibatches = cfg["mini_epochs"] * n * horizon // cfg["minibatch_size"]
     ends, agents, seats = [], [], []
     mark = epoch_marker(ends)
 
@@ -3573,13 +3740,16 @@ def selfplay_run(epochs: int):
             _, epoch_num = runner.run({"train": True, "stop_fn": stop_fn})
             torch.cuda.synchronize()
             train_launches = launches_now()  # read right after
+            train_grouped = fused_mlp.fused_mlp_grouped_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         nn_dir = os.path.join(train_dir, cfg["name"], "nn")
         final = [f for f in sorted(os.listdir(nn_dir)) if f"_ep_{epochs}_rew_" in f]
         if epoch_num != epochs or len(final) != 1:
-            raise AssertionError(f"selfplay (a): {epoch_num} epochs, checkpoints {os.listdir(nn_dir)}")
+            raise AssertionError(f"selfplay {tag}: {epoch_num} epochs, checkpoints {os.listdir(nn_dir)}")
         checkpoint = os.path.join(nn_dir, final[0])
         saved, _ = ckpt.load_checkpoint_weights(checkpoint)
+        player = runner.create_player()
+        play_steps = player.steps_needed(player.games_num)
         SelfPlayVecEnv.init_opponent = recorded
         try:
             play_out = io.StringIO()
@@ -3590,23 +3760,36 @@ def selfplay_run(epochs: int):
                 torch.cuda.synchronize()
                 play_s = time.perf_counter() - t1
                 play_launches = launches_now()  # read right after
+                play_grouped = fused_mlp.fused_mlp_grouped_launches
         finally:
             SelfPlayVecEnv.init_opponent = init_opponent
         steady_s, first, last = steady_player_step(runner, checkpoint)
     for line in out.getvalue().strip().splitlines():
-        print(f"[selfplay] (a) | {line}")
-    expected = {"gae": epochs, "fused_mlp": 0}
-    if (train_launches != expected or histogram(shapes["gae"]) != {SELFPLAY_SHAPE: epochs} or shapes["fused_mlp"]
-            or play_launches != {"gae": 0, "fused_mlp": 0} or play_shapes["gae"] or play_shapes["fused_mlp"]):
-        raise AssertionError(f"selfplay (a): launches {train_launches} (GAE shapes {histogram(shapes['gae'])}), "
-                             f"player {play_launches}; expected {expected} at {list(SELFPLAY_SHAPE)}, player none")
+        print(f"[selfplay] {tag} | {line}")
+    rollout = epochs * (horizon + 1)
+    expected = {"gae": epochs, "fused_mlp": fused * (rollout + minibatches * epochs + horizon * epochs)}
+    expected_shapes = {"gae": {SELFPLAY_SHAPE: epochs},
+                       "fused_mlp": {n: rollout, cfg["minibatch_size"]: minibatches * epochs} if fused else {},
+                       "fused_mlp_grouped": {(n, 1): horizon * epochs} if fused else {}}
+    expected_play = {"gae": 0, "fused_mlp": 2 * fused * play_steps}
+    expected_play_shapes = ({"gae": {}, "fused_mlp": {n: play_steps}, "fused_mlp_grouped": {(n, 1): play_steps}}
+                            if fused else {"gae": {}, "fused_mlp": {}, "fused_mlp_grouped": {}})
+    got_shapes = {k: histogram(v) for k, v in shapes.items()}
+    got_play_shapes = {k: histogram(v) for k, v in play_shapes.items()}
+    if (train_launches != expected or train_grouped != fused * horizon * epochs or got_shapes != expected_shapes
+            or play_launches != expected_play or play_grouped != fused * play_steps
+            or got_play_shapes != expected_play_shapes):
+        raise AssertionError(f"selfplay {tag}: launches {train_launches} ({train_grouped} grouped; shapes {got_shapes}),"
+                             f" player {play_launches} ({play_grouped} grouped; shapes {got_play_shapes}); expected "
+                             f"{expected} ({fused * horizon * epochs} grouped; shapes {expected_shapes}), player "
+                             f"{expected_play} ({fused * play_steps} grouped; shapes {expected_play_shapes})")
     mirror = len(seats) == 1 and sorted(seats[0]) == sorted(saved) and all(
         torch.equal(seats[0][k], v) for k, v in saved.items())
     if not (mirror and math.isfinite(mean_reward)):
-        raise AssertionError(f"selfplay (a) player: mirror match {mirror} ({len(seats)} seatings), "
+        raise AssertionError(f"selfplay {tag} player: mirror match {mirror} ({len(seats)} seatings), "
                              f"mean reward {mean_reward}")
     times = np.diff([t0, *ends])
-    epoch_s = report_epochs("selfplay", times, n * horizon, peak_gib)
+    epoch_s = report_epochs(f"selfplay {tag}", times, n * horizon, peak_gib)
 
     # the rollout step, from the trained agent's state: its wall time (one
     # rollout after a warm-up one, over its steps), its kernels (a profiled
@@ -3624,25 +3807,54 @@ def selfplay_run(epochs: int):
         step_kernels = len(device_events(lambda: agent._rollout(state), 1)) / 8
     finally:
         agent.horizon_length = horizon
-    opp_ms = cuda_time_ms(lambda: agent.vec_env._opp_actions(state.env_state), 50)
-    opp_kernels = len(device_events(lambda: agent.vec_env._opp_actions(state.env_state), 1))
+    opponents = lambda: agent.vec_env._opp_actions(state.env_state)  # noqa: E731
+    opp_ms = cuda_time_ms(opponents, 50)
+    opp_kernels = len(device_events(opponents, 1))
+    opp_device_ms, _ = device_time_ms(opponents, 20)
     pushes = out.getvalue().count("updating opponent weights")
-    print(f"[selfplay] (a) trained benchruns/selfplay_forage.yaml as shipped ({n} envs x {horizon}, MLP [128, 64] elu, 2 x 4 "
-          f"minibatches of 8192) {epochs} epochs through Runner.run: launches {train_launches}, GAE shapes "
-          f"{histogram(shapes['gae'])}, {pushes} opponent pushes")
-    print(f"[selfplay] (a) rollout step {step_s * 1e3:.3f} ms wall, {step_kernels:.1f} device kernels a step; of it "
+    print(f"[selfplay] {tag} trained benchruns/selfplay_forage.yaml{' with network.mlp.fused: true' if fused else ' as shipped'} "
+          f"({n} envs x {horizon}, MLP [128, 64] elu, 2 x 4 minibatches of 8192) {epochs} epochs through Runner.run: "
+          f"launches {train_launches} ({train_grouped} grouped), shapes {got_shapes}, {pushes} opponent pushes")
+    print(f"[selfplay] {tag} rollout step {step_s * 1e3:.3f} ms wall, {step_kernels:.1f} device kernels a step; of it "
           f"the opponent's forward over the {n} slots {opp_ms * 1e3:.1f} us a call between CUDA events, "
-          f"{opp_kernels} device kernels")
-    print(f"[selfplay] (a) mirror match of {os.path.basename(checkpoint)} through Runner.run (its weights in all "
-          f"{n} opponent seats): launches {play_launches}, {play_out.getvalue().strip()!r}, {play_s:.2f} s with "
-          f"set-up; steady player step {steady_s * 1e3:.3f} ms (steps {first}-{last})")
-    return {"train": train_launches, "play": play_launches, "epoch_s": epoch_s, "agent": agent, "state": state,
-            "step_s": step_s, "step_kernels": step_kernels, "opp_ms": opp_ms, "opp_kernels": opp_kernels}
+          f"{opp_kernels} device kernels, {opp_device_ms * 1e3:.1f} us of device time")
+    print(f"[selfplay] {tag} mirror match of {os.path.basename(checkpoint)} through Runner.run (its weights in all "
+          f"{n} opponent seats): {play_steps} steps, launches {play_launches} ({play_grouped} grouped), "
+          f"{play_out.getvalue().strip()!r}, {play_s:.2f} s with set-up; steady player step {steady_s * 1e3:.3f} ms "
+          f"(steps {first}-{last})")
+    return {"train": train_launches, "train_grouped": train_grouped, "play": play_launches, "play_grouped": play_grouped,
+            "play_steps": play_steps, "epochs": epochs, "epoch_s": epoch_s, "agent": agent, "state": state,
+            "step_s": step_s, "step_kernels": step_kernels, "opp_ms": opp_ms, "opp_kernels": opp_kernels,
+            "opp_device_ms": opp_device_ms}
 
 
-def selfplay_push(agent, state):
-    """(b) a forced push on (a)'s agent: SelfPlayManager at update_score
-    -100 over 1 game, half the envs (512) a push. Slots 0-511 take the
+def vmap_gradients_check(device="cuda"):
+    """(f) one torch.autograd.grad through torch.func.vmap of the registered
+    operator on the card (the grouped launch forward, the recomputed plain
+    chain backward) against a loop of the operator over the sets, at
+    rtol 1e-5 / atol 1e-6: every input's gradient, x shared by the sets."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    x, ws, bs = grouped_inputs(FORAGE_DIMS, 16, 3, gen, torch.device(device))
+    leaves = [t.requires_grad_(True) for t in (x[0], *ws, *bs)]
+    got = torch.func.vmap(lambda w0, w1, b0, b1: fm.fused_mlp(leaves[0], [w0, w1], [b0, b1], "elu"))(*leaves[1:])
+    want = torch.stack([fm.fused_mlp(leaves[0], [w[g] for w in leaves[1:3]], [b[g] for b in leaves[3:]], "elu")
+                        for g in range(16)])
+    weights = torch.linspace(-1, 1, want.numel(), device=device).reshape(want.shape)
+    g_got = torch.autograd.grad((got * weights).sum(), leaves)
+    g_want = torch.autograd.grad((want * weights).sum(), leaves)
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    err = max(float((a - b).abs().max()) for a, b in zip(g_got, g_want))
+    print(f"[selfplay] (f) gradients through torch.func.vmap of the operator (16 sets, x shared) against a loop "
+          f"over the sets: max abs diff {err:.3e} (rtol 1e-5, atol 1e-6)")
+    return err
+
+
+def selfplay_push(agent, state, tag="(b)"):
+    """(b) a forced push on (a)'s agent ((f) on its own): SelfPlayManager
+    at update_score -100 over 1 game, half the envs (512) a push. Slots 0-511 take the
     learner's weights and 512-1023 stay bit for bit; from the same state the
     opponents' actions on the card agree with the CPU's within 1e-5."""
     from rl_games_tpu_torch.algos.ppo import meters_mean
@@ -3674,13 +3886,13 @@ def selfplay_push(agent, state):
         opp_weights={k: v.cpu() for k, v in state.env_state.opp_weights.items()})
     got, want = agent.vec_env._opp_actions(state.env_state).cpu(), cpu_env._opp_actions(cpu_state)
     err = float((got - want).abs().max())
-    print(f"[selfplay] (b) forced push on (a)'s agent ({metrics['games_played']} games, {half} envs a push) in "
+    print(f"[selfplay] {tag} forced push on the trained agent ({metrics['games_played']} games, {half} envs a push) in "
           f"{push_s * 1e3:.2f} ms: slots 0-{half - 1} the learner's weights {pushed_rows}, slots {half}-{n - 1} "
           f"bit for bit "
           f"{kept_rows}, next envs {manager.env_indexes[:2].tolist()}...; the opponents' actions on the card "
           f"against the CPU's from the same state: max |d| {err:.2e}")
     if not (pushed and pushed_rows and kept_rows and err < 1e-5 and int(manager.env_indexes[0]) == 1):
-        raise AssertionError(f"selfplay (b): pushed {pushed}, rows {pushed_rows} / {kept_rows}, error {err}")
+        raise AssertionError(f"selfplay {tag}: pushed {pushed}, rows {pushed_rows} / {kept_rows}, error {err}")
     return {"push_s": push_s, "max_abs_err": err}
 
 
@@ -3733,8 +3945,10 @@ def multiagent_run(epochs: int = 3):
 def phase_selfplay(epochs: int):
     """[selfplay]: (a) benchruns/selfplay_forage.yaml through Runner.run,
     trained and played as a mirror match; (b) a forced push on its agent;
-    (c) the device multi-agent path. ((d): GAE at both paths' shapes in
-    phase_kernel_gae; (e): reference_multiagent in phase_reference.) The
+    (c) the device multi-agent path; (f) (a) and (b) with network.mlp.fused:
+    true over 3 epochs (the opponents' forward a grouped launch) and one
+    gradient through the vmapped operator. ((d): GAE at both paths' shapes
+    in phase_kernel_gae; (e): reference_multiagent in phase_reference.) The
     connect-four and multiwalker host envs need pettingzoo and Box2D, which
     the card's machine lacks: they run in the CPU tests alone."""
     t0 = time.perf_counter()
@@ -3742,6 +3956,17 @@ def phase_selfplay(epochs: int):
     runs["b"] = selfplay_push(runs["a"]["agent"], runs["a"]["state"])
     runs["c"] = multiagent_run(3)
     del runs["a"]["agent"], runs["a"]["state"]
+    # (f): the fused seat, its forced push and the operator's vmapped gradients
+    runs["f"] = selfplay_run(3, fused=True)
+    runs["f"]["push"] = selfplay_push(runs["f"]["agent"], runs["f"]["state"], "(f)")
+    runs["f"]["vmap_grad_err"] = vmap_gradients_check()
+    del runs["f"]["agent"], runs["f"]["state"]
+    a, f = runs["a"], runs["f"]
+    print(f"[selfplay] the opponents' forward over {SELFPLAY_SHAPE[1]} slots: plain seat (a) {a['opp_kernels']} kernels, "
+          f"{a['opp_ms'] * 1e3:.1f} us between CUDA events, {a['opp_device_ms'] * 1e3:.1f} us of device time; fused seat "
+          f"(f) {f['opp_kernels']} kernels, {f['opp_ms'] * 1e3:.1f} us, {f['opp_device_ms'] * 1e3:.1f} us; rollout step "
+          f"{a['step_s'] * 1e3:.3f} / {f['step_s'] * 1e3:.3f} ms; steady epoch {a['epoch_s'] * 1e3:.1f} / "
+          f"{f['epoch_s'] * 1e3:.1f} ms")
     print(f"[selfplay] phase in {time.perf_counter() - t0:.1f} s")
     return runs
 
@@ -4379,13 +4604,14 @@ def main():
             *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn),
             *(dict_runs[tag]["train"] for tag in dict_runs), *(impala[tag]["train"] for tag in impala), th_train,
             *(population[tag]["train"] for tag in ("a", "b", "d")), selfplay["a"]["train"], selfplay["c"]["train"],
-            export["a"]["train"], export["c"]["train"], jax_ckpt["train"])
+            selfplay["f"]["train"], export["a"]["train"], export["c"]["train"], jax_ckpt["train"])
     # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn], [dict], [impala] and
-    # [twohot] run 3; [selfplay] (a) --epochs, (c) 3
+    # [twohot] run 3; [selfplay] (a) --epochs, (c) 3, (f) 3
     epochs_trained = ((args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
                       + (3,) * len(rnn) + (3,) * len(dict_runs) + (3,) * len(impala) + (3,)
                       # [population]: its runs' member epochs, each with its own GAE launch
-                      + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d")) + (args.epochs, 3)
+                      + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d"))
+                      + (args.epochs, 3, selfplay["f"]["epochs"])
                       # [export] (a) and (c) 1 epoch each, [jax_ckpt] 2 resumed epochs
                       + (1, 1, 2))
     # [mesh]: each world's runs, a rank each
@@ -4412,6 +4638,7 @@ def main():
                                      "population": {tag: population[tag]["train"]["gae"] for tag in ("a", "b", "d")},
                                      # [selfplay]: (a) at [32, 1024, 1], (c) at [16, 3072, 1], once an epoch
                                      "selfplay": selfplay["a"]["train"]["gae"],
+                                     "selfplay_fused": selfplay["f"]["train"]["gae"],
                                      "multiagent": selfplay["c"]["train"]["gae"],
                                      # [export] (a) at [16, 8192, 1], (c) at [256, 16, 1]; (b) SAC none
                                      "export": {tag: export[tag]["train"]["gae"] for tag in ("a", "b", "c")},
@@ -4432,6 +4659,7 @@ def main():
                                + population["b"]["train"]["fused_mlp"] + population["d"]["train"]["fused_mlp"]
                                + selfplay["a"]["train"]["fused_mlp"] + selfplay["a"]["play"]["fused_mlp"]
                                + selfplay["c"]["train"]["fused_mlp"]
+                               + selfplay["f"]["train"]["fused_mlp"] + selfplay["f"]["play"]["fused_mlp"]
                                + sum(export[tag]["train"]["fused_mlp"] + sum(r["launches"] for r in export[tag]["rows"])
                                      for tag in ("a", "b", "c")) + export["d"]["launches"]
                                + sum(jax_ckpt[key]["fused_mlp"] for key in ("play_steps", "play", "train"))
@@ -4490,10 +4718,23 @@ def main():
                                       "per_player_step": th_play["fused_mlp"] / th_steps}
     # [population]: (a) plain (0), (b) and (d) the fused flagship's 33 a member epoch
     fused_entry["launches_population"] = {tag: population[tag]["train"]["fused_mlp"] for tag in ("a", "b", "d")}
-    # [selfplay]: plain MLPs on both paths (the opponents' vmapped forward is a batched product): 0
+    # [selfplay] (a) and (c): plain MLPs on both paths (the opponents' vmapped forward is a batched product): 0
     fused_entry["launches_selfplay"] = {"train": selfplay["a"]["train"]["fused_mlp"],
                                         "play": selfplay["a"]["play"]["fused_mlp"]}
     fused_entry["launches_multiagent"] = {"train": selfplay["c"]["train"]["fused_mlp"]}
+    # [selfplay] (f): the fused seat; an epoch 32 + 1 ordinary launches at B = 1024 and 8 at 8192, 32 grouped at
+    # G = 1024, B = 1 (the opponents, a step each); a player step one of each (grouped ones among "launches")
+    sf = selfplay["f"]
+    fused_entry["launches_selfplay_fused"] = {
+        "train": sf["train"]["fused_mlp"], "train_grouped": sf["train_grouped"], "play": sf["play"]["fused_mlp"],
+        "play_grouped": sf["play_grouped"], "per_epoch": sf["train"]["fused_mlp"] / sf["epochs"],
+        "grouped_per_epoch": sf["train_grouped"] / sf["epochs"],
+        "per_player_step": sf["play"]["fused_mlp"] / sf["play_steps"], "play_steps": sf["play_steps"]}
+    fused_entry["launches_grouped"] = sf["train_grouped"] + sf["play_grouped"]
+    fused_entry["selfplay_fused"] = {
+        "opp_kernels": sf["opp_kernels"], "opp_ms": sf["opp_ms"], "opp_device_ms": sf["opp_device_ms"],
+        "plain_opp_kernels": selfplay["a"]["opp_kernels"], "plain_opp_ms": selfplay["a"]["opp_ms"],
+        "push_max_abs_err": sf["push"]["max_abs_err"], "vmap_grad_max_abs_err": sf["vmap_grad_err"]}
     # [export]: each exported program's call launches the chain once ((b), SAC, none), also in a fresh
     # process (d); its time at B = 8192 beside the player's forward; the operator's host cost
     fused_entry["launches_export"] = {

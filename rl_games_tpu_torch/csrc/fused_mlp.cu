@@ -9,6 +9,13 @@
 // [B, D_0], W_l is [D_{l+1}, D_l] (torch.nn.Linear's layout, the input index
 // contiguous), b_l is [D_{l+1}], out is [B, D_L], all contiguous float32.
 //
+// The same launch also walks G weight sets at once (a grouped launch: the
+// per-env opponent seats of a self-play env, which the JAX package runs as
+// the Pallas call under jax.vmap over stacked weights). Set s reads x, W_l and
+// b_l and writes out at s times each tensor's set stride (in floats) past its
+// base; a stride of 0 shares the tensor among all sets, so shared weights are
+// never copied G times. The ordinary launch is G = 1 with every stride 0.
+//
 // What bounds it on this card: operations. At the flagship torso
 // 26 -> 256 -> 128 -> 64 a row costs 2 * 47,616 flop against 360 bytes
 // moved, and the only unit that does such a chain quickly is the tensor core,
@@ -80,6 +87,13 @@
 // - Nothing is padded in device memory. In shared memory widths are
 //   zero-filled up to a multiple of 8 (the instruction's depth and width);
 //   ragged rows and columns are masked at the store.
+// - A grouped launch puts the set on the grid's second axis: a block finds
+//   its set in blockIdx.y and offsets its pointers before its first copy.
+//   The width of each copy is chosen from the address that the copy is
+//   handed, so a set stride that breaks 16-byte alignment (a 6 -> 7 layer's
+//   42 floats a set) takes the narrower copies in the sets it misaligns.
+//   Each block streams its set's weights once; at one row a set (the
+//   opponents' case) a 16-row tile runs with 15 rows idle.
 // - Inputs must be finite: the split of an infinity is not a number.
 
 #include <cuda_runtime.h>
@@ -97,10 +111,15 @@ constexpr int kTileFloats = TN * WS;
 constexpr int kWarps = 8;  // warps that multiply, side by side along a weight tile's 128 outputs
 constexpr int kThreads = 32 * (kWarps + 1);  // and one warp that issues the copies
 constexpr int NT = TN / 8 / kWarps;          // 8-wide instruction tiles of outputs per warp
+constexpr int kMaxGroups = 65535;            // weight sets a launch: the grid's second axis
 
 struct Net {
   const float* w[kMaxLayers];
   const float* b[kMaxLayers];
+  // set strides in floats (0: every set shares the tensor)
+  long long w_set[kMaxLayers];
+  long long b_set[kMaxLayers];
+  long long x_set, out_set;
   int dims[kMaxLayers + 1];
   int n_layers;
   int act;
@@ -255,7 +274,7 @@ __device__ __forceinline__ void enter_layer(TilePos& p, const Net& net, int l) {
   p.N = net.dims[l + 1];
   p.nK = (p.K + TK - 1) / TK;
   p.nN = (p.N + TN - 1) / TN;
-  p.W = net.w[l];
+  p.W = net.w[l] + blockIdx.y * net.w_set[l];  // this block's weight set
 }
 
 __device__ __forceinline__ void advance(TilePos& p, const Net& net) {
@@ -383,6 +402,9 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
   const int t = lane & 3;
   const int col_base = warp * (8 * NT);
   const long long row0 = static_cast<long long>(blockIdx.x) * TM;
+  // this block's set: its rows of x and of out
+  x += blockIdx.y * net.x_set;
+  out += blockIdx.y * net.out_set;
 
   // Everyone shares the first copies: the tile's rows of x and the ring's
   // first kStages - 1 tiles (x and the first tile make one group).
@@ -448,7 +470,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
           for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = 0.0f;
       // asked for now, needed after the layer's last product: the trip to
       // device memory passes under the products
-      const float* __restrict__ bias = net.b[l];
+      const float* __restrict__ bias = net.b[l] + blockIdx.y * net.b_set[l];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -512,35 +534,47 @@ int smem_bytes_for(int rows, int stride0, int stride1) {
 }
 
 template <int MT>
-int launch(const float* x, float* out, int B, const Net& net, cudaStream_t stream, int* attr_err) {
+int launch(const float* x, float* out, int B, int groups, const Net& net, cudaStream_t stream,
+           int* attr_err) {
   constexpr int TM = 16 * MT;
   const int smem_bytes = smem_bytes_for(TM, net.stride0, net.stride1);
   *attr_err = static_cast<int>(cudaFuncSetAttribute(
       fused_mlp_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
   if (*attr_err != 0) return 0;
   const unsigned int blocks = static_cast<unsigned int>((static_cast<long long>(B) + TM - 1) / TM);
-  fused_mlp_kernel<MT><<<blocks, kThreads, smem_bytes, stream>>>(x, out, B, net);
+  const dim3 grid(blocks, static_cast<unsigned int>(groups));
+  fused_mlp_kernel<MT><<<grid, kThreads, smem_bytes, stream>>>(x, out, B, net);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream). `dims` holds n_layers + 1
-// widths, `ws` and `bs` n_layers device pointers each (host arrays). Returns
-// cudaGetLastError() of the launch and writes the code of the shared-memory
-// attribute call to *attr_err; -1 for arguments the kernel does not take.
+// Launches on `stream` (PyTorch's current stream) over `groups` weight sets
+// (1 for the ordinary launch). `dims` holds n_layers + 1 widths, `ws` and `bs`
+// n_layers device pointers each, `w_set` and `b_set` n_layers set strides
+// each (host arrays); `x_set` and `out_set` are the set strides of x and out.
+// All strides count floats. Returns cudaGetLastError() of the launch and
+// writes the code of the shared-memory attribute call to *attr_err; -1 for
+// arguments the kernel does not take.
 extern "C" int fused_mlp_forward(const float* x, float* out, int B, int n_layers,
                                  const int* dims, const void* const* ws,
                                  const void* const* bs, int act, int rows_per_block,
-                                 int stride0, int stride1, void* stream, int* attr_err) {
+                                 int stride0, int stride1, int groups, long long x_set,
+                                 long long out_set, const long long* w_set,
+                                 const long long* b_set, void* stream, int* attr_err) {
   *attr_err = 0;
   if (n_layers < 1 || n_layers > kMaxLayers || act < kIdentity || act > kTanh) return -1;
+  if (groups < 1 || groups > kMaxGroups) return -1;
   if (B <= 0) return 0;
   Net net = {};
   for (int l = 0; l < n_layers; ++l) {
     net.w[l] = static_cast<const float*>(ws[l]);
     net.b[l] = static_cast<const float*>(bs[l]);
+    net.w_set[l] = w_set[l];
+    net.b_set[l] = b_set[l];
   }
+  net.x_set = x_set;
+  net.out_set = out_set;
   for (int l = 0; l <= n_layers; ++l) net.dims[l] = dims[l];
   net.n_layers = n_layers;
   net.act = act;
@@ -549,9 +583,9 @@ extern "C" int fused_mlp_forward(const float* x, float* out, int B, int n_layers
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows_per_block) {
     case 32:
-      return launch<2>(x, out, B, net, s, attr_err);
+      return launch<2>(x, out, B, groups, net, s, attr_err);
     case 16:
-      return launch<1>(x, out, B, net, s, attr_err);
+      return launch<1>(x, out, B, groups, net, s, attr_err);
     default:
       return -1;
   }

@@ -27,9 +27,7 @@ from torch import nn
 
 from rl_games_tpu_torch.envs.device.base import DeviceEnv, DeviceVecEnv, VecEnvState, uniform_between
 from rl_games_tpu_torch.envs.spaces import Box, EnvInfo
-from rl_games_tpu_torch.models.layers import FusedMLP
 from rl_games_tpu_torch.utils.device import resolve_device
-from rl_games_tpu_torch.utils.unported import unported
 
 STEP_SIZE = 0.12
 CATCH_RADIUS = 0.15
@@ -108,12 +106,7 @@ class SelfPlayVecEnv(DeviceVecEnv):
     # -- wiring --------------------------------------------------------------
     def bind_policy(self, model: nn.Module):
         """Bound by the agent (and the player) once its model exists: the
-        opponent seat applies the architecture the learner trains. A fused MLP
-        is refused: its kernel takes one weight set a launch, and the opponents'
-        forward runs every env's own set at once."""
-        if any(isinstance(m, FusedMLP) for m in model.modules()):
-            unported("a self-play opponent seat over network.mlp.fused (the fused MLP kernel over "
-                     "per-env weight sets)", "A14")
+        opponent seat applies the architecture the learner trains."""
         self._policy = model
 
     def init_opponent(self, env_state: VecEnvState, weights: dict) -> SelfPlayVecEnvState:
@@ -143,7 +136,8 @@ class SelfPlayVecEnv(DeviceVecEnv):
     def _opp_actions(self, state: SelfPlayVecEnvState):
         """Each env's opponent action, deterministic, from its own slot: the
         policy's forward vmapped over the env axis (each linear layer one
-        batched product over the slots; :148-164)."""
+        batched product over the slots; a fused MLP one grouped launch of its
+        kernel over every slot's weights; :148-164)."""
         if self._policy is None:
             raise RuntimeError("bind_policy was never called")
         est = state.estate

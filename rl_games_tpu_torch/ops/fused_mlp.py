@@ -25,6 +25,17 @@ kernel; CPU: ``plain_mlp``; a fake implementation for tracing; the backward
 above), so that ``torch.export`` records it in an exported policy and the
 exported program launches the kernel on the card (``utils/export.py``).
 Importing this module registers it.
+
+Over G weight sets at once (a self-play env's opponents: the policy under
+``torch.func.vmap`` over each env's own slot, as the JAX package runs its
+Pallas call under ``jax.vmap``), the operator's vmap rule makes one grouped
+call: ``fused_mlp_grouped`` (x [G, B, D_0] or a shared [B, D_0]; each
+weight [G, out, in] or a shared [out, in]; each bias [G, out] or a shared
+[out]; returns [G, B, D_L]), which is one launch of the same kernel on the
+card (``fused_mlp_grouped_cuda``, each set a row of blocks, a shared tensor
+at set stride 0) and ``plain_mlp_grouped`` on the CPU. It is a registered
+operator too, ``rl_games_tpu_torch::fused_mlp_grouped``, whose backward
+recomputes through ``plain_mlp_grouped``.
 """
 
 import ctypes
@@ -35,12 +46,16 @@ import torch.nn.functional as F
 
 from rl_games_tpu_torch.utils import cuda_build
 
-# Launches of the CUDA kernel in this process; ``fused_mlp_cuda`` adds one per
-# launch and nothing else touches it except a caller resetting it.
+# Launches of the CUDA kernel in this process, ordinary and grouped;
+# ``fused_mlp_cuda`` and ``fused_mlp_grouped_cuda`` add one per launch and
+# nothing else touches it except a caller resetting it.
 fused_mlp_launches = 0
+# The grouped launches among them (``fused_mlp_grouped_cuda`` adds one here too).
+fused_mlp_grouped_launches = 0
 
 # The kernel's limits.
 MAX_LAYERS = 8  # layer pointers travel in the kernel's argument block
+MAX_GROUPS = 65_535  # weight sets a grouped launch takes: the grid's second axis
 MAX_SHARED_BYTES = 232_448  # shared memory one block may use on sm_90
 # Rows of x per block that the kernel is built for, with the smallest batch
 # at which each is taken: 32 rows once 16-row tiles would no longer all be
@@ -85,6 +100,47 @@ def plain_mlp(x, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], activat
     f = _PLAIN_ACTS[_activation_code(activation)]
     for w, b in zip(ws, bs):
         x = f(F.linear(x, w, b))
+    return x
+
+
+def grouped_dims(x, ws, bs) -> Tuple[int, List[int]]:
+    """(G, the chain's widths) of a chain over G weight sets: x [G, B, D_0]
+    or [B, D_0], each weight [G, out, in] or [out, in], each bias [G, out]
+    or [out], where a tensor without the set axis is shared by every set.
+    Raises ValueError on shapes the chain does not take, and where no
+    tensor has a set axis."""
+    if len(ws) != len(bs):
+        raise ValueError(f"{len(ws)} weights but {len(bs)} biases")
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x must be [G, B, D] or [B, D], got {tuple(x.shape)}")
+    sets = {"x": x.shape[0]} if x.dim() == 3 else {}
+    dims = [x.shape[-1]]
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        if w.dim() not in (2, 3) or w.shape[-1] != dims[-1]:
+            raise ValueError(f"ws[{i}] must be [G, out, {dims[-1]}] or [out, {dims[-1]}], got {tuple(w.shape)}")
+        if b.dim() not in (1, 2) or b.shape[-1] != w.shape[-2]:
+            raise ValueError(f"bs[{i}] must be [G, {w.shape[-2]}] or [{w.shape[-2]}], got {tuple(b.shape)}")
+        if w.dim() == 3:
+            sets[f"ws[{i}]"] = w.shape[0]
+        if b.dim() == 2:
+            sets[f"bs[{i}]"] = b.shape[0]
+        dims.append(w.shape[-2])
+    counts = list(sets.values())
+    if not counts or any(c != counts[0] for c in counts[1:]):
+        raise ValueError(f"the set axes must agree, and one tensor at least must have one: {sets}")
+    return counts[0], dims
+
+
+def plain_mlp_grouped(x, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], activation):
+    """The plain chain over G weight sets (shapes: ``grouped_dims``): one
+    batched product a layer over the set axis, a shared tensor broadcast.
+    Returns [G, B, D_L]."""
+    groups, _ = grouped_dims(x, ws, bs)
+    f = _PLAIN_ACTS[_activation_code(activation)]
+    if x.dim() == 2:
+        x = x.expand(groups, *x.shape)
+    for w, b in zip(ws, bs):
+        x = f(torch.baddbmm(b.unsqueeze(-2), x, w.transpose(-1, -2).expand(groups, -1, -1)))
     return x
 
 
@@ -137,6 +193,7 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ]
         fn.restype = ctypes.c_int
@@ -144,18 +201,76 @@ def _kernel():
     return _forward
 
 
+def _rows_contiguous(t) -> bool:
+    """Whether t's last two dims (a vector's one) are contiguous: a set's
+    rows, as the kernel walks them."""
+    if t.is_contiguous():  # the common case, without the loop's host time
+        return True
+    expected = 1
+    for size, stride in zip(reversed(t.shape[-2:]), reversed(t.stride()[-2:])):
+        if size != 1 and stride != expected:
+            return False
+        expected *= size
+    return True
+
+
+def _check_tensors(x, ws, bs):
+    """Type, row layout and device of the chain's tensors: float32, the last
+    two dims (a set's rows) contiguous, every tensor on x's CUDA device."""
+    names = ["x"] + [f"ws[{i}]" for i in range(len(ws))] + [f"bs[{i}]" for i in range(len(bs))]
+    for name, t in zip(names, (x, *ws, *bs)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not _rows_contiguous(t):
+            raise ValueError(f"{name} must be contiguous in its last {min(t.dim(), 2)} dims")
+    if not x.is_cuda:
+        raise ValueError(f"x must lie on a CUDA device, got {x.device}")
+    for name, t in zip(names, (x, *ws, *bs)):
+        if t.device != x.device:
+            raise ValueError(f"{name} must lie on {x.device}, got {t.device}")
+
+
+def _launch(x, out, batch, dims, ws, bs, act, plan, groups=1, set_strides=None):
+    """One launch of the kernel over ``groups`` weight sets with
+    ``kernel_plan``'s ``plan``. ``set_strides``: (x's, out's, [each
+    weight's], [each bias's]), in floats; None: all 0, the ordinary launch."""
+    global fused_mlp_launches
+    rows, stride0, stride1, shared = plan
+    n = len(ws)
+    x_set, out_set, w_sets, b_sets = set_strides or (0, 0, [0] * n, [0] * n)
+    c_dims = (ctypes.c_int * (n + 1))(*dims)
+    c_ws = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
+    c_bs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
+    c_w_sets = (ctypes.c_longlong * n)(*w_sets)
+    c_b_sets = (ctypes.c_longlong * n)(*b_sets)
+    attr_err = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel()(
+            x.data_ptr(), out.data_ptr(), batch, n,
+            ctypes.cast(c_dims, ctypes.c_void_p), ctypes.cast(c_ws, ctypes.c_void_p),
+            ctypes.cast(c_bs, ctypes.c_void_p),
+            act, rows, stride0, stride1, groups, x_set, out_set,
+            ctypes.cast(c_w_sets, ctypes.c_void_p), ctypes.cast(c_b_sets, ctypes.c_void_p),
+            stream, ctypes.byref(attr_err),
+        )
+    if attr_err.value != 0:
+        raise RuntimeError(f"fused_mlp_forward: cudaFuncSetAttribute({shared} bytes of dynamic "
+                           f"shared memory) failed with CUDA error {attr_err.value}")
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_forward launch failed with CUDA error {err}")
+    fused_mlp_launches += 1
+
+
 def fused_mlp_cuda(x, ws, bs, activation):
     """The chain through the CUDA kernel; raises on anything it does not
     take."""
-    global fused_mlp_launches
     act = _activation_code(activation)
     ws, bs = tuple(ws), tuple(bs)
     if len(ws) != len(bs):
         raise ValueError(f"{len(ws)} weights but {len(bs)} biases")
     if x.dim() != 2:
         raise ValueError(f"x must be [B, D], got {tuple(x.shape)}")
-    if not x.is_cuda:
-        raise ValueError(f"x must lie on a CUDA device, got {x.device}")
     dims = [x.shape[1]]
     for i, (w, b) in enumerate(zip(ws, bs)):
         if w.dim() != 2 or w.shape[1] != dims[-1]:
@@ -165,38 +280,43 @@ def fused_mlp_cuda(x, ws, bs, activation):
         dims.append(w.shape[0])
     if min(dims) < 1:
         raise ValueError(f"every width must be at least 1, got {dims}")
-    names = ["x"] + [f"ws[{i}]" for i in range(len(ws))] + [f"bs[{i}]" for i in range(len(bs))]
-    for name, t in zip(names, (x, *ws, *bs)):
-        if t.device != x.device:
-            raise ValueError(f"{name} must lie on {x.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_tensors(x, ws, bs)
     batch = x.shape[0]
-    rows, stride0, stride1, shared = kernel_plan(dims, batch)
+    plan = kernel_plan(dims, batch)
     out = torch.empty((batch, dims[-1]), dtype=torch.float32, device=x.device)
-    if batch == 0:
+    if batch > 0:
+        _launch(x, out, batch, dims, ws, bs, act, plan)
+    return out
+
+
+def fused_mlp_grouped_cuda(x, ws, bs, activation):
+    """The chain over G weight sets (shapes: ``grouped_dims``) in one launch
+    of the CUDA kernel, a set a row of blocks; a tensor without the set axis
+    goes in at set stride 0, shared and never copied. Returns [G, B, D_L];
+    raises on anything it does not take, and on a G beyond MAX_GROUPS."""
+    global fused_mlp_grouped_launches
+    act = _activation_code(activation)
+    ws, bs = tuple(ws), tuple(bs)
+    groups, dims = grouped_dims(x, ws, bs)
+    if min(dims) < 1:
+        raise ValueError(f"every width must be at least 1, got {dims}")
+    if groups > MAX_GROUPS:
+        raise ValueError(f"fused_mlp takes at most {MAX_GROUPS} weight sets a launch, got {groups}")
+    _check_tensors(x, ws, bs)
+    batch = x.shape[-2]
+    # a set of at most 16 rows fills one 16-row tile, where a 32-row tile
+    # would only idle more rows; else the ordinary rule over all rows
+    plan = kernel_plan(dims, groups * batch if batch > 16 else 0)
+    out = torch.empty((groups, batch, dims[-1]), dtype=torch.float32, device=x.device)
+    if groups == 0 or batch == 0:
         return out
-    n = len(ws)
-    c_dims = (ctypes.c_int * (n + 1))(*dims)
-    c_ws = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
-    c_bs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
-    attr_err = ctypes.c_int(0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(
-            x.data_ptr(), out.data_ptr(), batch, n,
-            ctypes.cast(c_dims, ctypes.c_void_p), ctypes.cast(c_ws, ctypes.c_void_p),
-            ctypes.cast(c_bs, ctypes.c_void_p),
-            act, rows, stride0, stride1, stream, ctypes.byref(attr_err),
-        )
-    if attr_err.value != 0:
-        raise RuntimeError(f"fused_mlp_forward: cudaFuncSetAttribute({shared} bytes of dynamic "
-                           f"shared memory) failed with CUDA error {attr_err.value}")
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_forward launch failed with CUDA error {err}")
-    fused_mlp_launches += 1
+
+    def set_stride(t, batched_dims):
+        return t.stride(0) if t.dim() == batched_dims else 0
+
+    set_strides = (set_stride(x, 3), out.stride(0), [set_stride(w, 3) for w in ws], [set_stride(b, 2) for b in bs])
+    _launch(x, out, batch, dims, ws, bs, act, plan, groups, set_strides)
+    fused_mlp_grouped_launches += 1
     return out
 
 
@@ -232,40 +352,102 @@ def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(x, *ws, *bs)
 
 
-def _backward(ctx, grad_out):
-    """Exact gradients through a recomputed plain chain, for the inputs that
-    need them."""
-    need_x, need_ws, need_bs, _ = ctx.needs_input_grad
-    needs = [need_x, *need_ws, *need_bs]
-    saved = ctx.saved_tensors
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
-        n = ctx.n
-        y = plain_mlp(leaves[0], leaves[1:1 + n], leaves[1 + n:], ctx.activation)
-        wanted = [t for t in leaves if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, grad_out))
-    full = [next(grads) if need else None for need in needs]
-    return full[0], full[1:1 + n], full[1 + n:], None
+def _recomputing_backward(plain):
+    """The backward of an operator over the chain: exact gradients through
+    a recomputed ``plain`` chain, for the inputs that need them."""
+
+    def backward(ctx, grad_out):
+        need_x, need_ws, need_bs, _ = ctx.needs_input_grad
+        needs = [need_x, *need_ws, *need_bs]
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+            n = ctx.n
+            y = plain(leaves[0], leaves[1:1 + n], leaves[1 + n:], ctx.activation)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, grad_out))
+        full = [next(grads) if need else None for need in needs]
+        return full[0], full[1:1 + n], full[1 + n:], None
+
+    return backward
 
 
-fused_mlp_op.register_autograd(_backward, setup_context=_setup_context)
+fused_mlp_op.register_autograd(_recomputing_backward(plain_mlp), setup_context=_setup_context)
 
 
-def _chain(x, ws, bs, activation):
+@torch.library.custom_op("rl_games_tpu_torch::fused_mlp_grouped", mutates_args=(), device_types="cuda")
+def fused_mlp_grouped_op(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor],
+                         activation: str) -> torch.Tensor:
+    return fused_mlp_grouped_cuda(x, ws, bs, activation)
+
+
+@fused_mlp_grouped_op.register_kernel("cpu")
+def _fused_mlp_grouped_cpu(x, ws, bs, activation):
+    return plain_mlp_grouped(x, ws, bs, activation)
+
+
+@fused_mlp_grouped_op.register_fake
+def _fused_mlp_grouped_fake(x, ws, bs, activation):
+    groups, dims = grouped_dims(x, ws, bs)
+    return x.new_empty((groups, x.shape[-2], dims[-1]))
+
+
+fused_mlp_grouped_op.register_autograd(_recomputing_backward(plain_mlp_grouped), setup_context=_setup_context)
+
+
+def _sets_first(t, dim):
+    """t with its vmapped dim ``dim`` first and its last two dims
+    contiguous (a copy only where they are not); t as it is when it is not
+    vmapped (``dim`` None: shared by every set)."""
+    if dim is None:
+        return t
+    t = t.movedim(dim, 0)
+    return t if _rows_contiguous(t) else t.contiguous()
+
+
+@fused_mlp_op.register_vmap
+def _fused_mlp_vmap(info, in_dims, x, ws, bs, activation):
+    """``torch.func.vmap`` of the chain. With one weight set for every
+    vmapped call (only x vmapped), the vmapped axis folds into the rows of
+    one ordinary call; with a weight or bias vmapped (a weight set a call),
+    one grouped call takes every set, the unvmapped tensors shared."""
+    x_dim, w_dims, b_dims, _ = in_dims
+    if all(d is None for d in (*w_dims, *b_dims)):
+        xs = x.movedim(x_dim, 0)
+        out = fused_mlp(xs.reshape(-1, xs.shape[-1]), ws, bs, activation)
+        return out.reshape(*xs.shape[:-1], out.shape[-1]), 0
+    return fused_mlp_grouped(_sets_first(x, x_dim), [_sets_first(w, d) for w, d in zip(ws, w_dims)],
+                             [_sets_first(b, d) for b, d in zip(bs, b_dims)], activation), 0
+
+
+def _dispatch(op, cuda, plain, x, ws, bs, activation):
+    """A forward that needs gradients, any forward that ``torch.export``
+    traces and any forward under a ``torch.func`` transform (whose tensors
+    have no storage to hand the kernel) goes through the registered
+    operator ``op``; an eager forward without autograd (the rollout's and
+    the player's) calls the same implementation directly, ``cuda`` on a
+    CUDA tensor and ``plain`` on a CPU one, and skips the operator's
+    dispatch on the host."""
+    transformed = torch._C._functorch.peek_interpreter_stack() is not None
+    if torch.is_grad_enabled() or torch.compiler.is_exporting() or transformed:
+        return op(x, list(ws), list(bs), str(activation))
     if x.is_cuda:
-        return fused_mlp_cuda(x, ws, bs, activation)
+        return cuda(x, ws, bs, activation)
     if x.device.type == "cpu":
-        return plain_mlp(x, ws, bs, activation)
+        return plain(x, ws, bs, activation)
     raise ValueError(f"no fused MLP for tensors on {x.device}")
 
 
 def fused_mlp(x, ws, bs, activation):
     """The chain on the tensor's device: ``plain_mlp`` on the CPU, the CUDA
-    kernel on a CUDA device (which raises rather than fall back). A forward
-    that needs gradients, and any forward that ``torch.export`` traces, goes
-    through the registered operator; an eager forward without autograd (the
-    rollout's and the player's) calls the same implementation directly and
-    skips the operator's dispatch on the host."""
-    if torch.is_grad_enabled() or torch.compiler.is_exporting():
-        return fused_mlp_op(x, list(ws), list(bs), str(activation))
-    return _chain(x, ws, bs, activation)
+    kernel on a CUDA device (which raises rather than fall back). Under
+    ``torch.func.vmap`` the operator's vmap rule makes one grouped call
+    over a weight set a vmapped call."""
+    return _dispatch(fused_mlp_op, fused_mlp_cuda, plain_mlp, x, ws, bs, activation)
+
+
+def fused_mlp_grouped(x, ws, bs, activation):
+    """The chain over G weight sets (shapes: ``grouped_dims``) on the
+    tensors' device: ``plain_mlp_grouped`` on the CPU, one grouped launch of
+    the CUDA kernel on a CUDA device."""
+    return _dispatch(fused_mlp_grouped_op, fused_mlp_grouped_cuda, plain_mlp_grouped, x, ws, bs, activation)

@@ -137,15 +137,19 @@ def test_unported_player_paths_raise(make, item):
     connect-four env stops at SAC's own ValueError, its actions being
     discrete (make0; the JAX SACPlayer has no action shape to read there
     either), and the PPO player on competitive_forage (JAX_SELFPLAY) plays
-    a mirror match of its policy with the MLP plain (make1); with the MLP
-    fused the opponent seat is refused (A14). The resnet builder's network,
+    a mirror match of its policy (make1), with the MLP fused (the
+    opponents' forward one grouped call of the chain over the seats a step)
+    and plain. The resnet builder's network,
     refused until A8 (b) (make3), plays: ppo_pixelcatcher.yaml with
     resnet_actor_critic (depths [4, 8], MLP [16]) on 16x16x1 frames, its
     deterministic actions for the JAX player's observations as the JAX
     player's with the same weights, step by step for 20 steps."""
     if item == "plays":
-        with pytest.raises(NotImplementedError, match=r"mlp\.fused .*item A14"):
-            make()
+        from rl_games_tpu_torch.models.layers import FusedMLP
+
+        player = make()
+        assert any(isinstance(m, FusedMLP) for m in player.vec_env._policy.modules())
+        assert np.isfinite(player.run(games_num=4))
         params = player_params()
         params["network"]["mlp"]["fused"] = False
         params["config"].update(vecenv_type="JAX_SELFPLAY", env_name="competitive_forage")

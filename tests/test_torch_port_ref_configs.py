@@ -19,8 +19,8 @@ rl_games_tpu/configs/ does one of three things on the CPU:
 The configs a slice unlocks must run (``MUST_RUN``); those whose simulator
 is missing must build their networks (``MUST_BUILD``: since A8 (b) the
 Impala configs and ref/minigrid/lava_rnn_img.yaml); the refusals named in
-``REFUSED_AT`` name their item; the only refusal labels left are A8 and
-A14, and the only A8 refusal left is SAC over observations that are not 1-D.
+``REFUSED_AT`` name their item; the only refusal label left is A8, and its
+only refusal is SAC over observations that are not 1-D.
 """
 
 import glob
@@ -137,11 +137,11 @@ def _build_only(params):
 
 
 def _only_sac_refused_for_a8(rel, refusal):
-    """Only A8 and A14 are refusal labels since A12's last part (export);
-    A8 has one refusal left: SAC over observations that are not 1-D."""
-    assert re.search(r"item A(8|14)\b", str(refusal)), f"{rel}: a refusal other than A8's or A14's: {refusal}"
-    if re.search(r"item A8\b", str(refusal)):
-        assert "SAC over observations" in str(refusal), f"{rel}: an A8 refusal other than SAC's: {refusal}"
+    """A8 is the only refusal label since A14 (the fused MLP over per-env
+    weight sets), and it has one refusal left: SAC over observations that
+    are not 1-D."""
+    assert re.search(r"item A8\b", str(refusal)), f"{rel}: a refusal other than A8's: {refusal}"
+    assert "SAC over observations" in str(refusal), f"{rel}: an A8 refusal other than SAC's: {refusal}"
 
 
 @pytest.mark.parametrize("path", ALL_CONFIGS, ids=IDS)

@@ -346,9 +346,9 @@ def test_unported_train_options_raise(tmp_path, capsys, key, value, item):
     ported (item None) train; pbt.enabled (A12) trains its 2 epochs with its
     record in the workspace under train_dir and no adoption (it is the
     population's only member); self_play_config (A12's second part) trains
-    2 epochs on competitive_forage with a plain MLP and pushes into the
-    opponents' slots after each; the fused MLP is refused on the opponent
-    seat (A14)."""
+    2 epochs on competitive_forage and pushes into the opponents' slots
+    after each, with the fused MLP (the opponents' forward one grouped call
+    of the chain over the slots) and with the plain one."""
     params = tiny_params(tmp_path, **{key: value})
     runner = Runner(device="cpu")
     runner.load({"params": params})
@@ -362,16 +362,13 @@ def test_unported_train_options_raise(tmp_path, capsys, key, value, item):
         assert os.listdir(tmp_path / "pbt_workspace") == ["policy_000.pbt"]
         return
     params["config"]["env_name"] = "competitive_forage"
-    runner = Runner(device="cpu")
-    runner.load({"params": params})
-    with pytest.raises(NotImplementedError, match=r"mlp\.fused .*item A14"):
-        runner.run({"train": True})
-    params["network"]["mlp"]["fused"] = False
-    runner = Runner(device="cpu")
-    runner.load({"params": params})
-    capsys.readouterr()
-    assert runner.run({"train": True})[1] == 2
-    assert capsys.readouterr().out.count("— updating opponent weights") == 2
+    for fused in (True, False):
+        params["network"]["mlp"]["fused"] = fused
+        runner = Runner(device="cpu")
+        runner.load({"params": params})
+        capsys.readouterr()
+        assert runner.run({"train": True})[1] == 2
+        assert capsys.readouterr().out.count("— updating opponent weights") == 2
 
 
 class HookLog(AlgoObserver):

@@ -4,10 +4,10 @@
   env's draws and actions: bit for bit but the 2-norm's last bit.
 - The opponent's actions from the JAX package's per-env slots carried
   across (utils/jax_params.jax_slots_to_state_dict): 8 envs whose slots hold
-  3 weight sets with normalized input, at rtol = atol = 1e-5. An opponent
-  seat over ``mlp.fused`` is refused (ROADMAP.md, item A14): on a TPU the
-  JAX package runs its Pallas kernel under ``jax.vmap`` over the per-env
-  weights, which the port's kernel (one weight set a launch) does not take.
+  3 weight sets with normalized input, at rtol = atol = 1e-5; the same over
+  ``mlp.fused``, whose vmapped chain is the registered operator's vmap rule
+  (one grouped call over the slots; the JAX package's ``fused_mlp`` under
+  ``jax.vmap`` takes ``plain_mlp`` off the TPU).
 - ``set_weights(indices)`` changes those rows alone; the slots pass an
   autoreset unchanged; a checkpoint holds them, as the JAX package's holds
   its whole train state.
@@ -139,11 +139,15 @@ def jax_slots(jenv, model, env_state, obs, seeds=(1, 2)):
     return env_state
 
 
-def test_opponent_actions_match_jax():
+def opponent_actions_against_jax(fused):
+    """The opponents' actions of the port's self-play env from the JAX
+    env's slots carried across (8 envs, 3 weight sets, normalized input),
+    against the JAX env's, at rtol = atol = 1e-5; the learner's own weights
+    do not enter."""
     from rl_games_tpu.envs import registry as jregistry
     from rl_games_tpu.models.model_builder import ModelBuilder as JModelBuilder
 
-    params = forage_params(units=(32, 16))
+    params = forage_params(units=(32, 16), fused=fused)
     jmodel = JModelBuilder().load(params, actions_num=2, input_shape=(6,), value_size=1, normalize_input=True,
                                   normalize_value=True, obs_shape=(6,))
     jenv = jregistry.create_vec_env("competitive_forage", 8)
@@ -165,22 +169,39 @@ def test_opponent_actions_match_jax():
     for p in agent.model.parameters():
         p.data.add_(1.0)
     close(agent.vec_env._opp_actions(state.env_state), want, "opponent actions", rtol=1e-5, atol=1e-5)
+    return agent
+
+
+def test_opponent_actions_match_jax():
+    opponent_actions_against_jax(fused=False)
 
 
 def test_fused_opponent_seat_refused():
-    """The opponents' forward runs every env's own weight set at once; the
-    fused MLP kernel takes one set a launch, so a fused model is refused on
-    the opponent seat, and the agent does not build."""
-    from rl_games_tpu_torch.models.model_builder import ModelBuilder
+    """Refused until the fused MLP took per-env weight sets: now the fused
+    seat's actions from carried JAX slots (the JAX model with
+    ``mlp.fused``, its ``fused_mlp`` under ``jax.vmap``) agree with the JAX
+    env's at rtol = atol = 1e-5, through the operator's vmap rule: one
+    grouped call of the chain over the 8 slots a step (``plain_mlp_grouped``
+    on the CPU), none folded into the ordinary chain."""
+    from rl_games_tpu_torch.models.layers import FusedMLP
+    from rl_games_tpu_torch.ops import fused_mlp as fm
 
-    fused = forage_params(units=(32, 16), fused=True)
-    with pytest.raises(NotImplementedError, match=r"mlp\.fused .*ROADMAP\.md, item A14"):
-        PPOAgent("port", fused, device="cpu")
-    model = ModelBuilder().load(fused, actions_num=2, input_shape=(6,), value_size=1, normalize_input=True,
-                                normalize_value=True, obs_shape=(6,), device="cpu")
-    env = PPOAgent("port", forage_params(units=(32, 16)), device="cpu").vec_env
-    with pytest.raises(NotImplementedError, match="item A14"):
-        env.bind_policy(model)
+    calls = []
+    grouped, ordinary = fm.plain_mlp_grouped, fm.plain_mlp
+
+    def count(name, fn):
+        def counted(x, *args):
+            calls.append((name, tuple(x.shape)))
+            return fn(x, *args)
+        return counted
+
+    fm.plain_mlp_grouped, fm.plain_mlp = count("grouped", grouped), count("plain", ordinary)
+    try:
+        agent = opponent_actions_against_jax(fused=True)
+    finally:
+        fm.plain_mlp_grouped, fm.plain_mlp = grouped, ordinary
+    assert any(isinstance(m, FusedMLP) for m in agent.model.modules())
+    assert calls == [("grouped", (8, 1, 6))] * 2, calls
 
 
 def test_set_weights_changes_only_its_rows():
