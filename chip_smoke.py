@@ -19,7 +19,13 @@ to a plain version):
                6->128->64 at G = 1024 and 512, B = 1, timed, the JAX
                test shapes at G = 3, shared weights, biases and x, set
                strides that break 16-byte alignment, G = 1 bit for bit the
-               ordinary launch); device time per call
+               ordinary launch; the chains one launch with x held does not
+               take, held to the chain in float64: the nature-CNN's
+               3136->512 at B = 512, 4096 and 4099, x * 30, elu and tanh,
+               3134 and 3135 inputs, (64, 4096, 4096, 8), 10 and 17 layers
+               of 256, grouped deep and 3136-wide chains, bf16 and fp16 x;
+               each timed beside the plain chain and, for one layer,
+               torch.addmm); device time per call
                (torch.profiler) and time per call between CUDA events, with
                the least time the card could take on the unit the kernel uses
                beside them, and for GAE the time of an empty kernel over the
@@ -51,6 +57,15 @@ to a plain version):
                DevicePong envs, 84x84x2 frames, horizon 64, nature-CNN,
                4 x 8 minibatches of 4096) through Runner.run: trained, then
                its last checkpoint played back on 512 envs.
+10a. pong_fused — the same config with network.mlp.fused: true (its 3136->512
+               torso one launch that streams its input) through Runner.run,
+               trained and played: 97 fused launches an epoch (65 at B = 512,
+               32 at 4096), 1 a player step, GAE once an epoch, held exact;
+               the fused model's forward and first update on the card against
+               the CPU; its steady epoch beside [pong]'s.
+10b. deep_torso — the flagship with a fused torso of 10 layers of 256 (two
+               launches a forward), 2 epochs through PPOAgent.train_epoch:
+               finite losses, 66 fused launches an epoch.
 11. breakout — ppo_breakout_device.yaml as shipped through
                PPOAgent.train_epoch.
 12. cartpole — ppo_cartpole.yaml with network.mlp.fused: true through
@@ -766,6 +781,179 @@ def kernel_fused_mlp_grouped(gen, dev):
             "grouped_g1_bit_for_bit": True}
 
 
+# the nature-CNN torso (ppo_pong_device.yaml, ppo_breakout_device.yaml with mlp.fused: the conv stack's 7x7x64
+# flatten into mlp [512] elu): one launch that streams its input
+NATURE_DIMS = (3136, 512)
+WIDE_DIMS = (64, 4096, 4096, 8)  # inner widths that no buffer holds: three launches
+DEEP10_DIMS, DEEP17_DIMS = (256,) * 11, (256,) * 18  # 10 and 17 layers of 256: two and three launches
+
+
+def exact_chain(x, ws, bs, activation):
+    """The plain chain (plain_mlp, or plain_mlp_grouped for x [G, B, D])
+    in float64 on the same inputs: the exact result to float32's grade. At
+    3136 inputs of 30 the float32 chain misses it by most of the tolerance
+    itself (0.83-0.95 on the CPU: tests/test_torch_port_fused_mlp.py), so
+    the wide cases are held to it."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    plain = fm.plain_mlp if chain_plan(x, ws, bs)[0] is None else fm.plain_mlp_grouped
+    return plain(x.double(), [w.double() for w in ws], [b.double() for b in bs], activation)
+
+
+def tolerance_share(got, want) -> float:
+    """The largest |got - want| over 2e-5 + 2e-5 |want|: at most 1 within rtol = atol = 2e-5."""
+    return float(((got.double() - want).abs() / (2e-5 + 2e-5 * want.abs())).max())
+
+
+def chain_plan(x, ws, bs):
+    """(G or None for an ordinary chain, the widths, B, launch_plan's
+    launches) as fused_mlp_cuda or, for a grouped chain (x [G, B, D] or a
+    weight [G, out, in]), fused_mlp_grouped_cuda plans them."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    batch = x.shape[-2]
+    if x.dim() == 3 or any(w.dim() == 3 for w in ws):
+        groups, dims = fm.grouped_dims(x, ws, bs)
+        return groups, dims, batch, fm.launch_plan(dims, groups * batch if batch > 16 else 0)
+    dims = [x.shape[1]] + [w.shape[0] for w in ws]
+    return None, dims, batch, fm.launch_plan(dims, batch)
+
+
+def check_wide(tag, run, x, ws, bs, activation, launches):
+    """run() (a chain through the kernel) against exact_chain at
+    rtol = atol = 2e-5, the float32 plain chain's own distance from it
+    printed beside; the launches of the call held to ``launches``. Returns
+    (max abs error, its share of the tolerance)."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    before = fm.fused_mlp_launches
+    got = run()
+    torch.cuda.synchronize()
+    made = fm.fused_mlp_launches - before
+    want = exact_chain(x, ws, bs, activation)
+    plain = (fm.plain_mlp if chain_plan(x, ws, bs)[0] is None else fm.plain_mlp_grouped)(x, ws, bs, activation)
+    err, share = float((got.double() - want).abs().max()), tolerance_share(got, want)
+    print(f"[kernels] fused_mlp {tag} {activation}: {made} launches; max |kernel - exact| = {err:.3e} ({share:.3f} "
+          f"of rtol = atol = 2e-5); the float32 plain chain {tolerance_share(plain, want):.3f}, kernel against it "
+          f"{tolerance_share(got, plain.double()):.3f}")
+    if made != launches or not (math.isfinite(share) and share <= 1.0):
+        raise AssertionError(f"fused_mlp {tag} {activation}: {made} launches (expected {launches}), "
+                             f"{share} of rtol = atol = 2e-5 from the exact chain")
+    return err, share
+
+
+def time_wide(tag, x, ws, bs, activation="elu"):
+    """Device time of the chain through the kernel (fused_mlp_cuda, or
+    fused_mlp_grouped_cuda for x [G, B, D]) and of the float32 plain chain
+    in turns (plain, kernel, kernel, plain); for a one-layer chain also
+    torch.addmm of the same product alone (the library's call); beside the
+    bound: each input read once and the output written once, against the
+    3xTF32 products. Launches a call from the launch counter."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    groups, dims, batch, plan = chain_plan(x, ws, bs)
+    grouped = groups is not None
+    groups = groups or 1
+    cuda, plain_fn = (fm.fused_mlp_grouped_cuda, fm.plain_mlp_grouped) if grouped else (fm.fused_mlp_cuda, fm.plain_mlp)
+    kernel, plain = (lambda: cuda(x, ws, bs, activation)), (lambda: plain_fn(x, ws, bs, activation))
+    before = fm.fused_mlp_launches
+    kernel()
+    launches = fm.fused_mlp_launches - before
+    plain_a, plain_n = device_time_ms(plain, 20)
+    kernel_a, kernel_n = device_time_ms(kernel, 20)
+    kernel_b, _ = device_time_ms(kernel, 20)
+    plain_b, _ = device_time_ms(plain, 20)
+    kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+    library_ms = None
+    if len(ws) == 1 and not grouped:
+        w, b = ws[0], bs[0]
+        library_ms, _ = device_time_ms(lambda: torch.addmm(b, x, w.t()), 20)
+    flops = 3 * 2 * groups * batch * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    nbytes = 4 * (x.numel() + sum(t.numel() for t in (*ws, *bs)) + groups * batch * dims[-1])
+    bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
+    print(f"[kernels] fused_mlp {tag} ({len(dims) - 1} layers {dims[0]}->...->{dims[-1]}, G={groups}, B={batch}, "
+          f"{activation}) device time: kernel {kernel_ms * 1e3:.2f} us ({launches} launches, {kernel_n} kernels/call; "
+          f"plan {[(p.first, p.last, p.streamed, p.plan[0], p.plan[3]) for p in plan]}), plain {plain_ms * 1e3:.2f} us "
+          f"({plain_n} kernels/call)" + (f", addmm {library_ms * 1e3:.2f} us" if library_ms is not None else "")
+          + f"; bound {bound * 1e3:.2f} us ({flops} TF32 flop, {nbytes} B, by {bound_by}); kernel at "
+          f"{bound / kernel_ms:.3f} of the bound's rate")
+    return {"tag": tag, "shape": [groups, batch, *dims] if grouped else [batch, *dims], "activation": activation,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "launches_per_call": launches,
+            "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms}
+
+
+def kernel_fused_mlp_wide(gen, dev):
+    """The chains that one launch with x held does not take, against the
+    exact chain at rtol = atol = 2e-5, each call's launches held to
+    launch_plan's: the nature-CNN torso 3136 -> 512 (one launch that
+    streams its input) at the rollout's B = 512, the minibatch's 4096 and a
+    ragged 4099, at the init scale and with x * 30, elu and tanh; 3134 and
+    3135 inputs (rows that take 8- and 4-byte copies); (64, 4096, 4096, 8)
+    at B = 1024 (three launches: 4096 held by no buffer); 10 and 17 layers
+    of 256 at B = 8192 (two and three launches); a deep chain and a 3136-wide
+    one grouped over G = 4, one weight shared and the others per set; bf16
+    and fp16 x through fused_mlp and the registered operator (x's dtype
+    back, equal to the kernel on the float32-cast inputs cast back). Each
+    shape timed (time_wide)."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    worst, worst_share, timed = 0.0, 0.0, []
+
+    def check(tag, x, ws, bs, activations=("elu",)):
+        nonlocal worst, worst_share
+        groups, _, _, plan = chain_plan(x, ws, bs)
+        cuda = fm.fused_mlp_cuda if groups is None else fm.fused_mlp_grouped_cuda
+        launches = len(plan)
+        for activation in activations:
+            err, share = check_wide(tag, lambda: cuda(x, ws, bs, activation), x, ws, bs, activation, launches)
+            worst, worst_share = max(worst, err), max(worst_share, share)
+
+    for batch in (512, 4096, 4099):
+        x, ws, bs = mlp_inputs(NATURE_DIMS, batch, gen, dev)
+        for x_scale in (1.0, 30.0):
+            check(f"3136x512 B={batch}{'' if x_scale == 1 else ' (x * 30)'}", x * x_scale, ws, bs, ("elu", "tanh"))
+        timed.append(time_wide("nature-CNN torso", x, ws, bs))
+    for dims in ((3134, 512), (3135, 512)):
+        x, ws, bs = mlp_inputs(dims, 512, gen, dev)
+        check(f"{dims[0]}x512 B=512 ({8 if dims[0] % 2 == 0 else 4}-byte copies of x)", x, ws, bs)
+        timed.append(time_wide(f"{dims[0]} inputs", x, ws, bs))
+    x, ws, bs = mlp_inputs(WIDE_DIMS, 1024, gen, dev)
+    check("64x4096x4096x8 B=1024", x, ws, bs, ("elu", "tanh"))
+    timed.append(time_wide("wide inner layers", x, ws, bs))
+    for dims in (DEEP10_DIMS, DEEP17_DIMS):
+        x, ws, bs = mlp_inputs(dims, 8192, gen, dev)
+        check(f"{len(dims) - 1} layers of 256 B=8192", x, ws, bs, ("elu", "relu"))
+        timed.append(time_wide(f"{len(dims) - 1} layers", x, ws, bs))
+    # grouped: a deep chain with its first weight shared, the torso with its 3136-wide weight shared (the per-set
+    # weight is a 512 -> 64 head)
+    for dims, shared, tag in ((DEEP10_DIMS, 0, "deep"), (NATURE_DIMS + (64,), 0, "3136-wide")):
+        x, ws, bs = grouped_inputs(dims, 4, 256, gen, dev)
+        ws = [w[0] if i == shared else w for i, w in enumerate(ws)]
+        check(f"grouped {tag} G=4 B=256, ws[{shared}] shared", x, ws, bs, ("elu", "tanh"))
+        timed.append(time_wide(f"grouped {tag}", x, ws, bs))
+
+    # inputs that are not float32 through fused_mlp (the eager route and the registered operator): x's dtype back,
+    # the values those of the kernel on the float32-cast inputs
+    for dims, batch in ((NATURE_DIMS, 512), (FLAGSHIP_DIMS, 8192)):
+        x, ws, bs = mlp_inputs(dims, batch, gen, dev)
+        for dtype in (torch.bfloat16, torch.float16):
+            for params, kind in (((ws, bs), "float32 weights"),
+                                 (([w.to(dtype) for w in ws], [b.to(dtype) for b in bs]), f"{dtype} weights")):
+                xh, (wh, bh) = x.to(dtype), params
+                want = fm.fused_mlp_cuda(xh.float(), [w.float() for w in wh], [b.float() for b in bh], "elu").to(dtype)
+                with torch.no_grad():
+                    eager = fm.fused_mlp(xh, wh, bh, "elu")
+                    op = fm.fused_mlp_op(xh, list(wh), list(bh), "elu")
+                torch.cuda.synchronize()
+                same = eager.dtype == op.dtype == dtype and torch.equal(eager, want) and torch.equal(op, want)
+                print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {dtype} x, {kind}: output "
+                      f"{eager.dtype} / {op.dtype} (eager / operator), equal to the kernel on float32 copies cast "
+                      f"back: {same}")
+                if not same:
+                    raise AssertionError(f"fused_mlp on {dtype} x ({kind}) is not the float32 kernel cast back")
+    return {"wide_shapes": timed, "wide_max_abs_err": worst, "wide_max_err_over_tolerance": worst_share}
+
+
 def phase_kernel_fused_mlp():
     from rl_games_tpu_torch.ops import fused_mlp as fm
 
@@ -860,7 +1048,9 @@ def phase_kernel_fused_mlp():
     entry["other_shapes"] += [time_fused(FORAGE_DIMS, batch, gen, dev) for batch in (1024, 8192)]
     # the grouped launch: the self-play opponents' chain over every env's own weight set
     entry.update(kernel_fused_mlp_grouped(gen, dev))
-    entry["max_abs_err"] = max(entry["max_abs_err"], entry["grouped_max_abs_err"])
+    # the chains one launch with x held does not take: a streamed first layer, several launches, other dtypes
+    entry.update(kernel_fused_mlp_wide(gen, dev))
+    entry["max_abs_err"] = max(entry["max_abs_err"], entry["grouped_max_abs_err"], entry["wide_max_abs_err"])
     n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
     for batch, suffix in ((8192, ""), (32768, "_minibatch")):
         x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
@@ -956,11 +1146,27 @@ def phase_reference():
     if not all(v < 2e-5 for v in diffs.values()):
         raise AssertionError("the fused model's forward on the card disagrees with the CPU forward")
 
-    # the Pong model (nature-CNN, 84x84x2 frames): its forward on 128 of its
-    # own rollout's frames, then one minibatch update of 128, card against
-    # CPU from the same weights. The convolutions run in float32 on both
-    # (a TF32 convolution keeps about three digits and would show here)
+    print(f"[reference] Pong model cuda vs cpu: {pong_reference()}")
+    reference_sac()
+    reference_host_ppo()
+    reference_heads()
+    reference_rnn()
+    reference_dict()
+    reference_sac("sac_norm")
+    reference_multiagent()
+
+
+def pong_reference(fused: bool = False) -> str:
+    """The Pong model (ppo_pong_device.yaml: nature-CNN, 84x84x2 frames;
+    with ``fused`` its 3136 -> 512 torso through the fused kernel): its
+    forward on 128 of its own rollout's frames, then one minibatch update of
+    128, card against CPU from the same weights. The convolutions run in
+    float32 on both (a TF32 convolution keeps about three digits and would
+    show here). Returns a summary; raises on a disagreement."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+
     params = load_config("ppo_pong_device.yaml")["params"]
+    params["network"]["mlp"]["fused"] = fused
     params["config"].update(num_actors=16, horizon_length=8, minibatch_size=128, mini_epochs=1)
     gpu, cpu = PPOAgent("ref", params, device="cuda"), PPOAgent("ref", params, device="cpu")
     gstate, cstate = gpu.init_state(), cpu.init_state()
@@ -977,20 +1183,13 @@ def phase_reference():
     gds = gpu._prepare_dataset(gstate, traj, last_values)
     cds = cpu._prepare_dataset(cstate, ctraj, last_values.cpu())
     update = check_first_update(gpu, cpu, gstate, cstate, gds, cds)
-    print(f"[reference] Pong model cuda vs cpu: forward on 128 frames max |dlogits| {dlogits:.2e}, "
-          f"max |dvalue| {dvalue:.2e} (|logits| up to {float(want['logits'].abs().max()):.1f}); one minibatch of "
-          f"128: {update}")
+    summary = (f"forward on 128 frames max |dlogits| {dlogits:.2e}, max |dvalue| {dvalue:.2e} (|logits| up to "
+               f"{float(want['logits'].abs().max()):.1f}); one minibatch of 128: {update}")
     # forward: float32 sums of up to 3136 products, 1e-4 (a TF32 convolution
     # keeps about three digits: 1e-3 of the logits)
     if not (dlogits < 1e-4 and dvalue < 1e-4):
-        raise AssertionError("the Pong model's forward on the card disagrees with the CPU")
-    reference_sac()
-    reference_host_ppo()
-    reference_heads()
-    reference_rnn()
-    reference_dict()
-    reference_sac("sac_norm")
-    reference_multiagent()
+        raise AssertionError(f"the Pong model's forward on the card disagrees with the CPU: {summary}")
+    return summary
 
 
 def float64_gradients(agent, ds, state):
@@ -1824,6 +2023,91 @@ def phase_pong(epochs: int, play_steps: int = 200):
           f"set-up; steady step without set-up {s * 1e3:.2f} ms (mean of steps {run['steady_of'][0]}-"
           f"{run['steady_of'][1]} of a second run), {n / s:,.0f} env-steps/s")
     return run["train"], epoch_s
+
+
+def phase_pong_fused(epochs: int, plain_epoch_s: float, play_steps: int = 200):
+    """ppo_pong_device.yaml with network.mlp.fused: true (nothing else
+    changed but max_epochs, train_dir and the player's steps) through
+    Runner.run: train, then play. The nature-CNN's 3136 -> 512 elu torso is
+    one launch that streams its input; an epoch launches it 64 + 1 times at
+    B = 512 (rollout, bootstrap) and 4 x 8 times at B = 4096 (the
+    minibatches, through the registered operator), the player once a step
+    at B = 512; GAE once an epoch. Then the fused model's forward and first
+    update on the card against the CPU (pong_reference), and the steady
+    epoch beside [pong]'s plain one of this run."""
+    from rl_games_tpu_torch.ops import fused_mlp
+
+    params = load_config("ppo_pong_device.yaml")["params"]
+    params["network"]["mlp"]["fused"] = True
+    params["config"]["player"] = {**params["config"]["player"], "max_steps": play_steps}
+    cfg = params["config"]
+    n, horizon = cfg["num_actors"], cfg["horizon_length"]
+    minibatches = cfg["mini_epochs"] * n * horizon // cfg["minibatch_size"]
+    batches = []
+
+    def counted(x, *args):  # the batch of every call of the kernel's wrapper
+        batches.append(x.shape[0])
+        return launch(x, *args)
+
+    launch = fused_mlp.fused_mlp_cuda
+    fused_mlp.fused_mlp_cuda = counted
+    try:
+        run = train_and_play("pong_fused", params, epochs, batches)
+    finally:
+        fused_mlp.fused_mlp_cuda = launch
+    per_epoch = horizon + 1 + minibatches
+    expected_train = {n: (horizon + 1) * epochs, cfg["minibatch_size"]: minibatches * epochs}
+    if (run["train"] != {"gae": epochs, "fused_mlp": per_epoch * epochs}
+            or run["play"] != {"gae": 0, "fused_mlp": play_steps} or run["play_steps"] != play_steps
+            or run["train_batches"] != expected_train or run["play_batches"] != {n: play_steps}):
+        raise AssertionError(f"pong_fused: launches {run['train']} in {epochs} epochs at {run['train_batches']}, "
+                             f"player {run['play']} in {run['play_steps']} steps at {run['play_batches']}; expected "
+                             f"{per_epoch} fused an epoch at {expected_train}, 1 a player step at B = {n}")
+    plan = fused_mlp.launch_plan(NATURE_DIMS, n)
+    print(f"[pong_fused] trained {epochs} epochs of ppo_pong_device.yaml with mlp.fused through Runner.run: launches "
+          f"{run['train']} ({per_epoch} fused an epoch at batches {run['train_batches']}; the torso one launch, "
+          f"streamed {plan[0].streamed}); played {play_steps} steps: launches {run['play']}, {run['play_out']!r}")
+    epoch_s = report_epochs("pong_fused", run["times"], n * horizon, run["peak_gib"])
+    s = run["steady_step_s"]
+    print(f"[pong_fused] steady epoch {epoch_s * 1e3:.1f} ms against [pong]'s plain {plain_epoch_s * 1e3:.1f} ms in "
+          f"this run ({epoch_s / plain_epoch_s:.3f}x); steady player step {s * 1e3:.2f} ms at {n} envs")
+    summary = pong_reference(fused=True)
+    print(f"[pong_fused] fused Pong model cuda vs cpu: {summary}")
+    return run, epoch_s
+
+
+def phase_deep_torso(epochs: int = 2, layers: int = 10):
+    """The flagship (8192 Ant2D envs x 16, 4 x 4 minibatches of 32768) with
+    a fused torso of ``layers`` layers of 256 (two launches a forward:
+    MAX_LAYERS a launch) through PPOAgent.train_epoch: finite losses, 33
+    forwards and so 66 fused launches an epoch, GAE once."""
+    from rl_games_tpu_torch.algos.ppo import PPOAgent
+    from rl_games_tpu_torch.ops import fused_mlp
+
+    params = fused_flagship_params(8192)
+    params["network"]["mlp"]["units"] = [256] * layers
+    agent = PPOAgent("chip_smoke_deep", params)
+    state = agent.init_state()
+    forwards = agent.horizon_length + 1 + agent.mini_epochs_num * agent.num_minibatches
+    per_forward = len(fused_mlp.launch_plan((26,) + (256,) * layers, agent.num_actors))
+    times = []
+    zero_launches()  # the main path's run starts here
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        state, m = agent.train_epoch(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        a_loss, c_loss = float(m["a_loss"]), float(m["c_loss"])
+        print(f"[deep_torso] epoch {epoch + 1}: {times[-1] * 1e3:.1f} ms, a_loss {a_loss:.4f}, c_loss {c_loss:.4f}")
+        if not (math.isfinite(a_loss) and math.isfinite(c_loss)):
+            raise AssertionError(f"deep torso: non-finite losses in epoch {epoch + 1}")
+    launches = launches_now()  # read right after
+    if per_forward != 2 or launches != {"gae": epochs, "fused_mlp": forwards * per_forward * epochs}:
+        raise AssertionError(f"deep torso: launches {launches} in {epochs} epochs, {per_forward} a forward; expected "
+                             f"{forwards * 2} fused an epoch")
+    print(f"[deep_torso] the flagship with {layers} fused layers of 256: launches {launches} in {epochs} epochs "
+          f"({forwards} forwards x {per_forward} launches an epoch); epochs {', '.join(f'{t * 1e3:.1f}' for t in times)} ms")
+    return launches, times
 
 
 def phase_breakout(epochs: int):
@@ -4558,7 +4842,11 @@ def main():
     train_launches, play_launches, play_steps = phase_runner(args.epochs, plain_epoch_s)
     h_train, h_play, _ = phase_humanoid3d(args.epochs)
     a3_launches, _ = phase_ant3d(args.epochs)
-    pong_launches, _ = phase_pong(args.epochs)
+    pong_launches, pong_epoch_s = phase_pong(args.epochs)
+    # A15-A16: the nature-CNN's 3136 -> 512 torso fused (one launch that streams its input), then a torso
+    # deeper than one launch takes
+    pong_fused, _ = phase_pong_fused(args.epochs, pong_epoch_s)
+    deep_launches, _ = phase_deep_torso(2)
     agent, state, breakout_launches, _ = phase_breakout(3)
     if args.profile:
         phase_profile(agent, state)
@@ -4604,7 +4892,8 @@ def main():
             *host_runs, pixel_launches, *(heads[tag]["train"] for tag in heads), *(rnn[tag]["train"] for tag in rnn),
             *(dict_runs[tag]["train"] for tag in dict_runs), *(impala[tag]["train"] for tag in impala), th_train,
             *(population[tag]["train"] for tag in ("a", "b", "d")), selfplay["a"]["train"], selfplay["c"]["train"],
-            selfplay["f"]["train"], export["a"]["train"], export["c"]["train"], jax_ckpt["train"])
+            selfplay["f"]["train"], export["a"]["train"], export["c"]["train"], jax_ckpt["train"],
+            pong_fused["train"], deep_launches)
     # Breakout trains 3 epochs, [host_pixel] 3 in each of its two placements, each [rnn], [dict], [impala] and
     # [twohot] run 3; [selfplay] (a) --epochs, (c) 3, (f) 3
     epochs_trained = ((args.epochs,) * 5 + (3,) + (args.epochs,) * 4 + (6,) + (args.epochs,) * len(heads)
@@ -4613,7 +4902,9 @@ def main():
                       + tuple(population[tag]["member_epochs"] for tag in ("a", "b", "d"))
                       + (args.epochs, 3, selfplay["f"]["epochs"])
                       # [export] (a) and (c) 1 epoch each, [jax_ckpt] 2 resumed epochs
-                      + (1, 1, 2))
+                      + (1, 1, 2)
+                      # [pong_fused] --epochs, [deep_torso] 2
+                      + (args.epochs, 2))
     # [mesh]: each world's runs, a rank each
     runs += tuple(m["launches"] for m in mesh.values())
     epochs_trained += tuple(m["epochs"] for m in mesh.values())
@@ -4645,7 +4936,9 @@ def main():
                                      # [jax_ckpt]: the resumed epochs at [32, 16, 1]
                                      "jax_ckpt": jax_ckpt["train"]["gae"],
                                      # [mesh]: at [16, 8192, 1] once an epoch in every rank
-                                     "mesh": {tag: m["launches"]["gae"] for tag, m in mesh.items()}}
+                                     "mesh": {tag: m["launches"]["gae"] for tag, m in mesh.items()},
+                                     # [pong_fused] at [64, 512, 1], [deep_torso] at [16, 8192, 1]
+                                     "pong_fused": pong_fused["train"]["gae"], "deep_torso": deep_launches["gae"]}
     host_fused = host["default fused"]
     fused_entry["launches"] = (train_launches["fused_mlp"] + play_launches["fused_mlp"]
                                + h_train["fused_mlp"] + h_play["fused_mlp"]
@@ -4664,7 +4957,9 @@ def main():
                                      for tag in ("a", "b", "c")) + export["d"]["launches"]
                                + sum(jax_ckpt[key]["fused_mlp"] for key in ("play_steps", "play", "train"))
                                + sum(r["launches"] for r in jax_ckpt["export_rows"])
-                               + sum(m["launches"]["fused_mlp"] for m in mesh.values()))
+                               + sum(m["launches"]["fused_mlp"] for m in mesh.values())
+                               + pong_fused["train"]["fused_mlp"] + pong_fused["play"]["fused_mlp"]
+                               + deep_launches["fused_mlp"])
     fused_entry["launches_per_epoch"] = train_launches["fused_mlp"] / args.epochs
     fused_entry["launches_per_player_step"] = play_launches["fused_mlp"] / play_steps
     fused_entry["launches_humanoid3d"] = {"train": h_train["fused_mlp"], "play": h_play["fused_mlp"]}
@@ -4752,6 +5047,15 @@ def main():
     # [mesh]: the fused flagship's 33 an epoch in each rank of the world of 2 (16 rollout forwards of its
     # 4096 envs, 1 bootstrap, 16 minibatch forwards of 16384 rows), none in the plain runs
     fused_entry["launches_mesh"] = {tag: m["launches"]["fused_mlp"] for tag, m in mesh.items()}
+    # [pong_fused]: the streamed 3136 -> 512 torso, 65 at B = 512 and 32 at 4096 an epoch, 1 a player step;
+    # [deep_torso]: 33 forwards of two launches an epoch
+    fused_entry["launches_pong_fused"] = {
+        "train": pong_fused["train"]["fused_mlp"], "train_batches": pong_fused["train_batches"],
+        "play": pong_fused["play"]["fused_mlp"], "play_batches": pong_fused["play_batches"],
+        "per_epoch": pong_fused["train"]["fused_mlp"] / args.epochs,
+        "per_player_step": pong_fused["play"]["fused_mlp"] / pong_fused["play_steps"]}
+    fused_entry["launches_deep_torso"] = {"train": deep_launches["fused_mlp"],
+                                          "per_epoch": deep_launches["fused_mlp"] / 2}
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

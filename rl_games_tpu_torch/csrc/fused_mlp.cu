@@ -71,6 +71,25 @@
 //   x takes the same way in. The ring runs ahead across layer boundaries, and
 //   there is one `__syncthreads()` per tile: it publishes the tile that has
 //   landed and frees the slot of the tile before it for the next copy.
+// - A launch may stream its first layer's input instead of holding it (a
+//   width that no buffer of a block's shared memory holds: the 3136 inputs
+//   behind the nature-CNN need 200 KB at 16 rows). Each ring stage then
+//   carries, beside a weight tile of layer 0, the block's rows of x by the
+//   same 32 inputs (row stride 40), copied the same way, and layer 0 reads
+//   its A fragments there. The weight tiles run inputs-fastest, so x's rows
+//   are read once per 128 outputs (from L2 after the first). The mode is a
+//   template parameter: a launch that holds x runs exactly the code it ran
+//   without the mode. A chain too deep for the argument block or with an
+//   inner width that no buffer holds is cut into several launches by the
+//   wrapper (ops/fused_mlp.py launch_plan), each next launch streaming the
+//   width that the one before wrote to device memory.
+// - A streamed launch sums a_hi.w_hi per weight tile: the tensor core's
+//   adder truncates towards zero, always the same way, so over the 392
+//   instructions of 3136 inputs the bias of one running sum reaches the
+//   tolerance (the CPU rehearsal in tests/test_torch_port_fused_mlp.py puts
+//   it at 12 times the tolerance at inputs of 30). Each tile's 32 inputs
+//   start from zero and are added into a float32 total with a rounding add,
+//   so the truncations are relative to a tile's partial sum.
 // - A ninth warp issues the copies. A `cp.async` completes on its own, but
 //   its issue holds the warp until the SM's path from L2 has taken it; issued
 //   by the multiplying warps, the copies cost them a sixth of their time.
@@ -108,6 +127,11 @@ constexpr int TK = 32;       // inputs per weight tile
 constexpr int WS = TK + 8;   // weight tile row stride: 40 = 8 * odd
 constexpr int kStages = 3;   // weight tiles in the ring
 constexpr int kTileFloats = TN * WS;
+// floats of a ring stage: a weight tile and, when layer 0's input is
+// streamed, the block's `rows` rows of x by the tile's 32 inputs
+__host__ __device__ constexpr int stage_floats(int rows, bool stream) {
+  return kTileFloats + (stream ? rows * WS : 0);
+}
 constexpr int kWarps = 8;  // warps that multiply, side by side along a weight tile's 128 outputs
 constexpr int kThreads = 32 * (kWarps + 1);  // and one warp that issues the copies
 constexpr int NT = TN / 8 / kWarps;          // 8-wide instruction tiles of outputs per warp
@@ -123,7 +147,7 @@ struct Net {
   int dims[kMaxLayers + 1];
   int n_layers;
   int act;
-  int stride0;  // row stride (floats, 8 * odd) of the even-width buffer
+  int stride0;  // row stride (floats, 8 * odd) of the even-width buffer (widths 2, 4, ... if x streams)
   int stride1;  // same for the odd-width buffer
 };
 
@@ -296,6 +320,20 @@ __device__ __forceinline__ void stage_w_tile(float* ws, const Net& net, const Ti
                        p.kc * TK, min(TN, ((p.N + 7) & ~7) - n0), tid);
 }
 
+// Starts the copies of the ring stage at `p`: its weight tile and, with
+// kStream on a tile of layer 0, the block's TM rows of x (`x_tile`, of which
+// `rows_inside` lie inside the batch) by the tile's 32 inputs.
+template <int kCopiers, int TM, bool kStream>
+__device__ __forceinline__ void stage_ring(float* stage, const Net& net, const TilePos& p,
+                                           const float* __restrict__ x_tile, int rows_inside,
+                                           int tid) {
+  stage_w_tile<kCopiers>(stage, net, p, tid);
+  if constexpr (kStream) {
+    if (p.l == 0)
+      stage_tile<kCopiers>(stage + kTileFloats, WS, x_tile, rows_inside, p.K, p.kc * TK, TM, tid);
+  }
+}
+
 // The three products of 8 inputs for a warp's MT x NT instruction tiles.
 // `a` points at this lane's (row g, input 2t) of the activation tile, `w` at
 // its (output g, input 2t) of the weight tile. A sum over inputs does not
@@ -385,11 +423,13 @@ __device__ __forceinline__ void finish_layer(const float (&big)[MT][NT][4],
 }
 
 // MT: 16-row instruction tiles per warp. Every warp covers all 16 * MT rows
-// of the block's tile and 16 of the weight tile's 128 columns.
-template <int MT>
+// of the block's tile and 16 of the weight tile's 128 columns. kStream:
+// layer 0's input comes through the ring stages, not buf0.
+template <int MT, bool kStream>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Net net) {
   constexpr int TM = 16 * MT;
+  constexpr int kStageFloats = stage_floats(TM, kStream);
   extern __shared__ __align__(16) float smem[];
   float* buf0 = smem;
   float* buf1 = buf0 + TM * net.stride0;
@@ -406,20 +446,21 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
   x += blockIdx.y * net.x_set;
   out += blockIdx.y * net.out_set;
 
-  // Everyone shares the first copies: the tile's rows of x and the ring's
-  // first kStages - 1 tiles (x and the first tile make one group).
+  // Everyone shares the first copies: the tile's rows of x (unless they
+  // stream) and the ring's first kStages - 1 stages (x and the first stage
+  // make one group).
   TilePos ahead, pos;
   enter_layer(ahead, net, 0);
   enter_layer(pos, net, 0);
-  {
-    const float* x_tile = x + row0 * net.dims[0];
-    const int rows_inside = static_cast<int>(min(static_cast<long long>(TM), B - row0));
+  const float* x_tile = x + row0 * net.dims[0];
+  const int rows_inside = static_cast<int>(min(static_cast<long long>(TM), B - row0));
+  if constexpr (!kStream) {
     for (int c0 = 0; c0 < net.dims[0]; c0 += TK)
       stage_tile<kThreads>(buf0 + c0, net.stride0, x_tile, rows_inside, net.dims[0], c0, TM, tid);
   }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    stage_w_tile<kThreads>(ring + s * kTileFloats, net, ahead, tid);
+    stage_ring<kThreads, TM, kStream>(ring + s * kStageFloats, net, ahead, x_tile, rows_inside, tid);
     cp_async_commit();
     advance(ahead, net);
   }
@@ -434,7 +475,8 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
     for (int it = 0; pos.l < net.n_layers; ++it) {
       cp_async_wait<kStages - 2>();
       __syncthreads();
-      stage_w_tile<32>(ring + ((it + kStages - 1) % kStages) * kTileFloats, net, ahead, lane);
+      stage_ring<32, TM, kStream>(ring + ((it + kStages - 1) % kStages) * kStageFloats, net, ahead,
+                                  x_tile, rows_inside, lane);
       cp_async_commit();
       advance(ahead, net);
       advance(pos, net);
@@ -444,6 +486,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
 
   cp_async_wait<0>();  // this thread's share of the first copies
   float big[MT][NT][4], small[MT][NT][4];
+  float total[MT][NT][4];  // kStream: the sum of a layer's tiles of big so far
   float bias_lane[NT][2];  // the bias of this lane's columns 2t, 2t+1 of each tile of outputs
   for (int it = 0; pos.l < net.n_layers; ++it) {
     // tile `it` has landed, and x or the previous layer's output is complete
@@ -455,9 +498,11 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
     const int Np = (N + 7) & ~7;
     const int n0 = pos.nc * TN;
     const int k0 = pos.kc * TK;
-    const float* in = (l & 1) ? buf1 : buf0;
-    const int s_in = (l & 1) ? net.stride1 : net.stride0;
-    const float* ws = ring + (it % kStages) * kTileFloats;
+    const float* ws = ring + (it % kStages) * kStageFloats;
+    // layer 0's streamed input: this stage's rows of x by the tile's inputs
+    const bool streamed = kStream && l == 0;
+    const float* in = streamed ? ws + kTileFloats : (l & 1) ? buf1 : buf0;
+    const int s_in = streamed ? WS : (l & 1) ? net.stride1 : net.stride0;
     // this warp's 8-wide tiles of outputs that hold columns of the layer
     const int active = min(NT, max(0, Np - n0 - col_base) / 8);
 
@@ -467,7 +512,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = 0.0f;
+          for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = total[i][j][e] = 0.0f;
       // asked for now, needed after the layer's last product: the trip to
       // device memory passes under the products
       const float* __restrict__ bias = net.b[l] + blockIdx.y * net.b_set[l];
@@ -484,7 +529,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
       // inputs beyond Kp were never written in `in`: stop there (the weight
       // tile is zero from K on, and `in` is zero from K to Kp)
       const int ksteps = min(TK, Kp - k0) / 8;
-      const float* a = in + g * s_in + k0 + 2 * t;
+      const float* a = in + g * s_in + (streamed ? 0 : k0) + 2 * t;
       const float* w = ws + (col_base + g) * WS + 2 * t;
       if (ksteps == TK / 8 && active == NT) {
 #pragma unroll
@@ -493,6 +538,25 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
       } else {
         for (int ks = 0; ks < ksteps; ++ks)
           product_step<MT, false>(big, small, a + 8 * ks, s_in, w + 8 * ks, active);
+      }
+      if constexpr (kStream) {
+        // the tile's sums go into the total with a rounding add, and the next
+        // tile's start from zero; after the layer's last tile big holds the
+        // total (the same sum: a float add does not care for its order)
+        const bool layer_end = pos.kc == pos.nK - 1;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (layer_end) {
+                big[i][j][e] += total[i][j][e];
+              } else {
+                total[i][j][e] += big[i][j][e];
+                big[i][j][e] = 0.0f;
+              }
+            }
       }
 
       if (pos.kc == pos.nK - 1) {
@@ -527,32 +591,32 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
 }
 
 // Shared memory for a tile of `rows` rows: both activation buffers and the
-// ring of weight tiles, in bytes (ops/fused_mlp.py kernel_plan computes the
-// same).
-int smem_bytes_for(int rows, int stride0, int stride1) {
-  return 4 * (rows * (stride0 + stride1) + kStages * kTileFloats);
+// ring's stages, in bytes (ops/fused_mlp.py kernel_plan computes the same).
+int smem_bytes_for(int rows, int stride0, int stride1, bool stream) {
+  return 4 * (rows * (stride0 + stride1) + kStages * stage_floats(rows, stream));
 }
 
-template <int MT>
+template <int MT, bool kStream>
 int launch(const float* x, float* out, int B, int groups, const Net& net, cudaStream_t stream,
            int* attr_err) {
   constexpr int TM = 16 * MT;
-  const int smem_bytes = smem_bytes_for(TM, net.stride0, net.stride1);
+  const int smem_bytes = smem_bytes_for(TM, net.stride0, net.stride1, kStream);
   *attr_err = static_cast<int>(cudaFuncSetAttribute(
-      fused_mlp_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
+      fused_mlp_kernel<MT, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
   if (*attr_err != 0) return 0;
   const unsigned int blocks = static_cast<unsigned int>((static_cast<long long>(B) + TM - 1) / TM);
   const dim3 grid(blocks, static_cast<unsigned int>(groups));
-  fused_mlp_kernel<MT><<<grid, kThreads, smem_bytes, stream>>>(x, out, B, net);
+  fused_mlp_kernel<MT, kStream><<<grid, kThreads, smem_bytes, stream>>>(x, out, B, net);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) over `groups` weight sets
-// (1 for the ordinary launch). `dims` holds n_layers + 1 widths, `ws` and `bs`
-// n_layers device pointers each, `w_set` and `b_set` n_layers set strides
-// each (host arrays); `x_set` and `out_set` are the set strides of x and out.
+// (1 for the ordinary launch), with layer 0's input streamed through the ring
+// if `stream_input` is 1 and held in buf0 if 0. `dims` holds n_layers + 1
+// widths, `ws` and `bs` n_layers device pointers each, `w_set` and `b_set`
+// n_layers set strides each (host arrays); `x_set` and `out_set` are the set strides of x and out.
 // All strides count floats. Returns cudaGetLastError() of the launch and
 // writes the code of the shared-memory attribute call to *attr_err; -1 for
 // arguments the kernel does not take.
@@ -561,9 +625,11 @@ extern "C" int fused_mlp_forward(const float* x, float* out, int B, int n_layers
                                  const void* const* bs, int act, int rows_per_block,
                                  int stride0, int stride1, int groups, long long x_set,
                                  long long out_set, const long long* w_set,
-                                 const long long* b_set, void* stream, int* attr_err) {
+                                 const long long* b_set, int stream_input, void* stream,
+                                 int* attr_err) {
   *attr_err = 0;
   if (n_layers < 1 || n_layers > kMaxLayers || act < kIdentity || act > kTanh) return -1;
+  if (stream_input != 0 && stream_input != 1) return -1;
   if (groups < 1 || groups > kMaxGroups) return -1;
   if (B <= 0) return 0;
   Net net = {};
@@ -581,11 +647,15 @@ extern "C" int fused_mlp_forward(const float* x, float* out, int B, int n_layers
   net.stride0 = stride0;
   net.stride1 = stride1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows_per_block) {
+  switch (rows_per_block * 2 + stream_input) {
+    case 64:
+      return launch<2, false>(x, out, B, groups, net, s, attr_err);
+    case 65:
+      return launch<2, true>(x, out, B, groups, net, s, attr_err);
     case 32:
-      return launch<2>(x, out, B, groups, net, s, attr_err);
-    case 16:
-      return launch<1>(x, out, B, groups, net, s, attr_err);
+      return launch<1, false>(x, out, B, groups, net, s, attr_err);
+    case 33:
+      return launch<1, true>(x, out, B, groups, net, s, attr_err);
     default:
       return -1;
   }

@@ -12,10 +12,19 @@ Shapes: x [B, D_0]; ws[i] [D_{i+1}, D_i] (``torch.nn.Linear``'s layout, the
 transpose of the JAX package's kernels); bs[i] [D_{i+1}]; returns [B, D_L].
 
 ``fused_mlp`` dispatches on the tensor's device only: a CPU tensor takes
-``plain_mlp`` (the plain PyTorch chain), a CUDA tensor takes the
-hand-written kernel ``csrc/fused_mlp.cu`` through ``fused_mlp_cuda``, which
-raises on any input it does not take. There is no fallback between the two
-and no switch that turns the kernel off. Gradients are exact: the backward
+``plain_mlp`` (the plain PyTorch chain, in x's dtype), a CUDA tensor takes
+the hand-written kernel ``csrc/fused_mlp.cu`` through ``fused_mlp_cuda``,
+which raises on any input it does not take. There is no fallback between the
+two and no switch that turns the kernel off. As the JAX package's Pallas
+call does, the CUDA route takes any floating dtype: inputs that are not
+float32 are cast to it and the result back to x's dtype.
+
+The kernel takes a chain of any depth and width: ``launch_plan`` cuts it
+into launches of at most ``MAX_LAYERS`` layers whose held widths fit a
+block's shared memory. A launch whose input no buffer holds (the 3136
+inputs behind the nature-CNN) streams it through the kernel's ring of weight
+tiles; a width between two launches goes through device memory. A chain
+that one launch takes is one launch. Gradients are exact: the backward
 recomputes through ``plain_mlp``, as the JAX package's custom VJP does, so
 the kernel is the forward (rollout, player, loss forward) path.
 
@@ -39,7 +48,7 @@ recomputes through ``plain_mlp_grouped``.
 """
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,14 +56,15 @@ import torch.nn.functional as F
 from rl_games_tpu_torch.utils import cuda_build
 
 # Launches of the CUDA kernel in this process, ordinary and grouped;
-# ``fused_mlp_cuda`` and ``fused_mlp_grouped_cuda`` add one per launch and
-# nothing else touches it except a caller resetting it.
+# ``fused_mlp_cuda`` and ``fused_mlp_grouped_cuda`` add one per launch (a
+# chain that ``launch_plan`` cuts in two counts 2) and nothing else touches
+# it except a caller resetting it.
 fused_mlp_launches = 0
 # The grouped launches among them (``fused_mlp_grouped_cuda`` adds one here too).
 fused_mlp_grouped_launches = 0
 
 # The kernel's limits.
-MAX_LAYERS = 8  # layer pointers travel in the kernel's argument block
+MAX_LAYERS = 8  # layers a launch: their pointers travel in the kernel's argument block
 MAX_GROUPS = 65_535  # weight sets a grouped launch takes: the grid's second axis
 MAX_SHARED_BYTES = 232_448  # shared memory one block may use on sm_90
 # Rows of x per block that the kernel is built for, with the smallest batch
@@ -63,8 +73,11 @@ MAX_SHARED_BYTES = 232_448  # shared memory one block may use on sm_90
 # tile halves each warp's register tile, so it pays more shared-memory loads
 # and operand splits per tensor-core product and serves small batches only.
 TILE_ROWS = {32: 132 * 2 * 16, 16: 0}
-# the ring of staged weight tiles (csrc/fused_mlp.cu: kStages * TN * WS)
+# the ring of staged weight tiles (csrc/fused_mlp.cu: kStages * TN * WS), and
+# what its stages add per row of the tile when layer 0's input streams
+# (kStages * WS: each stage also carries the rows by 32 inputs)
 _WEIGHT_RING_FLOATS = 3 * 128 * 40
+_STREAM_RING_FLOATS_PER_ROW = 3 * 40
 
 # activation name -> the kernel's integer code (csrc/fused_mlp.cu ``Act``)
 ACTIVATION_CODES = {
@@ -156,33 +169,91 @@ def _buffer_stride(widths: Sequence[int]) -> int:
     return 8 * (eights if eights % 2 else eights + 1)
 
 
-def kernel_plan(dims: Sequence[int], batch: int) -> Tuple[int, int, int, int]:
+def _strides(dims: Sequence[int], streamed: bool) -> Tuple[int, int]:
+    """Row strides of the even- and odd-width buffers of one launch: layer
+    i reads widths[i] from one and writes widths[i + 1] to the other, the
+    last layer writes to device memory, and a streamed input is held in
+    neither."""
+    inner = list(dims[:-1])
+    return _buffer_stride(inner[2::2] if streamed else inner[0::2]), _buffer_stride(inner[1::2])
+
+
+def _shared_bytes(rows: int, stride0: int, stride1: int, streamed: bool) -> int:
+    """Both activation buffers and the ring's stages of a tile of ``rows``
+    rows (csrc/fused_mlp.cu ``smem_bytes_for``)."""
+    ring = _WEIGHT_RING_FLOATS + (rows * _STREAM_RING_FLOATS_PER_ROW if streamed else 0)
+    return 4 * (rows * (stride0 + stride1) + ring)
+
+
+def _fits(dims: Sequence[int], streamed: bool) -> bool:
+    """Whether one launch of widths ``dims`` fits a block at the smallest tile."""
+    rows = min(TILE_ROWS)
+    return _shared_bytes(rows, *_strides(dims, streamed), streamed) <= MAX_SHARED_BYTES
+
+
+def kernel_plan(dims: Sequence[int], batch: int, streamed: bool = False) -> Tuple[int, int, int, int]:
     """(rows per block, stride of the even-width buffer, stride of the
-    odd-width buffer, shared bytes) for a chain of widths ``dims``.
+    odd-width buffer, shared bytes) for one launch over a chain of widths
+    ``dims``.
 
     Layer i reads widths[i] from one buffer and writes widths[i + 1] to the
-    other; the last layer writes to device memory. Takes the largest tile
-    that fits a block's shared memory and whose minimum batch (TILE_ROWS)
-    is reached, else the smallest that fits. Raises ValueError beyond the
-    kernel's limits."""
+    other; the last layer writes to device memory. With ``streamed`` layer
+    0's input is not held: it comes through the ring's stages, each of which
+    then carries the tile's rows by 32 inputs beside its weight tile. Takes
+    the largest tile that fits a block's shared memory and whose minimum
+    batch (TILE_ROWS) is reached, else the smallest that fits. Raises
+    ValueError beyond one launch's limits."""
     n_layers = len(dims) - 1
     if not 1 <= n_layers <= MAX_LAYERS:
         raise ValueError(f"fused_mlp takes 1 to {MAX_LAYERS} layers, got {n_layers}")
-    inner = list(dims[:-1])
-    stride0, stride1 = _buffer_stride(inner[0::2]), _buffer_stride(inner[1::2])
-
-    def shared_bytes(rows):
-        return 4 * (rows * (stride0 + stride1) + _WEIGHT_RING_FLOATS)
-
-    fitting = [rows for rows in TILE_ROWS if shared_bytes(rows) <= MAX_SHARED_BYTES]
+    stride0, stride1 = _strides(dims, streamed)
+    fitting = [rows for rows in TILE_ROWS if _shared_bytes(rows, stride0, stride1, streamed) <= MAX_SHARED_BYTES]
     if not fitting:
         raise ValueError(
-            f"fused_mlp: widths {list(dims)} need {shared_bytes(min(TILE_ROWS))} bytes of shared "
+            f"fused_mlp: widths {list(dims)} need "
+            f"{_shared_bytes(min(TILE_ROWS), stride0, stride1, streamed)} bytes of shared "
             f"memory at the smallest tile ({min(TILE_ROWS)} rows), above the block limit of "
             f"{MAX_SHARED_BYTES}"
         )
     rows = next((r for r in fitting if batch >= TILE_ROWS[r]), fitting[-1])
-    return rows, stride0, stride1, shared_bytes(rows)
+    return rows, stride0, stride1, _shared_bytes(rows, stride0, stride1, streamed)
+
+
+class Launch(NamedTuple):
+    """One launch of a chain: layers ``first`` .. ``last`` - 1, its input
+    streamed through the ring or held, its ``kernel_plan``."""
+    first: int
+    last: int
+    streamed: bool
+    plan: Tuple[int, int, int, int]
+
+
+def launch_plan(dims: Sequence[int], batch: int) -> List[Launch]:
+    """The launches of a chain of widths ``dims`` in order, each over at
+    most ``MAX_LAYERS`` consecutive layers whose held widths fit a block's
+    shared memory. A launch ends before an inner width that no buffer holds
+    beside the others and writes it to device memory, where the next launch
+    streams it; a launch streams its input where that takes it further than
+    holding it (always where no buffer holds the input). A chain that one
+    launch takes is one launch, with ``kernel_plan(dims, batch)``."""
+    n_layers = len(dims) - 1
+    if n_layers < 1:
+        raise ValueError(f"fused_mlp takes 1 layer at least, got {n_layers}")
+    launches: List[Launch] = []
+    first = 0
+    while first < n_layers:
+        reach = {}
+        for streamed in (False, True):
+            last = first
+            while last < n_layers and last - first < MAX_LAYERS and _fits(dims[first:last + 2], streamed):
+                last += 1
+            reach[streamed] = last
+        # one layer that streams its input holds no width: it always fits
+        streamed = reach[True] > reach[False]
+        last = reach[streamed]
+        launches.append(Launch(first, last, streamed, kernel_plan(dims[first:last + 1], batch, streamed)))
+        first = last
+    return launches
 
 
 def _kernel():
@@ -194,7 +265,7 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ]
         fn.restype = ctypes.c_int
         _forward = fn
@@ -230,14 +301,15 @@ def _check_tensors(x, ws, bs):
             raise ValueError(f"{name} must lie on {x.device}, got {t.device}")
 
 
-def _launch(x, out, batch, dims, ws, bs, act, plan, groups=1, set_strides=None):
-    """One launch of the kernel over ``groups`` weight sets with
-    ``kernel_plan``'s ``plan``. ``set_strides``: (x's, out's, [each
-    weight's], [each bias's]), in floats; None: all 0, the ordinary launch."""
+def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
+    """One launch of the kernel over ``groups`` weight sets: the chain
+    ``dims`` / ``ws`` / ``bs`` of ``launch`` (a ``launch_plan`` entry).
+    ``set_strides``: (x's, out's, [each weight's], [each bias's]), in
+    floats."""
     global fused_mlp_launches
-    rows, stride0, stride1, shared = plan
+    rows, stride0, stride1, shared = launch.plan
     n = len(ws)
-    x_set, out_set, w_sets, b_sets = set_strides or (0, 0, [0] * n, [0] * n)
+    x_set, out_set, w_sets, b_sets = set_strides
     c_dims = (ctypes.c_int * (n + 1))(*dims)
     c_ws = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
     c_bs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
@@ -252,7 +324,7 @@ def _launch(x, out, batch, dims, ws, bs, act, plan, groups=1, set_strides=None):
             ctypes.cast(c_bs, ctypes.c_void_p),
             act, rows, stride0, stride1, groups, x_set, out_set,
             ctypes.cast(c_w_sets, ctypes.c_void_p), ctypes.cast(c_b_sets, ctypes.c_void_p),
-            stream, ctypes.byref(attr_err),
+            int(launch.streamed), stream, ctypes.byref(attr_err),
         )
     if attr_err.value != 0:
         raise RuntimeError(f"fused_mlp_forward: cudaFuncSetAttribute({shared} bytes of dynamic "
@@ -262,9 +334,29 @@ def _launch(x, out, batch, dims, ws, bs, act, plan, groups=1, set_strides=None):
     fused_mlp_launches += 1
 
 
+def _run_chain(x, out, batch, dims, ws, bs, act, launches, groups=1, set_strides=None):
+    """The chain through ``launch_plan``'s ``launches`` into ``out``, each
+    width between two launches in a scratch [G, B, D] on the card (set
+    stride B * D). ``set_strides`` as ``_launch``'s; None: all 0, the
+    ordinary chain (G = 1)."""
+    n = len(ws)
+    x_set, out_set, w_sets, b_sets = set_strides or (0, 0, [0] * n, [0] * n)
+    h = x
+    for launch in launches:
+        a, b = launch.first, launch.last
+        if b == n:
+            dst, dst_set = out, out_set
+        else:
+            dst = torch.empty((groups, batch, dims[b]), dtype=torch.float32, device=x.device)
+            dst_set = dst.stride(0)
+        _launch(h, dst, batch, dims[a:b + 1], ws[a:b], bs[a:b], act, launch, groups,
+                (x_set, dst_set, w_sets[a:b], b_sets[a:b]))
+        h, x_set = dst, dst_set
+
+
 def fused_mlp_cuda(x, ws, bs, activation):
-    """The chain through the CUDA kernel; raises on anything it does not
-    take."""
+    """The chain through the CUDA kernel (``launch_plan``'s launches); raises
+    on anything it does not take."""
     act = _activation_code(activation)
     ws, bs = tuple(ws), tuple(bs)
     if len(ws) != len(bs):
@@ -282,18 +374,19 @@ def fused_mlp_cuda(x, ws, bs, activation):
         raise ValueError(f"every width must be at least 1, got {dims}")
     _check_tensors(x, ws, bs)
     batch = x.shape[0]
-    plan = kernel_plan(dims, batch)
+    launches = launch_plan(dims, batch)
     out = torch.empty((batch, dims[-1]), dtype=torch.float32, device=x.device)
     if batch > 0:
-        _launch(x, out, batch, dims, ws, bs, act, plan)
+        _run_chain(x, out, batch, dims, ws, bs, act, launches)
     return out
 
 
 def fused_mlp_grouped_cuda(x, ws, bs, activation):
-    """The chain over G weight sets (shapes: ``grouped_dims``) in one launch
-    of the CUDA kernel, a set a row of blocks; a tensor without the set axis
-    goes in at set stride 0, shared and never copied. Returns [G, B, D_L];
-    raises on anything it does not take, and on a G beyond MAX_GROUPS."""
+    """The chain over G weight sets (shapes: ``grouped_dims``) through the
+    CUDA kernel, each launch of ``launch_plan`` one grouped launch, a set a
+    row of blocks; a tensor without the set axis goes in at set stride 0,
+    shared and never copied. Returns [G, B, D_L]; raises on anything it does
+    not take, and on a G beyond MAX_GROUPS."""
     global fused_mlp_grouped_launches
     act = _activation_code(activation)
     ws, bs = tuple(ws), tuple(bs)
@@ -306,7 +399,7 @@ def fused_mlp_grouped_cuda(x, ws, bs, activation):
     batch = x.shape[-2]
     # a set of at most 16 rows fills one 16-row tile, where a 32-row tile
     # would only idle more rows; else the ordinary rule over all rows
-    plan = kernel_plan(dims, groups * batch if batch > 16 else 0)
+    launches = launch_plan(dims, groups * batch if batch > 16 else 0)
     out = torch.empty((groups, batch, dims[-1]), dtype=torch.float32, device=x.device)
     if groups == 0 or batch == 0:
         return out
@@ -315,16 +408,31 @@ def fused_mlp_grouped_cuda(x, ws, bs, activation):
         return t.stride(0) if t.dim() == batched_dims else 0
 
     set_strides = (set_stride(x, 3), out.stride(0), [set_stride(w, 3) for w in ws], [set_stride(b, 2) for b in bs])
-    _launch(x, out, batch, dims, ws, bs, act, plan, groups, set_strides)
-    fused_mlp_grouped_launches += 1
+    _run_chain(x, out, batch, dims, ws, bs, act, launches, groups, set_strides)
+    fused_mlp_grouped_launches += len(launches)
     return out
+
+
+def _in_float32(cuda, x, ws, bs, activation):
+    """``cuda`` (a chain through the kernel, which takes float32 alone) on
+    inputs of any floating dtype, as ``fused_mlp_pallas`` takes them: each
+    floating tensor that is not float32 cast to float32, the result cast
+    back to x's dtype."""
+    if all(t.dtype == torch.float32 for t in (x, *ws, *bs)):
+        return cuda(x, ws, bs, activation)
+
+    def f32(t):
+        return t.float() if t.is_floating_point() else t
+
+    return cuda(f32(x), [f32(w) for w in ws], [f32(b) for b in bs], activation).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # The registered operator rl_games_tpu_torch::fused_mlp: what torch.export
 # records in a graph (a ctypes call is opaque to its tracer), and the route of
 # every forward that needs gradients. Its CUDA implementation is the kernel
-# (``fused_mlp_cuda``, looked up when called), its CPU implementation
+# (``fused_mlp_cuda``, looked up when called, on float32 copies of inputs of
+# another floating dtype), its CPU implementation
 # ``plain_mlp``; its fake implementation gives tracing the output's shape; its
 # backward recomputes through ``plain_mlp``, as the JAX package's custom VJP
 # does (rl_games_tpu/ops/fused_mlp.py:189-212).
@@ -333,7 +441,7 @@ def fused_mlp_grouped_cuda(x, ws, bs, activation):
 
 @torch.library.custom_op("rl_games_tpu_torch::fused_mlp", mutates_args=(), device_types="cuda")
 def fused_mlp_op(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor], activation: str) -> torch.Tensor:
-    return fused_mlp_cuda(x, ws, bs, activation)
+    return _in_float32(fused_mlp_cuda, x, ws, bs, activation)
 
 
 @fused_mlp_op.register_kernel("cpu")
@@ -378,7 +486,7 @@ fused_mlp_op.register_autograd(_recomputing_backward(plain_mlp), setup_context=_
 @torch.library.custom_op("rl_games_tpu_torch::fused_mlp_grouped", mutates_args=(), device_types="cuda")
 def fused_mlp_grouped_op(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor],
                          activation: str) -> torch.Tensor:
-    return fused_mlp_grouped_cuda(x, ws, bs, activation)
+    return _in_float32(fused_mlp_grouped_cuda, x, ws, bs, activation)
 
 
 @fused_mlp_grouped_op.register_kernel("cpu")
@@ -426,13 +534,13 @@ def _dispatch(op, cuda, plain, x, ws, bs, activation):
     have no storage to hand the kernel) goes through the registered
     operator ``op``; an eager forward without autograd (the rollout's and
     the player's) calls the same implementation directly, ``cuda`` on a
-    CUDA tensor and ``plain`` on a CPU one, and skips the operator's
-    dispatch on the host."""
+    CUDA tensor (on float32 copies of inputs of another floating dtype) and
+    ``plain`` on a CPU one, and skips the operator's dispatch on the host."""
     transformed = torch._C._functorch.peek_interpreter_stack() is not None
     if torch.is_grad_enabled() or torch.compiler.is_exporting() or transformed:
         return op(x, list(ws), list(bs), str(activation))
     if x.is_cuda:
-        return cuda(x, ws, bs, activation)
+        return _in_float32(cuda, x, ws, bs, activation)
     if x.device.type == "cpu":
         return plain(x, ws, bs, activation)
     raise ValueError(f"no fused MLP for tensors on {x.device}")
@@ -440,9 +548,10 @@ def _dispatch(op, cuda, plain, x, ws, bs, activation):
 
 def fused_mlp(x, ws, bs, activation):
     """The chain on the tensor's device: ``plain_mlp`` on the CPU, the CUDA
-    kernel on a CUDA device (which raises rather than fall back). Under
-    ``torch.func.vmap`` the operator's vmap rule makes one grouped call
-    over a weight set a vmapped call."""
+    kernel on a CUDA device (which raises rather than fall back; a floating
+    dtype other than float32 goes through it as float32 and comes back in
+    x's dtype). Under ``torch.func.vmap`` the operator's vmap rule makes one
+    grouped call over a weight set a vmapped call."""
     return _dispatch(fused_mlp_op, fused_mlp_cuda, plain_mlp, x, ws, bs, activation)
 
 

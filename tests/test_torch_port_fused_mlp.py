@@ -3,7 +3,8 @@ the JAX package's, on the CPU: the plain chain and the CPU route of
 ``fused_mlp`` against the JAX ``plain_mlp`` and against the Pallas kernel
 in interpret mode; gradients; parameter-layout interchange; the kernel's
 launch plan and the wrapper's refusals; and a plain PyTorch rehearsal of the
-kernel's numeric scheme (3xTF32) against ``plain_mlp``. The CUDA kernel
+kernel's numeric scheme (3xTF32 with a model of the tensor core's truncating
+adder) against the chain in float64. The CUDA kernel
 itself runs only on a card: ``chip_smoke.py`` holds it against ``plain_mlp``
 there.
 
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from rl_games_tpu.models.model_builder import ModelBuilder as JModelBuilder
 from rl_games_tpu.ops import fused_mlp as jfm
@@ -95,20 +97,56 @@ def tf32_leading_bits(x):
     return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
 
 
-def emulated_kernel_mlp(x, ws, bs, activation, products: int = 3):
-    """The arithmetic of ``csrc/fused_mlp.cu`` in plain PyTorch:
-    each operand split as hi = tf32(v) and lo = the leading bits of v - hi;
-    per layer the two small products a_lo.w_hi + a_hi.w_lo summed apart
-    from a_hi.w_hi, all in float32. ``products=1`` keeps a_hi.w_hi alone
-    (plain TF32), which does not hold the kernel's tolerance."""
+def truncate_to_float32(v):
+    """float64 -> float32 rounded towards zero, as the tensor core's adder
+    rounds its sum (csrc/fused_mlp.cu's notes)."""
+    y = v.float()
+    return torch.where(y.double().abs() > v.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def tensor_core_step(acc, a, w):
+    """acc + a @ w.T for one 8-input ``mma.sync`` of TF32 operands: the
+    products summed exactly (float64 holds them: each is two 11-bit
+    significands), the sum added to the float32 accumulator and the result
+    truncated towards zero to float32, once per instruction."""
+    return truncate_to_float32(acc.double() + a.double() @ w.double().T)
+
+
+def emulated_kernel_mlp(x, ws, bs, activation, products: int = 3, fold=None):
+    """The arithmetic of ``csrc/fused_mlp.cu`` in plain PyTorch, with a
+    model of the tensor core's adder: each operand split as hi = tf32(v)
+    and lo = the leading bits of v - hi; per 8 inputs one instruction each
+    for a_lo.w_hi and a_hi.w_lo into a small accumulator and a_hi.w_hi into
+    the main one, each truncated towards zero (``tensor_core_step``); per
+    layer main + small + bias in float32. The layers of a launch that
+    streams its input (``fm.launch_plan``) sum the main products per
+    32-input weight tile and add each tile's sum into a float32 total with a
+    rounding add, as the kernel does there; ``fold`` forces that choice for
+    every layer (True, False) or leaves it to the plan (None).
+    ``products=1`` keeps a_hi.w_hi alone (plain TF32), which does not hold
+    the kernel's tolerance."""
     f = fm._PLAIN_ACTS[fm._activation_code(activation)]
-    for w, b in zip(ws, bs):
+    dims = [x.shape[1]] + [w.shape[0] for w in ws]
+    folds = [launch.streamed for launch in fm.launch_plan(dims, x.shape[0])
+             for _ in range(launch.first, launch.last)]
+    for w, b, folded in zip(ws, bs, folds if fold is None else [fold] * len(ws)):
+        k = w.shape[1]
+        pad = (0, (-k) % 8)  # the kernel zero-fills the inputs up to a multiple of 8
         a_hi, w_hi = tf32_round(x), tf32_round(w)
-        y = a_hi @ w_hi.T
-        if products == 3:
-            a_lo, w_lo = tf32_leading_bits(x - a_hi), tf32_leading_bits(w - w_hi)
-            y = y + (a_lo @ w_hi.T + a_hi @ w_lo.T)
-        x = f(y + b)
+        a_lo, w_lo = tf32_leading_bits(x - a_hi), tf32_leading_bits(w - w_hi)
+        a_hi, w_hi, a_lo, w_lo = (F.pad(t, pad) for t in (a_hi, w_hi, a_lo, w_lo))
+        big = small = total = torch.zeros((x.shape[0], w.shape[0]), dtype=torch.float32)
+        last_tile = (k - 1) // 32
+        for k0 in range(0, a_hi.shape[1], 8):
+            s = slice(k0, k0 + 8)
+            if products == 3:
+                small = tensor_core_step(small, a_lo[:, s], w_hi[:, s])
+            big = tensor_core_step(big, a_hi[:, s], w_hi[:, s])
+            if products == 3:
+                small = tensor_core_step(small, a_hi[:, s], w_lo[:, s])
+            if folded and (k0 + 8) % 32 == 0 and k0 // 32 < last_tile:
+                total, big = total + big, torch.zeros_like(big)
+        x = f(big + total + small + b)
     return x
 
 
@@ -125,11 +163,22 @@ def test_tf32_round_is_round_to_nearest():
 
 
 # the kernel's accuracy cases: the shape sets at the init scale, then inputs
-# 30 times and weights 8 times as large (chip_smoke.py runs the same on the card)
+# 30 times and weights 8 times as large (chip_smoke.py runs the same on the
+# card); then the nature-CNN torso's 3136 -> 512, one launch that streams its
+# input, at the init scale and with inputs 30 times as large
 SCHEME_CASES = [(dims, batch, 1.0, 1.0) for dims, batch in SHAPES] + [
     ((26, 256, 128, 64), 512, 30.0, 1.0),
     ((130, 257), 1030, 1.0, 8.0),
+    ((3136, 512), 64, 1.0, 1.0),
+    ((3136, 512), 64, 30.0, 1.0),
 ]
+
+
+def exact_mlp(x, ws, bs, activation):
+    """``plain_mlp`` in float64: the chain's exact result, to float32's
+    grade (at 3136 inputs of 30 the float32 chain is itself 0.83-0.95 of
+    rtol = atol = 2e-5 away from it)."""
+    return fm.plain_mlp(x.double(), [w.double() for w in ws], [b.double() for b in bs], activation).numpy()
 
 
 @pytest.mark.parametrize("activation", ["elu", "tanh"])
@@ -137,16 +186,31 @@ SCHEME_CASES = [(dims, batch, 1.0, 1.0) for dims, batch in SHAPES] + [
 def test_3xtf32_scheme_holds_the_tolerance(activation, dims, batch, x_scale, w_scale):
     """The kernel's arithmetic rehearsed in plain PyTorch: TF32 halves by bit
     operations (hi rounded to nearest, lo cut to its leading bits), three
-    products per layer, float32 sums. It agrees with
-    ``plain_mlp`` within the kernel's rtol = atol = 2e-5; one TF32 product
-    per layer does not, so the comparison can fail."""
+    products per layer, the tensor core's truncating adder once per 8
+    inputs, float32 sums, and the streamed launch's sum per weight tile. It
+    agrees with the exact chain (``plain_mlp`` in float64) within the
+    kernel's rtol = atol = 2e-5; one TF32 product per layer does not, so the
+    comparison can fail."""
     x, ws, bs = init_scale_net(3, dims, batch, x_scale, w_scale)
     with torch.no_grad():
-        want = fm.plain_mlp(x, ws, bs, activation).numpy()
+        want = exact_mlp(x, ws, bs, activation)
         three = emulated_kernel_mlp(x, ws, bs, activation).numpy()
         one = emulated_kernel_mlp(x, ws, bs, activation, products=1).numpy()
     np.testing.assert_allclose(three, want, rtol=2e-5, atol=2e-5)
     assert not np.allclose(one, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("activation", ["elu", "tanh"])
+def test_streamed_layer_needs_the_sum_per_tile(activation):
+    """The accuracy trap of a 3136-input layer: with one running a_hi.w_hi
+    sum over its 392 instructions (the held launch's accumulation) the
+    truncations, all towards zero, put the result 12 times the tolerance
+    away from the exact chain at inputs of 30; the streamed launch's sum per
+    32-input tile holds it (the case above)."""
+    x, ws, bs = init_scale_net(3, (3136, 512), 64, 30.0)
+    with torch.no_grad():
+        running = emulated_kernel_mlp(x, ws, bs, activation, fold=False).numpy()
+    assert not np.allclose(running, exact_mlp(x, ws, bs, activation), rtol=2e-5, atol=2e-5)
 
 
 def test_grads_match_jax():
