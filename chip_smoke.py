@@ -10,7 +10,9 @@ to a plain version):
 
 1. device    — a CUDA card must be present; prints its name and power limit.
 2. build     — compiles every CUDA source with nvcc and the native env
-               stepper (native/cpuenv/cpuenv.cc) with g++, all at once.
+               stepper (native/cpuenv/cpuenv.cc) with g++, all at once;
+               prints each kernel's registers and spills (ptxas) and fails
+               where a fused-MLP kernel spills.
 3. kernels   — each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and ragged ones (the fused MLP over all
                nine activations, with inputs and weights beyond the init
@@ -24,8 +26,11 @@ to a plain version):
                3136->512 at B = 512, 4096 and 4099, x * 30, elu and tanh,
                3134 and 3135 inputs, (64, 4096, 4096, 8), 10 and 17 layers
                of 256, grouped deep and 3136-wide chains, bf16 and fp16 x;
-               each timed beside the plain chain and, for one layer,
-               torch.addmm); device time per call
+               a chain with a streamed launch twice, bit for bit; each timed
+               beside the plain chain and, for one layer, torch.addmm, its
+               launches' shapes beside (a streamed one's split, cluster,
+               grid, waves and copy mode); the host time of a streamed
+               call beside a held one's); device time per call
                (torch.profiler) and time per call between CUDA events, with
                the least time the card could take on the unit the kernel uses
                beside them, and for GAE the time of an empty kernel over the
@@ -88,8 +93,10 @@ to a plain version):
                [256, 64, 1]; fused: 256 rollout + 1 bootstrap forwards at
                B = 64 and 40 minibatch forwards at B = 2048 per epoch, one per
                player step), the player's step; under --profile the device's
-               idle share of one epoch. Fails when the faster placement is not
-               the one host_inference_device auto takes. Then the plain and
+               idle share of one epoch. Then the default and the cpu runs'
+               trained agents take 10 epochs each, interleaved; fails when the
+               faster of them (the median of their ratio a round) is not the
+               one host_inference_device auto takes. Then the plain and
                the fused policy side by side, interleaved: the host time of a
                forward, of the MLP torso and of the chain alone, a rollout's
                step and the device events per step.
@@ -482,8 +489,52 @@ def phase_build():
             # "N bytes stack frame, N bytes spill stores, N bytes spill loads" has no prefix
             if "spill" in line or ("ptxas info" in line and any(w in line for w in ("registers", "smem", "Compiling"))):
                 print(f"[build] {name}: {line.strip()}")
+        kernels = ptxas_kernels(log or "")
+        if kernels:
+            print(f"[build] {name} registers and spill stores / loads (bytes) per kernel: "
+                  + "; ".join(f"{k} {v['registers']} regs, {v['spill_stores']} / {v['spill_loads']}"
+                              for k, v in kernels.items()))
+        spilled = {k: v for k, v in kernels.items() if v["spill_stores"] or v["spill_loads"]}
+        if name == "fused_mlp" and spilled:
+            raise AssertionError(f"fused_mlp kernels spill registers: {spilled}")
     if sorted(logs) != ["fused_mlp", "gae"]:
         raise AssertionError(f"expected the sources fused_mlp and gae, built {sorted(logs)}")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} from ``nvcc
+    -Xptxas=-v``'s output, a kernel named by its function and template
+    arguments where the mangled name shows them (fused_mlp_stream_kernel<16>)."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+            kernels[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            kernels[name].update(spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            kernels[name]["registers"] = int(used.group(1))
+    return kernels
+
+
+def kernel_name(mangled: str) -> str:
+    """The last name of a mangled kernel (its length-prefixed components
+    after _ZN, or the one after _Z) and its integer template arguments:
+    fused_mlp_stream_kernel<16>."""
+    i = mangled.find("N", 2) + 1 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        digits = re.match(r"\d+", mangled[i:]).group(0)
+        start = i + len(digits)
+        name, i = mangled[start:start + int(digits)], start + int(digits)
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    return f"{name}<{', '.join(re.findall(r'Li(-?[0-9]+)E', args.group(1)))}>" if args else name
 
 
 # GAE's [T, N·A, V] on [selfplay]'s two paths: benchruns/selfplay_forage.yaml's and cooperative_gather's
@@ -854,6 +905,7 @@ def time_wide(tag, x, ws, bs, activation="elu"):
     groups, dims, batch, plan = chain_plan(x, ws, bs)
     grouped = groups is not None
     groups = groups or 1
+    shapes = launch_shapes_of(x, ws, plan, groups, batch)
     cuda, plain_fn = (fm.fused_mlp_grouped_cuda, fm.plain_mlp_grouped) if grouped else (fm.fused_mlp_cuda, fm.plain_mlp)
     kernel, plain = (lambda: cuda(x, ws, bs, activation)), (lambda: plain_fn(x, ws, bs, activation))
     before = fm.fused_mlp_launches
@@ -873,13 +925,49 @@ def time_wide(tag, x, ws, bs, activation="elu"):
     bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
     print(f"[kernels] fused_mlp {tag} ({len(dims) - 1} layers {dims[0]}->...->{dims[-1]}, G={groups}, B={batch}, "
           f"{activation}) device time: kernel {kernel_ms * 1e3:.2f} us ({launches} launches, {kernel_n} kernels/call; "
-          f"plan {[(p.first, p.last, p.streamed, p.plan[0], p.plan[3]) for p in plan]}), plain {plain_ms * 1e3:.2f} us "
+          f"launches {'; '.join(describe_launch(d) for d in shapes)}), plain {plain_ms * 1e3:.2f} us "
           f"({plain_n} kernels/call)" + (f", addmm {library_ms * 1e3:.2f} us" if library_ms is not None else "")
           + f"; bound {bound * 1e3:.2f} us ({flops} TF32 flop, {nbytes} B, by {bound_by}); kernel at "
           f"{bound / kernel_ms:.3f} of the bound's rate")
     return {"tag": tag, "shape": [groups, batch, *dims] if grouped else [batch, *dims], "activation": activation,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "launches_per_call": launches,
-            "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms}
+            "launch_shapes": shapes, "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms}
+
+
+def launch_shapes_of(x, ws, plan, groups, batch):
+    """Each launch of ``plan`` (launch_plan's, over ``groups`` sets of
+    ``batch`` rows of x and the weights ws) as the wrapper makes it: its
+    layers, rows a block and shared bytes; a streamed one's split (blocks a
+    row tile's outputs go to), cluster, grid, the clusters the card holds at
+    once and so its waves, and the copy mode of x and W (x is the chain's
+    own for the first launch, else the contiguous scratch between launches)."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    shapes = []
+    for p in plan:
+        shape = {"layers": [p.first, p.last], "streamed": p.streamed, "rows": p.plan[0], "shared": p.plan[3]}
+        if p.streamed:
+            grid = fm.stream_grid(p.plan, batch, groups)
+            w = ws[p.first]
+            x_in = x if p.first == 0 else torch.empty((groups, batch, w.shape[-1]), device=x.device)
+            x_set = x_in.stride(0) if x_in.dim() == 3 else 0
+            w_set = w.stride(0) if w.dim() == 3 else 0
+            clusters = fm.stream_clusters(p.plan.rows, p.plan.cluster)
+            shape.update(split=p.plan.split, cluster=p.plan.cluster, grid=list(grid), clusters_at_once=clusters,
+                         waves=grid[0] * grid[1] / (clusters * p.plan.cluster) if clusters > 0 else None,
+                         copy=fm.stream_copy_name(fm.stream_copy(x_in, w, x_set, w_set)))
+        shapes.append(shape)
+    return shapes
+
+
+def describe_launch(d) -> str:
+    """A launch_shapes_of entry in words."""
+    text = f"layers {d['layers'][0]}-{d['layers'][1]} {'streamed' if d['streamed'] else 'held'}, {d['rows']} rows a block"
+    if d["streamed"]:
+        waves = f"{d['waves']:.2f}" if d["waves"] is not None else "not known"
+        text += (f", outputs split over {d['split']} blocks, clusters of {d['cluster']}, grid {d['grid'][0]}x"
+                 f"{d['grid'][1]} ({d['clusters_at_once']} clusters at once: {waves} waves), {d['copy']}")
+    return text + f", {d['shared']} B shared"
 
 
 def kernel_fused_mlp_wide(gen, dev):
@@ -902,17 +990,37 @@ def kernel_fused_mlp_wide(gen, dev):
     def check(tag, x, ws, bs, activations=("elu",)):
         nonlocal worst, worst_share
         groups, _, _, plan = chain_plan(x, ws, bs)
-        cuda = fm.fused_mlp_cuda if groups is None else fm.fused_mlp_grouped_cuda
+        cuda = fm.fused_mlp_grouped_cuda if groups is not None else fm.fused_mlp_cuda
         launches = len(plan)
         for activation in activations:
-            err, share = check_wide(tag, lambda: cuda(x, ws, bs, activation), x, ws, bs, activation, launches)
+            run = lambda: cuda(x, ws, bs, activation)  # noqa: E731
+            err, share = check_wide(tag, run, x, ws, bs, activation, launches)
             worst, worst_share = max(worst, err), max(worst_share, share)
+            if any(p.streamed for p in plan):
+                # no sum is split across blocks or left to an atomic: the same bits every call
+                same = torch.equal(run(), run())
+                print(f"[kernels] fused_mlp {tag} {activation}: two calls bit for bit equal: {same}")
+                if not same:
+                    raise AssertionError(f"fused_mlp {tag} {activation}: two calls on the same inputs differ")
 
+    host = {}
     for batch in (512, 4096, 4099):
         x, ws, bs = mlp_inputs(NATURE_DIMS, batch, gen, dev)
         for x_scale in (1.0, 30.0):
             check(f"3136x512 B={batch}{'' if x_scale == 1 else ' (x * 30)'}", x * x_scale, ws, bs, ("elu", "tanh"))
         timed.append(time_wide("nature-CNN torso", x, ws, bs))
+        if batch == 512:
+            # the host's share of a streamed call (two tensor maps encoded a call) beside a held launch's (the
+            # route every chain took before the streamed kernel: the flagship torso, B = 8192), in turns
+            xf, wf, bf = mlp_inputs(FLAGSHIP_DIMS, 8192, gen, dev)
+            calls = {"streamed 3136x512 B=512": lambda: fm.fused_mlp_cuda(x, ws, bs, "elu"),
+                     "held 26x256x128x64 B=8192": lambda: fm.fused_mlp_cuda(xf, wf, bf, "elu")}
+            times = {name: [] for name in calls}
+            for name in (*calls, *reversed(calls)):
+                times[name].append(host_us_per_call(calls[name]))
+            host = {name: float(np.median(t)) for name, t in times.items()}
+            print("[kernels] fused_mlp host time a call of fused_mlp_cuda (the enqueue alone, medians of 2 runs of "
+                  "200 calls in turns): " + ", ".join(f"{name} {us:.2f} us" for name, us in host.items()))
     for dims in ((3134, 512), (3135, 512)):
         x, ws, bs = mlp_inputs(dims, 512, gen, dev)
         check(f"{dims[0]}x512 B=512 ({8 if dims[0] % 2 == 0 else 4}-byte copies of x)", x, ws, bs)
@@ -951,7 +1059,8 @@ def kernel_fused_mlp_wide(gen, dev):
                       f"back: {same}")
                 if not same:
                     raise AssertionError(f"fused_mlp on {dtype} x ({kind}) is not the float32 kernel cast back")
-    return {"wide_shapes": timed, "wide_max_abs_err": worst, "wide_max_err_over_tolerance": worst_share}
+    return {"wide_shapes": timed, "wide_max_abs_err": worst, "wide_max_err_over_tolerance": worst_share,
+            "host_us_per_call": host}
 
 
 def phase_kernel_fused_mlp():
@@ -2410,7 +2519,9 @@ def phase_host_ppo(epochs: int, profile: bool):
     host_inference_device default, cpu, and default with the fused MLP.
     GAE runs once per epoch at [256, 64, 1]; with the fused MLP on the
     card, every rollout step's forward at B = 64, the bootstrap forward,
-    each minibatch's at B = 2048 and each player step's are one launch."""
+    each minibatch's at B = 2048 and each player step's are one launch.
+    The placement check times the default and cpu agents' epochs
+    interleaved (host_ppo_placement_ab)."""
     from rl_games_tpu_torch.common.host_inference import auto_placement
 
     print(f"[host_ppo] host: {os.cpu_count()} cores online (std::thread::hardware_concurrency reads the same "
@@ -2455,10 +2566,13 @@ def phase_host_ppo(epochs: int, profile: bool):
               f"(mean of steps {run['steady_of'][0]}-{run['steady_of'][1]} of a second run)")
         if run["idle"] is not None:
             print(f"[host_ppo] {tag}: device idle share of one profiled epoch {run['idle']:.3f}")
-    faster = min(("default", "cpu"), key=lambda p: np.median(results[p]["times"][1:]))
+    epochs_ab = host_ppo_placement_ab({p: results[p]["agent"] for p in ("default", "cpu")})
+    ratio = float(np.median(epochs_ab["cpu"] / epochs_ab["default"]))  # round by round: the host's drift cancels
+    faster = "cpu" if ratio < 1 else "default"
     auto = auto_placement(host_ppo_params()["network"])
-    print(f"[host_ppo] placement: steady epoch default {np.median(results['default']['times'][1:]) * 1e3:.1f} ms, "
-          f"cpu {np.median(results['cpu']['times'][1:]) * 1e3:.1f} ms: {faster} is faster at this geometry; "
+    print(f"[host_ppo] placement: steady epoch default {np.median(epochs_ab['default']) * 1e3:.1f} ms, cpu "
+          f"{np.median(epochs_ab['cpu']) * 1e3:.1f} ms, their epochs interleaved; cpu over default in the same "
+          f"round {ratio:.3f} (median of {len(epochs_ab['cpu'])}): {faster} is faster at this geometry; "
           f"auto takes {auto} for this policy (an MLP)")
     if faster != auto:
         raise AssertionError(f"host_ppo: {faster} is the faster placement, but auto takes {auto} "
@@ -2467,6 +2581,27 @@ def phase_host_ppo(epochs: int, profile: bool):
     for run in results.values():
         del run["agent"]
     return results
+
+
+def host_ppo_placement_ab(agents: dict, rounds: int = 10) -> dict:
+    """The trained agents' host epochs interleaved (A B, then B A), so that
+    every placement sees the same host: each agent's epoch times, one a
+    round. Runs trained one after the other see hosts that differ by up to
+    two, and the host drifts within a run too."""
+    epoch_s = collections.defaultdict(list)
+    states = {tag: agent.last_state for tag, agent in agents.items()}
+    for i in range(rounds):
+        for tag in (list(agents) if i % 2 == 0 else list(agents)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[tag], _ = agents[tag].host_train_epoch(states[tag])
+            torch.cuda.synchronize()
+            epoch_s[tag].append(time.perf_counter() - t0)
+    for tag, agent in agents.items():
+        agent.last_state = states[tag]
+    print(f"[host_ppo] placement A/B, {rounds} interleaved epochs each: "
+          + ", ".join(f"{tag} {[round(t * 1e3, 1) for t in ts]} ms" for tag, ts in epoch_s.items()))
+    return {tag: np.array(ts) for tag, ts in epoch_s.items()}
 
 
 def host_ppo_forward_ab(agents: dict, rounds: int = 6, calls: int = 200):

@@ -71,25 +71,6 @@
 //   x takes the same way in. The ring runs ahead across layer boundaries, and
 //   there is one `__syncthreads()` per tile: it publishes the tile that has
 //   landed and frees the slot of the tile before it for the next copy.
-// - A launch may stream its first layer's input instead of holding it (a
-//   width that no buffer of a block's shared memory holds: the 3136 inputs
-//   behind the nature-CNN need 200 KB at 16 rows). Each ring stage then
-//   carries, beside a weight tile of layer 0, the block's rows of x by the
-//   same 32 inputs (row stride 40), copied the same way, and layer 0 reads
-//   its A fragments there. The weight tiles run inputs-fastest, so x's rows
-//   are read once per 128 outputs (from L2 after the first). The mode is a
-//   template parameter: a launch that holds x runs exactly the code it ran
-//   without the mode. A chain too deep for the argument block or with an
-//   inner width that no buffer holds is cut into several launches by the
-//   wrapper (ops/fused_mlp.py launch_plan), each next launch streaming the
-//   width that the one before wrote to device memory.
-// - A streamed launch sums a_hi.w_hi per weight tile: the tensor core's
-//   adder truncates towards zero, always the same way, so over the 392
-//   instructions of 3136 inputs the bias of one running sum reaches the
-//   tolerance (the CPU rehearsal in tests/test_torch_port_fused_mlp.py puts
-//   it at 12 times the tolerance at inputs of 30). Each tile's 32 inputs
-//   start from zero and are added into a float32 total with a rounding add,
-//   so the truncations are relative to a tile's partial sum.
 // - A ninth warp issues the copies. A `cp.async` completes on its own, but
 //   its issue holds the warp until the SM's path from L2 has taken it; issued
 //   by the multiplying warps, the copies cost them a sixth of their time.
@@ -113,8 +94,16 @@
 //   42 floats a set) takes the narrower copies in the sets it misaligns.
 //   Each block streams its set's weights once; at one row a set (the
 //   opponents' case) a 16-row tile runs with 15 rows idle.
+// - A chain too deep for the argument block, or with an inner width that no
+//   buffer holds, is cut into several launches by the wrapper
+//   (ops/fused_mlp.py launch_plan); the widths between them go through
+//   device memory. A layer whose input no buffer holds (the 3136 inputs
+//   behind the nature-CNN need 200 KB at 16 rows) is a launch of its own, of
+//   the streamed kernel further down (`fused_mlp_stream_kernel`, with its own
+//   notes), which holds nothing and streams x beside W.
 // - Inputs must be finite: the split of an infinity is not a number.
 
+#include <cuda.h>  // CUtensorMap and its enums: the streamed kernel's bulk tensor copies
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -127,11 +116,6 @@ constexpr int TK = 32;       // inputs per weight tile
 constexpr int WS = TK + 8;   // weight tile row stride: 40 = 8 * odd
 constexpr int kStages = 3;   // weight tiles in the ring
 constexpr int kTileFloats = TN * WS;
-// floats of a ring stage: a weight tile and, when layer 0's input is
-// streamed, the block's `rows` rows of x by the tile's 32 inputs
-__host__ __device__ constexpr int stage_floats(int rows, bool stream) {
-  return kTileFloats + (stream ? rows * WS : 0);
-}
 constexpr int kWarps = 8;  // warps that multiply, side by side along a weight tile's 128 outputs
 constexpr int kThreads = 32 * (kWarps + 1);  // and one warp that issues the copies
 constexpr int NT = TN / 8 / kWarps;          // 8-wide instruction tiles of outputs per warp
@@ -147,7 +131,7 @@ struct Net {
   int dims[kMaxLayers + 1];
   int n_layers;
   int act;
-  int stride0;  // row stride (floats, 8 * odd) of the even-width buffer (widths 2, 4, ... if x streams)
+  int stride0;  // row stride (floats, 8 * odd) of the even-width buffer
   int stride1;  // same for the odd-width buffer
 };
 
@@ -320,20 +304,6 @@ __device__ __forceinline__ void stage_w_tile(float* ws, const Net& net, const Ti
                        p.kc * TK, min(TN, ((p.N + 7) & ~7) - n0), tid);
 }
 
-// Starts the copies of the ring stage at `p`: its weight tile and, with
-// kStream on a tile of layer 0, the block's TM rows of x (`x_tile`, of which
-// `rows_inside` lie inside the batch) by the tile's 32 inputs.
-template <int kCopiers, int TM, bool kStream>
-__device__ __forceinline__ void stage_ring(float* stage, const Net& net, const TilePos& p,
-                                           const float* __restrict__ x_tile, int rows_inside,
-                                           int tid) {
-  stage_w_tile<kCopiers>(stage, net, p, tid);
-  if constexpr (kStream) {
-    if (p.l == 0)
-      stage_tile<kCopiers>(stage + kTileFloats, WS, x_tile, rows_inside, p.K, p.kc * TK, TM, tid);
-  }
-}
-
 // The three products of 8 inputs for a warp's MT x NT instruction tiles.
 // `a` points at this lane's (row g, input 2t) of the activation tile, `w` at
 // its (output g, input 2t) of the weight tile. A sum over inputs does not
@@ -423,13 +393,11 @@ __device__ __forceinline__ void finish_layer(const float (&big)[MT][NT][4],
 }
 
 // MT: 16-row instruction tiles per warp. Every warp covers all 16 * MT rows
-// of the block's tile and 16 of the weight tile's 128 columns. kStream:
-// layer 0's input comes through the ring stages, not buf0.
-template <int MT, bool kStream>
+// of the block's tile and 16 of the weight tile's 128 columns.
+template <int MT>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Net net) {
   constexpr int TM = 16 * MT;
-  constexpr int kStageFloats = stage_floats(TM, kStream);
   extern __shared__ __align__(16) float smem[];
   float* buf0 = smem;
   float* buf1 = buf0 + TM * net.stride0;
@@ -446,21 +414,20 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
   x += blockIdx.y * net.x_set;
   out += blockIdx.y * net.out_set;
 
-  // Everyone shares the first copies: the tile's rows of x (unless they
-  // stream) and the ring's first kStages - 1 stages (x and the first stage
-  // make one group).
+  // Everyone shares the first copies: the tile's rows of x and the ring's
+  // first kStages - 1 tiles (x and the first tile make one group).
   TilePos ahead, pos;
   enter_layer(ahead, net, 0);
   enter_layer(pos, net, 0);
-  const float* x_tile = x + row0 * net.dims[0];
-  const int rows_inside = static_cast<int>(min(static_cast<long long>(TM), B - row0));
-  if constexpr (!kStream) {
+  {
+    const float* x_tile = x + row0 * net.dims[0];
+    const int rows_inside = static_cast<int>(min(static_cast<long long>(TM), B - row0));
     for (int c0 = 0; c0 < net.dims[0]; c0 += TK)
       stage_tile<kThreads>(buf0 + c0, net.stride0, x_tile, rows_inside, net.dims[0], c0, TM, tid);
   }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    stage_ring<kThreads, TM, kStream>(ring + s * kStageFloats, net, ahead, x_tile, rows_inside, tid);
+    stage_w_tile<kThreads>(ring + s * kTileFloats, net, ahead, tid);
     cp_async_commit();
     advance(ahead, net);
   }
@@ -475,8 +442,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
     for (int it = 0; pos.l < net.n_layers; ++it) {
       cp_async_wait<kStages - 2>();
       __syncthreads();
-      stage_ring<32, TM, kStream>(ring + ((it + kStages - 1) % kStages) * kStageFloats, net, ahead,
-                                  x_tile, rows_inside, lane);
+      stage_w_tile<32>(ring + ((it + kStages - 1) % kStages) * kTileFloats, net, ahead, lane);
       cp_async_commit();
       advance(ahead, net);
       advance(pos, net);
@@ -486,7 +452,6 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
 
   cp_async_wait<0>();  // this thread's share of the first copies
   float big[MT][NT][4], small[MT][NT][4];
-  float total[MT][NT][4];  // kStream: the sum of a layer's tiles of big so far
   float bias_lane[NT][2];  // the bias of this lane's columns 2t, 2t+1 of each tile of outputs
   for (int it = 0; pos.l < net.n_layers; ++it) {
     // tile `it` has landed, and x or the previous layer's output is complete
@@ -498,11 +463,9 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
     const int Np = (N + 7) & ~7;
     const int n0 = pos.nc * TN;
     const int k0 = pos.kc * TK;
-    const float* ws = ring + (it % kStages) * kStageFloats;
-    // layer 0's streamed input: this stage's rows of x by the tile's inputs
-    const bool streamed = kStream && l == 0;
-    const float* in = streamed ? ws + kTileFloats : (l & 1) ? buf1 : buf0;
-    const int s_in = streamed ? WS : (l & 1) ? net.stride1 : net.stride0;
+    const float* in = (l & 1) ? buf1 : buf0;
+    const int s_in = (l & 1) ? net.stride1 : net.stride0;
+    const float* ws = ring + (it % kStages) * kTileFloats;
     // this warp's 8-wide tiles of outputs that hold columns of the layer
     const int active = min(NT, max(0, Np - n0 - col_base) / 8);
 
@@ -512,7 +475,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = total[i][j][e] = 0.0f;
+          for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = 0.0f;
       // asked for now, needed after the layer's last product: the trip to
       // device memory passes under the products
       const float* __restrict__ bias = net.b[l] + blockIdx.y * net.b_set[l];
@@ -529,7 +492,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
       // inputs beyond Kp were never written in `in`: stop there (the weight
       // tile is zero from K on, and `in` is zero from K to Kp)
       const int ksteps = min(TK, Kp - k0) / 8;
-      const float* a = in + g * s_in + (streamed ? 0 : k0) + 2 * t;
+      const float* a = in + g * s_in + k0 + 2 * t;
       const float* w = ws + (col_base + g) * WS + 2 * t;
       if (ksteps == TK / 8 && active == NT) {
 #pragma unroll
@@ -538,25 +501,6 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
       } else {
         for (int ks = 0; ks < ksteps; ++ks)
           product_step<MT, false>(big, small, a + 8 * ks, s_in, w + 8 * ks, active);
-      }
-      if constexpr (kStream) {
-        // the tile's sums go into the total with a rounding add, and the next
-        // tile's start from zero; after the layer's last tile big holds the
-        // total (the same sum: a float add does not care for its order)
-        const bool layer_end = pos.kc == pos.nK - 1;
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (layer_end) {
-                big[i][j][e] += total[i][j][e];
-              } else {
-                total[i][j][e] += big[i][j][e];
-                big[i][j][e] = 0.0f;
-              }
-            }
       }
 
       if (pos.kc == pos.nK - 1) {
@@ -591,32 +535,585 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int B, Ne
 }
 
 // Shared memory for a tile of `rows` rows: both activation buffers and the
-// ring's stages, in bytes (ops/fused_mlp.py kernel_plan computes the same).
-int smem_bytes_for(int rows, int stride0, int stride1, bool stream) {
-  return 4 * (rows * (stride0 + stride1) + kStages * stage_floats(rows, stream));
+// ring of weight tiles, in bytes (ops/fused_mlp.py kernel_plan computes the
+// same).
+int smem_bytes_for(int rows, int stride0, int stride1) {
+  return 4 * (rows * (stride0 + stride1) + kStages * kTileFloats);
 }
 
-template <int MT, bool kStream>
+template <int MT>
 int launch(const float* x, float* out, int B, int groups, const Net& net, cudaStream_t stream,
            int* attr_err) {
   constexpr int TM = 16 * MT;
-  const int smem_bytes = smem_bytes_for(TM, net.stride0, net.stride1, kStream);
+  const int smem_bytes = smem_bytes_for(TM, net.stride0, net.stride1);
   *attr_err = static_cast<int>(cudaFuncSetAttribute(
-      fused_mlp_kernel<MT, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
+      fused_mlp_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
   if (*attr_err != 0) return 0;
   const unsigned int blocks = static_cast<unsigned int>((static_cast<long long>(B) + TM - 1) / TM);
   const dim3 grid(blocks, static_cast<unsigned int>(groups));
-  fused_mlp_kernel<MT, kStream><<<grid, kThreads, smem_bytes, stream>>>(x, out, B, net);
+  fused_mlp_kernel<MT><<<grid, kThreads, smem_bytes, stream>>>(x, out, B, net);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// The streamed launch: one layer, out = act(x . W^T + b), whose input x
+// [B, K] no buffer of a block holds, so it streams through shared memory
+// beside W [N, K] (the nature-CNN torso's 3136 -> 512 at the Pong rollout's
+// B = 512 and the minibatch's 4096).
+//
+// What bounds it on this card: the 3xTF32 products. `mma.sync` does not
+// reach the TF32 rate of the warpgroup instruction (the 64-row block makes
+// three products a multiply-add at a third of that rate), and measured over
+// every shape the kernel takes (tools/fused_mlp_stream_sweep.py), its time
+// follows the products a block makes and not the bytes a stage brings: the
+// launch ends when its last wave of blocks is done with its products.
+// What the design does about it:
+// - Enough blocks, in one wave. The `split` blocks that share a row tile
+//   split its 128-wide output tiles (block n takes tiles n, n + split, ...),
+//   so a small batch still fills the card: at B = 512, 32 row tiles of 16
+//   rows by a split of 4 make 128 blocks, one an SM. A block holds the whole
+//   227 KB, so one runs an SM: 132 at once in clusters of one or two, 120 in
+//   clusters of four or eight. The wrapper (ops/fused_mlp.py stream_plan)
+//   picks rows a block (16, 32 or 64), the split and the cluster from a model
+//   of these measured rates: waves times output tiles a block times rows
+//   over the products' rate at those rows (a 64-row block splits each operand
+//   for more products than a 16-row one). At B = 4096 it takes 64-row blocks
+//   split in two: W is read from L2 once per 64 rows.
+// - Clusters that multicast x. The blocks of a cluster share a row tile;
+//   the first issues a stage's x tile to all of them in one multicast copy.
+// - Bulk tensor copies (the TMA). One thread of a copying warpgroup issues a
+//   stage as two `cp.async.bulk.tensor` copies (W's 128 x 32 tile, x's
+//   rows x 32 tile), which signal a transaction barrier (`mbarrier`) of the
+//   stage when they land; out-of-range rows and columns land as zeros. A
+//   ring of 9 to 12 stages (as many as 227 KB hold) runs ahead, and no
+//   `__syncthreads()` is left in the loop: a multiplying warp waits for its
+//   stage's full barrier and, done with the stage, arrives on the stage's
+//   empty barrier in every block of the cluster (remote arrives through
+//   distributed shared memory), so a copy that lands in several blocks waits
+//   until all of them are done with the slot.
+// - The copies swizzle (128-byte mode: the 16-byte chunk c of row r lands at
+//   chunk c ^ (r % 8)). A lane reads fragment row g from tile row
+//   p(g) = 2 (g % 4) + g / 4, and takes weight row p(g) as its column g, so
+//   the 16 lanes of half a warp read 8-byte pairs from 8 different chunks
+//   of rows whose r % 8 differ in the chunk's upper bits: no bank conflict.
+//   The sums' rows and columns come out in the same order, which the
+//   epilogue undoes (a lane's two columns are 2 apart).
+// - Rows that a bulk copy cannot take (a row stride, set stride or address
+//   that is not a multiple of 16 bytes: 3134 and 3135 inputs) take the
+//   kernel's own `cp.async` copies (16, 8 or 4 bytes wide, as the rows'
+//   alignment allows) into the same swizzled tiles, shared out among the
+//   copying warpgroup's 128 threads, each of which then arrives on the
+//   stage's full barrier when its copies land (`cp.async.mbarrier.arrive`).
+//   The wrapper picks the mode of x and of W apart, from their strides and
+//   addresses; such a tensor is not multicast: each block copies its own.
+// - Registers. The block is 12 warps (8 multiplying, a copying warpgroup of
+//   4), which start at 168 registers a thread; the 64-row block's three sets
+//   of sums need more, so there the copying warpgroup hands registers to the
+//   multiplying ones (`setmaxnreg`: 56 and 224), one branch a role to the
+//   end, as the instruction wants it.
+// - The numeric scheme is the held kernel's, with the per-tile sum that a
+//   long input needs: the tensor core's adder truncates towards zero, always
+//   the same way, so over the 392 instructions of 3136 inputs the bias of
+//   one running sum reaches the tolerance (the CPU rehearsal in
+//   tests/test_torch_port_fused_mlp.py puts it at 12 times the tolerance at
+//   inputs of 30). Each tile's 32 inputs start from zero and are added into
+//   a float32 total with a rounding add. No sum is split across blocks, so
+//   two calls on the same inputs give the same bits.
+// - A block's copying warp exits only after every block of its cluster has
+//   released the ring's last stages: then nothing can still copy into its
+//   shared memory or arrive on its barriers. A wait that never ends (a fault
+//   of the schedule) traps after 2^24 tries instead of hanging the card.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxCluster = 8;       // blocks a cluster (the portable limit)
+constexpr int kSwizzleAlign = 1024;  // the 128-byte swizzle repeats every 8 rows of 128 bytes
+constexpr int kWaitTries = 1 << 24;  // try_waits before a wait traps
+constexpr int kCopyWarps = 4;        // the copying warpgroup
+constexpr int kCopiers = 32 * kCopyWarps;
+constexpr int kStreamThreads = 32 * kWarps + kCopiers;
+// Registers a thread of the copying and of a multiplying warpgroup where
+// the 64-row block moves them between the two (setmaxnreg): 384 threads
+// start at 168; 128 x (168 - 56) = 256 x (224 - 168).
+constexpr int kEntryRegisters = 168;
+constexpr int kCopyRegisters = 56;
+constexpr int kMultiplyRegisters = 224;
+
+// Rows a block: its warps' layout (wm x wn warps over rows x outputs), the
+// ring's depth (as many stages as fit 227 KB with the alignment slack), and
+// whether the copying warpgroup hands registers to the multiplying ones (the
+// 64-row block's three sets of sums need more than 168 a thread).
+template <int TM>
+struct StreamShape {
+  static constexpr int WM = TM == 16 ? 1 : 2;      // warps along the rows
+  static constexpr int WN = kWarps / WM;           // warps along a tile's 128 outputs
+  static constexpr int MT = TM / 16 / WM;          // 16-row instruction tiles a warp
+  static constexpr int SNT = TN / 8 / WN;          // 8-wide instruction tiles a warp
+  static constexpr int kStageFloats = (TN + TM) * TK;  // W's tile, then x's
+  static constexpr int kRingStages = TM == 16 ? 12 : TM == 32 ? 11 : 9;
+  static constexpr int kSmemBytes = kSwizzleAlign + kRingStages * (4 * kStageFloats + 16);
+  static constexpr bool kRebalance = TM == 64;
+};
+
+struct StreamLayer {
+  const float* x;
+  const float* w;
+  const float* b;
+  float* out;
+  long long x_set, w_set, b_set, out_set;  // set strides in floats (0: shared)
+  int B, K, N;
+  int act;
+  int split;  // blocks a row tile's output tiles are split over: block n takes tiles n, n + split, ...
+  int tiles;  // output tiles of 128 a block walks: N / 128 (rounded up) / split
+  int copy;   // bit 0: x through bulk tensor copies, bit 1: W (else the kernel's cp.async)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Waits until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (int tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == kWaitTries) __trap();
+  }
+}
+
+// Arrives on `bar`, telling it that `bytes` more are to land in this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Arrives on the barrier at `bar`'s place in the shared memory of the
+// cluster's block `rank` (this block's own for its own rank).
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n\t.reg .b32 remote;\n\tmapa.shared::cluster.u32 remote, %0, %1;\n\t"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n\t}" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// This thread's arrival on `bar` once all its earlier cp.async have landed
+// (counted among the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// A bulk tensor copy of the box at (c0, c1, c2) of `map` into `dst`, to the
+// blocks of `mask` (at `dst`'s and `bar`'s places in each) or, with mask 0,
+// to this block alone; it signals the bytes to `bar`.
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                         int c2, uint16_t mask) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  if (mask == 0)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+        "[%2];" ::"r"(smem_u32(dst)),
+        "l"(m), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(smem_u32(dst)),
+        "l"(m), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
+        : "memory");
+}
+
+// The kernel's own copies of a rows x 32 tile of a row-major [*, K] matrix
+// (`src`: its first row at input k0) into a swizzled tile, by the copying
+// warpgroup's 128 threads, kFloats (4, 2 or 1) floats a copy; rows from
+// rows_inside on and inputs from K on land as zeros. kLean: one copy an
+// iteration, not unrolled (the 64-row block's copying warpgroup has 56
+// registers a thread; unrolled, its loops spill).
+template <int kFloats, bool kLean>
+__device__ __forceinline__ void copy_tile_by(float* dst, const float* __restrict__ src, int rows,
+                                             int rows_inside, int K, int k0, int tid) {
+  constexpr int kPerRow = TK / kFloats;
+  auto copy = [&](int idx) {
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * kFloats;
+    const bool inside = r < rows_inside && k0 + c < K;
+    float* to = dst + r * TK + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+    cp_async<kFloats>(to, inside ? src + static_cast<size_t>(r) * K + k0 + c : src, inside);
+  };
+  if constexpr (kLean) {
+#pragma unroll 1
+    for (int idx = tid; idx < rows * kPerRow; idx += kCopiers) copy(idx);
+  } else {
+    for (int idx = tid; idx < rows * kPerRow; idx += kCopiers) copy(idx);
+  }
+}
+
+template <bool kLean>
+__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int rows,
+                                          int rows_inside, int K, int k0, int tid) {
+  const uintptr_t address = reinterpret_cast<uintptr_t>(src);
+  if ((K & 3) == 0 && (address & 15) == 0)
+    copy_tile_by<4, kLean>(dst, src, rows, rows_inside, K, k0, tid);
+  else if ((K & 1) == 0 && (address & 7) == 0)
+    copy_tile_by<2, kLean>(dst, src, rows, rows_inside, K, k0, tid);
+  else
+    copy_tile_by<1, kLean>(dst, src, rows, rows_inside, K, k0, tid);
+}
+
+// The three products of 8 inputs (k-step `ks` of a stage) for a warp's
+// MT x SNT instruction tiles, as product_step makes them, on swizzled tiles.
+// `a` points at this lane's tile row p(g) of its first instruction tile of
+// x, at the pair 2 (t % 2) of a chunk; `w` the same in W's tile; `lane_x` is
+// p(g) ^ (t / 2), so the lane's inputs 8 ks + 2t, 8 ks + 2t + 1 lie in chunk
+// (2 ks) ^ lane_x of each of its rows (all 8 rows apart). The B fragments
+// are split once and kept across the rows; the A fragments of one 16-row
+// instruction tile at a time (fewer live registers: the 64-row block's three
+// sets of sums take 96), each tile's two products into `small` still SNT
+// instructions apart.
+template <int MT, int SNT>
+__device__ __forceinline__ void stream_product_step(float (&big)[MT][SNT][4], float (&small)[MT][SNT][4],
+                                                    const float* a, const float* w, int ks, int lane_x) {
+  const int k = ((2 * ks) ^ lane_x) << 2;
+  uint32_t b_hi[SNT][2], b_lo[SNT][2];
+#pragma unroll
+  for (int j = 0; j < SNT; ++j) {
+    const float2 wv = *reinterpret_cast<const float2*>(w + 8 * j * TK + k);
+    split_tf32(wv.x, b_hi[j][0], b_lo[j][0]);
+    split_tf32(wv.y, b_hi[j][1], b_lo[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    uint32_t a_hi[4], a_lo[4];
+    const float2 top = *reinterpret_cast<const float2*>(a + 16 * i * TK + k);
+    const float2 bottom = *reinterpret_cast<const float2*>(a + (16 * i + 8) * TK + k);
+    split_tf32(top.x, a_hi[0], a_lo[0]);
+    split_tf32(bottom.x, a_hi[1], a_lo[1]);
+    split_tf32(top.y, a_hi[2], a_lo[2]);
+    split_tf32(bottom.y, a_hi[3], a_lo[3]);
+#pragma unroll
+    for (int j = 0; j < SNT; ++j) mma_tf32(small[i][j], a_lo, b_hi[j]);
+#pragma unroll
+    for (int j = 0; j < SNT; ++j) mma_tf32(big[i][j], a_hi, b_hi[j]);
+#pragma unroll
+    for (int j = 0; j < SNT; ++j) mma_tf32(small[i][j], a_hi, b_lo[j]);
+  }
+}
+
+// Bias, activation and the store of a warp's sums of one output tile: row
+// `row` (the lane's p(g) of its first instruction tile; + 8 and + 16 i
+// beside) by columns `col` and `col` + 2 of each 8-wide tile j.
+template <int kAct, int MT, int SNT>
+__device__ __forceinline__ void stream_finish(const float (&big)[MT][SNT][4], const float (&small)[MT][SNT][4],
+                                              const float* __restrict__ bias, float* __restrict__ out,
+                                              long long row, int col, int B, int N) {
+#pragma unroll
+  for (int j = 0; j < SNT; ++j) {
+    const int n = col + 8 * j;
+    const float bias0 = n < N ? bias[n] : 0.0f, bias1 = n + 2 < N ? bias[n + 2] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < 2 * MT; ++q) {
+      const int i = q / 2, h = q % 2;
+      const long long r = row + 8 * q;
+      const float y0 = activate<kAct>(big[i][j][2 * h] + small[i][j][2 * h] + bias0);
+      const float y1 = activate<kAct>(big[i][j][2 * h + 1] + small[i][j][2 * h + 1] + bias1);
+      if (r < B) {
+        if (n < N) out[r * N + n] = y0;
+        if (n + 2 < N) out[r * N + n + 2] = y1;
+      }
+    }
+  }
+}
+
+template <int TM>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+fused_mlp_stream_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+                        const StreamLayer p, const int cluster) {
+  using S = StreamShape<TM>;
+  constexpr int MT = S::MT, SNT = S::SNT, kRing = S::kRingStages;
+  extern __shared__ unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSwizzleAlign - 1) & ~static_cast<uintptr_t>(kSwizzleAlign - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing * S::kStageFloats);
+  uint64_t* empty = full + kRing;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // `split` consecutive blocks share a row tile, block `slice` of them taking
+  // output tiles slice, slice + split, ...; a cluster is `cluster` of them
+  const int slice = blockIdx.x % p.split;
+  const int rank = static_cast<int>(cluster_rank());
+  const int set = blockIdx.y;
+  const long long row0 = static_cast<long long>(blockIdx.x / p.split) * TM;
+  const int rows_inside = static_cast<int>(min(static_cast<long long>(TM), p.B - row0));
+  const bool x_tma = p.copy & 1, w_tma = p.copy & 2;
+  const int nK = (p.K + TK - 1) / TK;
+  const int steps = p.tiles * nK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      // the expect_tx arrival, and each copying thread's when it copies itself
+      mbar_init(&full[s], 1 + (x_tma && w_tma ? 0 : kCopiers));
+      mbar_init(&empty[s], kWarps * cluster);  // every multiplying warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+
+  // One branch a role to the end, as setmaxnreg wants it.
+  if (warp >= kWarps) {
+    // The copying warpgroup. Thread 0 of it arms each stage's full barrier
+    // with the bytes that bulk copies bring and issues them: W's tile for
+    // this block, and x's tile for every block of the cluster if this is the
+    // cluster's first. A tensor that bulk copies cannot take the 128 threads
+    // copy themselves; else the other three warps have nothing to do.
+    if constexpr (S::kRebalance) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kCopyRegisters));
+    const int ctid = tid - 32 * kWarps;
+    if (x_tma && w_tma && warp != kWarps) return;
+    const float* x_rows = p.x + set * p.x_set + row0 * p.K;
+    const uint16_t x_mask = cluster == 1 ? 0 : static_cast<uint16_t>((1u << cluster) - 1);
+    const uint32_t tx_bytes = (w_tma ? 4 * TN * TK : 0) + (x_tma ? 4 * TM * TK : 0);
+    int s = 0;
+    uint32_t round = 0;
+    for (int tile = 0; tile < p.tiles; ++tile) {
+      const int n0 = (slice + tile * p.split) * TN;
+      const float* w_rows = p.w + set * p.w_set + static_cast<long long>(n0) * p.K;
+      for (int kc = 0; kc < nK; ++kc) {
+        const int k0 = kc * TK;
+        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);  // every block is done with the slot
+        float* ws = ring + s * S::kStageFloats;
+        float* xs = ws + TN * TK;
+        if (ctid == 0) {
+          mbar_arrive_expect_tx(&full[s], tx_bytes);
+          if (w_tma) tma_load(ws, &w_map, &full[s], k0, n0, p.w_set ? set : 0, 0);
+          if (x_tma && rank == 0)
+            tma_load(xs, &x_map, &full[s], k0, static_cast<int>(row0), p.x_set ? set : 0, x_mask);
+        }
+        if (!w_tma) copy_tile<S::kRebalance>(ws, w_rows, TN, min(TN, p.N - n0), p.K, k0, ctid);
+        if (!x_tma) copy_tile<S::kRebalance>(xs, x_rows, TM, rows_inside, p.K, k0, ctid);
+        if (!(x_tma && w_tma)) cp_async_arrive(&full[s]);
+        if (++s == kRing) {
+          s = 0;
+          ++round;
+        }
+      }
+    }
+    if (warp == kWarps) {
+      // The tail: the last stage of every slot released by every warp of the
+      // cluster. Then no block of the cluster can still copy into this
+      // block's shared memory or arrive on its barriers, and it may exit.
+      for (int i = max(0, steps - kRing); i < steps; ++i) mbar_wait(&empty[i % kRing], (i / kRing) & 1);
+    }
+  } else {
+    if constexpr (S::kRebalance) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kMultiplyRegisters));
+    // A multiplying warp: rows wm * 16 MT .. of the block's tile by outputs
+    // wn * 8 SNT .. of each output tile.
+    const int wm = warp / S::WN, wn = warp % S::WN;
+    const int g = lane >> 2, t = lane & 3;
+    const int pg = ((g & 3) << 1) | (g >> 2);  // the tile row of fragment row g, the W row of column g
+    const int lane_x = pg ^ (t >> 1);
+    const int a_off = (wm * 16 * MT + pg) * TK + 2 * (t & 1);
+    const int w_off = (wn * 8 * SNT + pg) * TK + 2 * (t & 1);
+    // the lane's sums: rows p(g) (+ 8), columns p(2t) and p(2t + 1) = p(2t) + 2 of each 8-wide tile
+    const int col_lane = wn * 8 * SNT + (((t & 1) << 2) | (t >> 1));
+    const long long row_lane = row0 + wm * 16 * MT + pg;
+    const float* __restrict__ bias = p.b + set * p.b_set;
+    float* __restrict__ out = p.out + set * p.out_set;
+    float big[MT][SNT][4], small[MT][SNT][4], total[MT][SNT][4];
+    int s = 0;
+    uint32_t round = 0;
+    for (int tile = 0; tile < p.tiles; ++tile) {
+      const int n0 = (slice + tile * p.split) * TN;
+      // a warp whose columns all lie past N multiplies nothing
+      const bool active = n0 + wn * 8 * SNT < p.N;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < SNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = total[i][j][e] = 0.0f;
+      for (int kc = 0; kc < nK; ++kc) {
+        mbar_wait(&full[s], round & 1);
+        const float* ws = ring + s * S::kStageFloats;
+        if (active) {
+#pragma unroll
+          for (int ks = 0; ks < TK / 8; ++ks)
+            stream_product_step<MT, SNT>(big, small, ws + TN * TK + a_off, ws + w_off, ks, lane_x);
+        }
+        __syncwarp();
+        if (lane < cluster) mbar_arrive_remote(&empty[s], lane);
+        if (++s == kRing) {
+          s = 0;
+          ++round;
+        }
+        // the tile's sums go into the total with a rounding add, and the next
+        // tile's start from zero; after the last tile big holds the total
+        const bool last = kc == nK - 1;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < SNT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (last) {
+                big[i][j][e] += total[i][j][e];
+              } else {
+                total[i][j][e] += big[i][j][e];
+                big[i][j][e] = 0.0f;
+              }
+            }
+      }
+      if (active) {
+        switch (p.act) {
+#define FUSED_MLP_STREAM_FINISH(kAct)                                                         \
+  case kAct:                                                                                  \
+    stream_finish<kAct, MT, SNT>(big, small, bias, out, row_lane, n0 + col_lane, p.B, p.N); \
+    break;
+          FUSED_MLP_STREAM_FINISH(kIdentity)
+          FUSED_MLP_STREAM_FINISH(kRelu)
+          FUSED_MLP_STREAM_FINISH(kElu)
+          FUSED_MLP_STREAM_FINISH(kSelu)
+          FUSED_MLP_STREAM_FINISH(kSoftplus)
+          FUSED_MLP_STREAM_FINISH(kGelu)
+          FUSED_MLP_STREAM_FINISH(kSigmoid)
+          FUSED_MLP_STREAM_FINISH(kSilu)
+          FUSED_MLP_STREAM_FINISH(kTanh)
+#undef FUSED_MLP_STREAM_FINISH
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// the driver library); null where the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Whether bulk tensor copies take the rows of a [G, rows, K] float32 tensor
+// at `base` with set stride `set_stride` floats: 16-byte aligned address,
+// row stride and set stride.
+bool bulk_copies_take(const void* base, int K, long long set_stride) {
+  return (reinterpret_cast<uintptr_t>(base) & 15) == 0 && (K & 3) == 0 && (set_stride & 3) == 0;
+}
+
+// The tensor map of [sets, rows, K] float32 at `base` (set stride
+// `set_stride` floats; 0: one set), boxes of box_rows x 32, swizzled
+// 128 bytes, out-of-range elements read as zeros.
+bool encode_rows(CUtensorMap* map, const float* base, int K, int rows, int sets, long long set_stride,
+                 int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const long long set_bytes = 4 * (set_stride != 0 ? set_stride : static_cast<long long>(rows) * K);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(set_stride != 0 ? sets : 1)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(4LL * K), static_cast<cuuint64_t>(set_bytes)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(TK), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The kernel's launch configuration over `blocks` x `groups` blocks in
+// clusters of `cluster` along the grid's first axis.
+template <int TM>
+cudaLaunchConfig_t stream_config(long long blocks, int groups, int cluster, cudaStream_t stream,
+                                 cudaLaunchAttribute* attribute) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(groups));
+  config.blockDim = dim3(kStreamThreads);
+  config.dynamicSmemBytes = StreamShape<TM>::kSmemBytes;
+  config.stream = stream;
+  attribute->id = cudaLaunchAttributeClusterDimension;
+  attribute->val.clusterDim.x = static_cast<unsigned int>(cluster);
+  attribute->val.clusterDim.y = 1;
+  attribute->val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return config;
+}
+
+// Sets the kernel's shared memory; 0, a CUDA error, or -3 where the 64-row
+// block's registers at entry are not the 168 that setmaxnreg's exchange
+// counts on (an exchange that finds fewer would wait for ever).
+template <int TM>
+int prepare_stream() {
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      fused_mlp_stream_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, StreamShape<TM>::kSmemBytes));
+  if (err != 0 || !StreamShape<TM>::kRebalance) return err;
+  cudaFuncAttributes attributes;
+  const int got = static_cast<int>(cudaFuncGetAttributes(&attributes, fused_mlp_stream_kernel<TM>));
+  if (got != 0) return got;
+  return attributes.numRegs == kEntryRegisters ? 0 : -3;
+}
+
+template <int TM>
+int launch_stream(const CUtensorMap& x_map, const CUtensorMap& w_map, const StreamLayer& p, int groups,
+                  int cluster, cudaStream_t stream, int* attr_err) {
+  *attr_err = prepare_stream<TM>();
+  if (*attr_err != 0) return 0;
+  const long long blocks = (static_cast<long long>(p.B) + TM - 1) / TM * p.split;
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config = stream_config<TM>(blocks, groups, cluster, stream, &attribute);
+  const cudaError_t err = cudaLaunchKernelEx(&config, fused_mlp_stream_kernel<TM>, x_map, w_map, p, cluster);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int TM>
+int stream_clusters(int cluster) {
+  if (prepare_stream<TM>() != 0) return -1;
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config = stream_config<TM>(cluster * 1024, 1, cluster, nullptr, &attribute);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, fused_mlp_stream_kernel<TM>, &config) != cudaSuccess) return -1;
+  return clusters;
 }
 
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) over `groups` weight sets
-// (1 for the ordinary launch), with layer 0's input streamed through the ring
-// if `stream_input` is 1 and held in buf0 if 0. `dims` holds n_layers + 1
-// widths, `ws` and `bs` n_layers device pointers each, `w_set` and `b_set`
-// n_layers set strides each (host arrays); `x_set` and `out_set` are the set strides of x and out.
+// (1 for the ordinary launch). `dims` holds n_layers + 1 widths, `ws` and `bs`
+// n_layers device pointers each, `w_set` and `b_set` n_layers set strides
+// each (host arrays); `x_set` and `out_set` are the set strides of x and out.
 // All strides count floats. Returns cudaGetLastError() of the launch and
 // writes the code of the shared-memory attribute call to *attr_err; -1 for
 // arguments the kernel does not take.
@@ -625,11 +1122,9 @@ extern "C" int fused_mlp_forward(const float* x, float* out, int B, int n_layers
                                  const void* const* bs, int act, int rows_per_block,
                                  int stride0, int stride1, int groups, long long x_set,
                                  long long out_set, const long long* w_set,
-                                 const long long* b_set, int stream_input, void* stream,
-                                 int* attr_err) {
+                                 const long long* b_set, void* stream, int* attr_err) {
   *attr_err = 0;
   if (n_layers < 1 || n_layers > kMaxLayers || act < kIdentity || act > kTanh) return -1;
-  if (stream_input != 0 && stream_input != 1) return -1;
   if (groups < 1 || groups > kMaxGroups) return -1;
   if (B <= 0) return 0;
   Net net = {};
@@ -647,15 +1142,68 @@ extern "C" int fused_mlp_forward(const float* x, float* out, int B, int n_layers
   net.stride0 = stride0;
   net.stride1 = stride1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows_per_block * 2 + stream_input) {
-    case 64:
-      return launch<2, false>(x, out, B, groups, net, s, attr_err);
-    case 65:
-      return launch<2, true>(x, out, B, groups, net, s, attr_err);
+  switch (rows_per_block) {
     case 32:
-      return launch<1, false>(x, out, B, groups, net, s, attr_err);
-    case 33:
-      return launch<1, true>(x, out, B, groups, net, s, attr_err);
+      return launch<2>(x, out, B, groups, net, s, attr_err);
+    case 16:
+      return launch<1>(x, out, B, groups, net, s, attr_err);
+    default:
+      return -1;
+  }
+}
+
+// The streamed launch of one layer (fused_mlp_stream_kernel) on `stream`
+// over `groups` weight sets: out [B, N] = act(x [B, K] . w [N, K]^T + b [N])
+// per set, each tensor at its set stride in floats (0: shared by every set).
+// `rows` rows a block (16, 32 or 64); a row tile's 128-wide output tiles
+// split over `split` blocks (which must divide their count), in clusters of
+// `cluster` of them (dividing split, at most 8); `copy` bit 0 sends x
+// through bulk tensor copies and bit 1 W (the wrapper sets a bit only where
+// the tensor's address, K and set stride are 16-byte multiples), each other
+// tensor through the kernel's cp.async. Returns the launch's CUDA error code
+// and writes the preparation's to *attr_err (-3: the 64-row block's
+// registers at entry are not 168); -1 for arguments the kernel does not
+// take, -2 where a tensor map could not be encoded.
+extern "C" int fused_mlp_stream_forward(const float* x, float* out, int B, int K, int N, const float* w,
+                                        const float* b, int act, int rows, int split, int cluster, int groups,
+                                        long long x_set, long long out_set, long long w_set, long long b_set,
+                                        int copy, void* stream, int* attr_err) {
+  *attr_err = 0;
+  if (act < kIdentity || act > kTanh || K < 1 || N < 1 || groups < 1 || groups > kMaxGroups) return -1;
+  const int n_tiles = (N + TN - 1) / TN;
+  if (split < 1 || n_tiles % split != 0 || cluster < 1 || cluster > kMaxCluster || split % cluster != 0) return -1;
+  if (copy < 0 || copy > 3 || ((copy & 1) && !bulk_copies_take(x, K, x_set)) ||
+      ((copy & 2) && !bulk_copies_take(w, K, w_set)))
+    return -1;
+  if (B <= 0) return 0;
+  StreamLayer p = {x, w, b, out, x_set, w_set, b_set, out_set, B, K, N, act, split, n_tiles / split, copy};
+  CUtensorMap x_map = {}, w_map = {};
+  if ((copy & 1) && !encode_rows(&x_map, x, K, B, groups, x_set, rows)) return -2;
+  if ((copy & 2) && !encode_rows(&w_map, w, K, N, groups, w_set, TN)) return -2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 16:
+      return launch_stream<16>(x_map, w_map, p, groups, cluster, s, attr_err);
+    case 32:
+      return launch_stream<32>(x_map, w_map, p, groups, cluster, s, attr_err);
+    case 64:
+      return launch_stream<64>(x_map, w_map, p, groups, cluster, s, attr_err);
+    default:
+      return -1;
+  }
+}
+
+// How many clusters of `cluster` blocks of `rows` rows the card holds at
+// once (cudaOccupancyMaxActiveClusters); -1 on an error.
+extern "C" int fused_mlp_stream_clusters(int rows, int cluster) {
+  if (cluster < 1 || cluster > kMaxCluster) return -1;
+  switch (rows) {
+    case 16:
+      return stream_clusters<16>(cluster);
+    case 32:
+      return stream_clusters<32>(cluster);
+    case 64:
+      return stream_clusters<64>(cluster);
     default:
       return -1;
   }

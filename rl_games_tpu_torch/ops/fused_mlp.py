@@ -21,10 +21,11 @@ float32 are cast to it and the result back to x's dtype.
 
 The kernel takes a chain of any depth and width: ``launch_plan`` cuts it
 into launches of at most ``MAX_LAYERS`` layers whose held widths fit a
-block's shared memory. A launch whose input no buffer holds (the 3136
-inputs behind the nature-CNN) streams it through the kernel's ring of weight
-tiles; a width between two launches goes through device memory. A chain
-that one launch takes is one launch. Gradients are exact: the backward
+block's shared memory. A layer whose input no buffer holds (the 3136 inputs
+behind the nature-CNN) is a launch of its own, of the streamed kernel
+(clusters of blocks that split its outputs, bulk tensor copies, a deep
+ring: ``stream_plan``); a width between two launches goes through device
+memory. A chain that one launch takes is one launch. Gradients are exact: the backward
 recomputes through ``plain_mlp``, as the JAX package's custom VJP does, so
 the kernel is the forward (rollout, player, loss forward) path.
 
@@ -73,12 +74,22 @@ MAX_SHARED_BYTES = 232_448  # shared memory one block may use on sm_90
 # tile halves each warp's register tile, so it pays more shared-memory loads
 # and operand splits per tensor-core product and serves small batches only.
 TILE_ROWS = {32: 132 * 2 * 16, 16: 0}
-# the ring of staged weight tiles (csrc/fused_mlp.cu: kStages * TN * WS), and
-# what its stages add per row of the tile when layer 0's input streams
-# (kStages * WS: each stage also carries the rows by 32 inputs)
+# the ring of staged weight tiles (csrc/fused_mlp.cu: kStages * TN * WS)
 _WEIGHT_RING_FLOATS = 3 * 128 * 40
-_STREAM_RING_FLOATS_PER_ROW = 3 * 40
-
+# The streamed kernel (csrc/fused_mlp.cu fused_mlp_stream_kernel): rows a
+# block it is built for, the largest first, each with its ring's stages (as
+# many as a block's shared memory holds: 128 x 32 floats of W and rows x 32
+# of x a stage, two 8-byte barriers, 1 KB to align the first stage).
+STREAM_STAGES = {64: 9, 32: 11, 16: 12}
+MAX_CLUSTER = 8  # blocks a cluster: the portable limit
+# What the plan weighs, measured on an NVIDIA H100 80GB HBM3 by
+# tools/fused_mlp_ab.py --sweep (PERF.md §6): the blocks the card holds at
+# once (one streamed block an SM; in clusters of 4 or 8 only 120 of the 132
+# SMs take one), and the products a block of 16, 32 or 64 rows makes in a
+# given time, relative to 64 rows (a larger block splits each operand for
+# more products: the kernel is bound by the rate of its 3xTF32 mma.sync).
+STREAM_WAVE_BLOCKS = {1: 132, 2: 132, 4: 120, 8: 120}
+STREAM_RATE = {64: 1.0, 32: 0.72, 16: 0.49}
 # activation name -> the kernel's integer code (csrc/fused_mlp.cu ``Act``)
 ACTIVATION_CODES = {
     "None": 0, None: 0, "relu": 1, "elu": 2, "selu": 3, "softplus": 4,
@@ -98,6 +109,7 @@ _PLAIN_ACTS = {
 }
 
 _forward = None
+_stream_forward = None
 
 
 def _activation_code(activation) -> int:
@@ -169,72 +181,107 @@ def _buffer_stride(widths: Sequence[int]) -> int:
     return 8 * (eights if eights % 2 else eights + 1)
 
 
-def _strides(dims: Sequence[int], streamed: bool) -> Tuple[int, int]:
-    """Row strides of the even- and odd-width buffers of one launch: layer
-    i reads widths[i] from one and writes widths[i + 1] to the other, the
-    last layer writes to device memory, and a streamed input is held in
-    neither."""
+def _strides(dims: Sequence[int]) -> Tuple[int, int]:
+    """Row strides of the even- and odd-width buffers of one held launch:
+    layer i reads widths[i] from one and writes widths[i + 1] to the other,
+    and the last layer writes to device memory."""
     inner = list(dims[:-1])
-    return _buffer_stride(inner[2::2] if streamed else inner[0::2]), _buffer_stride(inner[1::2])
+    return _buffer_stride(inner[0::2]), _buffer_stride(inner[1::2])
 
 
-def _shared_bytes(rows: int, stride0: int, stride1: int, streamed: bool) -> int:
-    """Both activation buffers and the ring's stages of a tile of ``rows``
-    rows (csrc/fused_mlp.cu ``smem_bytes_for``)."""
-    ring = _WEIGHT_RING_FLOATS + (rows * _STREAM_RING_FLOATS_PER_ROW if streamed else 0)
-    return 4 * (rows * (stride0 + stride1) + ring)
+def _shared_bytes(rows: int, stride0: int, stride1: int) -> int:
+    """Both activation buffers and the ring of weight tiles of a tile of
+    ``rows`` rows (csrc/fused_mlp.cu ``smem_bytes_for``)."""
+    return 4 * (rows * (stride0 + stride1) + _WEIGHT_RING_FLOATS)
 
 
-def _fits(dims: Sequence[int], streamed: bool) -> bool:
-    """Whether one launch of widths ``dims`` fits a block at the smallest tile."""
-    rows = min(TILE_ROWS)
-    return _shared_bytes(rows, *_strides(dims, streamed), streamed) <= MAX_SHARED_BYTES
+def _fits(dims: Sequence[int]) -> bool:
+    """Whether one held launch of widths ``dims`` fits a block at the smallest tile."""
+    return _shared_bytes(min(TILE_ROWS), *_strides(dims)) <= MAX_SHARED_BYTES
 
 
-def kernel_plan(dims: Sequence[int], batch: int, streamed: bool = False) -> Tuple[int, int, int, int]:
-    """(rows per block, stride of the even-width buffer, stride of the
-    odd-width buffer, shared bytes) for one launch over a chain of widths
-    ``dims``.
+class StreamPlan(NamedTuple):
+    """A streamed launch's shape: rows a block; the blocks a row tile's
+    output tiles are split over (``split``: block n takes tiles n,
+    n + split, ...); the blocks of a cluster among them (x's stage is
+    multicast to them); and the shared bytes a block takes."""
+    rows: int
+    split: int
+    cluster: int
+    shared: int
+
+
+def stream_plan(dims: Sequence[int], batch: int) -> StreamPlan:
+    """The streamed launch of one layer of widths ``dims`` = (K, N) over
+    ``batch`` rows (all sets' rows for a grouped launch). Of the shapes the
+    kernel takes (rows a block, a split that divides the output tiles of
+    128, a cluster of 1, 2, 4 or 8 that divides the split) it picks the one
+    that the measured model (STREAM_WAVE_BLOCKS, STREAM_RATE) says ends
+    first: waves of blocks times the output tiles a block walks times rows
+    over the rate at those rows. Of equal ones, the fewest waves, then the
+    largest cluster and rows. The shared bytes are the ring's stages, their
+    barriers and 1 KB to align the first stage (csrc/fused_mlp.cu
+    ``StreamShape``)."""
+    if len(dims) != 2:
+        raise ValueError(f"a streamed launch takes one layer, got widths {list(dims)}")
+    tiles = -(-dims[1] // 128)
+    best = None
+    for rows in STREAM_STAGES:
+        row_tiles = max(1, -(-batch // rows))
+        for split in (d for d in range(1, MAX_CLUSTER + 1) if tiles % d == 0):
+            for cluster in (c for c in STREAM_WAVE_BLOCKS if split % c == 0):
+                waves = -(-row_tiles * split // STREAM_WAVE_BLOCKS[cluster])
+                time = waves * (tiles // split) * rows / STREAM_RATE[rows]
+                key = (time, waves, -cluster, -rows)
+                if best is None or key < best[0]:
+                    best = key, (rows, split, cluster)
+    rows, split, cluster = best[1]
+    return StreamPlan(rows, split, cluster, 1024 + STREAM_STAGES[rows] * (4 * 32 * (128 + rows) + 16))
+
+
+def kernel_plan(dims: Sequence[int], batch: int, streamed: bool = False):
+    """For one launch over a chain of widths ``dims``: held, (rows per
+    block, stride of the even-width buffer, stride of the odd-width buffer,
+    shared bytes); streamed, ``stream_plan`` of its one layer.
 
     Layer i reads widths[i] from one buffer and writes widths[i + 1] to the
-    other; the last layer writes to device memory. With ``streamed`` layer
-    0's input is not held: it comes through the ring's stages, each of which
-    then carries the tile's rows by 32 inputs beside its weight tile. Takes
-    the largest tile that fits a block's shared memory and whose minimum
-    batch (TILE_ROWS) is reached, else the smallest that fits. Raises
-    ValueError beyond one launch's limits."""
+    other; the last layer writes to device memory. A held launch takes the
+    largest tile that fits a block's shared memory and whose minimum batch
+    (TILE_ROWS) is reached, else the smallest that fits. Raises ValueError
+    beyond one launch's limits."""
+    if streamed:
+        return stream_plan(dims, batch)
     n_layers = len(dims) - 1
     if not 1 <= n_layers <= MAX_LAYERS:
         raise ValueError(f"fused_mlp takes 1 to {MAX_LAYERS} layers, got {n_layers}")
-    stride0, stride1 = _strides(dims, streamed)
-    fitting = [rows for rows in TILE_ROWS if _shared_bytes(rows, stride0, stride1, streamed) <= MAX_SHARED_BYTES]
+    stride0, stride1 = _strides(dims)
+    fitting = [rows for rows in TILE_ROWS if _shared_bytes(rows, stride0, stride1) <= MAX_SHARED_BYTES]
     if not fitting:
         raise ValueError(
             f"fused_mlp: widths {list(dims)} need "
-            f"{_shared_bytes(min(TILE_ROWS), stride0, stride1, streamed)} bytes of shared "
+            f"{_shared_bytes(min(TILE_ROWS), stride0, stride1)} bytes of shared "
             f"memory at the smallest tile ({min(TILE_ROWS)} rows), above the block limit of "
             f"{MAX_SHARED_BYTES}"
         )
     rows = next((r for r in fitting if batch >= TILE_ROWS[r]), fitting[-1])
-    return rows, stride0, stride1, _shared_bytes(rows, stride0, stride1, streamed)
+    return rows, stride0, stride1, _shared_bytes(rows, stride0, stride1)
 
 
 class Launch(NamedTuple):
-    """One launch of a chain: layers ``first`` .. ``last`` - 1, its input
-    streamed through the ring or held, its ``kernel_plan``."""
+    """One launch of a chain: layers ``first`` .. ``last`` - 1, held or (one
+    layer) streamed, its ``kernel_plan``."""
     first: int
     last: int
     streamed: bool
-    plan: Tuple[int, int, int, int]
+    plan: tuple
 
 
 def launch_plan(dims: Sequence[int], batch: int) -> List[Launch]:
     """The launches of a chain of widths ``dims`` in order, each over at
     most ``MAX_LAYERS`` consecutive layers whose held widths fit a block's
     shared memory. A launch ends before an inner width that no buffer holds
-    beside the others and writes it to device memory, where the next launch
-    streams it; a launch streams its input where that takes it further than
-    holding it (always where no buffer holds the input). A chain that one
+    beside the others and writes it to device memory; a layer whose input
+    no buffer holds is a streamed launch of its own. A chain that one
     launch takes is one launch, with ``kernel_plan(dims, batch)``."""
     n_layers = len(dims) - 1
     if n_layers < 1:
@@ -242,18 +289,38 @@ def launch_plan(dims: Sequence[int], batch: int) -> List[Launch]:
     launches: List[Launch] = []
     first = 0
     while first < n_layers:
-        reach = {}
-        for streamed in (False, True):
-            last = first
-            while last < n_layers and last - first < MAX_LAYERS and _fits(dims[first:last + 2], streamed):
-                last += 1
-            reach[streamed] = last
-        # one layer that streams its input holds no width: it always fits
-        streamed = reach[True] > reach[False]
-        last = reach[streamed]
+        last = first
+        while last < n_layers and last - first < MAX_LAYERS and _fits(dims[first:last + 2]):
+            last += 1
+        streamed = last == first
+        last = max(last, first + 1)
         launches.append(Launch(first, last, streamed, kernel_plan(dims[first:last + 1], batch, streamed)))
         first = last
     return launches
+
+
+def stream_grid(plan: StreamPlan, batch: int, groups: int = 1) -> Tuple[int, int]:
+    """The grid of a streamed launch over ``groups`` sets of ``batch`` rows:
+    (row tiles times the split, groups)."""
+    return -(-batch // plan.rows) * plan.split, groups
+
+
+def stream_copy(x, w, x_set: int = 0, w_set: int = 0) -> int:
+    """The copy mode of a streamed launch over x [.., B, K] and W [.., N, K]
+    at set strides (floats) ``x_set`` and ``w_set``: bit 0 set where x's
+    rows go by bulk tensor copies, bit 1 W's. Those need a 16-byte aligned
+    address, row stride and set stride; other rows take the kernel's own
+    ``cp.async`` copies (3134 and 3135 inputs: 8 and 4 bytes wide)."""
+    def bulk(t, set_stride):
+        return t.shape[-1] % 4 == 0 and t.data_ptr() % 16 == 0 and set_stride % 4 == 0
+
+    return int(bulk(x, x_set)) | 2 * int(bulk(w, w_set))
+
+
+def stream_copy_name(copy: int) -> str:
+    """A copy mode of ``stream_copy`` in words."""
+    return ", ".join(f"{name} {'bulk tensor copies' if copy & bit else 'cp.async'}"
+                     for name, bit in (("x", 1), ("W", 2)))
 
 
 def _kernel():
@@ -265,11 +332,35 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ]
         fn.restype = ctypes.c_int
         _forward = fn
     return _forward
+
+
+def _stream_kernel():
+    global _stream_forward
+    if _stream_forward is None:
+        fn = cuda_build.load("fused_mlp").fused_mlp_stream_forward
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ]
+        fn.restype = ctypes.c_int
+        _stream_forward = fn
+    return _stream_forward
+
+
+def stream_clusters(rows: int, cluster: int) -> int:
+    """How many clusters of ``cluster`` streamed blocks of ``rows`` rows the
+    card holds at once (cudaOccupancyMaxActiveClusters; builds the kernel)."""
+    fn = cuda_build.load("fused_mlp").fused_mlp_stream_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(rows, cluster)
 
 
 def _rows_contiguous(t) -> bool:
@@ -307,30 +398,44 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
     ``set_strides``: (x's, out's, [each weight's], [each bias's]), in
     floats."""
     global fused_mlp_launches
-    rows, stride0, stride1, shared = launch.plan
     n = len(ws)
     x_set, out_set, w_sets, b_sets = set_strides
-    c_dims = (ctypes.c_int * (n + 1))(*dims)
-    c_ws = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
-    c_bs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
-    c_w_sets = (ctypes.c_longlong * n)(*w_sets)
-    c_b_sets = (ctypes.c_longlong * n)(*b_sets)
     attr_err = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(
-            x.data_ptr(), out.data_ptr(), batch, n,
-            ctypes.cast(c_dims, ctypes.c_void_p), ctypes.cast(c_ws, ctypes.c_void_p),
-            ctypes.cast(c_bs, ctypes.c_void_p),
-            act, rows, stride0, stride1, groups, x_set, out_set,
-            ctypes.cast(c_w_sets, ctypes.c_void_p), ctypes.cast(c_b_sets, ctypes.c_void_p),
-            int(launch.streamed), stream, ctypes.byref(attr_err),
-        )
+        if launch.streamed:
+            rows, split, cluster, shared = launch.plan
+            err = _stream_kernel()(
+                x.data_ptr(), out.data_ptr(), batch, dims[0], dims[1], ws[0].data_ptr(), bs[0].data_ptr(),
+                act, rows, split, cluster, groups, x_set, out_set, w_sets[0], b_sets[0],
+                stream_copy(x, ws[0], x_set, w_sets[0]), stream, ctypes.byref(attr_err),
+            )
+        else:
+            rows, stride0, stride1, shared = launch.plan
+            c_dims = (ctypes.c_int * (n + 1))(*dims)
+            c_ws = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
+            c_bs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
+            c_w_sets = (ctypes.c_longlong * n)(*w_sets)
+            c_b_sets = (ctypes.c_longlong * n)(*b_sets)
+            err = _kernel()(
+                x.data_ptr(), out.data_ptr(), batch, n,
+                ctypes.cast(c_dims, ctypes.c_void_p), ctypes.cast(c_ws, ctypes.c_void_p),
+                ctypes.cast(c_bs, ctypes.c_void_p),
+                act, rows, stride0, stride1, groups, x_set, out_set,
+                ctypes.cast(c_w_sets, ctypes.c_void_p), ctypes.cast(c_b_sets, ctypes.c_void_p),
+                stream, ctypes.byref(attr_err),
+            )
+    name = "fused_mlp_stream_forward" if launch.streamed else "fused_mlp_forward"
+    if attr_err.value == -3:
+        raise RuntimeError(f"{name}: the {rows}-row kernel was not built with the 168 registers a thread "
+                           "that its exchange of registers between warpgroups (setmaxnreg) counts on")
     if attr_err.value != 0:
-        raise RuntimeError(f"fused_mlp_forward: cudaFuncSetAttribute({shared} bytes of dynamic "
+        raise RuntimeError(f"{name}: cudaFuncSetAttribute({shared} bytes of dynamic "
                            f"shared memory) failed with CUDA error {attr_err.value}")
+    if err == -2:
+        raise RuntimeError(f"{name}: the tensor maps of the bulk copies could not be encoded")
     if err != 0:
-        raise RuntimeError(f"fused_mlp_forward launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     fused_mlp_launches += 1
 
 

@@ -5,9 +5,10 @@ CPU.
 
 - ``launch_plan``: every layer in exactly one launch, in order, each launch
   within the block's shared memory and ``MAX_LAYERS``; the nature-CNN torso
-  3136 -> 512 one launch that streams its input; the deep and wide chains
-  cut where the plan says; every chain that one launch took before is that
-  launch with ``kernel_plan``'s plan.
+  3136 -> 512 one streamed launch (a layer of its own, ``stream_plan``'s
+  clusters and rows a block); the deep and wide chains cut where the plan
+  says; every chain that one launch took before is that launch with
+  ``kernel_plan``'s plan.
 - The wrappers' walk through a plan (``fused_mlp_cuda``,
   ``fused_mlp_grouped_cuda``: scratch between launches, slices of the
   weights, set strides, launch counters) with the launch itself replaced by
@@ -69,7 +70,11 @@ def check_covers(dims, batch, launches):
     for launch in launches:
         assert 1 <= launch.last - launch.first <= fm.MAX_LAYERS
         rows, _, _, shared = launch.plan
-        assert rows in fm.TILE_ROWS and shared <= fm.MAX_SHARED_BYTES
+        if launch.streamed:  # one layer, a stream_plan
+            assert launch.last - launch.first == 1 and rows in fm.STREAM_STAGES
+        else:
+            assert rows in fm.TILE_ROWS
+        assert shared <= fm.MAX_SHARED_BYTES
         assert launch.plan == fm.kernel_plan(dims[launch.first:launch.last + 1], batch, launch.streamed)
 
 
@@ -80,20 +85,33 @@ def test_one_launch_where_one_launch_fits(dims, batch):
     assert launch.plan == fm.kernel_plan(dims, batch)
 
 
-@pytest.mark.parametrize("batch,rows,shared", [(512, 16, 69_120), (4096, 16, 69_120), (4099, 16, 69_120),
-                                               (4224, 32, 76_800), (32768, 32, 76_800)])
-def test_nature_torso_is_one_streamed_launch(batch, rows, shared):
+# the streamed kernel's ring: 1 KB to align, then per stage W's 128 x 32 and x's rows x 32 floats and two barriers
+STREAM_SHARED = {16: 1024 + 12 * (4 * 32 * 144 + 16), 32: 1024 + 11 * (4 * 32 * 160 + 16),
+                 64: 1024 + 9 * (4 * 32 * 192 + 16)}
+
+
+@pytest.mark.parametrize("batch,rows,split,cluster,blocks", [
+    (512, 16, 4, 2, 128),      # the rollout: 32 row tiles, their outputs split over 4 blocks, one wave
+    (4096, 64, 2, 2, 128),     # the minibatch: 64-row blocks read W from L2 once per 64 rows
+    (4099, 64, 2, 2, 130),     # ragged: a 65th row tile, still one wave of 132
+    (4224, 64, 2, 2, 132), (32768, 64, 1, 1, 512),
+    (1024, 32, 4, 2, 128),     # 64-row blocks would leave the card half empty
+    (16, 16, 4, 4, 4),         # one row tile: x multicast to the 4 blocks of its outputs
+])
+def test_nature_torso_is_one_streamed_launch(batch, rows, split, cluster, blocks):
     """3136 -> 512: no buffer holds x (3136 inputs need 200,960 B at 16
-    rows beside the ring), so x streams through the ring's stages, which
-    grow by 3 x rows x 40 floats: 61,440 + 15,360 = 76,800 B at 32 rows,
-    69,120 B at 16; no buffer is held."""
+    rows beside the ring), so the layer is one streamed launch: the shape
+    that stream_plan's model of the card says ends first (rows a block, the
+    blocks its 4 output tiles are split over, clusters that share x), a ring
+    that fills the block's shared memory; nothing is held."""
     (launch,) = fm.launch_plan(NATURE, batch)
-    assert launch == fm.Launch(0, 1, True, (rows, 0, 0, shared))
+    assert launch == fm.Launch(0, 1, True, fm.StreamPlan(rows, split, cluster, STREAM_SHARED[rows]))
+    assert fm.stream_grid(launch.plan, batch) == (blocks, 1)
     with pytest.raises(ValueError, match="block limit"):
         fm.kernel_plan(NATURE, batch)
-    # the fused Pong head behind it: 512 held in the odd buffer, still one launch
-    (head,) = fm.launch_plan(NATURE + (64,), batch)
-    assert head.streamed and head.plan[1:3] == (0, 520)
+    # the fused Pong head behind it: a held launch of its own, 512 in the even buffer
+    stream, head = fm.launch_plan(NATURE + (64,), batch)
+    assert stream == launch and not head.streamed and head.plan[1:3] == (520, 0)
 
 
 @pytest.mark.parametrize("dims,cuts", [
@@ -103,8 +121,9 @@ def test_nature_torso_is_one_streamed_launch(batch, rows, shared):
     ((256,) * 17, [(0, 8, False), (8, 16, False)]),  # 16
     ((256,) * 18, [(0, 8, False), (8, 16, False), (16, 17, False)]),  # 17
     ((8,) * 13, [(0, 8, False), (8, 12, False)]),  # 12 narrow layers
-    ((2000, 2000, 8), [(0, 2, True)]),  # streaming x lets 2000 be held: one launch, not two
-    ((3136, 512) + (256,) * 9, [(0, 8, True), (8, 10, False)]),
+    ((2000, 2000, 8), [(0, 1, False), (1, 2, False)]),  # 2000 held at 16 rows, but not twice
+    ((3136, 512) + (256,) * 9, [(0, 1, True), (1, 9, False), (9, 10, False)]),  # a streamed layer is a launch
+    ((3136, 512, 64), [(0, 1, True), (1, 2, False)]),
     ((16, 4000, 8), [(0, 1, False), (1, 2, True)]),
 ])
 def test_launch_plan_cuts(dims, cuts):
@@ -120,12 +139,14 @@ def test_launch_plan_refuses_no_layers():
 
 
 def test_kernel_plan_streamed_holds_no_input():
-    """A streamed launch holds widths 2, 4, ... in the even buffer, not its
-    input (26 -> 256 -> 128 -> 64 holds {128} and {256}), and each of the
-    ring's three stages carries the tile's rows by 32 inputs at row stride
-    40."""
-    assert fm.kernel_plan(FLAGSHIP, 8192, streamed=True) == (32, 136, 264, 4 * (32 * 400 + 3 * 128 * 40 + 3 * 32 * 40))
-    assert fm.kernel_plan((3000, 8, 200), 16, streamed=True) == (16, 0, 8, 4 * (16 * 8 + 3 * 128 * 40 + 3 * 16 * 40))
+    """A streamed launch is one layer and holds no width: its shared memory
+    is the ring of stages alone (W's 128 x 32 tile and the rows by 32
+    inputs of x each), whatever its widths; it takes one layer only."""
+    assert fm.kernel_plan((3000, 8), 16, streamed=True) == fm.StreamPlan(16, 1, 1, STREAM_SHARED[16])
+    assert fm.kernel_plan((20000, 384), 8192, streamed=True) == fm.StreamPlan(64, 1, 1, STREAM_SHARED[64])
+    for dims in ((3000, 8, 200), FLAGSHIP):
+        with pytest.raises(ValueError, match="one layer"):
+            fm.kernel_plan(dims, 16, streamed=True)
     with pytest.raises(ValueError, match="block limit"):
         fm.kernel_plan((3000, 8, 200), 16)  # held, 3000 inputs do not fit beside the ring
 
