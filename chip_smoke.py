@@ -690,15 +690,95 @@ def time_fused(dims, batch, gen, dev, activation="elu", bf16_weights=False):
     flops = 3 * 2 * batch * n_weights
     nbytes = 4 * (x.numel() + batch * dims[-1] + n_weights + sum(dims[1:]))
     bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
-    rows = fm.kernel_plan(dims, batch)
+    (launch, *_) = fm.launch_plan(dims, batch)
+    how = (f"the cluster kernel, clusters of {launch.cluster.cluster}" if launch.cluster is not None
+           else f"{launch.plan[0]} rows/block")
     print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation}"
-          f"{' bfloat16-rounded weights' if bf16_weights else ''} ({rows[0]} rows/block) device time: "
+          f"{' bfloat16-rounded weights' if bf16_weights else ''} ({how}) device time: "
           f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); "
           f"bound {bound * 1e3:.2f} us ({flops} TF32 flop, {nbytes} B, by {bound_by}); "
           f"kernel at {bound / kernel_ms:.3f} of the bound's rate")
     return {"shape": [batch, *dims], "activation": activation, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms,
             **({"weights": "bfloat16-rounded"} if bf16_weights else {})}
+
+
+# The main paths' small batches: the walker GRU's rollout (B = 16), the host path's (64), the flagship torso of an
+# exported policy and a player (1, 7, 16), Pendulum's (PENDULUM_DIMS, defined further down) and CartPole's rollouts
+# (16; 16 and 64: two weight tiles, which the plan keeps on the held kernel), the self-play learner's rollout (1024),
+# a 512 -> 64 layer held behind a streamed one (512)
+CLUSTER_CASES = ((WALKER_DIMS, 16, "elu"), (HOPPER_DIMS, 64, "elu"), (FLAGSHIP_DIMS, 1, "elu"), (FLAGSHIP_DIMS, 7, "elu"),
+                 (FLAGSHIP_DIMS, 16, "elu"), ((3, 32, 32), 16, "elu"), (CARTPOLE_DIMS, 16, "relu"),
+                 (CARTPOLE_DIMS, 64, "relu"), (FORAGE_DIMS, 1024, "elu"), ((512, 64), 512, "elu"))
+
+
+def kernel_fused_mlp_cluster(gen, dev):
+    """Each of CLUSTER_CASES through fused_mlp_cuda (launch_plan's route: the
+    cluster kernel where it picks it) against plain_mlp at rtol = atol =
+    2e-5 and against the held kernel on the same inputs (a held Launch
+    handed to _run_chain: the same sums in the same order, so 0), two calls
+    bit for bit, its launches of the cluster kernel counted; then timed in
+    turns (plain, held, routed, routed, held, plain) beside the bound (each
+    input read once, the output written once, against 3xTF32 products) and
+    an empty launch of the same grid, cluster and shared memory."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    rows, worst, worst_ratio, worst_held = [], 0.0, 0.0, 0.0
+    for dims, batch, activation in CLUSTER_CASES:
+        x, ws, bs = mlp_inputs(dims, batch, gen, dev)
+        act = fm.ACTIVATION_CODES[activation]
+        (launch,) = fm.launch_plan(dims, batch)
+        held_launch = launch._replace(cluster=None)
+        held_out = torch.empty((batch, dims[-1]), device=dev)
+        routed = lambda: fm.fused_mlp_cuda(x, ws, bs, activation)  # noqa: E731
+        held = lambda: fm._run_chain(x, held_out, batch, list(dims), ws, bs, act, [held_launch])  # noqa: E731
+        plain = lambda: fm.plain_mlp(x, ws, bs, activation)  # noqa: E731
+        before = fm.fused_mlp_cluster_launches
+        got = routed()
+        torch.cuda.synchronize()
+        cluster_launches = fm.fused_mlp_cluster_launches - before
+        again = routed()
+        held()
+        want = plain()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err, ratio = float(diff.max()), float((diff / (2e-5 + 2e-5 * want.abs())).max())
+        from_held, same = float((got - held_out).abs().max()), torch.equal(got, again)
+        name = f"{'x'.join(map(str, dims))} B={batch} {activation}"
+        if not (math.isfinite(ratio) and ratio <= 1.0 and same and from_held == 0.0
+                and cluster_launches == int(launch.cluster is not None)):
+            raise AssertionError(f"fused_mlp cluster {name}: {ratio} of rtol = atol = 2e-5 from plain_mlp, "
+                                 f"{from_held} from the held kernel, two calls equal {same}, {cluster_launches} "
+                                 f"cluster launches (plan {launch.cluster})")
+        worst, worst_ratio, worst_held = max(worst, err), max(worst_ratio, ratio), max(worst_held, from_held)
+        turns = [("plain", plain), ("held", held), ("routed", routed)] if launch.cluster else [("plain", plain),
+                                                                                              ("held", held)]
+        times = {key: [] for key, _ in turns}
+        for key, fn in (*turns, *reversed(turns)):
+            times[key].append(device_time_ms(fn, 20)[0])
+        ms = {key: sum(t) / len(t) for key, t in times.items()}
+        floor_ms = device_time_ms(lambda: fm.cluster_empty_launch(launch.cluster, batch), 20)[0] if launch.cluster \
+            else None
+        n_weights = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+        flops = 3 * 2 * batch * n_weights
+        nbytes = 4 * (x.numel() + batch * dims[-1] + n_weights + sum(dims[1:]))
+        bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
+        kernel_ms = ms.get("routed", ms["held"])
+        print(f"[kernels] fused_mlp cluster {name}: "
+              + (f"the cluster kernel (clusters of {launch.cluster.cluster}, grid {fm.cluster_grid(launch.cluster, batch)}"
+                 f", {launch.cluster.shared} B shared) {ms['routed'] * 1e3:.2f} us, the held kernel "
+                 f"{ms['held'] * 1e3:.2f} us ({ms['routed'] / ms['held']:.3f}x), empty launch of its grid "
+                 f"{floor_ms * 1e3:.2f} us" if launch.cluster else
+                 f"the plan keeps the held kernel: {ms['held'] * 1e3:.2f} us")
+              + f", plain {ms['plain'] * 1e3:.2f} us; bound {bound * 1e3:.3f} us ({nbytes} B, {flops} TF32 flop, by "
+              f"{bound_by}); max |kernel - plain| {err:.3e} ({ratio:.3f} of the tolerance), max |kernel - held| "
+              f"{from_held:.1e}, two calls bit for bit equal {same}, {cluster_launches} cluster launch a call")
+        rows.append({"shape": [batch, *dims], "activation": activation, "cluster": launch.cluster.cluster
+                     if launch.cluster else None, "ms": kernel_ms, "held_ms": ms["held"], "plain_ms": ms["plain"],
+                     "floor_ms": floor_ms, "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms,
+                     "max_abs_err": err, "max_abs_diff_from_held": from_held, "launches_per_call": cluster_launches})
+    return {"cluster_shapes": rows, "cluster_max_abs_err": worst, "cluster_max_err_over_tolerance": worst_ratio,
+            "cluster_max_abs_diff_from_held": worst_held}
 
 
 def grouped_inputs(dims, groups, batch, gen, device):
@@ -865,7 +945,7 @@ def chain_plan(x, ws, bs):
     batch = x.shape[-2]
     if x.dim() == 3 or any(w.dim() == 3 for w in ws):
         groups, dims = fm.grouped_dims(x, ws, bs)
-        return groups, dims, batch, fm.launch_plan(dims, groups * batch if batch > 16 else 0)
+        return groups, dims, batch, fm.launch_plan(dims, groups * batch if batch > 16 else 0, cluster=False)
     dims = [x.shape[1]] + [w.shape[0] for w in ws]
     return None, dims, batch, fm.launch_plan(dims, batch)
 
@@ -940,12 +1020,16 @@ def launch_shapes_of(x, ws, plan, groups, batch):
     layers, rows a block and shared bytes; a streamed one's split (blocks a
     row tile's outputs go to), cluster, grid, the clusters the card holds at
     once and so its waves, and the copy mode of x and W (x is the chain's
-    own for the first launch, else the contiguous scratch between launches)."""
+    own for the first launch, else the contiguous scratch between launches);
+    a held launch run as the cluster kernel its cluster and grid."""
     from rl_games_tpu_torch.ops import fused_mlp as fm
 
     shapes = []
     for p in plan:
         shape = {"layers": [p.first, p.last], "streamed": p.streamed, "rows": p.plan[0], "shared": p.plan[3]}
+        if p.cluster is not None:
+            shape.update(cluster_kernel=True, cluster=p.cluster.cluster, grid=[fm.cluster_grid(p.cluster, batch), 1],
+                         rows=16, shared=p.cluster.shared)
         if p.streamed:
             grid = fm.stream_grid(p.plan, batch, groups)
             w = ws[p.first]
@@ -962,7 +1046,10 @@ def launch_shapes_of(x, ws, plan, groups, batch):
 
 def describe_launch(d) -> str:
     """A launch_shapes_of entry in words."""
-    text = f"layers {d['layers'][0]}-{d['layers'][1]} {'streamed' if d['streamed'] else 'held'}, {d['rows']} rows a block"
+    kind = "streamed" if d["streamed"] else "held, the cluster kernel" if d.get("cluster_kernel") else "held"
+    text = f"layers {d['layers'][0]}-{d['layers'][1]} {kind}, {d['rows']} rows a block"
+    if d.get("cluster_kernel"):
+        text += f", clusters of {d['cluster']} (grid {d['grid'][0]})"
     if d["streamed"]:
         waves = f"{d['waves']:.2f}" if d["waves"] is not None else "not known"
         text += (f", outputs split over {d['split']} blocks, clusters of {d['cluster']}, grid {d['grid'][0]}x"
@@ -1087,6 +1174,8 @@ def phase_kernel_fused_mlp():
     shapes += [(WALKER_DIMS, batch, 1.0, 1.0) for batch in (16, 2048)]
     # [selfplay] (f): benchruns/selfplay_forage.yaml's torso fused, the learner's rollout and minibatch batch size
     shapes += [(FORAGE_DIMS, batch, 1.0, 1.0) for batch in (1024, 8192)]
+    # the flagship torso at an exported policy's batches (1, 7) and a player's 16: the cluster kernel
+    shapes += [(FLAGSHIP_DIMS, batch, 1.0, 1.0) for batch in (1, 7, 16)]
     if fm.kernel_plan(FLAGSHIP_DIMS, 5001)[0] != 32:
         raise AssertionError("B = 5001 was chosen to take the 32-row blocks with a ragged last block")
     worst, worst_ratio = 0.0, 0.0
@@ -1155,11 +1244,14 @@ def phase_kernel_fused_mlp():
     entry["other_shapes"] += [time_fused(FLAGSHIP_DIMS, batch, gen, dev, bf16_weights=True) for batch in (8192, 32768)]
     # [selfplay] (f): the learner's fused chain at the rollout's and the minibatch's batch size
     entry["other_shapes"] += [time_fused(FORAGE_DIMS, batch, gen, dev) for batch in (1024, 8192)]
+    # the cluster kernel at the main paths' small batches, beside the held kernel
+    entry.update(kernel_fused_mlp_cluster(gen, dev))
     # the grouped launch: the self-play opponents' chain over every env's own weight set
     entry.update(kernel_fused_mlp_grouped(gen, dev))
     # the chains one launch with x held does not take: a streamed first layer, several launches, other dtypes
     entry.update(kernel_fused_mlp_wide(gen, dev))
-    entry["max_abs_err"] = max(entry["max_abs_err"], entry["grouped_max_abs_err"], entry["wide_max_abs_err"])
+    entry["max_abs_err"] = max(entry["max_abs_err"], entry["cluster_max_abs_err"], entry["grouped_max_abs_err"],
+                               entry["wide_max_abs_err"])
     n_weights = sum(FLAGSHIP_DIMS[i] * FLAGSHIP_DIMS[i + 1] for i in range(3))
     for batch, suffix in ((8192, ""), (32768, "_minibatch")):
         x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, batch, gen, dev)
@@ -1777,7 +1869,7 @@ def phase_trainer(epochs: int):
     print(f"[trainer] built agent + init_state in {time.perf_counter() - t0:.2f} s; "
           f"batch {agent.batch_size}, {agent.num_minibatches} minibatches x {agent.mini_epochs_num} mini-epochs")
 
-    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the main path's run starts here
     times = []
     for epoch in range(epochs):
         t0 = time.perf_counter()
@@ -1855,7 +1947,7 @@ def phase_runner(epochs: int, plain_epoch_s: float):
         runner = Runner()  # the default device: the card
         runner.load({"params": params})
 
-        gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
         t0 = time.perf_counter()
         last_mean, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(epoch_ends)})
         torch.cuda.synchronize()
@@ -1882,7 +1974,7 @@ def phase_runner(epochs: int, plain_epoch_s: float):
         checkpoint = os.path.join(nn_dir, final[0])
 
         steps = runner.create_player().steps_needed(num_actors)
-        gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -1960,7 +2052,7 @@ def phase_humanoid3d(epochs: int, play_steps: int = 100):
             })
             runner = Runner(algo_observer=observer)  # the default device: the card
             runner.load({"params": params})
-            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
             t0 = time.perf_counter()
             _, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(epoch_ends)})
             torch.cuda.synchronize()
@@ -1973,7 +2065,7 @@ def phase_humanoid3d(epochs: int, play_steps: int = 100):
                 raise AssertionError(f"no final checkpoint among {os.listdir(nn_dir)}")
 
             batches.clear()
-            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -2032,7 +2124,7 @@ def phase_ant3d(epochs: int):
 
     agent = PPOAgent("chip_smoke_ant3d", load_config("ppo_ant3d.yaml")["params"])
     state = agent.init_state()
-    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the main path's run starts here
     times = []
     for epoch in range(epochs):
         t0 = time.perf_counter()
@@ -2070,11 +2162,12 @@ def train_and_play(name: str, params: dict, epochs: int, batches: list | None = 
         runner = Runner()  # the default device: the card
         runner.load({"params": params})
         torch.cuda.reset_peak_memory_stats()
-        gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
         t0 = time.perf_counter()
         _, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(ends)})
         torch.cuda.synchronize()
         train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        train_cluster = fused_mlp.fused_mlp_cluster_launches
         cuts = [len(batches or [])]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         nn_dir = os.path.join(train_dir, params["config"]["name"], "nn")
@@ -2085,7 +2178,7 @@ def train_and_play(name: str, params: dict, epochs: int, batches: list | None = 
         player = runner.create_player()
         steps = player.steps_needed(player.games_num)
         del player
-        gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
         out = io.StringIO()
         t1 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -2093,6 +2186,7 @@ def train_and_play(name: str, params: dict, epochs: int, batches: list | None = 
         torch.cuda.synchronize()
         play_s = time.perf_counter() - t1
         play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        play_cluster = fused_mlp.fused_mlp_cluster_launches
         cuts.append(len(batches or []))
         steady_s, first, last = steady_player_step(runner, checkpoint)
     if not math.isfinite(mean_reward):
@@ -2102,7 +2196,32 @@ def train_and_play(name: str, params: dict, epochs: int, batches: list | None = 
     return {"train": train_launches, "play": play_launches, "times": np.diff([t0, *ends]), "peak_gib": peak_gib,
             "play_out": out.getvalue().strip(), "play_s": play_s, "play_steps": steps, "mean_reward": mean_reward,
             "steady_step_s": steady_s, "steady_of": (first, last), "train_batches": train_batches,
-            "play_batches": play_batches, "steady_batches": steady_batches}
+            "play_batches": play_batches, "steady_batches": steady_batches, "train_cluster": train_cluster,
+            "play_cluster": play_cluster}
+
+
+def cluster_launches_expected(dims, batches: dict) -> int:
+    """The cluster kernel's launches that calls of fused_mlp_cuda over the
+    chain ``dims`` at these batches ({batch: calls}) make, as launch_plan
+    plans them."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    return sum(calls * sum(p.cluster is not None for p in fm.launch_plan(dims, batch))
+               for batch, calls in batches.items())
+
+
+def check_cluster_launches(tag, dims, runs: dict) -> dict:
+    """Each run's cluster launches ({name: (counted, {batch: calls})})
+    against cluster_launches_expected; prints them and returns the counts."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    got = {name: counted for name, (counted, _) in runs.items()}
+    want = {name: cluster_launches_expected(dims, batches) for name, (_, batches) in runs.items()}
+    print(f"[{tag}] launches of the cluster kernel: " + ", ".join(f"{name} {n}" for name, n in got.items())
+          + f" ({'x'.join(map(str, dims))}; launch_plan takes it to B = {fm.CLUSTER_SHAPES[-1][0]})")
+    if got != want:
+        raise AssertionError(f"{tag}: cluster kernel launches {got}, expected {want} from the batches")
+    return got
 
 
 def report_epochs(tag, times, batch, peak_gib):
@@ -2172,6 +2291,8 @@ def phase_pong_fused(epochs: int, plain_epoch_s: float, play_steps: int = 200):
         raise AssertionError(f"pong_fused: launches {run['train']} in {epochs} epochs at {run['train_batches']}, "
                              f"player {run['play']} in {run['play_steps']} steps at {run['play_batches']}; expected "
                              f"{per_epoch} fused an epoch at {expected_train}, 1 a player step at B = {n}")
+    run["cluster"] = check_cluster_launches("pong_fused", NATURE_DIMS, {
+        "training": (run["train_cluster"], run["train_batches"]), "player": (run["play_cluster"], run["play_batches"])})
     plan = fused_mlp.launch_plan(NATURE_DIMS, n)
     print(f"[pong_fused] trained {epochs} epochs of ppo_pong_device.yaml with mlp.fused through Runner.run: launches "
           f"{run['train']} ({per_epoch} fused an epoch at batches {run['train_batches']}; the torso one launch, "
@@ -2227,7 +2348,7 @@ def phase_breakout(epochs: int):
     agent = PPOAgent("chip_smoke_breakout", load_config("ppo_breakout_device.yaml")["params"])
     state = agent.init_state()
     torch.cuda.reset_peak_memory_stats()
-    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the main path's run starts here
     times = []
     for epoch in range(epochs):
         t0 = time.perf_counter()
@@ -2269,7 +2390,7 @@ def phase_cartpole(epochs: int, play_steps: int = 200, tag: str = "cartpole", va
     launch = fused_mlp.fused_mlp_cuda
     fused_mlp.fused_mlp_cuda = counted
     try:
-        run = train_and_play(tag, params, epochs)
+        run = train_and_play(tag, params, epochs, batches)
     finally:
         fused_mlp.fused_mlp_cuda = launch
     # per epoch: horizon rollout forwards and 1 bootstrap forward at B =
@@ -2286,6 +2407,8 @@ def phase_cartpole(epochs: int, play_steps: int = 200, tag: str = "cartpole", va
         raise AssertionError(f"{tag}: launches {run['train']} in {epochs} epochs, player {run['play']} in "
                              f"{run['play_steps']} steps, batches {got_batches}; expected {per_epoch} fused per "
                              f"epoch, 1 per player step, batches {expected_batches}")
+    run["train"]["cluster"] = check_cluster_launches(tag, CARTPOLE_DIMS, {
+        "training": (run["train_cluster"], run["train_batches"]), "player": (run["play_cluster"], run["play_batches"])})
     head = "" if value_head is None else f", value_head: {value_head}"
     print(f"[{tag}] trained {epochs} epochs of ppo_cartpole.yaml (fused{head}) through Runner.run: launches "
           f"{run['train']} ({per_epoch} fused per epoch, GAE at [{horizon}, {cfg['num_actors']}, 1]) at batches "
@@ -2327,7 +2450,7 @@ def phase_sac(update_epochs: int, profile: bool, play_steps: int = 200):
             runner = Runner()  # the default device: the card
             runner.load({"params": params})
             torch.cuda.reset_peak_memory_stats()
-            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
             t0 = time.perf_counter()
             _, epoch_num = runner.run({"train": True, "stop_fn": mark})
             torch.cuda.synchronize()
@@ -2338,7 +2461,7 @@ def phase_sac(update_epochs: int, profile: bool, play_steps: int = 200):
             checkpoint = os.path.join(train_dir, "chip_smoke_sac", "nn", f"last_chip_smoke_sac_ep_{epochs}.pth")
             payload, ckpt_bytes = ckpt.read_payload(checkpoint), os.path.getsize(checkpoint)
 
-            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -2461,12 +2584,13 @@ def host_ppo_run(epochs: int, placement: str, fused: bool, profile: bool):
             cfg.update(name="chip_smoke_host_ppo", train_dir=train_dir, max_epochs=epochs, save_best_after=1)
             runner = Runner()  # the default device: the card
             runner.load({"params": params})
-            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 _, epoch_num = runner.run({"train": True, "stop_fn": mark})
             torch.cuda.synchronize()
             train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            train_cluster = fused_mlp.fused_mlp_cluster_launches
             train_batches = {b: batches.count(b) for b in sorted(set(batches))}
             agent = agents[0]
             idle = host_ppo_profile(agent) if profile else None
@@ -2477,7 +2601,7 @@ def host_ppo_run(epochs: int, placement: str, fused: bool, profile: bool):
             checkpoint = os.path.join(nn_dir, final[0])
 
             CpuVecEnv.step = counted_step
-            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -2485,13 +2609,18 @@ def host_ppo_run(epochs: int, placement: str, fused: bool, profile: bool):
             torch.cuda.synchronize()
             play_s = time.perf_counter() - t1
             play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            play_cluster = fused_mlp.fused_mlp_cluster_launches
+            play_batches = histogram(batches[sum(train_batches.values()):])
             CpuVecEnv.step = step
             steady_s, first, last = steady_player_step(runner, checkpoint)
     finally:
         fused_mlp.fused_mlp_cuda, CpuVecEnv.step = launch, step
     if not math.isfinite(mean_reward):
         raise AssertionError(f"host_ppo player: mean reward {mean_reward}")
+    cluster = check_cluster_launches(f"host_ppo ({placement}{', fused' if fused else ''})", HOPPER_DIMS, {
+        "training": (train_cluster, train_batches), "player": (play_cluster, play_batches)})
     return {"train": train_launches, "batches": train_batches, "play": play_launches, "play_steps": env_steps[0],
+            "cluster": cluster,
             "times": np.diff([t0, *ends]), "timings": timings, "agent": agent, "idle": idle,
             "play_out": out.getvalue().strip(), "play_s": play_s, "steady_step_s": steady_s,
             "steady_of": (first, last)}
@@ -2745,7 +2874,7 @@ def phase_host_pixel(epochs: int = 3):
         n, horizon = params["config"]["num_actors"], params["config"]["horizon_length"]
         agents[placement] = PPOAgent("chip_smoke_host_pixel", params, vec_env=PixelHostEnv(n, seed=3))
         states[placement] = agents[placement].init_state()
-    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training runs start here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training runs start here
     for _ in range(epochs):
         for placement, agent in agents.items():
             torch.cuda.synchronize()
@@ -2815,7 +2944,7 @@ def phase_host_sac(update_epochs: int, play_steps: int = 300, config: str = "sac
             cfg.update(name=f"chip_smoke_{tag}", train_dir=train_dir, max_epochs=epochs, max_frames=-1)
             runner = Runner()  # the default device: the card
             runner.load({"params": params})
-            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the training run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 _, epoch_num = runner.run({"train": True, "stop_fn": mark})
@@ -2825,7 +2954,7 @@ def phase_host_sac(update_epochs: int, play_steps: int = 300, config: str = "sac
             state = agent.last_state
             checkpoint = os.path.join(train_dir, f"chip_smoke_{tag}", "nn", f"last_chip_smoke_{tag}_ep_{epochs}.pth")
 
-            gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the player's run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -3016,6 +3145,8 @@ def phase_heads(epochs: int):
               f"fused batches {got_batches}); played {steps} steps: launches {run['play']} at batches "
               f"{run['play_batches']} "
               f"({run['play']['fused_mlp'] / steps:g} fused a player step), {run['play_out']!r}")
+        cluster = check_cluster_launches(f"heads ({tag})", PENDULUM_DIMS, {
+            "training": (run["train_cluster"], got_batches), "player": (run["play_cluster"], run["play_batches"])})
         epoch_s = report_epochs(f"heads ({tag})", run["times"], n * horizon, run["peak_gib"])
         print(f"[heads] ({tag}) steady player step {run['steady_step_s'] * 1e3:.2f} ms at {n} envs")
         if tag == "b":
@@ -3025,7 +3156,7 @@ def phase_heads(epochs: int):
                   f"{int(seen['bound'])} of the env-steps with a forbidden action")
             if bad or not seen["steps"]:
                 raise AssertionError(f"heads (b): {bad} masked actions sampled in {seen['steps']} checked steps")
-        out[tag] = {**run, "epoch_s": epoch_s}
+        out[tag] = {**run, "epoch_s": epoch_s, "cluster": cluster}
     # (b)'s policy where the masks bind, sampled and deterministic
     params, _ = heads_params("b")
     with tempfile.TemporaryDirectory() as train_dir:
@@ -3212,6 +3343,8 @@ def phase_rnn(epochs: int):
                                  f"{steps} steps, fused batches {run['train_batches']} in training, "
                                  f"{run['play_batches']} / {run['steady_batches']} in the two player runs; expected "
                                  f"1 GAE an epoch, {fused} fused launch a forward ({expected_batches}, {expected_play})")
+        cluster = check_cluster_launches(f"rnn ({tag})", WALKER_DIMS, {
+            "training": (run["train_cluster"], run["train_batches"]), "player": (run["play_cluster"], run["play_batches"])})
         rnn = params["network"].get("rnn")
         cv = (cfg.get("central_value_config") or {}).get("network", {}).get("rnn")
         what = (f"{rnn['name']} {rnn['units']}" if rnn else "no rnn") + (f", central value {cv['name']} {cv['units']}"
@@ -3229,7 +3362,7 @@ def phase_rnn(epochs: int):
               + (f"; the actor's {rnn['name']} core alone {core_kernels:g} a step" if core_kernels is not None else "")
               + f"); steady player step {run['steady_step_s'] * 1e3:.2f} ms")
         out[tag] = {**run, "epoch_s": epoch_s, "rollout_step_s": step_s, "kernels_per_step": kernels,
-                    "core_kernels_per_step": core_kernels}
+                    "core_kernels_per_step": core_kernels, "cluster": cluster}
     out["e"] = phase_rnn_mixed_precision(3)
     return out
 
@@ -3257,7 +3390,7 @@ def phase_rnn_mixed_precision(epochs: int):
 
     fused_mlp.fused_mlp_cuda = counted
     torch.cuda.reset_peak_memory_stats()
-    gae.gae_launches = fused_mlp.fused_mlp_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the main path's run starts here
     times = []
     try:
         for epoch in range(epochs):
@@ -3670,6 +3803,7 @@ def zero_launches():
     from rl_games_tpu_torch.ops import fused_mlp, gae
 
     gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_grouped_launches = 0
+    fused_mlp.fused_mlp_cluster_launches = 0
 
 
 def fused_flagship_params(num_actors: int = 8192) -> dict:
@@ -4160,6 +4294,7 @@ def selfplay_run(epochs: int, fused: bool = False):
             torch.cuda.synchronize()
             train_launches = launches_now()  # read right after
             train_grouped = fused_mlp.fused_mlp_grouped_launches
+            train_cluster = fused_mlp.fused_mlp_cluster_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         nn_dir = os.path.join(train_dir, cfg["name"], "nn")
         final = [f for f in sorted(os.listdir(nn_dir)) if f"_ep_{epochs}_rew_" in f]
@@ -4180,6 +4315,7 @@ def selfplay_run(epochs: int, fused: bool = False):
                 play_s = time.perf_counter() - t1
                 play_launches = launches_now()  # read right after
                 play_grouped = fused_mlp.fused_mlp_grouped_launches
+                play_cluster = fused_mlp.fused_mlp_cluster_launches
         finally:
             SelfPlayVecEnv.init_opponent = init_opponent
         steady_s, first, last = steady_player_step(runner, checkpoint)
@@ -4202,6 +4338,9 @@ def selfplay_run(epochs: int, fused: bool = False):
                              f" player {play_launches} ({play_grouped} grouped; shapes {got_play_shapes}); expected "
                              f"{expected} ({fused * horizon * epochs} grouped; shapes {expected_shapes}), player "
                              f"{expected_play} ({fused * play_steps} grouped; shapes {expected_play_shapes})")
+    # the learner's ordinary launches only: a grouped launch (the opponents) never takes the cluster kernel
+    cluster = check_cluster_launches(f"selfplay {tag}", FORAGE_DIMS, {
+        "training": (train_cluster, got_shapes["fused_mlp"]), "player": (play_cluster, got_play_shapes["fused_mlp"])})
     mirror = len(seats) == 1 and sorted(seats[0]) == sorted(saved) and all(
         torch.equal(seats[0][k], v) for k, v in saved.items())
     if not (mirror and math.isfinite(mean_reward)):
@@ -4242,6 +4381,7 @@ def selfplay_run(epochs: int, fused: bool = False):
           f"{play_out.getvalue().strip()!r}, {play_s:.2f} s with set-up; steady player step {steady_s * 1e3:.3f} ms "
           f"(steps {first}-{last})")
     return {"train": train_launches, "train_grouped": train_grouped, "play": play_launches, "play_grouped": play_grouped,
+            "cluster": cluster,
             "play_steps": play_steps, "epochs": epochs, "epoch_s": epoch_s, "agent": agent, "state": state,
             "step_s": step_s, "step_kernels": step_kernels, "opp_ms": opp_ms, "opp_kernels": opp_kernels,
             "opp_device_ms": opp_device_ms}
@@ -4479,6 +4619,7 @@ def export_check(tag: str, runner, checkpoint: str, fused_per_call: int, batches
     bounds. Times a call at the largest batch beside the player's forward
     on the host's clock and, with ``device_timing``, its device time and
     kernels a call. Returns the artifact's path and the per-call results."""
+    from rl_games_tpu_torch.ops import fused_mlp
     from rl_games_tpu_torch.utils.export import load_policy
 
     path = runner.run({"export": True, "checkpoint": checkpoint, "export_path": checkpoint + ".pt2"})
@@ -4488,6 +4629,8 @@ def export_check(tag: str, runner, checkpoint: str, fused_per_call: int, batches
     player = runner.create_player()
     player.restore(checkpoint)
     player.deterministic = True
+    mlp = runner.params["network"].get("mlp", {})
+    export_dims = (player.obs_shape[0], *mlp.get("units", ()))
     gen = torch.Generator(device="cuda").manual_seed(15)
     rows = []
     for batch in batches:
@@ -4496,6 +4639,7 @@ def export_check(tag: str, runner, checkpoint: str, fused_per_call: int, batches
         got = policy(obs)
         torch.cuda.synchronize()
         launches = launches_now()  # read right after
+        cluster = fused_mlp.fused_mlp_cluster_launches
         with torch.no_grad():
             want = player._play_actions(None, obs)
         if got.is_floating_point():
@@ -4511,7 +4655,12 @@ def export_check(tag: str, runner, checkpoint: str, fused_per_call: int, batches
         if not ok or launches != {"gae": 0, "fused_mlp": fused_per_call} or tuple(got.shape[:1]) != (batch,):
             raise AssertionError(f"[export] {tag} at B = {batch}: shape {tuple(got.shape)}, max |d| {err}, launches "
                                  f"{launches} (expected {fused_per_call} fused), within bounds required: {bounds}")
-        rows.append({"batch": batch, "max_abs_err": err, "launches": launches["fused_mlp"]})
+        # the policy's one chain, as launch_plan plans it at this batch (the cluster kernel at a few rows)
+        want_cluster = cluster_launches_expected(export_dims, {batch: 1}) if fused_per_call else 0
+        if cluster != want_cluster:
+            raise AssertionError(f"[export] {tag} at B = {batch}: {cluster} cluster kernel launches, expected "
+                                 f"{want_cluster}")
+        rows.append({"batch": batch, "max_abs_err": err, "launches": launches["fused_mlp"], "cluster_launches": cluster})
     obs = torch.randn((batches[-1], *player.obs_shape), generator=gen, device="cuda")
     with torch.no_grad():
         timings = {"export_host_us": host_us_per_call(lambda: policy(obs)),
@@ -4523,7 +4672,8 @@ def export_check(tag: str, runner, checkpoint: str, fused_per_call: int, batches
               for key in ("export_device", "player_device") if key in timings}
     print(f"[export] {tag}: {os.path.basename(path)} ({len(blob):,} bytes); the artifact against the player's "
           f"deterministic forward: " + ", ".join(f"B = {r['batch']} max |d| {r['max_abs_err']:.2e} with "
-                                                 f"{r['launches']} fused launch(es)" for r in rows)
+                                                 f"{r['launches']} fused launch(es) ({r['cluster_launches']} of the "
+                                                 f"cluster kernel)" for r in rows)
           + f"; at B = {batches[-1]} a call {timings['export_host_us']:.1f} us on the host"
           f"{device.get('export_device', '')}; the player's forward {timings['player_host_us']:.1f} us"
           f"{device.get('player_device', '')}")
@@ -5191,6 +5341,20 @@ def main():
         "per_player_step": pong_fused["play"]["fused_mlp"] / pong_fused["play_steps"]}
     fused_entry["launches_deep_torso"] = {"train": deep_launches["fused_mlp"],
                                           "per_epoch": deep_launches["fused_mlp"] / 2}
+    # the cluster kernel (among "launches"): each run's launches of it, counted from 0 with the others and held
+    # to what launch_plan makes of the run's batches; [rnn] (d)'s 257 an epoch at B = 16 (and 4 x 257 once, the
+    # rollout timing of use_diagnostics), [export]'s one a call at B = 1 and 7; CartPole, Pendulum and the
+    # grouped opponents (the held kernel) none
+    launches_cluster = {
+        "rnn_walker_gru": rnn["d"]["cluster"], "heads_pendulum": heads["d"]["cluster"],
+        "host_ppo_fused": host["default fused"]["cluster"], "cartpole": cp_train["cluster"],
+        "twohot": th_train["cluster"], "selfplay_fused": selfplay["f"]["cluster"], "pong_fused": pong_fused["cluster"],
+        "export": {tag: {r["batch"]: r["cluster_launches"] for r in export[tag]["rows"]} for tag in ("a", "b", "c")}}
+    fused_entry["launches_cluster"] = launches_cluster
+    fused_entry["cluster_launches"] = (sum(sum(v.values()) for k, v in launches_cluster.items() if k != "export")
+                                       + sum(sum(v.values()) for v in launches_cluster["export"].values()))
+    if fused_entry["cluster_launches"] == 0:
+        raise AssertionError("no main path launched the cluster kernel")
     print(json.dumps({"kernels": [gae_entry, fused_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

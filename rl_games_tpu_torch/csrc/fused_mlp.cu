@@ -55,6 +55,10 @@
 //   intermediate activations never leave the SM: they alternate between two
 //   shared-memory buffers (even-numbered and odd-numbered widths). Two
 //   blocks share an SM (at the flagship torso a 32-row block takes 110 KB).
+//   This is the route of many rows; a held chain over few rows (one block
+//   would walk every weight through one SM) runs as the cluster kernel
+//   further down (`fused_mlp_cluster_kernel`, with its own notes), whose
+//   blocks split each layer's outputs and exchange the activations.
 //   Row strides are 8 * odd floats, which spreads the 4 rows x 4 pairs of
 //   inputs that half a warp loads over the 32 banks. Eight warps multiply:
 //   each owns all the tile's rows by 16 of a weight tile's 128 outputs, 2 x 2
@@ -100,7 +104,9 @@
 //   device memory. A layer whose input no buffer holds (the 3136 inputs
 //   behind the nature-CNN need 200 KB at 16 rows) is a launch of its own, of
 //   the streamed kernel further down (`fused_mlp_stream_kernel`, with its own
-//   notes), which holds nothing and streams x beside W.
+//   notes), which holds nothing and streams x beside W. A launch that one
+//   held block takes, over fewer rows than ops/fused_mlp.py's crossover
+//   (cluster_plan), is a launch of the cluster kernel instead.
 // - Inputs must be finite: the split of an infinity is not a number.
 
 #include <cuda.h>  // CUtensorMap and its enums: the streamed kernel's bulk tensor copies
@@ -565,7 +571,7 @@ int launch(const float* x, float* out, int B, int groups, const Net& net, cudaSt
 // What bounds it on this card: the 3xTF32 products. `mma.sync` does not
 // reach the TF32 rate of the warpgroup instruction (the 64-row block makes
 // three products a multiply-add at a third of that rate), and measured over
-// every shape the kernel takes (tools/fused_mlp_stream_sweep.py), its time
+// every shape the kernel takes (tools/fused_mlp_ab.py --sweep), its time
 // follows the products a block makes and not the bytes a stage brings: the
 // launch ends when its last wave of blocks is done with its products.
 // What the design does about it:
@@ -1108,6 +1114,423 @@ int stream_clusters(int cluster) {
   return clusters;
 }
 
+
+// ---------------------------------------------------------------------------
+// The cluster launch: a held chain at small batch (the rollout's 16 rows of
+// a recurrent or test-env config, the host path's 64, an exported policy's
+// one action), `fused_mlp_cluster_kernel`.
+//
+// It replaces no further TPU kernel: it is the route of `_fused_kernel`
+// (rl_games_tpu/ops/fused_mlp.py:112) on this card where a held launch has
+// few rows (ops/fused_mlp.py cluster_plan), and computes what the held
+// kernel computes, bit for bit.
+//
+// What bounds it: latency. At 16 rows the held kernel is one block that
+// walks every weight through its ring of three tiles: 16 -> 256 -> 128 -> 64
+// is 14 tiles, each an L2 round trip behind a __syncthreads(), two in
+// flight, so one SM pulls 180 KB at about 14 GB/s (13.26 us against 0.06 us
+// of bytes). The least such a launch can take is the launch itself, one
+// trip to L2 for the weights and, between layers, one exchange of the
+// activations. Clock stamps inside the kernel (PERF.md §6, PR 20) put the
+// rest in steady latencies, the same in a second pass through the layers
+// in one launch: a copy's trip (about 1300 cycles for cp.async, 2900 for a
+// small bulk copy), an exchange between blocks (about 1500-1900 cycles from
+// the first push to the last peer's bytes), and a few hundred cycles each
+// for a layer's products, its activation and a block barrier.
+//
+// What the design does about it:
+// - A cluster of C blocks (1 to 16; 16 as a non-portable cluster size)
+//   shares one tile of 16 rows; over more rows there is one cluster a row
+//   tile. Block r owns a 1/C share of every layer's outputs in whole 8-wide
+//   tiles: tiles r S .. r S + S - 1 with S = ceil(ceil(N / 8) / C), so C
+//   SMs pull the chain's weights side by side, each its share once.
+// - Every copy is issued at entry. x's tile and layer 0's share (and bias)
+//   go first, by every thread with the kernel's own cp.async (16 bytes a
+//   copy where rows are 16-byte aligned, else 4; zero-filled past the
+//   matrix): layer 0 waits for them alone. Warp l then sets up layer l (its
+//   record in a table in shared memory, its barriers) and, for l >= 1,
+//   starts its share of W as one bulk copy (cp.async.bulk, completing on
+//   the layer's mbarrier): a share's rows are contiguous in W ([N, K],
+//   row-major), and where K is a multiple of 8 and W 16-byte aligned they
+//   land as rows of K floats (the B fragments' 8-byte loads then meet 4-way
+//   bank conflicts where K is a multiple of 32: a few cycles a step). The
+//   bias share is one more bulk copy where its length allows, else cp.async.
+//   Other shares take the kernel's cp.async into rows of 8 * odd floats,
+//   the held kernel's conflict-free stride. The bulk copies' latency passes
+//   under layer 0 and the first exchange.
+// - Layer l: warp w multiplies the 16 rows by output tiles w, w + 8, ... of
+//   the block's share with the held kernel's numeric scheme (split_tf32,
+//   three mma.sync a step in product_step's order, the big and the small
+//   accumulator, bias and activation as finish_layer adds them), each sum
+//   over all of K in order: the result is the held kernel's bit for bit,
+//   and two calls give the same bits. (Splitting K over the warps that a
+//   narrow share leaves idle, through shared memory and a barrier; dealing
+//   a warp's steps round four accumulator pairs; computing a narrow first
+//   layer whole in every block to save an exchange: each was measured and
+//   not faster, tools/fused_mlp_ab.py --sweep, PERF.md §6.) The activation
+//   is a template argument: one layer end in the kernel's code.
+// - The exchange: a warp writes its columns of h_{l+1} into this block's
+//   next activation buffer; after a __syncthreads() all 256 threads push
+//   the block's share to every other block of the cluster in 16-byte
+//   st.async stores through distributed shared memory (mapa), each counted
+//   on the receiver's mbarrier for that layer's input, which the receiver
+//   armed at entry with the bytes its peers send. No cluster barrier
+//   between layers: a block starts layer l + 1 when its own share is
+//   written (the __syncthreads()) and its peers' bytes have landed. Two
+//   buffers alternate, as in the held kernel, so a push never meets a read:
+//   layer l + 1 writes the buffer that layer l - 1 wrote and layer l read,
+//   and no block computes layer l + 1 (and pushes its output) before every
+//   block has pushed its share of h_{l+1}, which each does only after it is
+//   done with layer l. The last layer stores its columns of `out` straight
+//   to device memory.
+// - A block arrives on the cluster's barrier once its barriers are set up
+//   and waits on it only before its first push, so that no store reaches a
+//   peer whose barriers are not yet initialised; the wait passes under
+//   layer 0. A block exits after the last layer's stores: every push into
+//   it has landed before it computes its last layer, and no peer arrives on
+//   its barriers after that. A wait for a copy that never ends traps
+//   (kWaitTries).
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterWarps = 8;  // warps a block: every one copies at entry, then multiplies
+constexpr int kClusterThreads = 32 * kClusterWarps;
+constexpr int kClusterRows = 16;  // rows a cluster: one 16-row instruction tile
+constexpr int kMaxClusterBlocks = 16;
+constexpr int kMaxSharedBytes = 232448;  // shared memory a block may use on sm_90
+
+// A layer of a cluster launch, as the host lays it out.
+struct ClusterLayerArgs {
+  const float* w;  // W_l [N, K]
+  const float* b;  // b_l [N]
+  int K, N;
+  int tiles;  // 8-wide output tiles a block owns (the last blocks may own fewer or none)
+  int bulk;   // 1: a share of W is one bulk copy (K a multiple of 8, W 16-byte aligned), else the kernel's cp.async
+  int ld;     // the row stride of a share in shared memory: K with bulk, else 8 * odd
+  int w_off;  // offsets (floats) in shared memory of the block's share of W_l and of b_l
+  int b_off;
+};
+static_assert(sizeof(ClusterLayerArgs) == 48, "ops/fused_mlp.py counts 48 bytes a record of the kernel's table");
+
+struct ClusterNet {
+  ClusterLayerArgs layer[kMaxLayers];
+  int n_layers;
+  int stride0;  // row stride (floats, 8 * odd) of the even-width buffer, as the held kernel's
+  int stride1;  // same for the odd-width buffer
+  int bar_off;  // the layers' barriers
+};
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t c;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(c));
+  return c;
+}
+
+// The first output column of block `rank`'s share of a layer, and its
+// 8-wide tiles.
+__device__ __forceinline__ int share_n0(const ClusterLayerArgs& L, int rank) { return rank * L.tiles * 8; }
+
+__device__ __forceinline__ int share_tiles(const ClusterLayerArgs& L, int rank) {
+  return min(L.tiles, max(0, (L.N + 7) / 8 - rank * L.tiles));
+}
+
+// A bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from device memory into this block's shared memory; the bytes count on
+// `bar`'s transactions when they land.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Stores v at `addr` (an address in this block's shared memory) in the
+// shared memory of the cluster's block `rank`, asynchronously: its 16
+// bytes count on the transactions of the barrier at `bar`'s place in that
+// block when they land.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, uint32_t rank, uint32_t bar, float4 v) {
+  asm volatile(
+      "{\n\t.reg .b32 remote, remote_bar;\n\tmapa.shared::cluster.u32 remote, %0, %1;\n\t"
+      "mapa.shared::cluster.u32 remote_bar, %2, %1;\n\t"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [remote], {%3, %4, %5, %6}, [remote_bar];\n\t}" ::"r"(addr),
+      "r"(rank), "r"(bar), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+      : "memory");
+}
+
+// The kernel's own copies of rows 0 .. rows-1 of a row-major [*, K] matrix
+// (`src`: its first row) into rows of `ld` floats at `dst`, inputs 0 .. Kp-1
+// (K rounded up to 8), by the block's threads in one flat loop: 16 bytes a
+// copy where every row starts on a 16-byte boundary, else 4; rows from
+// rows_inside on and inputs from K on land as zeros. (stage_tile's loop a
+// 32 inputs at a time took a 512-wide layer's launch from 6.5 to 11.2 us:
+// PERF.md §6, PR 20.)
+__device__ __forceinline__ void copy_rows(float* dst, int ld, const float* __restrict__ src, int rows,
+                                          int rows_inside, int K, int tid) {
+  const int Kp = (K + 7) & ~7;
+  if ((K & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int quads = Kp / 4;
+    for (int i = tid; i < rows * quads; i += kClusterThreads) {
+      const int r = i / quads, k = 4 * (i % quads);
+      const bool inside = r < rows_inside && k < K;
+      cp_async<4>(dst + r * ld + k, inside ? src + static_cast<size_t>(r) * K + k : src, inside);
+    }
+  } else {
+    for (int i = tid; i < rows * Kp; i += kClusterThreads) {
+      const int r = i / Kp, k = i % Kp;
+      const bool inside = r < rows_inside && k < K;
+      cp_async<1>(dst + r * ld + k, inside ? src + static_cast<size_t>(r) * K + k : src, inside);
+    }
+  }
+}
+
+// product_step for one 16-row instruction tile and one tile of 8 outputs:
+// `a` at this lane's (row g, input 2t) of the activation tile, `w` at its
+// (output g, input 2t) of the block's share of W. The same instructions on
+// the same operands, in the same order for each sum.
+__device__ __forceinline__ void cluster_product_step(float (&big)[4], float (&small)[4], const float* a, int s_in,
+                                                     const float* w) {
+  uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
+  const float2 top = *reinterpret_cast<const float2*>(a);
+  const float2 bottom = *reinterpret_cast<const float2*>(a + 8 * s_in);
+  split_tf32(top.x, a_hi[0], a_lo[0]);
+  split_tf32(bottom.x, a_hi[1], a_lo[1]);
+  split_tf32(top.y, a_hi[2], a_lo[2]);
+  split_tf32(bottom.y, a_hi[3], a_lo[3]);
+  const float2 wv = *reinterpret_cast<const float2*>(w);
+  split_tf32(wv.x, b_hi[0], b_lo[0]);
+  split_tf32(wv.y, b_hi[1], b_lo[1]);
+  mma_tf32(small, a_lo, b_hi);
+  mma_tf32(big, a_hi, b_hi);
+  mma_tf32(small, a_hi, b_lo);
+}
+
+// kAct: the activation, one kernel each (a switch over them would put nine
+// copies of the layer's end in one kernel's code).
+template <int kAct>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_mlp_cluster_kernel(const float* __restrict__ x, float* __restrict__ out, int B,
+                         const __grid_constant__ ClusterNet net) {
+  extern __shared__ __align__(16) float smem[];
+  // the layers' records, copied here once: a read of the argument block at a
+  // layer index goes through the constant cache, a few hundred cycles a miss
+  __shared__ ClusterLayerArgs table[kMaxLayers];
+  float* buf0 = smem;
+  float* buf1 = buf0 + kClusterRows * net.stride0;
+  // wbar[l]: layer l's bulk copies; xbar[l]: the other blocks' shares of layer l's input (l >= 1)
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + net.bar_off);
+  uint64_t* xbar = wbar + kMaxLayers;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rank = static_cast<int>(cluster_rank()), blocks = static_cast<int>(cluster_blocks());
+  const long long row0 = static_cast<long long>(cluster_index()) * kClusterRows;
+  const int rows_inside = static_cast<int>(min(static_cast<long long>(kClusterRows), B - row0));
+  const int n_layers = net.n_layers;
+
+  // First x's tile and layer 0's share of W and b, by every thread with the
+  // kernel's own cp.async: layer 0 waits for nothing else, and a small copy
+  // lands sooner this way than through the bulk-copy unit.
+  {
+    const ClusterLayerArgs& L = net.layer[0];
+    const int n0 = share_n0(L, rank), fill = 8 * share_tiles(L, rank);
+    const int w_rows = min(max(L.N - n0, 0), fill);
+    copy_rows(buf0, net.stride0, x + row0 * L.K, kClusterRows, rows_inside, L.K, tid);
+    if (fill > 0) {
+      copy_rows(smem + L.w_off, L.ld, L.w + static_cast<size_t>(n0) * L.K, fill, w_rows, L.K, tid);
+      for (int i = tid; i < fill; i += kClusterThreads)
+        cp_async<1>(smem + L.b_off + i, L.b + n0 + min(i, w_rows - 1), i < w_rows);
+    }
+  }
+  if (warp < n_layers) {
+    // Warp l sets up layer l: its record in the table and its barriers, one
+    // arrival each. wbar[l] is armed with the bytes of layer l's bulk copies
+    // (none for layer 0 and where the kernel copies a share itself), xbar[l]
+    // with the bytes that the other blocks push (16 rows of the input's
+    // 8-wide tiles that this block does not compute in layer l - 1).
+    const int l = warp;
+    const ClusterLayerArgs L = net.layer[l];
+    const int n0 = share_n0(L, rank), fill = 8 * share_tiles(L, rank);
+    const int w_rows = min(max(L.N - n0, 0), fill);  // rows of W in the share; rows w_rows .. fill-1 are zero
+    float* ws = smem + L.w_off;
+    float* bias = smem + L.b_off;
+    const bool bulk_w = l > 0 && L.bulk && w_rows > 0;
+    const bool bulk_b = bulk_w && (w_rows & 3) == 0 && (reinterpret_cast<uintptr_t>(L.b) & 15) == 0;
+    if (lane == 0) {
+      table[l] = L;
+      mbar_init(&wbar[l], 1);
+      mbar_init(&xbar[l], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      if (l > 0) {
+        const ClusterLayerArgs& before = net.layer[l - 1];
+        mbar_arrive_expect_tx(&xbar[l], 4u * kClusterRows * 8 * ((before.N + 7) / 8 - share_tiles(before, rank)));
+      }
+      const uint32_t w_bytes = bulk_w ? 4u * L.K * w_rows : 0u, b_bytes = bulk_b ? 4u * w_rows : 0u;
+      mbar_arrive_expect_tx(&wbar[l], w_bytes + b_bytes);
+      if (w_bytes) bulk_copy(ws, L.w + static_cast<size_t>(n0) * L.K, w_bytes, &wbar[l]);
+      if (b_bytes) bulk_copy(bias, L.b + n0, b_bytes, &wbar[l]);
+    }
+    if (l > 0) {
+      if (bulk_w)  // the rows no copy brings: w_rows .. fill-1, K floats each (K is a multiple of 8: float4 stores)
+        for (int i = lane; i < (fill - w_rows) * L.K / 4; i += 32)
+          *reinterpret_cast<float4*>(ws + w_rows * L.K + 4 * i) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (bulk_b)
+        for (int i = w_rows + lane; i < fill; i += 32) bias[i] = 0.0f;
+      else
+        for (int i = lane; i < fill; i += 32) cp_async<1>(bias + i, L.b + n0 + min(i, w_rows - 1), i < w_rows);
+    }
+  }
+  __syncthreads();  // the table
+  // The shares of W after layer 0 that a bulk copy does not take, by every thread.
+  for (int l = 1; l < n_layers; ++l) {
+    const ClusterLayerArgs& L = table[l];
+    if (L.bulk) continue;
+    const int n0 = share_n0(L, rank), fill = 8 * share_tiles(L, rank);
+    if (fill > 0) copy_rows(smem + L.w_off, L.ld, L.w + static_cast<size_t>(n0) * L.K, fill, min(L.N - n0, fill), L.K, tid);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread's copies and zero fills, and the barriers, are seen by the block
+  // this block's barriers are set up: peers may push into it once they have waited
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  bool joined = false;  // whether this block has waited for every block's arrival
+
+  for (int l = 0; l < n_layers; ++l) {
+    const ClusterLayerArgs& L = table[l];
+    const bool last = l == n_layers - 1;
+    const float* in = (l & 1) ? buf1 : buf0;
+    const int s_in = (l & 1) ? net.stride1 : net.stride0;
+    float* next = (l & 1) ? buf0 : buf1;
+    const int s_out = (l & 1) ? net.stride0 : net.stride1;
+    const float* ws = smem + L.w_off;
+    const float* bias = smem + L.b_off;
+    const int n0 = share_n0(L, rank), mine = share_tiles(L, rank);
+    const int steps = (L.K + 7) / 8;
+    mbar_wait(&wbar[l], 0);
+    if (l > 0) mbar_wait(&xbar[l], 0);  // the other blocks' shares of h_l
+    // warp w takes the share's output tiles w, w + 8, ..., each over all of K
+    for (int tile = warp; tile < mine; tile += kClusterWarps) {
+      const int col = tile * 8 + 2 * t;  // the lane's first column in the share
+      const float bias0 = bias[col], bias1 = bias[col + 1];
+      float big[4] = {0.0f, 0.0f, 0.0f, 0.0f}, small[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const float* a = in + g * s_in + 2 * t;
+      const float* w = ws + (tile * 8 + g) * L.ld + 2 * t;
+#pragma unroll 4
+      for (int ks = 0; ks < steps; ++ks) cluster_product_step(big, small, a + 8 * ks, s_in, w + 8 * ks);
+      // bias and activation as finish_layer adds them; to this block's next
+      // buffer (columns N .. Np-1 are the next layer's zero-filled inputs)
+      // or, after the last layer, to out
+      const int n = n0 + col;
+      const bool in0 = n < L.N, in1 = n + 1 < L.N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float y0 = activate<kAct>(big[2 * h] + small[2 * h] + bias0);
+        const float y1 = activate<kAct>(big[2 * h + 1] + small[2 * h + 1] + bias1);
+        const long long row = row0 + g + 8 * h;
+        if (last) {
+          if (row < B) {
+            if (in0) out[row * L.N + n] = y0;
+            if (in1) out[row * L.N + n + 1] = y1;
+          }
+        } else {
+          *reinterpret_cast<float2*>(next + (g + 8 * h) * s_out + n) = make_float2(in0 ? y0 : 0.0f, in1 ? y1 : 0.0f);
+        }
+      }
+    }
+    if (last) break;
+    // This block's share of h_{l+1} is complete and seen by the block; every
+    // thread then pushes a part of it (16-byte units of its 16 rows by 8 mine
+    // columns) into the other blocks' next buffer, each store counted on the
+    // receiver's xbar[l + 1].
+    __syncthreads();
+    if (!joined) {
+      asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");  // every block's barriers are set up
+      joined = true;
+    }
+    const int quads = 2 * mine, units = kClusterRows * quads;
+    const uint32_t bar = smem_u32(&xbar[l + 1]);
+    for (int i = tid; i < units * (blocks - 1); i += kClusterThreads) {
+      const int peer = i / units, u = i % units;
+      float* at = next + (u / quads) * s_out + n0 + 4 * (u % quads);
+      st_async_v4(smem_u32(at), peer < rank ? peer : peer + 1, bar, *reinterpret_cast<const float4*>(at));
+    }
+  }
+  if (!joined) asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");  // the entry's arrival's wait
+}
+
+// An empty kernel of the cluster kernel's block, launched at its grid,
+// cluster and shared memory: the floor under a cluster launch's time.
+__global__ void __launch_bounds__(kClusterThreads, 1) fused_mlp_cluster_empty_kernel() {}
+
+// The cluster kernel's dynamic shared memory, in bytes, for the chain in
+// `net` (its layers' K, N, w, b and n_layers, stride0, stride1 set) over
+// clusters of `cluster` blocks; fills each layer's share, stride and offsets
+// (ops/fused_mlp.py cluster_shared_bytes computes the same). Every offset
+// is a multiple of 8 floats: rows of 16-byte copies and bulk copies, and
+// 8-byte barriers.
+int cluster_layout(ClusterNet& net, int cluster) {
+  int off = kClusterRows * (net.stride0 + net.stride1);
+  for (int l = 0; l < net.n_layers; ++l) {
+    ClusterLayerArgs& L = net.layer[l];
+    const int eights = (L.K + 7) / 8;
+    const int padded = 8 * (eights % 2 ? eights : eights + 1);
+    L.tiles = ((L.N + 7) / 8 + cluster - 1) / cluster;
+    // W's rows go by bulk copies where each share is one contiguous, 16-byte aligned run of rows of 8 k floats
+    L.bulk = (L.K & 7) == 0 && (reinterpret_cast<uintptr_t>(L.w) & 15) == 0;
+    L.ld = L.bulk ? L.K : padded;
+    L.w_off = off;
+    off += 8 * L.tiles * padded;
+    L.b_off = off;
+    off += 8 * L.tiles;
+  }
+  net.bar_off = off;
+  off += 2 * 2 * kMaxLayers;  // wbar and xbar, 8 bytes each
+  return 4 * off;
+}
+
+cudaLaunchConfig_t cluster_config(int B, int cluster, int smem_bytes, cudaStream_t stream,
+                                  cudaLaunchAttribute* attribute) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned int>((static_cast<long long>(B) + kClusterRows - 1) / kClusterRows * cluster));
+  config.blockDim = dim3(kClusterThreads);
+  config.dynamicSmemBytes = smem_bytes;
+  config.stream = stream;
+  attribute->id = cudaLaunchAttributeClusterDimension;
+  attribute->val.clusterDim.x = static_cast<unsigned int>(cluster);
+  attribute->val.clusterDim.y = 1;
+  attribute->val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return config;
+}
+
+// Sets a kernel's shared memory and, past the portable 8, its non-portable
+// cluster size; 0 or the CUDA error.
+template <typename Kernel>
+int prepare_cluster(Kernel kernel, int cluster, int smem_bytes) {
+  int err = static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
+  if (err == 0 && cluster > kMaxCluster)
+    err = static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  return err;
+}
+
+template <int kAct>
+int launch_cluster(const float* x, float* out, int B, const ClusterNet& net, int cluster, int smem_bytes,
+                   cudaStream_t stream, int* attr_err) {
+  *attr_err = prepare_cluster(fused_mlp_cluster_kernel<kAct>, cluster, smem_bytes);
+  if (*attr_err != 0) return 0;
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config = cluster_config(B, cluster, smem_bytes, stream, &attribute);
+  const cudaError_t err = cudaLaunchKernelEx(&config, fused_mlp_cluster_kernel<kAct>, x, out, B, net);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) over `groups` weight sets
@@ -1191,6 +1614,66 @@ extern "C" int fused_mlp_stream_forward(const float* x, float* out, int B, int K
     default:
       return -1;
   }
+}
+
+// The cluster launch of a held chain (fused_mlp_cluster_kernel) on
+// `stream`: arguments as fused_mlp_forward's for one weight set, and the
+// blocks a cluster (1 to 16). Returns the launch's CUDA error code and
+// writes the attribute calls' to *attr_err; -1 for arguments the kernel
+// does not take (shares of the weights that do not fit a block's shared
+// memory among them).
+extern "C" int fused_mlp_cluster_forward(const float* x, float* out, int B, int n_layers, const int* dims,
+                                         const void* const* ws, const void* const* bs, int act, int cluster,
+                                         int stride0, int stride1, void* stream, int* attr_err) {
+  *attr_err = 0;
+  if (n_layers < 1 || n_layers > kMaxLayers || act < kIdentity || act > kTanh) return -1;
+  if (cluster < 1 || cluster > kMaxClusterBlocks) return -1;
+  if (B <= 0) return 0;
+  ClusterNet net = {};
+  for (int l = 0; l < n_layers; ++l) {
+    net.layer[l].w = static_cast<const float*>(ws[l]);
+    net.layer[l].b = static_cast<const float*>(bs[l]);
+    net.layer[l].K = dims[l];
+    net.layer[l].N = dims[l + 1];
+  }
+  net.n_layers = n_layers;
+  net.stride0 = stride0;
+  net.stride1 = stride1;
+  const int smem_bytes = cluster_layout(net, cluster);
+  // beside the kernel's static table of layers
+  if (smem_bytes + static_cast<int>(sizeof(ClusterLayerArgs)) * kMaxLayers > kMaxSharedBytes) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+#define FUSED_MLP_CLUSTER_LAUNCH(kAct) \
+  case kAct:                           \
+    return launch_cluster<kAct>(x, out, B, net, cluster, smem_bytes, s, attr_err);
+    FUSED_MLP_CLUSTER_LAUNCH(kIdentity)
+    FUSED_MLP_CLUSTER_LAUNCH(kRelu)
+    FUSED_MLP_CLUSTER_LAUNCH(kElu)
+    FUSED_MLP_CLUSTER_LAUNCH(kSelu)
+    FUSED_MLP_CLUSTER_LAUNCH(kSoftplus)
+    FUSED_MLP_CLUSTER_LAUNCH(kGelu)
+    FUSED_MLP_CLUSTER_LAUNCH(kSigmoid)
+    FUSED_MLP_CLUSTER_LAUNCH(kSilu)
+    FUSED_MLP_CLUSTER_LAUNCH(kTanh)
+#undef FUSED_MLP_CLUSTER_LAUNCH
+    default:
+      return -1;
+  }
+}
+
+// An empty kernel at the grid, cluster and shared memory of a cluster launch
+// over B rows (the floor under its time); the CUDA error code.
+extern "C" int fused_mlp_cluster_empty(int B, int cluster, int smem_bytes, void* stream) {
+  if (B <= 0 || cluster < 1 || cluster > kMaxClusterBlocks || smem_bytes < 0 || smem_bytes > kMaxSharedBytes)
+    return -1;
+  const int err = prepare_cluster(fused_mlp_cluster_empty_kernel, cluster, smem_bytes);
+  if (err != 0) return err;
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config =
+      cluster_config(B, cluster, smem_bytes, static_cast<cudaStream_t>(stream), &attribute);
+  const cudaError_t launched = cudaLaunchKernelEx(&config, fused_mlp_cluster_empty_kernel);
+  return static_cast<int>(launched != cudaSuccess ? launched : cudaGetLastError());
 }
 
 // How many clusters of `cluster` blocks of `rows` rows the card holds at

@@ -25,7 +25,13 @@ block's shared memory. A layer whose input no buffer holds (the 3136 inputs
 behind the nature-CNN) is a launch of its own, of the streamed kernel
 (clusters of blocks that split its outputs, bulk tensor copies, a deep
 ring: ``stream_plan``); a width between two launches goes through device
-memory. A chain that one launch takes is one launch. Gradients are exact: the backward
+memory. A chain that one launch takes is one launch. A held launch over few
+rows (below a crossover measured on the card: the rollout's 16 rows, the
+host path's 64, an exported policy's one action) runs as the cluster kernel
+(``cluster_plan``): a cluster of blocks splits each layer's outputs, every
+block fetches its share of the weights at once, and the activations pass
+between them through distributed shared memory; grouped launches stay on
+the held kernel. Gradients are exact: the backward
 recomputes through ``plain_mlp``, as the JAX package's custom VJP does, so
 the kernel is the forward (rollout, player, loss forward) path.
 
@@ -49,7 +55,7 @@ recomputes through ``plain_mlp_grouped``.
 """
 
 import ctypes
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +69,8 @@ from rl_games_tpu_torch.utils import cuda_build
 fused_mlp_launches = 0
 # The grouped launches among them (``fused_mlp_grouped_cuda`` adds one here too).
 fused_mlp_grouped_launches = 0
+# The launches of the cluster kernel among them (``_launch`` adds one here too).
+fused_mlp_cluster_launches = 0
 
 # The kernel's limits.
 MAX_LAYERS = 8  # layers a launch: their pointers travel in the kernel's argument block
@@ -90,6 +98,21 @@ MAX_CLUSTER = 8  # blocks a cluster: the portable limit
 # more products: the kernel is bound by the rate of its 3xTF32 mma.sync).
 STREAM_WAVE_BLOCKS = {1: 132, 2: 132, 4: 120, 8: 120}
 STREAM_RATE = {64: 1.0, 32: 0.72, 16: 0.49}
+# The cluster kernel (csrc/fused_mlp.cu fused_mlp_cluster_kernel): a held
+# launch over few rows, each layer's outputs split over the blocks of a
+# cluster that shares a 16-row tile. Measured on an NVIDIA H100 80GB HBM3 at
+# 700 W by tools/fused_mlp_ab.py --sweep (PERF.md §6): (most rows, blocks a
+# cluster) in order of rows, the cluster size that ran fastest at those
+# rows; past the last row count the held kernel ran faster.
+CLUSTER_SHAPES = ((64, 8), (256, 4), (1024, 2))
+# A chain whose held launch walks fewer weight tiles (128 outputs x 32
+# inputs) than this stays held at every batch: its one block has little to
+# wait for, and the cluster kernel did not beat it (the same sweep).
+CLUSTER_MIN_TILES = 3
+CLUSTER_BLOCKS = (1, 2, 4, 8, 16)  # clusters the kernel takes (16 as a non-portable size)
+# csrc/fused_mlp.cu: two 8-byte barriers a layer, and the static table of
+# MAX_LAYERS records of ClusterLayerArgs (two pointers and seven ints: 48 bytes)
+_CLUSTER_BARRIER_FLOATS, _CLUSTER_TABLE_BYTES = 2 * 2 * MAX_LAYERS, MAX_LAYERS * 48
 # activation name -> the kernel's integer code (csrc/fused_mlp.cu ``Act``)
 ACTIVATION_CODES = {
     "None": 0, None: 0, "relu": 1, "elu": 2, "selu": 3, "softplus": 4,
@@ -110,6 +133,7 @@ _PLAIN_ACTS = {
 
 _forward = None
 _stream_forward = None
+_cluster_forward = None
 
 
 def _activation_code(activation) -> int:
@@ -267,22 +291,75 @@ def kernel_plan(dims: Sequence[int], batch: int, streamed: bool = False):
     return rows, stride0, stride1, _shared_bytes(rows, stride0, stride1)
 
 
+class ClusterPlan(NamedTuple):
+    """A held launch run as the cluster kernel: the blocks of a cluster
+    (each owns a 1/cluster share of every layer's outputs, in whole 8-wide
+    tiles) and the shared bytes a block takes."""
+    cluster: int
+    shared: int
+
+
+def cluster_tiles(dims: Sequence[int], cluster: int) -> List[int]:
+    """The 8-wide output tiles a block of a cluster of ``cluster`` owns in
+    each layer: ceil(ceil(N / 8) / cluster), the last blocks fewer or none
+    (block r owns tiles r S .. r S + S - 1 of the layer)."""
+    return [-(-(-(-n // 8)) // cluster) for n in dims[1:]]
+
+
+def cluster_shared_bytes(dims: Sequence[int], cluster: int) -> int:
+    """The cluster kernel's shared memory for one launch of widths ``dims``:
+    dynamic (csrc/fused_mlp.cu ``cluster_layout``), the held kernel's two
+    activation buffers at 16 rows, then per layer the block's share of W
+    (room for its rows at the 8 * odd stride of ``_buffer_stride``) and of
+    b, and two 8-byte barriers for each of ``MAX_LAYERS``; and static, the
+    kernel's table of layers."""
+    stride0, stride1 = _strides(dims)
+    floats = 16 * (stride0 + stride1)
+    for k, tiles in zip(dims[:-1], cluster_tiles(dims, cluster)):
+        floats += 8 * tiles * (_buffer_stride([k]) + 1)
+    return 4 * (floats + _CLUSTER_BARRIER_FLOATS) + _CLUSTER_TABLE_BYTES
+
+
+def held_weight_tiles(dims: Sequence[int]) -> int:
+    """The weight tiles (128 outputs x 32 inputs) that one held launch of
+    widths ``dims`` walks through its ring, one after another."""
+    return sum(-(-n // 128) * -(-k // 32) for k, n in zip(dims[:-1], dims[1:]))
+
+
+def cluster_plan(dims: Sequence[int], batch: int) -> Optional[ClusterPlan]:
+    """The cluster kernel's shape for a held launch of widths ``dims`` over
+    ``batch`` rows, or None where the held kernel runs it: a batch past the
+    crossover (CLUSTER_SHAPES), a chain of fewer weight tiles than
+    CLUSTER_MIN_TILES, or shares that do not fit a block's shared memory."""
+    if held_weight_tiles(dims) < CLUSTER_MIN_TILES:
+        return None
+    cluster = next((cluster for most, cluster in CLUSTER_SHAPES if batch <= most), None)
+    if cluster is None:
+        return None
+    shared = cluster_shared_bytes(dims, cluster)
+    return ClusterPlan(cluster, shared) if shared <= MAX_SHARED_BYTES else None
+
+
 class Launch(NamedTuple):
     """One launch of a chain: layers ``first`` .. ``last`` - 1, held or (one
-    layer) streamed, its ``kernel_plan``."""
+    layer) streamed, its ``kernel_plan``; a held launch that runs as the
+    cluster kernel also its ``cluster_plan`` (None: the held kernel)."""
     first: int
     last: int
     streamed: bool
     plan: tuple
+    cluster: Optional[ClusterPlan] = None
 
 
-def launch_plan(dims: Sequence[int], batch: int) -> List[Launch]:
+def launch_plan(dims: Sequence[int], batch: int, cluster: bool = True) -> List[Launch]:
     """The launches of a chain of widths ``dims`` in order, each over at
     most ``MAX_LAYERS`` consecutive layers whose held widths fit a block's
     shared memory. A launch ends before an inner width that no buffer holds
     beside the others and writes it to device memory; a layer whose input
     no buffer holds is a streamed launch of its own. A chain that one
-    launch takes is one launch, with ``kernel_plan(dims, batch)``."""
+    launch takes is one launch, with ``kernel_plan(dims, batch)``. With
+    ``cluster`` a held launch takes ``cluster_plan`` (the cluster kernel
+    where it picks one); without, every held launch is the held kernel's."""
     n_layers = len(dims) - 1
     if n_layers < 1:
         raise ValueError(f"fused_mlp takes 1 layer at least, got {n_layers}")
@@ -294,7 +371,8 @@ def launch_plan(dims: Sequence[int], batch: int) -> List[Launch]:
             last += 1
         streamed = last == first
         last = max(last, first + 1)
-        launches.append(Launch(first, last, streamed, kernel_plan(dims[first:last + 1], batch, streamed)))
+        held = None if streamed or not cluster else cluster_plan(dims[first:last + 1], batch)
+        launches.append(Launch(first, last, streamed, kernel_plan(dims[first:last + 1], batch, streamed), held))
         first = last
     return launches
 
@@ -354,6 +432,45 @@ def _stream_kernel():
     return _stream_forward
 
 
+# csrc/fused_mlp.cu fused_mlp_cluster_forward(x, out, B, n_layers, dims, ws,
+# bs, act, cluster, stride0, stride1, stream, attr_err)
+CLUSTER_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+)
+
+
+def _cluster_kernel():
+    global _cluster_forward
+    if _cluster_forward is None:
+        fn = cuda_build.load("fused_mlp").fused_mlp_cluster_forward
+        fn.argtypes = list(CLUSTER_ARGTYPES)
+        fn.restype = ctypes.c_int
+        _cluster_forward = fn
+    return _cluster_forward
+
+
+def cluster_grid(plan: ClusterPlan, batch: int) -> int:
+    """The blocks of a cluster launch over ``batch`` rows: a cluster a
+    16-row tile."""
+    return -(-batch // 16) * plan.cluster
+
+
+def cluster_empty_launch(plan: ClusterPlan, batch: int) -> None:
+    """An empty kernel at the grid, cluster and shared memory of a cluster
+    launch over ``batch`` rows on the current stream: the floor under its
+    time (chip_smoke.py and tools/fused_mlp_ab.py time it). Not a launch of
+    the kernel: it counts nowhere."""
+    fn = cuda_build.load("fused_mlp").fused_mlp_cluster_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(batch, plan.cluster, plan.shared, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_cluster_empty failed with CUDA error {err}")
+
+
 def stream_clusters(rows: int, cluster: int) -> int:
     """How many clusters of ``cluster`` streamed blocks of ``rows`` rows the
     card holds at once (cudaOccupancyMaxActiveClusters; builds the kernel)."""
@@ -397,13 +514,27 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
     ``dims`` / ``ws`` / ``bs`` of ``launch`` (a ``launch_plan`` entry).
     ``set_strides``: (x's, out's, [each weight's], [each bias's]), in
     floats."""
-    global fused_mlp_launches
+    global fused_mlp_launches, fused_mlp_cluster_launches
     n = len(ws)
     x_set, out_set, w_sets, b_sets = set_strides
     attr_err = ctypes.c_int(0)
+    if launch.cluster is not None and groups != 1:
+        raise ValueError(f"the cluster kernel takes one weight set, got {groups}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if launch.streamed:
+        if launch.cluster is not None:
+            rows, stride0, stride1, _ = launch.plan
+            cluster, shared = launch.cluster
+            c_dims = (ctypes.c_int * (n + 1))(*dims)
+            c_ws = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
+            c_bs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
+            err = _cluster_kernel()(
+                x.data_ptr(), out.data_ptr(), batch, n,
+                ctypes.cast(c_dims, ctypes.c_void_p), ctypes.cast(c_ws, ctypes.c_void_p),
+                ctypes.cast(c_bs, ctypes.c_void_p),
+                act, cluster, stride0, stride1, stream, ctypes.byref(attr_err),
+            )
+        elif launch.streamed:
             rows, split, cluster, shared = launch.plan
             err = _stream_kernel()(
                 x.data_ptr(), out.data_ptr(), batch, dims[0], dims[1], ws[0].data_ptr(), bs[0].data_ptr(),
@@ -425,7 +556,8 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
                 ctypes.cast(c_w_sets, ctypes.c_void_p), ctypes.cast(c_b_sets, ctypes.c_void_p),
                 stream, ctypes.byref(attr_err),
             )
-    name = "fused_mlp_stream_forward" if launch.streamed else "fused_mlp_forward"
+    name = ("fused_mlp_cluster_forward" if launch.cluster is not None
+            else "fused_mlp_stream_forward" if launch.streamed else "fused_mlp_forward")
     if attr_err.value == -3:
         raise RuntimeError(f"{name}: the {rows}-row kernel was not built with the 168 registers a thread "
                            "that its exchange of registers between warpgroups (setmaxnreg) counts on")
@@ -437,6 +569,8 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     fused_mlp_launches += 1
+    if launch.cluster is not None:
+        fused_mlp_cluster_launches += 1
 
 
 def _run_chain(x, out, batch, dims, ws, bs, act, launches, groups=1, set_strides=None):
@@ -503,8 +637,11 @@ def fused_mlp_grouped_cuda(x, ws, bs, activation):
     _check_tensors(x, ws, bs)
     batch = x.shape[-2]
     # a set of at most 16 rows fills one 16-row tile, where a 32-row tile
-    # would only idle more rows; else the ordinary rule over all rows
-    launches = launch_plan(dims, groups * batch if batch > 16 else 0)
+    # would only idle more rows; else the ordinary rule over all rows. The
+    # held kernel takes every grouped launch: the cluster kernel takes one
+    # weight set (a rule keyed on the batch would send every set of at most
+    # 16 rows to it)
+    launches = launch_plan(dims, groups * batch if batch > 16 else 0, cluster=False)
     out = torch.empty((groups, batch, dims[-1]), dtype=torch.float32, device=x.device)
     if groups == 0 or batch == 0:
         return out

@@ -1,9 +1,9 @@
 """The fused MLP's kernel, this tree against another (a parent commit
 unpacked with ``git archive``), in turns on one card; or, with ``--sweep``,
-this tree's streamed kernel over every shape it takes.
+this tree's cluster and streamed kernels over every shape they take.
 
     python3 tools/fused_mlp_ab.py PARENT_DIR [--rounds 1]
-    python3 tools/fused_mlp_ab.py --sweep [--reps 20]
+    python3 tools/fused_mlp_ab.py --sweep [cluster|stream] [--reps 20]
 
 Each round runs four processes, one after another: PARENT_DIR, this tree,
 this tree, PARENT_DIR. Each builds its own tree's kernels (its
@@ -12,6 +12,12 @@ this tree, PARENT_DIR. Each builds its own tree's kernels (its
 - the flagship torso 26->256->128->64 elu at B = 8192 and 32768
   (``chip_smoke.time_fused``: ``fused_mlp_cuda`` against the plain chain in
   turns, torch.profiler);
+- the small batches, the same way: 16->256->128->64 elu at B = 16 (the
+  walker GRU's rollout), 5->128->64->32 elu at 64 (the host path),
+  the flagship torso at 1, 7 and 16 (an exported policy, the player),
+  3->32->32 elu at 16 (Pendulum) and 4->32->32 relu at 16 and 64 (CartPole):
+  since the cluster kernel, the tree's ``launch_plan`` may run them there,
+  where a parent before it runs the held kernel;
 - the chains with a streamed first layer that ``chip_smoke.kernel_fused_mlp_wide``
   times (``chip_smoke.time_wide``, the same way, with ``torch.addmm`` of a
   one-layer chain and the bound beside): the nature-CNN torso 3136->512 at
@@ -26,7 +32,20 @@ Both trees need ``chip_smoke.py`` with ``time_fused``, ``time_wide``,
 per process and row, then one JSON object with each tree's numbers in run
 order and the change's mean over the parent's for each row.
 
-``--sweep`` runs in this process: for 3136 -> 512 elu at B = 512, 1024 and
+``--sweep`` runs in this process, both kernels unless one is named. The
+cluster kernel (csrc/fused_mlp.cu ``fused_mlp_cluster_kernel``): for the
+walker GRU's, the host path's and the flagship's torsos, Pendulum's and
+CartPole's, the self-play learner's and the fused Pong head at B = 1, 16,
+64, 256, 1024 and 2048, it launches the cluster kernel at every blocks a
+cluster it takes (``CLUSTER_BLOCKS``) where the shares fit, and the held
+kernel, checks each against the plain chain (rtol = atol = 2e-5), two calls
+and the held kernel bit for bit, and prints the device time a call
+(``chip_smoke.device_time_ms``, torch.profiler) beside the held kernel's,
+the plain chain's and an empty launch of the same grid, cluster and shared
+memory. The shape that ``ops/fused_mlp.cluster_plan`` picks is marked; the
+fastest shape a batch and whether it beats the held kernel set
+``CLUSTER_SHAPES`` and ``CLUSTER_MIN_TILES``. The streamed kernel: for
+3136 -> 512 elu at B = 512, 1024 and
 4096 and 4096 -> 4096 at B = 1024, it launches the streamed kernel
 (csrc/fused_mlp.cu ``fused_mlp_stream_kernel``) at every rows a block (16,
 32, 64), split of the output tiles and cluster that the kernel takes, checks
@@ -49,7 +68,17 @@ import subprocess
 import sys
 
 FLAGSHIP_BATCHES = (8192, 32768)
+# the small batches' chains (chip_smoke's WALKER_DIMS, HOPPER_DIMS, FLAGSHIP_DIMS, PENDULUM_DIMS, CARTPOLE_DIMS)
+SMALL_ROWS = (("16x256x128x64", (16, 256, 128, 64), 16, "elu"), ("5x128x64x32", (5, 128, 64, 32), 64, "elu"),
+              ("26x256x128x64", (26, 256, 128, 64), 1, "elu"), ("26x256x128x64", (26, 256, 128, 64), 7, "elu"),
+              ("26x256x128x64", (26, 256, 128, 64), 16, "elu"), ("3x32x32", (3, 32, 32), 16, "elu"),
+              ("4x32x32", (4, 32, 32), 16, "relu"), ("4x32x32", (4, 32, 32), 64, "relu"))
 SWEEP_CASES = (((3136, 512), 512), ((3136, 512), 1024), ((3136, 512), 4096), ((4096, 4096), 1024))
+# the walker GRU's, host path's, flagship's, Pendulum's and CartPole's torsos, the self-play learner's and the
+# fused Pong head behind its streamed layer (a held launch of its own)
+CLUSTER_SWEEP_CHAINS = (((16, 256, 128, 64), "elu"), ((5, 128, 64, 32), "elu"), ((26, 256, 128, 64), "elu"),
+                        ((3, 32, 32), "elu"), ((4, 32, 32), "relu"), ((6, 128, 64), "elu"), ((512, 64), "elu"))
+CLUSTER_SWEEP_BATCHES = (1, 16, 64, 256, 1024, 2048)
 PROBE = (
     "import json, torch, chip_smoke as c\n"
     "from rl_games_tpu_torch.ops import fused_mlp as fm\n"
@@ -58,6 +87,9 @@ PROBE = (
     "dev = torch.device('cuda')\n"
     "gen = torch.Generator(device=dev).manual_seed(1)\n"
     "rows = {f'26x256x128x64 B={b}': {'ms': c.time_fused(c.FLAGSHIP_DIMS, b, gen, dev)['ms']} for b in %r}\n"
+    "for name, dims, b, act in %r:\n"
+    "    r = c.time_fused(dims, b, gen, dev, act)\n"
+    "    rows[f'{name} B={b}'] = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms')}\n"
     "def wide(name, x, ws, bs):\n"
     "    r = c.time_wide(name, x, ws, bs)\n"
     "    rows[name] = {k: r[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}\n"
@@ -70,7 +102,7 @@ PROBE = (
     "wide('grouped 3136x512x64 G=4 B=256', x, [ws[0][0], ws[1]], bs)\n"
     "x, ws, bs = c.mlp_inputs((3136, 512), 512, gen, dev)\n"
     "rows['host time a call, 3136x512 B=512'] = {'us': c.host_us_per_call(lambda: fm.fused_mlp_cuda(x, ws, bs, 'elu'))}\n"
-    "print('AB ' + json.dumps(rows))\n" % (FLAGSHIP_BATCHES,)
+    "print('AB ' + json.dumps(rows))\n" % (FLAGSHIP_BATCHES, SMALL_ROWS)
 )
 
 
@@ -161,14 +193,84 @@ def sweep(reps: int, smi: str):
     print(json.dumps({"device": smi, "rows": rows_out, "clusters_at_once": clusters}))
 
 
+def cluster_sweep(reps: int, smi: str):
+    """The cluster kernel at every shape it takes, beside the held kernel
+    (the module docstring's ``--sweep``)."""
+    import torch
+
+    import chip_smoke as c
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+    from rl_games_tpu_torch.utils import cuda_build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("fused_mlp_ab --sweep: no CUDA card")
+    cuda_build.build_all(["fused_mlp"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    rows_out, best = [], []
+    for dims, activation in CLUSTER_SWEEP_CHAINS:
+        act, n = fm.ACTIVATION_CODES[activation], len(dims) - 1
+        name = "x".join(map(str, dims))
+        for batch in CLUSTER_SWEEP_BATCHES:
+            x, ws, bs = c.mlp_inputs(dims, batch, gen, dev)
+            out = torch.empty((batch, dims[-1]), device=dev)
+            want = fm.plain_mlp(x, ws, bs, activation)
+            plain_ms, _ = c.device_time_ms(lambda: fm.plain_mlp(x, ws, bs, activation), reps)
+            held_launch = fm.Launch(0, n, False, fm.kernel_plan(dims, batch))
+
+            def run(launch):
+                return lambda: fm._run_chain(x, out, batch, dims, ws, bs, act, [launch])
+
+            run(held_launch)()
+            held = out.clone()
+            held_us = c.device_time_ms(run(held_launch), reps)[0] * 1e3
+            picked = fm.cluster_plan(dims, batch)
+            print(f"[sweep] {name} B={batch} {activation}: held kernel {held_us:.2f} us, plain chain "
+                  f"{plain_ms * 1e3:.2f} us; the plan picks "
+                  + (f"clusters of {picked.cluster}" if picked else "the held kernel"))
+            fastest = None
+            for cluster in fm.CLUSTER_BLOCKS:
+                shared = fm.cluster_shared_bytes(dims, cluster)
+                if shared > fm.MAX_SHARED_BYTES:
+                    continue
+                plan = fm.ClusterPlan(cluster, shared)
+                launch = held_launch._replace(cluster=plan)
+                run(launch)()
+                torch.cuda.synchronize()
+                share = float(((out - want).abs() / (2e-5 + 2e-5 * want.abs())).max())
+                first = out.clone()
+                us = c.device_time_ms(run(launch), reps)[0] * 1e3
+                repeat = torch.equal(out, first)  # two calls, the same bits
+                as_held = torch.equal(first, held)
+                floor = c.device_time_ms(lambda: fm.cluster_empty_launch(plan, batch), reps)[0] * 1e3
+                row = {"dims": list(dims), "batch": batch, "cluster": cluster, "us": us, "held_us": held_us,
+                       "plain_us": plain_ms * 1e3, "floor_us": floor, "shared": shared,
+                       "err_over_tolerance": share, "bit_equal_calls": repeat, "bit_equal_held": as_held,
+                       "picked": picked == plan}
+                rows_out.append(row)
+                print(f"[sweep] {name} B={batch} clusters of {cluster}: {us:.2f} us (empty launch {floor:.2f} us; "
+                      f"held {held_us:.2f}), {share:.3f} of the tolerance, max |cluster - held| "
+                      f"{float((first - held).abs().max()):.1e}"
+                      f"{' <- plan' if row['picked'] else ''}")
+                if not (share <= 1.0 and repeat and as_held):
+                    raise AssertionError(f"the cluster kernel is wrong at {row}")
+                if fastest is None or us < fastest["us"]:
+                    fastest = row
+            best.append(fastest)
+            print(f"[sweep] {name} B={batch}: fastest clusters of {fastest['cluster']} {fastest['us']:.2f} us against "
+                  f"the held kernel's {held_us:.2f} us ({fastest['us'] / held_us:.3f}x)")
+    print(json.dumps({"device": smi, "cluster_rows": rows_out, "fastest": best}))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("parent", nargs="?")
     parser.add_argument("--rounds", type=int, default=1)
-    parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--sweep", nargs="?", const="both", choices=("both", "cluster", "stream"))
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
-    if args.sweep == (args.parent is not None):
+    if (args.sweep is not None) == (args.parent is not None):
         parser.error("give PARENT_DIR or --sweep")
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -176,7 +278,11 @@ def main():
     print(f"[fused_mlp_ab] {smi}")
     if args.sweep:
         sys.path.insert(0, here)
-        return sweep(args.reps, smi)
+        if args.sweep in ("both", "cluster"):
+            cluster_sweep(args.reps, smi)
+        if args.sweep in ("both", "stream"):
+            sweep(args.reps, smi)
+        return
     trees = {"parent": os.path.abspath(args.parent), "change": here}
     runs = {"parent": [], "change": []}
     for _ in range(args.rounds):
