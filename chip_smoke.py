@@ -21,7 +21,14 @@ to a plain version):
                6->128->64 at G = 1024 and 512, B = 1, timed, the JAX
                test shapes at G = 3, shared weights, biases and x, set
                strides that break 16-byte alignment, G = 1 bit for bit the
-               ordinary launch; the chains one launch with x held does not
+               ordinary launch; the sets kernel, which the grouped launch
+               takes at few rows a set over many sets (the opponents at
+               G = 1024 and 512), against plain_mlp_grouped and two calls
+               bit for bit, timed beside the held grouped launch on the same
+               inputs, an empty launch of its grid and its bound, and at the
+               grouped shapes it does not take through a plan handed to it
+               (the copy modes of skewed set strides); the chains one launch
+               with x held does not
                take, held to the chain in float64: the nature-CNN's
                3136->512 at B = 512, 4096 and 4099, x * 30, elu and tanh,
                3134 and 3135 inputs, (64, 4096, 4096, 8), 10 and 17 layers
@@ -212,7 +219,10 @@ to a plain version):
                rows; (f) (a) and (b) with network.mlp.fused: true, 3 epochs:
                the opponents' forward one grouped launch of the fused kernel
                over the 1024 slots a step (41 ordinary and 32 grouped launches
-               an epoch, one of each a player step, held exact), the pushed
+               an epoch, one of each a player step, held exact; the grouped
+               ones launches of the sets kernel, counted, and the opponents'
+               device time beside the held grouped launch's in its place),
+               the pushed
                opponents' actions on the card within 1e-5 of the CPU's, one
                gradient through torch.func.vmap of the operator against a
                loop over the sets (rtol 1e-5, atol 1e-6), the opponents'
@@ -308,7 +318,8 @@ just after, and are held to the counts the code implies. The script imports
 neither gymnasium nor dm_control: on the card the host path runs through
 the native stepper.
 
-Prints a {"kernels": [...]} line, then as its last line
+Prints a {"kernels": [...]} line (GAE, the fused MLP, and its sets kernel
+apart), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -718,9 +729,10 @@ def kernel_fused_mlp_cluster(gen, dev):
     2e-5 and against the held kernel on the same inputs (a held Launch
     handed to _run_chain: the same sums in the same order, so 0), two calls
     bit for bit, its launches of the cluster kernel counted; then timed in
-    turns (plain, held, routed, routed, held, plain) beside the bound (each
-    input read once, the output written once, against 3xTF32 products) and
-    an empty launch of the same grid, cluster and shared memory."""
+    turns (plain, held, routed, routed, held, plain; a one-layer chain with
+    torch.addmm of the same layer beside) beside the bound (each input read
+    once, the output written once, against 3xTF32 products) and an empty
+    launch of the same grid, cluster and shared memory."""
     from rl_games_tpu_torch.ops import fused_mlp as fm
 
     rows, worst, worst_ratio, worst_held = [], 0.0, 0.0, 0.0
@@ -753,6 +765,8 @@ def kernel_fused_mlp_cluster(gen, dev):
         worst, worst_ratio, worst_held = max(worst, err), max(worst_ratio, ratio), max(worst_held, from_held)
         turns = [("plain", plain), ("held", held), ("routed", routed)] if launch.cluster else [("plain", plain),
                                                                                               ("held", held)]
+        if len(dims) == 2:  # one layer: torch.addmm computes its products and bias in one call (the yardstick)
+            turns.append(("addmm", lambda: torch.addmm(bs[0], x, ws[0].t())))
         times = {key: [] for key, _ in turns}
         for key, fn in (*turns, *reversed(turns)):
             times[key].append(device_time_ms(fn, 20)[0])
@@ -770,13 +784,16 @@ def kernel_fused_mlp_cluster(gen, dev):
                  f"{ms['held'] * 1e3:.2f} us ({ms['routed'] / ms['held']:.3f}x), empty launch of its grid "
                  f"{floor_ms * 1e3:.2f} us" if launch.cluster else
                  f"the plan keeps the held kernel: {ms['held'] * 1e3:.2f} us")
-              + f", plain {ms['plain'] * 1e3:.2f} us; bound {bound * 1e3:.3f} us ({nbytes} B, {flops} TF32 flop, by "
+              + f", plain {ms['plain'] * 1e3:.2f} us"
+              + (f", torch.addmm {ms['addmm'] * 1e3:.2f} us" if "addmm" in ms else "")
+              + f"; bound {bound * 1e3:.3f} us ({nbytes} B, {flops} TF32 flop, by "
               f"{bound_by}); max |kernel - plain| {err:.3e} ({ratio:.3f} of the tolerance), max |kernel - held| "
               f"{from_held:.1e}, two calls bit for bit equal {same}, {cluster_launches} cluster launch a call")
         rows.append({"shape": [batch, *dims], "activation": activation, "cluster": launch.cluster.cluster
                      if launch.cluster else None, "ms": kernel_ms, "held_ms": ms["held"], "plain_ms": ms["plain"],
                      "floor_ms": floor_ms, "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / kernel_ms,
-                     "max_abs_err": err, "max_abs_diff_from_held": from_held, "launches_per_call": cluster_launches})
+                     "library_ms": ms.get("addmm"), "max_abs_err": err, "max_abs_diff_from_held": from_held,
+                     "launches_per_call": cluster_launches})
     return {"cluster_shapes": rows, "cluster_max_abs_err": worst, "cluster_max_err_over_tolerance": worst_ratio,
             "cluster_max_abs_diff_from_held": worst_held}
 
@@ -845,16 +862,71 @@ def set_strided(t, stride, offset=0):
     return out
 
 
-def kernel_fused_mlp_grouped(gen, dev):
-    """The grouped launch (a weight set a row of blocks) against
-    plain_mlp_grouped at rtol = atol = 2e-5: the forage opponents' chain at
-    G = 1024 and 512 (half the slots, as after a push), B = 1, timed; the JAX
-    package's kernel test shapes at G = 3, B = 19 over every activation; a
-    layer's weights shared (set stride 0); x shared; set strides that break
-    the 16-byte alignment of a set's rows (a 6 -> 7 layer's 42 floats; a
-    4-wide layer's sets 17 floats apart, x's rows one float past a multiple
-    of 4, a weight whose base lies one float past an aligned address); G = 1
-    against the ordinary launch bit for bit; the refusals."""
+def kernel_us_cold(fn, name, write: bool, reps: int = 20, sessions: int = 4) -> float:
+    """Mean device time (us) of the kernels whose profiler name holds
+    ``name`` that fn() launches, each call after 128 MB that evict the
+    card's 50 MB L2 cache pass through it (their own kernels not counted):
+    fn's inputs then come from device memory, as a first call finds them.
+    With ``write`` the 128 MB are written, and the kernel's reads meet the
+    write-back of their dirty lines; else read (a sum), and the lines they
+    leave are clean. Takes the first of ``sessions`` profiler sessions that
+    kept one such event a call, else the fullest (over the events it kept)."""
+    scratch = torch.ones(32 << 20, device="cuda")
+
+    def cold():
+        if write:
+            scratch.fill_(1.0)
+        else:
+            scratch.sum()
+        fn()
+
+    cold()
+    torch.cuda.synchronize()
+    fullest = []
+    for _ in range(sessions):
+        events = [e for e in device_events(cold, reps) if name in e.name]
+        if len(events) == reps:
+            fullest = events
+            break
+        fullest = max(fullest, events, key=len)
+    if not fullest:
+        raise AssertionError(f"no device event of {name} in {sessions} profiler sessions")
+    return sum(e.time_range.elapsed_us() for e in fullest) / len(fullest)
+
+
+def sets_cases(gen, dev):
+    """The grouped shapes that kernel_fused_mlp_grouped and
+    kernel_fused_mlp_sets check, on the same tensors: (tag, x, ws, bs,
+    activations). The forage opponents at G = 1024 and 512, B = 1; a
+    layer's weights, x or the biases shared at G = 64, B = 3; the 6 -> 7 ->
+    5 sets of 42 and 35 floats; the skewed 4x4x8 strides at B = 5 (last)."""
+    cases = []
+    for groups in (1024, 512):
+        cases.append((f"forage opponents G={groups} B=1", *grouped_inputs(FORAGE_DIMS, groups, 1, gen, dev), ("elu",)))
+    x, ws, bs = grouped_inputs(FORAGE_DIMS, 64, 3, gen, dev)
+    cases += [("ws[0] shared G=64 B=3", x, [ws[0][0], ws[1]], bs, ("elu",)),
+              ("x shared G=64 B=3", x[0], ws, bs, ("elu",)),
+              ("biases shared G=64 B=3", x, ws, [b[0] for b in bs], ("elu",))]
+    x, ws, bs = grouped_inputs((6, 7, 5), 9, 3, gen, dev)
+    cases.append(("6x7x5 (sets of 42 and 35 floats) G=9 B=3", x, ws, bs, ("elu", "tanh")))
+    x, ws, bs = grouped_inputs((4, 4, 8), 9, 5, gen, dev)
+    cases.append(("4x4x8 set strides 21 (x) and 17 (ws[0]) floats, ws[1] one float off G=9 B=5", set_strided(x, 5 * 4 + 1),
+                  [set_strided(ws[0], 17), set_strided(ws[1], 8 * 4, offset=1)], bs, ("elu", "relu")))
+    return cases
+
+
+def kernel_fused_mlp_grouped(gen, dev, cases):
+    """The grouped launch (the held kernel, a weight set a row of blocks, or
+    the sets kernel where grouped_launch_plan takes it) against
+    plain_mlp_grouped at rtol = atol = 2e-5 at every shape of ``cases``
+    (sets_cases: the forage opponents' chain at G = 1024 and 512, half the
+    slots as after a push, B = 1, timed; a layer's weights, x or the biases
+    shared (set stride 0); set strides that break the 16-byte alignment of a
+    set's rows: a 6 -> 7 layer's 42 floats, a 4-wide layer's sets 17 floats
+    apart, x's rows one float past a multiple of 4, a weight whose base lies
+    one float past an aligned address), and the JAX package's kernel test
+    shapes at G = 3, B = 19 over every activation; G = 1 against the
+    ordinary launch bit for bit; the refusals."""
     from rl_games_tpu_torch.ops import fused_mlp as fm
 
     worst, worst_ratio, timed = 0.0, 0.0, []
@@ -865,25 +937,15 @@ def kernel_fused_mlp_grouped(gen, dev):
             err, ratio = check_grouped(tag, x, ws, bs, activation)
             worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
 
-    for groups in (1024, 512):
-        x, ws, bs = grouped_inputs(FORAGE_DIMS, groups, 1, gen, dev)
-        check(f"forage opponents G={groups} B=1", x, ws, bs)
-        timed.append(time_fused_grouped("forage opponents", x, ws, bs))
+    for tag, x, ws, bs, activations in cases:
+        check(tag, x, ws, bs, activations)
+        if tag.startswith("forage opponents"):
+            timed.append(time_fused_grouped("forage opponents", x, ws, bs))
+    _, skewed_x, (skewed_w0, skewed_w1), _, _ = cases[-1]
+    if skewed_x.stride(0) % 4 == 0 or skewed_w0.stride(0) % 4 == 0 or skewed_w1.data_ptr() % 16 == 0:
+        raise AssertionError("the skewed sets were meant to break 16-byte alignment")
     x, ws, bs = grouped_inputs((37, 50, 33, 7), 3, 19, gen, dev)
     check("37x50x33x7 G=3 B=19", x, ws, bs, ACTIVATIONS)
-    x, ws, bs = grouped_inputs(FORAGE_DIMS, 64, 3, gen, dev)
-    check("ws[0] shared G=64 B=3", x, [ws[0][0], ws[1]], bs)
-    check("x shared G=64 B=3", x[0], ws, bs)
-    check("biases shared G=64 B=3", x, ws, [b[0] for b in bs])
-    x, ws, bs = grouped_inputs((6, 7, 5), 9, 3, gen, dev)
-    check("6x7x5 (sets of 42 and 35 floats) G=9 B=3", x, ws, bs, ("elu", "tanh"))
-    x, ws, bs = grouped_inputs((4, 4, 8), 9, 5, gen, dev)
-    skewed_x, skewed_w0 = set_strided(x, 5 * 4 + 1), set_strided(ws[0], 17)
-    skewed_w1 = set_strided(ws[1], 8 * 4, offset=1)
-    check("4x4x8 set strides 21 (x) and 17 (ws[0]) floats, ws[1] one float off", skewed_x, [skewed_w0, skewed_w1], bs,
-          ("elu", "relu"))
-    if skewed_w0.stride(0) % 4 == 0 or skewed_w1.data_ptr() % 16 == 0:
-        raise AssertionError("the skewed sets were meant to break 16-byte alignment")
 
     # G = 1: the grouped entry is the ordinary launch, bit for bit
     for dims, batch in ((FLAGSHIP_DIMS, 8192), ((37, 50, 33, 7), 19)):
@@ -910,6 +972,130 @@ def kernel_fused_mlp_grouped(gen, dev):
         raise AssertionError("fused_mlp_grouped_cuda took an input it must refuse")
     return {"grouped_shapes": timed, "grouped_max_abs_err": worst, "grouped_max_err_over_tolerance": worst_ratio,
             "grouped_g1_bit_for_bit": True}
+
+
+def kernel_fused_mlp_sets(cases):
+    """The sets kernel (csrc/fused_mlp.cu fused_mlp_sets_kernel) at every
+    shape of ``cases`` (sets_cases) that grouped_launch_plan sends to it, through
+    fused_mlp_grouped_cuda: against plain_mlp_grouped at rtol = atol = 2e-5,
+    two calls bit for bit, its launches counted (at a shape the route leaves
+    to the held kernel, the same checks through a Launch with a sets plan
+    handed to _run_chain, untimed); then timed in turns (plain,
+    held, sets, sets, held, plain) beside the held grouped launch on the same
+    inputs (the plan's launches with the sets plan taken out, handed to
+    _run_chain), an empty launch of its grid and shared memory, and the
+    bound: each tensor read once (a shared one once), the output written
+    once, against the chain's float32 FMAs on the CUDA cores; and the sets
+    and held kernels each with the L2 cache emptied before every call, by a
+    read and by a write of 128 MB (kernel_us_cold)."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    rows, worst, worst_ratio = [], 0.0, 0.0
+    for tag, x, ws, bs, activations in cases:
+        dev = x.device
+        groups, dims = fm.grouped_dims(x, ws, bs)
+        batch = x.shape[-2]
+        held_out = torch.empty((groups, batch, dims[-1]), device=dev)
+        strides = fm.grouped_set_strides(x, ws, bs, held_out)
+        launches = fm.grouped_launch_plan(dims, batch, groups, fm.set_strides_shared(strides))
+        routed = [launch.sets for launch in launches if launch.sets is not None]
+        held_launches = [launch._replace(sets=None) for launch in launches]
+        if not routed:
+            # a shape the route leaves to the held kernel: the sets kernel held to the chain there all the same,
+            # through a Launch with the sets plan's stages and warps handed to _run_chain (its copy modes)
+            plan = fm.SetsPlan(next(r for r in fm.SETS_ROWS if r >= batch), fm.SETS_STAGES, fm.sets_warps(fm.SETS_STAGES),
+                               fm.sets_shared_bytes(dims, batch, fm.SETS_STAGES, fm.set_strides_shared(strides),
+                                                    fm.sets_warps(fm.SETS_STAGES)))
+            forced = [launch._replace(sets=plan) for launch in held_launches]
+            for activation in activations:
+                run = lambda: fm._run_chain(x, held_out, batch, dims, ws, bs, fm.ACTIVATION_CODES[activation],  # noqa: E731
+                                            forced, groups, strides)
+                run()
+                got = held_out.clone()
+                run()
+                want = fm.plain_mlp_grouped(x, ws, bs, activation)
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                err, ratio = float(diff.max()), float((diff / (2e-5 + 2e-5 * want.abs())).max())
+                same = torch.equal(got, held_out)
+                print(f"[kernels] fused_mlp sets {tag} {activation}: the plan keeps the held kernel; the sets kernel "
+                      f"handed the shape ({plan.rows}-row instance, {plan.stages} stages, {plan.warps} warps a set): "
+                      f"max |kernel - plain| {err:.3e} ({ratio:.3f} of the tolerance), two calls bit for bit equal "
+                      f"{same}")
+                if not (math.isfinite(ratio) and ratio <= 1.0 and same):
+                    raise AssertionError(f"fused_mlp sets {tag} {activation} (not routed): {ratio} of rtol = atol = "
+                                         f"2e-5 from plain_mlp_grouped, two calls equal {same}")
+                worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+            continue
+        for activation in activations:
+            act = fm.ACTIVATION_CODES[activation]
+            sets = lambda: fm.fused_mlp_grouped_cuda(x, ws, bs, activation)  # noqa: E731
+            held = lambda: fm._run_chain(x, held_out, batch, dims, ws, bs, act, held_launches, groups, strides)  # noqa: E731
+            plain = lambda: fm.plain_mlp_grouped(x, ws, bs, activation)  # noqa: E731
+            before = fm.fused_mlp_sets_launches
+            got = sets()
+            torch.cuda.synchronize()
+            launches_per_call = fm.fused_mlp_sets_launches - before
+            again = sets()
+            want = plain()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err, ratio = float(diff.max()), float((diff / (2e-5 + 2e-5 * want.abs())).max())
+            same = torch.equal(got, again)
+            if not (math.isfinite(ratio) and ratio <= 1.0 and same and launches_per_call == len(routed)):
+                raise AssertionError(f"fused_mlp sets {tag} {activation}: {ratio} of rtol = atol = 2e-5 from "
+                                     f"plain_mlp_grouped, two calls equal {same}, {launches_per_call} sets launches "
+                                     f"(plan {routed})")
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+            if activation != activations[0]:
+                print(f"[kernels] fused_mlp sets {tag} {activation}: max |kernel - plain| {err:.3e} ({ratio:.3f} of "
+                      f"the tolerance), two calls bit for bit equal {same}")
+                continue
+            turns = (("plain", plain), ("held", held), ("sets", sets))
+            times = {key: [] for key, _ in turns}
+            for key, fn in (*turns, *reversed(turns)):
+                times[key].append(device_time_ms(fn, 20)[0])
+            ms = {key: sum(t) / len(t) for key, t in times.items()}
+            plan = routed[0]
+            floor_ms = device_time_ms(lambda: fm.sets_empty_launch(plan, groups), 20)[0]
+            # the same two launches with the L2 cache emptied before each, by a read and by a write (the timings
+            # above repeat calls on the same inputs, which the 50 MB L2 partly keeps: 37.8 MB at G = 1024)
+            cold_us = {f"{key}_{way}": kernel_us_cold(fn, name, way == "write")
+                       for way in ("read", "write")
+                       for key, fn, name in (("sets", sets, "fused_mlp_sets_kernel"), ("held", held, "fused_mlp_kernel<"))}
+            grid = fm.sets_grid(plan, groups)
+            flops = 2 * groups * batch * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+            nbytes = 4 * (x.numel() + sum(t.numel() for t in (*ws, *bs)) + groups * batch * dims[-1])
+            bound, bound_by = bound_ms(nbytes, flops)
+            print(f"[kernels] fused_mlp sets {tag} {activation}: the sets kernel ({plan.rows}-row instance, "
+                  f"{plan.stages} stages, {plan.warps} warps a set, grid {grid}, {plan.shared} B shared) {ms['sets'] * 1e3:.2f} us, the held "
+                  f"grouped launch {ms['held'] * 1e3:.2f} us ({ms['sets'] / ms['held']:.3f}x), empty launch of its "
+                  f"grid {floor_ms * 1e3:.2f} us, plain {ms['plain'] * 1e3:.2f} us; after a read of 128 MB the sets "
+                  f"kernel {cold_us['sets_read']:.2f} us, the held {cold_us['held_read']:.2f} us, after a write of "
+                  f"128 MB {cold_us['sets_write']:.2f} / {cold_us['held_write']:.2f} us; bound {bound * 1e3:.2f} us "
+                  f"({nbytes} B, {flops} float32 flop, by {bound_by}): {bound / ms['sets']:.3f} of the bound's rate; "
+                  f"max |kernel - plain| {err:.3e} ({ratio:.3f} of the tolerance), two calls bit for bit equal "
+                  f"{same}, {launches_per_call} sets launch a call")
+            rows.append({"tag": tag, "shape": [groups, batch, *dims], "activation": activation, "rows": plan.rows,
+                         "stages": plan.stages, "warps": plan.warps, "grid": grid, "shared": plan.shared, "ms": ms["sets"],
+                         "held_ms": ms["held"], "plain_ms": ms["plain"], "floor_ms": floor_ms,
+                         **{f"cold_{key}_ms": us / 1e3 for key, us in cold_us.items()}, "bound_ms": bound,
+                         "bound_by": bound_by, "share_of_bound": bound / ms["sets"], "max_abs_err": err,
+                         "err_over_tolerance": ratio, "launches_per_call": launches_per_call})
+    if not rows or not rows[0]["tag"].startswith("forage opponents G=1024"):
+        raise AssertionError("the sets kernel does not take the forage opponents at G = 1024, B = 1")
+    main = rows[0]
+    return {"name": "fused_mlp_sets_kernel", "route": "cuda", "source": "rl_games_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "rl_games_tpu/ops/fused_mlp.py:112 (_fused_kernel, pallas_call at :170) under jax.vmap over "
+                        "stacked weights (rl_games_tpu/envs/jax/selfplay.py:148-162)",
+            "shape": main["shape"], "max_abs_err": worst, "max_err_over_tolerance": worst_ratio, "ms": main["ms"],
+            "held_ms": main["held_ms"], "plain_ms": main["plain_ms"], "floor_ms": main["floor_ms"],
+            **{key: main[key] for key in main if key.startswith("cold_")},
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "share_of_bound": main["share_of_bound"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the chain; plain_ms is baddbmm + activation per layer",
+            "sets_max_rows": fm.SETS_MAX_ROWS, "sets_stages": fm.SETS_STAGES, "sets_warps": fm.SETS_WARPS,
+            "sets_shapes": rows}
 
 
 # the nature-CNN torso (ppo_pong_device.yaml, ppo_breakout_device.yaml with mlp.fused: the conv stack's 7x7x64
@@ -1246,8 +1432,12 @@ def phase_kernel_fused_mlp():
     entry["other_shapes"] += [time_fused(FORAGE_DIMS, batch, gen, dev) for batch in (1024, 8192)]
     # the cluster kernel at the main paths' small batches, beside the held kernel
     entry.update(kernel_fused_mlp_cluster(gen, dev))
-    # the grouped launch: the self-play opponents' chain over every env's own weight set
-    entry.update(kernel_fused_mlp_grouped(gen, dev))
+    # the grouped launch: the self-play opponents' chain over every env's own weight set; then the sets kernel at
+    # the grouped shapes it takes, beside the held grouped launch (its own entry on the kernels line)
+    cases = sets_cases(gen, dev)
+    entry.update(kernel_fused_mlp_grouped(gen, dev, cases))
+    entry["sets_kernel"] = kernel_fused_mlp_sets(cases)
+    del cases
     # the chains one launch with x held does not take: a streamed first layer, several launches, other dtypes
     entry.update(kernel_fused_mlp_wide(gen, dev))
     entry["max_abs_err"] = max(entry["max_abs_err"], entry["cluster_max_abs_err"], entry["grouped_max_abs_err"],
@@ -3803,7 +3993,7 @@ def zero_launches():
     from rl_games_tpu_torch.ops import fused_mlp, gae
 
     gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_grouped_launches = 0
-    fused_mlp.fused_mlp_cluster_launches = 0
+    fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_sets_launches = 0
 
 
 def fused_flagship_params(num_actors: int = 8192) -> dict:
@@ -4295,6 +4485,7 @@ def selfplay_run(epochs: int, fused: bool = False):
             train_launches = launches_now()  # read right after
             train_grouped = fused_mlp.fused_mlp_grouped_launches
             train_cluster = fused_mlp.fused_mlp_cluster_launches
+            train_sets = fused_mlp.fused_mlp_sets_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         nn_dir = os.path.join(train_dir, cfg["name"], "nn")
         final = [f for f in sorted(os.listdir(nn_dir)) if f"_ep_{epochs}_rew_" in f]
@@ -4316,6 +4507,7 @@ def selfplay_run(epochs: int, fused: bool = False):
                 play_launches = launches_now()  # read right after
                 play_grouped = fused_mlp.fused_mlp_grouped_launches
                 play_cluster = fused_mlp.fused_mlp_cluster_launches
+                play_sets = fused_mlp.fused_mlp_sets_launches
         finally:
             SelfPlayVecEnv.init_opponent = init_opponent
         steady_s, first, last = steady_player_step(runner, checkpoint)
@@ -4338,6 +4530,11 @@ def selfplay_run(epochs: int, fused: bool = False):
                              f" player {play_launches} ({play_grouped} grouped; shapes {got_play_shapes}); expected "
                              f"{expected} ({fused * horizon * epochs} grouped; shapes {expected_shapes}), player "
                              f"{expected_play} ({fused * play_steps} grouped; shapes {expected_play_shapes})")
+    # the opponents' grouped launch (G = 1024 slots, one row each) is the sets kernel's where the plan takes it
+    opp_sets = fused * int(fused_mlp.grouped_launch_plan(FORAGE_DIMS, 1, n)[0].sets is not None)
+    if (train_sets, play_sets) != (opp_sets * horizon * epochs, opp_sets * play_steps):
+        raise AssertionError(f"selfplay {tag}: {train_sets} sets launches in training, {play_sets} in the player; "
+                             f"expected {opp_sets * horizon * epochs} and {opp_sets * play_steps}")
     # the learner's ordinary launches only: a grouped launch (the opponents) never takes the cluster kernel
     cluster = check_cluster_launches(f"selfplay {tag}", FORAGE_DIMS, {
         "training": (train_cluster, got_shapes["fused_mlp"]), "player": (play_cluster, got_play_shapes["fused_mlp"])})
@@ -4369,19 +4566,32 @@ def selfplay_run(epochs: int, fused: bool = False):
     opp_ms = cuda_time_ms(opponents, 50)
     opp_kernels = len(device_events(opponents, 1))
     opp_device_ms, _ = device_time_ms(opponents, 20)
+    opp_held_device_ms = None
+    if fused:
+        # the same forward with the held grouped launch in the sets kernel's place (the route before it): the
+        # plan's launches with their sets plan taken out, for this measurement only
+        plan = fused_mlp.grouped_launch_plan
+        fused_mlp.grouped_launch_plan = lambda *a, **k: [launch._replace(sets=None) for launch in plan(*a, **k)]
+        try:
+            opp_held_device_ms, _ = device_time_ms(opponents, 20)
+        finally:
+            fused_mlp.grouped_launch_plan = plan
     pushes = out.getvalue().count("updating opponent weights")
     print(f"[selfplay] {tag} trained benchruns/selfplay_forage.yaml{' with network.mlp.fused: true' if fused else ' as shipped'} "
           f"({n} envs x {horizon}, MLP [128, 64] elu, 2 x 4 minibatches of 8192) {epochs} epochs through Runner.run: "
           f"launches {train_launches} ({train_grouped} grouped), shapes {got_shapes}, {pushes} opponent pushes")
     print(f"[selfplay] {tag} rollout step {step_s * 1e3:.3f} ms wall, {step_kernels:.1f} device kernels a step; of it "
           f"the opponent's forward over the {n} slots {opp_ms * 1e3:.1f} us a call between CUDA events, "
-          f"{opp_kernels} device kernels, {opp_device_ms * 1e3:.1f} us of device time")
+          f"{opp_kernels} device kernels, {opp_device_ms * 1e3:.1f} us of device time"
+          + (f" ({opp_held_device_ms * 1e3:.1f} us with the held grouped launch in the sets kernel's place; "
+             f"{train_sets} sets launches in training, {play_sets} in the player)" if fused else ""))
     print(f"[selfplay] {tag} mirror match of {os.path.basename(checkpoint)} through Runner.run (its weights in all "
           f"{n} opponent seats): {play_steps} steps, launches {play_launches} ({play_grouped} grouped), "
           f"{play_out.getvalue().strip()!r}, {play_s:.2f} s with set-up; steady player step {steady_s * 1e3:.3f} ms "
           f"(steps {first}-{last})")
     return {"train": train_launches, "train_grouped": train_grouped, "play": play_launches, "play_grouped": play_grouped,
-            "cluster": cluster,
+            "cluster": cluster, "train_sets": train_sets, "play_sets": play_sets,
+            "opp_held_device_ms": opp_held_device_ms,
             "play_steps": play_steps, "epochs": epochs, "epoch_s": epoch_s, "agent": agent, "state": state,
             "step_s": step_s, "step_kernels": step_kernels, "opp_ms": opp_ms, "opp_kernels": opp_kernels,
             "opp_device_ms": opp_device_ms}
@@ -4523,7 +4733,8 @@ def phase_selfplay(epochs: int):
     a, f = runs["a"], runs["f"]
     print(f"[selfplay] the opponents' forward over {SELFPLAY_SHAPE[1]} slots: plain seat (a) {a['opp_kernels']} kernels, "
           f"{a['opp_ms'] * 1e3:.1f} us between CUDA events, {a['opp_device_ms'] * 1e3:.1f} us of device time; fused seat "
-          f"(f) {f['opp_kernels']} kernels, {f['opp_ms'] * 1e3:.1f} us, {f['opp_device_ms'] * 1e3:.1f} us; rollout step "
+          f"(f) {f['opp_kernels']} kernels, {f['opp_ms'] * 1e3:.1f} us, {f['opp_device_ms'] * 1e3:.1f} us (the held "
+          f"grouped launch in the sets kernel's place {f['opp_held_device_ms'] * 1e3:.1f} us); rollout step "
           f"{a['step_s'] * 1e3:.3f} / {f['step_s'] * 1e3:.3f} ms; steady epoch {a['epoch_s'] * 1e3:.1f} / "
           f"{f['epoch_s'] * 1e3:.1f} ms")
     print(f"[selfplay] phase in {time.perf_counter() - t0:.1f} s")
@@ -5355,7 +5566,17 @@ def main():
                                        + sum(sum(v.values()) for v in launches_cluster["export"].values()))
     if fused_entry["cluster_launches"] == 0:
         raise AssertionError("no main path launched the cluster kernel")
-    print(json.dumps({"kernels": [gae_entry, fused_entry]}))
+    # the sets kernel: [selfplay] (f)'s opponents, 32 an epoch (a rollout step each) and 1 a player step, counted
+    # from 0 with the others; its device time a step beside the held grouped launch's in its place
+    sets_entry = fused_entry.pop("sets_kernel")
+    sets_entry["launches"] = sf["train_sets"] + sf["play_sets"]
+    sets_entry["launches_selfplay_fused"] = {
+        "train": sf["train_sets"], "play": sf["play_sets"], "per_epoch": sf["train_sets"] / sf["epochs"],
+        "per_player_step": sf["play_sets"] / sf["play_steps"]}
+    sets_entry["selfplay_opp_device_ms"] = {"sets": sf["opp_device_ms"], "held": sf["opp_held_device_ms"]}
+    if sets_entry["launches"] == 0:
+        raise AssertionError("no main path launched the sets kernel")
+    print(json.dumps({"kernels": [gae_entry, fused_entry, sets_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

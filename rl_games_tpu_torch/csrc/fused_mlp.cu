@@ -96,8 +96,12 @@
 //   The width of each copy is chosen from the address that the copy is
 //   handed, so a set stride that breaks 16-byte alignment (a 6 -> 7 layer's
 //   42 floats a set) takes the narrower copies in the sets it misaligns.
-//   Each block streams its set's weights once; at one row a set (the
-//   opponents' case) a 16-row tile runs with 15 rows idle.
+//   Each block streams its set's weights once. That is the route of sets
+//   of many rows; a grouped launch at few rows a set (the self-play
+//   opponents: one row a set), where a 16-row tile would run with 15 rows
+//   idle, is a launch of the sets kernel further down
+//   (`fused_mlp_sets_kernel`, with its own notes; ops/fused_mlp.py
+//   sets_plan).
 // - A chain too deep for the argument block, or with an inner width that no
 //   buffer holds, is cut into several launches by the wrapper
 //   (ops/fused_mlp.py launch_plan); the widths between them go through
@@ -112,6 +116,7 @@
 #include <cuda.h>  // CUtensorMap and its enums: the streamed kernel's bulk tensor copies
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -1531,6 +1536,397 @@ int launch_cluster(const float* x, float* out, int B, const ClusterNet& net, int
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// The sets launch: a grouped launch over G weight sets at few rows a set
+// (the self-play opponents: the policy's chain 6 -> 128 -> 64 elu over each
+// env's own slot of weights, one row a set), `fused_mlp_sets_kernel`.
+//
+// It replaces no further TPU kernel: it is the route of `_fused_kernel`
+// (rl_games_tpu/ops/fused_mlp.py:112) under jax.vmap over stacked weights
+// (rl_games_tpu/envs/jax/selfplay.py:148-162) on this card where a set has
+// few rows (ops/fused_mlp.py sets_plan).
+//
+// What bounds it: bytes. Each set's weights are read once and used for a
+// handful of rows: the forage opponents move 36.6 KB a set, 37.8 MB at
+// G = 1024, for 18.4 MFLOP, so the least time is the bytes over the card's
+// memory rate (11.28 us) and the products are small beside it. The held
+// kernel's grouped launch (a block a set, a 16-row tile with 15 rows idle,
+// a ring of three 16 KB weight tiles behind a __syncthreads() each) keeps
+// too few bytes in flight: 0.38 of the bound.
+//
+// What the design does about it:
+// - Persistent blocks: as many as the card holds at once (grid = min(G,
+//   SMs x blocks an SM): three an SM for the forage chain at 2 stages);
+//   block b takes sets b, b + grid, b + 2 grid, ...
+// - A ring of whole sets in shared memory, `stages` deep: a stage holds one
+//   set's rows of x and every layer's W and b. One copying warp fills it.
+//   Lane 0 arms the stage's full barrier with the bytes of its bulk copies
+//   and issues them (cp.async.bulk, 1-D: a set's W_l [N, K] and b_l are
+//   contiguous, so each is one copy and needs no tensor map). A tensor that
+//   a bulk copy does not take (a set start that is not 16-byte aligned, or
+//   a size that is not a multiple of 16 bytes: x's 24-byte rows) goes by
+//   the warp's own cp.async, 16, 8 or 4 bytes wide as the set's address
+//   allows and the tail by 4-byte copies, after which every lane arrives on
+//   the full barrier when its copies land. The warp waits on the stage's
+//   empty barrier before it reuses the stage. So several sets' bytes are in
+//   flight on every SM at once. A tensor at set stride 0 (shared by every
+//   set) is copied once, into a region kept for the block's life.
+// - Products on the CUDA cores, in float32 FMA: a set of a few rows is a
+//   chain of matrix-vector products, where a tensor-core tile would idle
+//   most of its rows. The 8 multiplying warps form groups of `group_warps`
+//   (ops/fused_mlp.py SETS_WARPS: 4), and group g takes the block's sets g,
+//   g + groups, ..., so several sets are multiplied at once. In a layer each
+//   thread of the group owns outputs t, t + threads, ... and sums each over
+//   all of K itself, in vectors of 4 floats (2 or 1 where K is not a
+//   multiple of 4), one fmaf a float, starting at vector n mod (K / vector)
+//   and going round: neighbouring outputs start at neighbouring vectors, so
+//   the 8 lanes of a 16-byte load's phase read 8 different columns of W and
+//   of the input, without a bank conflict where K is a multiple of 8. Then
+//   bias and activation (elu through expm1f, as the held kernel) in every
+//   lane, and the row goes to the group's next activation buffer or, after
+//   the last layer, to out (neighbouring lanes, neighbouring addresses). No
+//   shuffles, and a fixed order: two calls give the same bits, and plain
+//   float32 is closer to the chain than 3xTF32. The group meets at a named
+//   barrier of its own after each layer, and each of its warps arrives on
+//   the stage's empty barrier after the set's last layer. (The first design,
+//   one set at a time over all 8 warps, a warp an output and a shuffle tree
+//   over its lanes, was latency-bound: 27.2 us at G = 1024, slower than the
+//   held launch from 2 rows a set: tools/fused_mlp_ab.py --sweep sets,
+//   PERF.md §6.)
+// - The stages are a multiple of the groups, so every use of a stage falls
+//   to one group, whose parity wait on the stage's full barrier then never
+//   finds it two phases behind.
+// - The tensors' records are copied into shared memory at entry: a read of
+//   the argument block at a layer index costs a constant-cache trip.
+// - A wait that never ends traps (kWaitTries).
+// ---------------------------------------------------------------------------
+
+constexpr int kSetsWarps = 8;                        // warps that multiply
+constexpr int kSetsThreads = 32 * (kSetsWarps + 1);  // and one copying warp
+constexpr int kSetsTensors = 1 + 2 * kMaxLayers;     // x, then W_0, b_0, W_1, b_1, ...
+constexpr int kMaxSetsStages = 16;
+constexpr int kSetsArrivals = 33;  // a full barrier's: lane 0's expect_tx, then each lane's copies landed
+
+// A tensor of a sets launch, as the host lays it out.
+struct SetsTensor {
+  const float* base;
+  long long set;  // set stride in floats (0: every set shares it, copied once a block)
+  int floats;     // floats a set
+  int off;        // offset (floats) in a stage, or in shared memory for a shared tensor
+};
+static_assert(sizeof(SetsTensor) == 24, "ops/fused_mlp.py counts 24 bytes a record of the sets kernel's table");
+
+struct SetsNet {
+  SetsTensor t[kSetsTensors];
+  float* out;
+  long long out_set;
+  int dims[kMaxLayers + 1];
+  int n_layers, act, B, groups, stages;
+  int group_warps;        // multiplying warps a set (1, 2, 4 or 8)
+  int stage_floats;       // a stage's floats
+  int ring_off, act_off;  // offsets (floats) of the ring and of the two activation buffers
+  int act_floats;         // floats of one activation buffer (two a group of warps)
+};
+
+// The static shared memory of the sets kernel: its table of tensors and widths.
+constexpr int kSetsStaticBytes = kSetsTensors * static_cast<int>(sizeof(SetsTensor)) + 4 * (kMaxLayers + 1);
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// activate<kAct> for an activation known at run time (one branch, the same
+// in every thread).
+__device__ __forceinline__ float activate_any(int act, float x) {
+  switch (act) {
+    case kRelu:
+      return activate<kRelu>(x);
+    case kElu:
+      return activate<kElu>(x);
+    case kSelu:
+      return activate<kSelu>(x);
+    case kSoftplus:
+      return activate<kSoftplus>(x);
+    case kGelu:
+      return activate<kGelu>(x);
+    case kSigmoid:
+      return activate<kSigmoid>(x);
+    case kSilu:
+      return activate<kSilu>(x);
+    case kTanh:
+      return activate<kTanh>(x);
+    default:
+      return x;
+  }
+}
+
+// Whether one bulk copy takes `floats` floats at `src`: a 16-byte aligned
+// address and a multiple of 16 bytes (ops/fused_mlp.py sets_copy).
+__device__ __forceinline__ bool sets_bulk(const float* src, int floats) {
+  return (reinterpret_cast<uintptr_t>(src) & 15) == 0 && (floats & 3) == 0;
+}
+
+// The copying warp's copies of `floats` floats from `src` into `dst` (16-byte
+// aligned): one bulk copy by lane 0, counted on `bar`, where sets_bulk takes
+// them; else every lane's cp.async, 16, 8 or 4 bytes wide as `src`'s
+// alignment allows, and the floats past the last whole copy 4 bytes a copy.
+__device__ __forceinline__ void sets_copy(float* dst, const float* src, int floats, uint64_t* bar, int lane) {
+  if (sets_bulk(src, floats)) {
+    if (lane == 0) bulk_copy(dst, src, 4u * floats, bar);
+    return;
+  }
+  const uintptr_t address = reinterpret_cast<uintptr_t>(src);
+  int body = 0;
+  if ((address & 15) == 0) {
+    body = floats & ~3;
+    for (int i = 4 * lane; i < body; i += 128) cp_async<4>(dst + i, src + i, true);
+  } else if ((address & 7) == 0) {
+    body = floats & ~1;
+    for (int i = 2 * lane; i < body; i += 64) cp_async<2>(dst + i, src + i, true);
+  }
+  for (int i = body + lane; i < floats; i += 32) cp_async<1>(dst + i, src + i, true);
+}
+
+// The copying warp's copies of set `set`'s tensors into `dst`: with `shared`
+// those that every set shares (set stride 0), else the others. Lane 0 arms
+// `bar` with the bytes of the bulk copies before it issues them; every lane
+// then arrives on `bar` once its own cp.async have landed (33 arrivals).
+__device__ __forceinline__ void sets_stage(float* dst, const SetsTensor* table, int n_tensors, long long set,
+                                           bool shared, uint64_t* bar, int lane) {
+  uint32_t tx = 0;
+  for (int k = 0; k < n_tensors; ++k) {
+    const SetsTensor& t = table[k];
+    if ((t.set == 0) == shared && sets_bulk(t.base + set * t.set, t.floats)) tx += 4u * t.floats;
+  }
+  if (lane == 0) mbar_arrive_expect_tx(bar, tx);
+  for (int k = 0; k < n_tensors; ++k) {
+    const SetsTensor& t = table[k];
+    if ((t.set == 0) == shared) sets_copy(dst + t.off, t.base + set * t.set, t.floats, bar, lane);
+  }
+  cp_async_arrive(bar);
+}
+
+template <int kVec>
+struct SetsVector;
+template <>
+struct SetsVector<4> {
+  using T = float4;
+  static __device__ __forceinline__ float fma(float4 w, float4 h, float acc) {
+    acc = fmaf(w.x, h.x, acc);
+    acc = fmaf(w.y, h.y, acc);
+    acc = fmaf(w.z, h.z, acc);
+    return fmaf(w.w, h.w, acc);
+  }
+};
+template <>
+struct SetsVector<2> {
+  using T = float2;
+  static __device__ __forceinline__ float fma(float2 w, float2 h, float acc) {
+    acc = fmaf(w.x, h.x, acc);
+    return fmaf(w.y, h.y, acc);
+  }
+};
+template <>
+struct SetsVector<1> {
+  using T = float;
+  static __device__ __forceinline__ float fma(float w, float h, float acc) { return fmaf(w, h, acc); }
+};
+
+// One layer of one set for thread `t` of the `threads` that multiply it:
+// dst[r, n] = act(in[r, :] . W[n, :] + b[n]) for rows r < rows, the rows of
+// `in` and of W K floats apart, those of dst N floats apart. Thread t owns
+// outputs t, t + threads, ...; for output n it walks the K / kVec vectors of
+// the inputs from vector n mod (K / kVec) on, round to the one before, each
+// vector's floats in order, one fmaf each into the row's sum. Neighbouring
+// outputs start at neighbouring vectors, so the 8 lanes of a 16-byte load's
+// phase read 8 different 16-byte columns of W and of `in`: no bank conflict
+// where K is a multiple of 8.
+template <int kRows, int kVec>
+__device__ __forceinline__ void sets_layer(const float* in, const float* W, const float* bias, int K, int N,
+                                           int rows, int act, float* dst, int t, int threads) {
+  using V = SetsVector<kVec>;
+  using T = typename V::T;
+  const int vectors = K / kVec;
+  const T* in_v = reinterpret_cast<const T*>(in);
+  for (int n = t; n < N; n += threads) {
+    const T* w_v = reinterpret_cast<const T*>(W + static_cast<size_t>(n) * K);
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+    int v = n % vectors;
+#pragma unroll 4
+    for (int j = 0; j < vectors; ++j) {
+      const T w = w_v[v];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < rows) acc[r] = V::fma(w, in_v[r * vectors + v], acc[r]);
+      if (++v == vectors) v = 0;
+    }
+    const float b = bias[n];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < rows) dst[static_cast<size_t>(r) * N + n] = activate_any(act, acc[r] + b);
+  }
+}
+
+// kRows: the most rows a set the kernel takes (B <= kRows). Three blocks of
+// the instances of at most 2 rows may share an SM where their rings fit (at
+// most 72 registers a thread), two of the others (112).
+template <int kRows>
+__global__ void __launch_bounds__(kSetsThreads, kRows <= 2 ? 3 : 2) fused_mlp_sets_kernel(const __grid_constant__ SetsNet net) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ SetsTensor table[kSetsTensors];
+  __shared__ int dims[kMaxLayers + 1];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + net.stages;
+  uint64_t* resident = empty + net.stages;  // the shared tensors' one fill
+  float* ring = smem + net.ring_off;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_layers = net.n_layers, n_tensors = 1 + 2 * n_layers, stages = net.stages;
+  if (tid < n_tensors) table[tid] = net.t[tid];
+  if (tid <= n_layers) dims[tid] = net.dims[tid];
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], kSetsArrivals);
+      mbar_init(&empty[s], net.group_warps);
+    }
+    mbar_init(resident, kSetsArrivals);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kSetsWarps) {
+    // The copying warp: the shared tensors once, then this block's sets
+    // through the ring, `stages` ahead of the multiplying warps.
+    sets_stage(smem, table, n_tensors, 0, true, resident, lane);
+    int i = 0;
+    for (long long set = blockIdx.x; set < net.groups; set += gridDim.x, ++i) {
+      const int s = i % stages, round = i / stages;
+      if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);  // the group that took the slot's set is done with it
+      sets_stage(ring + s * net.stage_floats, table, n_tensors, set, false, &full[s], lane);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // The multiplying warps, in groups of group_warps: group g takes the
+  // block's sets g, g + groups, ... (the i-th set of the block is in stage
+  // i % stages; the stages are a multiple of the groups, so every use of a
+  // stage is one group's), with two activation buffers of its own, and
+  // meets at a barrier of its own after each layer.
+  const int group_threads = 32 * net.group_warps, groups = kSetsWarps / net.group_warps;
+  const int group = warp / net.group_warps, t = tid - group * group_threads;
+  float* act_buf = smem + net.act_off + 2 * group * net.act_floats;
+  mbar_wait(resident, 0);
+  for (long long i = group, set = blockIdx.x + group * static_cast<long long>(gridDim.x); set < net.groups;
+       i += groups, set += groups * static_cast<long long>(gridDim.x)) {
+    const int s = static_cast<int>(i % stages);
+    mbar_wait(&full[s], static_cast<uint32_t>(i / stages) & 1);
+    const float* stage = ring + s * net.stage_floats;
+    for (int l = 0; l < n_layers; ++l) {
+      const SetsTensor &wt = table[1 + 2 * l], &bt = table[2 + 2 * l];
+      const float* W = (wt.set == 0 ? smem : stage) + wt.off;
+      const float* bias = (bt.set == 0 ? smem : stage) + bt.off;
+      const float* in = l == 0 ? (table[0].set == 0 ? smem : stage) + table[0].off
+                               : act_buf + ((l - 1) & 1) * net.act_floats;
+      const bool last = l == n_layers - 1;
+      float* dst = last ? net.out + set * net.out_set : act_buf + (l & 1) * net.act_floats;
+      const int K = dims[l], N = dims[l + 1];
+      if ((K & 3) == 0)
+        sets_layer<kRows, 4>(in, W, bias, K, N, net.B, net.act, dst, t, group_threads);
+      else if ((K & 1) == 0)
+        sets_layer<kRows, 2>(in, W, bias, K, N, net.B, net.act, dst, t, group_threads);
+      else
+        sets_layer<kRows, 1>(in, W, bias, K, N, net.B, net.act, dst, t, group_threads);
+      if (last) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+      }
+      // the group's warps meet: layer l's output is whole before layer l + 1
+      // reads it, and no warp writes a buffer that another still reads
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(group_threads) : "memory");
+    }
+  }
+}
+
+// An empty kernel of the sets kernel's block, launched at its grid and
+// shared memory: the floor under a sets launch's time.
+__global__ void __launch_bounds__(kSetsThreads, 1) fused_mlp_sets_empty_kernel() {}
+
+// The sets kernel's dynamic shared memory, in bytes, for the launch in `net`
+// (each tensor's floats and set stride, dims, n_layers, B, stages and
+// group_warps set);
+// fills each tensor's offset, the stage's floats and the regions' offsets
+// (ops/fused_mlp.py sets_layout computes the same): the barriers (a full and
+// an empty one a stage, one for the shared tensors), the shared tensors, two
+// activation buffers of B rows of the widest inner width for each group of
+// warps, then the ring. Every offset is a multiple of 4 floats: 16-byte copies, bulk
+// copies and 16-byte loads.
+long long sets_layout(SetsNet& net) {
+  auto up4 = [](long long f) { return (f + 3) & ~3LL; };
+  long long off = up4(2 * (2 * net.stages + 1));
+  const int n_tensors = 1 + 2 * net.n_layers;
+  for (int k = 0; k < n_tensors; ++k) {
+    if (net.t[k].set != 0) continue;
+    net.t[k].off = static_cast<int>(off);
+    off += up4(net.t[k].floats);
+  }
+  int widest = 0;
+  for (int l = 1; l < net.n_layers; ++l) widest = std::max(widest, net.dims[l]);
+  net.act_off = static_cast<int>(off);
+  net.act_floats = static_cast<int>(up4(static_cast<long long>(net.B) * widest));
+  off += 2LL * (kSetsWarps / net.group_warps) * net.act_floats;
+  net.ring_off = static_cast<int>(off);
+  long long stage = 0;
+  for (int k = 0; k < n_tensors; ++k) {
+    if (net.t[k].set == 0) continue;
+    net.t[k].off = static_cast<int>(stage);
+    stage += up4(net.t[k].floats);
+  }
+  net.stage_floats = static_cast<int>(stage);
+  return 4 * (off + net.stages * stage);
+}
+
+// Sets a kernel's dynamic shared memory and returns the grid of a sets
+// launch over `groups` sets: as many blocks as the card holds at once, at
+// most one a set; -1 on an error.
+template <typename Kernel>
+int sets_grid(Kernel kernel, int groups, int smem_bytes) {
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+      return -1;
+  }
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSetsThreads, smem_bytes) != cudaSuccess ||
+      per_sm < 1)
+    return -1;
+  return std::min(groups, sms * per_sm);
+}
+
+// The sets kernel's instance for `rows` rows a set (1, 2, 4, 8 or 16), or null.
+using SetsKernel = void (*)(SetsNet);
+SetsKernel sets_kernel(int rows) {
+  switch (rows) {
+    case 1:
+      return fused_mlp_sets_kernel<1>;
+    case 2:
+      return fused_mlp_sets_kernel<2>;
+    case 4:
+      return fused_mlp_sets_kernel<4>;
+    case 8:
+      return fused_mlp_sets_kernel<8>;
+    case 16:
+      return fused_mlp_sets_kernel<16>;
+    default:
+      return nullptr;
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) over `groups` weight sets
@@ -1690,4 +2086,80 @@ extern "C" int fused_mlp_stream_clusters(int rows, int cluster) {
     default:
       return -1;
   }
+}
+
+// The sets launch of a grouped chain (fused_mlp_sets_kernel) on `stream`:
+// arguments as fused_mlp_forward's, with `rows` the kernel's rows a set (1,
+// 2, 4, 8 or 16; B at most that), `stages` the ring's depth (1 to 16) and
+// `warps` the multiplying warps a set (1, 2, 4 or 8).
+// Returns the launch's CUDA error code and writes the preparation's to
+// *attr_err (-1 where the card holds no block of it); -1 for arguments the
+// kernel does not take (a stage that does not fit a block's shared memory
+// among them).
+extern "C" int fused_mlp_sets_forward(const float* x, float* out, int B, int n_layers, const int* dims,
+                                      const void* const* ws, const void* const* bs, int act, int rows, int stages,
+                                      int warps, int groups, long long x_set, long long out_set,
+                                      const long long* w_set, const long long* b_set, void* stream, int* attr_err) {
+  *attr_err = 0;
+  const SetsKernel kernel = sets_kernel(rows);
+  if (kernel == nullptr || n_layers < 1 || n_layers > kMaxLayers || act < kIdentity || act > kTanh) return -1;
+  if (groups < 1 || groups > kMaxGroups || stages < 1 || stages > kMaxSetsStages || B > rows) return -1;
+  // every use of a stage falls to one group (stages a multiple of the groups): a group's wait on a stage's full
+  // barrier by parity then never meets it two phases behind
+  if (warps < 1 || warps > kSetsWarps || kSetsWarps % warps != 0 || stages % (kSetsWarps / warps) != 0) return -1;
+  if (B <= 0) return 0;
+  const long long most = kMaxSharedBytes / 4;  // floats a tensor's set may hold
+  SetsNet net = {};
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1 || dims[l] > most) return -1;
+    net.dims[l] = dims[l];
+  }
+  net.t[0] = {x, x_set, B * dims[0], 0};
+  for (int l = 0; l < n_layers; ++l) {
+    const long long w_floats = static_cast<long long>(dims[l + 1]) * dims[l];
+    if (w_floats > most) return -1;
+    net.t[1 + 2 * l] = {static_cast<const float*>(ws[l]), w_set[l], static_cast<int>(w_floats), 0};
+    net.t[2 + 2 * l] = {static_cast<const float*>(bs[l]), b_set[l], dims[l + 1], 0};
+  }
+  net.out = out;
+  net.out_set = out_set;
+  net.n_layers = n_layers;
+  net.act = act;
+  net.B = B;
+  net.groups = groups;
+  net.stages = stages;
+  net.group_warps = warps;
+  const long long smem_bytes = sets_layout(net);
+  if (smem_bytes + kSetsStaticBytes > kMaxSharedBytes) return -1;
+  const int grid = sets_grid(kernel, groups, static_cast<int>(smem_bytes));
+  if (grid < 1) {
+    *attr_err = static_cast<int>(cudaGetLastError());
+    if (*attr_err == 0) *attr_err = -1;
+    return 0;
+  }
+  void* args[] = {&net};
+  const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kSetsThreads), args,
+                                           static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The grid of a sets launch of `rows` rows a set over `groups` sets with
+// `smem_bytes` of dynamic shared memory (as fused_mlp_sets_forward launches
+// it); -1 on an error.
+extern "C" int fused_mlp_sets_grid(int rows, int groups, int smem_bytes) {
+  const SetsKernel kernel = sets_kernel(rows);
+  if (kernel == nullptr || groups < 1 || smem_bytes < 0 || smem_bytes + kSetsStaticBytes > kMaxSharedBytes) return -1;
+  return sets_grid(kernel, groups, smem_bytes);
+}
+
+// An empty kernel of the sets kernel's block at `grid` blocks and
+// `smem_bytes` of dynamic shared memory (the floor under a sets launch's
+// time); the CUDA error code.
+extern "C" int fused_mlp_sets_empty(int grid, int smem_bytes, void* stream) {
+  if (grid < 1 || smem_bytes < 0 || smem_bytes + kSetsStaticBytes > kMaxSharedBytes) return -1;
+  const int err = static_cast<int>(
+      cudaFuncSetAttribute(fused_mlp_sets_empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
+  if (err != 0) return err;
+  fused_mlp_sets_empty_kernel<<<grid, kSetsThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

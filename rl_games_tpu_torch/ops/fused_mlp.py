@@ -30,8 +30,11 @@ rows (below a crossover measured on the card: the rollout's 16 rows, the
 host path's 64, an exported policy's one action) runs as the cluster kernel
 (``cluster_plan``): a cluster of blocks splits each layer's outputs, every
 block fetches its share of the weights at once, and the activations pass
-between them through distributed shared memory; grouped launches stay on
-the held kernel. Gradients are exact: the backward
+between them through distributed shared memory. A grouped launch at few
+rows a set (the self-play opponents' one row) runs as the sets kernel
+(``sets_plan``): persistent blocks stream whole sets' weights through a ring
+of stages by bulk copies and make the products on the CUDA cores in float32.
+Gradients are exact: the backward
 recomputes through ``plain_mlp``, as the JAX package's custom VJP does, so
 the kernel is the forward (rollout, player, loss forward) path.
 
@@ -47,11 +50,12 @@ Over G weight sets at once (a self-play env's opponents: the policy under
 Pallas call under ``jax.vmap``), the operator's vmap rule makes one grouped
 call: ``fused_mlp_grouped`` (x [G, B, D_0] or a shared [B, D_0]; each
 weight [G, out, in] or a shared [out, in]; each bias [G, out] or a shared
-[out]; returns [G, B, D_L]), which is one launch of the same kernel on the
-card (``fused_mlp_grouped_cuda``, each set a row of blocks, a shared tensor
-at set stride 0) and ``plain_mlp_grouped`` on the CPU. It is a registered
-operator too, ``rl_games_tpu_torch::fused_mlp_grouped``, whose backward
-recomputes through ``plain_mlp_grouped``.
+[out]; returns [G, B, D_L]), which on the card is one grouped launch for
+each entry of ``grouped_launch_plan`` (``fused_mlp_grouped_cuda``: the held
+kernel, each set a row of blocks, or at few rows a set the sets kernel; a
+shared tensor at set stride 0) and ``plain_mlp_grouped`` on the CPU. It is a
+registered operator too, ``rl_games_tpu_torch::fused_mlp_grouped``, whose
+backward recomputes through ``plain_mlp_grouped``.
 """
 
 import ctypes
@@ -71,6 +75,8 @@ fused_mlp_launches = 0
 fused_mlp_grouped_launches = 0
 # The launches of the cluster kernel among them (``_launch`` adds one here too).
 fused_mlp_cluster_launches = 0
+# The launches of the sets kernel among the grouped ones (``_launch`` adds one here too).
+fused_mlp_sets_launches = 0
 
 # The kernel's limits.
 MAX_LAYERS = 8  # layers a launch: their pointers travel in the kernel's argument block
@@ -113,6 +119,26 @@ CLUSTER_BLOCKS = (1, 2, 4, 8, 16)  # clusters the kernel takes (16 as a non-port
 # csrc/fused_mlp.cu: two 8-byte barriers a layer, and the static table of
 # MAX_LAYERS records of ClusterLayerArgs (two pointers and seven ints: 48 bytes)
 _CLUSTER_BARRIER_FLOATS, _CLUSTER_TABLE_BYTES = 2 * 2 * MAX_LAYERS, MAX_LAYERS * 48
+# The sets kernel (csrc/fused_mlp.cu fused_mlp_sets_kernel): a grouped launch
+# at few rows a set, persistent blocks that stream whole sets through a ring
+# of stages, its 8 multiplying warps in groups that take a set each. Its
+# instances (rows a set it is built for). Measured on an NVIDIA H100 80GB HBM3
+# at 700 W by tools/fused_mlp_ab.py --sweep sets (the forage chain 6 -> 128 ->
+# 64 at 1-16 rows a set over 64-1024 sets; PERF.md §6): the ring's stages and
+# the warps a set that ran fastest at one row a set over 1024 sets (2 and 4:
+# three blocks an SM, six sets at once), and, for each instance's rows, the
+# fewest sets from which it beat the held grouped launch at every count the
+# sweep ran; at 8 and 16 rows a set the held kernel was faster at every count.
+SETS_ROWS = (1, 2, 4, 8, 16)
+SETS_STAGES = 2
+SETS_WARPS = 4
+SETS_MIN_GROUPS = {1: 256, 2: 256, 4: 512}
+SETS_MAX_ROWS = max(SETS_MIN_GROUPS)
+SETS_MULTIPLYING_WARPS = 8  # csrc/fused_mlp.cu kSetsWarps
+MAX_SETS_STAGES = 16  # csrc/fused_mlp.cu kMaxSetsStages
+# csrc/fused_mlp.cu: the static table of 1 + 2 MAX_LAYERS records of
+# SetsTensor (a pointer, a set stride, two ints: 24 bytes) and the widths
+_SETS_TABLE_BYTES = (1 + 2 * MAX_LAYERS) * 24 + 4 * (MAX_LAYERS + 1)
 # activation name -> the kernel's integer code (csrc/fused_mlp.cu ``Act``)
 ACTIVATION_CODES = {
     "None": 0, None: 0, "relu": 1, "elu": 2, "selu": 3, "softplus": 4,
@@ -134,6 +160,7 @@ _PLAIN_ACTS = {
 _forward = None
 _stream_forward = None
 _cluster_forward = None
+_sets_forward = None
 
 
 def _activation_code(activation) -> int:
@@ -340,15 +367,132 @@ def cluster_plan(dims: Sequence[int], batch: int) -> Optional[ClusterPlan]:
     return ClusterPlan(cluster, shared) if shared <= MAX_SHARED_BYTES else None
 
 
+class SetsPlan(NamedTuple):
+    """A grouped launch run as the sets kernel: its instance's rows a set
+    (``SETS_ROWS``, at least the batch), the ring's stages, the multiplying
+    warps a set (a group of them takes each set; the stages a multiple of
+    the groups) and the dynamic shared bytes a block takes."""
+    rows: int
+    stages: int
+    warps: int
+    shared: int
+
+
+def _up4(floats: int) -> int:
+    return -(-floats // 4) * 4
+
+
+def sets_tensor_floats(dims: Sequence[int], batch: int) -> List[int]:
+    """The floats of one set of each tensor of a sets launch, in the
+    kernel's order: x's rows, then W_0, b_0, W_1, b_1, ..."""
+    return [batch * dims[0]] + [f for k, n in zip(dims[:-1], dims[1:]) for f in (n * k, n)]
+
+
+class SetsLayout(NamedTuple):
+    """Where the sets kernel keeps a launch in shared memory, in floats
+    (csrc/fused_mlp.cu ``sets_layout``): each tensor's offset (a shared one
+    from the start of shared memory, the others from their stage's start),
+    the two activation buffers, the ring and the whole."""
+    offsets: Tuple[int, ...]
+    act_off: int
+    act_floats: int
+    ring_off: int
+    stage_floats: int
+    floats: int
+
+
+def sets_layout(dims: Sequence[int], batch: int, stages: int, shared: Optional[Sequence[bool]] = None,
+                warps: int = SETS_MULTIPLYING_WARPS) -> SetsLayout:
+    """The sets kernel's shared memory for one launch of widths ``dims``
+    over sets of ``batch`` rows: a full and an empty barrier a stage and one
+    more (8 bytes each), the tensors every set shares (``shared``: a flag
+    per tensor of ``sets_tensor_floats``, True at set stride 0; None: none),
+    two activation buffers of ``batch`` rows of the widest inner width for
+    each group of ``warps`` multiplying warps, then ``stages`` stages of the
+    other tensors; every region a multiple of 4 floats (16 bytes)."""
+    floats = sets_tensor_floats(dims, batch)
+    shared = tuple(shared) if shared is not None else (False,) * len(floats)
+    offsets = [0] * len(floats)
+    off = _up4(2 * (2 * stages + 1))
+    for k, f in enumerate(floats):
+        if shared[k]:
+            offsets[k], off = off, off + _up4(f)
+    act_off, act_floats = off, _up4(batch * max(dims[1:-1], default=0))
+    ring_off = act_off + 2 * (SETS_MULTIPLYING_WARPS // warps) * act_floats
+    stage = 0
+    for k, f in enumerate(floats):
+        if not shared[k]:
+            offsets[k], stage = stage, stage + _up4(f)
+    return SetsLayout(tuple(offsets), act_off, act_floats, ring_off, stage, ring_off + stages * stage)
+
+
+def sets_shared_bytes(dims: Sequence[int], batch: int, stages: int, shared: Optional[Sequence[bool]] = None,
+                      warps: int = SETS_MULTIPLYING_WARPS) -> int:
+    """The sets kernel's dynamic shared memory in bytes (``sets_layout``)."""
+    return 4 * sets_layout(dims, batch, stages, shared, warps).floats
+
+
+def sets_warps(stages: int, warps: int = SETS_WARPS) -> int:
+    """The multiplying warps a set at ``stages`` stages: ``warps``, or as
+    many more (doubled) as make the stages a multiple of the groups."""
+    while SETS_MULTIPLYING_WARPS // warps > stages or stages % (SETS_MULTIPLYING_WARPS // warps):
+        warps *= 2
+    return warps
+
+
+def sets_plan(dims: Sequence[int], batch: int, groups: int,
+              shared: Optional[Sequence[bool]] = None) -> Optional[SetsPlan]:
+    """The sets kernel's shape for a held grouped launch of widths ``dims``
+    over ``groups`` sets of ``batch`` rows (``shared`` as
+    ``sets_shared_bytes``'), or None where the held kernel runs it: more
+    than SETS_MAX_ROWS rows a set, fewer sets than SETS_MIN_GROUPS gives the
+    instance's rows (G = 1 is the ordinary launch), or a set whose tensors
+    do not fit two stages in a block's shared memory. The ring takes
+    SETS_STAGES stages, or as many as fit, and SETS_WARPS warps a set, or
+    more where the stages would not be a multiple of the groups
+    (``sets_warps``)."""
+    if not 1 <= batch <= SETS_MAX_ROWS or not 1 <= len(dims) - 1 <= MAX_LAYERS:
+        return None
+    rows = next(r for r in SETS_ROWS if r >= batch)
+    if groups < SETS_MIN_GROUPS[rows]:
+        return None
+    for stages in range(SETS_STAGES, 1, -1):
+        warps = sets_warps(stages)
+        shared_bytes = sets_shared_bytes(dims, batch, stages, shared, warps)
+        if shared_bytes + _SETS_TABLE_BYTES <= MAX_SHARED_BYTES:
+            return SetsPlan(rows, stages, warps, shared_bytes)
+    return None
+
+
+def sets_copy(address: int, floats: int):
+    """How the sets kernel copies one set of a tensor, ``floats`` floats at
+    byte ``address``: "bulk" (one bulk copy: a 16-byte aligned address and
+    a multiple of 16 bytes), else the width in bytes (16, 8 or 4) of the
+    cp.async that the address allows, the floats past the last whole copy
+    going 4 bytes a copy (csrc/fused_mlp.cu ``sets_copy``)."""
+    if address % 16 == 0 and floats % 4 == 0:
+        return "bulk"
+    return 16 if address % 16 == 0 else 8 if address % 8 == 0 else 4
+
+
+def sets_copy_modes(address: int, set_stride: int, floats: int, groups: int) -> list:
+    """``sets_copy`` of each set of a tensor at byte ``address`` whose sets
+    lie ``set_stride`` floats apart; a shared tensor (set stride 0) is
+    copied once, so it has one."""
+    return [sets_copy(address + 4 * g * set_stride, floats) for g in range(groups if set_stride else 1)]
+
+
 class Launch(NamedTuple):
     """One launch of a chain: layers ``first`` .. ``last`` - 1, held or (one
     layer) streamed, its ``kernel_plan``; a held launch that runs as the
-    cluster kernel also its ``cluster_plan`` (None: the held kernel)."""
+    cluster kernel also its ``cluster_plan``, a held grouped launch that
+    runs as the sets kernel its ``sets_plan`` (None: the held kernel)."""
     first: int
     last: int
     streamed: bool
     plan: tuple
     cluster: Optional[ClusterPlan] = None
+    sets: Optional[SetsPlan] = None
 
 
 def launch_plan(dims: Sequence[int], batch: int, cluster: bool = True) -> List[Launch]:
@@ -375,6 +519,23 @@ def launch_plan(dims: Sequence[int], batch: int, cluster: bool = True) -> List[L
         launches.append(Launch(first, last, streamed, kernel_plan(dims[first:last + 1], batch, streamed), held))
         first = last
     return launches
+
+
+def grouped_launch_plan(dims: Sequence[int], batch: int, groups: int,
+                        shared: Optional[Sequence[bool]] = None) -> List[Launch]:
+    """The launches of a chain of widths ``dims`` over ``groups`` sets of
+    ``batch`` rows (``shared`` as ``sets_shared_bytes``', for the whole
+    chain): ``launch_plan``'s cuts without the cluster kernel, which takes
+    one weight set; a set of at most 16 rows planned as one 16-row tile,
+    where a 32-row tile would only idle more rows, else over all rows. Each
+    held launch that ``sets_plan`` takes runs as the sets kernel; the
+    input of a launch after the first is a scratch of each set's own."""
+    launches = launch_plan(dims, groups * batch if batch > 16 else 0, cluster=False)
+    shared = tuple(shared) if shared is not None else (False,) * (2 * len(dims) - 1)
+    return [launch if launch.streamed else launch._replace(sets=sets_plan(
+        dims[launch.first:launch.last + 1], batch, groups,
+        (shared[0] and launch.first == 0,) + shared[1 + 2 * launch.first:1 + 2 * launch.last]))
+        for launch in launches]
 
 
 def stream_grid(plan: StreamPlan, batch: int, groups: int = 1) -> Tuple[int, int]:
@@ -452,6 +613,54 @@ def _cluster_kernel():
     return _cluster_forward
 
 
+# csrc/fused_mlp.cu fused_mlp_sets_forward(x, out, B, n_layers, dims, ws, bs,
+# act, rows, stages, warps, groups, x_set, out_set, w_set, b_set, stream,
+# attr_err)
+SETS_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+)
+
+
+def _sets_kernel():
+    global _sets_forward
+    if _sets_forward is None:
+        fn = cuda_build.load("fused_mlp").fused_mlp_sets_forward
+        fn.argtypes = list(SETS_ARGTYPES)
+        fn.restype = ctypes.c_int
+        _sets_forward = fn
+    return _sets_forward
+
+
+def sets_grid(plan: SetsPlan, groups: int) -> int:
+    """The blocks of a sets launch over ``groups`` sets: as many as the card
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the
+    plan's shared memory), at most one a set (builds the kernel)."""
+    fn = cuda_build.load("fused_mlp").fused_mlp_sets_grid
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    grid = fn(plan.rows, groups, plan.shared)
+    if grid < 1:
+        raise RuntimeError(f"fused_mlp_sets_grid failed for {plan}, {groups} sets")
+    return grid
+
+
+def sets_empty_launch(plan: SetsPlan, groups: int) -> None:
+    """An empty kernel at the block, grid and shared memory of a sets launch
+    over ``groups`` sets on the current stream: the floor under its time
+    (chip_smoke.py and tools/fused_mlp_ab.py time it). Not a launch of the
+    kernel: it counts nowhere."""
+    fn = cuda_build.load("fused_mlp").fused_mlp_sets_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(sets_grid(plan, groups), plan.shared, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_sets_empty failed with CUDA error {err}")
+
+
 def cluster_grid(plan: ClusterPlan, batch: int) -> int:
     """The blocks of a cluster launch over ``batch`` rows: a cluster a
     16-row tile."""
@@ -514,7 +723,7 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
     ``dims`` / ``ws`` / ``bs`` of ``launch`` (a ``launch_plan`` entry).
     ``set_strides``: (x's, out's, [each weight's], [each bias's]), in
     floats."""
-    global fused_mlp_launches, fused_mlp_cluster_launches
+    global fused_mlp_launches, fused_mlp_cluster_launches, fused_mlp_sets_launches
     n = len(ws)
     x_set, out_set, w_sets, b_sets = set_strides
     attr_err = ctypes.c_int(0)
@@ -522,7 +731,22 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
         raise ValueError(f"the cluster kernel takes one weight set, got {groups}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if launch.cluster is not None:
+        if launch.sets is not None:
+            rows, stages, warps, shared = launch.sets
+            c_dims = (ctypes.c_int * (n + 1))(*dims)
+            c_ws = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
+            c_bs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
+            c_w_sets = (ctypes.c_longlong * n)(*w_sets)
+            c_b_sets = (ctypes.c_longlong * n)(*b_sets)
+            err = _sets_kernel()(
+                x.data_ptr(), out.data_ptr(), batch, n,
+                ctypes.cast(c_dims, ctypes.c_void_p), ctypes.cast(c_ws, ctypes.c_void_p),
+                ctypes.cast(c_bs, ctypes.c_void_p),
+                act, rows, stages, warps, groups, x_set, out_set,
+                ctypes.cast(c_w_sets, ctypes.c_void_p), ctypes.cast(c_b_sets, ctypes.c_void_p),
+                stream, ctypes.byref(attr_err),
+            )
+        elif launch.cluster is not None:
             rows, stride0, stride1, _ = launch.plan
             cluster, shared = launch.cluster
             c_dims = (ctypes.c_int * (n + 1))(*dims)
@@ -556,8 +780,11 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
                 ctypes.cast(c_w_sets, ctypes.c_void_p), ctypes.cast(c_b_sets, ctypes.c_void_p),
                 stream, ctypes.byref(attr_err),
             )
-    name = ("fused_mlp_cluster_forward" if launch.cluster is not None
+    name = ("fused_mlp_sets_forward" if launch.sets is not None
+            else "fused_mlp_cluster_forward" if launch.cluster is not None
             else "fused_mlp_stream_forward" if launch.streamed else "fused_mlp_forward")
+    if launch.sets is not None and attr_err.value == -1:
+        raise RuntimeError(f"{name}: the card holds no block of {shared} bytes of dynamic shared memory")
     if attr_err.value == -3:
         raise RuntimeError(f"{name}: the {rows}-row kernel was not built with the 168 registers a thread "
                            "that its exchange of registers between warpgroups (setmaxnreg) counts on")
@@ -571,6 +798,8 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
     fused_mlp_launches += 1
     if launch.cluster is not None:
         fused_mlp_cluster_launches += 1
+    if launch.sets is not None:
+        fused_mlp_sets_launches += 1
 
 
 def _run_chain(x, out, batch, dims, ws, bs, act, launches, groups=1, set_strides=None):
@@ -620,12 +849,31 @@ def fused_mlp_cuda(x, ws, bs, activation):
     return out
 
 
+def grouped_set_strides(x, ws, bs, out):
+    """The set strides (floats) of a grouped chain's tensors, as ``_launch``
+    takes them: (x's, out's, [each weight's], [each bias's]); a tensor
+    without the set axis at 0."""
+    def set_stride(t, batched_dims):
+        return t.stride(0) if t.dim() == batched_dims else 0
+
+    return set_stride(x, 3), out.stride(0), [set_stride(w, 3) for w in ws], [set_stride(b, 2) for b in bs]
+
+
+def set_strides_shared(set_strides) -> Tuple[bool, ...]:
+    """For each tensor of ``sets_tensor_floats`` (x, W_0, b_0, ...), whether
+    its set stride is 0 (no set axis, or an expanded one): shared by every
+    set, so the sets kernel copies it once."""
+    x_set, _, w_sets, b_sets = set_strides
+    return (x_set == 0,) + tuple(s == 0 for pair in zip(w_sets, b_sets) for s in pair)
+
+
 def fused_mlp_grouped_cuda(x, ws, bs, activation):
     """The chain over G weight sets (shapes: ``grouped_dims``) through the
-    CUDA kernel, each launch of ``launch_plan`` one grouped launch, a set a
-    row of blocks; a tensor without the set axis goes in at set stride 0,
-    shared and never copied. Returns [G, B, D_L]; raises on anything it does
-    not take, and on a G beyond MAX_GROUPS."""
+    CUDA kernel, each launch of ``grouped_launch_plan`` one grouped launch:
+    the held kernel (a set a row of blocks) or, at few rows a set, the sets
+    kernel; a tensor without the set axis goes in at set stride 0, shared
+    and copied once. Returns [G, B, D_L]; raises on anything it does not
+    take, and on a G beyond MAX_GROUPS."""
     global fused_mlp_grouped_launches
     act = _activation_code(activation)
     ws, bs = tuple(ws), tuple(bs)
@@ -636,20 +884,11 @@ def fused_mlp_grouped_cuda(x, ws, bs, activation):
         raise ValueError(f"fused_mlp takes at most {MAX_GROUPS} weight sets a launch, got {groups}")
     _check_tensors(x, ws, bs)
     batch = x.shape[-2]
-    # a set of at most 16 rows fills one 16-row tile, where a 32-row tile
-    # would only idle more rows; else the ordinary rule over all rows. The
-    # held kernel takes every grouped launch: the cluster kernel takes one
-    # weight set (a rule keyed on the batch would send every set of at most
-    # 16 rows to it)
-    launches = launch_plan(dims, groups * batch if batch > 16 else 0, cluster=False)
     out = torch.empty((groups, batch, dims[-1]), dtype=torch.float32, device=x.device)
+    set_strides = grouped_set_strides(x, ws, bs, out)
+    launches = grouped_launch_plan(dims, batch, groups, set_strides_shared(set_strides))
     if groups == 0 or batch == 0:
         return out
-
-    def set_stride(t, batched_dims):
-        return t.stride(0) if t.dim() == batched_dims else 0
-
-    set_strides = (set_stride(x, 3), out.stride(0), [set_stride(w, 3) for w in ws], [set_stride(b, 2) for b in bs])
     _run_chain(x, out, batch, dims, ws, bs, act, launches, groups, set_strides)
     fused_mlp_grouped_launches += len(launches)
     return out

@@ -1,9 +1,9 @@
 """The fused MLP's kernel, this tree against another (a parent commit
 unpacked with ``git archive``), in turns on one card; or, with ``--sweep``,
-this tree's cluster and streamed kernels over every shape they take.
+this tree's cluster, streamed and sets kernels over every shape they take.
 
     python3 tools/fused_mlp_ab.py PARENT_DIR [--rounds 1]
-    python3 tools/fused_mlp_ab.py --sweep [cluster|stream] [--reps 20]
+    python3 tools/fused_mlp_ab.py --sweep [cluster|stream|sets] [--reps 20]
 
 Each round runs four processes, one after another: PARENT_DIR, this tree,
 this tree, PARENT_DIR. Each builds its own tree's kernels (its
@@ -25,14 +25,20 @@ this tree, PARENT_DIR. Each builds its own tree's kernels (its
   3135 inputs at B = 512; (64, 4096, 4096, 8) at B = 1024; the grouped
   3136->512->64 at G = 4, B = 256 with the 3136-wide weight shared;
 - the host time of one ``fused_mlp_cuda`` call at 3136->512, B = 512
-  (``chip_smoke.host_us_per_call``).
+  (``chip_smoke.host_us_per_call``);
+- the grouped forage chain 6->128->64 elu at G = 1024 and 512, B = 1 (the
+  self-play opponents) and G = 64, B = 3 (``chip_smoke.time_fused_grouped``:
+  ``fused_mlp_grouped_cuda`` against ``plain_mlp_grouped``): since the sets
+  kernel, the tree's plan runs them there, where a parent before it runs
+  the held kernel.
 
 Both trees need ``chip_smoke.py`` with ``time_fused``, ``time_wide``,
-``mlp_inputs``, ``grouped_inputs`` and ``host_us_per_call``. Prints a line
+``time_fused_grouped``, ``mlp_inputs``, ``grouped_inputs``, ``FORAGE_DIMS``
+and ``host_us_per_call``. Prints a line
 per process and row, then one JSON object with each tree's numbers in run
 order and the change's mean over the parent's for each row.
 
-``--sweep`` runs in this process, both kernels unless one is named. The
+``--sweep`` runs in this process, every kernel unless one is named. The
 cluster kernel (csrc/fused_mlp.cu ``fused_mlp_cluster_kernel``): for the
 walker GRU's, the host path's and the flagship's torsos, Pendulum's and
 CartPole's, the self-play learner's and the fused Pong head at B = 1, 16,
@@ -55,8 +61,18 @@ cost in the model that ``ops/fused_mlp.stream_plan`` picks from (waves times
 output tiles a block times rows over ``STREAM_RATE``) and ``addmm``'s time.
 Then the clusters of each size that the card holds at once
 (``cudaOccupancyMaxActiveClusters``), which ``STREAM_WAVE_BLOCKS`` records.
-The shape that the plan picks is marked. Ends with one JSON object of the
-rows.
+The shape that the plan picks is marked. The sets kernel (csrc/fused_mlp.cu
+``fused_mlp_sets_kernel``): for the forage opponents' chain 6->128->64 elu at
+1, 2, 4, 8 and 16 rows a set over G = 64, 128, 256, 512 and 1024 sets, it
+launches the sets kernel at every stage count of ``SETS_SWEEP_STAGES`` that
+fits a block and every multiplying warps a set of ``SETS_SWEEP_WARPS`` whose
+groups divide the stages, and the held grouped launch; checks each against
+``plain_mlp_grouped`` (rtol = atol = 2e-5) and two calls bit for bit; and
+prints the device time a call beside the held launch's, the plain chain's,
+an empty launch of its grid and shared memory, and the bound (bytes). The
+fastest shape and whether it beats the held launch set ``SETS_MAX_ROWS``,
+``SETS_STAGES``, ``SETS_WARPS`` and ``SETS_MIN_GROUPS``. Ends with one JSON
+object of the rows.
 """
 
 import argparse
@@ -79,6 +95,11 @@ SWEEP_CASES = (((3136, 512), 512), ((3136, 512), 1024), ((3136, 512), 4096), ((4
 CLUSTER_SWEEP_CHAINS = (((16, 256, 128, 64), "elu"), ((5, 128, 64, 32), "elu"), ((26, 256, 128, 64), "elu"),
                         ((3, 32, 32), "elu"), ((4, 32, 32), "relu"), ((6, 128, 64), "elu"), ((512, 64), "elu"))
 CLUSTER_SWEEP_BATCHES = (1, 16, 64, 256, 1024, 2048)
+# the sets kernel's sweep: the forage opponents' chain at rows a set x sets, each stage count that fits a block
+SETS_SWEEP_BATCHES = (1, 2, 4, 8, 16)
+SETS_SWEEP_GROUPS = (64, 128, 256, 512, 1024)
+SETS_SWEEP_STAGES = (2, 3, 4, 6, 8)
+SETS_SWEEP_WARPS = (8, 4, 2, 1)  # multiplying warps a set (the kernel's 8 in groups of these)
 PROBE = (
     "import json, torch, chip_smoke as c\n"
     "from rl_games_tpu_torch.ops import fused_mlp as fm\n"
@@ -102,6 +123,9 @@ PROBE = (
     "wide('grouped 3136x512x64 G=4 B=256', x, [ws[0][0], ws[1]], bs)\n"
     "x, ws, bs = c.mlp_inputs((3136, 512), 512, gen, dev)\n"
     "rows['host time a call, 3136x512 B=512'] = {'us': c.host_us_per_call(lambda: fm.fused_mlp_cuda(x, ws, bs, 'elu'))}\n"
+    "for g, b in ((1024, 1), (512, 1), (64, 3)):\n"
+    "    r = c.time_fused_grouped('forage', *c.grouped_inputs(c.FORAGE_DIMS, g, b, gen, dev))\n"
+    "    rows[f'grouped 6x128x64 G={g} B={b}'] = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms')}\n"
     "print('AB ' + json.dumps(rows))\n" % (FLAGSHIP_BATCHES, SMALL_ROWS)
 )
 
@@ -263,11 +287,83 @@ def cluster_sweep(reps: int, smi: str):
     print(json.dumps({"device": smi, "cluster_rows": rows_out, "fastest": best}))
 
 
+def sets_sweep(reps: int, smi: str):
+    """The sets kernel at every rows a set, set count and stage count of the
+    sweep, beside the held grouped launch (the module docstring's
+    ``--sweep``)."""
+    import torch
+
+    import chip_smoke as c
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+    from rl_games_tpu_torch.utils import cuda_build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("fused_mlp_ab --sweep: no CUDA card")
+    cuda_build.build_all(["fused_mlp"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    dims, act = list(c.FORAGE_DIMS), fm.ACTIVATION_CODES["elu"]
+    rows_out, best = [], []
+    for batch in SETS_SWEEP_BATCHES:
+        for groups in SETS_SWEEP_GROUPS:
+            x, ws, bs = c.grouped_inputs(c.FORAGE_DIMS, groups, batch, gen, dev)
+            out = torch.empty((groups, batch, dims[-1]), device=dev)
+            strides = fm.grouped_set_strides(x, ws, bs, out)
+            (planned,) = fm.grouped_launch_plan(dims, batch, groups, fm.set_strides_shared(strides))
+            held_launch = planned._replace(sets=None)
+
+            def run(launch):
+                return lambda: fm._run_chain(x, out, batch, dims, ws, bs, act, [launch], groups, strides)
+
+            want = fm.plain_mlp_grouped(x, ws, bs, "elu")
+            plain_us = c.device_time_ms(lambda: fm.plain_mlp_grouped(x, ws, bs, "elu"), reps)[0] * 1e3
+            held_us = c.device_time_ms(run(held_launch), reps)[0] * 1e3
+            nbytes = 4 * (x.numel() + sum(t.numel() for t in (*ws, *bs)) + out.numel())
+            bound_us = nbytes / c.PEAK_BYTES_PER_S * 1e6
+            print(f"[sweep] sets {'x'.join(map(str, dims))} G={groups} B={batch}: held grouped launch {held_us:.2f} us,"
+                  f" plain {plain_us:.2f} us, bound {bound_us:.2f} us ({nbytes} B); the plan picks "
+                  + (f"{planned.sets.stages} stages, {planned.sets.warps} warps a set" if planned.sets
+                     else "the held kernel"))
+            fastest = None
+            for stages, warps in ((s, w) for s in SETS_SWEEP_STAGES for w in SETS_SWEEP_WARPS
+                                  if s % (fm.SETS_MULTIPLYING_WARPS // w) == 0):
+                shared = fm.sets_shared_bytes(dims, batch, stages, warps=warps)
+                if shared + fm._SETS_TABLE_BYTES > fm.MAX_SHARED_BYTES:
+                    continue
+                plan = fm.SetsPlan(next(r for r in fm.SETS_ROWS if r >= batch), stages, warps, shared)
+                launch = held_launch._replace(sets=plan)
+                run(launch)()
+                torch.cuda.synchronize()
+                share = float(((out - want).abs() / (2e-5 + 2e-5 * want.abs())).max())
+                first = out.clone()
+                us = c.device_time_ms(run(launch), reps)[0] * 1e3
+                repeat = torch.equal(out, first)
+                floor = c.device_time_ms(lambda: fm.sets_empty_launch(plan, groups), reps)[0] * 1e3
+                row = {"dims": dims, "groups": groups, "batch": batch, "rows": plan.rows, "stages": stages, "warps": warps,
+                       "grid": fm.sets_grid(plan, groups), "shared": shared, "us": us, "held_us": held_us,
+                       "plain_us": plain_us, "floor_us": floor, "bound_us": bound_us, "err_over_tolerance": share,
+                       "bit_equal_calls": repeat, "picked": planned.sets == plan}
+                rows_out.append(row)
+                print(f"[sweep] sets G={groups} B={batch} {stages} stages, {warps} warps a set (grid {row['grid']}, "
+                      f"{shared} B shared): "
+                      f"{us:.2f} us ({bound_us / us:.3f} of the bound; held {held_us:.2f}, {us / held_us:.3f}x; "
+                      f"empty launch {floor:.2f} us), {share:.3f} of the tolerance{' <- plan' if row['picked'] else ''}")
+                if not (share <= 1.0 and repeat):
+                    raise AssertionError(f"the sets kernel is wrong at {row}")
+                if fastest is None or us < fastest["us"]:
+                    fastest = row
+            best.append(fastest)
+            print(f"[sweep] sets G={groups} B={batch}: fastest {fastest['stages']} stages, {fastest['warps']} warps a "
+                  f"set {fastest['us']:.2f} us "
+                  f"against the held launch's {held_us:.2f} us ({fastest['us'] / held_us:.3f}x)")
+    print(json.dumps({"device": smi, "sets_rows": rows_out, "fastest": best}))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("parent", nargs="?")
     parser.add_argument("--rounds", type=int, default=1)
-    parser.add_argument("--sweep", nargs="?", const="both", choices=("both", "cluster", "stream"))
+    parser.add_argument("--sweep", nargs="?", const="all", choices=("all", "cluster", "stream", "sets"))
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
     if (args.sweep is not None) == (args.parent is not None):
@@ -278,10 +374,12 @@ def main():
     print(f"[fused_mlp_ab] {smi}")
     if args.sweep:
         sys.path.insert(0, here)
-        if args.sweep in ("both", "cluster"):
+        if args.sweep in ("all", "cluster"):
             cluster_sweep(args.reps, smi)
-        if args.sweep in ("both", "stream"):
+        if args.sweep in ("all", "stream"):
             sweep(args.reps, smi)
+        if args.sweep in ("all", "sets"):
+            sets_sweep(args.reps, smi)
         return
     trees = {"parent": os.path.abspath(args.parent), "change": here}
     runs = {"parent": [], "change": []}
