@@ -703,7 +703,8 @@ def time_fused(dims, batch, gen, dev, activation="elu", bf16_weights=False):
     bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
     (launch, *_) = fm.launch_plan(dims, batch)
     how = (f"the cluster kernel, clusters of {launch.cluster.cluster}" if launch.cluster is not None
-           else f"{launch.plan[0]} rows/block")
+           else f"the wgmma kernel, clusters of {launch.wgmma.cluster}, {launch.wgmma.slots} slots"
+           if launch.wgmma is not None else f"{launch.plan[0]} rows/block")
     print(f"[kernels] fused_mlp {'x'.join(map(str, dims))} B={batch} {activation}"
           f"{' bfloat16-rounded weights' if bf16_weights else ''} ({how}) device time: "
           f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); "
@@ -796,6 +797,214 @@ def kernel_fused_mlp_cluster(gen, dev):
                      "launches_per_call": cluster_launches})
     return {"cluster_shapes": rows, "cluster_max_abs_err": worst, "cluster_max_err_over_tolerance": worst_ratio,
             "cluster_max_abs_diff_from_held": worst_held}
+
+
+# The wgmma kernel's main-path shapes: the flagship torso at the rollout's B = 8192 and the minibatch's 32768
+# ([runner], [rnn] (e)), at 4224 (66 row tiles: 33 clusters of two) and a ragged 5001 (below WGMMA_MIN_ROWS: the
+# kernel handed them); the 3D configs' torsos at their rollout's 4096 (the route keeps the held kernel there) and
+# minibatch's 32768 ([humanoid3d]); the deep torso's 10 layers of 256 at 8192, two launches ([deep_torso]). Each held
+# to plain_mlp (the deep torso to the exact chain) and timed beside the held kernel.
+WGMMA_CASES = ((FLAGSHIP_DIMS, 8192), (FLAGSHIP_DIMS, 32768), (FLAGSHIP_DIMS, 4224), (FLAGSHIP_DIMS, 5001),
+               (ANT3D_DIMS, 4096), (ANT3D_DIMS, 32768), (HUMANOID3D_DIMS, 4096), (HUMANOID3D_DIMS, 32768),
+               ((256,) * 11, 8192))
+
+
+def kernel_fused_mlp_wgmma(gen, dev):
+    """The wgmma kernel (csrc/fused_mlp.cu fused_mlp_wgmma_kernel) through
+    fused_mlp_cuda (launch_plan's route) at WGMMA_CASES, with x * 30 through
+    the flagship, Humanoid3D and deep torsos, weights * 8 through each of
+    their layers (over a chain of them the float32 chain itself misses the
+    tolerance: tests/test_torch_port_fused_mlp_wgmma.py), every activation
+    at the flagship's and 37x50x33x7's widths, and bf16 and fp16 x and
+    weights through fused_mlp and the registered operator. Each against
+    plain_mlp at rtol = atol = 2e-5 (the scaled and deep chains against the
+    exact chain), two calls bit for bit, the kernel's launches a call held
+    to launch_plan's. Each of WGMMA_CASES then timed in turns (plain, held,
+    wgmma, wgmma, held, plain; the held kernel by the plan's launches with
+    the wgmma plan taken out, handed to _run_chain) beside the bound (each
+    input read once, the output written once, against 3xTF32 products), an
+    empty launch of its grid, cluster and shared memory, and the host's
+    time a call of each (the enqueue alone, in turns)."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    worst, worst_ratio, checked = 0.0, 0.0, 0
+
+    def check(tag, x, ws, bs, activation="elu", exact=False):
+        nonlocal worst, worst_ratio, checked
+        dims, batch = [x.shape[1]] + [w.shape[0] for w in ws], x.shape[0]
+        plan = fm.launch_plan(dims, batch)
+        routed = any(p.wgmma is not None for p in plan)
+        if not routed:
+            # a shape the route leaves to another kernel (few multiply-adds a row): the wgmma kernel handed it
+            plan = [p._replace(wgmma=fm.wgmma_plan(dims[p.first:p.last + 1], batch, cluster=fm.WGMMA_CLUSTER))
+                    for p in plan]
+            tag += " (handed a wgmma plan)"
+
+        def run():
+            if routed:
+                return fm.fused_mlp_cuda(x, ws, bs, activation)
+            out = torch.empty((batch, dims[-1]), device=x.device)
+            fm._run_chain(x, out, batch, dims, ws, bs, fm.ACTIVATION_CODES[activation], plan)
+            return out
+
+        expected = sum(p.wgmma is not None for p in plan)
+        before = fm.fused_mlp_wgmma_launches
+        got = run()
+        torch.cuda.synchronize()
+        made = fm.fused_mlp_wgmma_launches - before
+        same = torch.equal(got, run())
+        want = exact_chain(x, ws, bs, activation) if exact else fm.plain_mlp(x, ws, bs, activation).double()
+        err, ratio = float((got.double() - want).abs().max()), tolerance_share(got, want)
+        print(f"[kernels] fused_mlp wgmma {tag} {activation}: {made} wgmma launches a call; max |kernel - "
+              f"{'exact' if exact else 'plain'}| {err:.3e} ({ratio:.3f} of rtol = atol = 2e-5), two calls bit for bit "
+              f"equal {same}")
+        if not (expected >= 1 and made == expected and same and math.isfinite(ratio) and ratio <= 1.0):
+            raise AssertionError(f"fused_mlp wgmma {tag} {activation}: {made} wgmma launches (expected {expected}), "
+                                 f"{ratio} of the tolerance, two calls equal {same}")
+        worst, worst_ratio, checked = max(worst, err), max(worst_ratio, ratio), checked + 1
+        return err, ratio
+
+    rows = []
+    act = fm.ACTIVATION_CODES["elu"]
+    for dims, batch in WGMMA_CASES:
+        x, ws, bs = mlp_inputs(dims, batch, gen, dev)
+        name = f"{'x'.join(map(str, dims))} B={batch}" if len(dims) < 6 else f"{len(dims) - 1} layers of 256 B={batch}"
+        err, ratio = check(name, x, ws, bs, exact=len(dims) > 4)
+        plan = fm.launch_plan(dims, batch)
+        held_plan = [p._replace(wgmma=None) for p in plan]
+        held_out = torch.empty((batch, dims[-1]), device=dev)
+        taken = any(p.wgmma is not None for p in plan)
+        if taken:
+            routed = lambda: fm.fused_mlp_cuda(x, ws, bs, "elu")  # noqa: E731
+        else:
+            # the route keeps the held kernel at this batch (the sweep measured it faster): the wgmma kernel handed
+            # the shape, timed beside it all the same
+            plan = [p._replace(wgmma=fm.wgmma_plan(dims[p.first:p.last + 1], batch, cluster=fm.WGMMA_CLUSTER))
+                    for p in plan]
+            forced_out = torch.empty((batch, dims[-1]), device=dev)
+            routed = lambda: fm._run_chain(x, forced_out, batch, list(dims), ws, bs, act, plan)  # noqa: E731
+        held = lambda: fm._run_chain(x, held_out, batch, list(dims), ws, bs, act, held_plan)  # noqa: E731
+        plain = lambda: fm.plain_mlp(x, ws, bs, "elu")  # noqa: E731
+        turns = (("plain", plain), ("held", held), ("wgmma", routed))
+        times = {key: [] for key, _ in turns}
+        for key, fn in (*turns, *reversed(turns)):
+            times[key].append(device_time_ms(fn, 20)[0])
+        ms = {key: sum(t) / len(t) for key, t in times.items()}
+        # the held kernel in the wgmma kernel's place is right too (5001: 32-row blocks, the last one ragged)
+        held_ratio = tolerance_share(held_out, exact_chain(x, ws, bs, "elu") if len(dims) > 4
+                                     else fm.plain_mlp(x, ws, bs, "elu").double())
+        if not held_ratio <= 1.0:
+            raise AssertionError(f"the held kernel at {name}: {held_ratio} of the tolerance")
+        host = {key: [] for key in ("held", "wgmma")}
+        for key, fn in (("held", held), ("wgmma", routed), ("wgmma", routed), ("held", held)):
+            host[key].append(host_us_per_call(fn))
+        host_us = {key: float(np.median(t)) for key, t in host.items()}
+        plans = [p.wgmma for p in plan]
+        floor_ms = sum(device_time_ms(functools.partial(fm.wgmma_empty_launch, wp, batch), 20)[0] for wp in plans)
+        n_weights = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+        flops = 3 * 2 * batch * n_weights
+        nbytes = 4 * (x.numel() + batch * dims[-1] + n_weights + sum(dims[1:]))
+        bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
+        grids = [fm.wgmma_grid(wp, batch) for wp in plans]
+        copies = fm.wgmma_copy_modes(x, ws[:plan[0].last])  # the first launch's x and weights
+        print(f"[kernels] fused_mlp wgmma {name}{'' if taken else ' (the route keeps the held kernel)'}: the wgmma "
+              f"kernel ({len(plans)} launch(es): clusters of "
+              f"{[wp.cluster for wp in plans]}, {[wp.slots for wp in plans]} slots, grid {grids}, "
+              f"{[wp.shared for wp in plans]} B shared; copies of x and each W {copies}) {ms['wgmma'] * 1e3:.2f} us, "
+              f"the held kernel "
+              f"{ms['held'] * 1e3:.2f} us ({ms['wgmma'] / ms['held']:.3f}x), plain {ms['plain'] * 1e3:.2f} us, empty "
+              f"launch of its grid {floor_ms * 1e3:.2f} us; bound {bound * 1e3:.2f} us ({flops} TF32 flop, {nbytes} B, "
+              f"by {bound_by}), the kernel at {bound / ms['wgmma']:.3f} of it; host {host_us['wgmma']:.2f} us a call "
+              f"(held {host_us['held']:.2f} us)")
+        rows.append({"shape": [batch, *dims], "activation": "elu", "routed": taken,
+                     "clusters": [wp.cluster for wp in plans],
+                     "copies": copies,
+                     "slots": [wp.slots for wp in plans], "grids": grids, "shared": [wp.shared for wp in plans],
+                     "ms": ms["wgmma"], "held_ms": ms["held"], "plain_ms": ms["plain"], "floor_ms": floor_ms,
+                     "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms["wgmma"],
+                     "host_us": host_us["wgmma"], "held_host_us": host_us["held"], "max_abs_err": err,
+                     "err_over_tolerance": ratio, "launches_per_call": len(plans)})
+    # beyond the model's scales, against the exact chain
+    for dims in (FLAGSHIP_DIMS, HUMANOID3D_DIMS, (256,) * 11):
+        x, ws, bs = mlp_inputs(dims, 8192, gen, dev)
+        check(f"{dims[0]}->...->{dims[-1]} ({len(dims) - 1} layers) B=8192 (x * 30)", x * 30.0, ws, bs, exact=True)
+    for dims in ((26, 256), (256, 128), (128, 64), (41, 256), (256, 256)):
+        x, ws, bs = mlp_inputs(dims, 8192, gen, dev)
+        check(f"{dims[0]}x{dims[1]} B=8192 (weights * 8)", x, [w * 8.0 for w in ws], bs, exact=True)
+    for dims in (FLAGSHIP_DIMS, (37, 50, 33, 7)):
+        x, ws, bs = mlp_inputs(dims, 8192, gen, dev)
+        for activation in ACTIVATIONS:
+            check(f"{'x'.join(map(str, dims))} B=8192", x, ws, bs, activation)
+    # a first weight that neither bulk copy takes (250 x 25 floats: 25,000 bytes), so the kernel's own cp.async,
+    # each of a step's two slots copied by one pair of the producer's warps; and one 4 bytes past an aligned address
+    x, ws, bs = mlp_inputs((25, 250, 64), 8192, gen, dev)
+    check("25x250x64 B=8192 (cp.async)", x, ws, bs)
+    x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, 8192, gen, dev)
+    w0 = torch.empty(ws[0].numel() + 1, device=dev)[1:].view_as(ws[0])
+    w0.copy_(ws[0])
+    if fm.wgmma_copy_modes(x, [w0])[1] != 4:
+        raise AssertionError("the shifted first weight was meant to take 4-byte copies")
+    check("26x256x128x64 B=8192 (the first weight 4 bytes past an aligned address: cp.async)", x, [w0, *ws[1:]], bs)
+    # bf16 and fp16 through fused_mlp and the registered operator: x's dtype back, the kernel's values on float32
+    # copies cast back, one wgmma launch a call
+    x, ws, bs = mlp_inputs(FLAGSHIP_DIMS, 8192, gen, dev)
+    for dtype in (torch.bfloat16, torch.float16):
+        xh, wh, bh = x.to(dtype), [w.to(dtype) for w in ws], [b.to(dtype) for b in bs]
+        want = fm.fused_mlp_cuda(xh.float(), [w.float() for w in wh], [b.float() for b in bh], "elu").to(dtype)
+        before = fm.fused_mlp_wgmma_launches
+        with torch.no_grad():
+            eager = fm.fused_mlp(xh, wh, bh, "elu")
+            op = fm.fused_mlp_op(xh, list(wh), list(bh), "elu")
+        torch.cuda.synchronize()
+        made = fm.fused_mlp_wgmma_launches - before
+        same = eager.dtype == op.dtype == dtype and torch.equal(eager, want) and torch.equal(op, want)
+        print(f"[kernels] fused_mlp wgmma 26x256x128x64 B=8192 {dtype} x and weights: {made} wgmma launches in the "
+              f"eager call and the operator's, outputs {eager.dtype} / {op.dtype}, equal to the kernel on float32 "
+              f"copies cast back: {same}")
+        if not (same and made == 2):
+            raise AssertionError(f"fused_mlp wgmma on {dtype}: {made} wgmma launches, equal {same}")
+    main = rows[0]
+    return {"name": "fused_mlp_wgmma_kernel", "route": "cuda", "source": "rl_games_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "rl_games_tpu/ops/fused_mlp.py:112 (_fused_kernel, pallas_call at :170): its held launches "
+                        "over many rows (ops/fused_mlp.wgmma_plan)",
+            "shape": main["shape"], "max_abs_err": worst, "max_err_over_tolerance": worst_ratio, "checked": checked,
+            "ms": main["ms"], "held_ms": main["held_ms"], "plain_ms": main["plain_ms"], "floor_ms": main["floor_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "share_of_bound": main["share_of_bound"],
+            "host_us": main["host_us"], "held_host_us": main["held_host_us"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the chain; plain_ms is addmm + activation per layer",
+            "min_rows": fm.WGMMA_MIN_ROWS, "cluster": fm.WGMMA_CLUSTER, "slots": fm.WGMMA_SLOTS,
+            "wgmma_shapes": rows}
+
+
+def wgmma_launches_expected(dims, batches: dict) -> int:
+    """The wgmma kernel's launches that calls of fused_mlp_cuda over the
+    chain ``dims`` at these batches ({batch: calls}) make, as launch_plan
+    plans them."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    return sum(calls * sum(p.wgmma is not None for p in fm.launch_plan(dims, batch))
+               for batch, calls in batches.items())
+
+
+# each main path's launches of the wgmma kernel ({path: {run: count}}), for the kernels line
+WGMMA_PATH_LAUNCHES = {}
+
+
+def check_wgmma_launches(tag, dims, runs: dict) -> dict:
+    """Each run's wgmma launches ({name: (counted, {batch: calls})}) against
+    wgmma_launches_expected; prints them, keeps them for the kernels line
+    and returns the counts."""
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+
+    got = {name: counted for name, (counted, _) in runs.items()}
+    want = {name: wgmma_launches_expected(dims, batches) for name, (_, batches) in runs.items()}
+    print(f"[{tag}] launches of the wgmma kernel: " + ", ".join(f"{name} {n}" for name, n in got.items())
+          + f" ({'x'.join(map(str, dims[:4]))}{'...' if len(dims) > 4 else ''}; launch_plan takes it from "
+          f"B = {fm.WGMMA_MIN_ROWS})")
+    if got != want:
+        raise AssertionError(f"{tag}: wgmma kernel launches {got}, expected {want} from the batches")
+    WGMMA_PATH_LAUNCHES[tag] = got
+    return got
 
 
 def grouped_inputs(dims, groups, batch, gen, device):
@@ -926,7 +1135,7 @@ def kernel_fused_mlp_grouped(gen, dev, cases):
     apart, x's rows one float past a multiple of 4, a weight whose base lies
     one float past an aligned address), and the JAX package's kernel test
     shapes at G = 3, B = 19 over every activation; G = 1 against the
-    ordinary launch bit for bit; the refusals."""
+    ordinary launch of the held kernel bit for bit; the refusals."""
     from rl_games_tpu_torch.ops import fused_mlp as fm
 
     worst, worst_ratio, timed = 0.0, 0.0, []
@@ -947,13 +1156,17 @@ def kernel_fused_mlp_grouped(gen, dev, cases):
     x, ws, bs = grouped_inputs((37, 50, 33, 7), 3, 19, gen, dev)
     check("37x50x33x7 G=3 B=19", x, ws, bs, ACTIVATIONS)
 
-    # G = 1: the grouped entry is the ordinary launch, bit for bit
+    # G = 1: the grouped entry is the ordinary launch of the held kernel (where the ordinary route takes the
+    # wgmma kernel, as at the flagship's 8192 rows, the held kernel handed the same launches), bit for bit
     for dims, batch in ((FLAGSHIP_DIMS, 8192), ((37, 50, 33, 7), 19)):
         x, ws, bs = mlp_inputs(dims, batch, gen, dev)
         one = fm.fused_mlp_grouped_cuda(x[None], [w[None] for w in ws], [b[None] for b in bs], "elu")[0]
-        same = torch.equal(one, fm.fused_mlp_cuda(x, ws, bs, "elu"))
+        ordinary = torch.empty((batch, dims[-1]), device=dev)
+        fm._run_chain(x, ordinary, batch, list(dims), ws, bs, fm.ACTIVATION_CODES["elu"],
+                      [p._replace(wgmma=None) for p in fm.launch_plan(dims, batch)])
+        same = torch.equal(one, ordinary)
         print(f"[kernels] fused_mlp grouped G=1 {'x'.join(map(str, dims))} B={batch}: bit for bit the ordinary "
-              f"launch {same}")
+              f"launch of the held kernel {same}")
         if not same:
             raise AssertionError(f"the grouped launch at G = 1 differs from the ordinary one at {dims}, B={batch}")
 
@@ -1007,6 +1220,13 @@ def kernel_fused_mlp_sets(cases):
                                fm.sets_shared_bytes(dims, batch, fm.SETS_STAGES, fm.set_strides_shared(strides),
                                                     fm.sets_warps(fm.SETS_STAGES)))
             forced = [launch._replace(sets=plan) for launch in held_launches]
+            # the bound of the held grouped launch that keeps the shape: each tensor read once (a shared one once),
+            # the output written once, against its 3xTF32 products
+            bound, bound_by = bound_ms(4 * (x.numel() + sum(t.numel() for t in (*ws, *bs)) + held_out.numel()),
+                                       3 * 2 * groups * batch * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1)),
+                                       PEAK_TF32_FLOPS)
+            print(f"[kernels] fused_mlp sets {tag}: kept held; the held grouped launch's bound {bound * 1e3:.4f} us "
+                  f"(by {bound_by})")
             for activation in activations:
                 run = lambda: fm._run_chain(x, held_out, batch, dims, ws, bs, fm.ACTIVATION_CODES[activation],  # noqa: E731
                                             forced, groups, strides)
@@ -1216,6 +1436,9 @@ def launch_shapes_of(x, ws, plan, groups, batch):
         if p.cluster is not None:
             shape.update(cluster_kernel=True, cluster=p.cluster.cluster, grid=[fm.cluster_grid(p.cluster, batch), 1],
                          rows=16, shared=p.cluster.shared)
+        if p.wgmma is not None:
+            shape.update(wgmma_kernel=True, cluster=p.wgmma.cluster, slots=p.wgmma.slots,
+                         grid=[fm.wgmma_grid(p.wgmma, batch), 1], rows=fm.WGMMA_ROWS, shared=p.wgmma.shared)
         if p.streamed:
             grid = fm.stream_grid(p.plan, batch, groups)
             w = ws[p.first]
@@ -1232,10 +1455,13 @@ def launch_shapes_of(x, ws, plan, groups, batch):
 
 def describe_launch(d) -> str:
     """A launch_shapes_of entry in words."""
-    kind = "streamed" if d["streamed"] else "held, the cluster kernel" if d.get("cluster_kernel") else "held"
+    kind = ("streamed" if d["streamed"] else "held, the cluster kernel" if d.get("cluster_kernel")
+            else "held, the wgmma kernel" if d.get("wgmma_kernel") else "held")
     text = f"layers {d['layers'][0]}-{d['layers'][1]} {kind}, {d['rows']} rows a block"
     if d.get("cluster_kernel"):
         text += f", clusters of {d['cluster']} (grid {d['grid'][0]})"
+    if d.get("wgmma_kernel"):
+        text += f", clusters of {d['cluster']}, {d['slots']} slots (grid {d['grid'][0]})"
     if d["streamed"]:
         waves = f"{d['waves']:.2f}" if d["waves"] is not None else "not known"
         text += (f", outputs split over {d['split']} blocks, clusters of {d['cluster']}, grid {d['grid'][0]}x"
@@ -1432,6 +1658,8 @@ def phase_kernel_fused_mlp():
     entry["other_shapes"] += [time_fused(FORAGE_DIMS, batch, gen, dev) for batch in (1024, 8192)]
     # the cluster kernel at the main paths' small batches, beside the held kernel
     entry.update(kernel_fused_mlp_cluster(gen, dev))
+    # the wgmma kernel at the main paths' large batches, beside the held kernel (its own entry on the kernels line)
+    entry["wgmma_kernel"] = kernel_fused_mlp_wgmma(gen, dev)
     # the grouped launch: the self-play opponents' chain over every env's own weight set; then the sets kernel at
     # the grouped shapes it takes, beside the held grouped launch (its own entry on the kernels line)
     cases = sets_cases(gen, dev)
@@ -1462,8 +1690,11 @@ def phase_kernel_fused_mlp():
         flops = 3 * 2 * batch * n_weights
         nbytes = 4 * (x.numel() + batch * FLAGSHIP_DIMS[-1] + n_weights + sum(FLAGSHIP_DIMS[1:]))
         bound, bound_by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS)
-        rows = fm.kernel_plan(FLAGSHIP_DIMS, batch)
-        print(f"[kernels] fused_mlp 26x256x128x64 B={batch} ({rows[0]} rows/block, {rows[3]} B shared) device time: "
+        (launch,) = fm.launch_plan(FLAGSHIP_DIMS, batch)
+        how = (f"the wgmma kernel, clusters of {launch.wgmma.cluster}, {launch.wgmma.slots} slots, "
+               f"{launch.wgmma.shared} B shared" if launch.wgmma is not None
+               else f"{launch.plan[0]} rows/block, {launch.plan[3]} B shared")
+        print(f"[kernels] fused_mlp 26x256x128x64 B={batch} ({how}) device time: "
               f"kernel {kernel_ms * 1e3:.2f} us ({kernel_n:.0f} kernel/call), "
               f"plain {plain_ms * 1e3:.2f} us ({plain_n:.0f} kernels/call); bound {bound * 1e3:.2f} us "
               f"({flops} TF32 flop = 3 x the chain's, {nbytes} B, by {bound_by}); "
@@ -2059,7 +2290,7 @@ def phase_trainer(epochs: int):
     print(f"[trainer] built agent + init_state in {time.perf_counter() - t0:.2f} s; "
           f"batch {agent.batch_size}, {agent.num_minibatches} minibatches x {agent.mini_epochs_num} mini-epochs")
 
-    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the main path's run starts here
     times = []
     for epoch in range(epochs):
         t0 = time.perf_counter()
@@ -2137,11 +2368,12 @@ def phase_runner(epochs: int, plain_epoch_s: float):
         runner = Runner()  # the default device: the card
         runner.load({"params": params})
 
-        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
+        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the training run starts here
         t0 = time.perf_counter()
         last_mean, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(epoch_ends)})
         torch.cuda.synchronize()
         train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        train_wgmma = fused_mlp.fused_mlp_wgmma_launches
         # per epoch: 16 rollout forwards + 1 bootstrap forward at B = 8192 and
         # 4 mini-epochs x 4 minibatch forwards at B = 32768; GAE once
         expected = {"gae": epochs, "fused_mlp": (16 + 1 + 4 * 4) * epochs}
@@ -2164,7 +2396,7 @@ def phase_runner(epochs: int, plain_epoch_s: float):
         checkpoint = os.path.join(nn_dir, final[0])
 
         steps = runner.create_player().steps_needed(num_actors)
-        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
+        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the player's run starts here
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -2172,6 +2404,7 @@ def phase_runner(epochs: int, plain_epoch_s: float):
         torch.cuda.synchronize()
         play_s = time.perf_counter() - t0
         play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+        play_wgmma = fused_mlp.fused_mlp_wgmma_launches
         sys.stdout.write(out.getvalue())
 
         steady_step_s, first, last = steady_player_step(runner, checkpoint)
@@ -2179,6 +2412,8 @@ def phase_runner(epochs: int, plain_epoch_s: float):
     # one policy forward per env step, nothing else
     if play_launches != {"gae": 0, "fused_mlp": steps} or steps != play_steps:
         raise AssertionError(f"player: launches {play_launches} in {steps} steps")
+    check_wgmma_launches("runner", FLAGSHIP_DIMS, {"train": (train_wgmma, {8192: 17 * epochs, 32768: 16 * epochs}),
+                                                   "play": (play_wgmma, {8192: steps})})
     if games is None or int(games.group(1)) <= 0 or not math.isfinite(mean_reward):
         raise AssertionError(f"player: mean reward {mean_reward}, output {out.getvalue()!r}")
     print(f"[runner] played {steps} steps x {num_actors} envs through Runner.run: launches {play_launches}, "
@@ -2242,11 +2477,12 @@ def phase_humanoid3d(epochs: int, play_steps: int = 100):
             })
             runner = Runner(algo_observer=observer)  # the default device: the card
             runner.load({"params": params})
-            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the training run starts here
             t0 = time.perf_counter()
             _, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(epoch_ends)})
             torch.cuda.synchronize()
             train_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            train_wgmma = fused_mlp.fused_mlp_wgmma_launches
             train_batches = {b: batches.count(b) for b in sorted(set(batches))}
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
             nn_dir = os.path.join(train_dir, "chip_smoke_humanoid3d", "nn")
@@ -2255,7 +2491,7 @@ def phase_humanoid3d(epochs: int, play_steps: int = 100):
                 raise AssertionError(f"no final checkpoint among {os.listdir(nn_dir)}")
 
             batches.clear()
-            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the player's run starts here
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -2263,6 +2499,7 @@ def phase_humanoid3d(epochs: int, play_steps: int = 100):
             torch.cuda.synchronize()
             play_s = time.perf_counter() - t1
             play_launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+            play_wgmma = fused_mlp.fused_mlp_wgmma_launches
     finally:
         fused_mlp.fused_mlp_cuda, ppo_module.create_writer = launch, create_writer
 
@@ -2278,6 +2515,8 @@ def phase_humanoid3d(epochs: int, play_steps: int = 100):
                              f"{epoch_num} epochs, expected {expected} at {expected_batches}")
     if play_launches != {"gae": 0, "fused_mlp": play_steps} or set(batches) != {num_actors}:
         raise AssertionError(f"humanoid3d player: launches {play_launches} in {play_steps} steps")
+    check_wgmma_launches("humanoid3d", HUMANOID3D_DIMS, {"train": (train_wgmma, expected_batches),
+                                                         "play": (play_wgmma, {num_actors: play_steps})})
     wanted_tags = ([f"diagnostics/kl/{i}" for i in range(mini_epochs)]
                    + [f"diagnostics/clip_frac/{i}" for i in range(mini_epochs)]
                    + [f"diagnostics/{k}" for k in ("obs_rms_mean", "obs_rms_var", "value_rms_mean", "value_rms_var")])
@@ -2314,7 +2553,7 @@ def phase_ant3d(epochs: int):
 
     agent = PPOAgent("chip_smoke_ant3d", load_config("ppo_ant3d.yaml")["params"])
     state = agent.init_state()
-    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the main path's run starts here
     times = []
     for epoch in range(epochs):
         t0 = time.perf_counter()
@@ -2352,7 +2591,7 @@ def train_and_play(name: str, params: dict, epochs: int, batches: list | None = 
         runner = Runner()  # the default device: the card
         runner.load({"params": params})
         torch.cuda.reset_peak_memory_stats()
-        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
+        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the training run starts here
         t0 = time.perf_counter()
         _, epoch_num = runner.run({"train": True, "stop_fn": epoch_marker(ends)})
         torch.cuda.synchronize()
@@ -2368,7 +2607,7 @@ def train_and_play(name: str, params: dict, epochs: int, batches: list | None = 
         player = runner.create_player()
         steps = player.steps_needed(player.games_num)
         del player
-        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
+        gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the player's run starts here
         out = io.StringIO()
         t1 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -2522,6 +2761,10 @@ def phase_deep_torso(epochs: int = 2, layers: int = 10):
         if not (math.isfinite(a_loss) and math.isfinite(c_loss)):
             raise AssertionError(f"deep torso: non-finite losses in epoch {epoch + 1}")
     launches = launches_now()  # read right after
+    wgmma = fused_mlp.fused_mlp_wgmma_launches
+    check_wgmma_launches("deep_torso", (26,) + (256,) * layers, {"train": (wgmma, {
+        agent.num_actors: (agent.horizon_length + 1) * epochs,
+        agent.minibatch_size: agent.mini_epochs_num * agent.num_minibatches * epochs})})
     if per_forward != 2 or launches != {"gae": epochs, "fused_mlp": forwards * per_forward * epochs}:
         raise AssertionError(f"deep torso: launches {launches} in {epochs} epochs, {per_forward} a forward; expected "
                              f"{forwards * 2} fused an epoch")
@@ -2538,7 +2781,7 @@ def phase_breakout(epochs: int):
     agent = PPOAgent("chip_smoke_breakout", load_config("ppo_breakout_device.yaml")["params"])
     state = agent.init_state()
     torch.cuda.reset_peak_memory_stats()
-    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the main path's run starts here
     times = []
     for epoch in range(epochs):
         t0 = time.perf_counter()
@@ -2640,7 +2883,7 @@ def phase_sac(update_epochs: int, profile: bool, play_steps: int = 200):
             runner = Runner()  # the default device: the card
             runner.load({"params": params})
             torch.cuda.reset_peak_memory_stats()
-            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the training run starts here
             t0 = time.perf_counter()
             _, epoch_num = runner.run({"train": True, "stop_fn": mark})
             torch.cuda.synchronize()
@@ -2651,7 +2894,7 @@ def phase_sac(update_epochs: int, profile: bool, play_steps: int = 200):
             checkpoint = os.path.join(train_dir, "chip_smoke_sac", "nn", f"last_chip_smoke_sac_ep_{epochs}.pth")
             payload, ckpt_bytes = ckpt.read_payload(checkpoint), os.path.getsize(checkpoint)
 
-            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the player's run starts here
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -2774,7 +3017,7 @@ def host_ppo_run(epochs: int, placement: str, fused: bool, profile: bool):
             cfg.update(name="chip_smoke_host_ppo", train_dir=train_dir, max_epochs=epochs, save_best_after=1)
             runner = Runner()  # the default device: the card
             runner.load({"params": params})
-            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the training run starts here
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 _, epoch_num = runner.run({"train": True, "stop_fn": mark})
@@ -2791,7 +3034,7 @@ def host_ppo_run(epochs: int, placement: str, fused: bool, profile: bool):
             checkpoint = os.path.join(nn_dir, final[0])
 
             CpuVecEnv.step = counted_step
-            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the player's run starts here
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -3064,7 +3307,7 @@ def phase_host_pixel(epochs: int = 3):
         n, horizon = params["config"]["num_actors"], params["config"]["horizon_length"]
         agents[placement] = PPOAgent("chip_smoke_host_pixel", params, vec_env=PixelHostEnv(n, seed=3))
         states[placement] = agents[placement].init_state()
-    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training runs start here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the training runs start here
     for _ in range(epochs):
         for placement, agent in agents.items():
             torch.cuda.synchronize()
@@ -3134,7 +3377,7 @@ def phase_host_sac(update_epochs: int, play_steps: int = 300, config: str = "sac
             cfg.update(name=f"chip_smoke_{tag}", train_dir=train_dir, max_epochs=epochs, max_frames=-1)
             runner = Runner()  # the default device: the card
             runner.load({"params": params})
-            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the training run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the training run starts here
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 _, epoch_num = runner.run({"train": True, "stop_fn": mark})
@@ -3144,7 +3387,7 @@ def phase_host_sac(update_epochs: int, play_steps: int = 300, config: str = "sac
             state = agent.last_state
             checkpoint = os.path.join(train_dir, f"chip_smoke_{tag}", "nn", f"last_chip_smoke_{tag}_ep_{epochs}.pth")
 
-            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the player's run starts here
+            gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the player's run starts here
             out = io.StringIO()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -3580,7 +3823,7 @@ def phase_rnn_mixed_precision(epochs: int):
 
     fused_mlp.fused_mlp_cuda = counted
     torch.cuda.reset_peak_memory_stats()
-    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = 0  # the main path's run starts here
+    gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_wgmma_launches = 0  # the main path's run starts here
     times = []
     try:
         for epoch in range(epochs):
@@ -3593,8 +3836,10 @@ def phase_rnn_mixed_precision(epochs: int):
     finally:
         fused_mlp.fused_mlp_cuda = launch
     launches = {"gae": gae.gae_launches, "fused_mlp": fused_mlp.fused_mlp_launches}  # read right after
+    wgmma = fused_mlp.fused_mlp_wgmma_launches
     got_batches = {b: batches.count(b) for b in sorted(set(batches))}
     expected_batches = {8192: 17 * epochs, 32768: 16 * epochs}
+    check_wgmma_launches("rnn (e)", FLAGSHIP_DIMS, {"train": (wgmma, expected_batches)})
     if launches != {"gae": epochs, "fused_mlp": 33 * epochs} or got_batches != expected_batches:
         raise AssertionError(f"rnn (e): launches {launches} at batches {got_batches} in {epochs} epochs, expected "
                              f"1 GAE and 33 fused an epoch at {expected_batches}")
@@ -3993,7 +4238,7 @@ def zero_launches():
     from rl_games_tpu_torch.ops import fused_mlp, gae
 
     gae.gae_launches = fused_mlp.fused_mlp_launches = fused_mlp.fused_mlp_grouped_launches = 0
-    fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_sets_launches = 0
+    fused_mlp.fused_mlp_cluster_launches = fused_mlp.fused_mlp_sets_launches = fused_mlp.fused_mlp_wgmma_launches = 0
 
 
 def fused_flagship_params(num_actors: int = 8192) -> dict:
@@ -5576,7 +5821,16 @@ def main():
     sets_entry["selfplay_opp_device_ms"] = {"sets": sf["opp_device_ms"], "held": sf["opp_held_device_ms"]}
     if sets_entry["launches"] == 0:
         raise AssertionError("no main path launched the sets kernel")
-    print(json.dumps({"kernels": [gae_entry, fused_entry, sets_entry]}))
+    # the wgmma kernel: the fused flagship's 17 + 16 an epoch (the rollout's B = 8192, the minibatches' 32768) and
+    # 1 a player step, Humanoid3D's, the deep torso's two a forward, [rnn] (e)'s; each run counted from 0 with the
+    # others and held to what launch_plan makes of its batches (check_wgmma_launches)
+    wgmma_entry = fused_entry.pop("wgmma_kernel")
+    wgmma_entry["launches_by_path"] = WGMMA_PATH_LAUNCHES
+    wgmma_entry["launches"] = sum(sum(runs.values()) for runs in WGMMA_PATH_LAUNCHES.values())
+    if sorted(WGMMA_PATH_LAUNCHES) != ["deep_torso", "humanoid3d", "rnn (e)", "runner"] or not all(
+            sum(runs.values()) for runs in WGMMA_PATH_LAUNCHES.values()):
+        raise AssertionError(f"a main path did not launch the wgmma kernel: {WGMMA_PATH_LAUNCHES}")
+    print(json.dumps({"kernels": [gae_entry, fused_entry, sets_entry, wgmma_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

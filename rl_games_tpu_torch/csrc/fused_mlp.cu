@@ -30,7 +30,14 @@
 // phases (first copies, products, bias and activation) of which only the
 // products use the tensor cores; two blocks that share an SM start together
 // and stay in step, so one's activations (expm1f for elu: about a sixth of
-// the kernel's time) seldom run under the other's products.
+// the kernel's time) seldom run under the other's products. A held launch
+// over many rows whose widths are at most 256 (the flagship torso's rollout
+// and minibatches, the 3D configs', the deep torso's) is therefore a launch
+// of the wgmma kernel further down (`fused_mlp_wgmma_kernel`, with its own
+// notes: warpgroup products, weights by bulk copies shared over a cluster);
+// this kernel keeps the held launches between the cluster kernel's rows and
+// the wgmma kernel's (ops/fused_mlp.py wgmma_plan), the grouped ones and
+// wider chains.
 //
 // Design.
 // - Products: `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`. A (rows
@@ -110,7 +117,9 @@
 //   the streamed kernel further down (`fused_mlp_stream_kernel`, with its own
 //   notes), which holds nothing and streams x beside W. A launch that one
 //   held block takes, over fewer rows than ops/fused_mlp.py's crossover
-//   (cluster_plan), is a launch of the cluster kernel instead.
+//   (cluster_plan), is a launch of the cluster kernel instead; one over
+//   at least WGMMA_MIN_ROWS rows of widths of at most 256 (wgmma_plan) a
+//   launch of the wgmma kernel.
 // - Inputs must be finite: the split of an infinity is not a number.
 
 #include <cuda.h>  // CUtensorMap and its enums: the streamed kernel's bulk tensor copies
@@ -1927,6 +1936,821 @@ SetsKernel sets_kernel(int rows) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The wgmma launch: a held chain over many rows (the flagship torso's rollout
+// and minibatches, the 3D configs', the deep torso's), `fused_mlp_wgmma_kernel`.
+//
+// It replaces no further TPU kernel: it is the route of `_fused_kernel`
+// (rl_games_tpu/ops/fused_mlp.py:112) on this card where a held, ungrouped
+// launch has many rows (ops/fused_mlp.py wgmma_plan), and computes what the
+// held kernel computes, within the same rtol = atol = 2e-5 of the chain.
+//
+// What bounds it on this card: the 3xTF32 products, as for the held kernel
+// (26 -> 256 -> 128 -> 64 at B = 8192: 1.17 GFLOP of TF32 products against
+// 2.95 MB of x and out). What kept the held kernel at 0.16-0.19 of that
+// bound: warp-level mma.sync, which does not reach the tensor cores' rate;
+// every 32-row block reading the chain's 190 KB of weights again from L2
+// through a ring of three tiles behind a __syncthreads() each; and a row
+// tile's phases (copies, products, bias and activation) in step across the
+// blocks of an SM.
+//
+// What the design does about it:
+// - Products by the warpgroup instruction with A from registers:
+//   `wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32`, D [64 rows, N
+//   outputs] += A [64 rows, 8 inputs] . W [N outputs, 8 inputs]^T. W's
+//   [out, in] layout is the K-major B operand that TF32 wants, read from
+//   shared memory through a descriptor (128-byte swizzle, 8-row groups 1024
+//   bytes apart); nothing is transposed.
+// - 3xTF32 with hi the truncation: the tensor core reads a float32's leading
+//   10 mantissa bits and ignores the rest, so hi is the value itself and
+//   lo = v - (v with its last 13 bits cleared) is exact, of which the tensor
+//   core reads the leading bits again (tests/test_torch_port_fused_mlp_wgmma.py
+//   rehearses the scheme against the chain in float64). Per 8 inputs
+//   a_lo.w_hi and a_hi.w_lo go to a small accumulator and a_hi.w_hi to the
+//   main one, in the held kernel's order, since the tensor core's adder
+//   truncates; both are added, with the bias, in float32 at the layer's end.
+// - A block owns a tile of 64 rows and walks the whole chain for it; two
+//   consumer warpgroups split each layer's outputs (warpgroup c takes
+//   outputs c H .. c H + H - 1, H = 16, 32, 64 or 128: half the width
+//   rounded up, so two accumulators of H / 2 registers a thread each fit).
+//   The activations stay in shared memory, one buffer of 64 rows in the
+//   swizzled K-major layout (blocks of 32 inputs), overwritten in place: a
+//   layer's outputs are written once both warpgroups have read its inputs
+//   (a named barrier), and zero from N up to 2 H, the next layer's
+//   zero-filled inputs. A thread loads its A fragments (rows g and g + 8 of
+//   its warp's 16, inputs t and t + 4 of each step; conflict-free through the
+//   swizzle) and makes lo in registers, so no lo copy of the activations is
+//   kept: the buffer and the ring share 227 KB.
+// - Weights stream through a ring of slots, each 128 output rows of W by 32
+//   inputs and beside it their lo tile: a layer's 32 inputs take one slot
+//   where 2 H <= 128 (both warpgroups read it) and two where 2 H = 256 (one
+//   a warpgroup). Ring, buffer and a staging buffer (below) share 227 KB:
+//   beside the flagship's 256-wide buffer (64 KB) and its staged first
+//   weight (26 KB) four slots fit. A producer warpgroup fills the ring. Its
+//   two copying warps wait on a slot's empty barrier and bring W's tile by
+//   one bulk tensor copy (`cp.async.bulk.tensor`, rows past N zero-filled),
+//   multicast from the cluster's first block to every block of the
+//   cluster, so that the cluster's blocks read each weight from L2 once. A
+//   W whose rows are not 16-byte multiples (the 26, 33 and 41 inputs of the
+//   main paths' first layers), which no tensor map takes, comes whole by
+//   one bulk copy (`cp.async.bulk`: its bytes are a multiple of 16) into
+//   the staging buffer as it lies in device memory, once a row tile, each
+//   block its own; the splitting warps swizzle its rows into the slots. A
+//   W that neither takes comes by the kernel's own 16-, 8- or 4-byte
+//   cp.async into the slots, a step's rows shared by the copying and the
+//   splitting warps (the kernel picks the mode a layer from W's address and
+//   widths; 4- and 8-byte cp.async issue slowly, and a first layer's copies
+//   lie on every row tile's path).
+//   The two splitting warps wait on the slot's full barrier, write the lo
+//   tile (and, after cp.async or from the staging buffer, the hi tile with
+//   their own stores, so that their proxy fence covers every byte that the
+//   tensor cores read) and arrive on the slot's ready barrier, so the split
+//   runs beside the products, once a slot and block, and not on the
+//   consumers' path. A consuming warp waits on the slot's ready and full
+//   barriers and, once its products are done, arrives on the slot's empty
+//   barrier in every block of the cluster (on both slots of a 256-wide
+//   layer's step, so every empty barrier counts the same arrivals).
+// - The bias and activation of a layer's end write each pair of outputs
+//   with one 8-byte store at an address that is a register (one of four a
+//   thread: the swizzle's XOR takes four values along a row) plus a
+//   constant; elu's and selu's expm1 is exp - 1 through ex2.approx
+//   (wg_activate): expm1f took most of the layer ends' time.
+// - Persistent blocks, as many as the card holds at once (one an SM), walk
+//   row tiles block, block + grid, ... (whole clusters: a cluster's blocks
+//   walk as many tiles, the last ones empty where the rows end); x's next
+//   tile is asked for (cp.async, zero-filled past the rows and inputs) as
+//   soon as the last layer has read the buffer, under the last layer's
+//   epilogue, and the ring runs on across row tiles.
+// - Registers: 384 threads start at 168 a thread; the producer warpgroup
+//   gives registers to the consumers (`setmaxnreg`: 56 and 224), one branch
+//   a role to the end. The activation is a template argument.
+// - A wait that never ends traps (kWaitTries). A block's first copying warp
+//   exits only after every slot's last use has been released by every
+//   block of its cluster.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;                            // rows a block: one wgmma tile
+constexpr int kWgConsumers = 2;                        // consumer warpgroups, each half of a layer's outputs
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);   // and a producer warpgroup
+constexpr int kWgConsumerThreads = 128 * kWgConsumers;
+constexpr int kWgMaxWidth = 256;                       // widths the kernel takes
+constexpr int kWgSlotRows = 128;                       // rows of W a slot of the ring holds
+constexpr int kWgSlotFloats = 2 * kWgSlotRows * 32;    // W's 32 inputs of them, then their lo tile
+constexpr int kWgMaxSlots = 6;
+constexpr int kWgMaxStageBytes = 65536;               // a staged W: one bulk copy of a whole weight
+constexpr int kWgCopiers = 64;                         // the producer warpgroup's first two warps copy
+constexpr int kWgSplitters = 64;                       // its last two split
+constexpr int kWgFullArrivals = 1 + kWgCopiers + kWgSplitters;  // the expect_tx arrival, then each producer thread's copies landed
+constexpr int kWgProducerRegisters = 56;               // 128 x (168 - 56) = 256 x (224 - 168)
+constexpr int kWgConsumerRegisters = 224;
+
+struct WgmmaNet {
+  CUtensorMap map[kMaxLayers];  // W_l's bulk tensor copies, where bit l of `tma` is set
+  const float* x;
+  float* out;
+  const float* w[kMaxLayers];
+  const float* b[kMaxLayers];
+  int dims[kMaxLayers + 1];
+  int half[kMaxLayers];  // outputs a consumer warpgroup takes in layer l: 16, 32, 64 or 128
+  int n_layers, B, tma, slots;
+  int staged;       // bit l: W_l comes by one bulk copy of the whole weight into the staging buffer
+  int stage_bytes;  // the staging buffer
+  int width;        // floats of a row of the activation buffer: a multiple of 32
+  int iters;        // row tiles a block walks
+};
+
+// The bytes of layer l's W [n, k] in the staging buffer where bulk tensor
+// copies can never take its rows (k not a multiple of 4: the 26, 33 and 41
+// inputs of the main paths) and one bulk copy can take it whole (its bytes
+// a multiple of 16, at most kWgMaxStageBytes), else 0 (ops/fused_mlp.py
+// wgmma_stage_bytes).
+__host__ __device__ __forceinline__ int wg_stage_bytes(int n, int k) {
+  const long long bytes = 4LL * n * k;
+  return (k & 3) != 0 && (bytes & 15) == 0 && bytes <= kWgMaxStageBytes ? static_cast<int>(bytes) : 0;
+}
+
+// Outputs a consumer warpgroup takes of a layer of `n` outputs: half of them
+// rounded up to 8, then to the instruction width 16, 32, 64 or 128
+// (ops/fused_mlp.py wgmma_half).
+int wgmma_half(int n) {
+  const int half = (n + 15) / 16 * 8;
+  return half <= 16 ? 16 : half <= 32 ? 32 : half <= 64 ? 64 : 128;
+}
+
+// A shared-memory descriptor of a K-major tile with the 128-byte swizzle:
+// its address (16-byte units), the stride between 8-row groups (1024 bytes)
+// and the layout; the leading offset is not used by this layout.
+__device__ __forceinline__ uint64_t wg_desc(const float* p) {
+  const uint64_t address = smem_u32(p);
+  return ((address & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d += a . b for one 64 x H x 8 step of the warpgroup: a this thread's A
+// fragment (rows g, g + 8 of its warp's 16 by inputs t, t + 4), b the
+// descriptor of the H x 8 weight tile.
+template <int H>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[H / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %13, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %21, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keeps the compiler from moving accesses to the accumulators across the
+// asynchronous products.
+template <int M>
+__device__ __forceinline__ void fence_accumulators(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kWgConsumerThreads) : "memory");
+}
+
+// The copies, by threads 0 .. kThreads-1 (this one `tid`), of rows 0 ..
+// rows-1 of a row-major [*, K] matrix (`src`: its first row) by inputs
+// k0 .. k0 + 32 blocks - 1 into `blocks` swizzled tiles of rows x 32 floats
+// at `dst` (the 16-byte chunk c of row r at chunk c ^ (r % 8)), kFloats (4,
+// 2 or 1) floats a copy; rows from rows_inside on and inputs from K on land
+// as zeros (`base`: an address inside the matrix for the copies that read
+// nothing).
+template <int kFloats, int kThreads>
+__device__ __forceinline__ void wg_copy_by(float* dst, const float* __restrict__ src, const float* base, int rows,
+                                           int rows_inside, int K, int k0, int blocks, int tid) {
+  constexpr int kPerRow = 32 / kFloats;
+  const int per_block = rows * kPerRow;
+#pragma unroll 1
+  for (int idx = tid; idx < blocks * per_block; idx += kThreads) {
+    const int kb = idx / per_block, rem = idx - kb * per_block;
+    const int r = rem / kPerRow, c = (rem % kPerRow) * kFloats, k = k0 + 32 * kb + c;
+    const bool inside = r < rows_inside && k < K;
+    float* to = dst + kb * rows * 32 + r * 32 + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+    cp_async<kFloats>(to, inside ? src + static_cast<size_t>(r) * K + k : base, inside);
+  }
+}
+
+template <int kThreads>
+__device__ __forceinline__ void wg_copy(float* dst, const float* __restrict__ src, const float* base, int rows,
+                                        int rows_inside, int K, int k0, int blocks, int tid) {
+  const uintptr_t address = reinterpret_cast<uintptr_t>(src);
+  if ((K & 3) == 0 && (address & 15) == 0)
+    wg_copy_by<4, kThreads>(dst, src, base, rows, rows_inside, K, k0, blocks, tid);
+  else if ((K & 1) == 0 && (address & 7) == 0)
+    wg_copy_by<2, kThreads>(dst, src, base, rows, rows_inside, K, k0, blocks, tid);
+  else
+    wg_copy_by<1, kThreads>(dst, src, base, rows, rows_inside, K, k0, blocks, tid);
+}
+
+// The shared memory of the wgmma kernel, its parts in floats from the
+// 1024-aligned start: the activation buffer, then the ring (each slot W's
+// tile, then its lo tile), then the full, empty and ready barriers.
+struct WgLayout {
+  float* act;
+  float* ring;
+  float* stage;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* ready;
+  uint64_t* stage_full;
+  uint64_t* stage_empty;
+};
+
+__device__ __forceinline__ WgLayout wg_layout(unsigned char* raw, const WgmmaNet& net) {
+  WgLayout s;
+  s.act = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(raw) + kSwizzleAlign - 1) &
+                                   ~static_cast<uintptr_t>(kSwizzleAlign - 1));
+  s.ring = s.act + kWgRows * net.width;
+  s.stage = s.ring + net.slots * kWgSlotFloats;
+  s.full = reinterpret_cast<uint64_t*>(s.stage + net.stage_bytes / 4);
+  s.empty = s.full + net.slots;
+  s.ready = s.empty + net.slots;
+  s.stage_full = s.ready + net.slots;
+  s.stage_empty = s.stage_full + 1;
+  return s;
+}
+
+// Row tile `it` of this block: the cluster's blocks take neighbouring tiles,
+// the clusters every nclusters-th group of them.
+__device__ __forceinline__ long long wg_tile(int it, int cluster) {
+  const long long nclusters = gridDim.x / cluster;
+  return (static_cast<long long>(cluster_index()) + it * nclusters) * cluster + cluster_rank();
+}
+
+// A place in the ring: the slot and how often the ring has come round to it
+// (its barriers' phase parity is round & 1). Producers and consumers walk
+// the same sequence of slots.
+struct WgSlot {
+  int s;
+  uint32_t round;
+  __device__ __forceinline__ void next(int slots) {
+    if (++s == slots) {
+      s = 0;
+      ++round;
+    }
+  }
+};
+
+// The slots of a layer's step of 32 inputs (one where 2 H <= 128, two where
+// 2 H = 256: warpgroup c reads the c-th) and the rows of W each holds.
+__host__ __device__ __forceinline__ int wg_parts(int half) { return 2 * half > kWgSlotRows ? 2 : 1; }
+__host__ __device__ __forceinline__ int wg_box(int half) { return 2 * half < kWgSlotRows ? 2 * half : kWgSlotRows; }
+
+// activate<kAct>, with elu's and selu's expm1 as exp - 1 through the
+// card's exp2 (ex2.approx): its error, about 2^-22 of exp(x) <= 1, is 1 %
+// of the tolerance's atol, and expm1f took most of the layer ends' time.
+template <int kAct>
+__device__ __forceinline__ float wg_activate(float x) {
+  if (kAct == kElu || kAct == kSelu) {
+    const float e = __expf(fminf(x, 0.0f)) - 1.0f;
+    return kAct == kElu ? (x > 0.0f ? x : e) : 1.0507009873554805f * (x > 0.0f ? x : 1.6732632423543772f * e);
+  }
+  return activate<kAct>(x);
+}
+
+// v - (v with its last 13 bits cleared), elementwise: the lo halves of a
+// weight's four values.
+__device__ __forceinline__ float4 wg_lo4(float4 v) {
+  return make_float4(v.x - __uint_as_float(__float_as_uint(v.x) & 0xffffe000u),
+                     v.y - __uint_as_float(__float_as_uint(v.y) & 0xffffe000u),
+                     v.z - __uint_as_float(__float_as_uint(v.z) & 0xffffe000u),
+                     v.w - __uint_as_float(__float_as_uint(v.w) & 0xffffe000u));
+}
+
+// The kernel's own copies of a step of 32 inputs (from k0 on) of layer l's
+// W, for a W that bulk copies do not take, shared by the producer's two
+// pairs of warps (`half`: 0 the copying warps, 1 the splitting warps; `tid`
+// 0-63 within them): of a step of two slots each takes one, of a step of
+// one slot each half of its rows.
+__device__ __forceinline__ void wg_copy_half(float* slot, const WgmmaNet& net, int l, int k0, int part, int half,
+                                             int tid) {
+  const int K = net.dims[l], N = net.dims[l + 1], parts = wg_parts(net.half[l]), box = wg_box(net.half[l]);
+  if (parts == 2 && part != half) return;
+  const int r0 = parts == 2 ? 0 : half * (box / 2), rows = parts == 2 ? box : box / 2;
+  const int row = part * kWgSlotRows + r0;  // the first row of W copied
+  wg_copy<kWgCopiers>(slot + r0 * 32, net.w[l] + static_cast<size_t>(row) * K, net.w[l], rows,
+                      max(0, min(N - row, rows)), K, k0, 1, tid);
+}
+
+// One layer of a consumer warpgroup (`c`: its half of the outputs) over the
+// block's row tile at row0: the products slot by slot, then activation and
+// the store, into the activation buffer in place or, after the last layer,
+// to out. With `next_x`, the next tile's x is asked for once the buffer is
+// free.
+template <int H, int kAct>
+__device__ __forceinline__ void wg_layer(const WgmmaNet& net, const WgLayout& sm, int l, WgSlot& pos, int c,
+                                         int warp_in_group, int lane, int cluster, long long row0,
+                                         const float* next_x, int next_rows) {
+  constexpr int kParts = 2 * H > kWgSlotRows ? 2 : 1;
+  const int K = net.dims[l], N = net.dims[l + 1];
+  const bool last = l == net.n_layers - 1;
+  const int nK = (K + 31) / 32;
+  // Offsets and addresses from here on depend on this opaque 0, so the
+  // compiler cannot compute them once for every row tile and layer ahead of
+  // the loops (hundreds of them, which spill and come back from L2).
+  int opaque;
+  asm volatile("mov.u32 %0, 0;" : "=r"(opaque));
+  float* const act = sm.act + opaque;
+  float* const ring = sm.ring + opaque;
+  const int g = (lane + opaque) >> 2, t = (lane + opaque) & 3;
+  const int r0 = 16 * warp_in_group + g;  // this thread's rows r0 and r0 + 8 of the tile
+  const int sw = r0 & 7;
+  // The small sum starts from the bias: its truncations are 2^-23 of the
+  // bias's size, and the layer's end adds nothing more.
+  float big[H / 2], small[H / 2];
+  const float* __restrict__ bias = net.b[l] + opaque;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    const int n = c * H + 8 * j + 2 * t;
+    const float b0 = n < N ? __ldg(bias + n) : 0.0f, b1 = n + 1 < N ? __ldg(bias + n + 1) : 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      big[4 * j + 2 * h] = big[4 * j + 2 * h + 1] = 0.0f;
+      small[4 * j + 2 * h] = b0;
+      small[4 * j + 2 * h + 1] = b1;
+    }
+  }
+#pragma unroll 1
+  for (int kb = 0; kb < nK; ++kb) {
+    WgSlot mine = pos;
+    if (kParts == 2 && c == 1) mine.next(net.slots);
+    // the A fragments of the step's four instructions (rows g and g + 8 of
+    // the warp's 16 by inputs t and t + 4 of each): a_hi is the value
+    // itself (the tensor core reads its leading bits), a_lo the rest
+    const float* blk = act + kb * kWgRows * 32;
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int c0 = ((2 * ks) ^ sw) << 2, c1 = ((2 * ks + 1) ^ sw) << 2;
+      const float v[4] = {blk[r0 * 32 + c0 + t], blk[(r0 + 8) * 32 + c0 + t], blk[r0 * 32 + c1 + t],
+                          blk[(r0 + 8) * 32 + c1 + t]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[ks][e] = __float_as_uint(v[e]);
+        lo[ks][e] = __float_as_uint(v[e] - __uint_as_float(__float_as_uint(v[e]) & 0xffffe000u));
+      }
+    }
+    mbar_wait(&sm.ready[mine.s], mine.round & 1);
+    mbar_wait(&sm.full[mine.s], mine.round & 1);
+    const float* w_hi = ring + mine.s * kWgSlotFloats + (kParts == 1 ? c * H * 32 : 0);
+    const float* w_lo = w_hi + kWgSlotRows * 32;
+    fence_accumulators(big);
+    fence_accumulators(small);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t d_hi = wg_desc(w_hi + 8 * ks), d_lo = wg_desc(w_lo + 8 * ks);
+      wgmma_tf32<H>(small, lo[ks], d_hi);
+      wgmma_tf32<H>(big, hi[ks], d_hi);
+      wgmma_tf32<H>(small, hi[ks], d_lo);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_accumulators(big);
+    fence_accumulators(small);
+    __syncwarp();
+    if (lane < cluster) {
+      // every consuming warp releases every slot of the step
+      WgSlot release = pos;
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) {
+        mbar_arrive_remote(&sm.empty[release.s], lane);
+        release.next(net.slots);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) pos.next(net.slots);
+  }
+  consumers_sync();  // both warpgroups have read the buffer
+  if (next_x != nullptr)
+    wg_copy<kWgConsumerThreads>(act, next_x, net.x, kWgRows, next_rows, net.dims[0], 0, (net.dims[0] + 31) / 32,
+                                threadIdx.x);
+  // the same for the layer's end, apart from the offsets of the bias's loads
+  int opaque_end;
+  asm volatile("mov.u32 %0, 0;" : "=r"(opaque_end));
+  const int t_end = t + opaque_end, g_end = g + opaque_end, r_end = 16 * warp_in_group + g_end;
+  if (last) {
+    float* const out = net.out + opaque_end;
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j) {
+      const int n = c * H + 8 * j + 2 * t_end;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = row0 + r_end + 8 * h;
+        const float y0 = wg_activate<kAct>(big[4 * j + 2 * h] + small[4 * j + 2 * h]);
+        const float y1 = wg_activate<kAct>(big[4 * j + 2 * h + 1] + small[4 * j + 2 * h + 1]);
+        if (row < net.B) {
+          if (n < N) out[row * N + n] = y0;
+          if (n + 1 < N) out[row * N + n + 1] = y1;
+        }
+      }
+    }
+  } else {
+    // Outputs n = c H + 8 j + 2 t and n + 1 of rows r_end and r_end + 8 land
+    // at (n / 32) (64 x 32) + r 32 + (((n % 32) / 4) ^ (r % 8)) 4 + n % 4 of
+    // the buffer; r % 8 is g, and with J = c H / 8 + j the 16-byte chunk
+    // (n % 32) / 4 is 2 (J % 4) + t / 2, so the XOR takes four values a
+    // thread, one for each J % 4: four base addresses, each plus constants.
+    const int rot = ((c * H) >> 3) & 3, q = g_end ^ (t_end >> 1);
+    const uint32_t base =
+        smem_u32(act) + 4 * (((c * H) >> 5) * (kWgRows * 32) + r_end * 32 + 2 * (t_end & 1)) + opaque_end;
+    uint32_t at[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) at[m] = base + 16 * ((2 * ((m + rot) & 3)) ^ q);
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j) {
+      const int n = c * H + 8 * j + 2 * t_end;
+      const bool in0 = n < N, in1 = n + 1 < N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float y0 = wg_activate<kAct>(big[4 * j + 2 * h] + small[4 * j + 2 * h]);
+        const float y1 = wg_activate<kAct>(big[4 * j + 2 * h + 1] + small[4 * j + 2 * h + 1]);
+        const uint32_t p = at[j & 3] + 4 * ((j >> 2) * (kWgRows * 32) + 8 * h * 32);
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(p), "f"(in0 ? y0 : 0.0f), "f"(in1 ? y1 : 0.0f)
+                     : "memory");
+      }
+    }
+  }
+  if (next_x != nullptr) {
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for the tensor cores' reads of the buffer
+  consumers_sync();  // the layer's outputs (or the next tile's x) are whole
+}
+
+template <int kAct>
+__global__ void __launch_bounds__(kWgThreads, 1) fused_mlp_wgmma_kernel(const __grid_constant__ WgmmaNet net) {
+  extern __shared__ unsigned char smem_raw[];
+  const WgLayout sm = wg_layout(smem_raw, net);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cluster = static_cast<int>(cluster_blocks()), rank = static_cast<int>(cluster_rank());
+  const int slots = net.slots;
+  if (tid == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(&sm.full[s], kWgFullArrivals);
+      mbar_init(&sm.empty[s], 4 * kWgConsumers * cluster);  // every consuming warp of the cluster
+      mbar_init(&sm.ready[s], kWgSplitters);
+    }
+    mbar_init(sm.stage_full, 1);
+    mbar_init(sm.stage_empty, kWgSplitters);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+
+  // One branch a role to the end, as setmaxnreg wants it.
+  if (warp >= 4 * kWgConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kWgProducerRegisters));
+    const int ptid = tid - kWgConsumerThreads;
+    WgSlot pos = {0, 0};
+    if (ptid < kWgCopiers) {
+      // The copying warps: each slot once every block of the cluster is
+      // done with it. Thread 0 arms the slot's full barrier with the bytes
+      // of the bulk copy and, in the cluster's first block, issues it to
+      // every block of the cluster. A W that bulk copies do not take both
+      // pairs of the producer's warps copy (wg_copy_half), each block its
+      // own, and every producer thread arrives when its copies have landed.
+      const uint16_t mask = cluster == 1 ? 0 : static_cast<uint16_t>((1u << cluster) - 1);
+      int uses = 0, staged_uses = 0;
+#pragma unroll 1
+      for (int it = 0; it < net.iters; ++it) {
+#pragma unroll 1
+        for (int l = 0; l < net.n_layers; ++l) {
+          const int K = net.dims[l], parts = wg_parts(net.half[l]), box = wg_box(net.half[l]);
+          const bool tma = (net.tma >> l) & 1, staged = (net.staged >> l) & 1;
+          if (staged) {
+            // the whole W into the staging buffer once the splitting warps are done with its last use
+            if (ptid == 0) {
+              if (staged_uses > 0) mbar_wait(sm.stage_empty, (staged_uses - 1) & 1);
+              const uint32_t bytes = static_cast<uint32_t>(wg_stage_bytes(net.dims[l + 1], K));
+              mbar_arrive_expect_tx(sm.stage_full, bytes);
+              bulk_copy(sm.stage, net.w[l], bytes, sm.stage_full);
+            }
+            ++staged_uses;
+          }
+#pragma unroll 1
+          for (int k0 = 0; k0 < K; k0 += 32) {
+#pragma unroll 1
+            for (int p = 0; p < parts; ++p, ++uses) {
+              float* w_hi = sm.ring + pos.s * kWgSlotFloats;
+              if (pos.round > 0) mbar_wait(&sm.empty[pos.s], (pos.round - 1) & 1);
+              if (tma) {
+                if (ptid == 0) {
+                  mbar_arrive_expect_tx(&sm.full[pos.s], 4u * box * 32);
+                  if (rank == 0) tma_load(w_hi, &net.map[l], &sm.full[pos.s], k0, p * kWgSlotRows, 0, mask);
+                }
+              } else {
+                if (ptid == 0) mbar_arrive_expect_tx(&sm.full[pos.s], 0);
+                if (!staged) wg_copy_half(w_hi, net, l, k0, p, 0, ptid);
+              }
+              cp_async_arrive(&sm.full[pos.s]);
+              pos.next(slots);
+            }
+          }
+        }
+      }
+      if (ptid < 32) {
+        // The tail: the last use of every slot released by every consuming
+        // warp of the cluster. Then no block of the cluster can still copy
+        // into this block's shared memory or arrive on its barriers.
+        for (int i = max(0, uses - slots); i < uses; ++i) mbar_wait(&sm.empty[i % slots], (i / slots) & 1);
+      }
+    } else {
+      // The splitting warps, a step of 32 inputs at a time: first their
+      // share of the step's copies (after the kernel's own cp.async; each
+      // after the slot's empty barrier) and their arrival on each of its
+      // slots' full barriers; then each slot once it has landed: lo = v -
+      // (v with its last 13 bits cleared), elementwise (the lo tile has W's
+      // layout), and after cp.async the hi tile again.
+      const int stid = ptid - kWgCopiers;
+      int staged_uses = 0;
+#pragma unroll 1
+      for (int it = 0; it < net.iters; ++it) {
+#pragma unroll 1
+        for (int l = 0; l < net.n_layers; ++l) {
+          const int K = net.dims[l], N = net.dims[l + 1], parts = wg_parts(net.half[l]), box = wg_box(net.half[l]);
+          const bool tma = (net.tma >> l) & 1, staged = (net.staged >> l) & 1;
+          if (staged) mbar_wait(sm.stage_full, staged_uses & 1);
+#pragma unroll 1
+          for (int k0 = 0; k0 < K; k0 += 32) {
+            WgSlot at = pos;
+#pragma unroll 1
+            for (int p = 0; p < parts; ++p) {
+              if (!tma && !staged) {
+                if (at.round > 0) mbar_wait(&sm.empty[at.s], (at.round - 1) & 1);
+                wg_copy_half(sm.ring + at.s * kWgSlotFloats, net, l, k0, p, 1, stid);
+              }
+              cp_async_arrive(&sm.full[at.s]);
+              at.next(slots);
+            }
+#pragma unroll 1
+            for (int p = 0; p < parts; ++p) {
+              mbar_wait(&sm.full[pos.s], pos.round & 1);
+              float4* hi4 = reinterpret_cast<float4*>(sm.ring + pos.s * kWgSlotFloats);
+              float4* lo4 = hi4 + kWgSlotRows * 8;
+              if (staged) {
+#pragma unroll 1
+                for (int i = stid; i < box * 8; i += kWgSplitters) {
+                  // 16 bytes of a row of the slot from the staged W [N, K] (row-major, unswizzled): row
+                  // p 128 + i / 8, inputs k0 + 4 (chunk i % 8 undone from the swizzle) on, zeros past N and K
+                  const int r = i >> 3, row = p * kWgSlotRows + r, k = k0 + 4 * ((i & 7) ^ (r & 7));
+                  const float* src = sm.stage + row * K + k;
+                  const bool in = row < N;
+                  const float4 v = make_float4(in && k < K ? src[0] : 0.0f, in && k + 1 < K ? src[1] : 0.0f,
+                                               in && k + 2 < K ? src[2] : 0.0f, in && k + 3 < K ? src[3] : 0.0f);
+                  hi4[i] = v;
+                  lo4[i] = wg_lo4(v);
+                }
+              } else {
+#pragma unroll 4
+                for (int i = stid; i < box * 8; i += kWgSplitters) {
+                  const float4 v = hi4[i];
+                  lo4[i] = wg_lo4(v);
+                  if (!tma) hi4[i] = v;
+                }
+              }
+              asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+              mbar_arrive(&sm.ready[pos.s]);
+              pos.next(slots);
+            }
+          }
+          if (staged) {
+            mbar_arrive(sm.stage_empty);  // the staged W's last slot is made
+            ++staged_uses;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kWgConsumerRegisters));
+    const int c = warp / 4, warp_in_group = warp % 4;
+    const int K0 = net.dims[0], blocks0 = (K0 + 31) / 32;
+    WgSlot pos = {0, 0};
+    {
+      const long long row0 = wg_tile(0, cluster) * kWgRows;
+      const int rows = static_cast<int>(max(0LL, min(static_cast<long long>(kWgRows), net.B - row0)));
+      wg_copy<kWgConsumerThreads>(sm.act, rows > 0 ? net.x + row0 * K0 : net.x, net.x, kWgRows, rows, K0, 0,
+                                  blocks0, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      consumers_sync();
+    }
+#pragma unroll 1
+    for (int it = 0; it < net.iters; ++it) {
+      const long long row0 = wg_tile(it, cluster) * kWgRows;
+      const long long next0 = wg_tile(it + 1, cluster) * kWgRows;
+      const int next_rows = static_cast<int>(max(0LL, min(static_cast<long long>(kWgRows), net.B - next0)));
+      const float* next_x = it + 1 < net.iters ? (next_rows > 0 ? net.x + next0 * K0 : net.x) : nullptr;
+#pragma unroll 1
+      for (int l = 0; l < net.n_layers; ++l) {
+        const float* prefetch = l == net.n_layers - 1 ? next_x : nullptr;
+        switch (net.half[l]) {
+          case 16:
+            wg_layer<16, kAct>(net, sm, l, pos, c, warp_in_group, lane, cluster, row0, prefetch, next_rows);
+            break;
+          case 32:
+            wg_layer<32, kAct>(net, sm, l, pos, c, warp_in_group, lane, cluster, row0, prefetch, next_rows);
+            break;
+          case 64:
+            wg_layer<64, kAct>(net, sm, l, pos, c, warp_in_group, lane, cluster, row0, prefetch, next_rows);
+            break;
+          default:
+            wg_layer<128, kAct>(net, sm, l, pos, c, warp_in_group, lane, cluster, row0, prefetch, next_rows);
+            break;
+        }
+      }
+    }
+  }
+}
+
+// An empty kernel of the wgmma kernel's block, launched at its grid, cluster
+// and shared memory: the floor under a wgmma launch's time.
+__global__ void __launch_bounds__(kWgThreads, 1) fused_mlp_wgmma_empty_kernel() {}
+
+// The wgmma kernel's dynamic shared memory for `net` (dims, n_layers and
+// slots set), in bytes; fills the halves and the buffer's width
+// (ops/fused_mlp.py wgmma_shared_bytes computes the same): 1 KB to align the
+// buffer to the swizzle's 1024 bytes, the buffer (64 rows of the widest of
+// x's inputs and the inner widths, each rounded up to 32, where the outputs
+// of a layer are written to 2 H), the slots (128 rows of 32 floats, twice),
+// the staging buffer (the largest wg_stage_bytes of a layer), three
+// barriers a slot and the staging buffer's two.
+int wgmma_layout(WgmmaNet& net) {
+  int width = (net.dims[0] + 31) / 32 * 32, stage = 0;
+  for (int l = 0; l < net.n_layers; ++l) {
+    net.half[l] = wgmma_half(net.dims[l + 1]);
+    if (l < net.n_layers - 1) width = std::max(width, 2 * net.half[l]);
+    stage = std::max(stage, wg_stage_bytes(net.dims[l + 1], net.dims[l]));
+  }
+  net.width = width;
+  net.stage_bytes = stage;
+  return kSwizzleAlign + 4 * (kWgRows * width + net.slots * kWgSlotFloats) + stage + 3 * 8 * net.slots + 2 * 8;
+}
+
+cudaLaunchConfig_t wgmma_config(int grid, int cluster, int smem_bytes, cudaStream_t stream,
+                                cudaLaunchAttribute* attribute) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned int>(grid));
+  config.blockDim = dim3(kWgThreads);
+  config.dynamicSmemBytes = smem_bytes;
+  config.stream = stream;
+  attribute->id = cudaLaunchAttributeClusterDimension;
+  attribute->val.clusterDim.x = static_cast<unsigned int>(cluster);
+  attribute->val.clusterDim.y = 1;
+  attribute->val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return config;
+}
+
+// Sets a wgmma kernel's shared memory to the block's limit once; 0, a CUDA
+// error, or -3 where its registers at entry are not the 168 that
+// setmaxnreg's exchange counts on.
+template <typename Kernel>
+int prepare_wgmma(Kernel kernel, bool check_registers) {
+  int err = static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes));
+  if (err != 0 || !check_registers) return err;
+  cudaFuncAttributes attributes;
+  err = static_cast<int>(cudaFuncGetAttributes(&attributes, kernel));
+  if (err != 0) return err;
+  return attributes.numRegs == kEntryRegisters ? 0 : -3;
+}
+
+// How many clusters of `cluster` blocks with `smem_bytes` of shared memory
+// the card holds at once (cudaOccupancyMaxActiveClusters), remembered by
+// (cluster, shared bytes); -1 on an error.
+int wgmma_clusters(int cluster, int smem_bytes) {
+  struct Known {
+    int cluster, smem_bytes, clusters;
+  };
+  static Known known[16];
+  static int n_known = 0;
+  for (int i = 0; i < n_known; ++i)
+    if (known[i].cluster == cluster && known[i].smem_bytes == smem_bytes) return known[i].clusters;
+  // every instance takes the same registers (168 a thread at entry) and threads: ask the first
+  if (prepare_wgmma(fused_mlp_wgmma_kernel<kIdentity>, false) != 0) return -1;
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config = wgmma_config(cluster * 256, cluster, smem_bytes, nullptr, &attribute);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, fused_mlp_wgmma_kernel<kIdentity>, &config) != cudaSuccess ||
+      clusters < 1)
+    return -1;
+  known[n_known % 16] = {cluster, smem_bytes, clusters};
+  ++n_known;
+  return clusters;
+}
+
+// The tensor map of W [N, K] at `w`, boxes of `box_rows` x 32 (encode_rows),
+// remembered by (address, K, N, box): a map depends on nothing else.
+bool wgmma_weight_map(CUtensorMap* map, const float* w, int K, int N, int box_rows) {
+  struct Known {
+    const float* w;
+    int K, N, box_rows;
+    CUtensorMap map;
+  };
+  static Known known[32];
+  static int n_known = 0;
+  for (int i = 0; i < std::min(n_known, 32); ++i) {
+    const Known& k = known[i];
+    if (k.w == w && k.K == K && k.N == N && k.box_rows == box_rows) {
+      *map = k.map;
+      return true;
+    }
+  }
+  if (!encode_rows(map, w, K, N, 1, 0, box_rows)) return false;
+  known[n_known % 32] = {w, K, N, box_rows, *map};
+  ++n_known;
+  return true;
+}
+
+// The grid of a wgmma launch over B rows: a block a row tile of 64, at most
+// as many whole clusters as the card holds at once; -1 on an error.
+int wgmma_grid(long long B, int cluster, int smem_bytes) {
+  const int at_once = wgmma_clusters(cluster, smem_bytes);
+  if (at_once < 1) return -1;
+  const long long tiles = (B + kWgRows - 1) / kWgRows;
+  return static_cast<int>(std::min<long long>((tiles + cluster - 1) / cluster, at_once) * cluster);
+}
+
+template <int kAct>
+int launch_wgmma(WgmmaNet& net, int cluster, int smem_bytes, cudaStream_t stream, int* attr_err) {
+  static int prepared = 1;  // 1: not yet; else prepare_wgmma's result
+  if (prepared == 1) prepared = prepare_wgmma(fused_mlp_wgmma_kernel<kAct>, true);
+  *attr_err = prepared;
+  if (prepared != 0) return 0;
+  const int grid = wgmma_grid(net.B, cluster, smem_bytes);
+  if (grid < 1) {
+    *attr_err = -1;
+    return 0;
+  }
+  net.iters = static_cast<int>(((static_cast<long long>(net.B) + kWgRows - 1) / kWgRows + grid - 1) / grid);
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config = wgmma_config(grid, cluster, smem_bytes, stream, &attribute);
+  const cudaError_t err = cudaLaunchKernelEx(&config, fused_mlp_wgmma_kernel<kAct>, net);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) over `groups` weight sets
@@ -2162,4 +2986,87 @@ extern "C" int fused_mlp_sets_empty(int grid, int smem_bytes, void* stream) {
   if (err != 0) return err;
   fused_mlp_sets_empty_kernel<<<grid, kSetsThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma launch of a held chain (fused_mlp_wgmma_kernel) on `stream`:
+// arguments as fused_mlp_forward's for one weight set, the blocks a cluster
+// (1 or 2: a weight tile is multicast to them; clusters of 4 ran slower, in
+// two waves, and once gave two calls that differed in their last bits) and
+// the ring's slots (2 to 6). Each W_l whose address and rows are 16-byte multiples goes by bulk
+// tensor copies, the others by the kernel's cp.async (ops/fused_mlp.py
+// wgmma_copy). Returns the launch's CUDA error code and writes the
+// preparation's to *attr_err (-3: the kernel's registers at entry are not
+// 168; -1: the card holds no cluster of it); -1 for arguments the kernel
+// does not take (a width past 256, a layout past a block's shared memory),
+// -2 where a tensor map could not be encoded.
+extern "C" int fused_mlp_wgmma_forward(const float* x, float* out, int B, int n_layers, const int* dims,
+                                       const void* const* ws, const void* const* bs, int act, int cluster,
+                                       int slots, void* stream, int* attr_err) {
+  *attr_err = 0;
+  if (n_layers < 1 || n_layers > kMaxLayers || act < kIdentity || act > kTanh) return -1;
+  if ((cluster != 1 && cluster != 2) || slots < 2 || slots > kWgMaxSlots) return -1;
+  if (B <= 0) return 0;
+  WgmmaNet net = {};
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1 || dims[l] > kWgMaxWidth) return -1;
+    net.dims[l] = dims[l];
+  }
+  net.x = x;
+  net.out = out;
+  net.n_layers = n_layers;
+  net.B = B;
+  net.slots = slots;
+  const int smem_bytes = wgmma_layout(net);
+  if (smem_bytes > kMaxSharedBytes) return -1;
+  for (int l = 0; l < n_layers; ++l) {
+    net.w[l] = static_cast<const float*>(ws[l]);
+    net.b[l] = static_cast<const float*>(bs[l]);
+    if (!bulk_copies_take(net.w[l], dims[l], 0)) {
+      if (wg_stage_bytes(dims[l + 1], dims[l]) > 0 && (reinterpret_cast<uintptr_t>(net.w[l]) & 15) == 0)
+        net.staged |= 1 << l;
+      continue;
+    }
+    if (!wgmma_weight_map(&net.map[l], net.w[l], dims[l], dims[l + 1], wg_box(net.half[l]))) return -2;
+    net.tma |= 1 << l;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+#define FUSED_MLP_WGMMA_LAUNCH(kAct) \
+  case kAct:                         \
+    return launch_wgmma<kAct>(net, cluster, smem_bytes, s, attr_err);
+    FUSED_MLP_WGMMA_LAUNCH(kIdentity)
+    FUSED_MLP_WGMMA_LAUNCH(kRelu)
+    FUSED_MLP_WGMMA_LAUNCH(kElu)
+    FUSED_MLP_WGMMA_LAUNCH(kSelu)
+    FUSED_MLP_WGMMA_LAUNCH(kSoftplus)
+    FUSED_MLP_WGMMA_LAUNCH(kGelu)
+    FUSED_MLP_WGMMA_LAUNCH(kSigmoid)
+    FUSED_MLP_WGMMA_LAUNCH(kSilu)
+    FUSED_MLP_WGMMA_LAUNCH(kTanh)
+#undef FUSED_MLP_WGMMA_LAUNCH
+    default:
+      return -1;
+  }
+}
+
+// The grid of a wgmma launch over B rows in clusters of `cluster` with
+// `smem_bytes` of dynamic shared memory (wgmma_grid); -1 on an error.
+extern "C" int fused_mlp_wgmma_grid(int B, int cluster, int smem_bytes) {
+  if (B <= 0 || (cluster != 1 && cluster != 2) || smem_bytes < 0 || smem_bytes > kMaxSharedBytes)
+    return -1;
+  return wgmma_grid(B, cluster, smem_bytes);
+}
+
+// An empty kernel at the grid, cluster and shared memory of a wgmma launch
+// over B rows (the floor under its time); the CUDA error code.
+extern "C" int fused_mlp_wgmma_empty(int B, int cluster, int smem_bytes, void* stream) {
+  const int grid = fused_mlp_wgmma_grid(B, cluster, smem_bytes);
+  if (grid < 1) return -1;
+  const int err = prepare_wgmma(fused_mlp_wgmma_empty_kernel, false);
+  if (err != 0) return err;
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config =
+      wgmma_config(grid, cluster, smem_bytes, static_cast<cudaStream_t>(stream), &attribute);
+  const cudaError_t launched = cudaLaunchKernelEx(&config, fused_mlp_wgmma_empty_kernel);
+  return static_cast<int>(launched != cudaSuccess ? launched : cudaGetLastError());
 }

@@ -30,7 +30,13 @@ rows (below a crossover measured on the card: the rollout's 16 rows, the
 host path's 64, an exported policy's one action) runs as the cluster kernel
 (``cluster_plan``): a cluster of blocks splits each layer's outputs, every
 block fetches its share of the weights at once, and the activations pass
-between them through distributed shared memory. A grouped launch at few
+between them through distributed shared memory. A held launch over many
+rows whose widths are at most 256 (from ``WGMMA_MIN_ROWS``, measured on the
+card: the flagship torso's rollout and minibatches, the 3D configs', the
+deep torso's) runs as the wgmma kernel (``wgmma_plan``): persistent blocks of
+64 rows whose two consumer warpgroups make the products with the warpgroup
+instruction, while a producer warpgroup streams the weights through a ring
+of slots by bulk tensor copies multicast over a cluster. A grouped launch at few
 rows a set (the self-play opponents' one row) runs as the sets kernel
 (``sets_plan``): persistent blocks stream whole sets' weights through a ring
 of stages by bulk copies and make the products on the CUDA cores in float32.
@@ -59,6 +65,7 @@ backward recomputes through ``plain_mlp_grouped``.
 """
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -77,6 +84,8 @@ fused_mlp_grouped_launches = 0
 fused_mlp_cluster_launches = 0
 # The launches of the sets kernel among the grouped ones (``_launch`` adds one here too).
 fused_mlp_sets_launches = 0
+# The launches of the wgmma kernel among the ordinary ones (``_launch`` adds one here too).
+fused_mlp_wgmma_launches = 0
 
 # The kernel's limits.
 MAX_LAYERS = 8  # layers a launch: their pointers travel in the kernel's argument block
@@ -139,6 +148,31 @@ MAX_SETS_STAGES = 16  # csrc/fused_mlp.cu kMaxSetsStages
 # csrc/fused_mlp.cu: the static table of 1 + 2 MAX_LAYERS records of
 # SetsTensor (a pointer, a set stride, two ints: 24 bytes) and the widths
 _SETS_TABLE_BYTES = (1 + 2 * MAX_LAYERS) * 24 + 4 * (MAX_LAYERS + 1)
+# The wgmma kernel (csrc/fused_mlp.cu fused_mlp_wgmma_kernel): a held,
+# ungrouped launch over many rows, a block a tile of 64 rows whose two
+# consumer warpgroups split each layer's outputs, the products by wgmma, the
+# weights streamed through a ring of slots of 128 rows by 32 inputs and
+# their lo tile (bulk tensor copies multicast over a cluster, or cp.async).
+# Its limits: every width at most 256; each warpgroup's share of a layer's
+# outputs one of the instruction widths below.
+WGMMA_ROWS = 64
+WGMMA_MAX_WIDTH = 256
+WGMMA_HALVES = (16, 32, 64, 128)
+WGMMA_CLUSTERS = (1, 2)  # blocks a cluster the kernel takes
+WGMMA_SLOT_ROWS = 128  # csrc/fused_mlp.cu kWgSlotRows
+WGMMA_SLOTS_RANGE = (2, 6)  # csrc/fused_mlp.cu: 2 to kWgMaxSlots
+WGMMA_MAX_STAGE_BYTES = 65536  # csrc/fused_mlp.cu kWgMaxStageBytes: a weight staged whole
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W by tools/fused_mlp_ab.py
+# --sweep wgmma (PERF.md §6): the fewest rows from which the wgmma kernel
+# beat the held kernel on every chain at every larger batch the sweep ran;
+# the fewest multiply-adds a row of a chain it takes (the self-play
+# learner's 8,960 lost at 8192 rows in one sweep: below 16,384 the held
+# kernel stays, on the safe side); the blocks a cluster and the ring's slots
+# that ran fastest (as many slots as fit a block, at most WGMMA_SLOTS).
+WGMMA_MIN_ROWS = 8192
+WGMMA_MIN_ROW_MACS = 16384
+WGMMA_CLUSTER = 2
+WGMMA_SLOTS = 4
 # activation name -> the kernel's integer code (csrc/fused_mlp.cu ``Act``)
 ACTIVATION_CODES = {
     "None": 0, None: 0, "relu": 1, "elu": 2, "selu": 3, "softplus": 4,
@@ -161,6 +195,7 @@ _forward = None
 _stream_forward = None
 _cluster_forward = None
 _sets_forward = None
+_wgmma_forward = None
 
 
 def _activation_code(activation) -> int:
@@ -482,17 +517,122 @@ def sets_copy_modes(address: int, set_stride: int, floats: int, groups: int) -> 
     return [sets_copy(address + 4 * g * set_stride, floats) for g in range(groups if set_stride else 1)]
 
 
+class WgmmaPlan(NamedTuple):
+    """A held launch run as the wgmma kernel: the blocks of a cluster (a
+    weight tile is multicast to them), the ring's slots and the dynamic
+    shared bytes a block takes."""
+    cluster: int
+    slots: int
+    shared: int
+
+
+def wgmma_half(n: int) -> int:
+    """The outputs that one consumer warpgroup of the wgmma kernel takes of
+    a layer of ``n`` outputs: half of them rounded up to 8, then to an
+    instruction width of ``WGMMA_HALVES`` (csrc/fused_mlp.cu
+    ``wgmma_half``). Rows of W past n are zero-filled."""
+    half = -(-n // 16) * 8
+    return next(h for h in WGMMA_HALVES if h >= half)
+
+
+def wgmma_width(dims: Sequence[int]) -> int:
+    """Floats of a row of the wgmma kernel's activation buffer: x's inputs
+    rounded up to 32 and every layer's outputs but the last's written up to
+    twice its half (the next layer's zero-filled inputs)."""
+    return max([-(-dims[0] // 32) * 32] + [2 * wgmma_half(n) for n in dims[1:-1]])
+
+
+def wgmma_stage_bytes(n: int, k: int) -> int:
+    """The bytes of a layer's W [n, k] in the wgmma kernel's staging buffer:
+    where bulk tensor copies can never take its rows (k not a multiple of 4)
+    and one bulk copy takes it whole (its bytes a multiple of 16, at most
+    WGMMA_MAX_STAGE_BYTES), else 0 (csrc/fused_mlp.cu ``wg_stage_bytes``)."""
+    nbytes = 4 * n * k
+    return nbytes if k % 4 and nbytes % 16 == 0 and nbytes <= WGMMA_MAX_STAGE_BYTES else 0
+
+
+def wgmma_shared_bytes(dims: Sequence[int], slots: int) -> int:
+    """The wgmma kernel's dynamic shared memory (csrc/fused_mlp.cu
+    ``wgmma_layout``): 1 KB to align to the swizzle's 1024 bytes, the
+    activation buffer (64 rows of ``wgmma_width``), ``slots`` slots of 128
+    rows of W by 32 inputs and their lo tile, the staging buffer (the
+    largest ``wgmma_stage_bytes`` of a layer), three 8-byte barriers a slot
+    (full, empty, ready) and the staging buffer's two."""
+    stage = max(wgmma_stage_bytes(dims[i + 1], dims[i]) for i in range(len(dims) - 1))
+    return (1024 + 4 * (WGMMA_ROWS * wgmma_width(dims) + slots * 2 * WGMMA_SLOT_ROWS * 32) + stage
+            + 3 * 8 * slots + 2 * 8)
+
+
+def row_macs(dims: Sequence[int]) -> int:
+    """The multiply-adds a row of the chain ``dims`` takes."""
+    return sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+
+
+def wgmma_takes(dims: Sequence[int]) -> bool:
+    """Whether the wgmma kernel takes one launch of widths ``dims``: 1 to
+    MAX_LAYERS layers, every width 1 to 256."""
+    return 1 <= len(dims) - 1 <= MAX_LAYERS and all(1 <= d <= WGMMA_MAX_WIDTH for d in dims)
+
+
+def wgmma_plan(dims: Sequence[int], batch: int, cluster: int = None, slots: int = None) -> Optional[WgmmaPlan]:
+    """The wgmma kernel's shape for a held, ungrouped launch of widths
+    ``dims`` over ``batch`` rows, or None where another kernel runs it: a
+    batch below the crossover (WGMMA_MIN_ROWS), a chain of fewer than
+    WGMMA_MIN_ROW_MACS multiply-adds a row, or widths it does not take.
+    The cluster is WGMMA_CLUSTER and the ring as many slots as fit a block,
+    at most WGMMA_SLOTS; ``cluster`` and ``slots`` force either (the
+    sweep's shapes, at any batch and chain)."""
+    routed = batch >= WGMMA_MIN_ROWS and row_macs(dims) >= WGMMA_MIN_ROW_MACS
+    if not wgmma_takes(dims) or (cluster is None and slots is None and not routed):
+        return None
+    cluster = WGMMA_CLUSTER if cluster is None else cluster
+    lowest, highest = WGMMA_SLOTS_RANGE
+    if slots is None:
+        slots = next((s for s in range(min(WGMMA_SLOTS, highest), lowest - 1, -1)
+                      if wgmma_shared_bytes(dims, s) <= MAX_SHARED_BYTES), 0)
+    shared = wgmma_shared_bytes(dims, slots)
+    if not lowest <= slots <= highest or shared > MAX_SHARED_BYTES or cluster not in WGMMA_CLUSTERS:
+        return None
+    return WgmmaPlan(cluster, slots, shared)
+
+
+def wgmma_copy(address: int, n: int, k: int):
+    """How the wgmma kernel brings W [n, k] at byte ``address`` into shared
+    memory: "tensor map" (bulk tensor copies of its slices: a 16-byte
+    aligned address and rows of a multiple of 16 bytes), "staged" (one bulk
+    copy of the whole weight into the staging buffer, whose rows the
+    splitting warps swizzle into the ring: a 16-byte aligned address and
+    ``wgmma_stage_bytes``), else the width in bytes (16, 8 or 4) of the
+    cp.async that the address and the rows allow (csrc/fused_mlp.cu
+    ``fused_mlp_wgmma_forward``, ``wg_copy``)."""
+    if address % 16 == 0 and k % 4 == 0:
+        return "tensor map"
+    if address % 16 == 0 and wgmma_stage_bytes(n, k):
+        return "staged"
+    return 8 if address % 8 == 0 and k % 2 == 0 else 4
+
+
+def wgmma_copy_modes(x, ws) -> list:
+    """The cp.async width (16, 8 or 4 bytes) of x's rows and ``wgmma_copy``
+    of each weight of a launch."""
+    address, k = x.data_ptr(), x.shape[-1]
+    x_mode = 16 if address % 16 == 0 and k % 4 == 0 else 8 if address % 8 == 0 and k % 2 == 0 else 4
+    return [x_mode] + [wgmma_copy(w.data_ptr(), *w.shape[-2:]) for w in ws]
+
+
 class Launch(NamedTuple):
     """One launch of a chain: layers ``first`` .. ``last`` - 1, held or (one
     layer) streamed, its ``kernel_plan``; a held launch that runs as the
     cluster kernel also its ``cluster_plan``, a held grouped launch that
-    runs as the sets kernel its ``sets_plan`` (None: the held kernel)."""
+    runs as the sets kernel its ``sets_plan``, a held launch that runs as
+    the wgmma kernel its ``wgmma_plan`` (None: the held kernel)."""
     first: int
     last: int
     streamed: bool
     plan: tuple
     cluster: Optional[ClusterPlan] = None
     sets: Optional[SetsPlan] = None
+    wgmma: Optional[WgmmaPlan] = None
 
 
 def launch_plan(dims: Sequence[int], batch: int, cluster: bool = True) -> List[Launch]:
@@ -503,7 +643,16 @@ def launch_plan(dims: Sequence[int], batch: int, cluster: bool = True) -> List[L
     no buffer holds is a streamed launch of its own. A chain that one
     launch takes is one launch, with ``kernel_plan(dims, batch)``. With
     ``cluster`` a held launch takes ``cluster_plan`` (the cluster kernel
-    where it picks one); without, every held launch is the held kernel's."""
+    where it picks one) or else ``wgmma_plan`` (the wgmma kernel where it
+    picks one); without (the grouped launches), every held launch is the
+    held kernel's. Every call of the kernel asks, so the plan is kept by
+    the widths, the batch and ``cluster``: a call pays a lookup, not the
+    plans' sums."""
+    return list(_launch_plan(tuple(dims), batch, cluster))
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(dims: Tuple[int, ...], batch: int, cluster: bool) -> Tuple[Launch, ...]:
     n_layers = len(dims) - 1
     if n_layers < 1:
         raise ValueError(f"fused_mlp takes 1 layer at least, got {n_layers}")
@@ -516,9 +665,11 @@ def launch_plan(dims: Sequence[int], batch: int, cluster: bool = True) -> List[L
         streamed = last == first
         last = max(last, first + 1)
         held = None if streamed or not cluster else cluster_plan(dims[first:last + 1], batch)
-        launches.append(Launch(first, last, streamed, kernel_plan(dims[first:last + 1], batch, streamed), held))
+        wgmma = None if streamed or not cluster or held else wgmma_plan(dims[first:last + 1], batch)
+        launches.append(Launch(first, last, streamed, kernel_plan(dims[first:last + 1], batch, streamed), held,
+                               wgmma=wgmma))
         first = last
-    return launches
+    return tuple(launches)
 
 
 def grouped_launch_plan(dims: Sequence[int], batch: int, groups: int,
@@ -635,6 +786,52 @@ def _sets_kernel():
     return _sets_forward
 
 
+# csrc/fused_mlp.cu fused_mlp_wgmma_forward(x, out, B, n_layers, dims, ws, bs,
+# act, cluster, slots, stream, attr_err)
+WGMMA_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+)
+
+
+def _wgmma_kernel():
+    global _wgmma_forward
+    if _wgmma_forward is None:
+        fn = cuda_build.load("fused_mlp").fused_mlp_wgmma_forward
+        fn.argtypes = list(WGMMA_ARGTYPES)
+        fn.restype = ctypes.c_int
+        _wgmma_forward = fn
+    return _wgmma_forward
+
+
+def wgmma_grid(plan: WgmmaPlan, batch: int) -> int:
+    """The blocks of a wgmma launch over ``batch`` rows: a block a row tile
+    of 64, at most as many whole clusters as the card holds at once
+    (cudaOccupancyMaxActiveClusters; builds the kernel)."""
+    fn = cuda_build.load("fused_mlp").fused_mlp_wgmma_grid
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    grid = fn(batch, plan.cluster, plan.shared)
+    if grid < 1:
+        raise RuntimeError(f"fused_mlp_wgmma_grid failed for {plan}, B = {batch}")
+    return grid
+
+
+def wgmma_empty_launch(plan: WgmmaPlan, batch: int) -> None:
+    """An empty kernel at the block, grid, cluster and shared memory of a
+    wgmma launch over ``batch`` rows on the current stream: the floor under
+    its time (chip_smoke.py and tools/fused_mlp_ab.py time it). Not a launch
+    of the kernel: it counts nowhere."""
+    fn = cuda_build.load("fused_mlp").fused_mlp_wgmma_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(batch, plan.cluster, plan.shared, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_wgmma_empty failed with CUDA error {err}")
+
+
 def sets_grid(plan: SetsPlan, groups: int) -> int:
     """The blocks of a sets launch over ``groups`` sets: as many as the card
     holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the
@@ -723,12 +920,13 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
     ``dims`` / ``ws`` / ``bs`` of ``launch`` (a ``launch_plan`` entry).
     ``set_strides``: (x's, out's, [each weight's], [each bias's]), in
     floats."""
-    global fused_mlp_launches, fused_mlp_cluster_launches, fused_mlp_sets_launches
+    global fused_mlp_launches, fused_mlp_cluster_launches, fused_mlp_sets_launches, fused_mlp_wgmma_launches
     n = len(ws)
     x_set, out_set, w_sets, b_sets = set_strides
     attr_err = ctypes.c_int(0)
-    if launch.cluster is not None and groups != 1:
-        raise ValueError(f"the cluster kernel takes one weight set, got {groups}")
+    for kernel, plan in (("cluster", launch.cluster), ("wgmma", launch.wgmma)):
+        if plan is not None and groups != 1:
+            raise ValueError(f"the {kernel} kernel takes one weight set, got {groups}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if launch.sets is not None:
@@ -745,6 +943,17 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
                 act, rows, stages, warps, groups, x_set, out_set,
                 ctypes.cast(c_w_sets, ctypes.c_void_p), ctypes.cast(c_b_sets, ctypes.c_void_p),
                 stream, ctypes.byref(attr_err),
+            )
+        elif launch.wgmma is not None:
+            cluster, slots, shared = launch.wgmma
+            c_dims = (ctypes.c_int * (n + 1))(*dims)
+            c_ws = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
+            c_bs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
+            err = _wgmma_kernel()(
+                x.data_ptr(), out.data_ptr(), batch, n,
+                ctypes.cast(c_dims, ctypes.c_void_p), ctypes.cast(c_ws, ctypes.c_void_p),
+                ctypes.cast(c_bs, ctypes.c_void_p),
+                act, cluster, slots, stream, ctypes.byref(attr_err),
             )
         elif launch.cluster is not None:
             rows, stride0, stride1, _ = launch.plan
@@ -781,12 +990,14 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
                 stream, ctypes.byref(attr_err),
             )
     name = ("fused_mlp_sets_forward" if launch.sets is not None
+            else "fused_mlp_wgmma_forward" if launch.wgmma is not None
             else "fused_mlp_cluster_forward" if launch.cluster is not None
             else "fused_mlp_stream_forward" if launch.streamed else "fused_mlp_forward")
-    if launch.sets is not None and attr_err.value == -1:
+    if (launch.sets is not None or launch.wgmma is not None) and attr_err.value == -1:
         raise RuntimeError(f"{name}: the card holds no block of {shared} bytes of dynamic shared memory")
     if attr_err.value == -3:
-        raise RuntimeError(f"{name}: the {rows}-row kernel was not built with the 168 registers a thread "
+        kernel = "wgmma" if launch.wgmma is not None else f"{rows}-row"
+        raise RuntimeError(f"{name}: the {kernel} kernel was not built with the 168 registers a thread "
                            "that its exchange of registers between warpgroups (setmaxnreg) counts on")
     if attr_err.value != 0:
         raise RuntimeError(f"{name}: cudaFuncSetAttribute({shared} bytes of dynamic "
@@ -800,6 +1011,8 @@ def _launch(x, out, batch, dims, ws, bs, act, launch, groups, set_strides):
         fused_mlp_cluster_launches += 1
     if launch.sets is not None:
         fused_mlp_sets_launches += 1
+    if launch.wgmma is not None:
+        fused_mlp_wgmma_launches += 1
 
 
 def _run_chain(x, out, batch, dims, ws, bs, act, launches, groups=1, set_strides=None):

@@ -1,17 +1,24 @@
 """The fused MLP's kernel, this tree against another (a parent commit
 unpacked with ``git archive``), in turns on one card; or, with ``--sweep``,
-this tree's cluster, streamed and sets kernels over every shape they take.
+this tree's cluster, streamed, sets and wgmma kernels over every shape they
+take.
 
     python3 tools/fused_mlp_ab.py PARENT_DIR [--rounds 1]
-    python3 tools/fused_mlp_ab.py --sweep [cluster|stream|sets] [--reps 20]
+    python3 tools/fused_mlp_ab.py --sweep [cluster|stream|sets|wgmma] [--reps 20]
 
 Each round runs four processes, one after another: PARENT_DIR, this tree,
 this tree, PARENT_DIR. Each builds its own tree's kernels (its
 ``build/kernels``) and prints the device time of:
 
-- the flagship torso 26->256->128->64 elu at B = 8192 and 32768
+- the flagship torso 26->256->128->64 elu at B = 2048, 4096, 8192 and 32768,
+  with bfloat16-rounded weights at 8192 and 32768 (``[rnn]`` (e)), and the 3D
+  configs' torsos 33->256->128->64 and 41->256->128->64 at 4096 and 32768
   (``chip_smoke.time_fused``: ``fused_mlp_cuda`` against the plain chain in
-  turns, torch.profiler);
+  turns, torch.profiler): since the wgmma kernel, the tree's plan runs them
+  there from ``WGMMA_MIN_ROWS`` rows on, where a parent before it runs the
+  held kernel;
+- the host time of one ``fused_mlp_cuda`` call at the flagship torso, B =
+  8192;
 - the small batches, the same way: 16->256->128->64 elu at B = 16 (the
   walker GRU's rollout), 5->128->64->32 elu at 64 (the host path),
   the flagship torso at 1, 7 and 16 (an exported policy, the player),
@@ -23,7 +30,8 @@ this tree, PARENT_DIR. Each builds its own tree's kernels (its
   one-layer chain and the bound beside): the nature-CNN torso 3136->512 at
   the Pong rollout's B = 512, the minibatch's 4096 and a ragged 4099; 3134 and
   3135 inputs at B = 512; (64, 4096, 4096, 8) at B = 1024; the grouped
-  3136->512->64 at G = 4, B = 256 with the 3136-wide weight shared;
+  3136->512->64 at G = 4, B = 256 with the 3136-wide weight shared; and
+  the deep torso, 10 layers of 256 at B = 8192 (two launches);
 - the host time of one ``fused_mlp_cuda`` call at 3136->512, B = 512
   (``chip_smoke.host_us_per_call``);
 - the grouped forage chain 6->128->64 elu at G = 1024 and 512, B = 1 (the
@@ -71,8 +79,20 @@ groups divide the stages, and the held grouped launch; checks each against
 prints the device time a call beside the held launch's, the plain chain's,
 an empty launch of its grid and shared memory, and the bound (bytes). The
 fastest shape and whether it beats the held launch set ``SETS_MAX_ROWS``,
-``SETS_STAGES``, ``SETS_WARPS`` and ``SETS_MIN_GROUPS``. Ends with one JSON
-object of the rows.
+``SETS_STAGES``, ``SETS_WARPS`` and ``SETS_MIN_GROUPS``. The wgmma kernel
+(csrc/fused_mlp.cu ``fused_mlp_wgmma_kernel``, 64 rows a block: one
+instruction's rows): for the main paths' chains (``WGMMA_SWEEP_CHAINS``) at B
+= 1024 to 32768, it launches the kernel at every blocks a cluster it takes
+(``WGMMA_CLUSTERS``) and ring of ``WGMMA_SWEEP_SLOTS`` slots that fits a
+block, and the held kernel; checks each against the plain chain (rtol = atol
+= 2e-5) and two calls bit for bit, and prints the device time a call beside
+the held kernel's, the plain chain's, an empty launch of its grid and the
+bound. The shape that ``wgmma_plan`` picks is marked. The fastest cluster and
+slots over all rows set ``WGMMA_CLUSTER`` and ``WGMMA_SLOTS``, and each
+chain's fewest rows from which that shape beats the held kernel at every
+larger batch set ``WGMMA_MIN_ROWS`` and ``WGMMA_MIN_ROW_MACS`` (the summary
+line names any shape the route takes where the held kernel was faster).
+Ends with one JSON object of the rows.
 """
 
 import argparse
@@ -83,7 +103,10 @@ import os
 import subprocess
 import sys
 
-FLAGSHIP_BATCHES = (8192, 32768)
+FLAGSHIP_BATCHES = (2048, 4096, 8192, 32768)
+# the 3D configs' torsos (chip_smoke's ANT3D_DIMS, HUMANOID3D_DIMS) at their rollouts' and minibatches' batches
+WGMMA_ROWS = (("33x256x128x64", (33, 256, 128, 64), 4096), ("33x256x128x64", (33, 256, 128, 64), 32768),
+              ("41x256x128x64", (41, 256, 128, 64), 4096), ("41x256x128x64", (41, 256, 128, 64), 32768))
 # the small batches' chains (chip_smoke's WALKER_DIMS, HOPPER_DIMS, FLAGSHIP_DIMS, PENDULUM_DIMS, CARTPOLE_DIMS)
 SMALL_ROWS = (("16x256x128x64", (16, 256, 128, 64), 16, "elu"), ("5x128x64x32", (5, 128, 64, 32), 64, "elu"),
               ("26x256x128x64", (26, 256, 128, 64), 1, "elu"), ("26x256x128x64", (26, 256, 128, 64), 7, "elu"),
@@ -100,6 +123,12 @@ SETS_SWEEP_BATCHES = (1, 2, 4, 8, 16)
 SETS_SWEEP_GROUPS = (64, 128, 256, 512, 1024)
 SETS_SWEEP_STAGES = (2, 3, 4, 6, 8)
 SETS_SWEEP_WARPS = (8, 4, 2, 1)  # multiplying warps a set (the kernel's 8 in groups of these)
+# the wgmma kernel's sweep: the flagship's, the 3D configs', the walker GRU's, the host path's and the self-play
+# learner's torsos and 8 layers of 256 (a launch of the deep torso), at these batches and ring depths
+WGMMA_SWEEP_CHAINS = ((26, 256, 128, 64), (33, 256, 128, 64), (41, 256, 128, 64), (16, 256, 128, 64),
+                      (5, 128, 64, 32), (6, 128, 64), (256,) * 9)
+WGMMA_SWEEP_BATCHES = (1024, 2048, 4096, 8192, 16384, 32768)
+WGMMA_SWEEP_SLOTS = (2, 3, 4, 5, 6)
 PROBE = (
     "import json, torch, chip_smoke as c\n"
     "from rl_games_tpu_torch.ops import fused_mlp as fm\n"
@@ -108,6 +137,14 @@ PROBE = (
     "dev = torch.device('cuda')\n"
     "gen = torch.Generator(device=dev).manual_seed(1)\n"
     "rows = {f'26x256x128x64 B={b}': {'ms': c.time_fused(c.FLAGSHIP_DIMS, b, gen, dev)['ms']} for b in %r}\n"
+    "for b in (8192, 32768):\n"
+    "    r = c.time_fused(c.FLAGSHIP_DIMS, b, gen, dev, bf16_weights=True)\n"
+    "    rows[f'26x256x128x64 bf16-rounded weights B={b}'] = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms')}\n"
+    "for name, dims, b in %r:\n"
+    "    r = c.time_fused(dims, b, gen, dev)\n"
+    "    rows[f'{name} B={b}'] = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms')}\n"
+    "x, ws, bs = c.mlp_inputs(c.FLAGSHIP_DIMS, 8192, gen, dev)\n"
+    "rows['host time a call, 26x256x128x64 B=8192'] = {'us': c.host_us_per_call(lambda: fm.fused_mlp_cuda(x, ws, bs, 'elu'))}\n"
     "for name, dims, b, act in %r:\n"
     "    r = c.time_fused(dims, b, gen, dev, act)\n"
     "    rows[f'{name} B={b}'] = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms')}\n"
@@ -119,6 +156,7 @@ PROBE = (
     "for k in (3134, 3135):\n"
     "    wide(f'{k}x512 B=512', *c.mlp_inputs((k, 512), 512, gen, dev))\n"
     "wide('64x4096x4096x8 B=1024', *c.mlp_inputs((64, 4096, 4096, 8), 1024, gen, dev))\n"
+    "wide('10 layers of 256 B=8192', *c.mlp_inputs((256,) * 11, 8192, gen, dev))\n"
     "x, ws, bs = c.grouped_inputs((3136, 512, 64), 4, 256, gen, dev)\n"
     "wide('grouped 3136x512x64 G=4 B=256', x, [ws[0][0], ws[1]], bs)\n"
     "x, ws, bs = c.mlp_inputs((3136, 512), 512, gen, dev)\n"
@@ -126,7 +164,7 @@ PROBE = (
     "for g, b in ((1024, 1), (512, 1), (64, 3)):\n"
     "    r = c.time_fused_grouped('forage', *c.grouped_inputs(c.FORAGE_DIMS, g, b, gen, dev))\n"
     "    rows[f'grouped 6x128x64 G={g} B={b}'] = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms')}\n"
-    "print('AB ' + json.dumps(rows))\n" % (FLAGSHIP_BATCHES, SMALL_ROWS)
+    "print('AB ' + json.dumps(rows))\n" % (FLAGSHIP_BATCHES, WGMMA_ROWS, SMALL_ROWS)
 )
 
 
@@ -359,11 +397,102 @@ def sets_sweep(reps: int, smi: str):
     print(json.dumps({"device": smi, "sets_rows": rows_out, "fastest": best}))
 
 
+def wgmma_sweep(reps: int, smi: str):
+    """The wgmma kernel at every cluster and ring depth over the main paths'
+    chains and batches, beside the held kernel (the module docstring's
+    ``--sweep``)."""
+    import torch
+
+    import chip_smoke as c
+    from rl_games_tpu_torch.ops import fused_mlp as fm
+    from rl_games_tpu_torch.utils import cuda_build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("fused_mlp_ab --sweep: no CUDA card")
+    cuda_build.build_all(["fused_mlp"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    act = fm.ACTIVATION_CODES["elu"]
+    rows_out, best, by_shape = [], [], {}
+    for dims in WGMMA_SWEEP_CHAINS:
+        n, name = len(dims) - 1, "x".join(map(str, dims[:4])) + ("..." if len(dims) > 4 else "")
+        for batch in WGMMA_SWEEP_BATCHES:
+            x, ws, bs = c.mlp_inputs(dims, batch, gen, dev)
+            out = torch.empty((batch, dims[-1]), device=dev)
+            want = fm.plain_mlp(x, ws, bs, "elu")
+            held_launch = fm.Launch(0, n, False, fm.kernel_plan(dims, batch))
+
+            def run(launch):
+                return lambda: fm._run_chain(x, out, batch, list(dims), ws, bs, act, [launch])
+
+            plain_us = c.device_time_ms(lambda: fm.plain_mlp(x, ws, bs, "elu"), reps)[0] * 1e3
+            held_us = c.device_time_ms(run(held_launch), reps)[0] * 1e3
+            n_weights = sum(dims[i] * dims[i + 1] for i in range(n))
+            bound_ms, _ = c.bound_ms(4 * (x.numel() + out.numel() + n_weights + sum(dims[1:])),
+                                     3 * 2 * batch * n_weights, c.PEAK_TF32_FLOPS)
+            picked = fm.wgmma_plan(dims, batch)
+            print(f"[sweep] wgmma {name} B={batch}: held kernel {held_us:.2f} us, plain chain {plain_us:.2f} us, "
+                  f"bound {bound_ms * 1e3:.2f} us; the plan picks "
+                  + (f"clusters of {picked.cluster}, {picked.slots} slots" if picked else "another kernel"))
+            fastest = None
+            for cluster in fm.WGMMA_CLUSTERS:
+                for slots in WGMMA_SWEEP_SLOTS:
+                    plan = fm.wgmma_plan(dims, batch, cluster=cluster, slots=slots)
+                    if plan is None:
+                        continue
+                    launch = held_launch._replace(wgmma=plan)
+                    out.fill_(float("nan"))
+                    run(launch)()
+                    torch.cuda.synchronize()
+                    share = float(((out - want).abs() / (2e-5 + 2e-5 * want.abs())).max())
+                    first = out.clone()
+                    us = c.device_time_ms(run(launch), reps)[0] * 1e3
+                    repeat = torch.equal(out, first)
+                    floor = c.device_time_ms(lambda: fm.wgmma_empty_launch(plan, batch), reps)[0] * 1e3
+                    row = {"dims": list(dims), "batch": batch, "cluster": cluster, "slots": slots,
+                           "grid": fm.wgmma_grid(plan, batch), "shared": plan.shared, "us": us, "held_us": held_us,
+                           "plain_us": plain_us, "floor_us": floor, "bound_us": bound_ms * 1e3,
+                           "err_over_tolerance": share, "bit_equal_calls": repeat, "picked": picked == plan}
+                    rows_out.append(row)
+                    by_shape.setdefault((cluster, slots), []).append(row)
+                    print(f"[sweep] wgmma {name} B={batch} clusters of {cluster}, {slots} slots (grid {row['grid']}, "
+                          f"{plan.shared} B shared): {us:.2f} us ({us / held_us:.3f}x the held kernel; "
+                          f"{bound_ms * 1e3 / us:.3f} of the bound; empty launch {floor:.2f} us), {share:.3f} of the "
+                          f"tolerance{' <- plan' if row['picked'] else ''}")
+                    if not (share <= 1.0 and repeat):
+                        raise AssertionError(f"the wgmma kernel is wrong at {row}")
+                    if fastest is None or us < fastest["us"]:
+                        fastest = row
+            best.append(fastest)
+            print(f"[sweep] wgmma {name} B={batch}: fastest clusters of {fastest['cluster']}, {fastest['slots']} "
+                  f"slots {fastest['us']:.2f} us against the held kernel's {held_us:.2f} us "
+                  f"({fastest['us'] / held_us:.3f}x)")
+    # the shape fastest over all rows (sum of its times over the rows where every shape ran); for each chain the
+    # fewest rows from which that shape beats the held kernel at every larger batch of the sweep; whether the
+    # route (WGMMA_MIN_ROWS, WGMMA_MIN_ROW_MACS) takes a shape where the held kernel was faster
+    common = [key for key, rows in by_shape.items() if len(rows) == len(best)]
+    shape = min(common, key=lambda key: sum(r["us"] for r in by_shape[key]))
+    crossovers, lost = {}, []
+    for dims in WGMMA_SWEEP_CHAINS:
+        wins = {r["batch"]: r["us"] < r["held_us"] for r in by_shape[shape] if tuple(r["dims"]) == dims}
+        name = "x".join(map(str, dims[:4])) + ("..." if len(dims) > 4 else "")
+        crossovers[name] = {"row_macs": fm.row_macs(dims), "crossover": next(
+            (b for b in WGMMA_SWEEP_BATCHES if all(wins[k] for k in WGMMA_SWEEP_BATCHES if k >= b)), None)}
+        lost += [(name, b) for b, won in wins.items() if not won and fm.wgmma_plan(dims, b) is not None]
+    print(f"[sweep] wgmma: over every chain and batch the fastest shape is clusters of {shape[0]}, {shape[1]} slots "
+          f"(WGMMA_CLUSTER {fm.WGMMA_CLUSTER}, WGMMA_SLOTS {fm.WGMMA_SLOTS}); the fewest rows from which it beats the "
+          f"held kernel at every larger batch, a chain: {crossovers}; the route (WGMMA_MIN_ROWS {fm.WGMMA_MIN_ROWS}, "
+          f"WGMMA_MIN_ROW_MACS {fm.WGMMA_MIN_ROW_MACS}) takes shapes where the held kernel was faster: {lost}")
+    print(json.dumps({"device": smi, "wgmma_rows": rows_out, "fastest": best,
+                      "shape": {"cluster": shape[0], "slots": shape[1]}, "crossovers": crossovers,
+                      "routed_where_held_won": lost}))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("parent", nargs="?")
     parser.add_argument("--rounds", type=int, default=1)
-    parser.add_argument("--sweep", nargs="?", const="all", choices=("all", "cluster", "stream", "sets"))
+    parser.add_argument("--sweep", nargs="?", const="all", choices=("all", "cluster", "stream", "sets", "wgmma"))
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
     if (args.sweep is not None) == (args.parent is not None):
@@ -380,6 +509,8 @@ def main():
             sweep(args.reps, smi)
         if args.sweep in ("all", "sets"):
             sets_sweep(args.reps, smi)
+        if args.sweep in ("all", "wgmma"):
+            wgmma_sweep(args.reps, smi)
         return
     trees = {"parent": os.path.abspath(args.parent), "change": here}
     runs = {"parent": [], "change": []}
